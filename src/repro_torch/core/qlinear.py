@@ -1,0 +1,90 @@
+"""Quantized linear layers: the paper's integer matmul, three ways.
+
+PyTorch counterpart of ``repro/core/qlinear.py``.  Weights are stored
+``(out, in)`` contraction-last; ``qdot(x, w)`` computes ``x @ dequant(w).T``
+with one of three strategies of identical math:
+
+``dequant``  weight-only: the codes are dequantized to f32 and multiplied
+             with ``torch.matmul`` in full f32 (the process default, as in
+             the reference).
+``integer``  the paper's arithmetic in plain PyTorch: activations are
+             Q8_0-quantized on the fly, each group's int8 products sum
+             exactly, and groups combine in f32 in order.
+``kernel``   the same arithmetic on the port's CUDA kernels
+             (``kernels.ops.q8_matmul``: GEMV for <= 32 rows, tiled GEMM
+             above) -- the counterpart of the reference's ``"pallas"``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core.quantization import QuantizedTensor, quantize
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ref_q8_matmul
+
+Weight = Union[torch.Tensor, QuantizedTensor]
+
+STRATEGIES = ("integer", "dequant", "kernel")
+
+# Process-wide default, as in the reference; models read it at call time.
+_DEFAULT_STRATEGY = "dequant"
+
+
+def set_default_strategy(s: str) -> None:
+    global _DEFAULT_STRATEGY
+    if s not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got {s!r}")
+    _DEFAULT_STRATEGY = s
+
+
+def default_strategy() -> str:
+    return _DEFAULT_STRATEGY
+
+
+def as_float(w: Weight, dtype=torch.float32) -> torch.Tensor:
+    """Dequantize if needed -- used by einsum-shaped consumers."""
+    if isinstance(w, QuantizedTensor):
+        return w.dequantize(dtype)
+    return w.to(dtype)
+
+
+def _qdot_dequant(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    return torch.matmul(x.float(), as_float(w).T)
+
+
+def _qdot_integer(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Dynamic Q8_0 activation quantization + one exact partial per group,
+    folded into f32 group by group (the reference's ``lax.scan`` order):
+    the plain version of the kernels, on any device."""
+    if w.bits != 8:
+        raise ValueError("the integer strategy is ported for Q8_0 only")
+    *lead, k = x.shape
+    xt = quantize(x.reshape(-1, k), group_size=w.group_size, bits=8)
+    out = ref_q8_matmul(xt.q, xt.scale, w.q, w.scale, w.group_size)
+    return out.reshape(*lead, w.q.shape[0])
+
+
+def qeinsum(eq: str, x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """einsum against a possibly-quantized weight (always dequant), for the
+    head-structured attention projections of prefill."""
+    if isinstance(w, QuantizedTensor):
+        return torch.einsum(eq, x.float(), as_float(w)).to(x.dtype)
+    return torch.einsum(eq, x, w.to(x.dtype))
+
+
+def qdot(x: torch.Tensor, w: Weight,
+         strategy: Optional[str] = None) -> torch.Tensor:
+    """``x @ w.T`` where ``w`` may be float or quantized."""
+    if not isinstance(w, QuantizedTensor):
+        return torch.matmul(x, w.to(x.dtype).T)
+    s = strategy or _DEFAULT_STRATEGY
+    if s == "dequant":
+        return _qdot_dequant(x, w)
+    if s == "integer":
+        return _qdot_integer(x, w)
+    if s == "kernel":
+        return ops.q8_matmul(x, w)
+    raise ValueError(f"unknown strategy {s!r}")

@@ -1,0 +1,248 @@
+"""Wrappers around the port's four CUDA kernels.
+
+Each ``*_kernel`` function takes the kernel's own operands.  For CPU tensors
+it runs the kernel's plain version (:mod:`repro_torch.kernels.ref`); for CUDA
+tensors it checks device, dtype, shape, contiguity and alignment, allocates
+the output, launches the kernel on the current stream and counts the launch
+in ``build.LAUNCHES`` -- or raises.  There is no fallback from a CUDA tensor
+to the plain version.
+
+The public functions above them mirror ``repro/kernels/ops.py``: activation
+quantization and the GEMV/GEMM dispatch on row count (``q8_matmul``) and the
+GQA reshapes of the two attention kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantization import QuantizedTensor, quantize
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import launch
+
+# decode-vs-prefill dispatch threshold: at most this many rows go to the
+# GEMV kernel (activations reused by every weight row), more to the GEMM.
+MATVEC_MAX_ROWS = 32
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(name: str, device: torch.device, **tensors) -> None:
+    """Every operand on ``device`` (a CUDA device), contiguous; raise
+    otherwise."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: operands on {device}; the kernel takes "
+                         "CUDA tensors and the plain version CPU tensors")
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _dtype(name: str, t: torch.Tensor, *dtypes) -> None:
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: got {t.dtype}, expected one of {dtypes}")
+
+
+def _check_q8(name: str, xq, xs, wq, ws, group_size: int, align: int):
+    m, k = xq.shape
+    n, kw = wq.shape
+    g = k // group_size
+    if kw != k or k % group_size or xs.shape != (m, g) or ws.shape != (n, g):
+        raise ValueError(f"{name}: shapes xq {tuple(xq.shape)} xs "
+                         f"{tuple(xs.shape)} wq {tuple(wq.shape)} ws "
+                         f"{tuple(ws.shape)} with group {group_size}")
+    _check(name, xq.device, xq=xq, xs=xs, wq=wq, ws=ws)
+    _dtype(name, xq, torch.int8)
+    _dtype(name, wq, torch.int8)
+    _dtype(name, xs, torch.float32)
+    _dtype(name, ws, torch.float32)
+    if xq.data_ptr() % align or wq.data_ptr() % align:
+        raise ValueError(f"{name}: codes must be {align}-byte aligned")
+    return m, n, k
+
+
+def q8_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
+    """Decode GEMV (M <= 32): out (M, N) f32 =
+    sum_g f32(int32 dot of group g) * xs[m, g] * ws[n, g]."""
+    if xq.device.type == "cpu":
+        return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
+    m, n, k = _check_q8("q8_matvec", xq, xs, wq, ws, group_size, 16)
+    lanes = group_size // 16
+    if not (1 <= m <= MATVEC_MAX_ROWS and group_size % 16 == 0
+            and lanes & (lanes - 1) == 0 and lanes <= 32):
+        raise ValueError(f"q8_matvec: needs 1 <= M <= {MATVEC_MAX_ROWS} and "
+                         f"group in 16..512 (power-of-two multiple of 16); "
+                         f"got M={m}, group={group_size}")
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    launch("q8_matvec", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
+           ws.data_ptr(), out.data_ptr(), m, n, k, group_size, _stream(xq))
+    return out
+
+
+def q8_matmul_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
+    """Prefill GEMM (any M): the same function as :func:`q8_matvec_kernel`,
+    tiled."""
+    if xq.device.type == "cpu":
+        return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
+    m, n, k = _check_q8("q8_matmul", xq, xs, wq, ws, group_size, 4)
+    if group_size % 4:
+        raise ValueError(f"q8_matmul: group {group_size} not a multiple of 4")
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    launch("q8_matmul", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
+           ws.data_ptr(), out.data_ptr(), m, n, k, group_size, _stream(xq))
+    return out
+
+
+def _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
+                kvh: int, d: int):
+    if k_pool.shape != v_pool.shape or tuple(k_pool.shape[2:]) != (kvh, d):
+        raise ValueError(f"{name}: pool {tuple(k_pool.shape)} does not match "
+                         f"q's kv-heads/dim {(kvh, d)}")
+    int8 = ks_pool is not None
+    _check(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
+           page_table=page_table, ks_pool=ks_pool, vs_pool=vs_pool)
+    _dtype(name, q, torch.float32)
+    _dtype(name, k_pool, torch.int8 if int8 else torch.float32)
+    _dtype(name, v_pool, k_pool.dtype)
+    _dtype(name, page_table, torch.int32)
+    if int8:
+        if (ks_pool.shape != k_pool.shape[:3] or vs_pool.shape
+                != k_pool.shape[:3]):
+            raise ValueError(f"{name}: scale pools must be {k_pool.shape[:3]}")
+        _dtype(name, ks_pool, torch.float32)
+        _dtype(name, vs_pool, torch.float32)
+    return int8
+
+
+def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
+                                  ks_pool=None, vs_pool=None) -> torch.Tensor:
+    """q: (B, KVH, HQ, D) pre-scaled; k/v_pool: (NB, BS, KVH, D) (int8 when
+    ks/vs_pool (NB, BS, KVH) are given); page_table (B, MB) int32; lens
+    (B,) int32.  Returns (B, KVH, HQ, D) f32."""
+    if q.device.type == "cpu":
+        return ref.ref_paged_decode_attention(q, k_pool, v_pool, page_table,
+                                              lens, ks_pool, vs_pool)
+    b, kvh, hq, d = q.shape
+    name = "paged_decode_attention"
+    int8 = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
+                       kvh, d)
+    _check(name, q.device, lens=lens)
+    _dtype(name, lens, torch.int32)
+    if d % 4 or hq * d > 1024 or lens.shape != (b,) or \
+            page_table.shape[0] != b:
+        raise ValueError(f"{name}: needs D % 4 == 0, HQ*D <= 1024, lens "
+                         f"(B,), page_table (B, MB); got q {tuple(q.shape)}")
+    nb, bs = k_pool.shape[:2]
+    out = torch.empty_like(q)
+    launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+           _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
+           lens.data_ptr(), out.data_ptr(), b, kvh, hq, d, bs,
+           page_table.shape[1], int(int8), _stream(q))
+    return out
+
+
+def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
+                                   q_lens, ks_pool=None, vs_pool=None):
+    """q: (B, C, KVH, HQ, D) pre-scaled; k/v_pool (NB, BS, KVH, D) (int8
+    with ks/vs_pool); page_table (B, MB) int32; pfx_lens/q_lens (B,) int32.
+    Returns the prefix segment's flash state out (B, C, KVH, HQ, D),
+    m and l (B, C, KVH, HQ), f32.  Rows at or past q_lens[b] (the CUDA
+    kernel skips them) and an empty prefix are (0, -1e30, 0).
+
+    The plain version computes every row; callers read rows < q_lens only."""
+    b, c, kvh, hq, d = q.shape
+    if q.device.type == "cpu":
+        out, m, l = ref.ref_paged_prefill_attention(
+            q.reshape(b, c, kvh * hq, d), k_pool, v_pool, page_table,
+            pfx_lens, ks_pool, vs_pool)
+        m = m[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+        l = l[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+        return out.reshape(b, c, kvh, hq, d), m, l
+    name = "paged_prefill_attention"
+    int8 = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
+                       kvh, d)
+    _check(name, q.device, pfx_lens=pfx_lens, q_lens=q_lens)
+    _dtype(name, pfx_lens, torch.int32)
+    _dtype(name, q_lens, torch.int32)
+    if d not in (32, 64, 128) or pfx_lens.shape != (b,) or \
+            q_lens.shape != (b,) or page_table.shape[0] != b:
+        raise ValueError(f"{name}: needs D in (32, 64, 128), pfx_lens/q_lens "
+                         f"(B,), page_table (B, MB); got q {tuple(q.shape)}")
+    bs = k_pool.shape[1]
+    out = torch.empty_like(q)
+    m = torch.empty((b, c, kvh, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+           _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
+           pfx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+           m.data_ptr(), l.data_ptr(), b, c, kvh, hq, d, bs,
+           page_table.shape[1], int(int8), _stream(q))
+    return out, m, l
+
+
+# ---------------------------------------------------------------------------
+# public wrappers (repro/kernels/ops.py counterparts)
+# ---------------------------------------------------------------------------
+
+
+def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """x (..., K) f32 @ w (N, K).T with the paper's integer semantics:
+    activations are Q8_0-quantized on the fly with ``w.group_size``, and the
+    product runs on the GEMV kernel for at most ``MATVEC_MAX_ROWS`` rows,
+    on the tiled GEMM kernel above that."""
+    if w.bits != 8:
+        raise ValueError(f"q8_matmul: bits={w.bits} (the Q4 kernel is not "
+                         "ported yet)")
+    gs = w.group_size
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k)
+    xt = quantize(x2, group_size=gs, bits=8)
+    if xt.group_size != gs:
+        raise ValueError(f"q8_matmul: K={k} does not split into groups of "
+                         f"{gs}")
+    fn = (q8_matvec_kernel if x2.shape[0] <= MATVEC_MAX_ROWS
+          else q8_matmul_kernel)
+    out = fn(xt.q, xt.scale, w.q, w.scale, gs)
+    return out.reshape(*lead, w.q.shape[0])
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, lens,
+                           ks_pool=None, vs_pool=None) -> torch.Tensor:
+    """q: (B, H, D) pre-scaled -> (B, H, D) f32 attention over each row's
+    pool positions < lens[b], read through ``page_table``."""
+    b, h, d = q.shape
+    kvh = k_pool.shape[2]
+    out = paged_decode_attention_kernel(
+        q.reshape(b, kvh, h // kvh, d).contiguous(), k_pool, v_pool,
+        page_table, lens, ks_pool, vs_pool)
+    return out.reshape(b, h, d)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, page_table, pfx_lens,
+                            q_lens=None, ks_pool=None, vs_pool=None):
+    """q: (B, C, H, D) pre-scaled.  Returns the prefix segment's flash state
+    in ``layers.attention_chunk_merge``'s ``pfx_state`` layout: out
+    (B, C, H, D), m (B, H, C, 1), l (B, H, C, 1), all f32."""
+    b, c, h, d = q.shape
+    kvh = k_pool.shape[2]
+    if q_lens is None:
+        q_lens = torch.full((b,), c, dtype=torch.int32, device=q.device)
+    out, m, l = paged_prefill_attention_kernel(
+        q.reshape(b, c, kvh, h // kvh, d).contiguous(), k_pool, v_pool,
+        page_table, pfx_lens, q_lens, ks_pool, vs_pool)
+    m = m.reshape(b, c, h).transpose(1, 2)[..., None]
+    l = l.reshape(b, c, h).transpose(1, 2)[..., None]
+    return out.reshape(b, c, h, d), m, l

@@ -1,0 +1,181 @@
+"""Layers of the dense decoder, as plain functions on tensors.
+
+PyTorch counterpart of the dense subset of ``repro/models/layers.py``.
+Weights are stored contraction-last ``(out, in)``, so ``qdot`` takes float
+or quantized leaves alike.  The paged attention itself is
+in :mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the
+card, their plain versions (``kernels/ref.py``) for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.qlinear import qdot
+from repro_torch.core.quantization import QuantizedTensor
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    # gamma stays f32: the paper keeps RMSNorm parameters unquantized
+    return (x32 * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+
+
+def apply_norm(x, p, kind: str, eps: float = 1e-5):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rms_norm(x, p["gamma"], eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., head_dim) in rotate-half layout."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., H, D); cos/sin broadcastable (..., 1, D)."""
+    d = x.shape[-1]
+    x32 = x.float()
+    x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
+    rot = torch.cat([-x2, x1], dim=-1)
+    return (x32 * cos + rot * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+class AttnConfig(NamedTuple):
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    q_chunk: int = 1024       # query rows per attention block
+
+
+def attention_chunk_merge(q, k_pfx, v_pfx, k_chunk, v_chunk,
+                          cfg: AttnConfig, q_pos, pfx_valid, chunk_valid,
+                          pfx_state=None) -> torch.Tensor:
+    """Chunked-prefill attention: a fixed-extent prefix segment merged with
+    the chunk's own keys by exact softmax renormalization.
+
+    q: (B, C, H, D) pre-scaled queries at global positions ``q_pos``
+    (B, C); k/v_chunk: (B, C, KVH, D), live where ``chunk_valid`` (B, C);
+    k/v_pfx: (B, P, KVH, D), pool row t at global position t, live where
+    ``pfx_valid`` (B, P).  ``pfx_state`` replaces the prefix segment with a
+    precomputed flash state (out (B, C, H, D), m and l (B, H, C, 1)), the
+    layout ``kernels.ops.paged_prefill_attention`` returns; k/v_pfx and
+    pfx_valid may then be None.
+
+    The two segments merge as ``w_p * out_p + w_c * out_c`` with
+    ``w = alpha * l / (alpha_p l_p + alpha_c l_c)``.  An empty prefix
+    (m = -1e30, l = 0) gives ``w_p == 0`` and ``w_c == 1`` exactly, so a
+    zero-offset row equals plain causal attention over the chunk.  The
+    chunk segment is causal; prefix keys lie strictly below every live
+    query position, so their validity already implies causality."""
+    b, c, h, d = q.shape
+    kvh = cfg.n_kv_heads
+    hq = h // kvh
+    qc = min(cfg.q_chunk, c)
+    while c % qc:
+        qc -= 1
+
+    kgc = torch.repeat_interleave(k_chunk, hq, dim=2).to(q.dtype)
+    vgc = torch.repeat_interleave(v_chunk, hq, dim=2).to(q.dtype)
+    if pfx_state is None:
+        kgp = torch.repeat_interleave(k_pfx, hq, dim=2).to(q.dtype)
+        vgp = torch.repeat_interleave(v_pfx, hq, dim=2).to(q.dtype)
+        k_pos_p = torch.arange(k_pfx.shape[1], device=q.device)[None]
+
+    def segment(qi, qpos, kg, vg, k_pos, k_valid, causal):
+        scores = torch.einsum("bqhd,bthd->bhqt", qi.float(), kg.float())
+        mask = k_valid[:, None, :]
+        if causal:
+            mask = mask & (k_pos[:, None, :] <= qpos[:, :, None])
+        scores = torch.where(mask[:, None], scores,
+                             torch.full_like(scores, NEG_INF))
+        m = torch.amax(scores, dim=-1, keepdim=True)
+        e = torch.exp(scores - m)
+        l = torch.sum(e, dim=-1, keepdim=True)
+        out = torch.einsum("bhqt,bthd->bqhd", (e / l).to(q.dtype), vg)
+        return out, m, l
+
+    def merge(out_c, m_c, l_c, out_p, m_p, l_p):
+        m = torch.maximum(m_p, m_c)
+        a_p = torch.exp(m_p - m) * l_p
+        a_c = torch.exp(m_c - m) * l_c
+        l = a_p + a_c
+        w_p = (a_p / l).transpose(1, 2)           # (B, qc, H, 1)
+        w_c = (a_c / l).transpose(1, 2)
+        return w_p * out_p + w_c * out_c
+
+    outs = []
+    for s in range(0, c, qc):
+        qi, qpos = q[:, s:s + qc], q_pos[:, s:s + qc]
+        out_c, m_c, l_c = segment(qi, qpos, kgc, vgc, q_pos, chunk_valid,
+                                  True)
+        if pfx_state is None:
+            out_p, m_p, l_p = segment(qi, qpos, kgp, vgp, k_pos_p, pfx_valid,
+                                      False)
+        else:
+            out_p = pfx_state[0][:, s:s + qc]
+            m_p = pfx_state[1][:, :, s:s + qc]
+            l_p = pfx_state[2][:, :, s:s + qc]
+        outs.append(merge(out_c, m_c, l_c, out_p, m_p, l_p))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, head
+# ---------------------------------------------------------------------------
+
+
+def swiglu_mlp(p, x) -> torch.Tensor:
+    """SwiGLU on the fused ``w13 = [w1; w3]`` (or separate w1/w3) and w2."""
+    if "w13" in p:
+        h13 = qdot(x, p["w13"])
+        f = h13.shape[-1] // 2
+        h = torch.nn.functional.silu(h13[..., :f]) * h13[..., f:]
+    else:
+        h = torch.nn.functional.silu(qdot(x, p["w1"])) * qdot(x, p["w3"])
+    return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
+
+
+def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """table (V, D), possibly quantized; tokens (...,) int."""
+    tokens = tokens.long()
+    if isinstance(table, QuantizedTensor):
+        if table.bits != 8:
+            raise NotImplementedError("Q4 embedding is not ported yet")
+        q = table.q[tokens]
+        s = table.scale[tokens]
+        g = table.orig_dim // table.group_size
+        qf = q.reshape(*q.shape[:-1], g, table.group_size).float()
+        return (qf * s[..., None]).reshape(*qf.shape[:-2], table.orig_dim)
+    return table[tokens]
+
+
+def lm_head(w, x) -> torch.Tensor:
+    """w: (V, D), tied with the embedding; x (..., D) -> f32 logits."""
+    return qdot(x, w).float()

@@ -1,0 +1,66 @@
+"""Model facade: the entry points the serving engine calls.
+
+PyTorch counterpart of ``repro/models/model.py`` for the dense family.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import Device
+from repro_torch.core.policy import QuantPolicy, quantize_params
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device: Device = None):
+        return transformer.init_params(self.cfg, seed, device=device)
+
+    def quantize(self, params, policy: Optional[QuantPolicy] = None,
+                 fuse_decode: bool = True):
+        """Post-training quantization (the paper's section 3.2 flow), plus
+        the fused decode GEMV operands (wqkv / w13 / wo_f) when
+        ``fuse_decode``: 4 weight GEMVs per decode layer instead of 7."""
+        qp = quantize_params(params, policy or QuantPolicy())
+        if fuse_decode:
+            qp = transformer.fuse_decode_weights(qp, self.cfg)
+        return qp
+
+    def init_paged_cache(self, batch: int, *, block_size: int = 64,
+                         n_blocks: int, max_blocks_per_seq: int,
+                         device: Device = None):
+        return transformer.init_paged_cache(
+            self.cfg, batch, block_size=block_size, n_blocks=n_blocks,
+            max_blocks_per_seq=max_blocks_per_seq, device=device)
+
+    def decode_step(self, params, cache, tokens, positions=None):
+        return transformer.decode_step(params, self.cfg, cache, tokens,
+                                       positions)
+
+    def prefill_chunk_batch(self, params, tokens, cache, slots, offs,
+                            page_table=None, chunk_lens=None):
+        return transformer.prefill_chunk_batch(
+            params, self.cfg, tokens, cache, slots, offs,
+            page_table=page_table, chunk_lens=chunk_lens)
+
+    def prefill_compile_count(self) -> int:
+        return transformer.prefill_chunk_compiles(self.cfg)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family != "dense" or not transformer.supports_paged_cache(cfg):
+        raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} is "
+                                  "not yet ported")
+    return Model(cfg=cfg)
+
+
+def params_to(params: Any, device: Device):
+    """Move a parameter tree (tensors and QuantizedTensors) to ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)

@@ -1,0 +1,446 @@
+"""Dense decoder-only LM: init, decode-weight fusion, paged decode and
+chunked prefill.
+
+PyTorch counterpart of the dense family of ``repro/models/transformer.py``.
+Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
+``Model.quantize``) stacked per layer, as in the reference; the layer loop
+is a Python loop over the stacked leading axis.
+
+Serving runs on the paged KV pool (``init_paged_cache``).  Unlike the
+reference, which donates the pool to a jitted step, the port writes the
+pool in place: ``decode_step`` and ``prefill_chunk_batch`` return the same
+pool tensors they were given, updated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import Device, resolve_device
+from repro_torch.core.qlinear import qdot, qeinsum
+from repro_torch.core.quantization import (QuantizedTensor, qt_concat,
+                                           qt_fold_lead_into_groups,
+                                           qt_reshape_lead, quantize_rows)
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+
+
+def _cdt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def _pdt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Device = None) -> Params:
+    """Random dense parameters from ``seed``: the reference's shapes and
+    scales (normal draws times 1/sqrt(fan-in); embedding times 0.02), drawn
+    from a ``torch.Generator``, so the values differ from the reference's."""
+    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" \
+            or cfg.mlp_type != "swiglu" or not cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU "
+                                  "family with tied embeddings is ported")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _pdt(cfg)
+    nl, d, hd = cfg.n_layers, cfg.d_model, cfg.hd()
+    h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+    def normal(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
+    return {
+        "embed": normal(cfg.padded_vocab(), d, scale=0.02),
+        "final_norm": {"gamma": ones(d)},
+        "blocks": {
+            "norm1": {"gamma": ones(nl, d)},
+            "attn": {"wq": normal(nl, h, hd, d, scale=sc),
+                     "wk": normal(nl, kvh, hd, d, scale=sc),
+                     "wv": normal(nl, kvh, hd, d, scale=sc),
+                     "wo": normal(nl, d, h, hd, scale=so)},
+            "norm2": {"gamma": ones(nl, d)},
+            "mlp": {"w1": normal(nl, f, d, scale=sc),
+                    "w3": normal(nl, f, d, scale=sc),
+                    "w2": normal(nl, d, f, scale=1.0 / math.sqrt(f))},
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# decode-weight fusion (7 GEMVs per layer -> 4)
+# ---------------------------------------------------------------------------
+
+
+def _merge_head_axes(w):
+    """(*lead, H, hd, D) -> (*lead, H*hd, D); float or quantized."""
+    if isinstance(w, QuantizedTensor):
+        *lead, h, hd, _ = w.q.shape
+        return qt_reshape_lead(w, *lead, h * hd)
+    *lead, h, hd, d = w.shape
+    return w.reshape(*lead, h * hd, d)
+
+
+def _fold_head_axes(w):
+    """(*lead, D, H, hd) -> (*lead, D, H*hd); float or quantized."""
+    if isinstance(w, QuantizedTensor):
+        return qt_fold_lead_into_groups(w)
+    *lead, d, h, hd = w.shape
+    return w.reshape(*lead, d, h * hd)
+
+
+def _concat_rows(ws):
+    if isinstance(ws[0], QuantizedTensor):
+        return qt_concat(ws, axis=-2)
+    return torch.cat(ws, dim=-2)
+
+
+def fuse_decode_weights(params: Params, cfg: ModelConfig) -> Params:
+    """Add the fused decode GEMV operands beside the per-projection weights:
+
+        wqkv = [wq; wk; wv] -> ((H + 2*KVH) * hd, D)
+        w13  = [w1; w3]     -> (2 * d_ff, D)
+        wo_f = wo flattened -> (D, H * hd)
+
+    Codes and scales are concatenated structurally, never requantized.  The
+    per-projection weights stay: prefill reads the head-structured ones."""
+
+    def fusable(ws):
+        kinds = {isinstance(w, QuantizedTensor) for w in ws}
+        if len(kinds) > 1:
+            return False
+        return not (kinds == {True}
+                    and len({(w.group_size, w.bits) for w in ws}) > 1)
+
+    def walk(d):
+        if not isinstance(d, dict):
+            return d
+        out = {k: walk(v) for k, v in d.items()}
+        if ({"wq", "wk", "wv", "wo"} <= set(out)
+                and fusable([out["wq"], out["wk"], out["wv"]])):
+            out["wqkv"] = _concat_rows([_merge_head_axes(out["wq"]),
+                                        _merge_head_axes(out["wk"]),
+                                        _merge_head_axes(out["wv"])])
+            out["wo_f"] = _fold_head_axes(out["wo"])
+        if ({"w1", "w3", "w2"} <= set(out) and "router" not in out
+                and fusable([out["w1"], out["w3"]])):
+            out["w13"] = _concat_rows([out["w1"], out["w3"]])
+        return out
+
+    return walk(params)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a per-layer-stacked parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return dataclasses.replace(tree, q=tree.q[i], scale=tree.scale[i])
+    return tree[i]
+
+
+def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+    if cfg.rope_type != "rope":
+        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
+                                  "ported yet")
+    return L.rope_angles(positions, cfg.hd(), cfg.rope_theta)
+
+
+def _mlp(p, x, cfg: ModelConfig):
+    return L.swiglu_mlp(p["mlp"], L.apply_norm(x, p["norm2"], cfg.norm_type,
+                                               cfg.eps))
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool
+# ---------------------------------------------------------------------------
+
+
+def _kv_int8(cfg: ModelConfig) -> bool:
+    return cfg.kv_cache_dtype == "int8"
+
+
+def supports_paged_cache(cfg: ModelConfig) -> bool:
+    return (cfg.family in ("dense", "vlm", "moe") and cfg.moe_every <= 1
+            and cfg.n_heads > 0)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
+                     n_blocks: int, max_blocks_per_seq: int,
+                     device: Device = None) -> Cache:
+    """Block-pool KV cache + page table (rows of -1 where unassigned)."""
+    if not supports_paged_cache(cfg):
+        raise ValueError(f"paged cache unsupported for family {cfg.family}")
+    dev = resolve_device(device)
+    hd = cfg.hd()
+    kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, hd)
+    attn = {"k": torch.zeros(shape, dtype=kvd, device=dev),
+            "v": torch.zeros(shape, dtype=kvd, device=dev)}
+    if _kv_int8(cfg):
+        attn["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        attn["vs"] = torch.zeros_like(attn["ks"])
+    return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "page_table": torch.full((batch, max_blocks_per_seq), -1,
+                                     dtype=torch.int32, device=dev),
+            "attn": attn}
+
+
+def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
+    """Write K/V rows (N, KVH, hd) into one layer's pool at (blk, off),
+    quantizing them for an int8 pool (one f32 scale per row and head)."""
+    if "ks" in lc:
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        lc["k"][blk, off] = kq
+        lc["v"][blk, off] = vq
+        lc["ks"][blk, off] = ks
+        lc["vs"][blk, off] = vs
+    else:
+        lc["k"][blk, off] = k.to(lc["k"].dtype)
+        lc["v"][blk, off] = v.to(lc["v"].dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_qkv(p_attn, h, cfg: ModelConfig):
+    """Post-norm hidden (B, D) -> q (B, H, hd), k/v (B, KVH, hd): one GEMV
+    against the fused ``wqkv`` when present."""
+    b = h.shape[0]
+    hd, nh, kvh = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    if "wqkv" in p_attn:
+        qkv = qdot(h, p_attn["wqkv"]).to(h.dtype)
+        q, k, v = torch.split(qkv, [nh * hd, kvh * hd, kvh * hd], dim=-1)
+        return (q.reshape(b, nh, hd), k.reshape(b, kvh, hd),
+                v.reshape(b, kvh, hd))
+    q = qeinsum("bd,hkd->bhk", h, p_attn["wq"])
+    k = qeinsum("bd,hkd->bhk", h, p_attn["wk"])
+    v = qeinsum("bd,hkd->bhk", h, p_attn["wv"])
+    return q, k, v
+
+
+def _decode_out_proj(p_attn, out, x_dtype):
+    """Attention output (B, H, hd) -> residual (B, D) via ``wo_f``."""
+    b, nh, hd = out.shape
+    if "wo_f" in p_attn:
+        return qdot(out.reshape(b, nh * hd), p_attn["wo_f"]).to(x_dtype)
+    return qeinsum("bhk,dhk->bd", out, p_attn["wo"]).to(x_dtype)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
+                tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B,) -> (logits (B, V) f32, cache) on the paged pool.
+
+    Each slot's new K/V row lands at its current (block, offset); a slot
+    whose page-table entry there is -1 (released) writes nothing, so a dead
+    slot never corrupts blocks leased to others.  ``lens`` comes back as
+    ``pos + 1``, pinned to 0 where ``page_table[:, 0] < 0``."""
+    if "page_table" not in cache:
+        raise NotImplementedError("the dense cache is not ported yet")
+    hd = cfg.hd()
+    pos = cache["lens"] if positions is None else positions
+    pt = cache["page_table"]
+    nb, bs = cache["attn"]["k"].shape[1:3]
+    mb = pt.shape[1]
+    x = L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
+    cos, sin = _rope_cos_sin(cfg, pos)
+    blk_idx = torch.clamp(pos // bs, 0, mb - 1).long()
+    blk_id = torch.gather(pt, 1, blk_idx[:, None])[:, 0]
+    # rows whose target block exists; one host sync per step picks them
+    rows = torch.nonzero(blk_id >= 0).squeeze(1)
+    dst_blk = blk_id[rows].long()
+    dst_off = (pos % bs).long()[rows]
+    lens_now = (pos + 1).int()
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        lc = {k: v[i] for k, v in cache["attn"].items()}
+        h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
+        q, k, v = _decode_qkv(lp["attn"], h, cfg)
+        q = L.apply_rope(q, cos[:, None], sin[:, None])
+        k = L.apply_rope(k, cos[:, None], sin[:, None])
+        _write_rows(lc, k[rows], v[rows], dst_blk, dst_off)
+        # the paged_decode_attention kernel on the card, which walks only
+        # each row's live pages; its plain gather version on the CPU
+        out = ops.paged_decode_attention(
+            q * (hd ** -0.5), lc["k"], lc["v"], pt, lens_now, lc.get("ks"),
+            lc.get("vs"))
+        x = x + _decode_out_proj(lp["attn"], out, x.dtype)
+        x = x + _mlp(lp, x, cfg)
+
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
+    logits = L.lm_head(params["embed"], x)
+    new_cache = dict(cache)
+    new_cache["lens"] = torch.where(pt[:, 0] >= 0, lens_now,
+                                    torch.zeros_like(lens_now))
+    return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+# distinct padded (B, c) extents + pool shapes the chunk step has run with,
+# per config: the counterpart of the reference's compile count (one
+# specialization per pool key)
+_CHUNK_KEYS: Dict[ModelConfig, set] = {}
+
+
+def prefill_chunk_compiles(cfg: ModelConfig) -> int:
+    """How many distinct padded shapes the chunk step has run with for
+    ``cfg`` in this process -- the shape-stability probe."""
+    return len(_CHUNK_KEYS.get(cfg, ()))
+
+
+@dataclasses.dataclass
+class _ChunkArgs:
+    toks: torch.Tensor       # (B, c) int64
+    pt_rows: torch.Tensor    # (B, MB) int32, -1 -> 0, dead rows all 0
+    offs: torch.Tensor       # (B,) int32 position offsets
+    lens: torch.Tensor       # (B,) int32 valid rows (0 for padding rows)
+    w_row: torch.Tensor      # (N,) batch row of each valid chunk position
+    w_col: torch.Tensor      # (N,) its column in the chunk
+    w_blk: torch.Tensor      # (N,) its pool block
+    w_off: torch.Tensor      # (N,) its offset in the block
+    slot_idx: torch.Tensor   # (S,) slots of the non-padding rows
+    slot_row: torch.Tensor   # (S,) their batch rows
+
+
+def _chunk_call_args(tokens_chunks, cache: Cache, slots, pos_offsets,
+                     page_table, chunk_lens) -> _ChunkArgs:
+    """Host-side addressing of a chunk step: each valid chunk position's
+    (block, offset) in its own leased blocks.  Positions past a row's valid
+    length and padding rows (negative slot) write nothing."""
+    if "page_table" not in cache:
+        raise ValueError("prefill_chunk requires a paged cache "
+                         "(init_paged_cache)")
+    toks = np.asarray(tokens_chunks, np.int64)
+    b, c = toks.shape
+    slots = np.asarray(slots, np.int32).reshape(-1)
+    offs = np.broadcast_to(np.asarray(pos_offsets, np.int32), (b,))
+    lens = (np.full((b,), c, np.int32) if chunk_lens is None
+            else np.asarray(chunk_lens, np.int32).reshape(-1))
+    valid = slots >= 0
+    live = slots[valid]
+    if len(set(live.tolist())) != len(live):
+        raise ValueError(f"slots {slots} must be distinct where valid")
+    bs = cache["attn"]["k"].shape[2]
+    pt = np.asarray(cache["page_table"].cpu() if page_table is None
+                    else page_table)
+    mb = pt.shape[1]
+    live_row = valid & (lens > 0)                       # rows that write
+    rows = pt[np.where(live_row, slots, 0)]             # (b, mb)
+    gpos = offs[:, None] + np.arange(c, dtype=np.int32)[None]     # (b, c)
+    in_len = np.arange(c, dtype=np.int32)[None] < lens[:, None]   # (b, c)
+    row_blk = np.take_along_axis(rows, np.minimum(gpos // bs, mb - 1),
+                                 axis=1)                # (b, c)
+    mask = in_len & live_row[:, None]
+    bad = ((row_blk < 0) | (gpos >= mb * bs)) & mask
+    if bad.any():
+        i = int(np.argmax(bad.any(axis=1)))
+        raise ValueError(f"slot {slots[i]} page table does not cover "
+                         f"rows [{offs[i]}, {offs[i] + lens[i]}) -- "
+                         "allocate blocks before prefill_chunk")
+    w_row, w_col = np.nonzero(mask)
+    dev = cache["attn"]["k"].device
+
+    def put(a, dtype=torch.int64):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    return _ChunkArgs(
+        toks=put(toks),
+        pt_rows=put(np.where(live_row[:, None], np.maximum(rows, 0), 0),
+                    torch.int32),
+        offs=put(offs, torch.int32),
+        lens=put(np.where(valid, lens, 0), torch.int32),
+        w_row=put(w_row), w_col=put(w_col),
+        w_blk=put(row_blk[w_row, w_col]), w_off=put(gpos[w_row, w_col] % bs),
+        slot_idx=put(slots[valid]), slot_row=put(np.nonzero(valid)[0]))
+
+
+def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
+                        cache: Cache, slots, pos_offsets, page_table=None,
+                        chunk_lens=None) -> Tuple[torch.Tensor, Cache]:
+    """Prefill one prompt chunk for up to B sequences in one call.
+
+    ``tokens_chunks`` (B, c); ``slots`` lists B slot ids, negative for a
+    padding row that writes nothing; ``pos_offsets`` (int or (B,)) is each
+    row's global start position, ``chunk_lens`` (None = all full) each
+    row's valid length.  Each chunk attends the prefix rows its sequence
+    already wrote into the pool (``ops.paged_prefill_attention``: the CUDA
+    kernel on the card, its plain gather on the CPU) merged with its own
+    keys causally, then writes its K/V rows into its blocks.  Returns each
+    row's last-valid-position logits (B, V) and the cache with
+    ``lens[slot] = pos_offset + chunk_len``.  ``page_table`` may carry the
+    caller's host copy of ``cache["page_table"]``.
+
+    The Q/K/V/O projections go through the dequant ``qeinsum`` whatever the
+    strategy, as in the reference; the MLP and head go through ``qdot``."""
+    a = _chunk_call_args(tokens_chunks, cache, slots, pos_offsets,
+                         page_table, chunk_lens)
+    hd, kvh = cfg.hd(), cfg.n_kv_heads
+    b, c = a.toks.shape
+    _CHUNK_KEYS.setdefault(cfg, set()).add(
+        (b, c) + tuple(tuple(t.shape) for t in cache["attn"].values()))
+    q_pos = a.offs[:, None] + torch.arange(c, dtype=torch.int32,
+                                           device=a.offs.device)[None]
+    cos, sin = _rope_cos_sin(cfg, q_pos)                 # (B, c, hd)
+    chunk_valid = (torch.arange(c, device=a.offs.device)[None]
+                   < a.lens[:, None])
+    acfg = L.AttnConfig(cfg.n_heads, kvh, hd, q_chunk=cfg.q_chunk)
+    x = L.embed_lookup(params["embed"], a.toks).to(_cdt(cfg))
+
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        lc = {k: v[i] for k, v in cache["attn"].items()}
+        hn = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
+        q = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wq"])
+        k = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wk"])
+        v = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wv"])
+        q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
+        k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
+        qs = q * (hd ** -0.5)
+        pfx_state = ops.paged_prefill_attention(
+            qs, lc["k"], lc["v"], a.pt_rows, a.offs, a.lens, lc.get("ks"),
+            lc.get("vs"))
+        out = L.attention_chunk_merge(qs, None, None, k, v, acfg, q_pos,
+                                      None, chunk_valid, pfx_state=pfx_state)
+        out = qeinsum("bshk,dhk->bsd", out, lp["attn"]["wo"])
+        x = x + out.to(x.dtype)
+        x = x + _mlp(lp, x, cfg)
+        _write_rows(lc, k[a.w_row, a.w_col], v[a.w_row, a.w_col], a.w_blk,
+                    a.w_off)
+
+    last = torch.clamp(a.lens.long() - 1, 0, c - 1)
+    x = x[torch.arange(b, device=x.device), last]
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
+    logits = L.lm_head(params["embed"], x)
+    new_cache = dict(cache)
+    new_lens = cache["lens"].clone()
+    new_lens[a.slot_idx] = (a.offs + a.lens)[a.slot_row]
+    new_cache["lens"] = new_lens
+    return logits, new_cache

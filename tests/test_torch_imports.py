@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither JAX, nor Triton, nor anything
+of the JAX package, and its entry points never drift to the CPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .replace(".__init__", "")
+    for p in PORT.rglob("*.py"))
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith('jax.') or m == 'triton' or m == 'repro' or"
+        " m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print(sum(m.startswith('repro_torch') for m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= len(MODULES)
+
+
+@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")),
+                                  ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_triton_or_repro(path):
+    """Statically, including imports inside functions."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "triton", "repro"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    m = build_model(reduced(get_config("llama2-110m")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        m.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": [1.0]})
+    params = m.quantize(m.init(0, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(m, params, max_slots=1, max_seq=16, page_size=8)
+    with pytest.raises(NotImplementedError):
+        Engine(m, params, max_slots=1, max_seq=16, page_size=8,
+               cache_kind="dense", device="cpu")
+    eng = Engine(m, params, max_slots=1, max_seq=16, page_size=8,
+                 device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.step_async()
+    eng.submit([5, 6, 7], max_new_tokens=2)          # temperature 1.0
+    eng.submit([5, 6, 7], max_new_tokens=2, temperature=0.0, n_samples=2)
+    done = eng.run()
+    assert [r.error_kind for r in done] == ["invalid", "invalid"]
+    assert all("not yet ported" in r.error for r in done)
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0 and out.stdout == ""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0 and out.stdout == ""
