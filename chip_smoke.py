@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the shapes the llama2-110m
-main path gives it (f32 and int8 KV pools), serves llama2-110m at full width
-through ``repro_torch.serving.engine.Engine`` on the card, and checks the
-reduced config on the card against the same weights on the CPU.  Any failed
-phase exits non-zero.  The last line of standard output is
+Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+(phase 1), holds each against its plain PyTorch version at the shapes the
+llama2-110m paths give it (phase 2), and serves llama2-110m at full width
+through ``repro_torch.serving.engine.Engine`` on the card: the paged pool
+with f32 and int8 KV (phases 3-4), the reduced config on the card against
+the same weights on the CPU (phase 5), the dense per-slot cache with f32 and
+int8 KV (phase 7), Q4_0 weights on both caches (phase 8) and the paper's
+batch-1 single stream (phase 9).  Every served path resets the launch
+counters before it runs and asserts exactly the launches its shape implies
+after.  Any failed phase exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
 with its launches on the main path, its error and its times.
 
@@ -37,8 +41,15 @@ INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    log(f"{msg}  [t = {time.perf_counter() - T0:.1f} s]")
 
 
 def card_line() -> str:
@@ -181,6 +192,256 @@ def check_q8(report, dev):
                plain_ms=chunk["plain"], bound_ms=chunk["bound"],
                bound_by=b_by, library_ms=chunk["lib"],
                per="chunk step at 8 x 256 rows: 12 layers x (w13, w2)")
+
+
+def check_q4(report, dev):
+    """q4_matvec at the Q4 path's shapes: the decode GEMVs and the head at
+    M = 1 and 8 slots, the chunk step's MLP at M = 2048 rows."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def operands(m, n, k):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        xt, wt = quantize(x, 64), quantize(w, 64, bits=4)
+        return xt.q, xt.scale, wt.q, wt.scale
+
+    def one(m, n, k):
+        xq, xs, wq, ws = operands(m, n, k)
+        got = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
+        want = ref.ref_q4_matvec(xq, xs, wq, ws, 64)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # exact per-group products; the GEMV sums the f32 groups in another
+        # order, the tiled path (M > 32) in the plain version's
+        tol = 2e-5 * max(1.0, want.abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"q4_matvec M={m} N={n} K={k}: max abs err "
+                                 f"{err:.3g} > tol {tol:.3g}")
+        g = k // 64
+        nb = m * k + 4 * m * g + n * k // 2 + 4 * n * g + 4 * m * n
+        b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
+        nxt = rotating(lambda: operands(m, n, k), n * k // 2 + 4 * n * g)
+        ms = time_ms(lambda: ops.q4_matvec_kernel(*nxt(), 64))
+        plain = time_ms(lambda: ref.ref_q4_matvec(*nxt(), 64), iters=5)
+        xf = (xq.float().reshape(m, g, 64) * xs[..., None]).reshape(m, k)
+        wfs = rotating(lambda: torch.randn((n, k), device=dev), 4 * n * k)
+        lib = time_ms(lambda: torch.matmul(xf, wfs().T))
+        log(f"  q4_matvec  M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
+            f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        return err, ms, plain, lib, b_ms
+
+    layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
+    head = (32000, 768)
+    step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    for m in (1, 8):
+        for n, k in layer + [head]:
+            err, ms, plain, lib, b_ms = one(m, n, k)
+            step["err"] = max(step["err"], err)
+            if m == 8:
+                w = 12 if (n, k) != head else 1
+                for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
+                               ("bound", b_ms)):
+                    step[key] += w * v
+    for n, k in [(4096, 768), (768, 2048)]:
+        step["err"] = max(step["err"], one(2048, n, k)[0])
+    log(f"  q4_matvec per decode step (12 layers x 4 + head, M=8): kernel "
+        f"{step['ms']:.4f} ms, bound {step['bound']:.4f} ms")
+    report.add("q4_matvec", route="cuda",
+               source="src/repro_torch/kernels/csrc/q4_matvec.cu",
+               replaces="src/repro/kernels/q4_matmul.py:69",
+               max_abs_err=step["err"], ms=step["ms"],
+               plain_ms=step["plain"], bound_ms=step["bound"],
+               bound_by="bytes", library_ms=step["lib"],
+               per="decode step at 8 slots: 48 layer GEMVs + head")
+
+
+def check_dense_attention(report, dev):
+    """decode_attention at the dense decode's shapes (8 slots x 1024,
+    f32 and int8), bitwise against the paged kernel on the same rows, and
+    flash_prefill at the one-shot prefill's shapes plus per-row extents."""
+    from repro_torch.core.quantization import quantize_rows
+    from repro_torch.kernels import ops, ref
+    b, s, kvh, hq, d = 8, 1024, 12, 1, 64
+    h = kvh * hq
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lens_l = [0, 1, 63, 64, 65, 1024, 300, 777]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    # the identity page table over the same rows: the paged kernel reads
+    # exactly what the dense one reads
+    pt = torch.arange(b * s // 64, dtype=torch.int32,
+                      device=dev).reshape(b, s // 64)
+
+    def cache(int8):
+        k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+        v = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+        if not int8:
+            return k, v, None, None
+        (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+        return kq, vq, ks, vs
+
+    rec = {}
+    for int8 in (False, True):
+        kind = "int8" if int8 else "f32"
+        k, v, ksc, vsc = cache(int8)
+        q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / 8.0
+        got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
+        want = ref.ref_decode_attention(q, k, v, lens.reshape(b, 1), ksc, vsc)
+        pool = [None if t is None else t.reshape(b * s // 64, 64,
+                                                 *t.shape[2:])
+                for t in (k, v, ksc, vsc)]
+        paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt,
+                                                  lens, pool[2], pool[3])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5   # online vs one-pass softmax: f32 summation order only
+        if not (err <= tol and got[0].abs().max().item() == 0.0
+                and torch.equal(got, paged)):
+            raise AssertionError(
+                f"decode_attention {kind}: err {err:.3g} (tol {tol}), len=0 "
+                f"row exactly 0: {got[0].abs().max().item() == 0.0}, bitwise "
+                f"equal to the paged kernel: {torch.equal(got, paged)}")
+        elem = 1 if int8 else 4
+        nrows = sum(lens_l)
+        nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
+                  + 2 * b * h * d * 4 + 4 * b)
+        b_ms, b_by = bound(nbytes, 4.0 * nrows * h * d, F32_FLOPS_PER_S)
+        nxt = rotating(lambda: (q, *cache(int8)), 2 * b * s * kvh * d * elem,
+                       budget=96 << 20)
+
+        def run_kernel():
+            qq, kk, vv, kks, vvs = nxt()
+            ops.decode_attention_kernel(qq, kk, vv, lens, kks, vvs)
+
+        def run_plain():
+            qq, kk, vv, kks, vvs = nxt()
+            ref.ref_decode_attention(qq, kk, vv, lens.reshape(b, 1), kks, vvs)
+
+        ms = time_ms(run_kernel)
+        plain = time_ms(run_plain, iters=5)
+        kf, vf = k.float(), v.float()
+        if int8:
+            kf, vf = kf * ksc[..., None], vf * vsc[..., None]
+        kf, vf = kf.transpose(1, 2), vf.transpose(1, 2)       # (B, H, S, D)
+        mask = (torch.arange(s, device=dev)[None] < lens[:, None])
+        mask = mask[:, None, None, :]
+        qs = q.reshape(b, h, 1, d)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kf, vf, attn_mask=mask, scale=1.0))
+        log(f"  decode_attention {kind}: B {b} x S {s}, lens {lens_l}  err "
+            f"{err:.2e} (tol {tol:.0e}), bitwise = paged kernel  kernel "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        rec[kind] = (err, ms, plain, lib, b_ms, b_by)
+    f, i8 = rec["f32"], rec["int8"]
+    report.add("decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:206",
+               max_abs_err=max(f[0], i8[0]), ms=f[1], plain_ms=f[2],
+               library_ms=f[3], bound_ms=f[4], bound_by=f[5],
+               int8_ms=i8[1], int8_bound_ms=i8[4],
+               per="one layer's call, f32 cache (int8_* for the int8 cache)")
+
+    # ---- flash_prefill: prompt lengths of the one-shot prefill (prime
+    # 17, a tile multiple, a ragged 600), then per-row extents with GQA
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [dict(b=1, sq=n, sk=n, h=12, kvh=12) for n in (17, 256, 600)]
+    cases.append(dict(b=4, sq=200, sk=456, h=12, kvh=6,
+                      off=[256, 0, 100, 37], ql=[200, 150, 0, 77],
+                      kl=[456, 150, 300, 114]))
+    err_max, last = 0.0, None
+    for c in cases:
+        bb, sq, sk, hh, kv = c["b"], c["sq"], c["sk"], c["h"], c["kvh"]
+
+        def mk():
+            return (torch.randn((bb, sq, hh, d), generator=gen, device=dev),
+                    torch.randn((bb, sk, kv, d), generator=gen, device=dev),
+                    torch.randn((bb, sk, kv, d), generator=gen, device=dev))
+
+        ext = [None if c.get(key) is None else
+               torch.tensor(c[key], dtype=torch.int32, device=dev)
+               for key in ("off", "ql", "kl")]
+        q, k, v = mk()
+        got = ops.flash_prefill_kernel(q, k, v, *ext)
+        want = ref.ref_flash_prefill(q, k, v, True, *ext)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5
+        dead = want.abs().amax(dim=(2, 3)) == 0       # rows with no output
+        if not (err <= tol and bool((got[dead] == 0).all())):
+            raise AssertionError(f"flash_prefill {c}: err {err:.3g} > {tol} "
+                                 "or a dead query row not exactly 0")
+        err_max = max(err_max, err)
+        offs = c.get("off", [0] * bb)
+        qls, kls = c.get("ql", [sq] * bb), c.get("kl", [sk] * bb)
+        pairs = sum(sum(max(0, min(kl, o + i + 1)) for i in range(ql))
+                    for o, ql, kl in zip(offs, qls, kls))
+        nbytes = 4 * d * (bb * sq * hh * 2 + 2 * bb * sk * kv) + 12 * bb
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * hh * d, F32_FLOPS_PER_S)
+        nxt = rotating(mk, 4 * d * bb * (sq * hh + 2 * sk * kv),
+                       budget=96 << 20)
+        ms = time_ms(lambda: ops.flash_prefill_kernel(*nxt(), *ext))
+        plain = time_ms(lambda: ref.ref_flash_prefill(*nxt(), True, *ext),
+                        iters=5)
+        lib = None
+        if "off" not in c:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True))
+        log(f"  flash_prefill B={bb} Sq={sq} Sk={sk} H={hh} KVH={kv}"
+            f"{' with per-row extents' if 'off' in c else ''}  err "
+            f"{err:.2e} (tol {tol:.0e})  kernel {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  sdpa {'-' if lib is None else f'{lib:.4f}'} ms"
+            f"  bound {b_ms:.4f} ms ({b_by})")
+        if sq == 600:
+            last = (ms, plain, lib, b_ms, b_by)
+    report.add("flash_prefill", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+               replaces="src/repro/kernels/flash_prefill.py:173",
+               max_abs_err=err_max, ms=last[0], plain_ms=last[1],
+               library_ms=last[2], bound_ms=last[3], bound_by=last[4],
+               per="one layer's call, one 600-token prompt")
+
+
+def check_rope(report, dev):
+    """rope on the q and k heads of a fused qkv row (read in place) at
+    B = 1 and 8 slots; bitwise against the plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import rope_angles
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nh, kvh, d = 12, 12, 64
+    for b in (1, 8):
+        def mk():
+            qkv = torch.randn((b, (nh + 2 * kvh) * d), generator=gen,
+                              device=dev)
+            pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
+            return (qkv.reshape(b, nh + 2 * kvh, d)[:, :nh + kvh],
+                    *rope_angles(pos, d, 1e4))
+        x, cos, sin = mk()
+        got = ops.rope_kernel(x, cos, sin)
+        want = ref.ref_rope(x, cos, sin)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err == 0.0:
+            raise AssertionError(f"rope B={b}: max abs err {err:.3g}, "
+                                 "expected bitwise equality")
+        nbytes = 2 * b * (nh + kvh) * d * 4 + 2 * b * d * 4
+        b_ms, b_by = bound(nbytes, 4.0 * b * (nh + kvh) * d, F32_FLOPS_PER_S)
+        ms = time_ms(lambda: ops.rope_kernel(x, cos, sin), iters=50)
+        plain = time_ms(lambda: ref.ref_rope(x, cos, sin), iters=50)
+        log(f"  rope B={b} heads {nh + kvh} D={d}: err {err:.1e} (bitwise)  "
+            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
+            f"({b_by})")
+    report.add("rope", route="cuda",
+               source="src/repro_torch/kernels/csrc/rope.cu",
+               replaces="src/repro/kernels/rope.py:48", max_abs_err=err,
+               ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by,
+               per="one layer's call at 8 slots: q and k heads of qkv")
 
 
 def _pools(gen, dev, nb, bs, kvh, d, int8):
@@ -358,7 +619,7 @@ def check_attention(report, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the main path through the Engine
+# phases 3-10: the main paths through the Engine
 # ---------------------------------------------------------------------------
 
 
@@ -396,15 +657,17 @@ def engine_line(tag, eng, streams, wall):
     m = eng.metrics
     toks = sum(len(s) for s in streams)
     dec = m["t_decode"] / max(1, m["decode_steps"]) * 1e3
-    chunk = m["t_prefill"] / max(1, m["chunk_batch_calls"]) * 1e3
+    n_pre = m["chunk_batch_calls"] if eng.paged else m["prefill_chunks"]
+    pre = m["t_prefill"] / max(1, n_pre) * 1e3
     log(f"  {tag}: {len(streams)} requests, {toks} tokens in {wall:.3f} s "
         f"= {toks / wall:.1f} tok/s; {m['decode_steps']} decode steps "
-        f"{dec:.3f} ms each; {m['chunk_batch_calls']} chunk steps "
-        f"{chunk:.3f} ms each; prefix hits {m['prefix_hits']} "
+        f"{dec:.3f} ms each; {n_pre} "
+        f"{'chunk steps' if eng.paged else 'whole-prompt prefills'} "
+        f"{pre:.3f} ms each; prefix hits {m['prefix_hits']} "
         f"({m['prefix_cached_tokens']} tokens); preemptions "
         f"{m['preemptions']}")
     return {"tok_s": toks / wall, "decode_step_ms": dec,
-            "chunk_step_ms": chunk}
+            ("chunk_step_ms" if eng.paged else "prefill_ms"): pre}
 
 
 def profiled(fn):
@@ -433,38 +696,130 @@ def profiled(fn):
     return out, busy / wall
 
 
-def check_launches(eng, launches, cfg):
-    """Every kernel ran, and exactly as often as the path's shape says:
-    per decode step 4 GEMVs per layer + the head and one attention call per
-    layer; per chunk step the MLP's two GEMMs per layer, the head's GEMV and
-    one prefix-attention call per layer."""
+def check_launches(eng, launches, cfg, counted, bits=8):
+    """Every kernel of the run's path ran, and exactly as often as the
+    path's shape says.  Each decode step: 4 GEMVs per layer + the head, one
+    rope and one attention call per layer.  Paged, each chunk step: the
+    MLP's two products per layer, the head's GEMV and one prefix-attention
+    call per layer.  Dense, each whole-prompt prefill of S tokens: one
+    flash_prefill per layer, the MLP's two products per layer at M = S and
+    the head's GEMV.  Q4_0 weights put every product on q4_matvec.  The
+    counts are added to ``counted`` for the kernels line."""
+    from repro_torch.kernels import build
     nl = cfg.n_layers
-    d, c = eng.metrics["decode_steps"], eng.metrics["chunk_batch_calls"]
-    want = {"q8_matvec": (4 * nl + 1) * d + c, "q8_matmul": 2 * nl * c,
-            "paged_decode_attention": nl * d,
-            "paged_prefill_attention": nl * c}
-    if launches != want or min(launches.values()) <= 0:
+    d = eng.metrics["decode_steps"]
+    gemv = "q8_matvec" if bits == 8 else "q4_matvec"
+    gemm = "q8_matmul" if bits == 8 else "q4_matvec"
+    want = dict.fromkeys(build.SIGNATURES, 0)
+    want[gemv] += (4 * nl + 1) * d
+    want["rope"] += nl * d
+    if eng.paged:
+        attn = ("paged_decode_attention", "paged_prefill_attention")
+        c = eng.metrics["chunk_batch_calls"]
+        rows = eng.max_slots * eng.prefill_chunk_tokens
+        want[gemm if rows > 32 else gemv] += 2 * nl * c
+        want[gemv] += c
+        want[attn[0]] += nl * d
+        want[attn[1]] += nl * c
+    else:
+        attn = ("decode_attention", "flash_prefill")
+        pre = [e - s for plan in eng.plan_log for _, s, e in plan["prefills"]]
+        for n in pre:
+            want[gemm if n > 32 else gemv] += 2 * nl
+            want[gemv] += 1
+        want[attn[0]] += nl * d
+        want[attn[1]] += nl * len(pre)
+    path = {gemv, gemm, "rope", *attn}
+    if launches != want or min(launches[k] for k in path) <= 0:
         raise AssertionError(f"launches {launches} != expected {want}")
-    log(f"  launches {launches}: {4 * nl + 1} q8_matvec and {nl} "
-        f"paged_decode_attention per decode step over {d} steps")
+    for k, v in launches.items():
+        counted[k] = counted.get(k, 0) + v
+    log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
+        f"{4 * nl + 1} {gemv}, {nl} rope and {nl} {attn[0]} per decode "
+        f"step over {d} steps")
 
 
-def main_path(dev):
+def compare_streams(tag, got, want, prompts, gap_fn, tol):
+    """Greedy streams that should agree: equal, or parting only at a step
+    whose top-2 logit gap is below ``tol`` (an int8 activation code flipped
+    by a last-place difference upstream moves a logit by up to that)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        part = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        if part is None and len(a) == len(b):
+            continue
+        part = min(len(a), len(b)) if part is None else part
+        gap = gap_fn(np.concatenate([prompts[i],
+                                     np.asarray(b[:part], np.int32)]))
+        log(f"  {tag}: request {i} parts at token {part}, top-2 gap "
+            f"{gap:.3g}")
+        if not gap < tol:
+            raise AssertionError(f"{tag}: request {i} parts at token {part} "
+                                 f"with top-2 gap {gap} >= {tol}")
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"  {tag}: {same}/{len(want)} greedy streams equal; any parting is "
+        "at a near-tie")
+
+
+def _chunk_logits(model, params, seq, device):
+    """Logits after ``seq``, computed as one whole-sequence paged chunk."""
+    n = len(seq)
+    nb = -(-n // 16)
+    cache = model.init_paged_cache(1, block_size=16, n_blocks=nb,
+                                   max_blocks_per_seq=nb, device=device)
+    cache["page_table"] = torch.arange(nb, dtype=torch.int32,
+                                       device=device)[None]
+    logits, _ = model.prefill_chunk_batch(params, seq[None], cache, [0],
+                                          [0], chunk_lens=[n])
+    return logits[0]
+
+
+def _top2_gap(model, params, seq, device):
+    top = torch.topk(_chunk_logits(model, params, seq, device), 2).values
+    return float(top[0] - top[1])
+
+
+def check_flip_scale(tag, model, params, prompts, dev):
+    """First-token logits of the dense path (one-shot prefill) against the
+    paged path (one whole-prompt chunk) on the same weights: under the
+    integer arithmetic they differ only by flipped activation codes, which
+    must stay within FULL_FLIP_TOL."""
+    delta = max((model.prefill(params, {"tokens": p[None]})[0][0]
+                 - _chunk_logits(model, params, p, dev)).abs().max().item()
+                for p in prompts)
+    log(f"  {tag}: first-token logits, one-shot prefill vs paged chunk, "
+        f"max |diff| {delta:.4g} over {len(prompts)} prompts (tol "
+        f"{FULL_FLIP_TOL})")
+    if not delta <= FULL_FLIP_TOL:
+        raise AssertionError(f"{tag}: first-token logits differ by {delta}")
+
+
+# a flipped int8 activation code moves a logit by up to ~3e-2 in the
+# reduced config (phase 5) and up to ~7e-2 at full width (dense one-shot
+# prefill against the paged chunk, measured on the card: max 0.052 for Q8_0,
+# 0.071 for Q4_0 over the 16 phase-3 prompts; 5e-6 without activation
+# quantization)
+FLIP_TOL = 3e-2
+FULL_FLIP_TOL = 0.1
+PAGED_KW = dict(max_slots=8, max_seq=1024, page_size=64,
+                prefill_chunk_tokens=256)
+DENSE_KW = dict(max_slots=8, max_seq=1024, cache_kind="dense")
+
+
+def main_path(dev, counted):
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.model import build_model
     cfg = get_config("llama2-110m")
     model = build_model(cfg)
     params = model.quantize(model.init(seed=0, device=dev))
-    kw = dict(max_slots=8, max_seq=1024, page_size=64,
-              prefill_chunk_tokens=256)
+    kw = PAGED_KW
     prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0, shared_len=128,
                         shared_at=(0, 9, 12, 15))
-    log("phase 3: llama2-110m full width, f32 KV pool, 16 greedy requests")
+    phase("phase 3: llama2-110m full width, f32 KV pool, 16 greedy requests")
     build.reset_launches()
     eng, streams, wall = serve(model, params, prompts, dev, 32, **kw)
-    launches = dict(build.LAUNCHES)
-    check_launches(eng, launches, cfg)
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
     if eng.metrics["prefix_hits"] < 1:
         raise AssertionError("the shared-prefix requests never hit the "
                              "prefix cache")
@@ -475,28 +830,112 @@ def main_path(dev):
         raise AssertionError("a second run gave different greedy streams")
     log("  second run (profiled): identical streams")
 
-    log("phase 4: llama2-110m full width, int8 KV pool, 8 greedy requests")
+    phase("phase 4: llama2-110m full width, int8 KV pool, 8 greedy requests")
     m8 = build_model(cfg.with_(kv_cache_dtype="int8"))
     build.reset_launches()
     eng8, s8, wall8 = serve(m8, params, prompts[:8], dev, 32, **kw)
-    check_launches(eng8, dict(build.LAUNCHES), cfg)
+    check_launches(eng8, dict(build.LAUNCHES), cfg, counted)
     e2e_int8 = engine_line("kernel strategy, int8 pool", eng8, s8, wall8)
-    return launches, e2e, e2e_int8
+    paged = {"float32": streams, "int8": s8}
+    return cfg, params, prompts, paged, e2e, e2e_int8
+
+
+def dense_path(dev, cfg, params, prompts, paged, counted):
+    """The dense Engine on the phase-3 requests (f32) and phase-4 requests
+    (int8): whole-prompt prefill on flash_prefill, decode on
+    decode_attention and rope.  Its streams against the paged ones."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    out = {}
+    for kv, want in paged.items():
+        phase(f"phase 7: llama2-110m full width, dense {kv} cache 8 slots x "
+              f"1024, {len(want)} greedy requests")
+        m = build_model(cfg.with_(kv_cache_dtype=kv))
+        reqs = prompts[:len(want)]
+        build.reset_launches()
+        eng, got, wall = serve(m, params, reqs, dev, 32, **DENSE_KW)
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+        out[kv] = engine_line(f"dense {kv} cache", eng, got, wall)
+        compare_streams(f"dense {kv} vs paged", got, want, reqs,
+                        lambda seq: _top2_gap(m, params, seq, dev),
+                        FULL_FLIP_TOL)
+    check_flip_scale("Q8_0", m, params, prompts[:4], dev)
+    return out
+
+
+def param_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return param_bytes({"q": tree.q, "scale": tree.scale})
+
+
+def q4_path(dev, cfg, prompts, params8, counted):
+    """The weights ``launch/serve.py --bits 4`` serves (Q4_0 under
+    QuantPolicy(bits=4, min_size=512)) through the paged and the dense
+    Engine: q4_matvec is the only GEMM/GEMV kernel."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    p4 = model.quantize(model.init(seed=0, device=dev),
+                        QuantPolicy(bits=4, min_size=512))
+    phase(f"phase 8: llama2-110m full width, Q4_0 weights (parameter tree "
+          f"with its fused decode copies {param_bytes(p4) / 1e6:.1f} MB "
+          f"against {param_bytes(params8) / 1e6:.1f} MB for Q8_0), 8 "
+          "greedy requests, paged then dense")
+    reqs = prompts[:8]
+    out, streams = {}, {}
+    for kind, kw in (("paged", PAGED_KW), ("dense", DENSE_KW)):
+        build.reset_launches()
+        eng, streams[kind], wall = serve(model, p4, reqs, dev, 32, **kw)
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted, bits=4)
+        out[kind] = engine_line(f"Q4_0 {kind}", eng, streams[kind], wall)
+    compare_streams("Q4_0 dense vs paged", streams["dense"],
+                    streams["paged"], reqs,
+                    lambda seq: _top2_gap(model, p4, seq, dev), FULL_FLIP_TOL)
+    check_flip_scale("Q4_0", model, p4, reqs[:4], dev)
+    return model, p4, out
+
+
+def single_stream(dev, model, by_bits):
+    """The counterpart of benchmarks/throughput.py:_decode_loop at batch 1
+    on the dense cache: prefill 16 tokens, then 64 greedy decode steps."""
+    phase("phase 9: batch-1 single stream (prefill 16, decode 64, dense "
+          "cache)")
+    out = {}
+    for name, params in by_bits.items():
+        logits, cache = model.prefill(params,
+                                      {"tokens": np.ones((1, 16), np.int32)},
+                                      max_seq=160)
+        logits, cache = model.decode_step(params, cache,
+                                          torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(64):
+            logits, cache = model.decode_step(params, cache,
+                                              torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = {"ms_per_token": dt / 64 * 1e3, "tok_s": 64 / dt}
+        log(f"  {name}: {dt / 64 * 1e3:.3f} ms/token = {64 / dt:.1f} tok/s")
+    return out
 
 
 def reduced_cpu_vs_card(dev):
     """The reduced config with the same weights: plain versions on the CPU
-    against the kernels on the card.  Logits may differ by the ~3e-2 an
-    int8 activation code flipped by a last-place difference moves them (the
-    CPU tests measure this); streams may part only at a step whose top-2
-    gap is below that."""
+    against the kernels on the card, on the paged and the dense Engine.
+    Logits may differ by the ~3e-2 an int8 activation code flipped by a
+    last-place difference moves them (the CPU tests measure this); streams
+    may part only at a step whose top-2 gap is below that."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import build_model, params_to
-    tol = 3e-2
     cfg = reduced(get_config("llama2-110m"))
     model = build_model(cfg)
     p_cpu = model.quantize(model.init(seed=0, device="cpu"))
     p_dev = params_to(p_cpu, dev)
+    cpu = torch.device("cpu")
     kw = dict(max_slots=4, max_seq=128, page_size=16,
               prefill_chunk_tokens=32)
     prompts = _requests(6, 5, 60, cfg.vocab_size, seed=1, shared_len=32,
@@ -516,42 +955,27 @@ def reduced_cpu_vs_card(dev):
                                               chunk_lens=lens)
         return logits.cpu()
 
-    diff = (first_logits(p_cpu, torch.device("cpu"))
+    def prefill_logits(params):
+        return model.prefill(params, {"tokens": prompts[1][None]},
+                             max_seq=128)[0].cpu()
+
+    diff = (first_logits(p_cpu, cpu)
             - first_logits(p_dev, dev)).abs().max().item()
-    log(f"phase 5: reduced config, CPU plain vs card kernels: first chunk "
-        f"step logits max |diff| {diff:.3g} (tol {tol})")
-    if not diff <= tol:
-        raise AssertionError(f"first-step logits differ by {diff}")
-    _, cpu_streams, _ = serve(model, p_cpu, prompts, torch.device("cpu"), 8,
-                              **kw)
-    _, dev_streams, _ = serve(model, p_dev, prompts, dev, 8, **kw)
-    for i, (a, b) in enumerate(zip(cpu_streams, dev_streams)):
-        part = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
-                    None)
-        if part is None:
-            continue
-        seq = np.concatenate([prompts[i], np.asarray(a[:part], np.int32)])
-        gap = _top2_gap(model, p_cpu, seq)
-        log(f"  request {i}: streams part at token {part}, top-2 gap "
-            f"{gap:.3g}")
-        if not gap < tol:
-            raise AssertionError(f"request {i} parts at token {part} with "
-                                 f"top-2 gap {gap} >= {tol}")
-    same = sum(a == b for a, b in zip(cpu_streams, dev_streams))
-    log(f"  greedy streams: {same}/{len(prompts)} equal; any parting is at "
-        "a near-tie")
-
-
-def _top2_gap(model, params, seq):
-    n = len(seq)
-    nb = -(-n // 16)
-    cache = model.init_paged_cache(1, block_size=16, n_blocks=nb,
-                                   max_blocks_per_seq=nb, device="cpu")
-    cache["page_table"] = torch.arange(nb, dtype=torch.int32)[None]
-    logits, _ = model.prefill_chunk_batch(params, seq[None], cache, [0],
-                                          [0], chunk_lens=[n])
-    top = torch.topk(logits[0], 2).values
-    return float(top[0] - top[1])
+    ddiff = (prefill_logits(p_cpu) - prefill_logits(p_dev)).abs().max().item()
+    phase(f"phase 5: reduced config, CPU plain vs card kernels: first chunk "
+          f"step logits max |diff| {diff:.3g}, whole-prompt prefill logits "
+          f"{ddiff:.3g} (tol {FLIP_TOL})")
+    if not (diff <= FLIP_TOL and ddiff <= FLIP_TOL):
+        raise AssertionError(f"first-step logits differ by {diff}, {ddiff}")
+    for extra in ({}, {"cache_kind": "dense"}):
+        _, cpu_streams, _ = serve(model, p_cpu, prompts, cpu, 8, **kw,
+                                  **extra)
+        _, dev_streams, _ = serve(model, p_dev, prompts, dev, 8, **kw,
+                                  **extra)
+        compare_streams(f"{extra.get('cache_kind', 'paged')} CPU vs card",
+                        dev_streams, cpu_streams, prompts,
+                        lambda seq: _top2_gap(model, p_cpu, seq, cpu),
+                        FLIP_TOL)
 
 
 def main() -> int:
@@ -572,7 +996,7 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     secs = build.build()
-    log(f"phase 1: built {len(build.SIGNATURES)} kernels in {secs:.1f} s")
+    phase(f"phase 1: built {len(build.SIGNATURES)} kernels in {secs:.1f} s")
     for name in build.SIGNATURES:
         tail = (build.BUILD_DIR / f"{name}.log")
         if tail.exists():
@@ -583,19 +1007,27 @@ def main() -> int:
     from repro_torch.core import qlinear
     qlinear.set_default_strategy("kernel")
     report = Report()
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     check_q8(report, dev)
     check_attention(report, dev)
+    check_q4(report, dev)
+    check_dense_attention(report, dev)
+    check_rope(report, dev)
 
-    launches, e2e, e2e_int8 = main_path(dev)
+    counted = {}
+    cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
     reduced_cpu_vs_card(dev)
-
-    log(f"phase 6: end to end (f32 pool) {json.dumps(e2e)}; int8 pool "
-        f"{json.dumps(e2e_int8)}")
+    phase(f"phase 6: end to end (f32 pool) {json.dumps(e2e)}; int8 pool "
+          f"{json.dumps(e2e_int8)}")
+    dense = dense_path(dev, cfg, params, prompts, paged, counted)
+    model, p4, q4 = q4_path(dev, cfg, prompts, params, counted)
+    b1 = single_stream(dev, model, {"Q8_0": params, "Q4_0": p4})
+    phase(f"phase 10: dense cache {json.dumps(dense)}; Q4_0 {json.dumps(q4)}; "
+          f"batch 1 {json.dumps(b1)}")
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,
-                        "launches": launches.get(name, 0)})
+                        "launches": counted.get(name, 0)})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ with one of three strategies of identical math:
              Q8_0-quantized on the fly, each group's int8 products sum
              exactly, and groups combine in f32 in order.
 ``kernel``   the same arithmetic on the port's CUDA kernels
-             (``kernels.ops.q8_matmul``: GEMV for <= 32 rows, tiled GEMM
-             above) -- the counterpart of the reference's ``"pallas"``.
+             (``kernels.ops.q8_matmul``: the Q4 kernel for Q4_0 weights;
+             for Q8_0 the GEMV for <= 32 rows, the tiled GEMM above) --
+             the counterpart of the reference's ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.core.quantization import QuantizedTensor, quantize
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ref_q8_matmul
+from repro_torch.kernels.ref import ref_q4_matvec, ref_q8_matmul
 
 Weight = Union[torch.Tensor, QuantizedTensor]
 
@@ -58,12 +59,12 @@ def _qdot_dequant(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
 def _qdot_integer(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """Dynamic Q8_0 activation quantization + one exact partial per group,
     folded into f32 group by group (the reference's ``lax.scan`` order):
-    the plain version of the kernels, on any device."""
-    if w.bits != 8:
-        raise ValueError("the integer strategy is ported for Q8_0 only")
+    the plain version of the kernels, on any device.  Q4_0 codes are
+    unpacked first; activations stay 8-bit."""
     *lead, k = x.shape
     xt = quantize(x.reshape(-1, k), group_size=w.group_size, bits=8)
-    out = ref_q8_matmul(xt.q, xt.scale, w.q, w.scale, w.group_size)
+    fn = ref_q4_matvec if w.bits == 4 else ref_q8_matmul
+    out = fn(xt.q, xt.scale, w.q, w.scale, w.group_size)
     return out.reshape(*lead, w.q.shape[0])
 
 

@@ -31,13 +31,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each C entry point: pointers (and the stream) as c_void_p
 SIGNATURES: Dict[str, list] = {
     "q8_matvec": [_P] * 5 + [_I] * 4 + [_P],
     "q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     "paged_prefill_attention": [_P] * 11 + [_I] * 8 + [_P],
+    "q4_matvec": [_P] * 5 + [_I] * 4 + [_P],
+    "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
+    "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "rope": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

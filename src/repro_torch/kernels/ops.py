@@ -1,4 +1,4 @@
-"""Wrappers around the port's four CUDA kernels.
+"""Wrappers around the port's CUDA kernels.
 
 Each ``*_kernel`` function takes the kernel's own operands.  For CPU tensors
 it runs the kernel's plain version (:mod:`repro_torch.kernels.ref`); for CUDA
@@ -7,9 +7,10 @@ the output, launches the kernel on the current stream and counts the launch
 in ``build.LAUNCHES`` -- or raises.  There is no fallback from a CUDA tensor
 to the plain version.
 
-The public functions above them mirror ``repro/kernels/ops.py``: activation
-quantization and the GEMV/GEMM dispatch on row count (``q8_matmul``) and the
-GQA reshapes of the two attention kernels.
+The public functions below them mirror ``repro/kernels/ops.py``: activation
+quantization and the Q4 / GEMV / GEMM dispatch (``q8_matmul``), the GQA
+reshapes of the decode attention kernels, and the per-row extents of
+``flash_prefill``.
 """
 
 from __future__ import annotations
@@ -193,6 +194,127 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
     return out, m, l
 
 
+def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
+    """Any M: out (M, N) f32 = sum_g f32(int32 dot of group g) * xs[m, g] *
+    ws[n, g] against packed Q4_0 weights wq (N, K/2)."""
+    if xq.device.type == "cpu":
+        return ref.ref_q4_matvec(xq, xs, wq, ws, group_size)
+    name = "q4_matvec"
+    m, k = xq.shape
+    n = wq.shape[0]
+    lanes = group_size // 16
+    group_ok = (16 <= group_size <= 512 and group_size % 16 == 0
+                and lanes & (lanes - 1) == 0 and k % group_size == 0)
+    if (not group_ok or wq.shape[1] * 2 != k or k % 16 or m < 1
+            or xs.shape != (m, k // group_size)
+            or ws.shape != (n, k // group_size)):
+        raise ValueError(f"{name}: shapes xq {tuple(xq.shape)} xs "
+                         f"{tuple(xs.shape)} wq {tuple(wq.shape)} ws "
+                         f"{tuple(ws.shape)} with group {group_size}: needs "
+                         "K % 16 == 0 and a group in 16..512 (power-of-two "
+                         "multiple of 16) dividing K")
+    _check(name, xq.device, xq=xq, xs=xs, wq=wq, ws=ws)
+    _dtype(name, xq, torch.int8)
+    _dtype(name, wq, torch.int8)
+    _dtype(name, xs, torch.float32)
+    _dtype(name, ws, torch.float32)
+    if xq.data_ptr() % 16 or wq.data_ptr() % 8:
+        raise ValueError(f"{name}: xq must be 16-byte and wq 8-byte aligned")
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    launch(name, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+           out.data_ptr(), m, n, k, group_size, _stream(xq))
+    return out
+
+
+def decode_attention_kernel(q, k, v, lens, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
+    """q: (B, KVH, HQ, D) pre-scaled; k/v: (B, S, KVH, D) (int8 when
+    k/v_scale (B, S, KVH) are given); lens (B,) int32, clamped to S.
+    Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0."""
+    b, kvh, hq, d = q.shape
+    if q.device.type == "cpu":
+        return ref.ref_decode_attention(q, k, v, lens.reshape(b, 1),
+                                        k_scale, v_scale)
+    name = "decode_attention"
+    int8 = k_scale is not None
+    if (k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:])
+            != (kvh, d) or lens.shape != (b,) or d % 4 or hq * d > 1024):
+        raise ValueError(f"{name}: needs k/v (B, S, KVH, D) matching q "
+                         f"{tuple(q.shape)}, lens (B,), D % 4 == 0 and "
+                         f"HQ*D <= 1024; got k {tuple(k.shape)}")
+    _check(name, q.device, q=q, k=k, v=v, lens=lens, k_scale=k_scale,
+           v_scale=v_scale)
+    _dtype(name, q, torch.float32)
+    _dtype(name, k, torch.int8 if int8 else torch.float32)
+    _dtype(name, v, k.dtype)
+    _dtype(name, lens, torch.int32)
+    if int8:
+        if k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
+            raise ValueError(f"{name}: scales must be {tuple(k.shape[:3])}")
+        _dtype(name, k_scale, torch.float32)
+        _dtype(name, v_scale, torch.float32)
+    out = torch.empty_like(q)
+    launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+           _ptr(v_scale), lens.data_ptr(), out.data_ptr(), b, k.shape[1],
+           kvh, hq, d, int(int8), _stream(q))
+    return out
+
+
+def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
+                         causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, D) f32 unscaled (scaled by D^-1/2 inside); k/v:
+    (B, Sk, KVH, D) f32; q_offset/q_lens/k_lens (B,) int32 or None
+    (0, Sq, Sk).  Returns (B, Sq, H, D) f32: causal flash attention with
+    GQA heads indexed, queries past q_lens and queries with no live key 0."""
+    if q.device.type == "cpu":
+        return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
+                                     k_lens)
+    name = "flash_prefill"
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or d not in (32, 64, 128) or h % kvh):
+        raise ValueError(f"{name}: needs k/v (B, Sk, KVH, D) matching q "
+                         f"{tuple(q.shape)}, D in (32, 64, 128), H % KVH == "
+                         f"0; got k {tuple(k.shape)}")
+    _check(name, q.device, q=q, k=k, v=v, q_offset=q_offset, q_lens=q_lens,
+           k_lens=k_lens)
+    for t in (q, k, v):
+        _dtype(name, t, torch.float32)
+    for t in (q_offset, q_lens, k_lens):
+        if t is not None:
+            _dtype(name, t, torch.int32)
+            if t.shape != (b,):
+                raise ValueError(f"{name}: per-row extents must be (B,)")
+    out = torch.empty_like(q)
+    launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_offset),
+           _ptr(q_lens), _ptr(k_lens), out.data_ptr(), b, sq, sk, h, kvh, d,
+           int(causal), d ** -0.5, _stream(q))
+    return out
+
+
+def rope_kernel(x, cos, sin) -> torch.Tensor:
+    """x: (B, H, D) f32 with heads contiguous in a row (rows may lie
+    further apart: the q and k heads of a fused qkv row); cos/sin (B, D)
+    f32.  Returns (B, H, D) f32 contiguous, ``x*cos + [-x2, x1]*sin``."""
+    if x.device.type == "cpu":
+        return ref.ref_rope(x, cos, sin)
+    name = "rope"
+    b, h, d = x.shape
+    if (cos.shape != (b, d) or sin.shape != (b, d) or d % 2
+            or x.stride(2) != 1 or x.stride(1) != d or x.stride(0) < h * d):
+        raise ValueError(f"{name}: needs x (B, H, D) with contiguous heads "
+                         f"and cos/sin (B, D); got x {tuple(x.shape)} "
+                         f"strides {x.stride()}, cos {tuple(cos.shape)}")
+    _check(name, x.device, cos=cos, sin=sin)
+    for t in (x, cos, sin):
+        _dtype(name, t, torch.float32)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=x.device)
+    launch(name, x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+           out.data_ptr(), b, h, d, x.stride(0), _stream(x))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # public wrappers (repro/kernels/ops.py counterparts)
 # ---------------------------------------------------------------------------
@@ -200,12 +322,12 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
 
 def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x (..., K) f32 @ w (N, K).T with the paper's integer semantics:
-    activations are Q8_0-quantized on the fly with ``w.group_size``, and the
-    product runs on the GEMV kernel for at most ``MATVEC_MAX_ROWS`` rows,
-    on the tiled GEMM kernel above that."""
-    if w.bits != 8:
-        raise ValueError(f"q8_matmul: bits={w.bits} (the Q4 kernel is not "
-                         "ported yet)")
+    activations are Q8_0-quantized on the fly with ``w.group_size``.  Q4_0
+    weights go to the Q4 kernel whatever the row count, as in the
+    reference; Q8_0 weights to the GEMV kernel for at most
+    ``MATVEC_MAX_ROWS`` rows, to the tiled GEMM kernel above that."""
+    if w.bits not in (4, 8):
+        raise ValueError(f"q8_matmul: bits={w.bits}")
     gs = w.group_size
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
@@ -213,10 +335,41 @@ def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     if xt.group_size != gs:
         raise ValueError(f"q8_matmul: K={k} does not split into groups of "
                          f"{gs}")
-    fn = (q8_matvec_kernel if x2.shape[0] <= MATVEC_MAX_ROWS
-          else q8_matmul_kernel)
+    if w.bits == 4:
+        fn = q4_matvec_kernel
+    elif x2.shape[0] <= MATVEC_MAX_ROWS:
+        fn = q8_matvec_kernel
+    else:
+        fn = q8_matmul_kernel
     out = fn(xt.q, xt.scale, w.q, w.scale, gs)
     return out.reshape(*lead, w.q.shape[0])
+
+
+# x (B, H, D), cos/sin (B, D): the kernel wrapper already takes the
+# reference's layout
+rope = rope_kernel
+
+
+def decode_attention(q, k, v, lens, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
+    """q: (B, H, D) pre-scaled -> (B, H, D) f32 attention over each row's
+    dense cache positions < lens[b]; k/v (B, S, KVH, D)."""
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    out = decode_attention_kernel(q.reshape(b, kvh, h // kvh, d).contiguous(),
+                                  k, v, lens, k_scale, v_scale)
+    return out.reshape(b, h, d)
+
+
+def flash_prefill(q, k, v, *, causal: bool = True, q_offset=None,
+                  q_lens=None, k_lens=None) -> torch.Tensor:
+    """Full-sequence attention: q (B, Sq, H, D) unscaled; k/v
+    (B, Sk, KVH, D) -> (B, Sq, H, D) f32.  ``q_offset``, ``q_lens`` and
+    ``k_lens`` ((B,) int32 or None) are per-row data, as in the reference;
+    GQA heads are indexed, not repeated."""
+    return flash_prefill_kernel(q.contiguous(), k.contiguous(),
+                                v.contiguous(), q_offset, q_lens, k_lens,
+                                causal)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lens,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantization import _unpack_nibbles
+
 NEG_INF = -1e30
 
 
@@ -33,6 +35,59 @@ def ref_q8_matmul(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
         part = torch.matmul(xg[:, i], wg[:, i].T)
         acc = acc + part * xs[:, i, None] * ws[None, :, i]
     return acc
+
+
+def ref_q4_matvec(xq, xs, wq_packed, ws, group_size: int = 64):
+    """Q8_0 activations (M, K) x packed Q4_0 weights (N, K/2): the nibbles
+    unpack (low = even index, sign-extended) and the Q8 function runs."""
+    return ref_q8_matmul(xq, xs, _unpack_nibbles(wq_packed), ws, group_size)
+
+
+def ref_rope(x, cos, sin):
+    """x (B, H, D); cos/sin (B, D) broadcast over the heads:
+    ``x * cos + [-x2, x1] * sin``."""
+    d = x.shape[-1]
+    x32 = x.float()
+    rot = torch.cat([-x32[..., d // 2:], x32[..., : d // 2]], dim=-1)
+    return (x32 * cos[:, None] + rot * sin[:, None]).to(x.dtype)
+
+
+def ref_flash_prefill(q, k, v, causal: bool = True, q_offset=None,
+                      q_lens=None, k_lens=None):
+    """Flash-prefill attention as one softmax.  q (B, Sq, H, D) unscaled
+    (scaled by D^-1/2 here, as the kernel does); k/v (B, Sk, KVH, D), kv
+    head ``h // (H / KVH)``.  Row b's query i sits at position
+    ``q_offset[b] + i`` and attends keys ``< k_lens[b]`` (and ``<=`` its
+    position when causal); queries at or past ``q_lens[b]``, and queries
+    with no live key, are 0.  ``q_offset``/``q_lens``/``k_lens`` are (B,)
+    int32 or None (0, Sq, Sk)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dev = q.device
+
+    def per_row(x, fill):
+        return (torch.full((b,), fill, dtype=torch.int32, device=dev)
+                if x is None else x.reshape(b).to(dev))
+
+    off, ql, kl = per_row(q_offset, 0), per_row(q_lens, sq), per_row(k_lens,
+                                                                     sk)
+    kr = torch.repeat_interleave(k.float(), h // kvh, dim=2)
+    vr = torch.repeat_interleave(v.float(), h // kvh, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * (d ** -0.5), kr)
+    kpos = torch.arange(sk, device=dev)
+    qi = torch.arange(sq, device=dev)
+    mask = (kpos[None, None] < kl[:, None, None]) \
+        & (qi[None, :, None] < ql[:, None, None])           # (B, Sq, Sk)
+    if causal:
+        qpos = off[:, None] + qi[None]                       # (B, Sq)
+        mask = mask & (kpos[None, None] <= qpos[..., None])
+    mask = mask[:, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
+    l = torch.sum(e, dim=-1, keepdim=True)
+    p = e / torch.where(l > 0, l, torch.ones_like(l))
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr)
 
 
 def ref_decode_attention(q, k, v, lens, k_scale=None, v_scale=None):

@@ -2,9 +2,12 @@
 
 PyTorch counterpart of the dense subset of ``repro/models/layers.py``.
 Weights are stored contraction-last ``(out, in)``, so ``qdot`` takes float
-or quantized leaves alike.  The paged attention itself is
-in :mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the
-card, their plain versions (``kernels/ref.py``) for tensors on the CPU.
+or quantized leaves alike.  The model's attention calls go to
+:mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
+their plain versions (``kernels/ref.py``) for tensors on the CPU.
+``attention_scores_blockwise`` and ``attention_decode`` are the
+reference's jnp twins of the one-shot prefill and dense decode kernels,
+held against both packages by the tests.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.qlinear import qdot
-from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.core.quantization import QuantizedTensor, _unpack_nibbles
+from repro_torch.kernels.ref import ref_decode_attention
 
 NEG_INF = -1e30
 
@@ -72,6 +76,53 @@ class AttnConfig(NamedTuple):
     n_kv_heads: int
     head_dim: int
     q_chunk: int = 1024       # query rows per attention block
+    causal: bool = True
+    window: int = 0           # > 0: sliding window (not ported)
+
+
+def attention_scores_blockwise(q, k, v, cfg: AttnConfig,
+                               q_offset: int = 0) -> torch.Tensor:
+    """Causal attention one query chunk at a time: the plain twin of the
+    one-shot prefill's ``kernels.ops.flash_prefill``.
+
+    q: (B, S, H, D) pre-scaled; k/v: (B, T, KVH, D).  Scores for one chunk
+    are (B, H, qc, T), never the whole S x T square."""
+    if cfg.window > 0:
+        raise NotImplementedError("sliding-window attention is not ported")
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    qc = min(cfg.q_chunk, s)
+    while s % qc:
+        qc -= 1
+    hq = h // cfg.n_kv_heads
+    kg = torch.repeat_interleave(k, hq, dim=2).float()
+    vg = torch.repeat_interleave(v, hq, dim=2).to(q.dtype)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    outs = []
+    for s0 in range(0, s, qc):
+        scores = torch.einsum("bqhd,bthd->bhqt", q[:, s0:s0 + qc].float(), kg)
+        if cfg.causal:
+            qpos = q_offset + s0 + torch.arange(qc, device=q.device)[:, None]
+            scores = torch.where((kpos <= qpos)[None, None], scores,
+                                 torch.full_like(scores, NEG_INF))
+        p = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bhqt,bthd->bqhd", p.to(q.dtype), vg))
+    return torch.cat(outs, dim=1)
+
+
+def attention_decode(q, k_cache, v_cache, length, cfg: AttnConfig,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """Single-position attention against a dense cache: the plain twin of
+    ``kernels.ops.decode_attention``.
+
+    q: (B, H, D) pre-scaled; caches (B, S, KVH, D); length (B,) or scalar.
+    Optional per-(position, kv-head) scales dequantize an int8 cache."""
+    b, h, d = q.shape
+    kvh = cfg.n_kv_heads
+    lens = torch.broadcast_to(torch.as_tensor(length, device=q.device), (b,))
+    out = ref_decode_attention(q.reshape(b, kvh, h // kvh, d), k_cache,
+                               v_cache, lens[:, None], k_scale, v_scale)
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def attention_chunk_merge(q, k_pfx, v_pfx, k_chunk, v_chunk,
@@ -166,9 +217,9 @@ def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
     """table (V, D), possibly quantized; tokens (...,) int."""
     tokens = tokens.long()
     if isinstance(table, QuantizedTensor):
-        if table.bits != 8:
-            raise NotImplementedError("Q4 embedding is not ported yet")
-        q = table.q[tokens]
+        q = table.q[tokens]                  # (..., D) int8 / (..., D/2) Q4
+        if table.bits == 4:
+            q = _unpack_nibbles(q)
         s = table.scale[tokens]
         g = table.orig_dim // table.group_size
         qf = q.reshape(*q.shape[:-1], g, table.group_size).float()

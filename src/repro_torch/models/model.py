@@ -31,6 +31,13 @@ class Model:
             qp = transformer.fuse_decode_weights(qp, self.cfg)
         return qp
 
+    def init_cache(self, batch: int, max_seq: int, device: Device = None):
+        return transformer.init_cache(self.cfg, batch, max_seq,
+                                      device=device)
+
+    def prefill(self, params, batch, max_seq: Optional[int] = None):
+        return transformer.prefill(params, self.cfg, batch, max_seq=max_seq)
+
     def init_paged_cache(self, batch: int, *, block_size: int = 64,
                          n_blocks: int, max_blocks_per_seq: int,
                          device: Device = None):

@@ -1,15 +1,17 @@
-"""Dense decoder-only LM: init, decode-weight fusion, paged decode and
-chunked prefill.
+"""Dense decoder-only LM: init, decode-weight fusion, decode on the paged
+pool or the dense per-slot cache, chunked and one-shot prefill.
 
 PyTorch counterpart of the dense family of ``repro/models/transformer.py``.
 Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
 ``Model.quantize``) stacked per layer, as in the reference; the layer loop
 is a Python loop over the stacked leading axis.
 
-Serving runs on the paged KV pool (``init_paged_cache``).  Unlike the
-reference, which donates the pool to a jitted step, the port writes the
-pool in place: ``decode_step`` and ``prefill_chunk_batch`` return the same
-pool tensors they were given, updated.
+Serving runs on the paged KV pool (``init_paged_cache``, filled by
+``prefill_chunk_batch``) or on the dense per-slot reservation
+(``init_cache``, filled by the one-shot ``prefill``).  Unlike the
+reference, which donates the cache to a jitted step, the port writes it in
+place: ``decode_step`` and ``prefill_chunk_batch`` return the same cache
+tensors they were given, updated.
 """
 
 from __future__ import annotations
@@ -158,6 +160,11 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
+
+
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
     if cfg.rope_type != "rope":
         raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
@@ -171,7 +178,7 @@ def _mlp(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# paged KV pool
+# KV caches: the paged pool and the dense per-slot reservation
 # ---------------------------------------------------------------------------
 
 
@@ -184,6 +191,28 @@ def supports_paged_cache(cfg: ModelConfig) -> bool:
             and cfg.n_heads > 0)
 
 
+def _attn_bank(cfg: ModelConfig, lead: Tuple[int, ...],
+               dev: torch.device) -> Dict[str, torch.Tensor]:
+    """Stacked K/V buffers (n_layers, *lead, KVH, hd), plus one f32 scale
+    per row and head for an int8 cache."""
+    kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
+    shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.hd())
+    attn = {"k": torch.zeros(shape, dtype=kvd, device=dev),
+            "v": torch.zeros(shape, dtype=kvd, device=dev)}
+    if _kv_int8(cfg):
+        attn["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        attn["vs"] = torch.zeros_like(attn["ks"])
+    return attn
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: Device = None) -> Cache:
+    """Dense per-slot KV cache: (n_layers, batch, max_seq, KVH, hd)."""
+    dev = resolve_device(device)
+    return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "attn": _attn_bank(cfg, (batch, max_seq), dev)}
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
                      n_blocks: int, max_blocks_per_seq: int,
                      device: Device = None) -> Cache:
@@ -191,23 +220,17 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
     if not supports_paged_cache(cfg):
         raise ValueError(f"paged cache unsupported for family {cfg.family}")
     dev = resolve_device(device)
-    hd = cfg.hd()
-    kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, hd)
-    attn = {"k": torch.zeros(shape, dtype=kvd, device=dev),
-            "v": torch.zeros(shape, dtype=kvd, device=dev)}
-    if _kv_int8(cfg):
-        attn["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
-        attn["vs"] = torch.zeros_like(attn["ks"])
     return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "page_table": torch.full((batch, max_blocks_per_seq), -1,
                                      dtype=torch.int32, device=dev),
-            "attn": attn}
+            "attn": _attn_bank(cfg, (n_blocks, block_size), dev)}
 
 
 def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
-    """Write K/V rows (N, KVH, hd) into one layer's pool at (blk, off),
-    quantizing them for an int8 pool (one f32 scale per row and head)."""
+    """Write K/V rows (..., KVH, hd) into one layer's cache at (blk, off)
+    -- (block, offset) of the pool, or (slot, position) of the dense
+    cache -- quantizing them for an int8 cache (one f32 scale per row and
+    head)."""
     if "ks" in lc:
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
@@ -221,24 +244,25 @@ def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
 
 
 # ---------------------------------------------------------------------------
-# paged decode
+# decode (paged pool or dense cache)
 # ---------------------------------------------------------------------------
 
 
-def _decode_qkv(p_attn, h, cfg: ModelConfig):
-    """Post-norm hidden (B, D) -> q (B, H, hd), k/v (B, KVH, hd): one GEMV
-    against the fused ``wqkv`` when present."""
+def _decode_qkv(p_attn, h, cfg: ModelConfig, cos, sin):
+    """Post-norm hidden (B, D) -> rotated q (B, H, hd) and k (B, KVH, hd),
+    and v (B, KVH, hd): one GEMV against the fused ``wqkv`` when present,
+    then one ``rope`` launch over the q and k heads of the qkv row, read in
+    place (the reference rotates q and k with two jnp ``apply_rope``s)."""
     b = h.shape[0]
     hd, nh, kvh = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     if "wqkv" in p_attn:
-        qkv = qdot(h, p_attn["wqkv"]).to(h.dtype)
-        q, k, v = torch.split(qkv, [nh * hd, kvh * hd, kvh * hd], dim=-1)
-        return (q.reshape(b, nh, hd), k.reshape(b, kvh, hd),
-                v.reshape(b, kvh, hd))
-    q = qeinsum("bd,hkd->bhk", h, p_attn["wq"])
-    k = qeinsum("bd,hkd->bhk", h, p_attn["wk"])
-    v = qeinsum("bd,hkd->bhk", h, p_attn["wv"])
-    return q, k, v
+        heads = qdot(h, p_attn["wqkv"]).to(h.dtype).reshape(b, nh + 2 * kvh,
+                                                            hd)
+    else:
+        heads = torch.cat([qeinsum("bd,hkd->bhk", h, p_attn[w])
+                           for w in ("wq", "wk", "wv")], dim=1)
+    qk = ops.rope(heads[:, :nh + kvh], cos, sin)
+    return qk[:, :nh], qk[:, nh:], heads[:, nh + kvh:]
 
 
 def _decode_out_proj(p_attn, out, x_dtype):
@@ -253,51 +277,123 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """tokens (B,) -> (logits (B, V) f32, cache) on the paged pool.
+    """tokens (B,) -> (logits (B, V) f32, cache), on the paged pool when
+    the cache carries a ``page_table``, else on the dense cache.
 
-    Each slot's new K/V row lands at its current (block, offset); a slot
-    whose page-table entry there is -1 (released) writes nothing, so a dead
-    slot never corrupts blocks leased to others.  ``lens`` comes back as
-    ``pos + 1``, pinned to 0 where ``page_table[:, 0] < 0``."""
-    if "page_table" not in cache:
-        raise NotImplementedError("the dense cache is not ported yet")
+    Paged: each slot's new K/V row lands at its current (block, offset); a
+    slot whose page-table entry there is -1 (released) writes nothing, so a
+    dead slot never corrupts blocks leased to others, and ``lens`` comes
+    back as ``pos + 1``, pinned to 0 where ``page_table[:, 0] < 0``.
+    Dense: every row writes at its position, clamped to the last one as the
+    reference's ``dynamic_update_slice`` clamps it, and ``lens`` comes back
+    as ``pos + 1``.  Attention runs on ``paged_decode_attention`` /
+    ``decode_attention`` (the CUDA kernels on the card, which read only each
+    row's live positions; their plain versions on the CPU)."""
     hd = cfg.hd()
+    paged = "page_table" in cache
     pos = cache["lens"] if positions is None else positions
-    pt = cache["page_table"]
-    nb, bs = cache["attn"]["k"].shape[1:3]
-    mb = pt.shape[1]
-    x = L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
+    x = embed_inputs(params, cfg, tokens)
     cos, sin = _rope_cos_sin(cfg, pos)
-    blk_idx = torch.clamp(pos // bs, 0, mb - 1).long()
-    blk_id = torch.gather(pt, 1, blk_idx[:, None])[:, 0]
-    # rows whose target block exists; one host sync per step picks them
-    rows = torch.nonzero(blk_id >= 0).squeeze(1)
-    dst_blk = blk_id[rows].long()
-    dst_off = (pos % bs).long()[rows]
     lens_now = (pos + 1).int()
+    if paged:
+        pt = cache["page_table"]
+        bs = cache["attn"]["k"].shape[2]
+        mb = pt.shape[1]
+        blk_idx = torch.clamp(pos // bs, 0, mb - 1).long()
+        blk_id = torch.gather(pt, 1, blk_idx[:, None])[:, 0]
+        # rows whose target block exists; one host sync per step picks them
+        rows = torch.nonzero(blk_id >= 0).squeeze(1)
+        dst = (blk_id[rows].long(), (pos % bs).long()[rows])
+    else:
+        s = cache["attn"]["k"].shape[2]
+        rows = slice(None)
+        dst = (torch.arange(pos.shape[0], device=pos.device),
+               torch.clamp(pos, 0, s - 1).long())
 
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache["attn"].items()}
         h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
-        q, k, v = _decode_qkv(lp["attn"], h, cfg)
-        q = L.apply_rope(q, cos[:, None], sin[:, None])
-        k = L.apply_rope(k, cos[:, None], sin[:, None])
-        _write_rows(lc, k[rows], v[rows], dst_blk, dst_off)
-        # the paged_decode_attention kernel on the card, which walks only
-        # each row's live pages; its plain gather version on the CPU
-        out = ops.paged_decode_attention(
-            q * (hd ** -0.5), lc["k"], lc["v"], pt, lens_now, lc.get("ks"),
-            lc.get("vs"))
+        q, k, v = _decode_qkv(lp["attn"], h, cfg, cos, sin)
+        _write_rows(lc, k[rows], v[rows], *dst)
+        if paged:
+            out = ops.paged_decode_attention(
+                q * (hd ** -0.5), lc["k"], lc["v"], pt, lens_now,
+                lc.get("ks"), lc.get("vs"))
+        else:
+            out = ops.decode_attention(q * (hd ** -0.5), lc["k"], lc["v"],
+                                       lens_now, lc.get("ks"), lc.get("vs"))
         x = x + _decode_out_proj(lp["attn"], out, x.dtype)
         x = x + _mlp(lp, x, cfg)
 
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
     logits = L.lm_head(params["embed"], x)
     new_cache = dict(cache)
-    new_cache["lens"] = torch.where(pt[:, 0] >= 0, lens_now,
-                                    torch.zeros_like(lens_now))
+    new_cache["lens"] = (torch.where(pt[:, 0] >= 0, lens_now,
+                                     torch.zeros_like(lens_now))
+                         if paged else lens_now)
     return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# one-shot prefill into the dense cache
+# ---------------------------------------------------------------------------
+
+
+def _attn_seq(p, x, cfg: ModelConfig, cos, sin):
+    """x (B, S, D) -> (attention output (B, S, D), the layer's (k, v)).
+
+    The Q/K/V/O projections go through the dequant ``qeinsum`` whatever the
+    strategy, as in the reference.  ``flash_prefill`` scales q by hd^-1/2
+    itself, so q goes in unscaled (the reference pre-scales q for its jnp
+    ``attention_scores_blockwise``)."""
+    h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
+    q = qeinsum("bsd,hkd->bshk", h, p["attn"]["wq"])
+    k = qeinsum("bsd,hkd->bshk", h, p["attn"]["wk"])
+    v = qeinsum("bsd,hkd->bshk", h, p["attn"]["wv"])
+    q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
+    k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
+    out = ops.flash_prefill(q, k, v, causal=True)
+    out = qeinsum("bshk,dhk->bsd", out, p["attn"]["wo"])
+    return out.to(x.dtype), (k, v)
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """x (B, S, D) input embeddings -> (final-normed hidden (B, S, D), each
+    layer's (k, v) (B, S, KVH, hd))."""
+    cos, sin = _rope_cos_sin(cfg, positions)
+    kvs = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        a, kv = _attn_seq(lp, x, cfg, cos, sin)
+        x = x + a
+        x = x + _mlp(lp, x, cfg)
+        kvs.append(kv)
+    return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps), kvs
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """Whole prompts ``batch["tokens"]`` (B, S) at positions 0..S-1 in one
+    pass: returns the last position's logits (B, V) f32 and a dense cache
+    of ``max_seq`` positions (default S) holding the prompts' K/V,
+    ``lens = S``.  Runs where the parameters live."""
+    dev = params["final_norm"]["gamma"].device
+    tokens = batch["tokens"]
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens, np.int64))
+    tokens = tokens.to(dev)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    hidden, kvs = forward_hidden(params, cfg, embed_inputs(params, cfg,
+                                                           tokens), positions)
+    cache = init_cache(cfg, b, max_seq or s, device=dev)
+    cache["lens"].fill_(s)
+    for i, (k, v) in enumerate(kvs):
+        _write_rows({kk: vv[i] for kk, vv in cache["attn"].items()}, k, v,
+                    slice(None), slice(0, s))
+    return L.lm_head(params["embed"], hidden[:, -1]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +508,7 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
     chunk_valid = (torch.arange(c, device=a.offs.device)[None]
                    < a.lens[:, None])
     acfg = L.AttnConfig(cfg.n_heads, kvh, hd, q_chunk=cfg.q_chunk)
-    x = L.embed_lookup(params["embed"], a.toks).to(_cdt(cfg))
+    x = embed_inputs(params, cfg, a.toks)
 
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)

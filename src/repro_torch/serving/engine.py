@@ -1,7 +1,8 @@
-"""Serving engine: executes the Scheduler's step plans over the paged pool.
+"""Serving engine: executes the Scheduler's step plans over the KV cache.
 
 PyTorch counterpart of ``repro/serving/engine.py`` for greedy requests on
-the paged KV cache.  The :class:`~repro_torch.serving.scheduler.Scheduler`
+the paged KV pool or the dense per-slot cache.  The
+:class:`~repro_torch.serving.scheduler.Scheduler`
 owns policy (admission, chunked prefill under a token budget, preemption
 with recompute-on-resume, prefix reuse); :class:`Engine` owns mechanism:
 each step it republishes the page table, runs the plan's copy-on-write
@@ -13,10 +14,16 @@ the freshly filled full blocks in the allocator's prefix index, so a later
 request with the same prompt prefix maps those blocks and prefills only
 the rest.
 
+``cache_kind="dense"`` serves from the contiguous per-slot reservation
+instead: each admitted prompt runs as one whole-prompt ``prefill`` whose
+(1, max_seq) cache is copied into its slot, then decodes with the rest;
+there are no blocks, so no prefix reuse, copy-on-write or preemption, and
+``n_samples > 1`` is rejected as in the reference.
+
 Not ported yet (ROADMAP): sampling with ``temperature > 0`` and
-``n_samples > 1`` (they need the reference's threefry keys) come back from
-:meth:`Engine.run` with ``.error`` set; speculative decoding, fault
-injection, async stepping, the dense cache and mesh sharding raise at
+``n_samples > 1`` on the paged pool (they need the reference's threefry
+keys) come back from :meth:`Engine.run` with ``.error`` set; speculative
+decoding, fault injection, async stepping and mesh sharding raise at
 construction or call.
 """
 
@@ -70,9 +77,11 @@ def _copy_pool_blocks(attn: Dict[str, torch.Tensor], src: torch.Tensor,
 class Engine:
     """Single-device continuous-batching engine (plan executor).
 
-    ``device`` is where the pool lives and the steps run (the card unless
-    ``"cpu"`` is passed); ``params`` are moved there.  ``n_pages`` sizes
-    the pool (default: the full ``max_slots * max_seq`` reservation);
+    ``device`` is where the cache lives and the steps run (the card unless
+    ``"cpu"`` is passed); ``params`` are moved there.  ``cache_kind`` is
+    ``"paged"`` (the block pool) or ``"dense"`` (a contiguous
+    ``max_seq`` reservation per slot).  ``n_pages`` sizes the pool
+    (default: the full ``max_slots * max_seq`` reservation);
     shrinking it oversubscribes, which the scheduler absorbs by deferring
     admission and preempting on mid-decode growth.  Requests that could
     never run come back from :meth:`run` with ``.error`` set."""
@@ -84,8 +93,10 @@ class Engine:
                  prefill_chunk_tokens: int = 512, spec_tokens: int = 0,
                  faults: Any = None, mesh: Any = None,
                  device: Device = None):
-        for name, off in (("cache_kind='dense'", cache_kind != "paged"),
-                          ("spec_tokens", spec_tokens),
+        if cache_kind not in ("paged", "dense"):
+            raise ValueError(f"cache_kind must be 'paged' or 'dense', got "
+                             f"{cache_kind!r}")
+        for name, off in (("spec_tokens", spec_tokens),
                           ("faults", faults is not None),
                           ("mesh", mesh is not None)):
             if off:
@@ -98,16 +109,22 @@ class Engine:
         self.eos_id = eos_id
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.page_size = page_size
-        mb = -(-max_seq // page_size)
-        self.n_pages = n_pages or max_slots * mb
-        self.pager = BlockAllocator(PagedConfig(
-            n_layers=model.cfg.n_layers, n_kv_heads=model.cfg.n_kv_heads,
-            head_dim=model.cfg.hd(), block_size=page_size,
-            n_blocks=self.n_pages, max_slots=max_slots,
-            max_blocks_per_seq=mb))
-        self.cache = model.init_paged_cache(
-            max_slots, block_size=page_size, n_blocks=self.n_pages,
-            max_blocks_per_seq=mb, device=self.device)
+        self.paged = cache_kind == "paged"
+        self.pager: Optional[BlockAllocator] = None
+        if self.paged:
+            mb = -(-max_seq // page_size)
+            self.n_pages = n_pages or max_slots * mb
+            self.pager = BlockAllocator(PagedConfig(
+                n_layers=model.cfg.n_layers,
+                n_kv_heads=model.cfg.n_kv_heads, head_dim=model.cfg.hd(),
+                block_size=page_size, n_blocks=self.n_pages,
+                max_slots=max_slots, max_blocks_per_seq=mb))
+            self.cache = model.init_paged_cache(
+                max_slots, block_size=page_size, n_blocks=self.n_pages,
+                max_blocks_per_seq=mb, device=self.device)
+        else:
+            self.cache = model.init_cache(max_slots, max_seq,
+                                          device=self.device)
         self.scheduler = Scheduler(
             max_slots=max_slots, max_seq=max_seq, pager=self.pager,
             prefill_chunk_tokens=prefill_chunk_tokens)
@@ -142,7 +159,9 @@ class Engine:
         self._uid += 1
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
                       t_enqueue=time.perf_counter(), output=[], **kw)
-        if req.temperature > 0 or req.n_samples > 1:
+        if req.temperature > 0 or (req.n_samples > 1 and self.paged):
+            # (the dense cache rejects n_samples > 1 in validate_request,
+            # as the reference does)
             err = (f"sampling (temperature > 0, n_samples > 1) is "
                    f"{NOT_PORTED}", ERR_INVALID)
         else:
@@ -200,8 +219,9 @@ class Engine:
         self.metrics["prefix_hits"] = self.scheduler.prefix_stats["hits"]
         self.metrics["prefix_cached_tokens"] = \
             self.scheduler.prefix_stats["cached_tokens"]
-        self.metrics["prefix_evictions"] = self.pager.stats["evictions"]
-        if plan.has_work():
+        if self.paged:
+            self.metrics["prefix_evictions"] = self.pager.stats["evictions"]
+        if self.paged and plan.has_work():
             # one republish per step covers its allocations, COW remaps and
             # any releases since the last one
             self._host_pt = self.pager.page_table()
@@ -227,6 +247,8 @@ class Engine:
     def _step_tail(self, plan: StepPlan) -> None:
         self.metrics["steps_per_token"] = (
             self.metrics["seq_steps"] / max(1, self.metrics["tokens_out"]))
+        if not self.paged:
+            return
         live = shared = 0
         for rc in self.pager.refcount:
             if rc > 0:
@@ -238,8 +260,11 @@ class Engine:
             self.metrics["blocks_saved_by_sharing_peak"], shared)
 
     def cache_utilization(self) -> float:
-        """Fraction of the KV pool in use."""
-        return self.pager.utilization()
+        """Fraction of the KV pool in use (of the slots, for the dense
+        cache)."""
+        if self.paged:
+            return self.pager.utilization()
+        return len(self.scheduler.running) / self.max_slots
 
     def throughput_tok_s(self) -> float:
         """Decode-only throughput: ``tokens_out / t_decode``."""
@@ -259,7 +284,7 @@ class Engine:
         wrote, release its leases, stamp the typed error."""
         bs = self.page_size
         for slot, seq in list(self.scheduler.running.items()):
-            if seq.req is req:
+            if seq.req is req and self.paged:
                 self.pager.quarantine(slot, seq.cached_len // bs)
         self.scheduler.fail_request(req)
         req.error, req.error_kind = msg, kind
@@ -268,9 +293,12 @@ class Engine:
         return req
 
     def _run_chunks(self, chunks: List[PrefillChunk]) -> List[Request]:
-        """All of this step's chunks as ONE call padded to the fixed
+        """Paged: all of this step's chunks as ONE call padded to the fixed
         ``(max_slots, prefill_chunk_tokens)`` extent; padding rows carry
-        slot -1 and write nothing."""
+        slot -1 and write nothing.  Dense: one whole-prompt ``prefill`` per
+        chunk, its cache copied into the chunk's slot."""
+        if not self.paged:
+            return self._run_dense_prefills(chunks)
         failed: List[Request] = []
         nrows, width = self.max_slots, self.prefill_chunk_tokens
         toks = np.zeros((nrows, width), np.int32)
@@ -301,6 +329,32 @@ class Engine:
             self._register_blocks(seq)
             self._finish_chunk(c, int(nxt[i]))
         return failed
+
+    def _run_dense_prefills(self, chunks: List[PrefillChunk]
+                            ) -> List[Request]:
+        failed: List[Request] = []
+        for c in chunks:
+            t0 = time.perf_counter()
+            logits, pcache = self.model.prefill(
+                self.params, {"tokens": c.seq.tokens[None, c.start:c.end]},
+                max_seq=self.max_seq)
+            self._merge_slot_cache(c.seq.slot, pcache, c.end)
+            nxt, finite = self._greedy(logits)
+            self.metrics["t_prefill"] += time.perf_counter() - t0
+            if not finite[0]:
+                self.metrics["nan_rows"] += 1
+                failed.append(self._fail_request(
+                    c.seq.req, "non-finite logits during prefill", ERR_NAN))
+                continue
+            self._finish_chunk(c, int(nxt[0]))
+        return failed
+
+    def _merge_slot_cache(self, slot: int, pcache, plen: int) -> None:
+        """Copy a (1, max_seq) prefill cache into slot ``slot`` of the
+        dense cache (every buffer's batch axis follows its layer axis)."""
+        for key, buf in self.cache["attn"].items():
+            buf[:, slot] = pcache["attn"][key][:, 0]
+        self.cache["lens"][slot] = plen
 
     def _stop_hit(self, seq, tok: int) -> bool:
         req = seq.req
@@ -339,6 +393,8 @@ class Engine:
     def _register_blocks(self, seq) -> None:
         """Publish every freshly filled full block of ``seq`` into the
         allocator's prefix index, hash-chained on its whole token prefix."""
+        if not self.paged:
+            return
         bs = self.page_size
         full = seq.kv_len // bs
         if full <= seq.registered:

@@ -75,7 +75,7 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         Engine(m, params, max_slots=1, max_seq=16, page_size=8)
     with pytest.raises(NotImplementedError):
         Engine(m, params, max_slots=1, max_seq=16, page_size=8,
-               cache_kind="dense", device="cpu")
+               spec_tokens=1, device="cpu")
     eng = Engine(m, params, max_slots=1, max_seq=16, page_size=8,
                  device="cpu")
     with pytest.raises(NotImplementedError):

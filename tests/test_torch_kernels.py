@@ -7,10 +7,11 @@ versions (``repro/kernels/ref.py``), on the same numpy inputs.  The CUDA
 kernels themselves are held against the same plain versions on the card
 by ``chip_smoke.py``.
 
-Tolerances: the Q8 products are exact per group, so the only difference is
-the f32 order of the sum over groups (rtol = atol = 1e-5 on outputs of
-magnitude ~10); attention sums the same f32 terms in another order and
-with another softmax normalisation point (atol 2e-6 on unit-scale values).
+Tolerances: the Q8 and Q4 products are exact per group, so the only
+difference is the f32 order of the sum over groups (rtol = atol = 1e-5 on
+outputs of magnitude ~10); attention sums the same f32 terms in another
+order and with another softmax normalisation point (atol 2e-6 on unit-scale
+values); rope may fuse its multiply-add in XLA (1e-6, the last place).
 """
 
 import jax
@@ -172,6 +173,140 @@ def test_ref_paged_prefill_matches_jax_ref(int8):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-6,
                                    rtol=2e-6)
+
+
+@pytest.mark.parametrize("m", [1, 8, 33, 80])
+def test_q4_matvec_matches_pallas(m):
+    """Q4_0 weights go to q4_matvec for every row count, as in the JAX
+    dispatch; both against the JAX kernel (interpret) and plain version."""
+    rng = np.random.default_rng(40 + m)
+    n, k, group = 96, 256, 64
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) / 16).astype(np.float32)
+    jw = jquantize(jnp.asarray(w), group_size=group, bits=4)
+    want = np.asarray(jops.q8_matmul(jnp.asarray(x), jw, **I))
+    tw = QuantizedTensor(q=_t(jw.q), scale=_t(jw.scale), group_size=group,
+                         bits=4, orig_dim=k)
+    got = ops.q8_matmul(_t(x), tw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    xq = jquantize(jnp.asarray(x), group_size=group)
+    want = np.asarray(jref.ref_q4_matvec(xq.q, xq.scale, jw.q, jw.scale,
+                                         group))
+    for fn in (ops.q4_matvec_kernel, ref.ref_q4_matvec):
+        got = fn(_t(xq.q), _t(xq.scale), _t(jw.q), _t(jw.scale),
+                 group).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _cache(rng, b, s, kvh, d, int8):
+    """A dense (B, S, KVH, D) K/V cache, int8 with per-row scales."""
+    k, v, ks, vs = _pool(rng, b, s, kvh, d, int8)
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hq", [1, 2])
+def test_decode_attention_matches_pallas(int8, hq):
+    rng = np.random.default_rng(21 + hq)
+    b, s, kvh, d = 4, 48, 2, 32
+    k, v, ks, vs = _cache(rng, b, s, kvh, d, int8)
+    lens = np.array([17, 0, 48, 5], np.int32)      # row 1: length 0
+    q = (rng.standard_normal((b, kvh * hq, d)) / np.sqrt(d)).astype(
+        np.float32)
+    want = np.asarray(jops.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        _jopt(ks), _jopt(vs), block_s=16, **I))
+    got = ops.decode_attention(_t(q), _t(k), _t(v), _t(lens), _opt(ks),
+                               _opt(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+    assert not got[1].any()                    # len 0 -> exactly 0
+    q4 = q.reshape(b, kvh, hq, d)
+    want4 = np.asarray(jref.ref_decode_attention(
+        jnp.asarray(q4), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lens.reshape(b, 1)), _jopt(ks), _jopt(vs)))
+    got4 = ref.ref_decode_attention(_t(q4), _t(k), _t(v),
+                                    _t(lens.reshape(b, 1)), _opt(ks),
+                                    _opt(vs))
+    np.testing.assert_allclose(got4.numpy(), want4, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("hq", [1, 2])
+def test_flash_prefill_matches_pallas(hq):
+    """Per-row q_offset / q_lens / k_lens (chunked form, Sk > Sq) with
+    GQA; rows past q_lens are 0 in the port and unspecified in the JAX
+    kernel, so only the live rows are compared."""
+    rng = np.random.default_rng(31 + hq)
+    b, sq, sk, kvh, d = 3, 24, 40, 2, 32
+    q = rng.standard_normal((b, sq, kvh * hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    off = np.array([16, 0, 9], np.int32)
+    qlens = np.array([24, 13, 0], np.int32)
+    klens = np.array([40, 13, 30], np.int32)
+    want = np.asarray(jops.flash_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=jnp.asarray(off), q_lens=jnp.asarray(qlens),
+        k_lens=jnp.asarray(klens), block_q=8, block_k=8, **I))
+    got = ops.flash_prefill(_t(q), _t(k), _t(v), q_offset=_t(off),
+                            q_lens=_t(qlens), k_lens=_t(klens)).numpy()
+    for i in range(b):
+        n = qlens[i]
+        np.testing.assert_allclose(got[i, :n], want[i, :n], atol=2e-6,
+                                   rtol=0)
+        assert not got[i, n:].any()
+    # the one-shot form against the JAX plain version
+    qs, ks_ = q[:, :16], k[:, :16]
+    want = np.asarray(jref.ref_flash_prefill(
+        jnp.asarray(qs), jnp.asarray(ks_), jnp.asarray(v[:, :16])))
+    for fn in (ops.flash_prefill_kernel, ref.ref_flash_prefill):
+        got = fn(_t(qs), _t(ks_), _t(v[:, :16])).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+
+
+def test_rope_matches_pallas():
+    rng = np.random.default_rng(8)
+    b, h, d = 3, 5, 32
+    x = rng.standard_normal((b, h, d)).astype(np.float32)
+    ang = rng.uniform(-3, 3, (b, d // 2)).astype(np.float32)
+    ang = np.concatenate([ang, ang], axis=-1)
+    cos, sin = np.cos(ang), np.sin(ang)
+    # XLA may fuse the multiply-add, so the packages agree to the last
+    # place, not bitwise
+    want = np.asarray(jops.rope(jnp.asarray(x), jnp.asarray(cos),
+                                jnp.asarray(sin), **I))
+    want_ref = np.asarray(jref.ref_rope(jnp.asarray(x),
+                                        jnp.asarray(cos)[:, None],
+                                        jnp.asarray(sin)[:, None]))
+    for fn in (ops.rope, ops.rope_kernel, ref.ref_rope):
+        got = fn(_t(x), _t(cos), _t(sin)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(got, want_ref, atol=1e-6, rtol=1e-6)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+# one call per new kernel wrapper, on meta tensors of the right shapes
+_META_CALLS = {
+    "q4_matvec": lambda: ops.q4_matvec_kernel(
+        _meta((2, 64), torch.int8), _meta((2, 1)), _meta((8, 32), torch.int8),
+        _meta((8, 1)), 64),
+    "decode_attention": lambda: ops.decode_attention_kernel(
+        _meta((2, 2, 1, 32)), _meta((2, 16, 2, 32)), _meta((2, 16, 2, 32)),
+        _meta((2,), torch.int32)),
+    "flash_prefill": lambda: ops.flash_prefill_kernel(
+        _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32))),
+    "rope": lambda: ops.rope_kernel(_meta((2, 3, 32)), _meta((2, 32)),
+                                    _meta((2, 32))),
+}
+
+
+@pytest.mark.parametrize("name", list(_META_CALLS))
+def test_new_wrappers_never_take_the_plain_version(name):
+    """Off the CPU the wrapper goes to its CUDA kernel or raises."""
+    with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
+        _META_CALLS[name]()
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
