@@ -2,18 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
 (phase 1), holds each against its plain PyTorch version at the shapes the
 llama2-110m paths give it (phase 2), and serves llama2-110m at full width
 through ``repro_torch.serving.engine.Engine`` on the card: the paged pool
 with f32 and int8 KV (phases 3-4), the reduced config on the card against
-the same weights on the CPU (phase 5), the dense per-slot cache with f32 and
-int8 KV (phase 7), Q4_0 weights on both caches (phase 8) and the paper's
-batch-1 single stream (phase 9).  Every served path resets the launch
-counters before it runs and asserts exactly the launches its shape implies
-after.  Any failed phase exits non-zero.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the main path, its error and its times.
+the same weights on the CPU, greedy and sampled, with the threefry gumbel
+noise bitwise (phase 5), the dense per-slot cache with f32 and int8 KV
+(phase 7), Q4_0 weights on both caches (phase 8), the paper's batch-1
+single stream (phase 9), ``launch/serve.py`` at its own sampling defaults
+(phase 11) and best-of-4 sampling groups over shared blocks (phase 12).
+Every served path resets the launch counters before it runs and asserts
+exactly the launches its shape implies after.  Any failed phase exits
+non-zero.  The last line of standard output is ``{"ok": true, "device":
+{...}}``; the lines before it give the card's name and power limit and
+list every kernel with its launches on the main paths, its error and its
+times.
 
 It imports nothing of JAX or of the JAX package.  With no CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -444,6 +449,85 @@ def check_rope(report, dev):
                per="one layer's call at 8 slots: q and k heads of qkv")
 
 
+def check_rmsnorm_quant(report, dev):
+    """rmsnorm_quant at the decode step's rows (M = 1, 8 slots) and a chunk
+    step's (M = 8 x 256), K = 768, random gamma, one all-zero group and one
+    row at large magnitude.  Codes are held within 1 (the count printed),
+    scales within a relative 3e-7.  The kernel sums mean(x^2) in the order
+    of torch.mean on the card; the same kernel is also run with another
+    number of threads a row (another order), and how far its scales part
+    from the plain version's is printed, not held."""
+    from repro_torch.kernels import build, ops, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k, gs, eps = 768, 64, 1e-5
+    gamma = torch.randn((k,), generator=gen, device=dev)
+    rec = {}
+    for m in (1, 8, 2048):
+        def mk():
+            x = torch.randn((m, k), generator=gen, device=dev)
+            x[0, 64:128] = 0.0
+            x[-1] *= 1e4
+            return x
+        x = mk()
+        q, sc = ops.rmsnorm_quant_kernel(x, gamma, eps, gs)
+        wq, ws = ref.ref_rmsnorm_quant(x, gamma, eps, gs)
+        torch.cuda.synchronize()
+        dq = (q.int() - wq.int()).abs()
+        n_diff = int((dq > 0).sum().item())
+        rel = ((sc - ws).abs() / ws.abs().clamp(min=1e-30)).max().item()
+        zero_ok = bool((q[0, 64:128] == 0).all()) and sc[0, 1].item() == 0.0
+        deq = (q.float().reshape(m, -1, gs) * sc[..., None]
+               - wq.float().reshape(m, -1, gs) * ws[..., None])
+        err = deq.abs().max().item()
+        if not (dq.max().item() <= 1 and rel <= 3e-7 and zero_ok):
+            raise AssertionError(
+                f"rmsnorm_quant M={m}: codes differ by up to "
+                f"{dq.max().item()} ({n_diff} of {m * k}), scales by "
+                f"{rel:.3g} relative, zero group exact {zero_ok}; the kernel "
+                f"sums in torch {ops.TORCH_ROW_MEAN_ORDER_OF}'s row-mean "
+                f"order, this is torch {torch.__version__}")
+        width, factor = ops._torch_row_mean_order(m, k)
+        alt = 32 if width != 32 else 128
+        aq = torch.empty_like(q)
+        asc = torch.empty_like(sc)
+        build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
+                     aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
+                     alt, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        alt_codes = int((aq != wq).sum().item())
+        alt_scales = int((asc != ws).sum().item())
+        alt_rel = ((asc - ws).abs() / ws.abs().clamp(min=1e-30)).max().item()
+        nbytes = m * k * 4 + k * 4 + m * k + m * (k // gs) * 4
+        b_ms, b_by = bound(nbytes, 6.0 * m * k, F32_FLOPS_PER_S)
+        nxt = rotating(mk, m * k * 4)
+        ms = time_ms(lambda: ops.rmsnorm_quant_kernel(nxt(), gamma, eps, gs),
+                     iters=50)
+        plain = time_ms(lambda: ref.ref_rmsnorm_quant(nxt(), gamma, eps, gs),
+                        iters=20)
+        log(f"  rmsnorm_quant M={m:5d} K={k}: {n_diff} of {m * k} codes differ"
+            f" by 1, max scale diff {rel:.2e} relative (tol 3e-7), "
+            f"dequantized max abs err {err:.2e}  kernel "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  library - (no single call)"
+            f"  bound {b_ms:.6f} ms ({b_by}); summed by {alt} threads a "
+            f"row instead of torch's {width}: {alt_codes} codes and "
+            f"{alt_scales} of {sc.numel()} scales differ, max "
+            f"{alt_rel:.2e} relative")
+        rec[m] = (ms, plain, b_ms, b_by, n_diff, rel, err)
+    ms, plain, b_ms, b_by = rec[8][:4]
+    report.add("rmsnorm_quant", route="cuda",
+               source="src/repro_torch/kernels/csrc/rmsnorm_quant.cu",
+               replaces="src/repro/kernels/rmsnorm_quant.py:58",
+               max_abs_err=max(r[6] for r in rec.values()), ms=ms,
+               plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               m2048_ms=rec[2048][0], m2048_plain_ms=rec[2048][1],
+               m2048_bound_ms=rec[2048][2],
+               codes_differing={str(m): r[4] for m, r in rec.items()},
+               scale_rel_err=max(r[5] for r in rec.values()),
+               per="one call at M=8 decode rows, K=768 (m2048_* for a chunk "
+                   "step's 2048 rows); max_abs_err on the dequantized "
+                   "values code * scale")
+
+
 def _pools(gen, dev, nb, bs, kvh, d, int8):
     from repro_torch.core.quantization import quantize_rows
     k = torch.randn((nb, bs, kvh, d), generator=gen, device=dev)
@@ -637,11 +721,16 @@ def _requests(n, lo, hi, vocab, seed, shared_len=0, shared_at=()):
     return out
 
 
-def serve(model, params, prompts, dev, max_new, **engine_kw):
+def serve(model, params, prompts, dev, max_new, sampling=None, **engine_kw):
+    """Serve ``prompts`` greedily, or with the per-request ``sampling``
+    keyword dicts; returns the engine, each request's streams (its output,
+    or its list of sibling outputs when it has several) and the wall
+    time."""
     from repro_torch.serving.engine import Engine
     eng = Engine(model, params, device=dev, **engine_kw)
-    for p in prompts:
-        eng.submit(p, max_new_tokens=max_new, temperature=0.0)
+    for i, p in enumerate(prompts):
+        kw = dict(temperature=0.0) if sampling is None else sampling[i]
+        eng.submit(p, max_new_tokens=max_new, **kw)
     t0 = time.perf_counter()
     done = sorted(eng.run(), key=lambda r: r.uid)
     if dev.type == "cuda":
@@ -650,7 +739,8 @@ def serve(model, params, prompts, dev, max_new, **engine_kw):
     bad = [(r.uid, r.error) for r in done if r.error is not None]
     if bad or len(done) != len(prompts):
         raise AssertionError(f"requests failed: {bad}")
-    return eng, [list(r.output) for r in done], wall
+    return eng, [list(r.output) if len(r.outputs) == 1 else
+                 [list(o) for o in r.outputs] for r in done], wall
 
 
 def engine_line(tag, eng, streams, wall):
@@ -668,6 +758,53 @@ def engine_line(tag, eng, streams, wall):
         f"{m['preemptions']}")
     return {"tok_s": toks / wall, "decode_step_ms": dec,
             ("chunk_step_ms" if eng.paged else "prefill_ms"): pre}
+
+
+def device_launches(prof):
+    """(device operations, PyTorch elementwise kernels among them) that a
+    profile recorded."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(e.count for e in events if "elementwise" in e.key))
+
+
+def decode_step_launches(model, params, dev):
+    """Device operations of one dense decode step at 8 slots with the fused
+    norm-and-quantize, and with the unfused pair (the norm, then the
+    product's own quantization) put back in its place for the count."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import qlinear
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import rms_norm
+    from repro_torch.models import layers, transformer
+    cache = model.init_cache(8, 64, device=dev)
+    tokens = torch.arange(8, device=dev)
+    out = {}
+    try:
+        for name, fn in (("fused", qlinear.norm_qdot),
+                         ("unfused", lambda x, g, eps, w: qlinear.qdot(
+                             rms_norm(x, g, eps), w))):
+            transformer.norm_qdot = layers.norm_qdot = fn
+            before = build.LAUNCHES["rmsnorm_quant"]
+            model.decode_step(params, cache, tokens)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.decode_step(params, cache, tokens)
+                torch.cuda.synchronize()
+            out[name] = device_launches(prof)
+            fused = build.LAUNCHES["rmsnorm_quant"] - before
+            if (fused > 0) != (name == "fused"):
+                raise AssertionError(
+                    f"the {name} decode step launched rmsnorm_quant {fused} "
+                    f"times: the swap of norm_qdot no longer reaches the "
+                    f"step")
+    finally:
+        transformer.norm_qdot = layers.norm_qdot = qlinear.norm_qdot
+    log(f"  one dense decode step at 8 slots: {out['fused'][0]} device "
+        f"operations ({out['fused'][1]} elementwise) with rmsnorm_quant, "
+        f"{out['unfused'][0]} ({out['unfused'][1]}) with the unfused pair")
+    return out
 
 
 def profiled(fn):
@@ -688,8 +825,10 @@ def profiled(fn):
     if busy == 0:
         log("  profiler: no device time recorded (not measured)")
         return out, None
+    n_all, n_elem = device_launches(prof)
     log(f"  profiler: card busy {busy:.3f} s of {wall:.3f} s wall "
-        f"({100 * busy / wall:.1f}%); top kernels by device time:")
+        f"({100 * busy / wall:.1f}%); {n_all} device operations, {n_elem} "
+        "of them PyTorch elementwise kernels; top kernels by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:6d}  "
             f"{e.key[:90]}")
@@ -699,12 +838,16 @@ def profiled(fn):
 def check_launches(eng, launches, cfg, counted, bits=8):
     """Every kernel of the run's path ran, and exactly as often as the
     path's shape says.  Each decode step: 4 GEMVs per layer + the head, one
-    rope and one attention call per layer.  Paged, each chunk step: the
-    MLP's two products per layer, the head's GEMV and one prefix-attention
-    call per layer.  Dense, each whole-prompt prefill of S tokens: one
-    flash_prefill per layer, the MLP's two products per layer at M = S and
-    the head's GEMV.  Q4_0 weights put every product on q4_matvec.  The
-    counts are added to ``counted`` for the kernels line."""
+    rope and one attention call per layer, and one rmsnorm_quant per
+    norm-then-product pair (norm1 -> wqkv, norm2 -> w13 per layer, the
+    final norm -> head: 2 per layer + 1).  Paged, each chunk step: the
+    MLP's two products per layer, the head's GEMV, one prefix-attention
+    call per layer and rmsnorm_quant for norm2 -> w13 and the final norm
+    (1 per layer + 1).  Dense, each whole-prompt prefill of S tokens: one
+    flash_prefill per layer, the MLP's two products per layer at M = S, the
+    head's GEMV and rmsnorm_quant as the chunk step.  Q4_0 weights put every
+    product on q4_matvec.  The counts are added to ``counted`` for the
+    kernels line."""
     from repro_torch.kernels import build
     nl = cfg.n_layers
     d = eng.metrics["decode_steps"]
@@ -713,12 +856,14 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     want = dict.fromkeys(build.SIGNATURES, 0)
     want[gemv] += (4 * nl + 1) * d
     want["rope"] += nl * d
+    want["rmsnorm_quant"] += (2 * nl + 1) * d
     if eng.paged:
         attn = ("paged_decode_attention", "paged_prefill_attention")
         c = eng.metrics["chunk_batch_calls"]
         rows = eng.max_slots * eng.prefill_chunk_tokens
         want[gemm if rows > 32 else gemv] += 2 * nl * c
         want[gemv] += c
+        want["rmsnorm_quant"] += (nl + 1) * c
         want[attn[0]] += nl * d
         want[attn[1]] += nl * c
     else:
@@ -727,38 +872,42 @@ def check_launches(eng, launches, cfg, counted, bits=8):
         for n in pre:
             want[gemm if n > 32 else gemv] += 2 * nl
             want[gemv] += 1
+            want["rmsnorm_quant"] += nl + 1
         want[attn[0]] += nl * d
         want[attn[1]] += nl * len(pre)
-    path = {gemv, gemm, "rope", *attn}
+    path = {gemv, gemm, "rope", "rmsnorm_quant", *attn}
     if launches != want or min(launches[k] for k in path) <= 0:
         raise AssertionError(f"launches {launches} != expected {want}")
     for k, v in launches.items():
         counted[k] = counted.get(k, 0) + v
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
-        f"{4 * nl + 1} {gemv}, {nl} rope and {nl} {attn[0]} per decode "
-        f"step over {d} steps")
+        f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {nl} rope and "
+        f"{nl} {attn[0]} per decode step over {d} steps")
 
 
 def compare_streams(tag, got, want, prompts, gap_fn, tol):
-    """Greedy streams that should agree: equal, or parting only at a step
-    whose top-2 logit gap is below ``tol`` (an int8 activation code flipped
-    by a last-place difference upstream moves a logit by up to that)."""
+    """Streams that should agree: equal, or parting only at a step whose
+    top-2 logit gap (perturbed by the step's gumbel noise when sampled) is
+    below ``tol`` (an int8 activation code flipped by a last-place
+    difference upstream moves a logit by up to that).  ``gap_fn`` takes
+    the sequence before the step, its prompt length and the stream's
+    index."""
     for i, (a, b) in enumerate(zip(got, want)):
         part = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                     None)
         if part is None and len(a) == len(b):
             continue
         part = min(len(a), len(b)) if part is None else part
-        gap = gap_fn(np.concatenate([prompts[i],
-                                     np.asarray(b[:part], np.int32)]))
+        seq = np.concatenate([prompts[i], np.asarray(b[:part], np.int32)])
+        gap = gap_fn(seq, len(prompts[i]), i)
         log(f"  {tag}: request {i} parts at token {part}, top-2 gap "
             f"{gap:.3g}")
         if not gap < tol:
             raise AssertionError(f"{tag}: request {i} parts at token {part} "
                                  f"with top-2 gap {gap} >= {tol}")
     same = sum(a == b for a, b in zip(got, want))
-    log(f"  {tag}: {same}/{len(want)} greedy streams equal; any parting is "
-        "at a near-tie")
+    log(f"  {tag}: {same}/{len(want)} streams equal; any parting is at a "
+        "near-tie")
 
 
 def _chunk_logits(model, params, seq, device):
@@ -777,6 +926,28 @@ def _chunk_logits(model, params, seq, device):
 def _top2_gap(model, params, seq, device):
     top = torch.topk(_chunk_logits(model, params, seq, device), 2).values
     return float(top[0] - top[1])
+
+
+def _sampled_gap(model, params, device, streams, t, top_p):
+    """The perturbed top-2 gap of a sampled step, in logit units: the draw
+    after ``seq`` is the argmax of ``logits / t + gumbel`` over the top-p
+    nucleus, with the key of stream ``i``'s ``(seed, stream)`` at its
+    position, so a logit difference below the gap cannot move it."""
+    from repro_torch.core import prng
+
+    def gap(seq, n_prompt, i):
+        seed, stream = streams[i]
+        logits = _chunk_logits(model, params, seq, device).float()
+        key = prng.fold_in(prng.fold_in(prng.prng_key(seed, device),
+                                        stream), len(seq) - n_prompt)
+        scaled = logits / t
+        srt = torch.sort(scaled, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        masked = torch.where(scaled >= srt[keep].min(), scaled, -math.inf)
+        top = torch.topk(masked + prng.gumbel(key, masked.shape), 2).values
+        return float(top[0] - top[1]) * t
+    return gap
 
 
 def check_flip_scale(tag, model, params, prompts, dev):
@@ -829,6 +1000,7 @@ def main_path(dev, counted):
     if again != streams:
         raise AssertionError("a second run gave different greedy streams")
     log("  second run (profiled): identical streams")
+    e2e["decode_step_launches"] = decode_step_launches(model, params, dev)
 
     phase("phase 4: llama2-110m full width, int8 KV pool, 8 greedy requests")
     m8 = build_model(cfg.with_(kv_cache_dtype="int8"))
@@ -857,7 +1029,7 @@ def dense_path(dev, cfg, params, prompts, paged, counted):
         check_launches(eng, dict(build.LAUNCHES), cfg, counted)
         out[kv] = engine_line(f"dense {kv} cache", eng, got, wall)
         compare_streams(f"dense {kv} vs paged", got, want, reqs,
-                        lambda seq: _top2_gap(m, params, seq, dev),
+                        lambda seq, *_: _top2_gap(m, params, seq, dev),
                         FULL_FLIP_TOL)
     check_flip_scale("Q8_0", m, params, prompts[:4], dev)
     return out
@@ -894,7 +1066,8 @@ def q4_path(dev, cfg, prompts, params8, counted):
         out[kind] = engine_line(f"Q4_0 {kind}", eng, streams[kind], wall)
     compare_streams("Q4_0 dense vs paged", streams["dense"],
                     streams["paged"], reqs,
-                    lambda seq: _top2_gap(model, p4, seq, dev), FULL_FLIP_TOL)
+                    lambda seq, *_: _top2_gap(model, p4, seq, dev),
+                    FULL_FLIP_TOL)
     check_flip_scale("Q4_0", model, p4, reqs[:4], dev)
     return model, p4, out
 
@@ -974,8 +1147,189 @@ def reduced_cpu_vs_card(dev):
                                   **extra)
         compare_streams(f"{extra.get('cache_kind', 'paged')} CPU vs card",
                         dev_streams, cpu_streams, prompts,
-                        lambda seq: _top2_gap(model, p_cpu, seq, cpu),
+                        lambda seq, *_: _top2_gap(model, p_cpu, seq, cpu),
                         FLIP_TOL)
+    check_sampling_cpu_vs_card(model, p_cpu, p_dev, prompts, dev, kw)
+
+
+# the sampled phases' settings (phases 5 and 12)
+TEMP, TOP_P = 0.8, 0.95
+
+
+def check_sampling_cpu_vs_card(model, p_cpu, p_dev, prompts, dev, kw):
+    """The threefry gumbel noise on the card equals the CPU's bit for bit;
+    sampled streams from both are equal or part only at a near-tie."""
+    from repro_torch.core import prng
+    cpu = torch.device("cpu")
+    keys = prng.split(prng.prng_key(1234), 8)
+    want = prng.gumbel(keys, (32000,))
+    got = prng.gumbel(keys.to(dev), (32000,)).cpu()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    phase(f"phase 5: gumbel noise for 8 keys x 32000 on the card vs the "
+          f"CPU: {n_diff} of {want.numel()} values differ in any bit")
+    if n_diff:
+        raise AssertionError(f"threefry gumbel noise differs on the card in "
+                             f"{n_diff} values")
+    sampling = [dict(temperature=TEMP, top_p=TOP_P, seed=100 + i)
+                for i in range(len(prompts))]
+    gap = _sampled_gap(model, p_cpu, cpu,
+                       [(100 + i, 0) for i in range(len(prompts))], TEMP,
+                       TOP_P)
+    for extra in ({}, {"cache_kind": "dense"}):
+        _, cpu_streams, _ = serve(model, p_cpu, prompts, cpu, 8, sampling,
+                                  **kw, **extra)
+        _, dev_streams, _ = serve(model, p_dev, prompts, dev, 8, sampling,
+                                  **kw, **extra)
+        compare_streams(f"sampled (t {TEMP}, top_p {TOP_P}) "
+                        f"{extra.get('cache_kind', 'paged')} CPU vs card",
+                        dev_streams, cpu_streams, prompts, gap, FLIP_TOL)
+
+
+def serve_cli(dev, cfg, counted):
+    """Phase 11: ``launch/serve.py``'s closed batch at full width, at the
+    CLI's own sampling defaults (temperature 1.0, top-p 1.0), for Q8_0 with
+    an f32 pool, the int8 pool and Q4_0; Q8_0 twice with one seed gives the
+    same streams; then the module entry point itself as a subprocess."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as cli
+    out = {}
+    kw = dict(arch="llama2-110m", use_reduced=False, requests=16, slots=8,
+              max_seq=1024, max_new=48, device="cuda")
+    for tag, extra in (("Q8_0 f32 pool", {}), ("Q8_0 int8 pool",
+                                               {"kv_int8": True}),
+                       ("Q4_0 f32 pool", {"bits": 4})):
+        phase(f"phase 11: launch/serve.py run(), llama2-110m full width, "
+              f"{tag}, 16 requests x 48 tokens at temperature 1.0, top_p 1.0")
+        build.reset_launches()
+        eng, done = cli.run(**kw, **extra)
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted,
+                       bits=extra.get("bits", 8))
+        bad = [(r.uid, r.error) for r in done if r.error is not None]
+        if bad or len(done) != 16:
+            raise AssertionError(f"serve.run {tag}: failed {bad}")
+        streams = [r.outputs for r in done]
+        toks = sum(len(o) for r in done for o in r.outputs)
+        wall = max(r.t_done for r in done) - min(r.t_enqueue for r in done)
+        lat = cli.first_token_latencies(done) * 1e3
+        m = eng.metrics
+        out[tag] = {"tok_s": toks / wall,
+                    "decode_step_ms": m["t_decode"] / m["decode_steps"] * 1e3,
+                    "ttft_p50_ms": float(np.median(lat)),
+                    "ttft_p95_ms": float(np.percentile(lat, 95))}
+        log(f"  {tag}: {toks} tokens over {wall:.3f} s = "
+            f"{out[tag]['tok_s']:.1f} tok/s; decode step "
+            f"{out[tag]['decode_step_ms']:.3f} ms over {m['decode_steps']} "
+            f"steps; TTFT p50 {out[tag]['ttft_p50_ms']:.1f} ms, p95 "
+            f"{out[tag]['ttft_p95_ms']:.1f} ms")
+        if not extra:
+            build.reset_launches()
+            eng2, again = cli.run(**kw)
+            check_launches(eng2, dict(build.LAUNCHES), cfg, counted)
+            if [r.outputs for r in again] != streams:
+                raise AssertionError("serve.run with the same seed gave "
+                                     "different streams")
+            log("  second run with the same seed: identical streams")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+           "--requests", "16", "--slots", "8", "--max-seq", "1024"]
+    phase(f"phase 11: {' '.join(cmd[1:])} as a subprocess")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    secs = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"    {line}")
+    if res.returncode != 0 or "[serve] 16/16 requests" not in res.stdout:
+        raise AssertionError(f"the serve module exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    log(f"  the module entry point ran in {secs:.1f} s (process start, "
+        "weights, quantization and the batch)")
+    out["module_s"] = secs
+    return out
+
+
+def best_of_n(dev, cfg, params, counted):
+    """Phase 12: 4 requests of n_samples=4 at temperature 0.8, top_p 0.95
+    on the paged f32 pool at full width: siblings share their prompt's
+    blocks and each equals an independent (seed, stream=i) request; then
+    the sampler's own cost on (8, 32000) logits."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    prompts = _requests(4, 100, 400, cfg.vocab_size, seed=7)
+    n = 4
+    phase(f"phase 12: best-of-{n} at full width, paged f32 pool, 4 requests "
+          f"at temperature {TEMP}, top_p {TOP_P}")
+    group = [dict(temperature=TEMP, top_p=TOP_P, seed=200 + i, n_samples=n)
+             for i in range(len(prompts))]
+    build.reset_launches()
+    eng, grouped, wall = serve(model, params, prompts, dev, 32, group,
+                               **PAGED_KW)
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    m = eng.metrics
+    log(f"  {len(prompts)} groups of {n}: {m['fanouts']} fanouts, "
+        f"{sum(len(o) for g in grouped for o in g)} tokens in {wall:.3f} s; "
+        f"peak blocks live {m['blocks_live_peak']}, saved by sharing "
+        f"{m['blocks_saved_by_sharing_peak']}; {m['cow_copies']} "
+        "copy-on-write block copies")
+    if m["fanouts"] != len(prompts) or m["blocks_saved_by_sharing_peak"] <= 0:
+        raise AssertionError("the groups did not fan out over shared blocks")
+    solo_prompts = [p for p in prompts for _ in range(n)]
+    solo = [dict(temperature=TEMP, top_p=TOP_P, seed=200 + i, stream=j)
+            for i in range(len(prompts)) for j in range(n)]
+    _, reruns, _ = serve(model, params, solo_prompts, dev, 32, solo,
+                         **PAGED_KW)
+    compare_streams(f"best-of-{n} siblings vs (seed, stream) reruns",
+                    [o for g in grouped for o in g], reruns, solo_prompts,
+                    _sampled_gap(model, params, dev,
+                                 [(200 + i, j) for i in range(len(prompts))
+                                  for j in range(n)], TEMP, TOP_P),
+                    FULL_FLIP_TOL)
+    return eng.metrics["fanouts"], sampler_cost(dev)
+
+
+def sampler_cost(dev):
+    """sample_logits_per_row on (8, 32000) against the greedy argmax: host
+    wall ms per call (it is launch-bound), and the device time and device
+    operations per call from a profile of five calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import prng
+    from repro_torch.serving.engine import sample_logits_per_row
+    gen = torch.Generator(device=dev).manual_seed(8)
+    logits = torch.randn((8, 32000), generator=gen, device=dev) * 0.5
+    keys = prng.split(prng.prng_key(3), 8).to(dev)
+    t = torch.full((8,), TEMP, device=dev)
+    p = torch.full((8,), TOP_P, device=dev)
+    rec = {}
+    for name, fn in (("sample_logits_per_row",
+                      lambda: sample_logits_per_row(keys, logits, t, p)),
+                     ("argmax", lambda: torch.argmax(logits, dim=-1))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 20 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        rec[name] = {"wall_ms": wall, "device_ms": None,
+                     "device_launches": None}
+        if events:
+            rec[name].update(device_ms=sum(
+                e.self_device_time_total for e in events) / 5e3,
+                device_launches=device_launches(prof)[0] / 5)
+        log(f"  {name} on (8, 32000): {wall:.3f} ms wall per call; device "
+            + ("time and operations not measured (the profile recorded no "
+               "device events)" if not events else
+               f"{rec[name]['device_ms']:.4f} ms, "
+               f"{rec[name]['device_launches']} operations per call"))
+    return rec
 
 
 def main() -> int:
@@ -1013,6 +1367,7 @@ def main() -> int:
     check_q4(report, dev)
     check_dense_attention(report, dev)
     check_rope(report, dev)
+    check_rmsnorm_quant(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
@@ -1024,6 +1379,10 @@ def main() -> int:
     b1 = single_stream(dev, model, {"Q8_0": params, "Q4_0": p4})
     phase(f"phase 10: dense cache {json.dumps(dense)}; Q4_0 {json.dumps(q4)}; "
           f"batch 1 {json.dumps(b1)}")
+    cli = serve_cli(dev, cfg, counted)
+    fanouts, sampler = best_of_n(dev, cfg, params, counted)
+    phase(f"phase 12: serve CLI {json.dumps(cli)}; best-of-4 fanouts "
+          f"{fanouts}; sampler {json.dumps(sampler)}")
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -14,6 +14,11 @@ with one of three strategies of identical math:
              (``kernels.ops.q8_matmul``: the Q4 kernel for Q4_0 weights;
              for Q8_0 the GEMV for <= 32 rows, the tiled GEMM above) --
              the counterpart of the reference's ``"pallas"``.
+
+``norm_qdot(x, gamma, eps, w)`` is ``qdot`` of the RMS-normed ``x``: under
+``kernel``, with a quantized weight, the norm and the activations' Q8_0
+quantization run as one ``rmsnorm_quant`` launch (the reference's fused
+Pallas kernel), whose codes and scales feed the same dispatch.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from repro_torch.core.quantization import QuantizedTensor, quantize
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ref_q4_matvec, ref_q8_matmul
+from repro_torch.kernels.ref import ref_q4_matvec, ref_q8_matmul, rms_norm
 
 Weight = Union[torch.Tensor, QuantizedTensor]
 
@@ -89,3 +94,21 @@ def qdot(x: torch.Tensor, w: Weight,
     if s == "kernel":
         return ops.q8_matmul(x, w)
     raise ValueError(f"unknown strategy {s!r}")
+
+
+def norm_qdot(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+              w: Weight) -> torch.Tensor:
+    """``qdot(rms_norm(x, gamma, eps), w)``.  Under ``kernel`` with a
+    quantized weight and f32 activations the norm and the quantization of
+    its output are one ``ops.rmsnorm_quant`` launch feeding
+    ``ops.q8_matmul_quantized``; the codes and scales are those the
+    unfused pair computes."""
+    if (_DEFAULT_STRATEGY != "kernel" or not isinstance(w, QuantizedTensor)
+            or x.dtype != torch.float32):
+        return qdot(rms_norm(x, gamma, eps), w)
+    *lead, k = x.shape
+    if k % w.group_size:
+        raise ValueError(f"norm_qdot: K={k} does not split into groups of "
+                         f"{w.group_size}")
+    xq, xs = ops.rmsnorm_quant(x.reshape(-1, k), gamma, eps, w.group_size)
+    return ops.q8_matmul_quantized(xq, xs, w).reshape(*lead, w.q.shape[0])

@@ -42,6 +42,7 @@ SIGNATURES: Dict[str, list] = {
     "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
     "rope": [_P] * 4 + [_I] * 4 + [_P],
+    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

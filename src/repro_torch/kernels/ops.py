@@ -8,15 +8,17 @@ in ``build.LAUNCHES`` -- or raises.  There is no fallback from a CUDA tensor
 to the plain version.
 
 The public functions below them mirror ``repro/kernels/ops.py``: activation
-quantization and the Q4 / GEMV / GEMM dispatch (``q8_matmul``), the GQA
-reshapes of the decode attention kernels, and the per-row extents of
-``flash_prefill``.
+quantization and the Q4 / GEMV / GEMM dispatch (``q8_matmul``, or
+``q8_matmul_quantized`` for activations already quantized by the fused
+``rmsnorm_quant``), the GQA reshapes of the decode attention kernels, and
+the per-row extents of ``flash_prefill``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantization import QuantizedTensor, quantize
@@ -315,6 +317,61 @@ def rope_kernel(x, cos, sin) -> torch.Tensor:
     return out
 
 
+def _last_pow2(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+# The PyTorch release whose CUDA row-mean order _torch_row_mean_order and
+# rmsnorm_quant.cu copy.  Another release may change that order; the kernel
+# then still normalizes right, but its scales may part from the plain
+# version's by an ulp or two.
+TORCH_ROW_MEAN_ORDER_OF = "2.11"
+
+
+def _torch_row_mean_order(m: int, k: int):
+    """How PyTorch's CUDA reduction takes the mean of each contiguous f32
+    row of an (M, K) tensor, K >= 128 and a multiple of 4
+    (``setReduceConfig`` in ATen/native/cuda/Reduce.cuh, torch
+    ``TORCH_ROW_MEAN_ORDER_OF``): the threads that share a row (a power of
+    two, each summing every that-many-th float4) and the factor
+    ``f32(M) / f32(M * K)`` the sum is multiplied by."""
+    dim0 = k // 4
+    dim0_pow2 = _last_pow2(dim0) if dim0 < 512 else 512
+    dim1_pow2 = _last_pow2(m) if m < 512 else 512
+    height = min(dim1_pow2, 512 // min(dim0_pow2, 32))
+    width = min(dim0_pow2, 512 // height)
+    return width, float(np.float32(m) / np.float32(m * k))
+
+
+def rmsnorm_quant_kernel(x, gamma, eps: float,
+                         group_size: int) -> tuple:
+    """x (M, K) f32, gamma (K,) f32 -> (codes (M, K) int8, scales
+    (M, K / group_size) f32): RMSNorm then Q8_0 per group, in one pass."""
+    if x.device.type == "cpu":
+        return ref.ref_rmsnorm_quant(x, gamma, eps, group_size)
+    name = "rmsnorm_quant"
+    m, k = x.shape
+    lanes = group_size // 4
+    if (group_size % 4 or lanes & (lanes - 1) or lanes > 32 or k % group_size
+            or not 128 <= k <= 4096 or m < 1 or gamma.shape != (k,)):
+        raise ValueError(f"{name}: needs x (M >= 1, 128 <= K <= 4096), "
+                         f"gamma (K,) and a group of 4..128 (4 x a power of "
+                         f"two) dividing K; got x {tuple(x.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, group {group_size}")
+    _check(name, x.device, x=x, gamma=gamma)
+    _dtype(name, x, torch.float32)
+    _dtype(name, gamma, torch.float32)
+    if x.data_ptr() % 16 or gamma.data_ptr() % 16:
+        raise ValueError(f"{name}: x and gamma must be 16-byte aligned")
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    s = torch.empty((m, k // group_size), dtype=torch.float32,
+                    device=x.device)
+    width, factor = _torch_row_mean_order(m, k)
+    launch(name, x.data_ptr(), gamma.data_ptr(), q.data_ptr(), s.data_ptr(),
+           m, k, group_size, eps, factor, width, _stream(x))
+    return q, s
+
+
 # ---------------------------------------------------------------------------
 # public wrappers (repro/kernels/ops.py counterparts)
 # ---------------------------------------------------------------------------
@@ -322,27 +379,44 @@ def rope_kernel(x, cos, sin) -> torch.Tensor:
 
 def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x (..., K) f32 @ w (N, K).T with the paper's integer semantics:
-    activations are Q8_0-quantized on the fly with ``w.group_size``.  Q4_0
-    weights go to the Q4 kernel whatever the row count, as in the
-    reference; Q8_0 weights to the GEMV kernel for at most
-    ``MATVEC_MAX_ROWS`` rows, to the tiled GEMM kernel above that."""
+    activations are Q8_0-quantized on the fly with ``w.group_size``, then
+    :func:`q8_matmul_quantized` dispatches."""
     if w.bits not in (4, 8):
         raise ValueError(f"q8_matmul: bits={w.bits}")
     gs = w.group_size
     *lead, k = x.shape
-    x2 = x.reshape(-1, k)
-    xt = quantize(x2, group_size=gs, bits=8)
+    xt = quantize(x.reshape(-1, k), group_size=gs, bits=8)
     if xt.group_size != gs:
         raise ValueError(f"q8_matmul: K={k} does not split into groups of "
                          f"{gs}")
+    return q8_matmul_quantized(xt.q, xt.scale, w).reshape(*lead,
+                                                          w.q.shape[0])
+
+
+def q8_matmul_quantized(xq: torch.Tensor, xs: torch.Tensor,
+                        w: QuantizedTensor) -> torch.Tensor:
+    """Q8_0 activations, codes xq (M, K) and scales xs (M, K / group), @
+    w (N, K).T -> (M, N) f32.  Q4_0 weights go to the Q4 kernel whatever
+    the row count, as in the reference; Q8_0 weights to the GEMV kernel for
+    at most ``MATVEC_MAX_ROWS`` rows, to the tiled GEMM kernel above that."""
     if w.bits == 4:
         fn = q4_matvec_kernel
-    elif x2.shape[0] <= MATVEC_MAX_ROWS:
-        fn = q8_matvec_kernel
+    elif w.bits == 8:
+        fn = (q8_matvec_kernel if xq.shape[0] <= MATVEC_MAX_ROWS
+              else q8_matmul_kernel)
     else:
-        fn = q8_matmul_kernel
-    out = fn(xt.q, xt.scale, w.q, w.scale, gs)
-    return out.reshape(*lead, w.q.shape[0])
+        raise ValueError(f"q8_matmul: bits={w.bits}")
+    return fn(xq, xs, w.q, w.scale, w.group_size)
+
+
+def rmsnorm_quant(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
+                  group_size: int = 64):
+    """Fused RMSNorm + Q8_0: (..., K) f32 -> ((..., K) int8,
+    (..., K / group_size) f32)."""
+    *lead, k = x.shape
+    q, s = rmsnorm_quant_kernel(x.reshape(-1, k).contiguous(),
+                                gamma.contiguous(), eps, group_size)
+    return q.reshape(*lead, k), s.reshape(*lead, k // group_size)
 
 
 # x (B, H, D), cos/sin (B, D): the kernel wrapper already takes the

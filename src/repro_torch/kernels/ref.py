@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantization import _unpack_nibbles
+from repro_torch.core.quantization import _unpack_nibbles, quantize
 
 NEG_INF = -1e30
 
@@ -41,6 +41,25 @@ def ref_q4_matvec(xq, xs, wq_packed, ws, group_size: int = 64):
     """Q8_0 activations (M, K) x packed Q4_0 weights (N, K/2): the nibbles
     unpack (low = even index, sign-extended) and the Q8 function runs."""
     return ref_q8_matmul(xq, xs, _unpack_nibbles(wq_packed), ws, group_size)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """The model's RMSNorm (``layers.rms_norm``), and the norm half of
+    :func:`ref_rmsnorm_quant`."""
+    x32 = x.float()
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    # gamma stays f32: the paper keeps RMSNorm parameters unquantized
+    return (x32 * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+
+
+def ref_rmsnorm_quant(x, gamma, eps: float = 1e-5, group_size: int = 64):
+    """RMSNorm with f32 ``gamma`` then Q8_0 per group of ``group_size``:
+    (M, K) f32 -> (codes (M, K) int8, scales (M, K / group_size) f32).  The
+    port's own pair, :func:`rms_norm` then ``quantization.quantize``, so
+    the fused and the unfused paths agree bit for bit on the CPU."""
+    t = quantize(rms_norm(x, gamma, eps), group_size=group_size, bits=8)
+    return t.q, t.scale
 
 
 def ref_rope(x, cos, sin):

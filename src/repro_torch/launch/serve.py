@@ -1,0 +1,184 @@
+"""Serving entry point: quantize a fresh model per the paper's PTQ flow and
+serve a closed batch of requests with the continuous-batching engine.
+
+PyTorch counterpart of ``repro/launch/serve.py``'s closed batch, on the
+card unless ``--device cpu`` is given:
+
+  # llama2-110m at full width on one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 16 \\
+      --slots 8 --max-seq 1024
+
+  # the reduced config on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
+      --device cpu
+
+Requests sample at the engine's defaults, temperature 1.0 and top-p 1.0
+(the paper's evaluation setup), with keys split from ``--seed``.  The
+weights are random, drawn from ``--seed``.  The matmuls run the paper's
+integer arithmetic on the port's CUDA kernels (the ``kernel`` strategy; the
+plain versions on the CPU), where the reference CLI runs its process
+default, ``dequant``.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP, status
+after PR 13): ``--open-loop`` (async stepping), ``--spec-tokens``
+(speculative decoding), ``--mesh`` (sharded serving) and ``--ckpt-dir``
+(checkpoint restore).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import qlinear
+from repro_torch.core.device import resolve_device
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.models.model import build_model
+from repro_torch.serving.engine import Engine
+
+NOT_PORTED = "is not yet ported (ROADMAP, status after PR 13: {})"
+
+
+def _make_prompts(rng, cfg, n: int):
+    return [rng.integers(4, cfg.vocab_size,
+                         size=int(rng.integers(4, 32))).astype(np.int32)
+            for _ in range(n)]
+
+
+def first_token_latencies(requests) -> np.ndarray:
+    """Seconds from arrival to the first token, for the requests that
+    produced one (a rejected request keeps ``t_first_token == 0.0``)."""
+    return np.asarray([r.t_first_token - r.t_enqueue for r in requests
+                       if r.t_first_token > 0.0], np.float64)
+
+
+def _print_throughput(eng, toks: int, wall: float) -> None:
+    print(f"[serve] throughput: {toks/wall:,.1f} tok/s end-to-end "
+          f"wall-clock | {eng.throughput_tok_s():,.1f} tok/s decode-only "
+          f"(tokens_out/t_decode)")
+
+
+def _refuse_unported(ckpt_dir, spec_tokens, open_loop, mesh_size) -> None:
+    for on, flag, item in ((ckpt_dir, "--ckpt-dir", "checkpoint restore"),
+                           (spec_tokens > 0, "--spec-tokens",
+                            "speculative decoding"),
+                           (open_loop, "--open-loop",
+                            "async stepping and open-loop serving"),
+                           (mesh_size > 0, "--mesh", "mesh sharding")):
+        if on:
+            raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
+
+
+def run(arch: str = "llama2-110m", use_reduced: bool = True,
+        requests: int = 16, bits: int = 8, kv_int8: bool = False,
+        max_seq: int = 512, max_new: int = 48, slots: int = 4,
+        ckpt_dir: str = "", seed: int = 0, no_quant: bool = False,
+        spec_tokens: int = 0, draft: str = "ngram",
+        open_loop: bool = False, rate: float = 0.0,
+        load_factor: float = 0.85, stream: bool = False,
+        stream_interval: int = 1, mesh_size: int = 0, device=None):
+    """Serve ``requests`` seeded prompts as one closed batch; returns the
+    engine and the finished requests.  The batch runs under the ``kernel``
+    strategy; the process default is restored after it.  ``rate``,
+    ``load_factor``, ``stream`` and ``stream_interval`` belong to the open
+    loop, ``draft`` to speculation; they are accepted as the reference
+    accepts them."""
+    _refuse_unported(ckpt_dir, spec_tokens, open_loop, mesh_size)
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    if kv_int8:
+        cfg = cfg.with_(kv_cache_dtype="int8")
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) on {dev} ({name})")
+    if not no_quant:
+        t0 = time.perf_counter()
+        params = model.quantize(params, QuantPolicy(bits=bits, min_size=512))
+        print(f"[serve] Q{bits}_0 post-training quantization "
+              f"in {time.perf_counter()-t0:.2f}s")
+
+    old = qlinear.default_strategy()
+    qlinear.set_default_strategy("kernel")
+    try:
+        eng = Engine(model, params, max_slots=slots, max_seq=max_seq,
+                     seed=seed, spec_tokens=spec_tokens,
+                     draft_proposer=draft, device=dev)
+        rng = np.random.default_rng(seed)
+        for prompt in _make_prompts(rng, cfg, requests):
+            eng.submit(prompt, max_new_tokens=max_new)
+        t0 = time.perf_counter()
+        done = eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        qlinear.set_default_strategy(old)
+    toks = eng.metrics["tokens_out"]
+    print(f"[serve] {len(done)}/{requests} requests, {toks} tokens "
+          f"in {wall:.2f}s")
+    _print_throughput(eng, toks, wall)
+    steps = eng.metrics["decode_steps"]
+    if steps:
+        step_ms = eng.metrics["t_decode"] / steps * 1e3
+        print(f"[serve] decode step {step_ms:.3f} ms over {steps} steps")
+    lat = first_token_latencies(done)
+    if len(lat):
+        print(f"[serve] TTFT p50 {np.median(lat)*1e3:.0f}ms  "
+              f"p95 {np.percentile(lat, 95)*1e3:.0f}ms "
+              f"(from arrival, {len(lat)}/{len(done)} with first token)")
+    return eng, done
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-110m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--bits", type=int, default=8, choices=(4, 8))
+    ap.add_argument("--kv-int8", action="store_true")
+    ap.add_argument("--no-quant", action="store_true")
+    ap.add_argument("--max-seq", type=int, default=512)
+    ap.add_argument("--max-new", type=int, default=48)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="draft-then-verify speculation depth (0 = off; "
+                         "not yet ported)")
+    ap.add_argument("--draft", default="ngram")
+    ap.add_argument("--open-loop", action="store_true",
+                    help="continuous arrivals (not yet ported)")
+    ap.add_argument("--rate", type=float, default=0.0)
+    ap.add_argument("--load-factor", type=float, default=0.85)
+    ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--stream-interval", type=int, default=1)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="tensor-parallel mesh size (0 = single device; "
+                         "not yet ported)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    ap.set_defaults(reduced=True)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    run(args.arch, args.reduced, args.requests, args.bits, args.kv_int8,
+        args.max_seq, args.max_new, args.slots, args.ckpt_dir,
+        no_quant=args.no_quant, spec_tokens=args.spec_tokens,
+        draft=args.draft, open_loop=args.open_loop, rate=args.rate,
+        load_factor=args.load_factor, stream=args.stream,
+        stream_interval=args.stream_interval, mesh_size=args.mesh,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,29 +16,27 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.qlinear import qdot
+from repro_torch.core.qlinear import norm_qdot, qdot
 from repro_torch.core.quantization import QuantizedTensor, _unpack_nibbles
-from repro_torch.kernels.ref import ref_decode_attention
+from repro_torch.kernels.ref import ref_decode_attention, rms_norm
 
 NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
-# Norms
+# Norms (``rms_norm`` lives beside the plain version of the fused
+# norm-and-quantize kernel, kernels/ref.py)
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    # gamma stays f32: the paper keeps RMSNorm parameters unquantized
-    return (x32 * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
+def norm_gamma(p, kind: str) -> torch.Tensor:
+    """The f32 scale of a norm's parameters (RMSNorm is the one ported)."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return p["gamma"]
 
 
 def apply_norm(x, p, kind: str, eps: float = 1e-5):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rms_norm(x, p["gamma"], eps)
+    return rms_norm(x, norm_gamma(p, kind), eps)
 
 
 # ---------------------------------------------------------------------------
@@ -198,18 +196,22 @@ def attention_chunk_merge(q, k_pfx, v_pfx, k_chunk, v_chunk,
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding, head
+# MLP, embedding
 # ---------------------------------------------------------------------------
 
 
-def swiglu_mlp(p, x) -> torch.Tensor:
-    """SwiGLU on the fused ``w13 = [w1; w3]`` (or separate w1/w3) and w2."""
+def swiglu_mlp(p, x, gamma, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with ``gamma``, then SwiGLU on the fused ``w13 = [w1; w3]``
+    (or separate w1/w3) and w2.  ``x`` is the pre-norm input; the norm
+    feeds ``w13`` through ``norm_qdot`` (one fused norm-and-quantize
+    launch under the kernel strategy)."""
     if "w13" in p:
-        h13 = qdot(x, p["w13"])
+        h13 = norm_qdot(x, gamma, eps, p["w13"])
         f = h13.shape[-1] // 2
         h = torch.nn.functional.silu(h13[..., :f]) * h13[..., f:]
     else:
-        h = torch.nn.functional.silu(qdot(x, p["w1"])) * qdot(x, p["w3"])
+        hn = rms_norm(x, gamma, eps)
+        h = torch.nn.functional.silu(qdot(hn, p["w1"])) * qdot(hn, p["w3"])
     return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
 
 
@@ -225,8 +227,3 @@ def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
         qf = q.reshape(*q.shape[:-1], g, table.group_size).float()
         return (qf * s[..., None]).reshape(*qf.shape[:-2], table.orig_dim)
     return table[tokens]
-
-
-def lm_head(w, x) -> torch.Tensor:
-    """w: (V, D), tied with the embedding; x (..., D) -> f32 logits."""
-    return qdot(x, w).float()

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
-from repro_torch.core.qlinear import qdot, qeinsum
+from repro_torch.core.qlinear import norm_qdot, qdot, qeinsum
 from repro_torch.core.quantization import (QuantizedTensor, qt_concat,
                                            qt_fold_lead_into_groups,
                                            qt_reshape_lead, quantize_rows)
@@ -173,8 +173,16 @@ def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _mlp(p, x, cfg: ModelConfig):
-    return L.swiglu_mlp(p["mlp"], L.apply_norm(x, p["norm2"], cfg.norm_type,
-                                               cfg.eps))
+    return L.swiglu_mlp(p["mlp"], x, L.norm_gamma(p["norm2"], cfg.norm_type),
+                        cfg.eps)
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the head tied with the embedding: pre-norm hidden
+    rows (..., D) -> f32 logits (..., V).  Only the rows given are
+    normalized."""
+    gamma = L.norm_gamma(params["final_norm"], cfg.norm_type)
+    return norm_qdot(x, gamma, cfg.eps, params["embed"]).float()
 
 
 # ---------------------------------------------------------------------------
@@ -248,17 +256,21 @@ def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _decode_qkv(p_attn, h, cfg: ModelConfig, cos, sin):
-    """Post-norm hidden (B, D) -> rotated q (B, H, hd) and k (B, KVH, hd),
-    and v (B, KVH, hd): one GEMV against the fused ``wqkv`` when present,
-    then one ``rope`` launch over the q and k heads of the qkv row, read in
-    place (the reference rotates q and k with two jnp ``apply_rope``s)."""
-    b = h.shape[0]
+def _decode_qkv(lp, x, cfg: ModelConfig, cos, sin):
+    """Pre-norm hidden (B, D) -> rotated q (B, H, hd) and k (B, KVH, hd),
+    and v (B, KVH, hd): norm1 feeding one GEMV against the fused ``wqkv``
+    when present (``norm_qdot``), then one ``rope`` launch over the q and k
+    heads of the qkv row, read in place (the reference rotates q and k with
+    two jnp ``apply_rope``s)."""
+    b = x.shape[0]
     hd, nh, kvh = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    p_attn = lp["attn"]
     if "wqkv" in p_attn:
-        heads = qdot(h, p_attn["wqkv"]).to(h.dtype).reshape(b, nh + 2 * kvh,
-                                                            hd)
+        gamma = L.norm_gamma(lp["norm1"], cfg.norm_type)
+        heads = norm_qdot(x, gamma, cfg.eps, p_attn["wqkv"]).to(x.dtype)
+        heads = heads.reshape(b, nh + 2 * kvh, hd)
     else:
+        h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
         heads = torch.cat([qeinsum("bd,hkd->bhk", h, p_attn[w])
                            for w in ("wq", "wk", "wv")], dim=1)
     qk = ops.rope(heads[:, :nh + kvh], cos, sin)
@@ -313,8 +325,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache["attn"].items()}
-        h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
-        q, k, v = _decode_qkv(lp["attn"], h, cfg, cos, sin)
+        q, k, v = _decode_qkv(lp, x, cfg, cos, sin)
         _write_rows(lc, k[rows], v[rows], *dst)
         if paged:
             out = ops.paged_decode_attention(
@@ -326,8 +337,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         x = x + _decode_out_proj(lp["attn"], out, x.dtype)
         x = x + _mlp(lp, x, cfg)
 
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
-    logits = L.lm_head(params["embed"], x)
+    logits = _head(params, cfg, x)
     new_cache = dict(cache)
     new_cache["lens"] = (torch.where(pt[:, 0] >= 0, lens_now,
                                      torch.zeros_like(lens_now))
@@ -358,10 +368,11 @@ def _attn_seq(p, x, cfg: ModelConfig, cos, sin):
     return out.to(x.dtype), (k, v)
 
 
-def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
+def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
-    """x (B, S, D) input embeddings -> (final-normed hidden (B, S, D), each
-    layer's (k, v) (B, S, KVH, hd))."""
+    """x (B, S, D) input embeddings -> (hidden (B, S, D) before the final
+    norm, each layer's (k, v) (B, S, KVH, hd)).  The head's ``_head``
+    normalizes only the rows it reads."""
     cos, sin = _rope_cos_sin(cfg, positions)
     kvs = []
     for i in range(cfg.n_layers):
@@ -370,7 +381,7 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
         x = x + a
         x = x + _mlp(lp, x, cfg)
         kvs.append(kv)
-    return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps), kvs
+    return x, kvs
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -386,14 +397,14 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     tokens = tokens.to(dev)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    hidden, kvs = forward_hidden(params, cfg, embed_inputs(params, cfg,
+    hidden, kvs = forward_layers(params, cfg, embed_inputs(params, cfg,
                                                            tokens), positions)
     cache = init_cache(cfg, b, max_seq or s, device=dev)
     cache["lens"].fill_(s)
     for i, (k, v) in enumerate(kvs):
         _write_rows({kk: vv[i] for kk, vv in cache["attn"].items()}, k, v,
                     slice(None), slice(0, s))
-    return L.lm_head(params["embed"], hidden[:, -1]), cache
+    return _head(params, cfg, hidden[:, -1]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +506,9 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
     caller's host copy of ``cache["page_table"]``.
 
     The Q/K/V/O projections go through the dequant ``qeinsum`` whatever the
-    strategy, as in the reference; the MLP and head go through ``qdot``."""
+    strategy, as in the reference; the MLP and head go through
+    ``norm_qdot`` (norm2 and the final norm fused with their quantization
+    under the kernel strategy) and ``qdot``."""
     a = _chunk_call_args(tokens_chunks, cache, slots, pos_offsets,
                          page_table, chunk_lens)
     hd, kvh = cfg.hd(), cfg.n_kv_heads
@@ -532,9 +545,7 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
                     a.w_off)
 
     last = torch.clamp(a.lens.long() - 1, 0, c - 1)
-    x = x[torch.arange(b, device=x.device), last]
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
-    logits = L.lm_head(params["embed"], x)
+    logits = _head(params, cfg, x[torch.arange(b, device=x.device), last])
     new_cache = dict(cache)
     new_lens = cache["lens"].clone()
     new_lens[a.slot_idx] = (a.offs + a.lens)[a.slot_row]

@@ -1,15 +1,15 @@
 """Serving engine: executes the Scheduler's step plans over the KV cache.
 
-PyTorch counterpart of ``repro/serving/engine.py`` for greedy requests on
-the paged KV pool or the dense per-slot cache.  The
+PyTorch counterpart of ``repro/serving/engine.py`` on the paged KV pool or
+the dense per-slot cache.  The
 :class:`~repro_torch.serving.scheduler.Scheduler`
 owns policy (admission, chunked prefill under a token budget, preemption
 with recompute-on-resume, prefix reuse); :class:`Engine` owns mechanism:
 each step it republishes the page table, runs the plan's copy-on-write
 block copies, runs ALL of the step's prompt chunks as one padded
 ``prefill_chunk_batch`` call of fixed ``(max_slots, prefill_chunk_tokens)``
-extent, runs every running decode as one batched ``decode_step``, and takes
-the argmax of each row's logits.  After each chunk or decode it registers
+extent, runs every running decode as one batched ``decode_step``, and
+samples each row's next token.  After each chunk or decode it registers
 the freshly filled full blocks in the allocator's prefix index, so a later
 request with the same prompt prefix maps those blocks and prefills only
 the rest.
@@ -20,25 +20,34 @@ instead: each admitted prompt runs as one whole-prompt ``prefill`` whose
 there are no blocks, so no prefix reuse, copy-on-write or preemption, and
 ``n_samples > 1`` is rejected as in the reference.
 
-Not ported yet (ROADMAP): sampling with ``temperature > 0`` and
-``n_samples > 1`` on the paged pool (they need the reference's threefry
-keys) come back from :meth:`Engine.run` with ``.error`` set; speculative
-decoding, fault injection, async stepping and mesh sharding raise at
-construction or call.
+Sampling is the reference's, key for key: each request's root key is
+``prng_key(seed)`` or the next split of the engine's key; sibling ``i``
+draws stream ``fold_in(root, stream + i)`` and its token ``t`` with
+``fold_in(stream_key, t)`` (:mod:`repro_torch.core.prng`, bitwise equal to
+``jax.random``), so a row's draw depends on its own key and logits only.
+A request with ``n_samples = n > 1`` prefills once and, at its first
+token, draws ``n`` tokens from the one prompt row and forks into ``n``
+siblings that share the prompt's blocks (``Scheduler.fork_group``); their
+tails un-share through copy-on-write.
+
+Not ported yet (ROADMAP): speculative decoding, fault injection, async
+stepping and mesh sharding raise at construction or call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models.model import Model, params_to
-from repro_torch.serving.faults import ERR_INVALID, ERR_NAN
+from repro_torch.serving.faults import ERR_NAN
 from repro_torch.serving.paged_cache import (BlockAllocator, PagedConfig,
                                              chain_hash)
 from repro_torch.serving.scheduler import (PrefillChunk, Scheduler,
@@ -52,17 +61,61 @@ class Request:
     uid: int
     prompt: np.ndarray            # (len,) int32
     max_new_tokens: int = 64
-    temperature: float = 1.0      # only 0 (greedy) is served so far
-    n_samples: int = 1            # only 1 is served so far
+    temperature: float = 1.0
+    top_p: float = 1.0
+    n_samples: int = 1            # best-of-n: fork n siblings at token 1
+    seed: Optional[int] = None    # PRNG root (None: engine-assigned)
+    stream: int = 0               # sibling i draws stream ``stream + i``
     stop_tokens: Optional[Sequence[int]] = None  # per-request stop ids
     # filled by the engine:
-    output: Optional[List[int]] = None
-    outputs: Optional[List[List[int]]] = None
+    output: Optional[List[int]] = None           # == outputs[0]
+    outputs: Optional[List[List[int]]] = None    # one stream per sibling
     t_enqueue: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
     error: Optional[str] = None
     error_kind: Optional[str] = None
+    rng_key: Any = None           # PRNG root (derived from seed / engine)
+
+
+def sample_logits(key, logits: torch.Tensor, temperature=1.0,
+                  top_p=1.0) -> torch.Tensor:
+    """Temperature + nucleus sampling, (B, V) -> (B,) int32, as the
+    reference's ``sample_logits``: ``temperature``/``top_p`` are scalars or
+    per-row (B,) values; ``temperature <= 0`` rows take the argmax.  A (2,)
+    ``key`` draws the whole batch's noise; a (B, 2) key batch draws row
+    ``b`` with ``key[b]`` (:func:`sample_logits_per_row`)."""
+    b = logits.shape[0]
+    dev = logits.device
+    t = torch.as_tensor(temperature, dtype=torch.float32).to(dev)
+    t = torch.broadcast_to(t, (b,))
+    p = torch.as_tensor(top_p, dtype=torch.float32).to(dev)
+    p = torch.clamp(torch.broadcast_to(p, (b,)), min=1e-6)
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp(t, min=1e-6)[:, None]
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    # smallest k with cumulative prob >= top_p, per row
+    keep = csum - probs < p[:, None]
+    thresh = torch.amin(torch.where(keep, sorted_logits, math.inf), dim=-1,
+                        keepdim=True)
+    masked = torch.where(scaled >= thresh, scaled, -math.inf)
+    sampled = prng.categorical(key.to(dev), masked)
+    return torch.where(t <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def sample_logits_per_row(keys, logits: torch.Tensor, temperature=1.0,
+                          top_p=1.0) -> torch.Tensor:
+    """Per-row keyed sampling: ``keys`` (B, 2), one key per row, and row
+    ``i``'s draw depends only on ``(keys[i], logits[i], temperature[i],
+    top_p[i])`` -- a sequence's stream is the same whatever shares its
+    batch, so a fork sibling replays as an independent request and a
+    preempted sequence resumes its stream unchanged."""
+    if keys.dim() != 2 or keys.shape[0] != logits.shape[0]:
+        raise ValueError(f"keys {tuple(keys.shape)} must be (B, 2) for "
+                         f"logits {tuple(logits.shape)}")
+    return sample_logits(keys, logits, temperature, top_p)
 
 
 def _copy_pool_blocks(attn: Dict[str, torch.Tensor], src: torch.Tensor,
@@ -84,13 +137,16 @@ class Engine:
     (default: the full ``max_slots * max_seq`` reservation);
     shrinking it oversubscribes, which the scheduler absorbs by deferring
     admission and preempting on mid-decode growth.  Requests that could
-    never run come back from :meth:`run` with ``.error`` set."""
+    never run come back from :meth:`run` with ``.error`` set.  ``seed``
+    roots the keys of requests submitted without one; ``draft_proposer``
+    is accepted as in the reference and inert while ``spec_tokens`` is 0."""
 
     def __init__(self, model: Model, params: Any, max_slots: int = 8,
                  max_seq: int = 1024, eos_id: int = 2,
                  cache_kind: str = "paged", page_size: int = 64,
                  n_pages: Optional[int] = None,
-                 prefill_chunk_tokens: int = 512, spec_tokens: int = 0,
+                 prefill_chunk_tokens: int = 512, seed: int = 0,
+                 spec_tokens: int = 0, draft_proposer: Any = None,
                  faults: Any = None, mesh: Any = None,
                  device: Device = None):
         if cache_kind not in ("paged", "dense"):
@@ -102,6 +158,7 @@ class Engine:
             if off:
                 raise NotImplementedError(f"Engine({name}) is {NOT_PORTED}")
         self.device = resolve_device(device)
+        self.key = prng.prng_key(seed)
         self.model = model
         self.params = params_to(params, self.device)
         self.max_slots = max_slots
@@ -135,7 +192,7 @@ class Engine:
                         "prefill_chunks": 0, "preemptions": 0,
                         "cow_copies": 0, "prefix_hits": 0,
                         "prefix_cached_tokens": 0, "prefix_evictions": 0,
-                        "blocks_live_peak": 0,
+                        "fanouts": 0, "blocks_live_peak": 0,
                         "blocks_saved_by_sharing_peak": 0,
                         "prefill_compiles": 0, "seq_steps": 0,
                         "steps_per_token": 0.0,
@@ -153,20 +210,22 @@ class Engine:
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt: np.ndarray, **kw) -> int:
-        """Enqueue a request; returns its uid.  A malformed or not yet
-        servable request gets ``.error`` here and comes back from the next
-        :meth:`run` without entering the scheduler."""
+        """Enqueue a request; returns its uid.  A malformed request (empty
+        prompt, ``max_new_tokens`` that leaves no prompt room,
+        ``n_samples < 1``, a group wider than the slot table or on the
+        dense cache, a prompt that could never fit the pool) gets ``.error``
+        here and comes back from the next :meth:`run` without entering the
+        scheduler.  Its root key is ``prng_key(seed)``, or the next split
+        of the engine's key when no seed is given."""
         self._uid += 1
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
                       t_enqueue=time.perf_counter(), output=[], **kw)
-        if req.temperature > 0 or (req.n_samples > 1 and self.paged):
-            # (the dense cache rejects n_samples > 1 in validate_request,
-            # as the reference does)
-            err = (f"sampling (temperature > 0, n_samples > 1) is "
-                   f"{NOT_PORTED}", ERR_INVALID)
+        if req.seed is not None:
+            req.rng_key = prng.prng_key(req.seed)
         else:
-            err = validate_request(req, self.max_seq, self.max_slots,
-                                   self.pager)
+            self.key, req.rng_key = prng.split(self.key)
+        err = validate_request(req, self.max_seq, self.max_slots,
+                               self.pager)
         if err is not None:
             req.error, req.error_kind = err
             self._rejected.append(req)
@@ -272,12 +331,71 @@ class Engine:
         return self.metrics["tokens_out"] / t if t > 0 else 0.0
 
     # -- internals ------------------------------------------------------
-    def _greedy(self, logits: torch.Tensor):
-        """Per-row argmax and finiteness, brought to the host together."""
-        both = torch.stack([torch.argmax(logits, dim=-1),
-                            torch.isfinite(logits).all(dim=-1).long()])
-        nxt, finite = both.cpu().numpy()
-        return nxt, finite.astype(bool)
+    def _seq_key(self, seq) -> torch.Tensor:
+        """The sequence's sampling-stream root, ``fold_in(request_root,
+        stream + sibling_index)``; position ``t`` then draws with
+        ``fold_in(stream_root, t)``."""
+        if seq.sample_key is None:
+            seq.sample_key = prng.fold_in(
+                seq.req.rng_key, seq.req.stream + seq.sibling_index)
+        return seq.sample_key
+
+    def _draw(self, logits: torch.Tensor, rows: List[int], make_keys,
+              temps: List[float], top_ps: List[float]):
+        """Sample one token from logits row ``rows[j]`` with key
+        ``make_keys()[j]``, ``temps[j]`` and ``top_ps[j]`` for each j (rows
+        may repeat), and check every logits row for finiteness; both come
+        to the host in one copy.  When every draw is greedy the argmax is
+        the sampler's result whatever the keys, so neither the keys nor the
+        draw are computed."""
+        finite = torch.isfinite(logits).all(dim=-1).to(torch.int64)
+        if all(t <= 0.0 for t in temps):
+            # greedy: every row's argmax, picked on the host
+            both = torch.cat([torch.argmax(logits, dim=-1), finite])
+            both = both.cpu().numpy()
+            b = logits.shape[0]
+            return both[:b][rows], both[b:].astype(bool)
+        # one host-to-card copy: rows, the two key words, t, top_p
+        args = torch.cat([
+            torch.tensor(rows, dtype=torch.float64)[:, None],
+            make_keys().to(torch.float64),
+            torch.tensor([temps, top_ps], dtype=torch.float64).T],
+            dim=1).to(self.device)
+        tok = sample_logits_per_row(args[:, 1:3].long(),
+                                    logits[args[:, 0].long()],
+                                    args[:, 3].float(), args[:, 4].float())
+        both = torch.cat([tok.to(torch.int64), finite]).cpu().numpy()
+        return both[:len(rows)], both[len(rows):].astype(bool)
+
+    def _first_tokens(self, logits: torch.Tensor,
+                      chunks: List[PrefillChunk]):
+        """Draw the first tokens of this step's finishing chunks (chunk
+        ``i``'s row of ``logits`` is row ``i``): for a request with
+        ``n_samples = n``, ``n`` draws from its one row, sibling ``s`` with
+        the key ``fold_in(fold_in(root, stream + s), 0)``.  Returns
+        ({chunk index: its tokens}, every row's finiteness)."""
+        rows: List[int] = []
+        roots: List[torch.Tensor] = []
+        streams: List[int] = []
+        temps: List[float] = []
+        top_ps: List[float] = []
+        spans: Dict[int, slice] = {}
+        for i, c in enumerate(chunks):
+            if not c.last or c.seq.resuming:
+                continue
+            req = c.seq.req
+            n = req.n_samples
+            spans[i] = slice(len(rows), len(rows) + n)
+            rows += [i] * n
+            roots += [req.rng_key] * n
+            streams += range(req.stream, req.stream + n)
+            temps += [req.temperature] * n
+            top_ps += [req.top_p] * n
+        toks, finite = self._draw(
+            logits, rows, lambda: prng.fold_in(prng.fold_in(
+                torch.stack(roots), torch.tensor(streams)), 0),
+            temps, top_ps)
+        return {i: toks[span] for i, span in spans.items()}, finite
 
     def _fail_request(self, req: Request, msg: str, kind: str) -> Request:
         """Fail one request whose KV is suspect: quarantine the blocks it
@@ -314,7 +432,7 @@ class Engine:
         logits, self.cache = self.model.prefill_chunk_batch(
             self.params, toks, self.cache, slots, offs,
             page_table=self._host_pt, chunk_lens=lens)
-        nxt, finite = self._greedy(logits)
+        first, finite = self._first_tokens(logits, chunks)
         self.metrics["t_prefill"] += time.perf_counter() - t0
         self.metrics["chunk_batch_calls"] += 1
         for i, c in enumerate(chunks):
@@ -327,7 +445,7 @@ class Engine:
                     seq.req, "non-finite logits during prefill", ERR_NAN))
                 continue
             self._register_blocks(seq)
-            self._finish_chunk(c, int(nxt[i]))
+            self._finish_chunk(c, first.get(i))
         return failed
 
     def _run_dense_prefills(self, chunks: List[PrefillChunk]
@@ -339,14 +457,14 @@ class Engine:
                 self.params, {"tokens": c.seq.tokens[None, c.start:c.end]},
                 max_seq=self.max_seq)
             self._merge_slot_cache(c.seq.slot, pcache, c.end)
-            nxt, finite = self._greedy(logits)
+            first, finite = self._first_tokens(logits, [c])
             self.metrics["t_prefill"] += time.perf_counter() - t0
             if not finite[0]:
                 self.metrics["nan_rows"] += 1
                 failed.append(self._fail_request(
                     c.seq.req, "non-finite logits during prefill", ERR_NAN))
                 continue
-            self._finish_chunk(c, int(nxt[0]))
+            self._finish_chunk(c, first.get(0))
         return failed
 
     def _merge_slot_cache(self, slot: int, pcache, plen: int) -> None:
@@ -363,18 +481,25 @@ class Engine:
                 or len(seq.output) >= req.max_new_tokens
                 or seq.kv_len >= self.max_seq - 1)
 
-    def _finish_seq(self, seq) -> Request:
+    def _finish_seq(self, seq) -> Optional[Request]:
+        """Retire one sequence; returns the Request when it completed the
+        whole request (its group's last sibling, or a singleton)."""
         req = seq.req
         self.scheduler.finish(seq.slot)
+        if seq.group is not None:
+            seq.group.finished += 1
+            if seq.group.finished < seq.group.n:
+                return None
         req.t_done = time.perf_counter()
         if req.outputs is None:
             req.outputs = [seq.output]
         self.metrics["requests_done"] += 1
         return req
 
-    def _finish_chunk(self, chunk: PrefillChunk, first: int) -> None:
+    def _finish_chunk(self, chunk: PrefillChunk, first) -> None:
         """Count the chunk; on the prompt's last chunk take the first output
-        token (greedy) from its logits row."""
+        token(s) ``first`` drawn from its logits row: ``n`` of them for an
+        ``n_samples = n`` request, which then fans out into its siblings."""
         seq, req = chunk.seq, chunk.seq.req
         self.metrics["prefill_chunks"] += 1
         if not chunk.last:
@@ -384,11 +509,30 @@ class Engine:
             # before preemption; decode re-feeds it
             seq.resuming = False
             return
-        seq.output.append(first)
-        req.outputs = [seq.output]
+        n = req.n_samples
+        if n == 1:
+            sibs = [seq]
+            seq.output.append(int(first[0]))
+            req.outputs = [seq.output]
+        else:
+            sibs = self.scheduler.fork_group(seq)
+            for s, tok in zip(sibs, first):
+                s.output.append(int(tok))
+            req.outputs = [s.output for s in sibs]
+            self.metrics["fanouts"] += 1
+            self.plan_log[-1].setdefault("forked", []).append((req.uid, n))
+            # sibling rows carry the shared prompt length before their
+            # first decode; their page-table rows publish at the next
+            # step's republish
+            self.cache["lens"][[s.slot for s in sibs[1:]]] = seq.kv_len
         req.t_first_token = time.perf_counter()
-        if self._stop_hit(seq, first):
-            self._done_at_prefill.append(self._finish_seq(seq))
+        for s in sibs:
+            # a first token can already be terminal (a stop id, eos or
+            # max_new_tokens=1): retire the sibling before any decode
+            if self._stop_hit(s, s.output[-1]):
+                done = self._finish_seq(s)
+                if done is not None:
+                    self._done_at_prefill.append(done)
 
     def _register_blocks(self, seq) -> None:
         """Publish every freshly filled full block of ``seq`` into the
@@ -412,14 +556,22 @@ class Engine:
 
     def _decode_once(self, slots: List[int]) -> List[Request]:
         """One batched decode step over every slot row; rows outside
-        ``slots`` are ignored and their lengths re-synced after."""
+        ``slots`` are ignored and their lengths re-synced after.  Row ``i``
+        draws with ``fold_in(stream_key, len(output))`` of its sequence."""
         tokens = np.zeros((self.max_slots,), np.int32)
-        for i in slots:
-            tokens[i] = self.scheduler.running[i].output[-1]
+        seqs = [self.scheduler.running[i] for i in slots]
+        for i, seq in zip(slots, seqs):
+            tokens[i] = seq.output[-1]
         t0 = time.perf_counter()
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._put(tokens))
-        nxt, finite = self._greedy(logits)
+        drawn, finite = self._draw(
+            logits, slots, lambda: prng.fold_in(
+                torch.stack([self._seq_key(seq) for seq in seqs]),
+                torch.tensor([len(seq.output) for seq in seqs])),
+            [seq.req.temperature for seq in seqs],
+            [seq.req.top_p for seq in seqs])
+        nxt = dict(zip(slots, drawn))
         self.metrics["t_decode"] += time.perf_counter() - t0
         self.metrics["decode_steps"] += 1
         self.metrics["seq_steps"] += len(slots)
@@ -438,7 +590,9 @@ class Engine:
             self.metrics["tokens_out"] += 1
             self._register_blocks(seq)
             if self._stop_hit(seq, tok):
-                finished.append(self._finish_seq(seq))
+                done = self._finish_seq(seq)
+                if done is not None:
+                    finished.append(done)
         # the scheduler's lengths are authoritative: decoded rows advanced
         # at planning, finished/free rows drop to 0, a mid-prefill row gets
         # its prefill progress back

@@ -24,6 +24,8 @@ def _env():
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
+    assert {"repro_torch.core.prng",
+            "repro_torch.launch.serve"} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -76,15 +78,20 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     with pytest.raises(NotImplementedError):
         Engine(m, params, max_slots=1, max_seq=16, page_size=8,
                spec_tokens=1, device="cpu")
-    eng = Engine(m, params, max_slots=1, max_seq=16, page_size=8,
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(requests=1)
+    eng = Engine(m, params, max_slots=2, max_seq=16, page_size=8,
                  device="cpu")
     with pytest.raises(NotImplementedError):
         eng.step_async()
+    # sampled requests and best-of-n groups are served now
     eng.submit([5, 6, 7], max_new_tokens=2)          # temperature 1.0
-    eng.submit([5, 6, 7], max_new_tokens=2, temperature=0.0, n_samples=2)
+    eng.submit([5, 6, 7], max_new_tokens=2, temperature=0.7, top_p=0.9,
+               n_samples=2)
     done = eng.run()
-    assert [r.error_kind for r in done] == ["invalid", "invalid"]
-    assert all("not yet ported" in r.error for r in done)
+    assert [r.error for r in done] == [None, None]
+    assert [len(r.outputs) for r in done] == [1, 2]
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):

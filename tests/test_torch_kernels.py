@@ -12,6 +12,9 @@ difference is the f32 order of the sum over groups (rtol = atol = 1e-5 on
 outputs of magnitude ~10); attention sums the same f32 terms in another
 order and with another softmax normalisation point (atol 2e-6 on unit-scale
 values); rope may fuse its multiply-add in XLA (1e-6, the last place).
+The fused RMSNorm + Q8_0 gives the JAX kernel's codes bitwise at the JAX
+tests' shapes; its scales differ in the last places (rtol 4e-7, three ulps),
+because the two norms sum ``mean(x^2)`` in different orders.
 """
 
 import jax
@@ -24,6 +27,7 @@ from repro.core.quantization import quantize as jquantize
 from repro.core.quantization import quantize_rows as jquantize_rows
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import qlinear
 from repro_torch.core.quantization import QuantizedTensor, quantize
 from repro_torch.kernels import build, ops, ref
 
@@ -71,6 +75,46 @@ def test_ref_q8_matmul_matches_jax_ref(group):
         got = fn(_t(xq.q), _t(xq.scale), _t(wq.q), _t(wq.scale),
                  group).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k", [(4, 256), (16, 512), (256, 1024), (3, 192)])
+def test_rmsnorm_quant_matches_pallas(m, k):
+    """The plain version (the port's rms_norm then quantize) against the
+    JAX Pallas kernel in interpret mode and the JAX plain version, on the
+    inputs of tests/test_kernels.py::test_rmsnorm_quant."""
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(m + k), (m, k)) * 3.0)
+    g = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (k,)))
+    tq, ts = ops.rmsnorm_quant(_t(x), _t(g))
+    assert tq.dtype == torch.int8 and ts.shape == (m, k // 64)
+    for wq, ws in (jops.rmsnorm_quant(jnp.asarray(x), jnp.asarray(g), **I),
+                   jref.ref_rmsnorm_quant(jnp.asarray(x), jnp.asarray(g))):
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(wq))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(ws), rtol=4e-7,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_norm_qdot_fused_path_is_the_unfused_pair(bits):
+    """On CPU tensors the kernel strategy's fused norm-and-quantize path
+    gives the unfused pair's result bit for bit (the CPU path is
+    unchanged); one all-zero row exercises the zero group."""
+    rng = np.random.default_rng(bits)
+    x = rng.standard_normal((5, 3, 128)).astype(np.float32)
+    x[1, 2] = 0.0
+    g = rng.standard_normal(128).astype(np.float32)
+    w = quantize(_t(rng.standard_normal((96, 128)).astype(np.float32)),
+                 64, bits=bits)
+    old = qlinear.default_strategy()
+    qlinear.set_default_strategy("kernel")
+    try:
+        fused = qlinear.norm_qdot(_t(x), _t(g), 1e-5, w)
+        pair = qlinear.qdot(ref.rms_norm(_t(x), _t(g), 1e-5), w)
+    finally:
+        qlinear.set_default_strategy(old)
+    assert fused.shape == (5, 3, 96)
+    np.testing.assert_array_equal(fused.numpy(), pair.numpy())
+    xq, xs = ref.ref_rmsnorm_quant(_t(x[1]), _t(g))
+    assert (xq[2] == 0).all() and (xs[2] == 0).all()
 
 
 def _pool(rng, nb, bs, kvh, d, int8):
@@ -299,6 +343,8 @@ _META_CALLS = {
         _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32))),
     "rope": lambda: ops.rope_kernel(_meta((2, 3, 32)), _meta((2, 32)),
                                     _meta((2, 32))),
+    "rmsnorm_quant": lambda: ops.rmsnorm_quant_kernel(
+        _meta((8, 768)), _meta((768,)), 1e-5, 64),
 }
 
 
@@ -331,3 +377,20 @@ def test_wrappers_reject_bad_operands():
         ops.q8_matvec_kernel(xq, xs, wq, ws, 64)
     with pytest.raises(ValueError):
         ops.q8_matmul_kernel(xq, xs.float(), wq.float(), ws, 64)
+
+
+@pytest.mark.parametrize("bad", ["group", "gamma", "dtype", "width"])
+def test_rmsnorm_quant_rejects_bad_operands(bad):
+    """Shape / dtype / group checks of the fused norm run before any
+    launch."""
+    x, g, gs = _meta((8, 768)), _meta((768,)), 64
+    if bad == "group":
+        gs = 48                          # 12 lanes: not a power of two
+    elif bad == "gamma":
+        g = _meta((384,))
+    elif bad == "dtype":
+        x = _meta((8, 768), torch.float16)
+    else:
+        x, g = _meta((8, 8192)), _meta((8192,))   # wider than one block
+    with pytest.raises(ValueError):
+        ops.rmsnorm_quant_kernel(x, g, 1e-5, gs)

@@ -1,0 +1,96 @@
+"""The port's ``launch/serve.py`` against the reference CLI, on the CPU.
+
+Same seeded prompts, the same argparse surface and defaults (the port adds
+``--device``), a closed batch served at the reference's default sampling
+(temperature 1.0, top-p 1.0) on the reduced config, and a
+``NotImplementedError`` for every flag whose path is not ported yet.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.launch import serve as jserve
+from repro_torch import configs as tconfigs
+from repro_torch.core import qlinear
+from repro_torch.kernels import build
+from repro_torch.launch import serve
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_make_prompts_match_the_reference(seed):
+    want = jserve._make_prompts(np.random.default_rng(seed),
+                                reduced(get_config("llama2-110m")), 16)
+    got = serve._make_prompts(np.random.default_rng(seed), tconfigs.reduced(
+        tconfigs.get_config("llama2-110m")), 16)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_argparse_defaults_match_the_reference(monkeypatch):
+    """Every flag of the reference CLI exists in the port with the same
+    default."""
+    seen = {}
+    parse = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        seen["ns"] = parse(self, [], namespace)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(SystemExit):
+        jserve.main()
+    monkeypatch.undo()
+    want = vars(seen["ns"])
+    got = vars(serve.build_parser().parse_args([]))
+    assert {k: got.get(k, "<missing>") for k in want} == want
+    assert set(got) - set(want) == {"device"}
+    assert got["device"] is None
+
+
+@pytest.mark.parametrize("flags", [["--spec-tokens", "1"], ["--open-loop"],
+                                   ["--mesh", "2"], ["--ckpt-dir", "x"]],
+                         ids=lambda f: f[0])
+def test_unported_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve.main(flags + ["--device", "cpu", "--requests", "1"])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_int8=True, bits=4)],
+                         ids=["q8-f32", "q4-int8"])
+def test_run_serves_every_request_at_the_default_sampling(kw):
+    build.reset_launches()
+    before = qlinear.default_strategy()
+    eng, done = serve.run(use_reduced=True, requests=6, slots=2, max_seq=96,
+                          max_new=12, device="cpu", **kw)
+    assert qlinear.default_strategy() == before
+    assert len(done) == 6 and all(r.error is None for r in done)
+    assert all(r.temperature == 1.0 and r.top_p == 1.0 for r in done)
+    assert all(1 <= len(r.output) <= 12 for r in done)
+    assert eng.metrics["decode_steps"] > 0
+    assert all(v == 0 for v in build.LAUNCHES.values())   # CPU: plain
+    again, done2 = serve.run(use_reduced=True, requests=6, slots=2,
+                             max_seq=96, max_new=12, device="cpu", **kw)
+    assert [r.output for r in done2] == [r.output for r in done]
+
+
+def test_module_entry_point_runs_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--requests", "3",
+         "--slots", "2", "--max-seq", "64", "--max-new", "6", "--device",
+         "cpu"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert "[serve] 3/3 requests" in out.stdout
+    assert "TTFT p50" in out.stdout
