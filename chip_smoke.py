@@ -44,6 +44,7 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 
 T0 = time.perf_counter()
@@ -266,8 +267,7 @@ def check_q4(report, dev):
 
 def check_dense_attention(report, dev):
     """decode_attention at the dense decode's shapes (8 slots x 1024,
-    f32 and int8), bitwise against the paged kernel on the same rows, and
-    flash_prefill at the one-shot prefill's shapes plus per-row extents."""
+    f32 and int8), bitwise against the paged kernel on the same rows."""
     from repro_torch.core.quantization import quantize_rows
     from repro_torch.kernels import ops, ref
     b, s, kvh, hq, d = 8, 1024, 12, 1, 64
@@ -350,16 +350,58 @@ def check_dense_attention(report, dev):
                int8_ms=i8[1], int8_bound_ms=i8[4],
                per="one layer's call, f32 cache (int8_* for the int8 cache)")
 
-    # ---- flash_prefill: prompt lengths of the one-shot prefill (prime
-    # 17, a tile multiple, a ragged 600), then per-row extents with GQA
+
+def sass_count(name: str, *words: str) -> int:
+    """Lines of kernel ``name``'s built library, disassembled by
+    ``cuobjdump -sass``, that hold every one of ``words``."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(all(w in line for w in words) for line in sass.splitlines())
+
+
+def launched_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launched."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_flash_prefill(report, dev):
+    """flash_prefill at the one-shot prefill's shapes (B = 1, H = 12,
+    D = 64; a prime 17, a tile multiple, a ragged 600 and the full max_seq
+    1024), then per-row extents with GQA, D = 32 and 128, and the
+    non-causal form: within 2e-5 of the plain version on every case, dead
+    query rows exactly 0.  The D = 64 causal cases are timed, the one-shot
+    ones beside SDPA (``is_causal``) on the same rotating q/k/v.  The bound
+    is the 3xTF32 floor (three TF32 products a product at the dense TF32
+    rate); the f32 CUDA-core floor is printed beside it.  The kernel must
+    hold TF32 HMMA instructions: it runs on the tensor cores."""
+    from repro_torch.kernels import ops, ref
+    hmma = sass_count("flash_prefill", "HMMA", "TF32")
+    log(f"  flash_prefill: {hmma} TF32 HMMA instructions in its SASS "
+        "(cuobjdump -sass)")
+    if hmma == 0:
+        raise AssertionError("flash_prefill: no TF32 HMMA in its SASS: the "
+                             "kernel does not run on the tensor cores")
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [dict(b=1, sq=n, sk=n, h=12, kvh=12) for n in (17, 256, 600)]
+    cases = [dict(b=1, sq=n, sk=n, h=12, kvh=12) for n in (17, 256, 600,
+                                                         1024)]
     cases.append(dict(b=4, sq=200, sk=456, h=12, kvh=6,
                       off=[256, 0, 100, 37], ql=[200, 150, 0, 77],
                       kl=[456, 150, 300, 114]))
-    err_max, last = 0.0, None
+    cases += [dict(b=2, sq=150, sk=150, h=4, kvh=2, d=dd) for dd in (32, 128)]
+    cases.append(dict(b=2, sq=100, sk=300, h=4, kvh=4, causal=False,
+                      kl=[300, 131]))
+    err_max, timed, sdpa_kernels = 0.0, {}, None
     for c in cases:
         bb, sq, sk, hh, kv = c["b"], c["sq"], c["sk"], c["h"], c["kvh"]
+        d, causal = c.get("d", 64), c.get("causal", True)
 
         def mk():
             return (torch.randn((bb, sq, hh, d), generator=gen, device=dev),
@@ -370,8 +412,8 @@ def check_dense_attention(report, dev):
                torch.tensor(c[key], dtype=torch.int32, device=dev)
                for key in ("off", "ql", "kl")]
         q, k, v = mk()
-        got = ops.flash_prefill_kernel(q, k, v, *ext)
-        want = ref.ref_flash_prefill(q, k, v, True, *ext)
+        got = ops.flash_prefill_kernel(q, k, v, *ext, causal)
+        want = ref.ref_flash_prefill(q, k, v, causal, *ext)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = 2e-5
@@ -380,12 +422,21 @@ def check_dense_attention(report, dev):
             raise AssertionError(f"flash_prefill {c}: err {err:.3g} > {tol} "
                                  "or a dead query row not exactly 0")
         err_max = max(err_max, err)
+        shape = (f"B={bb} Sq={sq} Sk={sk} H={hh} KVH={kv} D={d}"
+                 f"{'' if causal else ' non-causal'}"
+                 f"{' with per-row extents' if 'off' in c else ''}")
+        if d != 64 or not causal:
+            log(f"  flash_prefill {shape}  err {err:.2e} (tol {tol:.0e}), "
+                f"{int(dead.sum())} dead rows exactly 0")
+            continue
         offs = c.get("off", [0] * bb)
         qls, kls = c.get("ql", [sq] * bb), c.get("kl", [sk] * bb)
         pairs = sum(sum(max(0, min(kl, o + i + 1)) for i in range(ql))
                     for o, ql, kl in zip(offs, qls, kls))
         nbytes = 4 * d * (bb * sq * hh * 2 + 2 * bb * sk * kv) + 12 * bb
-        b_ms, b_by = bound(nbytes, 4.0 * pairs * hh * d, F32_FLOPS_PER_S)
+        flops = 4.0 * pairs * hh * d
+        b_ms, b_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        f32_ms, f32_by = bound(nbytes, flops, F32_FLOPS_PER_S)
         nxt = rotating(mk, 4 * d * bb * (sq * hh + 2 * sk * kv),
                        budget=96 << 20)
         ms = time_ms(lambda: ops.flash_prefill_kernel(*nxt(), *ext))
@@ -393,22 +444,29 @@ def check_dense_attention(report, dev):
                         iters=5)
         lib = None
         if "off" not in c:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = time_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True))
-        log(f"  flash_prefill B={bb} Sq={sq} Sk={sk} H={hh} KVH={kv}"
-            f"{' with per-row extents' if 'off' in c else ''}  err "
-            f"{err:.2e} (tol {tol:.0e})  kernel {ms:.4f} ms  plain "
-            f"{plain:.4f} ms  sdpa {'-' if lib is None else f'{lib:.4f}'} ms"
-            f"  bound {b_ms:.4f} ms ({b_by})")
-        if sq == 600:
-            last = (ms, plain, lib, b_ms, b_by)
+            def sdpa():
+                qt, kt, vt = (t.transpose(1, 2) for t in nxt())
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            lib = time_ms(sdpa)
+            if sdpa_kernels is None:
+                sdpa_kernels = launched_kernels(sdpa)
+                log(f"  SDPA (f32, is_causal) launched: {sdpa_kernels}")
+        log(f"  flash_prefill {shape}  err {err:.2e} (tol {tol:.0e})  "
+            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  sdpa "
+            f"{'-' if lib is None else f'{lib:.4f}'} ms  bound {b_ms:.4f} ms "
+            f"({b_by}, 3xTF32 tensor cores; f32 CUDA cores {f32_ms:.4f} ms, "
+            f"{f32_by})")
+        timed[sq if "off" not in c else "extents"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, f32_bound_ms=f32_ms)
+    last = timed[600]
     report.add("flash_prefill", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_prefill.cu",
                replaces="src/repro/kernels/flash_prefill.py:173",
-               max_abs_err=err_max, ms=last[0], plain_ms=last[1],
-               library_ms=last[2], bound_ms=last[3], bound_by=last[4],
+               max_abs_err=err_max, **last, hmma_tf32=hmma,
+               sdpa_kernels=sdpa_kernels,
+               by_prompt={str(n): timed[n] for n in timed},
                per="one layer's call, one 600-token prompt")
 
 
@@ -1366,6 +1424,7 @@ def main() -> int:
     check_attention(report, dev)
     check_q4(report, dev)
     check_dense_attention(report, dev)
+    check_flash_prefill(report, dev)
     check_rope(report, dev)
     check_rmsnorm_quant(report, dev)
 

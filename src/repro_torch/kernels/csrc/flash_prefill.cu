@@ -1,10 +1,11 @@
-// Causal flash attention over a whole prompt (one-shot prefill).
+// Causal flash attention over a whole prompt (one-shot prefill), on the
+// tensor cores in error-compensated TF32 (3xTF32).
 //
 // Replaces src/repro/kernels/flash_prefill.py::flash_prefill_pallas
 // (pallas_call at flash_prefill.py:173).
 //
 //   q        (B, Sq, H, D) f32, unscaled: the kernel scales it by `scale`
-//            (the caller's D^-1/2), as the TPU kernel does
+//            (the caller's D^-1/2) in f32, as the TPU kernel does
 //   k/v      (B, Sk, KVH, D) f32; query head h reads kv-head h / (H / KVH)
 //            (GQA heads are indexed, never repeated in memory)
 //   q_offset, q_lens, k_lens  (B,) int32 device data, or null for
@@ -12,22 +13,62 @@
 //            and attends keys < k_lens[b] (and <= its position when causal)
 //   out      (B, Sq, H, D) f32; queries at or past q_lens[b], and queries
 //            with no live key, are exactly 0
+//   D in {32, 64, 128}; q, k, v 16-byte aligned (the wrapper checks)
 //
 // What bounds it on an H100: operations.  Every K/V tile is used by the 64
-// query rows of a block, and the products run in f32 on the CUDA cores
-// (67 TFLOP/s), not the tensor cores: the port keeps f32 attention.
+// query rows of a block, so the two products (4 * pairs * D flops a head)
+// outweigh the bytes.  They run on the tensor cores as three TF32 products
+// each: x = big + small with big = tf32(x), small = tf32(x - big), and
+// a.b ~ big.small + small.big + big.big (small.small dropped), which keeps
+// about f32's accuracy where one TF32 product keeps ~3 decimal digits.  The
+// floor is 3x the f32 flops at the dense TF32 rate (495 TFLOP/s, H100 SXM
+// data sheet, a rate that only wgmma reaches; this kernel uses mma.sync);
+// the f32 CUDA cores (67 TFLOP/s) would take 2.5x that floor.
 //
-// Design: the structure of paged_prefill_attention.cu, read straight from
-// the (B, S, KVH, D) layout.  One block per (b, query head, tile of 64 query
-// rows).  It walks only the key tiles some live row of the tile needs: up to
-// min(k_len, q_offset + last live row + 1) when causal -- tiles past a row's
-// extent or wholly above the diagonal are neither read nor computed.  Ragged
-// tails of every extent are masked inside the tile, so any prompt length
-// works with one tile size (no divisor search).  Each thread owns a 4 x 4
-// tile of the 64 x 64 score block and a 4 x (D/16) tile of the output; Q, K
-// and P are stored transposed with one word of padding so the inner loops
-// read distinct banks.  The online softmax gives masked keys probability
-// exactly 0 and rescales the output once per tile.
+// Design, and what each part does about that bound:
+//  * Warp tiling.  One block of 8 warps per (b, query head, 64 query rows):
+//    each 16-row group has two warps, one for each 32-key half of every
+//    tile.  S = Q.K^T and O += P.V run as mma.sync m16n8k8 TF32 with f32
+//    accumulators; the online softmax (row max, exp2f, rescale of O) runs
+//    on the accumulator fragments in registers.  A row lives in one quad of
+//    4 lanes, so its max is two __shfl_xor_sync steps; its sum stays a
+//    per-lane partial until the end.  No barrier separates the softmax from
+//    P.V: P never leaves the warp's registers.  At the end the two warps of
+//    a row group merge their (m, l, O) through shared memory.  Two warps a
+//    row group halve the serial chain of the heaviest block and put two
+//    warps on each scheduler, which hides the MMA and load latencies.
+//  * Permuted k index.  Inside each k-step of 8, fragment column t stands
+//    for index 2t and column t + 4 for 2t + 1.  For S that makes a lane's
+//    (d 2t, d 2t + 1) of Q and K one float2; for P.V it makes S's
+//    accumulator (row g, keys 2t, 2t + 1) exactly P's A fragment, so P
+//    goes from the C layout to the A layout with no shuffle and no shared
+//    memory, and V's B fragment reads keys 2t and 2t + 1.
+//  * The split.  Q is scaled by D^-1/2 * log2(e) in f32 (scores in base 2,
+//    so the softmax runs on exp2f) and split once per block into registers
+//    (2 x D/2 words a lane).  Each K/V tile is split once, by the whole
+//    block, right after it lands: big in place, small in a buffer beside
+//    it.  P is split once per tile in registers.  MMAs are issued by kind
+//    over a warp's independent accumulators (every big.small, then every
+//    small.big, then every big.big: CUTLASS's mma_tensor_op_fast_f32 order
+//    for each sum), so no MMA waits on the one before it.  TF32 rounding
+//    (cvt.rna) is an integer add and mask.
+//  * Loads.  64-key tiles of K and V arrive in shared memory by 16-byte
+//    cp.async.cg, two stages: tile t + 1 loads while tile t is split and
+//    computed, two barriers a tile.  Keys past the block's extent are
+//    zero-filled by the src-size operand.  Row strides are padded so a
+//    warp's fragment reads hit distinct banks: K at D + 8 floats (float2
+//    reads of (key g, d 2t) per half-warp: banks 8g + 2t, 8g + 2t + 1), V at
+//    D + 4 floats (reads of (key 2t or 2t + 1, dim g): banks 8t + g and
+//    8t + 4 + g).
+//  * Extents.  A block walks only the key tiles some live row needs (up to
+//    min(k_len, q_offset + last live row + 1) when causal): tiles past a
+//    row's extent or wholly above the diagonal are neither read nor
+//    computed; a warp skips a key half none of its rows needs.  Masked keys
+//    get probability exactly 0.
+//  * Order and occupancy.  blockIdx.y runs from the last query tile (most
+//    key tiles, when causal) to the first, so the heaviest blocks start
+//    first.  At D = 64 a block holds 105 KB of shared memory and its lanes
+//    under 180 registers: one block (8 warps) an SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,142 +76,318 @@ namespace {
 
 constexpr int kR = 64;        // query rows per block
 constexpr int kTK = 64;       // keys per tile
-constexpr int kLd = 65;       // padded stride of the transposed tiles
-constexpr int kThreads = 256;
+constexpr int kKH = 2;        // warps sharing 16 query rows, each a key part
+constexpr int kJ = kTK / 8 / kKH;  // 8-key groups of a tile per warp
+constexpr int kThreads = 32 * (kR / 16) * kKH;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// cvt.rna.tf32.f32 (mantissa rounded to 10 bits, ties away from zero) as
+// an integer add and mask: two instructions where the PTX conversion
+// compiles to several on sm_90a.  The result is exact for the tensor
+// cores, which read a TF32 operand's top 19 bits.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// c += a * b: one m16n8k8 TF32 product with f32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 for N independent accumulators c[i] += a . b[i]: all the
+// big.small products, then all the small.big, then all the big.big, so no
+// two consecutive MMAs wait on one accumulator.  b[i] holds (big0, big1,
+// small0, small1), TF32 bit patterns as floats.
+template <int N>
+__device__ __forceinline__ void mma3(float (&c)[N][4],
+                                     const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const float4 (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma(c[i], ab, __float_as_uint(b[i].z), __float_as_uint(b[i].w));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma(c[i], as, __float_as_uint(b[i].x), __float_as_uint(b[i].y));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma(c[i], ab, __float_as_uint(b[i].x), __float_as_uint(b[i].y));
+}
+
+// x -> (big, small) in place of x and in `small`, both as floats
+__device__ __forceinline__ void split_to(float& x, float& small) {
+  uint32_t big, lo;
+  split(x, big, lo);
+  x = __uint_as_float(big);
+  small = __uint_as_float(lo);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0));
+}
 
 template <int D>
-__global__ void flash_prefill_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ q_offset,
-    const int* __restrict__ q_lens, const int* __restrict__ k_lens,
-    float* __restrict__ out, int Sq, int Sk, int H, int KVH, int causal,
-    float scale) {
-  extern __shared__ float sm[];
-  float* QsT = sm;                   // [D][kLd]   q rows, transposed
-  float* KsT = QsT + D * kLd;        // [D][kLd]   k tile, transposed
-  float* Vs = KsT + D * kLd;         // [kTK][D]
-  float* PsT = Vs + kTK * D;         // [kTK][kLd] probabilities, transposed
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_prefill_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ q_offset,
+                         const int* __restrict__ q_lens,
+                         const int* __restrict__ k_lens,
+                         float* __restrict__ out, int Sq, int Sk, int H,
+                         int KVH, int causal, float scale) {
+  constexpr int LK = D + 8, LV = D + 4;   // padded row strides (floats)
+  constexpr int KS = D / 8;               // k-steps of S, d-tiles of O
+  constexpr int CH = D / 4;               // 16-byte chunks a row
+  extern __shared__ __align__(16) float sm[];
+  float* Ks = sm;                         // [2][kTK][LK] raw, then big
+  float* Vs = Ks + 2 * kTK * LK;          // [2][kTK][LV] raw, then big
+  float* Kl = Vs + 2 * kTK * LV;          // [kTK][LK]    small
+  float* Vl = Kl + kTK * LK;              // [kTK][LV]    small
 
   const int b = blockIdx.x / H, h = blockIdx.x - b * H;
   const int kvh = h / (H / KVH);
-  const int r0 = blockIdx.y * kR;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kR;  // heaviest first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % (kR / 16), kh = warp / (kR / 16);  // rows, keys
+  const int g = lane >> 2, t = lane & 3;
   const int off = q_offset ? q_offset[b] : 0;
   const int qlen = min(q_lens ? q_lens[b] : Sq, Sq);
   const int klen = max(min(k_lens ? k_lens[b] : Sk, Sk), 0);
-  const int nrows = min(qlen - r0, kR);    // live query rows of this block
-  int kend = klen;                         // keys any live row needs
+  const int nrows = min(qlen - r0, kR);   // live query rows of this block
+  int kend = klen;                        // keys any live row needs
   if (causal) kend = min(kend, off + r0 + nrows);
-  constexpr int DJ = D / 16;
 
-  float mrow[4], lrow[4], o[4][DJ];
+  // this lane's two rows (of the block) and the keys each attends: < lim
+  const int ra = 16 * rg + g, rb = ra + 8;
+  const int lim_a = ra < nrows ? (causal ? min(klen, off + r0 + ra + 1)
+                                         : klen) : 0;
+  const int lim_b = rb < nrows ? (causal ? min(klen, off + r0 + rb + 1)
+                                         : klen) : 0;
+  // keys any live row of this warp needs
+  const int wrows = min(nrows - 16 * rg, 16);
+  int wend = wrows > 0 ? klen : 0;
+  if (causal && wrows > 0) wend = min(wend, off + r0 + 16 * rg + wrows);
+
+  float o[KS][4], mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrow[i] = kNegInf;
-    lrow[i] = 0.f;
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
   if (nrows > 0 && kend > 0) {
-    for (int i = tid; i < kR * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      QsT[d * kLd + r] =
-          r < nrows ? q[(((size_t)b * Sq + r0 + r) * H + h) * D + d] * scale
-                    : 0.f;
+    // Q's A fragments, scaled and split once: a0/a1 (rows g, g + 8) at
+    // column t = d 2t, a2/a3 at column t + 4 = d 2t + 1.  The scale folds
+    // in log2(e), so scores are in base 2 and the softmax runs on exp2f.
+    uint32_t qb[KS][4], qs[KS][4];
+    {
+      const float qscale = scale * kLog2e;
+      const size_t rs = (size_t)H * D;
+      const float* qa = q + (((size_t)b * Sq + r0 + ra) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        float2 xa = make_float2(0.f, 0.f), xb = xa;
+        if (ra < nrows) xa = *reinterpret_cast<const float2*>(qa + 8 * kk);
+        if (rb < nrows)
+          xb = *reinterpret_cast<const float2*>(qa + 8 * rs + 8 * kk);
+        split(xa.x * qscale, qb[kk][0], qs[kk][0]);
+        split(xb.x * qscale, qb[kk][1], qs[kk][1]);
+        split(xa.y * qscale, qb[kk][2], qs[kk][2]);
+        split(xb.y * qscale, qb[kk][3], qs[kk][3]);
+      }
     }
-    for (int t0 = 0; t0 < kend; t0 += kTK) {
-      __syncthreads();
-      for (int i = tid; i < kTK * D; i += kThreads) {
-        const int t = i / D, d = i - t * D;
-        float kv = 0.f, vv = 0.f;
-        if (t0 + t < kend) {
-          const size_t at = (((size_t)b * Sk + t0 + t) * KVH + kvh) * D + d;
-          kv = k[at];
-          vv = v[at];
-        }
-        KsT[d * kLd + t] = kv;
-        Vs[t * D + d] = vv;
-      }
-      __syncthreads();
 
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float a[4], kk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = QsT[d * kLd + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kk[j] = KsT[d * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] += a[i] * kk[j];
+    const int ntiles = (kend + kTK - 1) / kTK;
+    auto load = [&](int tile, int stage) {
+      const int t0 = tile * kTK;
+      float* kd = Ks + stage * kTK * LK;
+      float* vd = Vs + stage * kTK * LV;
+      for (int i = threadIdx.x; i < kTK * CH; i += kThreads) {
+        const int r = i / CH, c = (i - r * CH) * 4;
+        const bool in = t0 + r < kend;
+        const size_t at =
+            in ? (((size_t)b * Sk + t0 + r) * KVH + kvh) * D + c : 0;
+        cp_async16(kd + r * LK + c, k + at, in);
+        cp_async16(vd + r * LV + c, v + at, in);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = off + r0 + r;
-        bool live[4];
-        float mx = kNegInf;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = t0 + tx + 16 * j;
-          live[j] = r < nrows && key < klen && (!causal || key <= qpos);
-          if (!live[j]) s[i][j] = kNegInf;
-          mx = fmaxf(mx, s[i][j]);
-        }
-        // the 16 threads sharing a row are the 16 tx of one half-warp
-        for (int sh = 8; sh > 0; sh >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
-        const float m_new = fmaxf(mrow[i], mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = live[j] ? expf(s[i][j] - m_new) : 0.f;
-          PsT[(tx + 16 * j) * kLd + r] = p;
-          sum += p;
-        }
-        for (int sh = 8; sh > 0; sh >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, sh);
-        const float alpha = expf(mrow[i] - m_new);
-        lrow[i] = alpha * lrow[i] + sum;
-        mrow[i] = m_new;
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] *= alpha;
+      asm volatile("cp.async.commit_group;");
+    };
+
+    load(0, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();  // tile it is in; every warp is done with it - 1
+      if (it + 1 < ntiles) load(it + 1, (it + 1) & 1);
+      float* kt = Ks + (it & 1) * kTK * LK;
+      float* vt = Vs + (it & 1) * kTK * LV;
+      // split the tile once: big in place, small beside it
+      for (int i = threadIdx.x; i < kTK * CH; i += kThreads) {
+        const int r = i / CH, c = (i - r * CH) * 4;
+        float4 x = *reinterpret_cast<float4*>(kt + r * LK + c), y;
+        split_to(x.x, y.x); split_to(x.y, y.y);
+        split_to(x.z, y.z); split_to(x.w, y.w);
+        *reinterpret_cast<float4*>(kt + r * LK + c) = x;
+        *reinterpret_cast<float4*>(Kl + r * LK + c) = y;
+        x = *reinterpret_cast<float4*>(vt + r * LV + c);
+        split_to(x.x, y.x); split_to(x.y, y.y);
+        split_to(x.z, y.z); split_to(x.w, y.w);
+        *reinterpret_cast<float4*>(vt + r * LV + c) = x;
+        *reinterpret_cast<float4*>(Vl + r * LV + c) = y;
       }
       __syncthreads();
-#pragma unroll 4
-      for (int t = 0; t < kTK; ++t) {
-        float p[4], vv[DJ];
+      const int k0 = kh * (kTK / kKH);  // this warp's keys in the tile
+      const int t0 = it * kTK + k0;
+      if (t0 >= wend) continue;  // warp-uniform: nothing this warp needs
+
+      // S = (scale q) . k^T; fragment j holds keys t0 + 8j + {2t, 2t + 1}
+      float s[kJ][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = PsT[t * kLd + ty + 16 * i];
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) vv[j] = Vs[t * D + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < KS; ++kk) {
+        float4 kb[kJ];
 #pragma unroll
-          for (int j = 0; j < DJ; ++j) o[i][j] += p[i] * vv[j];
+        for (int j = 0; j < kJ; ++j) {
+          const int at = (k0 + 8 * j + g) * LK + 8 * kk + 2 * t;
+          const float2 xb = *reinterpret_cast<const float2*>(kt + at);
+          const float2 xs = *reinterpret_cast<const float2*>(Kl + at);
+          kb[j] = make_float4(xb.x, xb.y, xs.x, xs.y);
+        }
+        mma3(s, qb[kk], qs[kk], kb);
+      }
+
+      // online softmax on the fragments: rows ra (s[.][0..1]) and rb
+      // (s[.][2..3]); a row's 32 keys of this warp sit in one quad
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + 8 * j + 2 * t + (e & 1);
+          if (key >= (e < 2 ? lim_a : lim_b)) s[j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(mrow[r], mx[r]);
+        alpha[r] = exp2f(mrow[r] - m_new);
+        mrow[r] = m_new;
+        lrow[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + 8 * j + 2 * t + (e & 1);
+          const float p = key < (e < 2 ? lim_a : lim_b)
+                              ? exp2f(s[j][e] - mrow[e >> 1])
+                              : 0.f;
+          s[j][e] = p;
+          lrow[e >> 1] += p;  // a lane's partial sum; the quad's at the end
+        }
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P . V: key group j is a k-step whose column t is key 2t and
+      // column t + 4 key 2t + 1, so S's fragment is P's A fragment
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        uint32_t pb[4], ps[4];
+        split(s[j][0], pb[0], ps[0]);
+        split(s[j][2], pb[1], ps[1]);
+        split(s[j][1], pb[2], ps[2]);
+        split(s[j][3], pb[3], ps[3]);
+        const int at = (k0 + 8 * j + 2 * t) * LV + g;
+        float4 vb[KS];
+#pragma unroll
+        for (int n = 0; n < KS; ++n)
+          vb[n] = make_float4(vt[at + 8 * n], vt[at + LV + 8 * n],
+                              Vl[at + 8 * n], Vl[at + LV + 8 * n]);
+        mma3(o, pb, ps, vb);
       }
     }
   }
 
-  const int total = min(Sq - r0, kR);  // rows of this block in range
+  // merge the key parts: warp kh = 1 hands its (m, l, O) to the warp of
+  // the same rows through shared memory, [value][lane of the row groups]
+  __syncthreads();  // every warp is done with the tiles
+  float* xm = sm + rg * 32 + lane;
+  constexpr int kX = 32 * kR / 16;
+  if (kh == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= total) continue;
-    const float l = r < nrows ? lrow[i] : 0.f;
+    for (int r = 0; r < 2; ++r) {
+      xm[r * kX] = mrow[r];
+      xm[(2 + r) * kX] = lrow[r];
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xm[(4 + 4 * n + e) * kX] = o[n][e];
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  float a1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = xm[r * kX], m = fmaxf(mrow[r], m1);
+    const float a0 = exp2f(mrow[r] - m);
+    a1[r] = exp2f(m1 - m);
+    lrow[r] = lrow[r] * a0 + xm[(2 + r) * kX] * a1[r];
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      o[n][2 * r] *= a0;
+      o[n][2 * r + 1] *= a0;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[n][e] += xm[(4 + 4 * n + e) * kX] * a1[e >> 1];
+
+  // the quad's row sums; lanes of dead rows hold 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rb : ra;
+    if (r0 + row >= Sq) continue;
+    const float l = lrow[r];
     const float den = l > 0.f ? l : 1.f;
-    float* ob = out + (((size_t)b * Sq + r0 + r) * H + h) * D;
+    float* ob = out + (((size_t)b * Sq + r0 + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      ob[tx + 16 * j] = l > 0.f ? o[i][j] / den : 0.f;
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(ob + 8 * n) =
+          l > 0.f ? make_float2(o[n][2 * r] / den, o[n][2 * r + 1] / den)
+                  : make_float2(0.f, 0.f);
   }
 }
 
@@ -179,7 +396,7 @@ int launch(const void* q, const void* k, const void* v, const void* off,
            const void* qlens, const void* klens, void* out, int B, int Sq,
            int Sk, int H, int KVH, int causal, float scale,
            cudaStream_t stream) {
-  const size_t smem = (2 * D * kLd + kTK * D + kTK * kLd) * sizeof(float);
+  const size_t smem = 3 * kTK * ((D + 8) + (D + 4)) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -197,9 +414,9 @@ int launch(const void* q, const void* k, const void* v, const void* off,
 
 }  // namespace
 
-// All tensors contiguous; D in {32, 64, 128} and H % KVH == 0 (the wrapper
-// checks); q_offset/q_lens/k_lens may each be null.  Returns a cudaError_t
-// (0 = launched).
+// All tensors contiguous and q/k/v 16-byte aligned; D in {32, 64, 128} and
+// H % KVH == 0 (the wrapper checks); q_offset/q_lens/k_lens may each be
+// null.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const void* q_offset, const void* q_lens,
                              const void* k_lens, void* out, int B, int Sq,

@@ -267,7 +267,13 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
     """q: (B, Sq, H, D) f32 unscaled (scaled by D^-1/2 inside); k/v:
     (B, Sk, KVH, D) f32; q_offset/q_lens/k_lens (B,) int32 or None
     (0, Sq, Sk).  Returns (B, Sq, H, D) f32: causal flash attention with
-    GQA heads indexed, queries past q_lens and queries with no live key 0."""
+    GQA heads indexed, queries past q_lens and queries with no live key 0.
+
+    The CUDA kernel runs both products on the tensor cores in 3xTF32 (each
+    f32 operand split into two TF32 parts, three MMAs a product: about
+    f32's accuracy) and streams K/V tiles into shared memory with 16-byte
+    ``cp.async`` copies, so q, k and v must be 16-byte aligned: a view
+    that is not raises ``ValueError``."""
     if q.device.type == "cpu":
         return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
                                      k_lens)
@@ -279,6 +285,10 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
         raise ValueError(f"{name}: needs k/v (B, Sk, KVH, D) matching q "
                          f"{tuple(q.shape)}, D in (32, 64, 128), H % KVH == "
                          f"0; got k {tuple(k.shape)}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned for "
+                             "cp.async")
     _check(name, q.device, q=q, k=k, v=v, q_offset=q_offset, q_lens=q_lens,
            k_lens=k_lens)
     for t in (q, k, v):

@@ -274,37 +274,98 @@ def test_decode_attention_matches_pallas(int8, hq):
     np.testing.assert_allclose(got4.numpy(), want4, atol=2e-6, rtol=0)
 
 
-@pytest.mark.parametrize("hq", [1, 2])
-def test_flash_prefill_matches_pallas(hq):
-    """Per-row q_offset / q_lens / k_lens (chunked form, Sk > Sq) with
+# (seed, b, sq, sk, kvh, hq, d, q_offset, q_lens, k_lens, block): the chunked
+# form with GQA at narrow width (Pallas tiles of 8), then the widths the
+# CUDA kernel's fragment tiling must handle: full-width heads (H = 12,
+# D = 64), ragged lengths that are no multiple of 8 or 16, GQA, and a row
+# with q_lens 0
+_FLASH_CASES = {
+    "1": (32, 3, 24, 40, 2, 1, 32, [16, 0, 9], [24, 13, 0], [40, 13, 30], 8),
+    "2": (33, 3, 24, 40, 2, 2, 32, [16, 0, 9], [24, 13, 0], [40, 13, 30], 8),
+    "h12-d64-s17": (42, 1, 17, 17, 12, 1, 64, None, None, None, 128),
+    "h12-d64-s70-gqa": (43, 3, 70, 86, 4, 3, 64, [16, 0, 3], [70, 0, 41],
+                        [86, 50, 44], 128),
+}
+
+
+@pytest.mark.parametrize("case", list(_FLASH_CASES))
+def test_flash_prefill_matches_pallas(case):
+    """Per-row q_offset / q_lens / k_lens (chunked form, Sk >= Sq) with
     GQA; rows past q_lens are 0 in the port and unspecified in the JAX
-    kernel, so only the live rows are compared."""
-    rng = np.random.default_rng(31 + hq)
-    b, sq, sk, kvh, d = 3, 24, 40, 2, 32
+    kernel, so only the live rows are compared.  Then the one-shot form
+    (no extents) against the JAX plain version."""
+    seed, b, sq, sk, kvh, hq, d, off, qlens, klens, blk = _FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, kvh * hq, d)).astype(np.float32)
     k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
     v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
-    off = np.array([16, 0, 9], np.int32)
-    qlens = np.array([24, 13, 0], np.int32)
-    klens = np.array([40, 13, 30], np.int32)
+    ext = [None if x is None else np.array(x, np.int32)
+           for x in (off, qlens, klens)]
+    off, qlens, klens = ext
     want = np.asarray(jops.flash_prefill(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-        q_offset=jnp.asarray(off), q_lens=jnp.asarray(qlens),
-        k_lens=jnp.asarray(klens), block_q=8, block_k=8, **I))
-    got = ops.flash_prefill(_t(q), _t(k), _t(v), q_offset=_t(off),
-                            q_lens=_t(qlens), k_lens=_t(klens)).numpy()
+        q_offset=0 if off is None else jnp.asarray(off),
+        q_lens=None if qlens is None else jnp.asarray(qlens),
+        k_lens=None if klens is None else jnp.asarray(klens),
+        block_q=blk, block_k=blk, **I))
+    off_t, ql_t, kl_t = (None if x is None else _t(x) for x in ext)
+    got = ops.flash_prefill(_t(q), _t(k), _t(v), q_offset=off_t,
+                            q_lens=ql_t, k_lens=kl_t).numpy()
     for i in range(b):
-        n = qlens[i]
+        n = sq if qlens is None else qlens[i]
         np.testing.assert_allclose(got[i, :n], want[i, :n], atol=2e-6,
                                    rtol=0)
         assert not got[i, n:].any()
-    # the one-shot form against the JAX plain version
-    qs, ks_ = q[:, :16], k[:, :16]
+    # the one-shot form (Sq = Sk) against the JAX plain version
+    n = sq if off is None else 16
+    qs, ks_, vs = q[:, :n], k[:, :n], v[:, :n]
     want = np.asarray(jref.ref_flash_prefill(
-        jnp.asarray(qs), jnp.asarray(ks_), jnp.asarray(v[:, :16])))
+        jnp.asarray(qs), jnp.asarray(ks_), jnp.asarray(vs)))
     for fn in (ops.flash_prefill_kernel, ref.ref_flash_prefill):
-        got = fn(_t(qs), _t(ks_), _t(v[:, :16])).numpy()
+        got = fn(_t(qs), _t(ks_), _t(vs)).numpy()
         np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: f32 with its mantissa rounded to 10 bits, ties
+    away from zero (finite inputs)."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int):
+    """a @ b as the tensor cores take it in f32: one TF32 product
+    (``terms`` 1) or 3xTF32 (big.small + small.big + big.big)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ab @ bb
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (ab @ bs + as_ @ bb) + ab @ bb
+
+
+def test_3xtf32_split_meets_the_kernel_tolerance():
+    """The chip check holds flash_prefill within 2e-5 of its plain
+    version.  Emulated here on a 64 x 64 x 64 attention at randn scale (q
+    scaled by 1/8, as D^-1/2 at D = 64): the 3xTF32 split the kernel runs
+    stays below 2e-6 of float64, one plain TF32 product per product does
+    not stay within 2e-5 -- the tolerance rejects a 1xTF32 kernel."""
+    worst = {1: 0.0, 3: 0.0}
+    for seed in range(4):
+        rng = np.random.default_rng(400 + seed)
+        q, k, v = (rng.standard_normal((64, 64)).astype(np.float32)
+                   for _ in range(3))
+        q /= 8
+        s64 = q.astype(np.float64) @ k.T.astype(np.float64)
+        p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+        want = (p64 / p64.sum(-1, keepdims=True)) @ v.astype(np.float64)
+        for terms in (1, 3):
+            s = _tf32_matmul(_t(q), _t(k).T.contiguous(), terms)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            o = _tf32_matmul(p, _t(v), terms) / p.sum(-1, keepdim=True)
+            worst[terms] = max(worst[terms],
+                               float(np.abs(o.numpy() - want).max()))
+    assert worst[3] < 2e-6, worst
+    assert worst[1] > 2e-5, worst
 
 
 def test_rope_matches_pallas():
@@ -353,6 +414,17 @@ def test_new_wrappers_never_take_the_plain_version(name):
     """Off the CPU the wrapper goes to its CUDA kernel or raises."""
     with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
         _META_CALLS[name]()
+
+
+@pytest.mark.parametrize("arg", ["q", "k", "v"])
+def test_flash_prefill_rejects_a_misaligned_view(arg):
+    """cp.async copies 16 bytes at a time: a q, k or v view that starts 4
+    bytes into its storage raises, and never reaches the plain version."""
+    qkv = {a: _meta((1, 8, 2, 32)) for a in ("q", "k", "v")}
+    qkv[arg] = _meta((1 + 8 * 2 * 32,))[1:].view(1, 8, 2, 32)
+    assert qkv[arg].is_contiguous() and qkv[arg].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_prefill_kernel(qkv["q"], qkv["k"], qkv["v"])
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
