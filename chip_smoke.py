@@ -202,30 +202,44 @@ def check_q8(report, dev):
 
 def check_q4(report, dev):
     """q4_matvec at the Q4 path's shapes: the decode GEMVs and the head at
-    M = 1 and 8 slots, the chunk step's MLP at M = 2048 rows."""
+    M = 1 and 8 slots, the chunk step's MLP at M = 2048 rows; then the
+    GEMV's edges: every row-count template boundary, group sizes 16 to 512,
+    a ragged N, a ragged last chunk (K % 32 == 16), K past one staged slab,
+    8-byte aligned weights, and a repeated call that must be bitwise
+    equal."""
     from repro_torch.core.quantization import quantize
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def operands(m, n, k):
+    def operands(m, n, k, gs=64):
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
-        xt, wt = quantize(x, 64), quantize(w, 64, bits=4)
+        xt, wt = quantize(x, gs), quantize(w, gs, bits=4)
+        assert xt.group_size == gs and wt.group_size == gs
         return xt.q, xt.scale, wt.q, wt.scale
 
-    def one(m, n, k):
-        xq, xs, wq, ws = operands(m, n, k)
-        got = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
-        want = ref.ref_q4_matvec(xq, xs, wq, ws, 64)
+    def check(m, n, k, gs, xq, xs, wq, ws, tag=""):
+        got = ops.q4_matvec_kernel(xq, xs, wq, ws, gs)
+        want = ref.ref_q4_matvec(xq, xs, wq, ws, gs)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         # exact per-group products; the GEMV sums the f32 groups in another
         # order, the tiled path (M > 32) in the plain version's
         tol = 2e-5 * max(1.0, want.abs().max().item())
         if not err <= tol:
-            raise AssertionError(f"q4_matvec M={m} N={n} K={k}: max abs err "
-                                 f"{err:.3g} > tol {tol:.3g}")
+            raise AssertionError(f"q4_matvec M={m} N={n} K={k} gs={gs}"
+                                 f"{tag}: max abs err {err:.3g} > tol "
+                                 f"{tol:.3g}")
+        if m > ops.MATVEC_MAX_ROWS and not torch.equal(got, want):
+            raise AssertionError(f"q4_matvec M={m} N={n} K={k}: the tiled "
+                                 "path is not bitwise equal to its plain "
+                                 "version")
+        return err, tol
+
+    def one(m, n, k):
+        xq, xs, wq, ws = operands(m, n, k)
+        err, tol = check(m, n, k, 64, xq, xs, wq, ws)
         g = k // 64
         nb = m * k + 4 * m * g + n * k // 2 + 4 * n * g + 4 * m * n
         b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
@@ -237,7 +251,8 @@ def check_q4(report, dev):
         lib = time_ms(lambda: torch.matmul(xf, wfs().T))
         log(f"  q4_matvec  M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
             f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of it")
         return err, ms, plain, lib, b_ms
 
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
@@ -252,17 +267,54 @@ def check_q4(report, dev):
                 for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                                ("bound", b_ms)):
                     step[key] += w * v
+    chunk = {"ms": 0.0, "lib": 0.0}
     for n, k in [(4096, 768), (768, 2048)]:
-        step["err"] = max(step["err"], one(2048, n, k)[0])
+        err, ms, _, lib, _ = one(2048, n, k)
+        step["err"] = max(step["err"], err)
+        chunk["ms"] += 12 * ms
+        chunk["lib"] += 12 * lib
     log(f"  q4_matvec per decode step (12 layers x 4 + head, M=8): kernel "
-        f"{step['ms']:.4f} ms, bound {step['bound']:.4f} ms")
+        f"{step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} ms, bound "
+        f"{step['bound']:.4f} ms; per chunk step (12 x (w13, w2), M=2048): "
+        f"kernel {chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms")
+
+    # the GEMV's edges, untimed: (M, N, K, group)
+    edges = [(m, 100, 768, 64) for m in (1, 2, 3, 4, 5, 8, 9, 16, 17, 32)]
+    edges += [(8, 768, 2048, gs) for gs in (16, 32, 128, 512)]
+    edges += [(3, 100, 784, 16), (17, 100, 784, 16),   # ragged last chunk
+              (8, 300, 4160, 64), (32, 200, 4112, 16)]  # past one slab
+    worst = 0.0
+    for m, n, k, gs in edges:
+        worst = max(worst, check(m, n, k, gs, *operands(m, n, k, gs))[0])
+    # weights 8 bytes past a 16-byte boundary take the 8-byte loads
+    xq, xs, wq, ws = operands(8, 100, 768)
+    flat = torch.empty(wq.numel() + 8, dtype=torch.int8, device=dev)
+    wq8 = flat[8:].view(wq.shape)
+    wq8.copy_(wq)
+    assert wq8.data_ptr() % 16 == 8
+    worst = max(worst, check(8, 100, 768, 64, xq, xs, wq8, ws,
+                             " (8-byte aligned weights)")[0])
+    xq, xs, wq, ws = operands(8, *head)
+    first = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
+    again = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("q4_matvec: a repeated call is not bitwise "
+                             "equal to the first")
+    step["err"] = max(step["err"], worst)
+    log(f"  q4_matvec edges: {len(edges) + 1} cases (M 1..32 at N=100, "
+        f"groups 16..512, K=784 at group 16, K past one slab, 8-byte "
+        f"aligned weights) within tolerance, worst err {worst:.2e}; a "
+        f"repeated head call bitwise equal")
     report.add("q4_matvec", route="cuda",
                source="src/repro_torch/kernels/csrc/q4_matvec.cu",
                replaces="src/repro/kernels/q4_matmul.py:69",
                max_abs_err=step["err"], ms=step["ms"],
                plain_ms=step["plain"], bound_ms=step["bound"],
                bound_by="bytes", library_ms=step["lib"],
-               per="decode step at 8 slots: 48 layer GEMVs + head")
+               chunk_ms=chunk["ms"], chunk_library_ms=chunk["lib"],
+               per="decode step at 8 slots: 48 layer GEMVs + head "
+                   "(chunk_*: chunk step, 12 x (w13, w2) at M=2048)")
 
 
 def check_dense_attention(report, dev):

@@ -8,33 +8,74 @@
 //     out[m, n] = sum_g f32(sum_{k in g} int32(xq[m, k] * w[n, k]))
 //                       * xs[m, g] * ws[n, g]
 //
-// What bounds it on an H100: bytes for the decode GEMV (M <= 32: each
-// packed weight byte is used M times), operations at a 2048-row prefill
-// (the int8 tensor-core rate).  Neither path reaches its bound: both run
-// dp4a on the CUDA cores (mma/wgmma are later work).
+// M <= 32, the decode GEMV.  Each packed weight byte is used M times, so
+// the bound is bytes: ~66 MB a llama2-110m decode step at M = 8, 0.0197 ms
+// at 3.35 TB/s.  At these sizes (0.3 to 13.8 MB a call) a call is held back
+// by latency instead: the launch, the device-memory round trips a warp
+// waits for in turn, and the dependent instructions of the few warps a
+// narrow layer gives each SM.  What the design does about each:
+//  * Weights stream with few round trips.  A warp owns RW rows (2 for
+//    M <= 8, else 1); lane l copies the 16-byte chunks (32 codes) l + 32 i
+//    of each row, so one warp copy is 512 contiguous bytes, with cp.async
+//    into the warp's own ring of kStages shared-memory slots.  A slot holds
+//    one item, (RW rows, one slab of up to 2048 codes) with its weight
+//    scales, so kStages - 1 items are in flight while the warp computes one.
+//    16-byte copies need K % 32 == 0 and a 16-byte aligned wq; otherwise a
+//    chunk is two 8-byte copies, and a ragged last chunk (K % 32 == 16)
+//    copies its half.
+//  * Every SM busy at every shape.  A block is 8, 4, 2 or 1 warps: the most
+//    that still gives every SM a tile of rows (N = 768 at M = 8: 2 warps x 2
+//    rows, 192 blocks on 132 SMs).  The grid is capped at what stays
+//    resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and a block
+//    walks tiles blockIdx.x + i * gridDim.x, so the head (N = 32000) keeps
+//    every resident warp's ring full.
+//  * Activations staged once per block.  After its first weight copies are
+//    issued, the block loads xq (M x K int8, a slab at a time) and xs, each
+//    thread one column for all M rows with up to 8 loads in flight, into
+//    shared memory; every warp then reads them there, conflict-free, and
+//    one activation read serves RW rows.
+//  * Few instructions per code.  Staging reorders each 8 activation codes
+//    to (even, odd) and stores -8 times each 16 codes' sum, so a packed
+//    weight word feeds dp4a as it is: its low and high nibbles, xored with
+//    8, are the codes + 8 (one mask each, no sign extension or byte
+//    permutes), and the -8 * sum(x) start value takes the 8 back out.
+//    A 32-code chunk lies inside one group (gs >= 32) or holds two whole
+//    ones (gs = 16), so a group is one lane, two neighbouring lanes (gs = 64:
+//    one shuffle) or gs / 32 lanes (log2 of it shuffles), and the shuffles
+//    of all M x RW sums of a chunk issue together.  The f32 sum across lanes
+//    runs once per output: a butterfly that halves the values a lane holds
+//    at each step (V - 1 + 5 - log2 V shuffles for V = M x RW sums).
+//  * Compute stays dp4a on the CUDA cores.  At M = 8 a step's dp4a are
+//    ~6.8e6 warp instructions, ~7 us of issue at one a clock per scheduler
+//    on 132 SMs, against ~0.33 ms of calls on an H100 80GB HBM3 at 700 W:
+//    what a call spends beyond its round trips is the dependent chain of an
+//    item, not the arithmetic rate an int8 mma.sync would raise.
+// Numbers: each group's int32 sum is exact and folds into the lane's f32
+// sum as acc + (part * xs) * ws with explicit rounding (no fused
+// multiply-add), the plain version's product; only the order of the sum
+// over groups differs (each lane's groups in order, then the butterfly
+// over lane offsets 16, 8, 4, 2, 1).  Every output comes from one warp in
+// a fixed order: no atomics, and the same bits from run to run.
 //
-// Design.  Unpacking happens in registers: a 32-bit word of 8 packed codes
-// splits into its low and high nibbles with one mask each, __vsub4 sign-
-// extends four nibbles at once ((u ^ 8) - 8 per byte), and __byte_perm
-// interleaves them back into code order, two dp4a-ready words.
-//  * M <= 32 (the TPU kernel keeps all M rows resident): the structure of
-//    q8_matvec.cu.  One warp per output row n; lane l takes 16-code chunks
-//    l + 32 i (8 packed bytes of weights against 16 bytes of activations),
-//    the gs/16 lanes of one group sum it exactly in int32 with shuffles, and
-//    the group folds into f32 as (part * xs) * ws.
-//  * M > 32: a CUDA block cannot hold 2048 activation rows, so it tiles over
-//    M as well as N (the structure of q8_matmul.cu): a 64 x 64 output tile
-//    per block, the K loop one group at a time, the weight slice unpacked
-//    into shared memory as it is staged.  Each thread's 4 x 4 int32 partials
-//    never cross a group, and groups fold into f32 in order with explicitly
-//    rounded products and sums (no fused multiply-add), the plain version's
-//    acc + (part * xs) * ws.
+// M > 32: a CUDA block cannot hold 2048 activation rows, so it tiles over M
+// as well as N (the structure of q8_matmul.cu): a 64 x 64 output tile per
+// block, the K loop one group at a time, the weight slice unpacked into
+// shared memory as it is staged.  Each thread's 4 x 4 int32 partials never
+// cross a group, and groups fold into f32 in order with explicitly rounded
+// products and sums (no fused multiply-add), the plain version's acc +
+// (part * xs) * ws.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMatvecMaxRows = 32;
+constexpr int kMaxWarps = 8;
+constexpr int kSlabChunks = 64;                  // 32-code chunks a slab
+constexpr int kSlabCodes = 32 * kSlabChunks;     // 2048
+constexpr int kChunksPerLane = kSlabChunks / 32;
+constexpr int kStages = 4;                       // items in flight a warp
+constexpr int kStageBatch = 8;                   // loads in flight a thread
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 
@@ -48,65 +89,352 @@ __device__ __forceinline__ void unpack8(unsigned int w, int& a, int& b) {
   b = (int)__byte_perm(lo, hi, 0x7362);
 }
 
-__device__ __forceinline__ int dot16(const int4& x, const uint2& w) {
-  int a0, a1, a2, a3;
-  unpack8(w.x, a0, a1);
-  unpack8(w.y, a2, a3);
-  int s = __dp4a(x.x, a0, 0);
-  s = __dp4a(x.y, a1, s);
-  s = __dp4a(x.z, a2, s);
-  return __dp4a(x.w, a3, s);
+// 16 codes of one half chunk: activations de-interleaved (even codes, odd
+// codes of each 8) against the unsigned nibbles u = code + 8 of two packed
+// words, from corr = -8 * (sum of the 16 activation codes):
+// sum x * code = sum x * u - 8 * sum x, exact in int32
+__device__ __forceinline__ int dot16(const int4& x, unsigned int w0,
+                                     unsigned int w1, int corr) {
+  int s = __dp4a(x.x, (int)((w0 & 0x0F0F0F0Fu) ^ 0x08080808u), corr);
+  s = __dp4a(x.y, (int)(((w0 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u), s);
+  s = __dp4a(x.z, (int)((w1 & 0x0F0F0F0Fu) ^ 0x08080808u), s);
+  return __dp4a(x.w, (int)(((w1 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u), s);
 }
 
+// acc + (part * xs) * ws, rounded at each step as the plain version is
+__device__ __forceinline__ float fold(float acc, int part, float xs,
+                                      float ws) {
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn((float)part, xs), ws));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(gmem));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s),
+               "l"(gmem), "n"(BYTES));
+}
+
+// Sizes of one launch, and the shared memory layout (in 16-byte units):
+// the staged activation slab, then each warp's ring of kStages slots.
+struct Shape {
+  int M, N, K, gs, lg, G;
+  int C;       // 32-code chunks of a row (the last may hold 16 codes)
+  int cs;      // chunks of a slab: min(kSlabChunks, C)
+  int cpl;     // chunks a lane takes from one row of a slab: 1 or 2
+  int gsl;     // groups of a slab
+  int nslabs;
+  int act16;   // 16-byte units of the staged activations
+  int slot16;  // 16-byte units of one ring slot
+  bool wide;   // 16-byte weight copies (K % 32 == 0, wq 16-byte aligned)
+
+  __host__ __device__ Shape(int M_, int N_, int K_, int gs_, int rw,
+                            bool wide_)
+      : M(M_), N(N_), K(K_), gs(gs_), wide(wide_) {
+    lg = 0;
+    while ((1 << lg) < gs) ++lg;
+    G = K >> lg;
+    C = (K + 31) >> 5;
+    cs = C < kSlabChunks ? C : kSlabChunks;
+    cpl = (cs + 31) >> 5;
+    gsl = (K < kSlabCodes ? K : kSlabCodes) >> lg;
+    nslabs = (K + kSlabCodes - 1) / kSlabCodes;
+    // x planes [M][2][cs] int4, corrections [M][cs] int2, xs [M][gsl] f32
+    act16 = 2 * M * cs + (M * cs + 1) / 2 + (M * gsl + 3) / 4;
+    // weights [rw][cpl][32] int4, then ws [rw][gsl] f32
+    slot16 = rw * cpl * 32 + (rw * gsl + 3) / 4;
+  }
+};
+
+// Copy slab `slab` of xq and xs into shared memory.  Row m's chunk c
+// lands in two planes, half h of 16 codes at sx[(2m + h) * cs + c], its
+// words reordered to (even codes 0-6, odd 1-7, even 8-14, odd 9-15) so
+// each meets one packed weight word's low and high nibbles; scorr[m * cs +
+// c] holds -8 times each half's code sum.  A ragged last half is zero.
+// A thread takes one column of halves (or of groups) for every row m at
+// once, up to kStageBatch loads in flight before it uses the first.
 template <int MT>
-__global__ void q4_matvec_kernel(const int8_t* __restrict__ xq,
-                                 const float* __restrict__ xs,
-                                 const int8_t* __restrict__ wq,
-                                 const float* __restrict__ ws,
-                                 float* __restrict__ out, int M, int N, int K,
-                                 int gs) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int G = K / gs;
-  const int lpg = gs >> 4;  // lanes per group: a power of two <= 32
-  const int nchunks = K >> 4;
-  for (int n = blockIdx.x * warps + (threadIdx.x >> 5); n < N;
-       n += gridDim.x * warps) {
-    const uint2* wrow = reinterpret_cast<const uint2*>(wq + (size_t)n * (K / 2));
-    float acc[MT];
+__device__ __forceinline__ void stage(int4* sx, int2* scorr, float* sxs,
+                                      const int8_t* __restrict__ xq,
+                                      const float* __restrict__ xs,
+                                      const Shape& s, int slab) {
+  const int codes0 = slab * kSlabCodes;
+  const int len = min(kSlabCodes, s.K - codes0);
+  const int halves = (len + 31) >> 4 & ~1;  // two per chunk, tail included
+  const int groups = len >> s.lg;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    float v[MT];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-    for (int c0 = 0; c0 < nchunks; c0 += 32) {
-      const int c = c0 + lane;
-      const bool live = c < nchunks;
-      const uint2 w = live ? __ldg(wrow + c) : make_uint2(0u, 0u);
-      const int g = live ? (c << 4) / gs : 0;
-      const float wsc = live ? __ldg(ws + (size_t)n * G + g) : 0.f;
+    for (int m = 0; m < MT; ++m)
+      v[m] = m < s.M ? __ldg(xs + (size_t)m * s.G + (codes0 >> s.lg) + g)
+                     : 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      if (m < s.M) sxs[m * s.gsl + g] = v[m];
+  }
+  for (int j = threadIdx.x; j < halves; j += blockDim.x) {
+    const bool real = 16 * j < len;
+    int4* dst = sx + (j & 1) * s.cs + (j >> 1);
+    int* corr = reinterpret_cast<int*>(scorr) + 2 * (j >> 1) + (j & 1);
+#pragma unroll
+    for (int m0 = 0; m0 < MT; m0 += kStageBatch) {
+      int4 a[kStageBatch];
+#pragma unroll
+      for (int u = 0; u < kStageBatch && m0 + u < MT; ++u)
+        a[u] = m0 + u < s.M && real
+                   ? __ldg(reinterpret_cast<const int4*>(
+                               xq + (size_t)(m0 + u) * s.K + codes0) + j)
+                   : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < kStageBatch && m0 + u < MT; ++u) {
+        const int m = m0 + u;
+        if (m >= s.M) break;
+        int sum = __dp4a(a[u].x, 0x01010101, 0);
+        sum = __dp4a(a[u].y, 0x01010101, sum);
+        sum = __dp4a(a[u].z, 0x01010101, sum);
+        sum = __dp4a(a[u].w, 0x01010101, sum);
+        dst[2 * m * s.cs] = make_int4((int)__byte_perm(a[u].x, a[u].y, 0x6420),
+                                      (int)__byte_perm(a[u].x, a[u].y, 0x7531),
+                                      (int)__byte_perm(a[u].z, a[u].w, 0x6420),
+                                      (int)__byte_perm(a[u].z, a[u].w, 0x7531));
+        corr[2 * m * s.cs] = -8 * sum;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Start copying rows n0 .. n0 + RW - 1 of slab `slab` (weights and their
+// scales) into a ring slot; one cp.async group per item.  Each lane copies
+// the weight chunks it will read itself.
+template <int RW>
+__device__ __forceinline__ void issue_item(int4* slot,
+                                           const int8_t* __restrict__ wq,
+                                           const float* __restrict__ ws,
+                                           const Shape& s, int n0, int slab,
+                                           int lane) {
+  const int kh = s.K >> 1;
+  float* sws = reinterpret_cast<float*>(slot + RW * s.cpl * 32);
+  const int groups = min(kSlabCodes, s.K - slab * kSlabCodes) >> s.lg;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int n = n0 + r;
+    if (n >= s.N) break;  // uniform across the warp
+    const int8_t* row = wq + (size_t)n * kh;
+    for (int i = 0; i < s.cpl; ++i) {
+      const int c = slab * kSlabChunks + 32 * i + lane;
+      if (c >= s.C) break;
+      int4* dst = slot + (r * s.cpl + i) * 32 + lane;
+      if (s.wide) {
+        cp_async16(dst, row + 16 * c);
+      } else {  // 8-byte aligned rows, or a ragged last chunk
+        cp_async_ca<8>(dst, row + 16 * c);
+        if (16 * c + 8 < kh)
+          cp_async_ca<8>(reinterpret_cast<int8_t*>(dst) + 8, row + 16 * c + 8);
+        else
+          reinterpret_cast<int2*>(dst)[1] = make_int2(0, 0);
+      }
+    }
+    for (int g = lane; g < groups; g += 32)
+      cp_async_ca<4>(sws + r * s.gsl + g,
+                     ws + (size_t)n * s.G + (slab * kSlabCodes >> s.lg) + g);
+  }
+  asm volatile("cp.async.commit_group;");
+}
+
+// One warp's RW rows over one slab: every group of the lane's chunks
+// folds into acc[r][m].
+template <int MT, int RW>
+__device__ __forceinline__ void compute_item(float (&acc)[RW][MT],
+                                             const int4* slot,
+                                             const int4* sx,
+                                             const int2* scorr,
+                                             const float* sxs, const Shape& s,
+                                             int slab, int lane) {
+  const float* sws = reinterpret_cast<const float*>(slot + RW * s.cpl * 32);
+  const int len = min(kSlabCodes, s.K - slab * kSlabCodes);
+  const int csl = (len + 31) >> 5;  // chunks of this slab
+  const int lpg = s.gs >> 5;         // lanes a group (0 when gs = 16)
+#pragma unroll
+  for (int i = 0; i < kChunksPerLane; ++i) {
+    if (32 * i >= csl) break;  // uniform: no lane has a chunk here
+    const int c = 32 * i + lane;
+    const bool live = c < csl;
+    const int g = (32 * c) >> s.lg;  // group within the slab
+    uint4 w[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int4 v = live ? slot[(r * s.cpl + i) * 32 + lane]
+                          : make_int4(0, 0, 0, 0);
+      w[r] = make_uint4(v.x, v.y, v.z, v.w);
+    }
+    if (s.gs == 16) {  // two whole groups a chunk: no shuffles
+      const bool hi = 32 * c + 16 < len;
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        if (m < M) {  // uniform across the warp: the shuffles below are safe
-          int part = 0;
-          if (live) {
-            const int4 x =
-                __ldg(reinterpret_cast<const int4*>(xq + (size_t)m * K) + c);
-            part = dot16(x, w);
+        if (m >= s.M || !live) break;
+        const int4 x0 = sx[(2 * m) * s.cs + c];
+        const int4 x1 = sx[(2 * m + 1) * s.cs + c];
+        const int2 cr = scorr[m * s.cs + c];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const int p0 = dot16(x0, w[r].x, w[r].y, cr.x);
+          acc[r][m] = fold(acc[r][m], p0, sxs[m * s.gsl + g],
+                           sws[r * s.gsl + g]);
+          if (hi) {
+            const int p1 = dot16(x1, w[r].z, w[r].w, cr.y);
+            acc[r][m] = fold(acc[r][m], p1, sxs[m * s.gsl + g + 1],
+                             sws[r * s.gsl + g + 1]);
           }
-          for (int off = 1; off < lpg; off <<= 1)
-            part += __shfl_xor_sync(0xffffffffu, part, off);
-          if (live && (lane & (lpg - 1)) == 0)
-            acc[m] += ((float)part * __ldg(xs + (size_t)m * G + g)) * wsc;
         }
       }
+      continue;
     }
+    int part[RW][MT];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float v = acc[m];
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) out[(size_t)m * N + n] = v;
+      const int4 zero = make_int4(0, 0, 0, 0);
+      const bool on = live && m < s.M;
+      const int4 x0 = on ? sx[(2 * m) * s.cs + c] : zero;
+      const int4 x1 = on ? sx[(2 * m + 1) * s.cs + c] : zero;
+      const int2 cr = on ? scorr[m * s.cs + c] : make_int2(0, 0);
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        part[r][m] = dot16(x0, w[r].x, w[r].y, cr.x) +
+                     dot16(x1, w[r].z, w[r].w, cr.y);
+    }
+    // a group's lanes are neighbours: sum its int32 parts exactly
+    for (int off = 1; off < lpg; off <<= 1) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          part[r][m] += __shfl_xor_sync(0xffffffffu, part[r][m], off);
+    }
+    if (live && (lane & (lpg - 1)) == 0) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float wsc = sws[r * s.gsl + g];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          if (m < s.M)
+            acc[r][m] = fold(acc[r][m], part[r][m], sxs[m * s.gsl + g], wsc);
       }
     }
+  }
+}
+
+// Sum V = RW * MT values over the 32 lanes, each a butterfly over lane
+// offsets 16, 8, 4, 2, 1 (one fixed f32 order), in 5 - log2(V) + V - 1
+// shuffles: each step keeps half the values and trades the other half.
+// Value idx ends in lanes with lane >> (5 - log2(V)) == idx.
+template <int V>
+__device__ __forceinline__ float lane_sum(float (&v)[V], int lane) {
+  int width = V;
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    if (width > 1) {
+      const int half = width >> 1;
+      const bool upper = (lane & off) != 0;
+#pragma unroll
+      for (int j = 0; j < V / 2; ++j) {
+        if (j < half) {
+          const float send = upper ? v[j] : v[j + half];
+          const float keep = upper ? v[j + half] : v[j];
+          v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+      width = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+  return v[0];
+}
+
+template <int MT, int RW>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    q4_matvec_kernel(const int8_t* __restrict__ xq,
+                     const float* __restrict__ xs,
+                     const int8_t* __restrict__ wq,
+                     const float* __restrict__ ws, float* __restrict__ out,
+                     int M, int N, int K, int gs, int wide) {
+  extern __shared__ int4 staged[];
+  const Shape s(M, N, K, gs, RW, wide != 0);
+  int4* sx = staged;
+  int2* scorr = reinterpret_cast<int2*>(sx + 2 * M * s.cs);
+  float* sxs = reinterpret_cast<float*>(scorr + M * s.cs);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int4* ring = staged + s.act16 + warp * kStages * s.slot16;
+
+  const int rows = (blockDim.x >> 5) * RW;
+  const int tiles = (N + rows - 1) / rows;
+  const int items =
+      (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
+      s.nslabs;
+  // items run tile by tile, each tile's slabs in order: (tile, slab) of
+  // the item issued next and of the item computed next
+  int itile = blockIdx.x, islab = 0, ctile = blockIdx.x, cslab = 0;
+  const int wrow = warp * RW;  // the warp's first row in a tile
+
+  // kStages - 1 items of weights in flight, then the activations
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < items) {
+      issue_item<RW>(ring + j * s.slot16, wq, ws, s, itile * rows + wrow,
+                     islab, lane);
+      if (++islab == s.nslabs) islab = 0, itile += gridDim.x;
+    } else {
+      asm volatile("cp.async.commit_group;");
+    }
+  }
+  stage<MT>(sx, scorr, sxs, xq, xs, s, 0);
+  float acc[RW][MT];
+  for (int it = 0; it < items; ++it) {
+    __syncwarp();  // every lane is done with the slot refilled here
+    const int j = it + kStages - 1;
+    if (j < items) {
+      issue_item<RW>(ring + (j % kStages) * s.slot16, wq, ws, s,
+                     itile * rows + wrow, islab, lane);
+      if (++islab == s.nslabs) islab = 0, itile += gridDim.x;
+    } else {
+      asm volatile("cp.async.commit_group;");
+    }
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 1) : "memory");
+    __syncwarp();  // the item's scales, copied by other lanes, are in
+    if (s.nslabs > 1 && it > 0) {
+      __syncthreads();  // every warp is done with the previous slab
+      stage<MT>(sx, scorr, sxs, xq, xs, s, cslab);
+    }
+    if (cslab == 0) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
+    }
+    compute_item<MT, RW>(acc, ring + (it % kStages) * s.slot16, sx, scorr,
+                         sxs, s, cslab, lane);
+    if (++cslab < s.nslabs) continue;
+    constexpr int V = RW * MT;
+    constexpr int shift = V >= 32 ? 0 : V >= 16 ? 1 : V >= 8 ? 2
+                          : V >= 4 ? 3 : V >= 2 ? 4 : 5;
+    float v[V];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) v[r * MT + m] = acc[r][m];
+    const float total = lane_sum<V>(v, lane);
+    const int idx = lane >> shift, r = idx / MT, m = idx % MT;
+    const int n = ctile * rows + wrow + r;
+    if ((lane & ((1 << shift) - 1)) == 0 && m < M && n < N)
+      out[(size_t)m * N + n] = total;
+    cslab = 0;
+    ctile += gridDim.x;
   }
 }
 
@@ -197,13 +525,39 @@ __global__ void q4_matmul_kernel(const int8_t* __restrict__ xq,
 }
 
 template <int MT>
-void launch_matvec(const int8_t* xq, const float* xs, const int8_t* wq,
-                   const float* ws, float* out, int M, int N, int K, int gs,
-                   cudaStream_t stream) {
-  const int rows_per_block = kThreads / 32;
-  const int blocks = (N + rows_per_block - 1) / rows_per_block;
-  q4_matvec_kernel<MT><<<blocks, kThreads, 0, stream>>>(xq, xs, wq, ws, out,
-                                                        M, N, K, gs);
+int launch_matvec(const int8_t* xq, const float* xs, const int8_t* wq,
+                  const float* ws, float* out, int M, int N, int K, int gs,
+                  cudaStream_t stream) {
+  constexpr int RW = MT <= 8 ? 2 : 1;
+  const auto kernel = q4_matvec_kernel<MT, RW>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool wide = K % 32 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  const Shape s(M, N, K, gs, RW, wide);
+  // the widest block that still leaves a tile of rows for every SM
+  int warps = kMaxWarps;
+  while (warps > 1 && (N + warps * RW - 1) / (warps * RW) < sms) warps >>= 1;
+  const int rows = warps * RW;
+  const int tiles = (N + rows - 1) / rows;
+  const size_t smem =
+      sizeof(int4) * ((size_t)s.act16 + (size_t)warps * kStages * s.slot16);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    32 * warps, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
+  const int blocks = tiles < resident ? tiles : resident;
+  q4_matvec_kernel<MT, RW><<<blocks, 32 * warps, smem, stream>>>(
+      xq, xs, wq, ws, out, M, N, K, gs, (int)wide);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -231,11 +585,12 @@ extern "C" int q4_matvec(const void* xq, const void* xs, const void* wq,
     }
     q4_matmul_kernel<<<grid, kThreads, smem, st>>>(a, as, w, s, o, M, N, K,
                                                    gs);
-  } else if (M <= 1) launch_matvec<1>(a, as, w, s, o, M, N, K, gs, st);
-  else if (M <= 2) launch_matvec<2>(a, as, w, s, o, M, N, K, gs, st);
-  else if (M <= 4) launch_matvec<4>(a, as, w, s, o, M, N, K, gs, st);
-  else if (M <= 8) launch_matvec<8>(a, as, w, s, o, M, N, K, gs, st);
-  else if (M <= 16) launch_matvec<16>(a, as, w, s, o, M, N, K, gs, st);
-  else launch_matvec<32>(a, as, w, s, o, M, N, K, gs, st);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  if (M <= 1) return launch_matvec<1>(a, as, w, s, o, M, N, K, gs, st);
+  if (M <= 2) return launch_matvec<2>(a, as, w, s, o, M, N, K, gs, st);
+  if (M <= 4) return launch_matvec<4>(a, as, w, s, o, M, N, K, gs, st);
+  if (M <= 8) return launch_matvec<8>(a, as, w, s, o, M, N, K, gs, st);
+  if (M <= 16) return launch_matvec<16>(a, as, w, s, o, M, N, K, gs, st);
+  return launch_matvec<32>(a, as, w, s, o, M, N, K, gs, st);
 }

@@ -198,7 +198,11 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
 
 def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     """Any M: out (M, N) f32 = sum_g f32(int32 dot of group g) * xs[m, g] *
-    ws[n, g] against packed Q4_0 weights wq (N, K/2)."""
+    ws[n, g] against packed Q4_0 weights wq (N, K/2).  M <= 32 runs the
+    decode GEMV, more rows the tiled GEMM.  The GEMV stages xq by 16-byte
+    loads and copies weights 16 bytes at a time where wq is 16-byte aligned
+    and K % 32 == 0, 8 bytes otherwise: xq must be 16-byte and wq 8-byte
+    aligned."""
     if xq.device.type == "cpu":
         return ref.ref_q4_matvec(xq, xs, wq, ws, group_size)
     name = "q4_matvec"
@@ -221,7 +225,9 @@ def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     _dtype(name, xs, torch.float32)
     _dtype(name, ws, torch.float32)
     if xq.data_ptr() % 16 or wq.data_ptr() % 8:
-        raise ValueError(f"{name}: xq must be 16-byte and wq 8-byte aligned")
+        raise ValueError(f"{name}: xq must be 16-byte aligned (16-byte "
+                         "activation loads) and wq 8-byte aligned (8-byte "
+                         "weight copies at the least)")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     launch(name, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
            out.data_ptr(), m, n, k, group_size, _stream(xq))

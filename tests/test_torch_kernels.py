@@ -219,12 +219,22 @@ def test_ref_paged_prefill_matches_jax_ref(int8):
                                    rtol=2e-6)
 
 
-@pytest.mark.parametrize("m", [1, 8, 33, 80])
-def test_q4_matvec_matches_pallas(m):
+# (M, group, K): the GEMV (M <= 32) and the tiled path, at every group
+# size the GEMV folds differently (16: two groups a 32-code chunk; 32: one
+# lane; 64 and 128: two and four neighbouring lanes), K one slab or many
+# groups; the group-64, K-256 cases keep their original ids
+_Q4_CASES = [pytest.param(m, 64, 256, id=str(m)) for m in (1, 8, 33, 80)]
+_Q4_CASES += [pytest.param(m, g, k, id=f"{m}-g{g}-k{k}")
+              for m in (1, 8, 33, 80) for g in (16, 32, 64, 128)
+              for k in (256, 2048) if (g, k) != (64, 256)]
+
+
+@pytest.mark.parametrize("m,group,k", _Q4_CASES)
+def test_q4_matvec_matches_pallas(m, group, k):
     """Q4_0 weights go to q4_matvec for every row count, as in the JAX
     dispatch; both against the JAX kernel (interpret) and plain version."""
-    rng = np.random.default_rng(40 + m)
-    n, k, group = 96, 256, 64
+    rng = np.random.default_rng(40 + m + group + k)
+    n = 96
     x = rng.standard_normal((m, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) / 16).astype(np.float32)
     jw = jquantize(jnp.asarray(w), group_size=group, bits=4)
@@ -240,6 +250,57 @@ def test_q4_matvec_matches_pallas(m):
         got = fn(_t(xq.q), _t(xq.scale), _t(jw.q), _t(jw.scale),
                  group).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _gemv_fold_order(xq, xs, w, ws, group):
+    """The f32 order of csrc/q4_matvec.cu's GEMV (M <= 32), in numpy: lane
+    l takes 32-code chunks c = 2048 s + 32 i + l (slab s, i < 2); a group's
+    first lane folds its exact int32 sum as acc + (part * xs) * ws, each
+    product and sum rounded to f32 (group 16: both groups of the chunk, in
+    order); then a butterfly over lane offsets 16, 8, 4, 2, 1 sums the 32
+    lanes.  xq (M, K) and w (N, K) are int codes."""
+    m, k = xq.shape
+    g = k // group
+    part = np.einsum("mgk,ngk->mng", xq.reshape(m, g, group).astype(np.int64),
+                     w.reshape(-1, g, group).astype(np.int64))
+    term = ((part.astype(np.float32) * xs[:, None, :].astype(np.float32))
+            * ws[None, :, :].astype(np.float32))        # (M, N, G) f32
+    acc = np.zeros((32,) + term.shape[:2], np.float32)
+    for base in range(0, (k + 31) // 32, 32):           # slab s, chunk i
+        for lane in range(32):
+            c = base + lane
+            if 32 * c >= k or (group > 32 and lane % (group // 32)):
+                continue
+            for gi in range(32 * c // group,
+                            min(32 * c + 32, k) // group if group < 32
+                            else 32 * c // group + 1):
+                acc[lane] = acc[lane] + term[:, :, gi]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[np.arange(32) ^ off]
+    return acc[0]
+
+
+@pytest.mark.parametrize("n,k", [(768, 768), (768, 2048)])
+def test_gemv_fold_order_meets_the_kernel_tolerance(n, k):
+    """The chip check holds the Q4 GEMV within 2e-5 * max(1, |want|max) of
+    its plain version.  The GEMV's own f32 order (per-lane group folds, then
+    the lane butterfly), emulated here at the decode path's shapes with 8
+    slots, stays within that of the JAX reference, and is not simply the
+    plain version's order."""
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((8, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    xt = jquantize(jnp.asarray(x), group_size=64)
+    wt = jquantize(jnp.asarray(w), group_size=64, bits=4)
+    want = np.asarray(jref.ref_q4_matvec(xt.q, xt.scale, wt.q, wt.scale, 64))
+    packed = np.asarray(wt.q).astype(np.int8)
+    wcodes = np.stack([(packed << 4).astype(np.int8) >> 4, packed >> 4],
+                      -1).reshape(n, k)
+    got = _gemv_fold_order(np.asarray(xt.q), np.asarray(xt.scale), wcodes,
+                           np.asarray(wt.scale), 64)
+    err = float(np.abs(got - want).max())
+    assert err <= 2e-5 * max(1.0, float(np.abs(want).max())), err
+    assert not np.array_equal(got, want)
 
 
 def _cache(rng, b, s, kvh, d, int8):
