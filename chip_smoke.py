@@ -120,53 +120,75 @@ class Report:
 # ---------------------------------------------------------------------------
 
 
-def check_q8(report, dev):
+def _q8_operands(gen, dev):
     from repro_torch.core.quantization import quantize
-    from repro_torch.kernels import ops, ref
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def operands(m, n, k):
+    def operands(m, n, k, gs=64):
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
-        xt, wt = quantize(x, 64), quantize(w, 64)
+        xt, wt = quantize(x, gs), quantize(w, gs)
+        assert xt.group_size == gs and wt.group_size == gs
         return xt.q, xt.scale, wt.q, wt.scale
+    return operands
 
-    def one(kernel, name, m, n, k):
-        xq, xs, wq, ws = operands(m, n, k)
-        got = kernel(xq, xs, wq, ws, 64)
-        want = ref.ref_q8_matmul(xq, xs, wq, ws, 64)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        # the same exact per-group products; only the f32 sum over the
-        # K/64 groups runs in another order
-        tol = 2e-5 * max(1.0, want.abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"{name} M={m} N={n} K={k}: max abs err "
-                                 f"{err:.3g} > tol {tol:.3g}")
-        g = k // 64
-        nb = m * k + 4 * m * g + n * k + 4 * n * g + 4 * m * n
-        b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
-        nxt = rotating(lambda: operands(m, n, k), n * k + 4 * n * g)
-        ms = time_ms(lambda: kernel(*nxt(), 64))
-        plain = time_ms(lambda: ref.ref_q8_matmul(*nxt(), 64), iters=5)
-        xf = (xq.float().reshape(m, g, 64) * xs[..., None]).reshape(m, k)
-        wfs = rotating(lambda: torch.randn((n, k), device=dev),
-                       4 * n * k)
-        lib = time_ms(lambda: torch.matmul(xf, wfs().T))
-        log(f"  {name:10s} M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
-            f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        return err, ms, plain, lib, b_ms, b_by
 
+def _q8_check(kernel, name, m, n, k, gs, xq, xs, wq, ws):
+    """Hold one call against ``ref_q8_matmul``: the same exact per-group
+    products, only the f32 sum over the K/gs groups runs in another
+    order."""
+    from repro_torch.kernels import ref
+    got = kernel(xq, xs, wq, ws, gs)
+    want = ref.ref_q8_matmul(xq, xs, wq, ws, gs)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{name} M={m} N={n} K={k} gs={gs}: max abs "
+                             f"err {err:.3g} > tol {tol:.3g}")
+    return err, tol
+
+
+def _q8_timed(kernel, name, operands, m, n, k, dev):
+    """Check and time one call at group 64 (weights cold in L2) beside the
+    plain version and ``torch.matmul`` on the dequantized operands."""
+    from repro_torch.kernels import ref
+    xq, xs, wq, ws = operands(m, n, k)
+    err, tol = _q8_check(kernel, name, m, n, k, 64, xq, xs, wq, ws)
+    g = k // 64
+    nb = m * k + 4 * m * g + n * k + 4 * n * g + 4 * m * n
+    b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
+    nxt = rotating(lambda: operands(m, n, k), n * k + 4 * n * g)
+    ms = time_ms(lambda: kernel(*nxt(), 64))
+    plain = time_ms(lambda: ref.ref_q8_matmul(*nxt(), 64), iters=5)
+    xf = (xq.float().reshape(m, g, 64) * xs[..., None]).reshape(m, k)
+    wfs = rotating(lambda: torch.randn((n, k), device=dev), 4 * n * k)
+    lib = time_ms(lambda: torch.matmul(xf, wfs().T))
+    log(f"  {name:10s} M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
+        f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of it")
+    return err, ms, plain, lib, b_ms, b_by
+
+
+def check_q8_matvec(report, dev):
+    """q8_matvec at the decode path's shapes: the layer GEMVs and the head
+    at M = 1 and 8 slots, summed per decode step; then the GEMV's edges:
+    every row-count template boundary, group sizes 16 to 512, a ragged
+    last chunk (K % 32 == 16), K past one staged slab, a ragged N (a tile's
+    last rows, or whole warps, past N), and a repeated head call that must
+    be bitwise equal."""
+    from repro_torch.kernels import ops
+
+    operands = _q8_operands(torch.Generator(device=dev).manual_seed(0), dev)
+    kernel = ops.q8_matvec_kernel
     # decode step: per layer wqkv, wo_f, w13, w2; then the head (M = slots)
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
     head = (32000, 768)
     step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for m in (1, 8):
         for n, k in layer + [head]:
-            err, ms, plain, lib, b_ms, _ = one(ops.q8_matvec_kernel,
-                                               "q8_matvec", m, n, k)
+            err, ms, plain, lib, b_ms, _ = _q8_timed(kernel, "q8_matvec",
+                                                     operands, m, n, k, dev)
             step["err"] = max(step["err"], err)
             if m == 8:
                 w = 12 if (n, k) != head else 1
@@ -174,7 +196,32 @@ def check_q8(report, dev):
                                ("bound", b_ms)):
                     step[key] += w * v
     log(f"  q8_matvec per decode step (12 layers x 4 + head, M=8): kernel "
-        f"{step['ms']:.4f} ms, bound {step['bound']:.4f} ms")
+        f"{step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} ms, bound "
+        f"{step['bound']:.4f} ms, {100 * step['bound'] / step['ms']:.1f}% "
+        f"of it")
+
+    # the GEMV's edges, untimed: (M, N, K, group)
+    edges = [(m, 100, 768, 64) for m in (1, 2, 3, 4, 5, 8, 9, 16, 17, 32)]
+    edges += [(8, 768, 2048, gs) for gs in (16, 32, 128, 512)]
+    edges += [(3, 100, 784, 16), (17, 100, 784, 16),   # ragged last chunk
+              (8, 300, 4160, 64), (32, 200, 4112, 16),  # past one slab
+              (8, 99, 768, 64), (8, 4100, 768, 64)]     # ragged N
+    worst = 0.0
+    for m, n, k, gs in edges:
+        worst = max(worst, _q8_check(kernel, "q8_matvec", m, n, k, gs,
+                                     *operands(m, n, k, gs))[0])
+    xq, xs, wq, ws = operands(8, *head)
+    first = kernel(xq, xs, wq, ws, 64)
+    again = kernel(xq, xs, wq, ws, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("q8_matvec: a repeated call is not bitwise "
+                             "equal to the first")
+    step["err"] = max(step["err"], worst)
+    log(f"  q8_matvec edges: {len(edges)} cases (M 1..32 at N=100, groups "
+        f"16..512, K=784 at group 16, K past one slab, ragged N) within "
+        f"tolerance, worst err {worst:.2e}; a repeated head call bitwise "
+        f"equal")
     report.add("q8_matvec", route="cuda",
                source="src/repro_torch/kernels/csrc/q8_matvec.cu",
                replaces="src/repro/kernels/q8_matvec.py:67",
@@ -183,10 +230,16 @@ def check_q8(report, dev):
                bound_by="bytes", library_ms=step["lib"],
                per="decode step at 8 slots: 48 layer GEMVs + head")
 
+
+def check_q8_matmul(report, dev):
+    """q8_matmul at the chunk step's MLP shapes (8 x 256 rows)."""
+    from repro_torch.kernels import ops
+
+    operands = _q8_operands(torch.Generator(device=dev).manual_seed(1), dev)
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for n, k in [(4096, 768), (768, 2048)]:
-        err, ms, plain, lib, b_ms, b_by = one(ops.q8_matmul_kernel,
-                                              "q8_matmul", 8 * 256, n, k)
+        err, ms, plain, lib, b_ms, b_by = _q8_timed(
+            ops.q8_matmul_kernel, "q8_matmul", operands, 8 * 256, n, k, dev)
         chunk["err"] = max(chunk["err"], err)
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                        ("bound", b_ms)):
@@ -1472,7 +1525,8 @@ def main() -> int:
     qlinear.set_default_strategy("kernel")
     report = Report()
     phase("phase 2: kernels against their plain versions")
-    check_q8(report, dev)
+    check_q8_matvec(report, dev)
+    check_q8_matmul(report, dev)
     check_attention(report, dev)
     check_q4(report, dev)
     check_dense_attention(report, dev)

@@ -252,9 +252,34 @@ def test_q4_matvec_matches_pallas(m, group, k):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("group", [16, 128])
+def test_q8_matvec_matches_pallas(m, group):
+    """Q8_0 weights at M <= 32 go to q8_matvec, as the JAX dispatch sends
+    them to q8_matvec_pallas; both against the JAX kernel (interpret) and
+    the JAX plain version, K = 2048 past one of the kernel's slabs."""
+    rng = np.random.default_rng(60 + m + group)
+    n, k = 96, 2048
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) / 16).astype(np.float32)
+    jw = jquantize(jnp.asarray(w), group_size=group)
+    want = np.asarray(jops.q8_matmul(jnp.asarray(x), jw, **I))
+    tw = QuantizedTensor(q=_t(jw.q), scale=_t(jw.scale), group_size=group,
+                         orig_dim=k)
+    got = ops.q8_matmul(_t(x), tw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    xq = jquantize(jnp.asarray(x), group_size=group)
+    want = np.asarray(jref.ref_q8_matmul(xq.q, xq.scale, jw.q, jw.scale,
+                                         group))
+    got = ops.q8_matvec_kernel(_t(xq.q), _t(xq.scale), _t(jw.q),
+                               _t(jw.scale), group).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def _gemv_fold_order(xq, xs, w, ws, group):
-    """The f32 order of csrc/q4_matvec.cu's GEMV (M <= 32), in numpy: lane
-    l takes 32-code chunks c = 2048 s + 32 i + l (slab s, i < 2); a group's
+    """The f32 order of the GEMVs (M <= 32) of csrc/q4_matvec.cu and
+    csrc/q8_matvec.cu, in numpy: lane l takes 32-code chunks c = l, l + 32,
+    l + 64, ... in order (whatever the slab of codes each stages); a group's
     first lane folds its exact int32 sum as acc + (part * xs) * ws, each
     product and sum rounded to f32 (group 16: both groups of the chunk, in
     order); then a butterfly over lane offsets 16, 8, 4, 2, 1 sums the 32
@@ -266,7 +291,7 @@ def _gemv_fold_order(xq, xs, w, ws, group):
     term = ((part.astype(np.float32) * xs[:, None, :].astype(np.float32))
             * ws[None, :, :].astype(np.float32))        # (M, N, G) f32
     acc = np.zeros((32,) + term.shape[:2], np.float32)
-    for base in range(0, (k + 31) // 32, 32):           # slab s, chunk i
+    for base in range(0, (k + 31) // 32, 32):           # chunks base + lane
         for lane in range(32):
             c = base + lane
             if 32 * c >= k or (group > 32 and lane % (group // 32)):
@@ -280,22 +305,35 @@ def _gemv_fold_order(xq, xs, w, ws, group):
     return acc[0]
 
 
-@pytest.mark.parametrize("n,k", [(768, 768), (768, 2048)])
-def test_gemv_fold_order_meets_the_kernel_tolerance(n, k):
-    """The chip check holds the Q4 GEMV within 2e-5 * max(1, |want|max) of
-    its plain version.  The GEMV's own f32 order (per-lane group folds, then
-    the lane butterfly), emulated here at the decode path's shapes with 8
-    slots, stays within that of the JAX reference, and is not simply the
-    plain version's order."""
+# the Q4 cases keep their original ids
+_FOLD_CASES = [pytest.param(4, n, k, id=f"{n}-{k}")
+               for n, k in [(768, 768), (768, 2048)]]
+_FOLD_CASES += [pytest.param(8, n, k, id=f"q8-{n}-{k}")
+                for n, k in [(768, 768), (768, 2048)]]
+
+
+@pytest.mark.parametrize("bits,n,k", _FOLD_CASES)
+def test_gemv_fold_order_meets_the_kernel_tolerance(bits, n, k):
+    """The chip checks hold the Q4 and Q8 GEMVs within 2e-5 * max(1,
+    |want|max) of their plain versions.  The GEMVs' own f32 order (per-lane
+    group folds, then the lane butterfly), emulated here at the decode
+    path's shapes with 8 slots, stays within that of the JAX reference, and
+    is not simply the plain version's order."""
     rng = np.random.default_rng(k)
     x = rng.standard_normal((8, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
     xt = jquantize(jnp.asarray(x), group_size=64)
-    wt = jquantize(jnp.asarray(w), group_size=64, bits=4)
-    want = np.asarray(jref.ref_q4_matvec(xt.q, xt.scale, wt.q, wt.scale, 64))
-    packed = np.asarray(wt.q).astype(np.int8)
-    wcodes = np.stack([(packed << 4).astype(np.int8) >> 4, packed >> 4],
-                      -1).reshape(n, k)
+    wt = jquantize(jnp.asarray(w), group_size=64, bits=bits)
+    if bits == 4:
+        want = np.asarray(jref.ref_q4_matvec(xt.q, xt.scale, wt.q, wt.scale,
+                                             64))
+        packed = np.asarray(wt.q).astype(np.int8)
+        wcodes = np.stack([(packed << 4).astype(np.int8) >> 4, packed >> 4],
+                          -1).reshape(n, k)
+    else:
+        want = np.asarray(jref.ref_q8_matmul(xt.q, xt.scale, wt.q, wt.scale,
+                                             64))
+        wcodes = np.asarray(wt.q)
     got = _gemv_fold_order(np.asarray(xt.q), np.asarray(xt.scale), wcodes,
                            np.asarray(wt.scale), 64)
     err = float(np.abs(got - want).max())
