@@ -132,10 +132,11 @@ def _q8_operands(gen, dev):
     return operands
 
 
-def _q8_check(kernel, name, m, n, k, gs, xq, xs, wq, ws):
+def _q8_check(kernel, name, m, n, k, gs, xq, xs, wq, ws, bitwise=False):
     """Hold one call against ``ref_q8_matmul``: the same exact per-group
-    products, only the f32 sum over the K/gs groups runs in another
-    order."""
+    products, only the f32 sum over the K/gs groups may run in another
+    order (the GEMV's); ``bitwise`` where the kernel folds in the plain
+    version's order (the GEMM)."""
     from repro_torch.kernels import ref
     got = kernel(xq, xs, wq, ws, gs)
     want = ref.ref_q8_matmul(xq, xs, wq, ws, gs)
@@ -145,15 +146,18 @@ def _q8_check(kernel, name, m, n, k, gs, xq, xs, wq, ws):
     if not err <= tol:
         raise AssertionError(f"{name} M={m} N={n} K={k} gs={gs}: max abs "
                              f"err {err:.3g} > tol {tol:.3g}")
+    if bitwise and not torch.equal(got, want):
+        raise AssertionError(f"{name} M={m} N={n} K={k} gs={gs}: not "
+                             "bitwise equal to its plain version")
     return err, tol
 
 
-def _q8_timed(kernel, name, operands, m, n, k, dev):
+def _q8_timed(kernel, name, operands, m, n, k, dev, bitwise=False):
     """Check and time one call at group 64 (weights cold in L2) beside the
     plain version and ``torch.matmul`` on the dequantized operands."""
     from repro_torch.kernels import ref
     xq, xs, wq, ws = operands(m, n, k)
-    err, tol = _q8_check(kernel, name, m, n, k, 64, xq, xs, wq, ws)
+    err, tol = _q8_check(kernel, name, m, n, k, 64, xq, xs, wq, ws, bitwise)
     g = k // 64
     nb = m * k + 4 * m * g + n * k + 4 * n * g + 4 * m * n
     b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
@@ -231,26 +235,118 @@ def check_q8_matvec(report, dev):
                per="decode step at 8 slots: 48 layer GEMVs + head")
 
 
-def check_q8_matmul(report, dev):
-    """q8_matmul at the chunk step's MLP shapes (8 x 256 rows)."""
+def q8_matmul_chunk(dev, m, operands, *, bitwise):
+    """The chunk step's MLP products at m rows, 12 layers x (w13, w2): each
+    call checked (``bitwise``, or within the tolerance for a kernel that
+    does not fold in the plain version's order) and timed by
+    ``_q8_timed``, with ``torch._int_mm`` on the raw codes beside it for
+    information only (the tensor cores' integer product without the group
+    scales).  Returns the per-step sums.  Runs on any tree's
+    ``q8_matmul_kernel``, so parent and change can be timed in turns."""
     from repro_torch.kernels import ops
-
-    operands = _q8_operands(torch.Generator(device=dev).manual_seed(1), dev)
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for n, k in [(4096, 768), (768, 2048)]:
         err, ms, plain, lib, b_ms, b_by = _q8_timed(
-            ops.q8_matmul_kernel, "q8_matmul", operands, 8 * 256, n, k, dev)
+            ops.q8_matmul_kernel, "q8_matmul", operands, m, n, k, dev,
+            bitwise)
         chunk["err"] = max(chunk["err"], err)
+        chunk.setdefault("by", b_by)      # w13's: the larger product
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                        ("bound", b_ms)):
             chunk[key] += 12 * v
+        codes = rotating(lambda: operands(m, n, k)[::2], m * k + n * k)
+
+        def int_mm():
+            xq, wq = codes()
+            return torch._int_mm(xq, wq.T)
+        try:
+            imm = f"{time_ms(int_mm):.4f} ms"
+        except RuntimeError as exc:
+            imm = f"not measured ({str(exc).splitlines()[0][:80]})"
+        log(f"    torch._int_mm on the codes (no group scales; information "
+            f"only): {imm}")
+    log(f"  q8_matmul per chunk step (12 x (w13, w2), M={m}): kernel "
+        f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, bound "
+        f"{chunk['bound']:.4f} ms, {100 * chunk['bound'] / chunk['ms']:.1f}%"
+        f" of it{'; bitwise' if bitwise else ''}")
+    return chunk
+
+
+def check_q8_matmul(report, dev):
+    """q8_matmul at the chunk step's MLP shapes (8 x 256 rows) and at
+    ``launch/serve.py``'s chunk (8 x 512 rows), bitwise equal to its plain
+    version and timed (``q8_matmul_chunk``); then untimed edges, bitwise: M
+    33 to 2047 across both tile sizes, a ragged and an odd N, groups 16 to
+    512, K = 784 at group 16, both non-tensor-core cases (a group not a
+    multiple of 16, codes not 16-byte aligned), and a repeated call.  The
+    kernel must hold s8 IMMA instructions: it runs its products on the
+    tensor cores; and only the two non-tensor-core cases may reach the dp4a
+    kernel (``q8_matmul_dp4a`` launches)."""
+    from repro_torch.kernels import build, ops
+
+    imma = sass_count("q8_matmul", "IMMA")
+    log(f"  q8_matmul: {imma} IMMA instructions in its SASS (cuobjdump "
+        "-sass)")
+    if imma == 0:
+        raise AssertionError("q8_matmul: no IMMA in its SASS: the kernel "
+                             "does not run on the tensor cores")
+    operands = _q8_operands(torch.Generator(device=dev).manual_seed(1), dev)
+    kernel = ops.q8_matmul_kernel
+    dp4a = build.LAUNCHES["q8_matmul_dp4a"]
+    main, big = [q8_matmul_chunk(dev, m, operands, bitwise=True)
+                 for m in (2048, 4096)]
+
+    # untimed edges, bitwise: (M, N, K, group)
+    edges = [(m, 768, 768, 64) for m in (33, 63, 64, 65, 127, 600)]
+    edges += [(2047, 4096, 768, 64),                  # ragged M, 128 tiles
+              (200, 100, 768, 64), (2048, 4100, 768, 64),  # ragged N
+              (2047, 4099, 768, 64), (600, 99, 768, 64)]   # odd N
+    edges += [(200, 768, 1536, gs) for gs in (16, 32, 48, 128, 512)]
+    edges += [(2048, 4096, 768, 48), (2048, 4096, 1024, 512),
+              (100, 300, 784, 16)]                    # K = 784 at group 16
+    worst = 0.0
+    for m, n, k, gs in edges:
+        worst = max(worst, _q8_check(kernel, "q8_matmul", m, n, k, gs,
+                                     *operands(m, n, k, gs), True)[0])
+    if build.LAUNCHES["q8_matmul_dp4a"] != dp4a:
+        raise AssertionError("q8_matmul: a shape the tensor cores take ran "
+                             "on the dp4a kernel")
+    edges.append((100, 300, 760, 20))                 # dp4a: group 20
+    worst = max(worst, _q8_check(kernel, "q8_matmul (group 20)", 100, 300,
+                                 760, 20, *operands(100, 300, 760, 20),
+                                 True)[0])
+    xq, xs, wq, ws = operands(100, 300, 768)
+    flat = torch.empty(xq.numel() + 4, dtype=torch.int8, device=dev)
+    xq4 = flat[4:].view(xq.shape)
+    xq4.copy_(xq)
+    assert xq4.data_ptr() % 16 == 4
+    worst = max(worst, _q8_check(kernel, "q8_matmul (4-byte aligned codes)",
+                                 100, 300, 768, 64, xq4, xs, wq, ws, True)[0])
+    if build.LAUNCHES["q8_matmul_dp4a"] != dp4a + 2:
+        raise AssertionError("q8_matmul: group 20 and 4-byte aligned codes "
+                             "did not both run on the dp4a kernel")
+    xq, xs, wq, ws = operands(2048, 4096, 768)
+    first = kernel(xq, xs, wq, ws, 64)
+    again = kernel(xq, xs, wq, ws, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("q8_matmul: a repeated call is not bitwise "
+                             "equal to the first")
+    log(f"  q8_matmul edges: {len(edges) + 1} cases (M 33..2047, ragged and "
+        f"odd N, groups 16..512, K=784 at group 16, group 20 and 4-byte "
+        f"aligned codes on the dp4a kernel) bitwise, worst err {worst:.2e}; "
+        f"a repeated w13 call bitwise equal")
     report.add("q8_matmul", route="cuda",
                source="src/repro_torch/kernels/csrc/q8_matmul.cu",
                replaces="src/repro/kernels/q8_matmul.py:92",
-               max_abs_err=chunk["err"], ms=chunk["ms"],
-               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
-               bound_by=b_by, library_ms=chunk["lib"],
-               per="chunk step at 8 x 256 rows: 12 layers x (w13, w2)")
+               max_abs_err=max(main["err"], big["err"], worst),
+               ms=main["ms"], plain_ms=main["plain"],
+               bound_ms=main["bound"], bound_by=main["by"],
+               library_ms=main["lib"], imma=imma,
+               chunk512_ms=big["ms"], chunk512_library_ms=big["lib"],
+               chunk512_bound_ms=big["bound"],
+               per="chunk step at 8 x 256 rows: 12 layers x (w13, w2) "
+                   "(chunk512_*: 8 x 512 rows)")
 
 
 def check_q4(report, dev):
@@ -1009,14 +1105,16 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     (1 per layer + 1).  Dense, each whole-prompt prefill of S tokens: one
     flash_prefill per layer, the MLP's two products per layer at M = S, the
     head's GEMV and rmsnorm_quant as the chunk step.  Q4_0 weights put every
-    product on q4_matvec.  The counts are added to ``counted`` for the
-    kernels line."""
+    product on q4_matvec.  No q8_matmul call of a served path may take the
+    dp4a kernel (``q8_matmul_dp4a`` stays 0): llama2-110m's group 64 with
+    16-byte aligned codes runs on the tensor cores.  The counts are added
+    to ``counted`` for the kernels line."""
     from repro_torch.kernels import build
     nl = cfg.n_layers
     d = eng.metrics["decode_steps"]
     gemv = "q8_matvec" if bits == 8 else "q4_matvec"
     gemm = "q8_matmul" if bits == 8 else "q4_matvec"
-    want = dict.fromkeys(build.SIGNATURES, 0)
+    want = dict.fromkeys(build.LAUNCHES, 0)
     want[gemv] += (4 * nl + 1) * d
     want["rope"] += nl * d
     want["rmsnorm_quant"] += (2 * nl + 1) * d

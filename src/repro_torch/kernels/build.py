@@ -35,7 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each C entry point: pointers (and the stream) as c_void_p
 SIGNATURES: Dict[str, list] = {
     "q8_matvec": [_P] * 5 + [_I] * 4 + [_P],
-    "q8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "q8_matmul": [_P] * 5 + [_I] * 4 + [_P, _P],
     "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     "paged_prefill_attention": [_P] * 11 + [_I] * 8 + [_P],
     "q4_matvec": [_P] * 5 + [_I] * 4 + [_P],
@@ -45,7 +45,10 @@ SIGNATURES: Dict[str, list] = {
     "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# q8_matmul_dp4a: the q8_matmul launches (counted there too) that its C entry
+# sent to the dp4a kernel rather than the tensor cores
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SIGNATURES,
+                                                 "q8_matmul_dp4a")}
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()

@@ -16,6 +16,7 @@ the per-row extents of ``flash_prefill``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.core.quantization import QuantizedTensor, quantize
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import launch
+from repro_torch.kernels.build import LAUNCHES, launch
 
 # decode-vs-prefill dispatch threshold: at most this many rows go to the
 # GEMV kernel (activations reused by every weight row), more to the GEMM.
@@ -97,15 +98,22 @@ def q8_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
 
 def q8_matmul_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     """Prefill GEMM (any M): the same function as :func:`q8_matvec_kernel`,
-    tiled."""
+    tiled, folding the groups in the plain version's order (bitwise equal
+    to it).  Groups that are a multiple of 16 with 16-byte aligned codes run
+    on the int8 tensor cores, the rest on a dp4a kernel, whose launches are
+    also counted as ``q8_matmul_dp4a``."""
     if xq.device.type == "cpu":
         return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
     m, n, k = _check_q8("q8_matmul", xq, xs, wq, ws, group_size, 4)
     if group_size % 4:
         raise ValueError(f"q8_matmul: group {group_size} not a multiple of 4")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    dp4a = ctypes.c_int(0)
     launch("q8_matmul", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
-           ws.data_ptr(), out.data_ptr(), m, n, k, group_size, _stream(xq))
+           ws.data_ptr(), out.data_ptr(), m, n, k, group_size,
+           ctypes.byref(dp4a), _stream(xq))
+    if dp4a.value:
+        LAUNCHES["q8_matmul_dp4a"] += 1
     return out
 
 

@@ -47,7 +47,7 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("m", [1, 8, 32, 33, 80])
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 80, 600])
 @pytest.mark.parametrize("group", [32, 64])
 def test_q8_matmul_matches_pallas(m, group):
     rng = np.random.default_rng(m * 100 + group)
@@ -75,6 +75,80 @@ def test_ref_q8_matmul_matches_jax_ref(group):
         got = fn(_t(xq.q), _t(xq.scale), _t(wq.q), _t(wq.scale),
                  group).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _q8_mma_emulation(xq, xs, w, ws, group):
+    """The arithmetic of csrc/q8_matmul.cu's tensor-core kernel, in numpy:
+    128-code stages; inside a stage, k-steps of 32 codes (mma m16n8k32), or
+    two of 16 (m16n8k16) where a group ends 16 codes into the pair; each
+    group's int32 sum restarts at its first step and, after its last, folds
+    into the f32 output in group order as acc + (f32(part) * xs) * ws, each
+    product and sum rounded to f32 alone.  xq (M, K) and w (N, K) are int
+    codes."""
+    m, k = xq.shape
+    x64, w64 = xq.astype(np.int64), w.astype(np.int64)
+    acc = np.zeros((m, w.shape[0]), np.float32)
+    part = np.zeros(acc.shape, np.int64)
+    g, kg, steps = 0, 0, set()
+
+    def step(k0, width):
+        nonlocal part, g, kg
+        part = part + x64[:, k0:k0 + width] @ w64[:, k0:k0 + width].T
+        steps.add(width)
+        kg += width
+        if kg == group:
+            assert np.abs(part).max() < 2 ** 24
+            term = ((part.astype(np.float32)
+                     * xs[:, g, None].astype(np.float32))
+                    * ws[None, :, g].astype(np.float32))
+            acc[...] = acc + term
+            part[...] = 0
+            g, kg = g + 1, 0
+
+    for k0 in range(0, k, 128):
+        for kk in range(k0, min(k0 + 128, k), 32):
+            if group - kg != 16:
+                step(kk, 32)
+            else:
+                step(kk, 16)
+                if kk + 16 < k:
+                    step(kk + 16, 16)
+    assert g == k // group
+    return acc, steps
+
+
+@pytest.mark.parametrize("group", [16, 32, 48, 64, 512])
+def test_q8_matmul_kernel_arithmetic_is_the_plain_version(group):
+    """The chip check holds the GEMM (M > 32) bitwise to its plain version.
+    Its arithmetic, emulated here -- per-group int32 sums in k-steps of 32
+    and 16, the fold in group order with separately rounded products and
+    sums -- is bitwise ref.ref_q8_matmul on
+    the CPU, and within the usual 1e-5 of the JAX plain version."""
+    rng = np.random.default_rng(700 + group)
+    m, n, k = 96, 160, 1536
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    xt = jquantize(jnp.asarray(x), group_size=group)
+    wt = jquantize(jnp.asarray(w), group_size=group)
+    xq, xs = np.asarray(xt.q), np.asarray(xt.scale)
+    wq, ws = np.asarray(wt.q), np.asarray(wt.scale)
+    got, steps = _q8_mma_emulation(xq, xs, wq, ws, group)
+    assert steps == ({32} if group % 32 == 0 else {16, 32} if group > 16
+                     else {16})
+    plain = ref.ref_q8_matmul(_t(xq), _t(xs), _t(wq), _t(ws), group).numpy()
+    assert np.array_equal(got, plain)
+    want = np.asarray(jref.ref_q8_matmul(xt.q, xt.scale, wt.q, wt.scale,
+                                         group))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_q8_matmul_group_sums_are_exact_in_f32():
+    """A group's int32 sum is at most 512 * 127 * 127 in magnitude (2**23
+    even with -128 codes), below 2**24, so its conversion to f32 is
+    exact."""
+    assert 512 * 127 * 127 < 512 * 128 * 128 == 2 ** 23 < 2 ** 24
+    p = np.arange(-2 ** 23, 2 ** 23 + 1, dtype=np.int64)
+    assert np.array_equal(p.astype(np.float32).astype(np.int64), p)
 
 
 @pytest.mark.parametrize("m,k", [(4, 256), (16, 512), (256, 1024), (3, 192)])
