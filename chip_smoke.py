@@ -132,46 +132,47 @@ def _q8_operands(gen, dev):
     return operands
 
 
-def _q8_check(kernel, name, m, n, k, gs, xq, xs, wq, ws, bitwise=False):
-    """Hold one call against ``ref_q8_matmul``: the same exact per-group
-    products, only the f32 sum over the K/gs groups may run in another
-    order (the GEMV's); ``bitwise`` where the kernel folds in the plain
-    version's order (the GEMM)."""
-    from repro_torch.kernels import ref
+def _quant_check(kernel, plain, name, m, n, k, gs, xq, xs, wq, ws):
+    """Hold one call of a Q8_0 x Q8_0 or Q8_0 x Q4_0 product against its
+    plain version (``ref_q8_matmul``, ``ref_q4_matvec``): the same exact
+    per-group products; a GEMV (M <= 32) may sum the f32 groups in another
+    order, a GEMM (M > 32) folds them in the plain version's and must be
+    bitwise equal to it."""
+    from repro_torch.kernels import ops
     got = kernel(xq, xs, wq, ws, gs)
-    want = ref.ref_q8_matmul(xq, xs, wq, ws, gs)
+    want = plain(xq, xs, wq, ws, gs)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 2e-5 * max(1.0, want.abs().max().item())
     if not err <= tol:
         raise AssertionError(f"{name} M={m} N={n} K={k} gs={gs}: max abs "
                              f"err {err:.3g} > tol {tol:.3g}")
-    if bitwise and not torch.equal(got, want):
+    if m > ops.MATVEC_MAX_ROWS and not torch.equal(got, want):
         raise AssertionError(f"{name} M={m} N={n} K={k} gs={gs}: not "
                              "bitwise equal to its plain version")
     return err, tol
 
 
-def _q8_timed(kernel, name, operands, m, n, k, dev, bitwise=False):
+def _quant_timed(kernel, plain, name, operands, m, n, k, dev):
     """Check and time one call at group 64 (weights cold in L2) beside the
     plain version and ``torch.matmul`` on the dequantized operands."""
-    from repro_torch.kernels import ref
     xq, xs, wq, ws = operands(m, n, k)
-    err, tol = _q8_check(kernel, name, m, n, k, 64, xq, xs, wq, ws, bitwise)
+    err, tol = _quant_check(kernel, plain, name, m, n, k, 64, xq, xs, wq, ws)
     g = k // 64
-    nb = m * k + 4 * m * g + n * k + 4 * n * g + 4 * m * n
+    w_bytes = wq.numel() + 4 * ws.numel()     # Q4_0 packs two codes a byte
+    nb = m * k + 4 * m * g + w_bytes + 4 * m * n
     b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
-    nxt = rotating(lambda: operands(m, n, k), n * k + 4 * n * g)
+    nxt = rotating(lambda: operands(m, n, k), w_bytes)
     ms = time_ms(lambda: kernel(*nxt(), 64))
-    plain = time_ms(lambda: ref.ref_q8_matmul(*nxt(), 64), iters=5)
+    plain_ms = time_ms(lambda: plain(*nxt(), 64), iters=5)
     xf = (xq.float().reshape(m, g, 64) * xs[..., None]).reshape(m, k)
     wfs = rotating(lambda: torch.randn((n, k), device=dev), 4 * n * k)
     lib = time_ms(lambda: torch.matmul(xf, wfs().T))
     log(f"  {name:10s} M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
-        f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
         f"{100 * b_ms / ms:.1f}% of it")
-    return err, ms, plain, lib, b_ms, b_by
+    return err, ms, plain_ms, lib, b_ms, b_by
 
 
 def check_q8_matvec(report, dev):
@@ -181,22 +182,22 @@ def check_q8_matvec(report, dev):
     last chunk (K % 32 == 16), K past one staged slab, a ragged N (a tile's
     last rows, or whole warps, past N), and a repeated head call that must
     be bitwise equal."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     operands = _q8_operands(torch.Generator(device=dev).manual_seed(0), dev)
-    kernel = ops.q8_matvec_kernel
+    kernel, plain = ops.q8_matvec_kernel, ref.ref_q8_matmul
     # decode step: per layer wqkv, wo_f, w13, w2; then the head (M = slots)
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
     head = (32000, 768)
     step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for m in (1, 8):
         for n, k in layer + [head]:
-            err, ms, plain, lib, b_ms, _ = _q8_timed(kernel, "q8_matvec",
-                                                     operands, m, n, k, dev)
+            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
+                kernel, plain, "q8_matvec", operands, m, n, k, dev)
             step["err"] = max(step["err"], err)
             if m == 8:
                 w = 12 if (n, k) != head else 1
-                for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
+                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
                                ("bound", b_ms)):
                     step[key] += w * v
     log(f"  q8_matvec per decode step (12 layers x 4 + head, M=8): kernel "
@@ -212,8 +213,8 @@ def check_q8_matvec(report, dev):
               (8, 99, 768, 64), (8, 4100, 768, 64)]     # ragged N
     worst = 0.0
     for m, n, k, gs in edges:
-        worst = max(worst, _q8_check(kernel, "q8_matvec", m, n, k, gs,
-                                     *operands(m, n, k, gs))[0])
+        worst = max(worst, _quant_check(kernel, plain, "q8_matvec", m, n, k,
+                                        gs, *operands(m, n, k, gs))[0])
     xq, xs, wq, ws = operands(8, *head)
     first = kernel(xq, xs, wq, ws, 64)
     again = kernel(xq, xs, wq, ws, 64)
@@ -235,20 +236,18 @@ def check_q8_matvec(report, dev):
                per="decode step at 8 slots: 48 layer GEMVs + head")
 
 
-def q8_matmul_chunk(dev, m, operands, *, bitwise):
+def q8_matmul_chunk(dev, m, operands):
     """The chunk step's MLP products at m rows, 12 layers x (w13, w2): each
-    call checked (``bitwise``, or within the tolerance for a kernel that
-    does not fold in the plain version's order) and timed by
-    ``_q8_timed``, with ``torch._int_mm`` on the raw codes beside it for
+    call checked (bitwise) and timed by ``_quant_timed``, with ``torch._int_mm`` on the raw codes beside it for
     information only (the tensor cores' integer product without the group
     scales).  Returns the per-step sums.  Runs on any tree's
     ``q8_matmul_kernel``, so parent and change can be timed in turns."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for n, k in [(4096, 768), (768, 2048)]:
-        err, ms, plain, lib, b_ms, b_by = _q8_timed(
-            ops.q8_matmul_kernel, "q8_matmul", operands, m, n, k, dev,
-            bitwise)
+        err, ms, plain, lib, b_ms, b_by = _quant_timed(
+            ops.q8_matmul_kernel, ref.ref_q8_matmul, "q8_matmul", operands,
+            m, n, k, dev)
         chunk["err"] = max(chunk["err"], err)
         chunk.setdefault("by", b_by)      # w13's: the larger product
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
@@ -268,7 +267,7 @@ def q8_matmul_chunk(dev, m, operands, *, bitwise):
     log(f"  q8_matmul per chunk step (12 x (w13, w2), M={m}): kernel "
         f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, bound "
         f"{chunk['bound']:.4f} ms, {100 * chunk['bound'] / chunk['ms']:.1f}%"
-        f" of it{'; bitwise' if bitwise else ''}")
+        f" of it; bitwise")
     return chunk
 
 
@@ -282,7 +281,7 @@ def check_q8_matmul(report, dev):
     kernel must hold s8 IMMA instructions: it runs its products on the
     tensor cores; and only the two non-tensor-core cases may reach the dp4a
     kernel (``q8_matmul_dp4a`` launches)."""
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, ops, ref
 
     imma = sass_count("q8_matmul", "IMMA")
     log(f"  q8_matmul: {imma} IMMA instructions in its SASS (cuobjdump "
@@ -291,10 +290,9 @@ def check_q8_matmul(report, dev):
         raise AssertionError("q8_matmul: no IMMA in its SASS: the kernel "
                              "does not run on the tensor cores")
     operands = _q8_operands(torch.Generator(device=dev).manual_seed(1), dev)
-    kernel = ops.q8_matmul_kernel
+    kernel, plain = ops.q8_matmul_kernel, ref.ref_q8_matmul
     dp4a = build.LAUNCHES["q8_matmul_dp4a"]
-    main, big = [q8_matmul_chunk(dev, m, operands, bitwise=True)
-                 for m in (2048, 4096)]
+    main, big = [q8_matmul_chunk(dev, m, operands) for m in (2048, 4096)]
 
     # untimed edges, bitwise: (M, N, K, group)
     edges = [(m, 768, 768, 64) for m in (33, 63, 64, 65, 127, 600)]
@@ -306,22 +304,23 @@ def check_q8_matmul(report, dev):
               (100, 300, 784, 16)]                    # K = 784 at group 16
     worst = 0.0
     for m, n, k, gs in edges:
-        worst = max(worst, _q8_check(kernel, "q8_matmul", m, n, k, gs,
-                                     *operands(m, n, k, gs), True)[0])
+        worst = max(worst, _quant_check(kernel, plain, "q8_matmul", m, n, k,
+                                        gs, *operands(m, n, k, gs))[0])
     if build.LAUNCHES["q8_matmul_dp4a"] != dp4a:
         raise AssertionError("q8_matmul: a shape the tensor cores take ran "
                              "on the dp4a kernel")
     edges.append((100, 300, 760, 20))                 # dp4a: group 20
-    worst = max(worst, _q8_check(kernel, "q8_matmul (group 20)", 100, 300,
-                                 760, 20, *operands(100, 300, 760, 20),
-                                 True)[0])
+    worst = max(worst, _quant_check(kernel, plain, "q8_matmul (group 20)",
+                                    100, 300, 760, 20,
+                                    *operands(100, 300, 760, 20))[0])
     xq, xs, wq, ws = operands(100, 300, 768)
     flat = torch.empty(xq.numel() + 4, dtype=torch.int8, device=dev)
     xq4 = flat[4:].view(xq.shape)
     xq4.copy_(xq)
     assert xq4.data_ptr() % 16 == 4
-    worst = max(worst, _q8_check(kernel, "q8_matmul (4-byte aligned codes)",
-                                 100, 300, 768, 64, xq4, xs, wq, ws, True)[0])
+    worst = max(worst, _quant_check(kernel, plain,
+                                    "q8_matmul (4-byte aligned codes)",
+                                    100, 300, 768, 64, xq4, xs, wq, ws)[0])
     if build.LAUNCHES["q8_matmul_dp4a"] != dp4a + 2:
         raise AssertionError("q8_matmul: group 20 and 4-byte aligned codes "
                              "did not both run on the dp4a kernel")
@@ -349,17 +348,8 @@ def check_q8_matmul(report, dev):
                    "(chunk512_*: 8 x 512 rows)")
 
 
-def check_q4(report, dev):
-    """q4_matvec at the Q4 path's shapes: the decode GEMVs and the head at
-    M = 1 and 8 slots, the chunk step's MLP at M = 2048 rows; then the
-    GEMV's edges: every row-count template boundary, group sizes 16 to 512,
-    a ragged N, a ragged last chunk (K % 32 == 16), K past one staged slab,
-    8-byte aligned weights, and a repeated call that must be bitwise
-    equal."""
+def _q4_operands(gen, dev):
     from repro_torch.core.quantization import quantize
-    from repro_torch.kernels import ops, ref
-
-    gen = torch.Generator(device=dev).manual_seed(2)
 
     def operands(m, n, k, gs=64):
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -367,65 +357,89 @@ def check_q4(report, dev):
         xt, wt = quantize(x, gs), quantize(w, gs, bits=4)
         assert xt.group_size == gs and wt.group_size == gs
         return xt.q, xt.scale, wt.q, wt.scale
+    return operands
 
-    def check(m, n, k, gs, xq, xs, wq, ws, tag=""):
-        got = ops.q4_matvec_kernel(xq, xs, wq, ws, gs)
-        want = ref.ref_q4_matvec(xq, xs, wq, ws, gs)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        # exact per-group products; the GEMV sums the f32 groups in another
-        # order, the tiled path (M > 32) in the plain version's
-        tol = 2e-5 * max(1.0, want.abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"q4_matvec M={m} N={n} K={k} gs={gs}"
-                                 f"{tag}: max abs err {err:.3g} > tol "
-                                 f"{tol:.3g}")
-        if m > ops.MATVEC_MAX_ROWS and not torch.equal(got, want):
-            raise AssertionError(f"q4_matvec M={m} N={n} K={k}: the tiled "
-                                 "path is not bitwise equal to its plain "
-                                 "version")
-        return err, tol
 
-    def one(m, n, k):
-        xq, xs, wq, ws = operands(m, n, k)
-        err, tol = check(m, n, k, 64, xq, xs, wq, ws)
-        g = k // 64
-        nb = m * k + 4 * m * g + n * k // 2 + 4 * n * g + 4 * m * n
-        b_ms, b_by = bound(nb, 2.0 * m * n * k, INT8_OPS_PER_S)
-        nxt = rotating(lambda: operands(m, n, k), n * k // 2 + 4 * n * g)
-        ms = time_ms(lambda: ops.q4_matvec_kernel(*nxt(), 64))
-        plain = time_ms(lambda: ref.ref_q4_matvec(*nxt(), 64), iters=5)
-        xf = (xq.float().reshape(m, g, 64) * xs[..., None]).reshape(m, k)
-        wfs = rotating(lambda: torch.randn((n, k), device=dev), 4 * n * k)
-        lib = time_ms(lambda: torch.matmul(xf, wfs().T))
-        log(f"  q4_matvec  M={m:5d} N={n:6d} K={k:5d}  err {err:.2e} "
-            f"(tol {tol:.1e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"torch.matmul {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of it")
-        return err, ms, plain, lib, b_ms
+def q4_matmul_chunk(dev, m, operands):
+    """The Q4_0 chunk step's MLP products at m rows, 12 layers x (w13, w2):
+    each call checked (bitwise) and timed by ``_quant_timed``, with ``q8_matmul`` on the unpacked codes of the same
+    weights beside it (the same function at Q8_0's bytes; information
+    only).  Returns the per-step sums.  Runs on any tree's
+    ``q4_matvec_kernel``, so parent and change can be timed in turns."""
+    from repro_torch.core.quantization import _unpack_nibbles
+    from repro_torch.kernels import ops, ref
+    chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+             "q8": 0.0}
+    for n, k in [(4096, 768), (768, 2048)]:
+        err, ms, plain, lib, b_ms, _ = _quant_timed(
+            ops.q4_matvec_kernel, ref.ref_q4_matvec, "q4_matvec", operands,
+            m, n, k, dev)
+        chunk["err"] = max(chunk["err"], err)
+
+        def q8_operands():
+            xq, xs, wq, ws = operands(m, n, k)
+            return xq, xs, _unpack_nibbles(wq), ws
+        q8 = rotating(q8_operands, n * k + 4 * n * (k // 64))
+        q8_ms = time_ms(lambda: ops.q8_matmul_kernel(*q8(), 64))
+        log(f"    q8_matmul on the same weights' unpacked codes "
+            f"(information only): {q8_ms:.4f} ms")
+        for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
+                       ("bound", b_ms), ("q8", q8_ms)):
+            chunk[key] += 12 * v
+    log(f"  q4_matvec per chunk step (12 x (w13, w2), M={m}): kernel "
+        f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, "
+        f"q8_matmul {chunk['q8']:.4f} ms, bound {chunk['bound']:.4f} ms, "
+        f"{100 * chunk['bound'] / chunk['ms']:.1f}% of it; bitwise")
+    return chunk
+
+
+def check_q4(report, dev):
+    """q4_matvec at the Q4 path's shapes: the decode GEMVs and the head at
+    M = 1 and 8 slots; the chunk step's MLP (the tiled path, M > 32) at 8 x
+    256 rows and at ``launch/serve.py``'s 8 x 512, bitwise and timed
+    (``q4_matmul_chunk``).  Then the GEMV's edges: every row-count template
+    boundary, group sizes 16 to 512, a ragged N, a ragged last chunk (K %
+    32 == 16), K past one staged slab, 8-byte aligned weights, and a
+    repeated call that must be bitwise equal.  Then the tiled path's edges,
+    bitwise: M 33 to 2047 across both tile sizes, ragged and odd N, groups
+    16 to 512, and a repeated call.  The library must hold s8 IMMA
+    instructions, and only the two shapes the tensor cores cannot take (K
+    % 32 == 16, 8-byte aligned weights) may reach the tiled path's dp4a
+    kernel (``q4_matvec_dp4a`` launches)."""
+    from repro_torch.kernels import build, ops, ref
+
+    imma = sass_count("q4_matvec", "IMMA")
+    log(f"  q4_matvec: {imma} IMMA instructions in its SASS (cuobjdump "
+        "-sass)")
+    if imma == 0:
+        raise AssertionError("q4_matvec: no IMMA in its SASS: the tiled "
+                             "path does not run on the tensor cores")
+    operands = _q4_operands(torch.Generator(device=dev).manual_seed(2), dev)
+    kernel, plain = ops.q4_matvec_kernel, ref.ref_q4_matvec
+
+    def check(m, n, k, gs, xq, xs, wq, ws, name="q4_matvec"):
+        return _quant_check(kernel, plain, name, m, n, k, gs, xq, xs, wq,
+                            ws)[0]
 
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
     head = (32000, 768)
     step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
     for m in (1, 8):
         for n, k in layer + [head]:
-            err, ms, plain, lib, b_ms = one(m, n, k)
+            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
+                kernel, plain, "q4_matvec", operands, m, n, k, dev)
             step["err"] = max(step["err"], err)
             if m == 8:
                 w = 12 if (n, k) != head else 1
-                for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
+                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
                                ("bound", b_ms)):
                     step[key] += w * v
-    chunk = {"ms": 0.0, "lib": 0.0}
-    for n, k in [(4096, 768), (768, 2048)]:
-        err, ms, _, lib, _ = one(2048, n, k)
-        step["err"] = max(step["err"], err)
-        chunk["ms"] += 12 * ms
-        chunk["lib"] += 12 * lib
     log(f"  q4_matvec per decode step (12 layers x 4 + head, M=8): kernel "
         f"{step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} ms, bound "
-        f"{step['bound']:.4f} ms; per chunk step (12 x (w13, w2), M=2048): "
-        f"kernel {chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms")
+        f"{step['bound']:.4f} ms, {100 * step['bound'] / step['ms']:.1f}% "
+        f"of it")
+    dp4a = build.LAUNCHES["q4_matvec_dp4a"]
+    chunk, big = [q4_matmul_chunk(dev, m, operands) for m in (2048, 4096)]
 
     # the GEMV's edges, untimed: (M, N, K, group)
     edges = [(m, 100, 768, 64) for m in (1, 2, 3, 4, 5, 8, 9, 16, 17, 32)]
@@ -434,7 +448,7 @@ def check_q4(report, dev):
               (8, 300, 4160, 64), (32, 200, 4112, 16)]  # past one slab
     worst = 0.0
     for m, n, k, gs in edges:
-        worst = max(worst, check(m, n, k, gs, *operands(m, n, k, gs))[0])
+        worst = max(worst, check(m, n, k, gs, *operands(m, n, k, gs)))
     # weights 8 bytes past a 16-byte boundary take the 8-byte loads
     xq, xs, wq, ws = operands(8, 100, 768)
     flat = torch.empty(wq.numel() + 8, dtype=torch.int8, device=dev)
@@ -442,10 +456,10 @@ def check_q4(report, dev):
     wq8.copy_(wq)
     assert wq8.data_ptr() % 16 == 8
     worst = max(worst, check(8, 100, 768, 64, xq, xs, wq8, ws,
-                             " (8-byte aligned weights)")[0])
+                             "q4_matvec (8-byte aligned weights)"))
     xq, xs, wq, ws = operands(8, *head)
-    first = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
-    again = ops.q4_matvec_kernel(xq, xs, wq, ws, 64)
+    first = kernel(xq, xs, wq, ws, 64)
+    again = kernel(xq, xs, wq, ws, 64)
     torch.cuda.synchronize()
     if not torch.equal(first, again):
         raise AssertionError("q4_matvec: a repeated call is not bitwise "
@@ -455,15 +469,59 @@ def check_q4(report, dev):
         f"groups 16..512, K=784 at group 16, K past one slab, 8-byte "
         f"aligned weights) within tolerance, worst err {worst:.2e}; a "
         f"repeated head call bitwise equal")
+
+    # the tiled path's edges, untimed, bitwise: (M, N, K, group)
+    tiled = [(m, 768, 768, 64) for m in (33, 63, 64, 65, 127, 600)]
+    tiled += [(2047, 4096, 768, 64),                  # ragged M, 128 tiles
+              (200, 100, 768, 64), (2048, 4100, 768, 64),  # ragged N
+              (2047, 4099, 768, 64), (600, 99, 768, 64)]   # odd N
+    tiled += [(200, 768, 1536, gs) for gs in (16, 32, 128, 256, 512)]
+    tiled += [(2048, 4096, 768, 16), (2048, 4096, 1024, 512)]
+    tworst = 0.0
+    for m, n, k, gs in tiled:
+        tworst = max(tworst, check(m, n, k, gs, *operands(m, n, k, gs)))
+    if build.LAUNCHES["q4_matvec_dp4a"] != dp4a:
+        raise AssertionError("q4_matvec: a shape the tensor cores take ran "
+                             "on the dp4a kernel")
+    tiled.append((100, 300, 784, 16))                 # K % 32 == 16: dp4a
+    tworst = max(tworst, check(100, 300, 784, 16,
+                               *operands(100, 300, 784, 16),
+                               "q4_matvec (K % 32 == 16)"))
+    xq, xs, wq, ws = operands(100, 300, 768)
+    flat = torch.empty(wq.numel() + 8, dtype=torch.int8, device=dev)
+    wq8 = flat[8:].view(wq.shape)
+    wq8.copy_(wq)
+    tworst = max(tworst, check(100, 300, 768, 64, xq, xs, wq8, ws,
+                               "q4_matvec (8-byte aligned weights)"))
+    if build.LAUNCHES["q4_matvec_dp4a"] != dp4a + 2:
+        raise AssertionError("q4_matvec: K % 32 == 16 and 8-byte aligned "
+                             "weights did not both run on the dp4a kernel")
+    xq, xs, wq, ws = operands(2048, 4096, 768)
+    first = kernel(xq, xs, wq, ws, 64)
+    again = kernel(xq, xs, wq, ws, 64)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("q4_matvec: a repeated M=2048 call is not "
+                             "bitwise equal to the first")
+    log(f"  q4_matvec tiled edges: {len(tiled) + 1} cases (M 33..2047, "
+        f"ragged and odd N, groups 16..512, K=784 at group 16 and 8-byte "
+        f"aligned weights on the dp4a kernel) bitwise, worst err "
+        f"{tworst:.2e}; a repeated w13 call at M=2048 bitwise equal")
     report.add("q4_matvec", route="cuda",
                source="src/repro_torch/kernels/csrc/q4_matvec.cu",
                replaces="src/repro/kernels/q4_matmul.py:69",
-               max_abs_err=step["err"], ms=step["ms"],
-               plain_ms=step["plain"], bound_ms=step["bound"],
-               bound_by="bytes", library_ms=step["lib"],
+               max_abs_err=max(step["err"], chunk["err"], big["err"],
+                               tworst),
+               ms=step["ms"], plain_ms=step["plain"],
+               bound_ms=step["bound"], bound_by="bytes",
+               library_ms=step["lib"], imma=imma,
                chunk_ms=chunk["ms"], chunk_library_ms=chunk["lib"],
+               chunk_bound_ms=chunk["bound"], chunk_q8_matmul_ms=chunk["q8"],
+               chunk512_ms=big["ms"], chunk512_library_ms=big["lib"],
+               chunk512_bound_ms=big["bound"],
                per="decode step at 8 slots: 48 layer GEMVs + head "
-                   "(chunk_*: chunk step, 12 x (w13, w2) at M=2048)")
+                   "(chunk_*: chunk step, 12 x (w13, w2) at M=2048; "
+                   "chunk512_*: at M=4096)")
 
 
 def check_dense_attention(report, dev):
@@ -1105,9 +1163,11 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     (1 per layer + 1).  Dense, each whole-prompt prefill of S tokens: one
     flash_prefill per layer, the MLP's two products per layer at M = S, the
     head's GEMV and rmsnorm_quant as the chunk step.  Q4_0 weights put every
-    product on q4_matvec.  No q8_matmul call of a served path may take the
-    dp4a kernel (``q8_matmul_dp4a`` stays 0): llama2-110m's group 64 with
-    16-byte aligned codes runs on the tensor cores.  The counts are added
+    product on q4_matvec.  No q8_matmul or tiled q4_matvec call of a served
+    path may take its dp4a kernel (``q8_matmul_dp4a`` and
+    ``q4_matvec_dp4a`` stay 0, as every counter the path does not set):
+    llama2-110m's group 64 with 16-byte aligned codes runs on the tensor
+    cores.  The counts are added
     to ``counted`` for the kernels line."""
     from repro_torch.kernels import build
     nl = cfg.n_layers

@@ -38,17 +38,19 @@ SIGNATURES: Dict[str, list] = {
     "q8_matmul": [_P] * 5 + [_I] * 4 + [_P, _P],
     "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     "paged_prefill_attention": [_P] * 11 + [_I] * 8 + [_P],
-    "q4_matvec": [_P] * 5 + [_I] * 4 + [_P],
+    "q4_matvec": [_P] * 5 + [_I] * 4 + [_P, _P],
     "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
     "rope": [_P] * 4 + [_I] * 4 + [_P],
     "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
-# q8_matmul_dp4a: the q8_matmul launches (counted there too) that its C entry
-# sent to the dp4a kernel rather than the tensor cores
+# q8_matmul_dp4a / q4_matvec_dp4a: the q8_matmul / q4_matvec launches
+# (counted there too) that the C entry sent to the dp4a kernel rather than
+# the tensor cores
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*SIGNATURES,
-                                                 "q8_matmul_dp4a")}
+                                                 "q8_matmul_dp4a",
+                                                 "q4_matvec_dp4a")}
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()

@@ -57,13 +57,39 @@
 // over lane offsets 16, 8, 4, 2, 1).  Every output comes from one warp in
 // a fixed order: no atomics, and the same bits from run to run.
 //
-// M > 32: a CUDA block cannot hold 2048 activation rows, so it tiles over M
-// as well as N (the structure of q8_matmul.cu): a 64 x 64 output tile per
-// block, the K loop one group at a time, the weight slice unpacked into
-// shared memory as it is staged.  Each thread's 4 x 4 int32 partials never
-// cross a group, and groups fold into f32 in order with explicitly rounded
-// products and sums (no fused multiply-add), the plain version's acc +
-// (part * xs) * ws.
+// M > 32, the tiled GEMM (a chunk step's or a dense prefill's MLP, M = 2048
+// to 4096 rows).  Each packed weight byte is used M times and the output is
+// f32, so, as for q8_matmul, the bound is bytes: 0.0110 ms for w13 and
+// 0.0035 for w2 at M = 2048, mostly the output.  The design is
+// q8_matmul.cu's tensor-core mainloop with its own loader for the weights:
+//  * Products on the tensor cores: mma.sync m16n8k32 s8 x s8 -> s32 (two
+//    m16n8k16 for a 16-code group), A and B fragments by ldmatrix.x4 from
+//    XOR-swizzled 128-code rows (16-byte chunk c of row r at c ^ (r & 7)).
+//  * Copies that overlap compute: a ring of kRing = 4 slots, each one
+//    128-code stage of the block's activation rows (128 bytes a row), its
+//    packed weight rows (64 bytes a row, half the bytes of Q8_0) and the
+//    scales of the groups that end inside it, by 16-byte and 4-byte
+//    cp.async with zero fill past M, N and K.
+//  * The weights unpacked once per block: there is no s8 x s4 mma (.s4
+//    wants both operands 4-bit), so after a stage lands each thread turns
+//    its 16-byte packed chunks into sign-extended int8 codes (unpack8:
+//    a per-byte (n ^ 8) - 8, then byte permutes) in the swizzled
+//    layout ldmatrix reads, into one of two unpacked buffers.  Stage kt + 1
+//    is unpacked right before stage kt's products, behind the same barrier:
+//    one __syncthreads a stage, two stages of copies in flight.
+//  * Promotion per group in the plain version's order: when a group's last
+//    k-step has run, acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f32(p), xs),
+//    ws)), no fused multiply-add; K is never split across blocks.
+//  * Every SM busy: 128 x 128 tiles (8 warps of 64 x 32) where the shape
+//    gives two per SM (w13 at M = 2048: 512 tiles), else 64 x 64 (4 warps
+//    of 32 x 32; w2: 384 tiles, three blocks an SM); float2 stores.
+// Numbers: a group's int32 sum is exact and below 2^24 (512 * 127 * 8), so
+// f32(p) is exact, and every output comes from one thread folding the
+// groups in order: bitwise ref.ref_q4_matvec, the same bits run to run.
+// Shapes whose packed rows are not whole 16-byte chunks (K % 32 == 16) or
+// whose weights are only 8-byte aligned take the first port's dp4a kernel:
+// a 64 x 64 tile of 4 x 4 micro-tiles on the CUDA cores, one group staged
+// at a time, the same fold, so bitwise too; the C entry reports that route.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -438,12 +464,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
-__global__ void q4_matmul_kernel(const int8_t* __restrict__ xq,
-                                 const float* __restrict__ xs,
-                                 const int8_t* __restrict__ wq,
-                                 const float* __restrict__ ws,
-                                 float* __restrict__ out, int M, int N, int K,
-                                 int gs) {
+// M > 32 where the tensor cores cannot take the shape: K % 32 == 16, or
+// weights only 8-byte aligned
+__global__ void q4_dp4a_kernel(const int8_t* __restrict__ xq,
+                               const float* __restrict__ xs,
+                               const int8_t* __restrict__ wq,
+                               const float* __restrict__ ws,
+                               float* __restrict__ out, int M, int N, int K,
+                               int gs) {
   extern __shared__ int smem[];
   const int wpr = gs >> 2;      // 4-byte words of one row's group slice
   const int ldw = wpr + 1;      // padded row stride in words
@@ -524,6 +552,371 @@ __global__ void q4_matmul_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+int launch_dp4a(const int8_t* xq, const float* xs, const int8_t* wq,
+                const float* ws, float* out, int M, int N, int K, int gs,
+                cudaStream_t stream) {
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  const size_t smem = 2 * kTile * (gs / 4 + 1) * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        q4_dp4a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  q4_dp4a_kernel<<<grid, kThreads, smem, stream>>>(xq, xs, wq, ws, out, M, N,
+                                                   K, gs);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// M > 32 on the tensor cores (the PTX helpers are q8_matmul.cu's)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBK = 128;           // codes of K a stage: a 128-byte line
+constexpr int kChunks = kBK / 16;  // 16-byte chunks of a staged int8 row
+constexpr int kPacked = kBK / 32;  // 16-byte chunks of a staged packed row
+constexpr int kRing = 4;           // two stages in flight, one unpacked and
+                                   // one multiplied
+
+// groups that can end inside one stage: 8 of 16 codes, else at most 4
+__host__ __device__ constexpr int ends(bool half) {
+  return half ? kBK / 16 : kBK / 32;
+}
+
+// where 16-byte chunk c of staged row r lies: the 8 rows an ldmatrix reads
+// hit 8 distinct 16-byte bank groups
+__device__ __forceinline__ int swizzle(int r, int c) { return c ^ (r & 7); }
+
+// byte offsets inside one ring slot of a BM x BN tile
+template <int BM, int BN, int kEnds>
+struct Slot {
+  static constexpr int kA = 0;                      // [BM][kBK] int8
+  static constexpr int kP = kA + BM * kBK;          // [BN][kBK / 2] packed
+  static constexpr int kSx = kP + BN * kBK / 2;     // [kEnds][BM] f32
+  static constexpr int kSw = kSx + kEnds * BM * 4;  // [kEnds][BN] f32
+  static constexpr int kBytes = kSw + kEnds * BN * 4;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_k32(int (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k16(int (&d)[4], uint32_t a0, uint32_t a1,
+                                        uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// A block of WM x WN warps, each a warp tile of MT m16 by NT n8 fragments.
+// kHalf: 16-code groups, whose k-steps are m16n8k16.
+template <int WM, int WN, int MT, int NT, bool kHalf, int kMinBlocks>
+__global__ void __launch_bounds__(WM* WN * 32, kMinBlocks)
+    q4_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                  const int8_t* __restrict__ wq, const float* __restrict__ ws,
+                  float* __restrict__ out, int M, int N, int K, int gs) {
+  constexpr int kThreads = WM * WN * 32;
+  constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
+  using S = Slot<BM, BN, ends(kHalf)>;
+  static_assert(MT % 2 == 0 && NT % 4 == 0, "fragment pairs / quads");
+  static_assert(BM * kChunks % kThreads == 0 && BN * kPacked % kThreads == 0,
+                "whole copy rounds");
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sbase =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  uint8_t* const unpacked = smem + kRing * S::kBytes;  // 2 x [BN][kBK] int8
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm0 = warp / WN * MT * 16, wn0 = warp % WN * NT * 8;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int G = K / gs, KT = (K + kBK - 1) / kBK, kh = K / 2;
+
+  // stage kt into ring slot kt % kRing: codes k0 .. k0 + kBK - 1 of the
+  // block's activation rows and packed weight rows, and the scales of the
+  // groups g0 .. g0 + ends - 1 that end inside them
+  auto load = [&](int kt) {
+    const uint32_t st = sbase + (kt % kRing) * S::kBytes;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int it = 0; it < BM * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads, r = i / kChunks, c = i % kChunks;
+      const int row = m0 + r, k = k0 + 16 * c;
+      const bool ok = row < M && k < K;
+      cp_async16(st + S::kA + r * kBK + (swizzle(r, c) << 4),
+                 ok ? xq + (size_t)row * K + k : xq, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int it = 0; it < BN * kPacked / kThreads; ++it) {
+      const int i = tid + it * kThreads, r = i / kPacked, c = i % kPacked;
+      const int row = n0 + r, k = k0 + 32 * c;  // 32 codes a packed chunk
+      const bool ok = row < N && k < K;
+      cp_async16(st + S::kP + r * (kBK / 2) + 16 * c,
+                 ok ? wq + (size_t)row * kh + k / 2 : wq, ok ? 16 : 0);
+    }
+    const int g0 = k0 / gs, nends = min(k0 + kBK, K) / gs - g0;
+    for (int i = tid; i < nends * (BM + BN); i += kThreads) {
+      const int j = i / (BM + BN), r = i - j * (BM + BN);
+      const bool a = r < BM;
+      const int row = a ? m0 + r : n0 + r - BM;
+      const bool ok = row < (a ? M : N);
+      const float* src = a ? xs : ws;
+      if (ok) src += (size_t)row * G + g0 + j;
+      cp_async4(st + (a ? S::kSx + 4 * (j * BM + r)
+                        : S::kSw + 4 * (j * BN + r - BM)),
+                src, ok ? 4 : 0);
+    }
+  };
+
+  // the packed weights of stage kt -> int8 codes in unpacked buffer kt & 1,
+  // chunk c of row r at swizzle(r, c); one 16-byte packed chunk (32 codes)
+  // a thread a round
+  auto unpack = [&](int kt) {
+    const uint8_t* p = smem + (kt % kRing) * S::kBytes + S::kP;
+    uint8_t* b = unpacked + (kt & 1) * BN * kBK;
+#pragma unroll
+    for (int it = 0; it < BN * kPacked / kThreads; ++it) {
+      const int i = tid + it * kThreads, r = i / kPacked, c = i % kPacked;
+      const uint4 w =
+          *reinterpret_cast<const uint4*>(p + r * (kBK / 2) + 16 * c);
+      int4 lo, hi;
+      unpack8(w.x, lo.x, lo.y);
+      unpack8(w.y, lo.z, lo.w);
+      unpack8(w.z, hi.x, hi.y);
+      unpack8(w.w, hi.z, hi.w);
+      *reinterpret_cast<int4*>(b + r * kBK + (swizzle(r, 2 * c) << 4)) = lo;
+      *reinterpret_cast<int4*>(b + r * kBK + (swizzle(r, 2 * c + 1) << 4)) =
+          hi;
+    }
+  };
+
+  int acc[MT][NT][4];
+  float facc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[mt][nt][i] = 0;
+        facc[mt][nt][i] = 0.f;
+      }
+
+  // fold the finished group's int32 sums; sx / sw: its scales in the stage
+  auto promote = [&](const float* sx, const float* sw) {
+    float xr[MT][2];
+    float2 wc[NT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      xr[mt][0] = sx[wm0 + mt * 16 + (lane >> 2)];
+      xr[mt][1] = sx[wm0 + mt * 16 + (lane >> 2) + 8];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      wc[nt] = *reinterpret_cast<const float2*>(sw + wn0 + nt * 8 +
+                                                2 * (lane & 3));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          facc[mt][nt][i] = __fadd_rn(
+              facc[mt][nt][i],
+              __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][i]),
+                                  xr[mt][i >> 1]),
+                        (i & 1) ? wc[nt].y : wc[nt].x));
+          acc[mt][nt][i] = 0;
+        }
+  };
+
+  // ldmatrix rows: every row a lane addresses is lane & 7 modulo 8, so
+  // chunk c lies at swizzle(lane, c)
+  const int a_k32 = (wm0 + (lane & 15)) * kBK;              // + mt * 16 rows
+  const int a_k16 = (wm0 + (lane & 15) + (lane >> 4) * 16) * kBK;
+  const int b_k32 = (wn0 + (lane & 7) + (lane >> 4) * 8) * kBK;  // + nt * 8
+  const int b_k16 = (wn0 + lane) * kBK;
+  const int a_hi = lane >> 4, b_hi = lane >> 3 & 1;  // k32: second 16 codes
+
+  // one k16 step on 16-code chunk c of the stage
+  auto step16 = [&](uint32_t sa, uint32_t sb, int c) {
+    uint32_t af[MT][2], bf[NT];
+#pragma unroll
+    for (int mt = 0; mt < MT; mt += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, sa + a_k16 + mt * 16 * kBK + (swizzle(lane, c) << 4));
+      af[mt][0] = r[0];
+      af[mt][1] = r[1];
+      af[mt + 1][0] = r[2];
+      af[mt + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 4) {
+      uint32_t r[4];
+      ldsm_x4(r, sb + b_k16 + nt * 8 * kBK + (swizzle(lane, c) << 4));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bf[nt + q] = r[q];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma_k16(acc[mt][nt], af[mt][0], af[mt][1], bf[nt]);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < KT) load(s);
+    asm volatile("cp.async.commit_group;");
+  }
+  cp_async_wait<kRing - 2>();
+  __syncthreads();  // stage 0 landed
+  unpack(0);
+  int g = 0, kg = 0;  // the group being summed, and its codes summed so far
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kRing - 3>();
+    // stage kt + 1 landed, stage kt is unpacked, and every warp is done
+    // with stage kt - 1: its slot and its unpacked buffer are free
+    __syncthreads();
+    if (kt + kRing - 1 < KT) load(kt + kRing - 1);
+    asm volatile("cp.async.commit_group;");
+    if (kt + 1 < KT) unpack(kt + 1);
+    const int off = (kt % kRing) * S::kBytes;
+    const uint32_t sa = sbase + off + S::kA;
+    const uint32_t sb = sbase + kRing * S::kBytes + (kt & 1) * BN * kBK;
+    const float* sx = reinterpret_cast<const float*>(smem + off + S::kSx);
+    const float* sw = reinterpret_cast<const float*>(smem + off + S::kSw);
+    const int gstage = g;
+    // after `codes` more codes of group g: promote it if it is complete
+    auto advance = [&](int codes) {
+      kg += codes;
+      if (kg == gs) {
+        promote(sx + (g - gstage) * BM, sw + (g - gstage) * BN);
+        ++g;
+        kg = 0;
+      }
+    };
+#pragma unroll
+    for (int p = 0; p < kChunks / 2; ++p) {
+      const int kk = kt * kBK + 32 * p;
+      if (kk >= K) break;
+      if (!kHalf) {
+        uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(af[mt], sa + a_k32 + mt * 16 * kBK +
+                              (swizzle(lane, 2 * p + a_hi) << 4));
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t r[4];
+          ldsm_x4(r, sb + b_k32 + nt * 8 * kBK +
+                         (swizzle(lane, 2 * p + b_hi) << 4));
+          bf[nt][0] = r[0];
+          bf[nt][1] = r[1];
+          bf[nt + 1][0] = r[2];
+          bf[nt + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_k32(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+        advance(32);
+      } else {
+        // two 16-code groups: two k16 steps, a promotion after each
+        step16(sa, sb, 2 * p);
+        advance(16);
+        step16(sa, sb, 2 * p + 1);
+        advance(16);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool pairs = (N & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + mt * 16 + (lane >> 2) + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + wn0 + nt * 8 + 2 * (lane & 3);
+        float* o = out + (size_t)m * N + n;
+        const float v0 = facc[mt][nt][2 * h], v1 = facc[mt][nt][2 * h + 1];
+        if (pairs && n + 1 < N) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (n < N) o[0] = v0;
+          if (n + 1 < N) o[1] = v1;
+        }
+      }
+    }
+}
+
+template <int WM, int WN, int MT, int NT, bool kHalf, int kMinBlocks>
+int launch_mma(const int8_t* xq, const float* xs, const int8_t* wq,
+               const float* ws, float* out, int M, int N, int K, int gs,
+               cudaStream_t stream) {
+  constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
+  constexpr int smem =
+      kRing * Slot<BM, BN, ends(kHalf)>::kBytes + 2 * BN * kBK;
+  auto kernel = q4_mma_kernel<WM, WN, MT, NT, kHalf, kMinBlocks>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  kernel<<<grid, WM * WN * 32, smem, stream>>>(xq, xs, wq, ws, out, M, N, K,
+                                               gs);
+  return (int)cudaGetLastError();
+}
+
+template <int WM, int WN, int MT, int NT, int kMinBlocks>
+int launch_tile(const int8_t* xq, const float* xs, const int8_t* wq,
+                const float* ws, float* out, int M, int N, int K, int gs,
+                cudaStream_t stream) {
+  if (gs == 16)
+    return launch_mma<WM, WN, MT, NT, true, kMinBlocks>(xq, xs, wq, ws, out,
+                                                        M, N, K, gs, stream);
+  return launch_mma<WM, WN, MT, NT, false, kMinBlocks>(xq, xs, wq, ws, out, M,
+                                                       N, K, gs, stream);
+}
+
+}  // namespace tc
+
 template <int MT>
 int launch_matvec(const int8_t* xq, const float* xs, const int8_t* wq,
                   const float* ws, float* out, int M, int N, int K, int gs,
@@ -565,27 +958,32 @@ int launch_matvec(const int8_t* xq, const float* xs, const int8_t* wq,
 // xq (M, K) int8, xs (M, K/gs) f32, wq (N, K/2) int8 packed, ws (N, K/gs)
 // f32, out (M, N) f32; all contiguous, xq 16-byte and wq 8-byte aligned,
 // K % 16 == 0, gs in {16, 32, ..., 512} dividing K (the wrapper checks).
+// M > 32 runs on the tensor cores where K % 32 == 0 and wq is 16-byte
+// aligned, on the dp4a kernel otherwise; *dp4a tells the caller which one
+// ran (1: the dp4a kernel; always 0 for the GEMV, M <= 32).
 extern "C" int q4_matvec(const void* xq, const void* xs, const void* wq,
                          const void* ws, void* out, int M, int N, int K,
-                         int gs, void* stream) {
+                         int gs, int* dp4a, void* stream) {
   const int8_t* a = static_cast<const int8_t*>(xq);
   const float* as = static_cast<const float*>(xs);
   const int8_t* w = static_cast<const int8_t*>(wq);
   const float* s = static_cast<const float*>(ws);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *dp4a = M > kMatvecMaxRows &&
+          (K % 32 || reinterpret_cast<uintptr_t>(wq) % 16);
+  if (*dp4a) return launch_dp4a(a, as, w, s, o, M, N, K, gs, st);
   if (M > kMatvecMaxRows) {
-    const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    const size_t smem = 2 * kTile * (gs / 4 + 1) * sizeof(int);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          q4_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    q4_matmul_kernel<<<grid, kThreads, smem, st>>>(a, as, w, s, o, M, N, K,
-                                                   gs);
-    return (int)cudaGetLastError();
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    // 128 x 128 tiles only when they still give every SM two of them
+    const long big = (long)((M + 127) / 128) * ((N + 127) / 128);
+    if (big >= 2L * sms)
+      return tc::launch_tile<2, 4, 4, 4, 1>(a, as, w, s, o, M, N, K, gs, st);
+    return tc::launch_tile<2, 2, 2, 4, 3>(a, as, w, s, o, M, N, K, gs, st);
   }
   if (M <= 1) return launch_matvec<1>(a, as, w, s, o, M, N, K, gs, st);
   if (M <= 2) return launch_matvec<2>(a, as, w, s, o, M, N, K, gs, st);

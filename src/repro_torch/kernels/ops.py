@@ -207,10 +207,13 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
 def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     """Any M: out (M, N) f32 = sum_g f32(int32 dot of group g) * xs[m, g] *
     ws[n, g] against packed Q4_0 weights wq (N, K/2).  M <= 32 runs the
-    decode GEMV, more rows the tiled GEMM.  The GEMV stages xq by 16-byte
-    loads and copies weights 16 bytes at a time where wq is 16-byte aligned
-    and K % 32 == 0, 8 bytes otherwise: xq must be 16-byte and wq 8-byte
-    aligned."""
+    decode GEMV, more rows the tiled GEMM, which folds the groups in the
+    plain version's order (bitwise equal to it).  The GEMV stages xq by
+    16-byte loads and copies weights 16 bytes at a time where wq is 16-byte
+    aligned and K % 32 == 0, 8 bytes otherwise: xq must be 16-byte and wq
+    8-byte aligned.  The GEMM runs on the int8 tensor cores under the same
+    two conditions, on a dp4a kernel otherwise, whose launches are also
+    counted as ``q4_matvec_dp4a``."""
     if xq.device.type == "cpu":
         return ref.ref_q4_matvec(xq, xs, wq, ws, group_size)
     name = "q4_matvec"
@@ -237,8 +240,12 @@ def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
                          "activation loads) and wq 8-byte aligned (8-byte "
                          "weight copies at the least)")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    dp4a = ctypes.c_int(0)
     launch(name, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-           out.data_ptr(), m, n, k, group_size, _stream(xq))
+           out.data_ptr(), m, n, k, group_size, ctypes.byref(dp4a),
+           _stream(xq))
+    if dp4a.value:
+        LAUNCHES["q4_matvec_dp4a"] += 1
     return out
 
 

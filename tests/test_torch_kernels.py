@@ -28,7 +28,8 @@ from repro.core.quantization import quantize_rows as jquantize_rows
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import qlinear
-from repro_torch.core.quantization import QuantizedTensor, quantize
+from repro_torch.core.quantization import (QuantizedTensor, _unpack_nibbles,
+                                          quantize)
 from repro_torch.kernels import build, ops, ref
 
 torch.set_num_threads(2)
@@ -77,14 +78,29 @@ def test_ref_q8_matmul_matches_jax_ref(group):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _q8_mma_emulation(xq, xs, w, ws, group):
-    """The arithmetic of csrc/q8_matmul.cu's tensor-core kernel, in numpy:
+def _q4_unpack_emulation(wq):
+    """csrc/q4_matvec.cu's unpack8 on the packed weights (N, K/2), in numpy:
+    each nibble n becomes the byte (n ^ 8) - 8 mod 256 (__vsub4), and the
+    low nibbles (even codes) and high nibbles (odd codes) interleave, as
+    its byte permutes do.  Returns the int8 codes (N, K) in code order."""
+    b = np.ascontiguousarray(wq).view(np.uint8).astype(np.int32)
+    lo, hi = [(((b >> s & 0xF) ^ 8) - 8) & 0xFF for s in (0, 4)]
+    out = np.stack([lo, hi], axis=-1).astype(np.uint8)
+    return out.reshape(wq.shape[0], -1).view(np.int8)
+
+
+def _q8_mma_emulation(xq, xs, w, ws, group, bits=8):
+    """The arithmetic of csrc/q8_matmul.cu's tensor-core kernel, and of
+    csrc/q4_matvec.cu's (bits=4, its M > 32 path), in numpy: Q4_0 weights
+    first unpack to int8 codes as the kernel unpacks each staged chunk;
     128-code stages; inside a stage, k-steps of 32 codes (mma m16n8k32), or
     two of 16 (m16n8k16) where a group ends 16 codes into the pair; each
     group's int32 sum restarts at its first step and, after its last, folds
     into the f32 output in group order as acc + (f32(part) * xs) * ws, each
     product and sum rounded to f32 alone.  xq (M, K) and w (N, K) are int
-    codes."""
+    codes, or w (N, K/2) packed nibbles for bits=4."""
+    if bits == 4:
+        w = _q4_unpack_emulation(w)
     m, k = xq.shape
     x64, w64 = xq.astype(np.int64), w.astype(np.int64)
     acc = np.zeros((m, w.shape[0]), np.float32)
@@ -117,29 +133,54 @@ def _q8_mma_emulation(xq, xs, w, ws, group):
     return acc, steps
 
 
-@pytest.mark.parametrize("group", [16, 32, 48, 64, 512])
-def test_q8_matmul_kernel_arithmetic_is_the_plain_version(group):
-    """The chip check holds the GEMM (M > 32) bitwise to its plain version.
-    Its arithmetic, emulated here -- per-group int32 sums in k-steps of 32
-    and 16, the fold in group order with separately rounded products and
-    sums -- is bitwise ref.ref_q8_matmul on
-    the CPU, and within the usual 1e-5 of the JAX plain version."""
-    rng = np.random.default_rng(700 + group)
-    m, n, k = 96, 160, 1536
+# Q8_0 cases keep their original ids; Q4_0 cases run the M > 32 path's
+# arithmetic on a ragged N (not a multiple of any tile)
+_MMA_CASES = [pytest.param(8, g, id=str(g)) for g in (16, 32, 48, 64, 512)]
+_MMA_CASES += [pytest.param(4, g, id=f"q4-g{g}")
+               for g in (16, 32, 64, 128, 512)]
+
+
+@pytest.mark.parametrize("bits,group", _MMA_CASES)
+def test_q8_matmul_kernel_arithmetic_is_the_plain_version(bits, group):
+    """The chip check holds the GEMMs (M > 32) of q8_matmul and q4_matvec
+    bitwise to their plain versions.  Their arithmetic, emulated here --
+    the Q4_0 unpack, per-group int32 sums in k-steps of 32 and 16, the fold
+    in group order with separately rounded products and sums -- is bitwise
+    ref.ref_q8_matmul (ref.ref_q4_matvec) on the CPU, and within the usual
+    1e-5 of the JAX plain version."""
+    rng = np.random.default_rng(700 + group + 1000 * (bits == 4))
+    m, n, k = 96, (160 if bits == 8 else 100), 1536
     x = rng.standard_normal((m, k)).astype(np.float32)
     w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
     xt = jquantize(jnp.asarray(x), group_size=group)
-    wt = jquantize(jnp.asarray(w), group_size=group)
+    wt = jquantize(jnp.asarray(w), group_size=group, bits=bits)
     xq, xs = np.asarray(xt.q), np.asarray(xt.scale)
     wq, ws = np.asarray(wt.q), np.asarray(wt.scale)
-    got, steps = _q8_mma_emulation(xq, xs, wq, ws, group)
+    got, steps = _q8_mma_emulation(xq, xs, wq, ws, group, bits)
     assert steps == ({32} if group % 32 == 0 else {16, 32} if group > 16
                      else {16})
-    plain = ref.ref_q8_matmul(_t(xq), _t(xs), _t(wq), _t(ws), group).numpy()
+    plain_fn = ref.ref_q8_matmul if bits == 8 else ref.ref_q4_matvec
+    plain = plain_fn(_t(xq), _t(xs), _t(wq), _t(ws), group).numpy()
     assert np.array_equal(got, plain)
-    want = np.asarray(jref.ref_q8_matmul(xt.q, xt.scale, wt.q, wt.scale,
-                                         group))
+    jref_fn = jref.ref_q8_matmul if bits == 8 else jref.ref_q4_matvec
+    want = np.asarray(jref_fn(xt.q, xt.scale, wt.q, wt.scale, group))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("byte_at", [0, 1, 2, 3])
+def test_q4_unpack8_sign_extends_every_nibble(byte_at):
+    """The Q4 GEMM's unpack (emulated bit for bit) gives the reference's
+    sign-extended codes for every value of a packed byte, in each of a
+    word's four byte positions, with random neighbours."""
+    rng = np.random.default_rng(byte_at)
+    wq = rng.integers(-128, 128, (256, 8), dtype=np.int8)
+    wq[:, byte_at] = np.arange(-128, 128, dtype=np.int8)
+    want = np.asarray(jref.ref_q4_matvec(
+        jnp.eye(16, dtype=jnp.int8), jnp.ones((16, 1)), jnp.asarray(wq),
+        jnp.ones((256, 1)), 16)).T
+    got = _q4_unpack_emulation(wq)
+    np.testing.assert_array_equal(got, want.astype(np.int8))
+    np.testing.assert_array_equal(got, _unpack_nibbles(_t(wq)).numpy())
 
 
 def test_q8_matmul_group_sums_are_exact_in_f32():
