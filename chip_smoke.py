@@ -524,22 +524,22 @@ def check_q4(report, dev):
                    "chunk512_*: at M=4096)")
 
 
-def check_dense_attention(report, dev):
-    """decode_attention at the dense decode's shapes (8 slots x 1024,
-    f32 and int8), bitwise against the paged kernel on the same rows."""
+def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
+                      d=64, timed=False, yardsticks=True):
+    """One decode_attention call on a (B, S, KVH, D) cache against its plain
+    version (tolerance 2e-5; a length-0 row exactly 0) and bitwise against
+    paged_decode_attention on the identity page table over the same rows
+    (pages of 64, a table S / 64 wide).  ``timed``: also its device time on
+    L2-cold caches and its bound; ``yardsticks``: the plain version's and
+    SDPA's times beside it.  Returns a dict."""
     from repro_torch.core.quantization import quantize_rows
     from repro_torch.kernels import ops, ref
-    b, s, kvh, hq, d = 8, 1024, 12, 1, 64
-    h = kvh * hq
-    gen = torch.Generator(device=dev).manual_seed(3)
-    lens_l = [0, 1, 63, 64, 65, 1024, 300, 777]
+    b, h = len(lens_l), kvh * hq
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    # the identity page table over the same rows: the paged kernel reads
-    # exactly what the dense one reads
     pt = torch.arange(b * s // 64, dtype=torch.int32,
                       device=dev).reshape(b, s // 64)
 
-    def cache(int8):
+    def cache():
         k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
         v = torch.randn((b, s, kvh, d), generator=gen, device=dev)
         if not int8:
@@ -547,45 +547,51 @@ def check_dense_attention(report, dev):
         (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
         return kq, vq, ks, vs
 
-    rec = {}
-    for int8 in (False, True):
-        kind = "int8" if int8 else "f32"
-        k, v, ksc, vsc = cache(int8)
-        q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / 8.0
-        got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
-        want = ref.ref_decode_attention(q, k, v, lens.reshape(b, 1), ksc, vsc)
-        pool = [None if t is None else t.reshape(b * s // 64, 64,
-                                                 *t.shape[2:])
-                for t in (k, v, ksc, vsc)]
-        paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt,
-                                                  lens, pool[2], pool[3])
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = 2e-5   # online vs one-pass softmax: f32 summation order only
-        if not (err <= tol and got[0].abs().max().item() == 0.0
-                and torch.equal(got, paged)):
-            raise AssertionError(
-                f"decode_attention {kind}: err {err:.3g} (tol {tol}), len=0 "
-                f"row exactly 0: {got[0].abs().max().item() == 0.0}, bitwise "
-                f"equal to the paged kernel: {torch.equal(got, paged)}")
-        elem = 1 if int8 else 4
-        nrows = sum(lens_l)
-        nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
-                  + 2 * b * h * d * 4 + 4 * b)
-        b_ms, b_by = bound(nbytes, 4.0 * nrows * h * d, F32_FLOPS_PER_S)
-        nxt = rotating(lambda: (q, *cache(int8)), 2 * b * s * kvh * d * elem,
-                       budget=96 << 20)
+    kind = "int8" if int8 else "f32"
+    k, v, ksc, vsc = cache()
+    q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
+    got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
+    want = ref.ref_decode_attention(q, k, v, lens.reshape(b, 1), ksc, vsc)
+    pool = [None if t is None else t.reshape(b * s // 64, 64, *t.shape[2:])
+            for t in (k, v, ksc, vsc)]
+    paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt, lens,
+                                              pool[2], pool[3])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 2e-5   # online vs one-pass softmax: f32 summation order only
+    zero = all(got[i].abs().max().item() == 0.0
+               for i, n in enumerate(lens_l) if n <= 0)
+    if not (err <= tol and zero and torch.equal(got, paged)):
+        raise AssertionError(
+            f"decode_attention {kind} S {s} lens {lens_l}: err {err:.3g} "
+            f"(tol {tol}), len=0 rows exactly 0: {zero}, bitwise equal to "
+            f"the paged kernel: {torch.equal(got, paged)}")
+    rec = {"err": err}
+    if not timed:
+        return rec
+    elem = 1 if int8 else 4
+    nrows = sum(min(max(n, 0), s) for n in lens_l)
+    nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
+              + 2 * b * h * d * 4 + 4 * b)
+    rec["bound"], rec["by"] = bound(nbytes, 4.0 * nrows * h * d,
+                                    F32_FLOPS_PER_S)
+    nxt = rotating(lambda: (q, *cache()), 2 * b * s * kvh * d * elem,
+                   budget=96 << 20)
 
-        def run_kernel():
-            qq, kk, vv, kks, vvs = nxt()
-            ops.decode_attention_kernel(qq, kk, vv, lens, kks, vvs)
+    def run_kernel():
+        qq, kk, vv, kks, vvs = nxt()
+        ops.decode_attention_kernel(qq, kk, vv, lens, kks, vvs)
 
-        def run_plain():
-            qq, kk, vv, kks, vvs = nxt()
-            ref.ref_decode_attention(qq, kk, vv, lens.reshape(b, 1), kks, vvs)
+    def run_plain():
+        qq, kk, vv, kks, vvs = nxt()
+        ref.ref_decode_attention(qq, kk, vv, lens.reshape(b, 1), kks, vvs)
 
-        ms = time_ms(run_kernel)
-        plain = time_ms(run_plain, iters=5)
+    rec["ms"] = time_ms(run_kernel)
+    line = (f"  decode_attention {kind}: B {b} x S {s}, lens {lens_l}  err "
+            f"{err:.2e} (tol {tol:.0e}), bitwise = paged kernel  kernel "
+            f"{rec['ms']:.4f} ms  bound {rec['bound']:.4f} ms ({rec['by']})")
+    if yardsticks:
+        rec["plain"] = time_ms(run_plain, iters=5)
         kf, vf = k.float(), v.float()
         if int8:
             kf, vf = kf * ksc[..., None], vf * vsc[..., None]
@@ -593,21 +599,44 @@ def check_dense_attention(report, dev):
         mask = (torch.arange(s, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kf, vf, attn_mask=mask, scale=1.0))
-        log(f"  decode_attention {kind}: B {b} x S {s}, lens {lens_l}  err "
-            f"{err:.2e} (tol {tol:.0e}), bitwise = paged kernel  kernel "
-            f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        rec[kind] = (err, ms, plain, lib, b_ms, b_by)
-    f, i8 = rec["f32"], rec["int8"]
+        rec["lib"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kf, vf, attn_mask=mask, scale=1.0))
+        line += f"  plain {rec['plain']:.4f} ms  sdpa {rec['lib']:.4f} ms"
+    log(line)
+    return rec
+
+
+def check_dense_attention(report, dev):
+    """decode_attention at the dense decode's shapes (8 slots x 1024,
+    f32 and int8) and at batch 1 (len 80 and 1024), timed; bitwise against
+    the paged kernel on the same rows at S = 1024 and at S = 832 (a table
+    13 pages wide, no multiple of the 8 splits)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rec = {}
+    for int8 in (False, True):
+        rec[int8] = dense_decode_case(gen, dev, DECODE_LENS, int8,
+                                      timed=True)
+        dense_decode_case(gen, dev, [0, 1, 64, 832, 700, 511, 513, 900],
+                          int8, s=832)
+    b1 = {n: dense_decode_case(gen, dev, [n], False, timed=True)
+          for n in (80, 1024)}
+    log("  decode_attention: bitwise equal to paged_decode_attention at S = "
+        "1024 and S = 832 (13 pages), f32 and int8")
+    f, i8 = rec[False], rec[True]
     report.add("decode_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               header="src/repro_torch/kernels/csrc/flash_decode.cuh",
                replaces="src/repro/kernels/decode_attention.py:206",
-               max_abs_err=max(f[0], i8[0]), ms=f[1], plain_ms=f[2],
-               library_ms=f[3], bound_ms=f[4], bound_by=f[5],
-               int8_ms=i8[1], int8_bound_ms=i8[4],
-               per="one layer's call, f32 cache (int8_* for the int8 cache)")
+               max_abs_err=max(f["err"], i8["err"]), ms=f["ms"],
+               plain_ms=f["plain"], library_ms=f["lib"], bound_ms=f["bound"],
+               bound_by=f["by"], int8_ms=i8["ms"],
+               int8_bound_ms=i8["bound"], b1_80_ms=b1[80]["ms"],
+               b1_80_bound_ms=b1[80]["bound"], b1_1024_ms=b1[1024]["ms"],
+               b1_1024_bound_ms=b1[1024]["bound"],
+               b1_1024_library_ms=b1[1024]["lib"],
+               per="one layer's call, f32 cache (int8_* for the int8 cache, "
+                   "b1_* at batch 1)")
 
 
 def sass_count(name: str, *words: str) -> int:
@@ -867,50 +896,80 @@ def _page_table(gen, dev, b, mb, nb, live_blocks):
     return pt
 
 
-def check_attention(report, dev):
+# the check's decode lengths: 0, 1, one page -1/+0/+1, the full table
+DECODE_LENS = [0, 1, 63, 64, 65, 1024, 300, 777]
+# -1 entries inside a row's length: released slots (all -1) at lens 1 and
+# 20, and a hole at block 2 of a live row.  The reference reads pool block
+# 0 for them and masks by length only.
+HOLE_LENS = [1, 20, 300, 700]
+
+
+def _holes_table(gen, dev, mb, nb, bs, lens_l):
+    pt = _page_table(gen, dev, len(lens_l), mb, nb,
+                     [-(-n // bs) for n in lens_l])
+    pt[:2] = -1
+    pt[2, 2] = -1
+    return pt
+
+
+def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
+                      mb=16, pt=None, timed=False, yardsticks=True):
+    """One paged_decode_attention call against its plain version (tolerance
+    2e-5; a length-0 row exactly 0) on random pools of B * MB pages and a
+    table of distinct random pages (or ``pt``).  ``timed``: also its
+    device time on L2-cold pools and its bound; ``yardsticks``: the plain
+    version's and SDPA's (on gathered K/V) times beside it.  Returns a dict
+    with the inputs of the call and its output."""
     from repro_torch.kernels import ops, ref
-    b, kvh, hq, d, bs, mb = 8, 12, 1, 64, 64, 16
-    h = kvh * hq
-    nb = b * mb
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rec = {}
-    # ---- paged decode: lens cover 0, 1, one page -1/+0/+1, the full table
-    lens_l = [0, 1, 63, 64, 65, 1024, 300, 777]
+    b, h, nb = len(lens_l), kvh * hq, len(lens_l) * mb
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    live = [max(1, -(-n // bs)) if n else 0 for n in lens_l]
-    for int8 in (False, True):
-        kind = "int8" if int8 else "f32"
-        pools = _pools(gen, dev, nb, bs, kvh, d, int8)
-        pt = _page_table(gen, dev, b, mb, nb, live)
-        q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / 8.0
-        got = ops.paged_decode_attention_kernel(q, pools[0], pools[1], pt,
-                                                lens, pools[2], pools[3])
-        want = ref.ref_paged_decode_attention(q, pools[0], pools[1], pt,
-                                              lens, pools[2], pools[3])
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = 2e-5   # online vs one-pass softmax: f32 summation order only
-        if not err <= tol or got[0].abs().max().item() != 0.0:
-            raise AssertionError(f"paged_decode_attention {kind}: err "
-                                 f"{err:.3g} > {tol} or len=0 row not 0")
-        elem = 1 if int8 else 4
-        nrows = sum(lens_l)
-        nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
-                  + 2 * b * h * d * 4 + 4 * b * mb + 4 * b)
-        b_ms, b_by = bound(nbytes, 4.0 * nrows * h * d, F32_FLOPS_PER_S)
-        nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
-                       2 * nb * bs * kvh * d * elem, budget=96 << 20)
+    pools = _pools(gen, dev, nb, bs, kvh, d, int8)
+    if pt is None:
+        pt = _page_table(gen, dev, b, mb, nb, [-(-n // bs) for n in lens_l])
+    q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
+    got = ops.paged_decode_attention_kernel(q, pools[0], pools[1], pt, lens,
+                                            pools[2], pools[3])
+    want = ref.ref_paged_decode_attention(q, pools[0], pools[1], pt, lens,
+                                          pools[2], pools[3])
+    torch.cuda.synchronize()
+    kind = "int8" if int8 else "f32"
+    err = (got - want).abs().max().item()
+    tol = 2e-5   # online vs one-pass softmax: f32 summation order only
+    zero = all(got[i].abs().max().item() == 0.0
+               for i, n in enumerate(lens_l) if n <= 0)
+    if not (err <= tol and zero):
+        raise AssertionError(
+            f"paged_decode_attention {kind} HQ {hq} D {d} page {bs} MB {mb} "
+            f"lens {lens_l}: err {err:.3g} (tol {tol}), len=0 rows exactly "
+            f"0: {zero}")
+    rec = {"err": err, "args": (q, *pools[:2], pt, lens, *pools[2:]),
+           "out": got}
+    if not timed:
+        return rec
+    elem = 1 if int8 else 4
+    nrows = sum(min(max(n, 0), mb * bs) for n in lens_l)
+    nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
+              + 2 * b * h * d * 4 + 4 * b * mb + 4 * b)
+    rec["bound"], rec["by"] = bound(nbytes, 4.0 * nrows * h * d,
+                                    F32_FLOPS_PER_S)
+    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
+                   2 * nb * bs * kvh * d * elem, budget=96 << 20)
 
-        def run_kernel():
-            qq, kp, vp, ksp, vsp = nxt()
-            ops.paged_decode_attention_kernel(qq, kp, vp, pt, lens, ksp, vsp)
+    def run_kernel():
+        qq, kp, vp, ksp, vsp = nxt()
+        ops.paged_decode_attention_kernel(qq, kp, vp, pt, lens, ksp, vsp)
 
-        def run_plain():
-            qq, kp, vp, ksp, vsp = nxt()
-            ref.ref_paged_decode_attention(qq, kp, vp, pt, lens, ksp, vsp)
+    def run_plain():
+        qq, kp, vp, ksp, vsp = nxt()
+        ref.ref_paged_decode_attention(qq, kp, vp, pt, lens, ksp, vsp)
 
-        ms = time_ms(run_kernel)
-        plain = time_ms(run_plain, iters=5)
+    rec["ms"] = time_ms(run_kernel)
+    line = (f"  paged_decode_attention {kind}: lens {lens_l}  err {err:.2e} "
+            f"(tol {tol:.0e})  kernel {rec['ms']:.4f} ms  bound "
+            f"{rec['bound']:.4f} ms ({rec['by']}), "
+            f"{100 * rec['bound'] / rec['ms']:.1f}% of it")
+    if yardsticks:
+        rec["plain"] = time_ms(run_plain, iters=5)
         kg = ref.gather_rows(pools[0], pt).float()
         vg = ref.gather_rows(pools[1], pt).float()
         if int8:
@@ -920,12 +979,150 @@ def check_attention(report, dev):
         mask = (torch.arange(mb * bs, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=1.0))
-        log(f"  paged_decode_attention {kind}: lens {lens_l}  err {err:.2e} "
-            f"(tol {tol:.0e})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"sdpa {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        rec[("dec", kind)] = (err, ms, plain, lib, b_ms, b_by)
+        rec["lib"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask, scale=1.0))
+        line += (f"  plain {rec['plain']:.4f} ms  sdpa {rec['lib']:.4f} ms")
+    log(line)
+    return rec
+
+
+def paged_decode_edges(gen, dev):
+    """Untimed edges of paged_decode_attention against its plain version:
+    lens at split boundaries (127..513 and the full table), HQ 2..8 at D =
+    32 and 128, pages of 16 and 128 (tiles that span pages), a table 13
+    pages wide, int8 rows copied 16, 8 and 4 bytes at a time (D = 64, 40,
+    36), D = 512 (f32: 2 warps a block, to fit shared memory), -1 entries
+    inside rows' lengths; f32 and int8.  Then a repeated call, which must
+    be bitwise equal.  Returns (cases, worst error)."""
+    from repro_torch.kernels import ops
+    split = [0, 1, 127, 128, 129, 511, 512, 513]
+    cases = [dict(), dict(bs=16, mb=64), dict(bs=128, mb=8), dict(mb=13),
+             dict(d=40), dict(d=36), dict(d=512, kvh=2)]
+    cases += [dict(hq=hq, d=d) for hq in (2, 4, 8) for d in (32, 128)]
+    worst, n = 0.0, 0
+    for kw in cases:
+        bs, mb = kw.get("bs", 64), kw.get("mb", 16)
+        for int8 in (False, True):
+            worst = max(worst, paged_decode_case(
+                gen, dev, split + [mb * bs], int8, **kw)["err"])
+            n += 1
+    nb = len(HOLE_LENS) * 16
+    for int8 in (False, True):
+        pt = _holes_table(gen, dev, 16, nb, 64, HOLE_LENS)
+        worst = max(worst, paged_decode_case(gen, dev, HOLE_LENS, int8,
+                                             pt=pt)["err"])
+        n += 1
+    rec = paged_decode_case(gen, dev, DECODE_LENS, False)
+    again = ops.paged_decode_attention_kernel(*rec["args"])
+    torch.cuda.synchronize()
+    if not torch.equal(rec["out"], again):
+        raise AssertionError("paged_decode_attention: a repeated call is not "
+                             "bitwise equal to the first")
+    log(f"  paged_decode_attention edges: {n} cases (lens at split "
+        f"boundaries, HQ 2..8 x D 32/128, pages 16 and 128, MB = 13, D = "
+        f"40, 36 and 512, -1 inside rows' lengths; f32 and int8) within "
+        f"2e-5, worst err {worst:.2e}; a repeated call bitwise equal")
+    return n, worst
+
+
+def decode_attention_turn(dev):
+    """Device ms of both decode attentions at the check's shapes (f32 and
+    int8) and at batch 1 (len 80 and 1024, f32), on L2-cold operands, each
+    call first held to its plain version (and the dense one bitwise to the
+    paged one).  Runs on any tree's wrappers, so parent and change can be
+    timed in turns."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for int8 in (False, True):
+        kind = "int8" if int8 else "f32"
+        out[f"paged {kind}"] = paged_decode_case(
+            gen, dev, DECODE_LENS, int8, timed=True, yardsticks=False)["ms"]
+        out[f"dense {kind}"] = dense_decode_case(
+            gen, dev, DECODE_LENS, int8, timed=True, yardsticks=False)["ms"]
+    for n in (80, 1024):
+        out[f"paged b1 {n}"] = paged_decode_case(
+            gen, dev, [n], False, timed=True, yardsticks=False)["ms"]
+        out[f"dense b1 {n}"] = dense_decode_case(
+            gen, dev, [n], False, timed=True, yardsticks=False)["ms"]
+    log(f"  decode attention turn (ms): {json.dumps(out)}")
+    return out
+
+
+def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt, c=256, kvh=12,
+                       hq=1, d=64, bs=64, mb=16):
+    """One paged_prefill_attention call against its plain version on the
+    rows below q_lens (out, m and l relative to max(1, l), tolerance 2e-5);
+    an empty prefix and every skipped row exactly (0, -1e30, 0).  Returns
+    a dict with the call's operands and its error."""
+    from repro_torch.kernels import ops, ref
+    b, h, nb = len(pfx_l), kvh * hq, len(pfx_l) * mb
+    pfx = torch.tensor(pfx_l, dtype=torch.int32, device=dev)
+    qlens = torch.tensor(qlen_l, dtype=torch.int32, device=dev)
+    pools = _pools(gen, dev, nb, bs, kvh, d, int8)
+    q = torch.randn((b, c, kvh, hq, d), generator=gen,
+                    device=dev) / math.sqrt(d)
+    out, m, l = ops.paged_prefill_attention_kernel(
+        q, pools[0], pools[1], pt, pfx, qlens, pools[2], pools[3])
+    wo, wm, wl = ref.ref_paged_prefill_attention(
+        q.reshape(b, c, h, d), pools[0], pools[1], pt, pfx, pools[2],
+        pools[3])
+    torch.cuda.synchronize()
+    wm = wm[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+    wl = wl[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+    wo = wo.reshape(b, c, kvh, hq, d)
+    rows = torch.arange(c, device=dev)[None] < qlens[:, None]   # (B, C)
+    err = max((out - wo).abs()[rows].max().item(),
+              (m - wm).abs()[rows].max().item(),
+              ((l - wl).abs() / wl.clamp(min=1.0))[rows].max().item())
+    tol = 2e-5
+    empty = [i for i, p in enumerate(pfx_l) if p == 0]
+    empty_exact = (bool((out[empty] == 0).all())
+                   and bool((l[empty] == 0).all())
+                   and bool((m[empty] == -1e30).all()))
+    skipped = ~rows
+    skipped_exact = (bool((out[skipped] == 0).all())
+                     and bool((m[skipped] == -1e30).all()))
+    if not (err <= tol and empty_exact and skipped_exact):
+        kind = "int8" if int8 else "f32"
+        raise AssertionError(
+            f"paged_prefill_attention {kind} pfx {pfx_l} q_lens {qlen_l}: "
+            f"err {err:.3g} (tol {tol}), empty prefix exact {empty_exact}, "
+            f"skipped rows exact {skipped_exact}")
+    return {"q": q, "pools": pools, "pt": pt, "err": err}
+
+
+def decode_step_ops(dev):
+    """Device operations of one dense decode step of llama2-110m at 8 slots
+    (``decode_step_launches``) on seeded random weights.  Runs on any
+    tree, so parent and change can be counted in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import qlinear
+    from repro_torch.models.model import build_model
+    qlinear.set_default_strategy("kernel")
+    model = build_model(get_config("llama2-110m"))
+    params = model.quantize(model.init(seed=0, device=dev))
+    return decode_step_launches(model, params, dev)
+
+
+def check_attention(report, dev):
+    """paged_decode_attention at the paged decode's shapes (8 slots, f32 and
+    int8 pools) and at batch 1 (len 80 and 1024), timed, then its edges
+    (``paged_decode_edges``); paged_prefill_attention at the chunk step's
+    shapes, timed, and on a table with -1 entries inside rows' prefixes."""
+    from repro_torch.kernels import ops, ref
+    b, kvh, hq, d, bs, mb = 8, 12, 1, 64, 64, 16
+    h = kvh * hq
+    nb = b * mb
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rec = {}
+    for int8 in (False, True):
+        r = paged_decode_case(gen, dev, DECODE_LENS, int8, timed=True)
+        rec[("dec", "int8" if int8 else "f32")] = (
+            r["err"], r["ms"], r["plain"], r["lib"], r["bound"], r["by"])
+    b1 = {n: paged_decode_case(gen, dev, [n], False, timed=True)
+          for n in (80, 1024)}
+    n_edges, worst = paged_decode_edges(gen, dev)
 
     # ---- paged prefill prefix: empty prefix, partial pages, padded q rows
     c = 256
@@ -936,33 +1133,9 @@ def check_attention(report, dev):
     live = [-(-p // bs) + (1 if i % 2 else 0) for i, p in enumerate(pfx_l)]
     for int8 in (False, True):
         kind = "int8" if int8 else "f32"
-        pools = _pools(gen, dev, nb, bs, kvh, d, int8)
-        pt = _page_table(gen, dev, b, mb, nb, live)
-        q = torch.randn((b, c, kvh, hq, d), generator=gen, device=dev) / 8.0
-        out, m, l = ops.paged_prefill_attention_kernel(
-            q, pools[0], pools[1], pt, pfx, qlens, pools[2], pools[3])
-        wo, wm, wl = ref.ref_paged_prefill_attention(
-            q.reshape(b, c, h, d), pools[0], pools[1], pt, pfx, pools[2],
-            pools[3])
-        torch.cuda.synchronize()
-        wm = wm[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
-        wl = wl[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
-        wo = wo.reshape(b, c, kvh, hq, d)
-        rows = torch.arange(c, device=dev)[None] < qlens[:, None]   # (B, C)
-        err = max((out - wo).abs()[rows].max().item(),
-                  (m - wm).abs()[rows].max().item(),
-                  ((l - wl).abs() / wl.clamp(min=1.0))[rows].max().item())
-        tol = 2e-5
-        empty_exact = (bool((out[0] == 0).all()) and bool((l[0] == 0).all())
-                       and bool((m[0] == -1e30).all()))
-        skipped = ~rows
-        skipped_exact = (bool((out[skipped] == 0).all())
-                         and bool((m[skipped] == -1e30).all()))
-        if not (err <= tol and empty_exact and skipped_exact):
-            raise AssertionError(
-                f"paged_prefill_attention {kind}: err {err:.3g} (tol {tol}), "
-                f"empty prefix exact {empty_exact}, skipped rows exact "
-                f"{skipped_exact}")
+        r = paged_prefill_case(gen, dev, pfx_l, qlen_l, int8,
+                               pt=_page_table(gen, dev, b, mb, nb, live))
+        q, pools, pt, err, tol = r["q"], r["pools"], r["pt"], r["err"], 2e-5
         elem = 1 if int8 else 4
         kv_rows = sum(pfx_l)
         q_rows = sum(qlen_l)
@@ -1004,19 +1177,38 @@ def check_attention(report, dev):
             f"({b_by})")
         rec[("pre", kind)] = (err, ms, plain, lib, b_ms, b_by)
 
-    for key, name, src, replaces in (
-            ("dec", "paged_decode_attention",
-             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-             "src/repro/kernels/paged_decode_attention.py:138"),
-            ("pre", "paged_prefill_attention",
-             "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
-             "src/repro/kernels/paged_prefill_attention.py:215")):
-        f, i8 = rec[(key, "f32")], rec[(key, "int8")]
-        report.add(name, route="cuda", source=src, replaces=replaces,
-                   max_abs_err=max(f[0], i8[0]), ms=f[1], plain_ms=f[2],
-                   library_ms=f[3], bound_ms=f[4], bound_by=f[5],
-                   int8_ms=i8[1], int8_bound_ms=i8[4],
-                   per="one layer's call, f32 pool (int8_* for the int8 pool)")
+    # ---- paged prefill on a table with -1 entries inside rows' prefixes
+    hole_q = [7, 20, 256, 100]
+    for int8 in (False, True):
+        paged_prefill_case(gen, dev, HOLE_LENS, hole_q, int8,
+                           pt=_holes_table(gen, dev, mb, len(HOLE_LENS) * mb,
+                                           bs, HOLE_LENS))
+    log(f"  paged_prefill_attention: -1 entries inside prefixes {HOLE_LENS} "
+        f"(q_lens {hole_q}) within 2e-5, f32 and int8")
+
+    f, i8 = rec[("dec", "f32")], rec[("dec", "int8")]
+    report.add("paged_decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/"
+                      "paged_decode_attention.cu",
+               header="src/repro_torch/kernels/csrc/flash_decode.cuh",
+               replaces="src/repro/kernels/paged_decode_attention.py:138",
+               max_abs_err=max(f[0], i8[0], worst), ms=f[1], plain_ms=f[2],
+               library_ms=f[3], bound_ms=f[4], bound_by=f[5],
+               int8_ms=i8[1], int8_bound_ms=i8[4], b1_80_ms=b1[80]["ms"],
+               b1_80_bound_ms=b1[80]["bound"], b1_1024_ms=b1[1024]["ms"],
+               b1_1024_bound_ms=b1[1024]["bound"],
+               b1_1024_library_ms=b1[1024]["lib"], edges=n_edges,
+               per="one layer's call, f32 pool (int8_* for the int8 pool, "
+                   "b1_* at batch 1)")
+    f, i8 = rec[("pre", "f32")], rec[("pre", "int8")]
+    report.add("paged_prefill_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/"
+                      "paged_prefill_attention.cu",
+               replaces="src/repro/kernels/paged_prefill_attention.py:215",
+               max_abs_err=max(f[0], i8[0]), ms=f[1], plain_ms=f[2],
+               library_ms=f[3], bound_ms=f[4], bound_by=f[5],
+               int8_ms=i8[1], int8_bound_ms=i8[4],
+               per="one layer's call, f32 pool (int8_* for the int8 pool)")
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` holds one kernel behind a plain C entry point of the
 same name.  :func:`build` compiles every source with its own ``nvcc`` process
 (all started together) into a shared library under ``build/repro_torch/`` at
-the repository root, named by a hash of the source and flags so an edited
-source is rebuilt; :func:`launch` loads the library with ``ctypes`` at first
+the repository root, named by a hash of the source, the ``csrc/*.cuh``
+headers it includes and the flags, so an edited source or header is
+rebuilt; :func:`launch` loads the library with ``ctypes`` at first
 use and calls the entry point.  Nothing here runs at import time: the CPU
 tests import this module on machines with no ``nvcc`` and no card.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -73,10 +75,26 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and every file of ``csrc/`` it includes with ``#include
+    "..."``, transitively, with their bytes."""
+    if path not in seen and path.exists():
+        seen[path] = path.read_bytes()
+        for inc in _INCLUDE.findall(seen[path]):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of kernel ``name``, named by a hash of its source, the
+    headers it includes and the flags: an edit to any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in _sources(CSRC / f"{name}.cu", {}).items():
+        h.update(path.name.encode() + b"\0" + text)
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:

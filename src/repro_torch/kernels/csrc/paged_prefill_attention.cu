@@ -20,13 +20,14 @@
 // Design: one block per (b, kv-head, tile of 64 query rows, rows being the
 // (chunk position, query head) pairs).  It walks only the ceil(pfx/64) live
 // tiles of 64 prefix positions (each row looks up its own page, so a tile
-// may span pages), never dereferences a -1 entry (those rows are masked),
-// and dequantizes int8 rows while staging them in shared memory.  Each
-// thread owns a 4x4 tile of the 64x64 score block and a 4x(D/16) tile of the
-// output; Q, K and P are stored transposed with one word of padding so the
-// inner loops read distinct banks.  The online softmax rescales the output
-// once per tile, as the TPU kernel's tile does; no causal diagonal is
-// needed, since every prefix key lies below every chunk query.
+// may span pages; a -1 entry inside the prefix reads pool block 0, as the
+// reference does, and only pfx_lens masks), and dequantizes int8 rows while
+// staging them in shared memory.  Each thread owns a 4x4 tile of the 64x64
+// score block and a 4x(D/16) tile of the output; Q, K and P are stored
+// transposed with one word of padding so the inner loops read distinct
+// banks.  The online softmax rescales the output once per tile, as the TPU
+// kernel's tile does; no causal diagonal is needed, since every prefix key
+// lies below every chunk query.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,9 +86,9 @@ __global__ void paged_prefill_kernel(
       if (tid < kTK) {
         const int pos = t0 + tid;
         int row = -1;
-        if (pos < len) {
-          const int bid = pt[(size_t)b * MB + pos / BS];
-          if (bid >= 0) row = (bid * BS + pos % BS) * KVH + h;
+        if (pos < len) {  // a -1 entry reads pool block 0: only len masks
+          const int bid = max(pt[(size_t)b * MB + pos / BS], 0);
+          row = (bid * BS + pos % BS) * KVH + h;
         }
         rows[tid] = row;
       }
@@ -131,7 +132,7 @@ __global__ void paged_prefill_kernel(
       }
       bool live[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) live[j] = rows[tx + 16 * j] >= 0;
+      for (int j = 0; j < 4; ++j) live[j] = t0 + tx + 16 * j < len;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float mx = kNegInf;

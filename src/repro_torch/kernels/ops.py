@@ -142,7 +142,9 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
                                   ks_pool=None, vs_pool=None) -> torch.Tensor:
     """q: (B, KVH, HQ, D) pre-scaled; k/v_pool: (NB, BS, KVH, D) (int8 when
     ks/vs_pool (NB, BS, KVH) are given); page_table (B, MB) int32; lens
-    (B,) int32.  Returns (B, KVH, HQ, D) f32."""
+    (B,) int32.  Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0.
+    A -1 entry inside a row's length reads pool block 0, as the
+    reference does: only lens masks."""
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pool, v_pool, page_table,
                                               lens, ks_pool, vs_pool)

@@ -128,7 +128,8 @@ def ref_decode_attention(q, k, v, lens, k_scale=None, v_scale=None):
 
 def gather_rows(pool, page_table):
     """(NB, BS, ...) pool -> each row's (B, MB*BS, ...) contiguous view
-    through the page table; -1 entries read block 0 (callers mask them)."""
+    through the page table; -1 entries read block 0, as the reference's do
+    (callers mask by length only)."""
     b, mb = page_table.shape
     safe = torch.clamp(page_table.long(), min=0)
     g = pool[safe]                                  # (B, MB, BS, ...)

@@ -318,6 +318,96 @@ def test_paged_prefill_attention_matches_pallas(int8, hq):
     assert (want[1][1] == np.float32(-1e30)).all()
 
 
+# -1 entries inside a row's length: released slots (all -1) at lens 1 and
+# 20, and a hole at block 1 of a live row.  The reference reads pool block
+# 0 for them and masks by length only; so do the port's kernels.
+_PT_HOLES = np.array([[-1, -1, -1, -1],
+                      [-1, -1, -1, -1],
+                      [3, -1, 5, 6],
+                      [4, 7, -1, -1]], np.int32)
+_LENS_HOLES = np.array([1, 20, 40, 30], np.int32)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_attention_reads_block_0_for_minus_1(int8):
+    rng = np.random.default_rng(23)
+    nb, bs, kvh, hq, d = 8, 16, 2, 2, 32
+    k, v, ks, vs = _pool(rng, nb, bs, kvh, d, int8)
+    q = (rng.standard_normal((4, kvh * hq, d)) / np.sqrt(d)).astype(
+        np.float32)
+    args = (_PT_HOLES, _LENS_HOLES)
+    want = np.asarray(jops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        *map(jnp.asarray, args), _jopt(ks), _jopt(vs), **I))
+    got = ops.paged_decode_attention(_t(q), _t(k), _t(v), *map(_t, args),
+                                     _opt(ks), _opt(vs)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+    # a released row at len 1 returns v of block 0, row 0 (its only
+    # position), not 0
+    v0 = v[0, 0].astype(np.float32) * (1.0 if vs is None else vs[0, 0, :,
+                                                                   None])
+    np.testing.assert_allclose(got[0].reshape(kvh, hq, d),
+                               np.repeat(v0[:, None], hq, axis=1),
+                               atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_prefill_attention_reads_block_0_for_minus_1(int8):
+    rng = np.random.default_rng(29)
+    nb, bs, kvh, hq, d, c = 8, 16, 2, 2, 32, 12
+    k, v, ks, vs = _pool(rng, nb, bs, kvh, d, int8)
+    qlens = np.array([12, 5, 12, 9], np.int32)
+    q = (rng.standard_normal((4, c, kvh * hq, d)) / np.sqrt(d)).astype(
+        np.float32)
+    want = [np.asarray(a) for a in jops.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(_PT_HOLES), jnp.asarray(_LENS_HOLES), jnp.asarray(qlens),
+        _jopt(ks), _jopt(vs), block_q=8, **I)]
+    got = [a.numpy() for a in ops.paged_prefill_attention(
+        _t(q), _t(k), _t(v), _t(_PT_HOLES), _t(_LENS_HOLES), _t(qlens),
+        _opt(ks), _opt(vs))]
+    for b in range(4):
+        n = qlens[b]
+        np.testing.assert_allclose(got[0][b, :n], want[0][b, :n], atol=2e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(got[1][b, :, :n], want[1][b, :, :n],
+                                   atol=2e-6, rtol=0)
+        np.testing.assert_allclose(got[2][b, :, :n], want[2][b, :, :n],
+                                   rtol=2e-6, atol=2e-6)
+    assert got[2][:, :, :qlens.min()].min() > 0    # no row masked away
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edit to a header that a kernel source includes gives the kernel a
+    new library (a rebuild); an edit to a header it does not include, or to
+    another kernel's source, does not."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n'
+                                   '#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("constexpr int kB = 1;\n")
+    (tmp_path / "c.cuh").write_text("constexpr int kC = 1;\n")
+    (tmp_path / "other.cu").write_text("int x;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    (tmp_path / "c.cuh").write_text("constexpr int kC = 2;\n")
+    (tmp_path / "other.cu").write_text("int y;\n")
+    assert build.library_path("k") == first
+    seen = {first}
+    for name, text in (("a.cuh", '#pragma once\n#include "b.cuh"\n\n'),
+                       ("b.cuh", "constexpr int kB = 2;\n"),
+                       ("k.cu", '#include "a.cuh"\n')):
+        (tmp_path / name).write_text(text)
+        path = build.library_path("k")
+        assert path not in seen, name
+        seen.add(path)
+
+
+def test_both_decode_attentions_include_the_shared_header():
+    for name in ("paged_decode_attention", "decode_attention"):
+        files = build._sources(build.CSRC / f"{name}.cu", {})
+        assert build.CSRC / "flash_decode.cuh" in files, name
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_ref_paged_prefill_matches_jax_ref(int8):
     rng = np.random.default_rng(5)
