@@ -641,8 +641,10 @@ def check_dense_attention(report, dev):
 
 def sass_count(name: str, *words: str) -> int:
     """Lines of kernel ``name``'s built library, disassembled by
-    ``cuobjdump -sass``, that hold every one of ``words``."""
+    ``cuobjdump -sass``, that hold every one of ``words``.  Builds the
+    library first if it is missing."""
     from repro_torch.kernels import build
+    build.build([name])
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
@@ -751,6 +753,7 @@ def check_flash_prefill(report, dev):
     last = timed[600]
     report.add("flash_prefill", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+               header="src/repro_torch/kernels/csrc/tf32x3.cuh",
                replaces="src/repro/kernels/flash_prefill.py:173",
                max_abs_err=err_max, **last, hmma_tf32=hmma,
                sdpa_kernels=sdpa_kernels,
@@ -1049,21 +1052,35 @@ def decode_attention_turn(dev):
     return out
 
 
-def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt, c=256, kvh=12,
-                       hq=1, d=64, bs=64, mb=16):
+# the check's prefix lengths and q_lens: an empty prefix, partial pages,
+# padded q rows, a skipped row (q_len 0) and the full 12-tile prefix last
+PREFILL_PFX = [0, 64, 128, 300, 511, 700, 1, 768]
+PREFILL_QLENS = [256, 256, 100, 256, 17, 0, 256, 255]
+
+
+def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
+                       kvh=12, hq=1, d=64, bs=64, mb=16, timed=False,
+                       yardsticks=True):
     """One paged_prefill_attention call against its plain version on the
     rows below q_lens (out, m and l relative to max(1, l), tolerance 2e-5);
-    an empty prefix and every skipped row exactly (0, -1e30, 0).  Returns
-    a dict with the call's operands and its error."""
+    an empty prefix and every skipped row exactly (0, -1e30, 0).  Pools of
+    B * MB pages, a table of distinct random pages (or ``pt``).  ``timed``:
+    also its device time on L2-cold pools and its bound, the lesser of the
+    3xTF32 tensor-core floor (three TF32 products a product) and the f32
+    CUDA-core one; ``yardsticks``: the plain version's and SDPA's (on
+    gathered K/V) times beside it.  Returns a dict with the call's
+    operands, its outputs, its error and, when timed, its times."""
     from repro_torch.kernels import ops, ref
     b, h, nb = len(pfx_l), kvh * hq, len(pfx_l) * mb
     pfx = torch.tensor(pfx_l, dtype=torch.int32, device=dev)
     qlens = torch.tensor(qlen_l, dtype=torch.int32, device=dev)
     pools = _pools(gen, dev, nb, bs, kvh, d, int8)
+    if pt is None:
+        pt = _page_table(gen, dev, b, mb, nb, [-(-p // bs) for p in pfx_l])
     q = torch.randn((b, c, kvh, hq, d), generator=gen,
                     device=dev) / math.sqrt(d)
-    out, m, l = ops.paged_prefill_attention_kernel(
-        q, pools[0], pools[1], pt, pfx, qlens, pools[2], pools[3])
+    args = (q, pools[0], pools[1], pt, pfx, qlens, pools[2], pools[3])
+    out, m, l = ops.paged_prefill_attention_kernel(*args)
     wo, wm, wl = ref.ref_paged_prefill_attention(
         q.reshape(b, c, h, d), pools[0], pools[1], pt, pfx, pools[2],
         pools[3])
@@ -1072,24 +1089,147 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt, c=256, kvh=12,
     wl = wl[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
     wo = wo.reshape(b, c, kvh, hq, d)
     rows = torch.arange(c, device=dev)[None] < qlens[:, None]   # (B, C)
-    err = max((out - wo).abs()[rows].max().item(),
-              (m - wm).abs()[rows].max().item(),
-              ((l - wl).abs() / wl.clamp(min=1.0))[rows].max().item())
+    err = 0.0
+    if bool(rows.any()):
+        err = max((out - wo).abs()[rows].max().item(),
+                  (m - wm).abs()[rows].max().item(),
+                  ((l - wl).abs() / wl.clamp(min=1.0))[rows].max().item())
     tol = 2e-5
+    kind = "int8" if int8 else "f32"
     empty = [i for i, p in enumerate(pfx_l) if p == 0]
     empty_exact = (bool((out[empty] == 0).all())
                    and bool((l[empty] == 0).all())
                    and bool((m[empty] == -1e30).all()))
     skipped = ~rows
     skipped_exact = (bool((out[skipped] == 0).all())
-                     and bool((m[skipped] == -1e30).all()))
+                     and bool((m[skipped] == -1e30).all())
+                     and bool((l[skipped] == 0).all()))
     if not (err <= tol and empty_exact and skipped_exact):
-        kind = "int8" if int8 else "f32"
         raise AssertionError(
-            f"paged_prefill_attention {kind} pfx {pfx_l} q_lens {qlen_l}: "
-            f"err {err:.3g} (tol {tol}), empty prefix exact {empty_exact}, "
-            f"skipped rows exact {skipped_exact}")
-    return {"q": q, "pools": pools, "pt": pt, "err": err}
+            f"paged_prefill_attention {kind} HQ {hq} D {d} C {c} page {bs} "
+            f"MB {mb} pfx {pfx_l} q_lens {qlen_l}: err {err:.3g} (tol "
+            f"{tol}), empty prefix exact {empty_exact}, skipped rows exact "
+            f"{skipped_exact}")
+    rec = {"err": err, "args": args, "out": (out, m, l)}
+    if not timed:
+        return rec
+    elem = 1 if int8 else 4
+    kv_rows = sum(min(max(p, 0), mb * bs) for p in pfx_l)
+    nbytes = (2 * kv_rows * kvh * d * elem + (8 * kv_rows * kvh if int8
+                                              else 0)
+              + sum(qlen_l) * h * d * 4 + b * c * h * (d + 2) * 4
+              + 4 * b * mb + 8 * b)
+    flops = 4.0 * sum(min(max(p, 0), mb * bs) * n
+                      for p, n in zip(pfx_l, qlen_l)) * h * d
+    rec["bound"], rec["by"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    rec["f32_bound"], rec["f32_by"] = bound(nbytes, flops, F32_FLOPS_PER_S)
+    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
+                   2 * nb * bs * kvh * d * elem, budget=96 << 20)
+
+    def run_kernel():
+        qq, kp, vp, ksp, vsp = nxt()
+        ops.paged_prefill_attention_kernel(qq, kp, vp, pt, pfx, qlens, ksp,
+                                           vsp)
+
+    def run_plain():
+        qq, kp, vp, ksp, vsp = nxt()
+        ref.ref_paged_prefill_attention(qq.reshape(b, c, h, d), kp, vp, pt,
+                                        pfx, ksp, vsp)
+
+    rec["ms"] = time_ms(run_kernel)
+    line = (f"  paged_prefill_attention {kind}: B {b} pfx {pfx_l} q_lens "
+            f"{qlen_l}  err {err:.2e} (tol {tol:.0e})  kernel "
+            f"{rec['ms']:.4f} ms  bound {rec['bound']:.4f} ms ({rec['by']}, "
+            f"3xTF32 tensor cores; f32 CUDA cores {rec['f32_bound']:.4f} "
+            f"ms, {rec['f32_by']}), {100 * rec['bound'] / rec['ms']:.1f}% "
+            "of it")
+    if yardsticks:
+        rec["plain"] = time_ms(run_plain, iters=5)
+        kg = ref.gather_rows(pools[0], pt).float()
+        vg = ref.gather_rows(pools[1], pt).float()
+        if int8:
+            kg = kg * ref.gather_rows(pools[2], pt)[..., None]
+            vg = vg * ref.gather_rows(pools[3], pt)[..., None]
+        kg = torch.repeat_interleave(kg, hq, dim=2).transpose(1, 2)
+        vg = torch.repeat_interleave(vg, hq, dim=2).transpose(1, 2)
+        mask = (torch.arange(mb * bs, device=dev)[None] < pfx[:, None])
+        mask = mask[:, None, None, :]
+        qs = q.reshape(b, c, h, d).transpose(1, 2)
+        rec["lib"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask, scale=1.0))
+        line += f"  plain {rec['plain']:.4f} ms  sdpa {rec['lib']:.4f} ms"
+    log(line)
+    return rec
+
+
+def paged_prefill_edges(gen, dev):
+    """Untimed edges of paged_prefill_attention against its plain version
+    (2e-5; empty and skipped rows exact), f32 and int8 pools: HQ 2, 4 and 8
+    at D 32 and 128 (rows that mix chunk positions and heads), pages of 16
+    and 128 (tiles that span pages) and of 48 (not a power of two), a
+    table 13 pages wide, C = 100 (not a multiple of 64); every case has
+    q_lens 0 and 1 and prefixes of 1 and of MB * BS.  Then a repeated
+    call, which must be bitwise equal.
+    Returns (cases, worst error)."""
+    from repro_torch.kernels import ops
+    cases = [dict(), dict(bs=16, mb=64), dict(bs=128, mb=8), dict(mb=13),
+             dict(bs=48, mb=22), dict(c=100)]
+    cases += [dict(hq=hq, d=d, kvh=2) for hq in (2, 4, 8) for d in (32, 128)]
+    worst, n, at = 0.0, 0, None
+    for kw in cases:
+        c, bs, mb = kw.get("c", 256), kw.get("bs", 64), kw.get("mb", 16)
+        pfx_l = [0, 1, 63, 64, 65, 511, mb * bs, 200]
+        qlen_l = [c, c, 1, 0, c - 1, 17, c, c // 2]
+        for int8 in (False, True):
+            err = paged_prefill_case(gen, dev, pfx_l, qlen_l, int8,
+                                     **kw)["err"]
+            if err > worst:
+                worst, at = err, dict(kw, int8=int8)
+            n += 1
+    rec = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False)
+    again = ops.paged_prefill_attention_kernel(*rec["args"])
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(rec["out"], again)):
+        raise AssertionError("paged_prefill_attention: a repeated call is "
+                             "not bitwise equal to the first")
+    log(f"  paged_prefill_attention edges: {n} cases (HQ 2/4/8 x D 32/128, "
+        f"pages 16, 48 and 128, MB = 13, C = 100, q_lens 0 and 1, prefixes "
+        f"1 and MB * BS; f32 and int8) within 2e-5, worst err {worst:.2e} "
+        f"({at}); a repeated call bitwise equal")
+    return n, worst
+
+
+def paged_prefill_turn(dev):
+    """Device ms of paged_prefill_attention at the check's shapes (f32 and
+    int8) and at B = 1 (one 256-row chunk of a long prompt, prefix 768),
+    and of flash_prefill at the one-shot prefill's shapes (B = 1, H = 12,
+    S 17, 256, 600 and 1024), on L2-cold operands, each kernel call first
+    held to its plain version within 2e-5.  Runs on any tree's wrappers,
+    so parent and change can be timed in turns."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for int8 in (False, True):
+        out["paged " + ("int8" if int8 else "f32")] = paged_prefill_case(
+            gen, dev, PREFILL_PFX, PREFILL_QLENS, int8, timed=True,
+            yardsticks=False)["ms"]
+    out["paged b1 768"] = paged_prefill_case(
+        gen, dev, [768], [256], False, timed=True, yardsticks=False)["ms"]
+    for n in (17, 256, 600, 1024):
+        def mk():
+            return tuple(torch.randn((1, n, 12, 64), generator=gen,
+                                     device=dev) for _ in range(3))
+        q, k, v = mk()
+        err = (ops.flash_prefill_kernel(q, k, v)
+               - ref.ref_flash_prefill(q, k, v, True)).abs().max().item()
+        if not err <= 2e-5:
+            raise AssertionError(f"flash_prefill S={n}: err {err:.3g}")
+        nxt = rotating(mk, 4 * 64 * 3 * n * 12, budget=96 << 20)
+        out[f"flash {n}"] = time_ms(
+            lambda: ops.flash_prefill_kernel(*nxt()))
+    log(f"  prefill attention turn (ms): {json.dumps(out)}")
+    return out
 
 
 def decode_step_ops(dev):
@@ -1109,10 +1249,13 @@ def check_attention(report, dev):
     """paged_decode_attention at the paged decode's shapes (8 slots, f32 and
     int8 pools) and at batch 1 (len 80 and 1024), timed, then its edges
     (``paged_decode_edges``); paged_prefill_attention at the chunk step's
-    shapes, timed, and on a table with -1 entries inside rows' prefixes."""
-    from repro_torch.kernels import ops, ref
-    b, kvh, hq, d, bs, mb = 8, 12, 1, 64, 64, 16
-    h = kvh * hq
+    shapes (f32 and int8 pools) and at B = 1 (a 256-row chunk against a
+    768 prefix), timed beside its plain version, SDPA on gathered K/V and
+    both floors (3xTF32 tensor cores, f32 CUDA cores), then its edges
+    (``paged_prefill_edges``) and a table with -1 entries inside rows'
+    prefixes.  The prefill kernel must hold TF32 HMMA instructions: it
+    runs on the tensor cores."""
+    b, bs, mb = 8, 64, 16
     nb = b * mb
     gen = torch.Generator(device=dev).manual_seed(1)
     rec = {}
@@ -1125,64 +1268,30 @@ def check_attention(report, dev):
     n_edges, worst = paged_decode_edges(gen, dev)
 
     # ---- paged prefill prefix: empty prefix, partial pages, padded q rows
-    c = 256
-    pfx_l = [0, 64, 128, 300, 511, 700, 1, 768]
-    qlen_l = [256, 256, 100, 256, 17, 0, 256, 255]
-    pfx = torch.tensor(pfx_l, dtype=torch.int32, device=dev)
-    qlens = torch.tensor(qlen_l, dtype=torch.int32, device=dev)
-    live = [-(-p // bs) + (1 if i % 2 else 0) for i, p in enumerate(pfx_l)]
+    hmma = sass_count("paged_prefill_attention", "HMMA", "TF32")
+    log(f"  paged_prefill_attention: {hmma} TF32 HMMA instructions in its "
+        "SASS (cuobjdump -sass)")
+    if hmma == 0:
+        raise AssertionError("paged_prefill_attention: no TF32 HMMA in its "
+                             "SASS: the kernel does not run on the tensor "
+                             "cores")
+    live = [-(-p // bs) + (1 if i % 2 else 0)
+            for i, p in enumerate(PREFILL_PFX)]
     for int8 in (False, True):
-        kind = "int8" if int8 else "f32"
-        r = paged_prefill_case(gen, dev, pfx_l, qlen_l, int8,
-                               pt=_page_table(gen, dev, b, mb, nb, live))
-        q, pools, pt, err, tol = r["q"], r["pools"], r["pt"], r["err"], 2e-5
-        elem = 1 if int8 else 4
-        kv_rows = sum(pfx_l)
-        q_rows = sum(qlen_l)
-        nbytes = (2 * kv_rows * kvh * d * elem
-                  + (8 * kv_rows * kvh if int8 else 0)
-                  + q_rows * h * d * 4 + b * c * h * (d + 2) * 4
-                  + 4 * b * mb + 8 * b)
-        ops_n = 4.0 * sum(p * n for p, n in zip(pfx_l, qlen_l)) * h * d
-        b_ms, b_by = bound(nbytes, ops_n, F32_FLOPS_PER_S)
-        nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
-                       2 * nb * bs * kvh * d * elem, budget=96 << 20)
-
-        def run_kernel():
-            qq, kp, vp, ksp, vsp = nxt()
-            ops.paged_prefill_attention_kernel(qq, kp, vp, pt, pfx, qlens,
-                                               ksp, vsp)
-
-        def run_plain():
-            qq, kp, vp, ksp, vsp = nxt()
-            ref.ref_paged_prefill_attention(qq.reshape(b, c, h, d), kp, vp,
-                                            pt, pfx, ksp, vsp)
-
-        ms = time_ms(run_kernel)
-        plain = time_ms(run_plain, iters=5)
-        kg = ref.gather_rows(pools[0], pt).float()
-        vg = ref.gather_rows(pools[1], pt).float()
-        if int8:
-            kg = kg * ref.gather_rows(pools[2], pt)[..., None]
-            vg = vg * ref.gather_rows(pools[3], pt)[..., None]
-        kg, vg = kg.transpose(1, 2), vg.transpose(1, 2)
-        mask = (torch.arange(mb * bs, device=dev)[None] < pfx[:, None])
-        mask = mask[:, None, None, :]
-        qs = q.reshape(b, c, h, d).transpose(1, 2)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=1.0))
-        log(f"  paged_prefill_attention {kind}: pfx {pfx_l} q_lens {qlen_l}"
-            f"  err {err:.2e} (tol {tol:.0e})  kernel {ms:.4f} ms  plain "
-            f"{plain:.4f} ms  sdpa {lib:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})")
-        rec[("pre", kind)] = (err, ms, plain, lib, b_ms, b_by)
+        rec[("pre", "int8" if int8 else "f32")] = paged_prefill_case(
+            gen, dev, PREFILL_PFX, PREFILL_QLENS, int8, timed=True,
+            pt=_page_table(gen, dev, b, mb, nb, live))
+    # one long prompt in chunks: its 256-row chunk against a 768 prefix
+    pre_b1 = paged_prefill_case(gen, dev, [768], [256], False, timed=True)
+    n_pre_edges, pre_worst = paged_prefill_edges(gen, dev)
 
     # ---- paged prefill on a table with -1 entries inside rows' prefixes
     hole_q = [7, 20, 256, 100]
     for int8 in (False, True):
-        paged_prefill_case(gen, dev, HOLE_LENS, hole_q, int8,
-                           pt=_holes_table(gen, dev, mb, len(HOLE_LENS) * mb,
-                                           bs, HOLE_LENS))
+        pre_worst = max(pre_worst, paged_prefill_case(
+            gen, dev, HOLE_LENS, hole_q, int8,
+            pt=_holes_table(gen, dev, mb, len(HOLE_LENS) * mb, bs,
+                            HOLE_LENS))["err"])
     log(f"  paged_prefill_attention: -1 entries inside prefixes {HOLE_LENS} "
         f"(q_lens {hole_q}) within 2e-5, f32 and int8")
 
@@ -1204,11 +1313,19 @@ def check_attention(report, dev):
     report.add("paged_prefill_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/"
                       "paged_prefill_attention.cu",
+               header="src/repro_torch/kernels/csrc/tf32x3.cuh",
                replaces="src/repro/kernels/paged_prefill_attention.py:215",
-               max_abs_err=max(f[0], i8[0]), ms=f[1], plain_ms=f[2],
-               library_ms=f[3], bound_ms=f[4], bound_by=f[5],
-               int8_ms=i8[1], int8_bound_ms=i8[4],
-               per="one layer's call, f32 pool (int8_* for the int8 pool)")
+               max_abs_err=max(f["err"], i8["err"], pre_b1["err"],
+                               pre_worst),
+               ms=f["ms"], plain_ms=f["plain"], library_ms=f["lib"],
+               bound_ms=f["bound"], bound_by=f["by"],
+               f32_bound_ms=f["f32_bound"], int8_ms=i8["ms"],
+               int8_bound_ms=i8["bound"], int8_library_ms=i8["lib"],
+               b1_ms=pre_b1["ms"], b1_bound_ms=pre_b1["bound"],
+               b1_library_ms=pre_b1["lib"], hmma_tf32=hmma,
+               edges=n_pre_edges,
+               per="one layer's call, f32 pool (int8_* for the int8 pool, "
+                   "b1_* for B = 1, a 256-row chunk against prefix 768)")
 
 
 # ---------------------------------------------------------------------------
@@ -1341,6 +1458,12 @@ def profiled(fn):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:6d}  "
             f"{e.key[:90]}")
+    for e in events:
+        if "paged_prefill_kernel" in e.key:
+            ms = e.self_device_time_total / 1e3
+            log(f"  paged_prefill_attention at the served shapes: {ms:.3f} "
+                f"ms over {e.count} calls, {ms / e.count:.4f} ms a call "
+                f"({e.key[:60]})")
     return out, busy / wall
 
 

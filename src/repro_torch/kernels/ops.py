@@ -175,7 +175,11 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
     m and l (B, C, KVH, HQ), f32.  Rows at or past q_lens[b] (the CUDA
     kernel skips them) and an empty prefix are (0, -1e30, 0).
 
-    The plain version computes every row; callers read rows < q_lens only."""
+    The plain version computes every row; callers read rows < q_lens only.
+    The CUDA kernel runs both products on the tensor cores in 3xTF32 (as
+    ``flash_prefill``) and copies K/V rows, int8 codes and their scales
+    with ``cp.async``, so q, the pools and the scale pools must be 16-byte
+    aligned: a view that is not raises ``ValueError``."""
     b, c, kvh, hq, d = q.shape
     if q.device.type == "cpu":
         out, m, l = ref.ref_paged_prefill_attention(
@@ -185,6 +189,11 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
         l = l[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
         return out.reshape(b, c, kvh, hq, d), m, l
     name = "paged_prefill_attention"
+    for arg, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                   ("ks_pool", ks_pool), ("vs_pool", vs_pool)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned for "
+                             "cp.async")
     int8 = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
                        kvh, d)
     _check(name, q.device, pfx_lens=pfx_lens, q_lens=q_lens)

@@ -67,6 +67,9 @@ class Request:
     seed: Optional[int] = None    # PRNG root (None: engine-assigned)
     stream: int = 0               # sibling i draws stream ``stream + i``
     stop_tokens: Optional[Sequence[int]] = None  # per-request stop ids
+    deadline_ms: Optional[float] = None       # total budget since submit
+    ttft_deadline_ms: Optional[float] = None  # first-token budget
+    #                               (no watchdog yet: submit raises)
     # filled by the engine:
     output: Optional[List[int]] = None           # == outputs[0]
     outputs: Optional[List[List[int]]] = None    # one stream per sibling
@@ -139,16 +142,21 @@ class Engine:
     admission and preempting on mid-decode growth.  Requests that could
     never run come back from :meth:`run` with ``.error`` set.  ``seed``
     roots the keys of requests submitted without one; ``draft_proposer``
-    is accepted as in the reference and inert while ``spec_tokens`` is 0."""
+    is accepted as in the reference and inert while ``spec_tokens`` is 0.
+    ``prefix_caching`` turns the allocator's prefix index on or off,
+    ``preempt_limit`` is the scheduler's starvation bound and
+    ``nan_guard`` fails a request whose logits row is not finite; the
+    arguments the port shares with the reference come in its order."""
 
     def __init__(self, model: Model, params: Any, max_slots: int = 8,
-                 max_seq: int = 1024, eos_id: int = 2,
+                 max_seq: int = 1024, eos_id: int = 2, seed: int = 0,
                  cache_kind: str = "paged", page_size: int = 64,
                  n_pages: Optional[int] = None,
-                 prefill_chunk_tokens: int = 512, seed: int = 0,
+                 prefill_chunk_tokens: int = 512,
+                 prefix_caching: bool = True, preempt_limit: int = 3,
+                 faults: Any = None, nan_guard: bool = True,
                  spec_tokens: int = 0, draft_proposer: Any = None,
-                 faults: Any = None, mesh: Any = None,
-                 device: Device = None):
+                 mesh: Any = None, device: Device = None):
         if cache_kind not in ("paged", "dense"):
             raise ValueError(f"cache_kind must be 'paged' or 'dense', got "
                              f"{cache_kind!r}")
@@ -165,6 +173,7 @@ class Engine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.nan_guard = nan_guard
         self.page_size = page_size
         self.paged = cache_kind == "paged"
         self.pager: Optional[BlockAllocator] = None
@@ -175,7 +184,8 @@ class Engine:
                 n_layers=model.cfg.n_layers,
                 n_kv_heads=model.cfg.n_kv_heads, head_dim=model.cfg.hd(),
                 block_size=page_size, n_blocks=self.n_pages,
-                max_slots=max_slots, max_blocks_per_seq=mb))
+                max_slots=max_slots, max_blocks_per_seq=mb),
+                enable_prefix_cache=prefix_caching)
             self.cache = model.init_paged_cache(
                 max_slots, block_size=page_size, n_blocks=self.n_pages,
                 max_blocks_per_seq=mb, device=self.device)
@@ -184,7 +194,8 @@ class Engine:
                                           device=self.device)
         self.scheduler = Scheduler(
             max_slots=max_slots, max_seq=max_seq, pager=self.pager,
-            prefill_chunk_tokens=prefill_chunk_tokens)
+            prefill_chunk_tokens=prefill_chunk_tokens,
+            preempt_limit=preempt_limit)
         self.plan_log: List[Dict[str, Any]] = []
         self.metrics = {"tokens_out": 0, "requests_done": 0,
                         "decode_steps": 0, "t_decode": 0.0,
@@ -216,7 +227,12 @@ class Engine:
         dense cache, a prompt that could never fit the pool) gets ``.error``
         here and comes back from the next :meth:`run` without entering the
         scheduler.  Its root key is ``prng_key(seed)``, or the next split
-        of the engine's key when no seed is given."""
+        of the engine's key when no seed is given.  Deadlines
+        (``deadline_ms``, ``ttft_deadline_ms``) are not ported yet and
+        raise."""
+        for name in ("deadline_ms", "ttft_deadline_ms"):
+            if kw.get(name) is not None:
+                raise NotImplementedError(f"submit({name}) is {NOT_PORTED}")
         self._uid += 1
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
                       t_enqueue=time.perf_counter(), output=[], **kw)
@@ -347,8 +363,13 @@ class Engine:
         may repeat), and check every logits row for finiteness; both come
         to the host in one copy.  When every draw is greedy the argmax is
         the sampler's result whatever the keys, so neither the keys nor the
-        draw are computed."""
-        finite = torch.isfinite(logits).all(dim=-1).to(torch.int64)
+        draw are computed.  Without ``nan_guard`` every row counts as
+        finite."""
+        if self.nan_guard:
+            finite = torch.isfinite(logits).all(dim=-1).to(torch.int64)
+        else:
+            finite = torch.ones(logits.shape[0], dtype=torch.int64,
+                                device=logits.device)
         if all(t <= 0.0 for t in temps):
             # greedy: every row's argmax, picked on the host
             both = torch.cat([torch.argmax(logits, dim=-1), finite])
@@ -537,7 +558,7 @@ class Engine:
     def _register_blocks(self, seq) -> None:
         """Publish every freshly filled full block of ``seq`` into the
         allocator's prefix index, hash-chained on its whole token prefix."""
-        if not self.paged:
+        if self.pager is None or not self.pager.enable_prefix_cache:
             return
         bs = self.page_size
         full = seq.kv_len // bs

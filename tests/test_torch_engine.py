@@ -17,6 +17,8 @@ prompts are seeded to avoid them), and the integer run allows the streams
 to part only at such a step.
 """
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -30,8 +32,9 @@ from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.core import qlinear as tqlinear
 from repro_torch.kernels import build
-from repro_torch.models.model import build_model
+from repro_torch.models.model import Model, build_model
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.faults import ERR_NAN
 
 torch.set_num_threads(2)
 
@@ -118,9 +121,76 @@ def test_engine_matches_jax_engine(traffic, kv, strategies):
     check_engine_parity(traffic, kv, strategies)
 
 
-def check_engine_parity(traffic: str, kv: str, tol: float) -> None:
+@pytest.mark.parametrize("strategies", [("dequant", "dequant")],
+                         indirect=True, ids=["dequant"])
+@pytest.mark.parametrize("traffic", ["preempted", "prefix_warm"])
+def test_engine_knobs_match_jax_engine(traffic, strategies):
+    """``prefix_caching=False`` and ``preempt_limit=1`` reach both
+    engines' allocator and scheduler: the same streams and plan logs, and
+    no prefix hit even for the wave that shares a cached prefix."""
+    check_engine_parity(traffic, "float32", strategies,
+                        dict(prefix_caching=False, preempt_limit=1,
+                             nan_guard=False))
+
+
+def test_engine_arguments_follow_the_reference_order():
+    """The constructor arguments the port shares with the reference come
+    in the reference's order (``seed`` 6th), the C1 knobs among them."""
+    ours = list(inspect.signature(Engine).parameters)
+    theirs = list(inspect.signature(JaxEngine).parameters)
+    shared = [a for a in ours if a in theirs]
+    assert shared == [a for a in theirs if a in ours]
+    assert ours.index("seed") == theirs.index("seed") == 5
+    for knob in ("prefix_caching", "preempt_limit", "nan_guard"):
+        assert knob in shared, knob
+
+
+@pytest.mark.parametrize("name", ["deadline_ms", "ttft_deadline_ms"])
+def test_submit_with_a_deadline_is_not_ported_yet(name):
+    """A deadline is a field of the port's Request, as of the
+    reference's, but no watchdog enforces it yet: submit raises
+    NotImplementedError (never TypeError) and queues nothing."""
+    tm = build_model(tconfigs.reduced(tconfigs.get_config("llama2-110m")))
+    eng = Engine(tm, tm.init(0, device="cpu"), **ENGINE, nan_guard=False,
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        eng.submit(np.arange(4, 9, dtype=np.int32), **{name: 100.0})
+    assert not eng.scheduler.has_work() and eng.run() == []
+
+
+@pytest.mark.parametrize("nan_guard", [True, False])
+def test_nan_guard_fails_only_the_request_with_non_finite_logits(
+        nan_guard, monkeypatch):
+    """Decode logits of slot 0 made NaN: with ``nan_guard`` its request
+    fails with the typed NaN error and the other completes; without it
+    both complete."""
+    tm = build_model(tconfigs.reduced(tconfigs.get_config("llama2-110m")))
+    eng = Engine(tm, tm.init(0, device="cpu"), **ENGINE, nan_guard=nan_guard,
+                 device="cpu")
+    step = Model.decode_step
+
+    def poisoned(self, params, cache, tokens, positions=None):
+        logits, cache = step(self, params, cache, tokens, positions)
+        logits = logits.clone()
+        logits[0] = float("nan")
+        return logits, cache
+
+    monkeypatch.setattr(Model, "decode_step", poisoned)
+    for n in (5, 7):
+        eng.submit(np.arange(4, 4 + n, dtype=np.int32), max_new_tokens=3,
+                   temperature=0.0)
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    kinds = [r.error_kind for r in done]
+    assert kinds == ([ERR_NAN, None] if nan_guard else [None, None])
+    assert eng.metrics["nan_rows"] == (1 if nan_guard else 0)
+    assert [len(r.output) for r in done[1:]] == [3]
+
+
+def check_engine_parity(traffic: str, kv: str, tol: float,
+                        knobs: dict = None) -> None:
     """Serve ``traffic`` through both engines under the strategies the
-    ``strategies`` fixture pinned; compare plan logs and streams."""
+    ``strategies`` fixture pinned, with ``knobs`` passed to both engines;
+    compare plan logs and streams."""
     port_s = tqlinear.default_strategy()
     tag = f"llama2-110m-torch-parity-engine-{port_s}-{kv}"
     jcfg = reduced(get_config("llama2-110m")).with_(arch_id=tag,
@@ -133,6 +203,7 @@ def check_engine_parity(traffic: str, kv: str, tol: float) -> None:
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                               device="cpu")
     _, overrides, _ = TRAFFIC[traffic]
+    overrides = dict(overrides, **(knobs or {}))
     waves = _prompts(traffic, seed=1)
     want, want_log = _serve(JaxEngine(jm, jparams, **ENGINE, **overrides),
                             waves)
@@ -143,7 +214,8 @@ def check_engine_parity(traffic: str, kv: str, tol: float) -> None:
     if traffic == "preempted":
         assert any(p["preempted"] for p in got_log)
     if traffic == "prefix_warm":
-        assert eng.metrics["prefix_hits"] == len(waves[1])
+        hits = len(waves[1]) if overrides.get("prefix_caching", True) else 0
+        assert eng.metrics["prefix_hits"] == hits
     prompts = [p for wave in waves for p in wave]
     for prompt, g, w in zip(prompts, got, want):
         gaps = _top2_gaps(tm, tparams, prompt, w)

@@ -30,6 +30,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import qlinear
 from repro_torch.core.quantization import (QuantizedTensor, _unpack_nibbles,
                                           quantize)
+from repro_torch.core.quantization import quantize_rows as tquantize_rows
 from repro_torch.kernels import build, ops, ref
 
 torch.set_num_threads(2)
@@ -408,6 +409,12 @@ def test_both_decode_attentions_include_the_shared_header():
         assert build.CSRC / "flash_decode.cuh" in files, name
 
 
+def test_both_prefill_attentions_include_the_shared_header():
+    for name in ("flash_prefill", "paged_prefill_attention"):
+        files = build._sources(build.CSRC / f"{name}.cu", {})
+        assert build.CSRC / "tf32x3.cuh" in files, name
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_ref_paged_prefill_matches_jax_ref(int8):
     rng = np.random.default_rng(5)
@@ -672,6 +679,48 @@ def test_3xtf32_split_meets_the_kernel_tolerance():
     assert worst[1] > 2e-5, worst
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_3xtf32_split_meets_the_paged_prefill_tolerance(int8):
+    """The chip check holds paged_prefill_attention's (out, m, l) within
+    2e-5 of its plain version.  Emulated here at the check's magnitudes
+    (q randn / 8, as pre-scaled at D = 64; 64 chunk rows against a 768-key
+    prefix; int8 pools as code * scale in f32, the kernel's dequantization)
+    with the kernel's arithmetic: q scaled by log2(e), scores in base 2,
+    exp2, m returned as m2 * ln(2), both products in 3xTF32.  Out, m and l
+    (relative to max(1, l)) stay below 2e-6 of float64; one plain TF32
+    product per product does not stay within 2e-5."""
+    log2e, ln2 = np.float32(1.4426950408889634), np.float32(
+        0.6931471805599453)
+    worst = {1: 0.0, 3: 0.0}
+    for seed in range(2):
+        rng = np.random.default_rng(500 + seed)
+        q = (rng.standard_normal((64, 64)) / 8).astype(np.float32)
+        k, v = (rng.standard_normal((768, 64)).astype(np.float32)
+                for _ in range(2))
+        if int8:
+            k, v = (tq.float() * ts[:, None] for tq, ts in
+                    map(tquantize_rows, (_t(k), _t(v))))
+            k, v = k.numpy(), v.numpy()
+        s64 = q.astype(np.float64) @ k.T.astype(np.float64)
+        m64 = s64.max(-1)
+        p64 = np.exp(s64 - m64[:, None])
+        l64 = p64.sum(-1)
+        o64 = (p64 / l64[:, None]) @ v.astype(np.float64)
+        for terms in (1, 3):
+            s2 = _tf32_matmul(_t(q) * log2e, _t(k).T.contiguous(), terms)
+            m2 = s2.amax(-1)
+            p = torch.exp2(s2 - m2[:, None])
+            l = p.sum(-1)
+            o = _tf32_matmul(p, _t(v), terms) / l[:, None]
+            m = m2 * ln2
+            worst[terms] = max(
+                worst[terms], float(np.abs(o.numpy() - o64).max()),
+                float(np.abs(m.numpy() - m64).max()),
+                float((np.abs(l.numpy() - l64) / np.maximum(l64, 1)).max()))
+    assert worst[3] < 2e-6, worst
+    assert worst[1] > 2e-5, worst
+
+
 def test_rope_matches_pallas():
     rng = np.random.default_rng(8)
     b, h, d = 3, 5, 32
@@ -706,6 +755,10 @@ _META_CALLS = {
         _meta((2,), torch.int32)),
     "flash_prefill": lambda: ops.flash_prefill_kernel(
         _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32)), _meta((1, 8, 2, 32))),
+    "paged_prefill_attention": lambda: ops.paged_prefill_attention_kernel(
+        _meta((2, 8, 2, 1, 32)), _meta((4, 16, 2, 32)), _meta((4, 16, 2, 32)),
+        _meta((2, 2), torch.int32), _meta((2,), torch.int32),
+        _meta((2,), torch.int32)),
     "rope": lambda: ops.rope_kernel(_meta((2, 3, 32)), _meta((2, 32)),
                                     _meta((2, 32))),
     "rmsnorm_quant": lambda: ops.rmsnorm_quant_kernel(
@@ -729,6 +782,29 @@ def test_flash_prefill_rejects_a_misaligned_view(arg):
     assert qkv[arg].is_contiguous() and qkv[arg].data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.flash_prefill_kernel(qkv["q"], qkv["k"], qkv["v"])
+
+
+@pytest.mark.parametrize("arg", ["q", "k_pool", "v_pool", "ks_pool",
+                                 "vs_pool"])
+def test_paged_prefill_rejects_a_misaligned_view(arg):
+    """cp.async copies 16 bytes at a time (codes and rows) and the scale
+    pools ride with them: a q, pool or scale-pool view that starts 4 bytes
+    into its storage raises, and never reaches the plain version."""
+    shapes = dict(q=(2, 8, 2, 1, 32), k_pool=(4, 16, 2, 32),
+                  v_pool=(4, 16, 2, 32), ks_pool=(4, 16, 2),
+                  vs_pool=(4, 16, 2))
+    dtypes = dict(q=torch.float32, k_pool=torch.int8, v_pool=torch.int8,
+                  ks_pool=torch.float32, vs_pool=torch.float32)
+    t = {a: _meta(sh, dtypes[a]) for a, sh in shapes.items()}
+    n = int(np.prod(shapes[arg]))
+    step = 4 // t[arg].element_size()
+    t[arg] = _meta((step + n,), dtypes[arg])[step:].view(shapes[arg])
+    assert t[arg].is_contiguous() and t[arg].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.paged_prefill_attention_kernel(
+            t["q"], t["k_pool"], t["v_pool"], _meta((2, 2), torch.int32),
+            _meta((2,), torch.int32), _meta((2,), torch.int32),
+            t["ks_pool"], t["vs_pool"])
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
