@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/csrc``
-(phase 1), holds each against its plain PyTorch version at the shapes the
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
+sources, ten entry points: ``rmsnorm_quant.cu`` also holds ``quantize``;
+phase 1), holds each against its plain PyTorch version at the shapes the
 llama2-110m paths give it (phase 2), and serves llama2-110m at full width
 through ``repro_torch.serving.engine.Engine`` on the card: the paged pool
 with f32 and int8 KV (phases 3-4), the reduced config on the card against
@@ -761,91 +762,191 @@ def check_flash_prefill(report, dev):
                per="one layer's call, one 600-token prompt")
 
 
-def check_rope(report, dev):
+# the SASS instruction that `griddepcontrol.wait` (csrc/pdl.cuh) becomes
+PDL_WAIT_SASS = "ACQBULK"
+
+
+def pdl_waits(name: str) -> int:
+    """Count the PDL waits in kernel ``name``'s built library; fail at 0:
+    the kernel would not overlap its predecessor's tail."""
+    n = sass_count(name, PDL_WAIT_SASS)
+    log(f"  {name}: {n} {PDL_WAIT_SASS} (griddepcontrol.wait) in its SASS "
+        "(cuobjdump -sass)")
+    if n == 0:
+        raise AssertionError(f"{name}: no {PDL_WAIT_SASS} in its SASS: the "
+                             "kernel does not wait on its predecessor")
+    return n
+
+
+def chain_ms(pred, fn):
+    """(pair ms, predecessor ms): ``fn`` on the output of its predecessor
+    on the decode path, back to back on the full queue, and the
+    predecessor alone.  PDL's gain lies at that boundary."""
+    return (time_ms(lambda: fn(pred()), iters=50),
+            time_ms(pred, iters=50))
+
+
+def _gemv_pred(gen, dev, n, k):
+    """A q8_matvec at M = 8 against an (n, k) Q8_0 weight, cold in L2, and
+    its output: the predecessor of a chain."""
+    from repro_torch.kernels import ops
+    operands = _q8_operands(gen, dev)
+    nxt = rotating(lambda: operands(8, n, k)[2:], n * k + 4 * n * k // 64)
+    xq, xs = operands(8, n, k)[:2]
+    return lambda: ops.q8_matvec_kernel(xq, xs, *nxt(), 64)
+
+
+ROPE_EDGES = [(3, 5, 36, 0), (8, 8, 32, 0), (4, 6, 64, 1), (2, 3, 4, 0)]
+
+
+def check_rope(report, dev, parent=False):
     """rope on the q and k heads of a fused qkv row (read in place) at
-    B = 1 and 8 slots; bitwise against the plain version."""
+    B = 1 and 8 slots; bitwise against the plain version; at B = 8 also
+    after its predecessor on the decode path, the wqkv GEMV (``q8_matvec``,
+    M = 8), beside that GEMV alone.  The library must hold a PDL wait.
+    Then untimed edges, bitwise: D = 36 and 4 (not a multiple of 8: the
+    scalar path), the reduced config's D = 32 and a view 4 bytes off.
+    ``parent`` skips what a tree before PDL lacks (the turns)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import rope_angles
+    waits = None if parent else pdl_waits("rope")
     gen = torch.Generator(device=dev).manual_seed(5)
     nh, kvh, d = 12, 12, 64
-    for b in (1, 8):
-        def mk():
-            qkv = torch.randn((b, (nh + 2 * kvh) * d), generator=gen,
-                              device=dev)
-            pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
-            return (qkv.reshape(b, nh + 2 * kvh, d)[:, :nh + kvh],
-                    *rope_angles(pos, d, 1e4))
-        x, cos, sin = mk()
+
+    def operands(b, h, d, heads, off=0):
+        qkv = torch.randn((b * heads * d + off,), generator=gen, device=dev)
+        pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
+        return (qkv[off:].view(b, heads, d)[:, :h], *rope_angles(pos, d, 1e4))
+
+    def held(x, cos, sin, tag):
         got = ops.rope_kernel(x, cos, sin)
         want = ref.ref_rope(x, cos, sin)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        if not err == 0.0:
-            raise AssertionError(f"rope B={b}: max abs err {err:.3g}, "
+        if not torch.equal(got, want):
+            raise AssertionError(f"rope {tag}: max abs err {err:.3g}, "
                                  "expected bitwise equality")
+        return err
+
+    rec = {}
+    for b in (1, 8):
+        x, cos, sin = operands(b, nh + kvh, d, nh + 2 * kvh)
+        err = held(x, cos, sin, f"B={b}")
         nbytes = 2 * b * (nh + kvh) * d * 4 + 2 * b * d * 4
         b_ms, b_by = bound(nbytes, 4.0 * b * (nh + kvh) * d, F32_FLOPS_PER_S)
         ms = time_ms(lambda: ops.rope_kernel(x, cos, sin), iters=50)
         plain = time_ms(lambda: ref.ref_rope(x, cos, sin), iters=50)
+        rec[b] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
         log(f"  rope B={b} heads {nh + kvh} D={d}: err {err:.1e} (bitwise)  "
-            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
+            f"kernel {ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
             f"({b_by})")
+    gemv = _gemv_pred(gen, dev, (nh + 2 * kvh) * d, nh * d)
+    cos, sin = rope_angles(torch.arange(8, device=dev) * 97, d, 1e4)
+    pair, pred = chain_ms(gemv, lambda out: ops.rope_kernel(
+        out.reshape(8, nh + 2 * kvh, d)[:, :nh + kvh], cos, sin))
+    log(f"  rope B=8 after the wqkv q8_matvec: pair {pair:.5f} ms, the GEMV "
+        f"alone {pred:.5f} ms: rope adds {pair - pred:.5f} ms in the chain")
+    if parent:
+        return {"rope": rec, "rope_chain": (pair, pred)}
+    for b, h, dd, off in ROPE_EDGES:
+        held(*operands(b, h, dd, h + 2, off), f"edge B={b} H={h} D={dd} "
+             f"offset {off}")
+    log(f"  rope: {len(ROPE_EDGES)} untimed edges (B, H, D, offset) "
+        f"{ROPE_EDGES} bitwise")
     report.add("rope", route="cuda",
                source="src/repro_torch/kernels/csrc/rope.cu",
-               replaces="src/repro/kernels/rope.py:48", max_abs_err=err,
-               ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by,
-               per="one layer's call at 8 slots: q and k heads of qkv")
+               header="src/repro_torch/kernels/csrc/pdl.cuh",
+               replaces="src/repro/kernels/rope.py:48", max_abs_err=0.0,
+               **rec[8], library_ms=None, b1_ms=rec[1]["ms"],
+               chain_ms=pair, chain_pred_ms=pred, pdl_waits=waits,
+               per="one layer's call at 8 slots: q and k heads of qkv "
+                   "(chain_* after the wqkv q8_matvec at M = 8)")
 
 
-def check_rmsnorm_quant(report, dev):
+# quantize's shapes: (M, K, group) of the decode step's wo_f and w2 GEMVs
+# (M = 8), the chunk step's w2 GEMM (M = 2048) and the reduced config's
+# wo_f (K = 128), timed; then untimed edges (groups 4..128, ragged M)
+QUANT_TIMED = [(8, 768, 64), (8, 2048, 64), (2048, 2048, 64), (1, 128, 64)]
+QUANT_EDGES = [(8, 768, 32), (33, 256, 16), (5, 512, 128), (3, 64, 4),
+               (1000, 4096, 64), (2, 96, 32), (1, 2048, 64)]
+# rmsnorm_quant's untimed edges: the reduced config's K = 128, and rows of
+# 256 and 512 threads (K 2048 and 4096 at M = 1, 2)
+NORM_EDGES = [(1, 128), (8, 128), (33, 128), (1, 2048), (2, 2048), (1, 4096),
+              (2, 4096), (16, 4096)]
+
+
+def _norm_input(gen, dev, m, k, gs):
+    """Seeded rows with one all-zero group and one row x 1e4."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    x[0, gs:2 * gs] = 0.0
+    x[-1] *= 1e4
+    return x
+
+
+def _norm_held(ops, ref, x, gamma, eps, gs):
+    """rmsnorm_quant against its plain version: codes within 1, scales
+    within 3e-7 relative, the zero group exact.  Returns (codes differing,
+    scale rel, dequantized max abs err, plain codes, plain scales)."""
+    m, k = x.shape
+    q, sc = ops.rmsnorm_quant_kernel(x, gamma, eps, gs)
+    wq, ws = ref.ref_rmsnorm_quant(x, gamma, eps, gs)
+    torch.cuda.synchronize()
+    dq = (q.int() - wq.int()).abs()
+    n_diff = int((dq > 0).sum().item())
+    rel = ((sc - ws).abs() / ws.abs().clamp(min=1e-30)).max().item()
+    zero_ok = bool((q[0, gs:2 * gs] == 0).all()) and sc[0, 1].item() == 0.0
+    deq = (q.float().reshape(m, -1, gs) * sc[..., None]
+           - wq.float().reshape(m, -1, gs) * ws[..., None])
+    if not (dq.max().item() <= 1 and rel <= 3e-7 and zero_ok):
+        raise AssertionError(
+            f"rmsnorm_quant M={m} K={k}: codes differ by up to "
+            f"{dq.max().item()} ({n_diff} of {m * k}), scales by "
+            f"{rel:.3g} relative, zero group exact {zero_ok}; the kernel "
+            f"sums in torch {ops.TORCH_ROW_MEAN_ORDER_OF}'s row-mean "
+            f"order, this is torch {torch.__version__}")
+    return n_diff, rel, deq.abs().max().item(), wq, ws
+
+
+def _quantize_held(ops, x, gs):
+    """quantize_kernel bitwise against the plain ``quantize``."""
+    from repro_torch.core.quantization import quantize
+    q, sc = ops.quantize_kernel(x, gs)
+    t = quantize(x, gs, 8)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, t.q) and torch.equal(sc, t.scale)):
+        raise AssertionError(
+            f"quantize M={x.shape[0]} K={x.shape[1]} gs={gs}: "
+            f"{int((q != t.q).sum())} codes and {int((sc != t.scale).sum())} "
+            "scales differ from the plain quantize")
+
+
+def check_rmsnorm_quant(report, dev, parent=False):
     """rmsnorm_quant at the decode step's rows (M = 1, 8 slots) and a chunk
     step's (M = 8 x 256), K = 768, random gamma, one all-zero group and one
     row at large magnitude.  Codes are held within 1 (the count printed),
     scales within a relative 3e-7.  The kernel sums mean(x^2) in the order
     of torch.mean on the card; the same kernel is also run with another
     number of threads a row (another order), and how far its scales part
-    from the plain version's is printed, not held."""
+    from the plain version's is printed, not held.  At M = 8 it is also
+    timed after a q8_matvec (M = 8, w13's shape) beside that GEMV alone;
+    then untimed edges (``NORM_EDGES``).  The quantize-only entry
+    (``quantize``) is held bitwise to the plain ``quantize`` and timed at
+    ``QUANT_TIMED``, then at ``QUANT_EDGES``.  The library must hold a PDL
+    wait.  ``parent`` skips what a tree before this design lacks (the
+    turns): the alternative order, the edges and the quantize entry."""
+    from repro_torch.core.quantization import quantize
     from repro_torch.kernels import build, ops, ref
+    waits = None if parent else pdl_waits("rmsnorm_quant")
+    divs = None if parent else check_div127(dev)
     gen = torch.Generator(device=dev).manual_seed(6)
     k, gs, eps = 768, 64, 1e-5
     gamma = torch.randn((k,), generator=gen, device=dev)
     rec = {}
     for m in (1, 8, 2048):
         def mk():
-            x = torch.randn((m, k), generator=gen, device=dev)
-            x[0, 64:128] = 0.0
-            x[-1] *= 1e4
-            return x
+            return _norm_input(gen, dev, m, k, gs)
         x = mk()
-        q, sc = ops.rmsnorm_quant_kernel(x, gamma, eps, gs)
-        wq, ws = ref.ref_rmsnorm_quant(x, gamma, eps, gs)
-        torch.cuda.synchronize()
-        dq = (q.int() - wq.int()).abs()
-        n_diff = int((dq > 0).sum().item())
-        rel = ((sc - ws).abs() / ws.abs().clamp(min=1e-30)).max().item()
-        zero_ok = bool((q[0, 64:128] == 0).all()) and sc[0, 1].item() == 0.0
-        deq = (q.float().reshape(m, -1, gs) * sc[..., None]
-               - wq.float().reshape(m, -1, gs) * ws[..., None])
-        err = deq.abs().max().item()
-        if not (dq.max().item() <= 1 and rel <= 3e-7 and zero_ok):
-            raise AssertionError(
-                f"rmsnorm_quant M={m}: codes differ by up to "
-                f"{dq.max().item()} ({n_diff} of {m * k}), scales by "
-                f"{rel:.3g} relative, zero group exact {zero_ok}; the kernel "
-                f"sums in torch {ops.TORCH_ROW_MEAN_ORDER_OF}'s row-mean "
-                f"order, this is torch {torch.__version__}")
-        width, factor = ops._torch_row_mean_order(m, k)
-        alt = 32 if width != 32 else 128
-        aq = torch.empty_like(q)
-        asc = torch.empty_like(sc)
-        build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
-                     aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
-                     alt, torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        alt_codes = int((aq != wq).sum().item())
-        alt_scales = int((asc != ws).sum().item())
-        alt_rel = ((asc - ws).abs() / ws.abs().clamp(min=1e-30)).max().item()
+        n_diff, rel, err, wq, ws = _norm_held(ops, ref, x, gamma, eps, gs)
         nbytes = m * k * 4 + k * 4 + m * k + m * (k // gs) * 4
         b_ms, b_by = bound(nbytes, 6.0 * m * k, F32_FLOPS_PER_S)
         nxt = rotating(mk, m * k * 4)
@@ -853,28 +954,233 @@ def check_rmsnorm_quant(report, dev):
                      iters=50)
         plain = time_ms(lambda: ref.ref_rmsnorm_quant(nxt(), gamma, eps, gs),
                         iters=20)
+        rec[m] = (ms, plain, b_ms, b_by, n_diff, rel, err)
+        alt_line = ""
+        if not parent:
+            width, factor = ops._torch_row_mean_order(m, k)
+            alt = 32 if width != 32 else 128
+            aq = torch.empty_like(wq)
+            asc = torch.empty_like(ws)
+            build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
+                         aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
+                         *ops.rmsnorm_quant_plan(m, k, alt),
+                         torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            alt_rel = ((asc - ws).abs()
+                       / ws.abs().clamp(min=1e-30)).max().item()
+            alt_line = (f"; summed by {alt} threads a row instead of "
+                        f"torch's {width}: {int((aq != wq).sum().item())} "
+                        f"codes and {int((asc != ws).sum().item())} of "
+                        f"{ws.numel()} scales differ, max {alt_rel:.2e} "
+                        "relative")
         log(f"  rmsnorm_quant M={m:5d} K={k}: {n_diff} of {m * k} codes differ"
             f" by 1, max scale diff {rel:.2e} relative (tol 3e-7), "
             f"dequantized max abs err {err:.2e}  kernel "
-            f"{ms:.4f} ms  plain {plain:.4f} ms  library - (no single call)"
-            f"  bound {b_ms:.6f} ms ({b_by}); summed by {alt} threads a "
-            f"row instead of torch's {width}: {alt_codes} codes and "
-            f"{alt_scales} of {sc.numel()} scales differ, max "
-            f"{alt_rel:.2e} relative")
-        rec[m] = (ms, plain, b_ms, b_by, n_diff, rel, err)
+            f"{ms:.5f} ms  plain {plain:.4f} ms  library - (no single call)"
+            f"  bound {b_ms:.6f} ms ({b_by}){alt_line}")
+    gemv = _gemv_pred(gen, dev, 2 * 2048, k)
+    x8 = _norm_input(gen, dev, 8, k, gs)
+    pair, pred = chain_ms(gemv, lambda _: ops.rmsnorm_quant_kernel(
+        x8, gamma, eps, gs))
+    log(f"  rmsnorm_quant M=8 after a q8_matvec (M = 8, w13's 4096 x 768): "
+        f"pair {pair:.5f} ms, the GEMV alone {pred:.5f} ms: rmsnorm_quant "
+        f"adds {pair - pred:.5f} ms in the chain")
+    turn = {"rmsnorm_quant": {m: r[:2] for m, r in rec.items()},
+            "rmsnorm_quant_chain": (pair, pred)}
+    # the quantization in front of every product no norm feeds: the new
+    # entry where the tree has it, the plain quantize (what q8_matmul ran
+    # before) where it does not
+    qfn = getattr(ops, "quantize_kernel", None)
+    qrec = {}
+    for m, kk, g in QUANT_TIMED:
+        def mkq():
+            return _norm_input(gen, dev, m, kk, g)
+        x = mkq()
+        if qfn is not None:
+            _quantize_held(ops, x, g)
+        nxt = rotating(mkq, m * kk * 4)
+        ms = (None if qfn is None else
+              time_ms(lambda: qfn(nxt(), g), iters=50))
+        plain = time_ms(lambda: quantize(nxt(), g, 8), iters=20)
+        nbytes = m * kk * 4 + m * kk + m * (kk // g) * 4
+        b_ms, b_by = bound(nbytes, 4.0 * m * kk, F32_FLOPS_PER_S)
+        qrec[(m, kk)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by)
+        log(f"  quantize M={m:5d} K={kk:5d} group {g}: "
+            + ("" if qfn is None else f"bitwise  kernel {ms:.5f} ms  ")
+            + f"plain {plain:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+    turn["quantize"] = {f"{m}x{kk}": (r["ms"], r["plain_ms"])
+                        for (m, kk), r in qrec.items()}
+    if parent:
+        return turn
+    h13 = torch.randn((8, 2 * 2048), generator=gen, device=dev)
+
+    def silu_mul():
+        return torch.nn.functional.silu(h13[:, :2048]) * h13[:, 2048:]
+    qpair, qpred = chain_ms(silu_mul, lambda h: qfn(h, gs))
+    log(f"  quantize M=8 K=2048 after silu(h1) * h3 (PyTorch): pair "
+        f"{qpair:.5f} ms, silu * mul alone {qpred:.5f} ms: quantize adds "
+        f"{qpair - qpred:.5f} ms in the chain")
+    for m, kk in NORM_EDGES:
+        g = torch.randn((kk,), generator=gen, device=dev)
+        _norm_held(ops, ref, _norm_input(gen, dev, m, kk, gs), g, eps, gs)
+    for m, kk, g in QUANT_EDGES:
+        _quantize_held(ops, _norm_input(gen, dev, m, kk, g), g)
+    log(f"  rmsnorm_quant: {len(NORM_EDGES)} untimed edges (M, K) "
+        f"{NORM_EDGES} within 1 code and 3e-7; quantize: "
+        f"{len(QUANT_EDGES)} (M, K, group) {QUANT_EDGES} bitwise")
     ms, plain, b_ms, b_by = rec[8][:4]
     report.add("rmsnorm_quant", route="cuda",
                source="src/repro_torch/kernels/csrc/rmsnorm_quant.cu",
+               header="src/repro_torch/kernels/csrc/pdl.cuh",
                replaces="src/repro/kernels/rmsnorm_quant.py:58",
                max_abs_err=max(r[6] for r in rec.values()), ms=ms,
                plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               m2048_ms=rec[2048][0], m2048_plain_ms=rec[2048][1],
-               m2048_bound_ms=rec[2048][2],
-               codes_differing={str(m): r[4] for m, r in rec.items()},
+               m1_ms=rec[1][0], m2048_ms=rec[2048][0],
+               m2048_plain_ms=rec[2048][1], m2048_bound_ms=rec[2048][2],
+               chain_ms=pair, chain_pred_ms=pred, pdl_waits=waits,
+               div127_checked=divs, codes_differing={str(m): r[4] for m, r in rec.items()},
                scale_rel_err=max(r[5] for r in rec.values()),
                per="one call at M=8 decode rows, K=768 (m2048_* for a chunk "
-                   "step's 2048 rows); max_abs_err on the dequantized "
-                   "values code * scale")
+                   "step's 2048 rows; chain_* after a q8_matvec); "
+                   "max_abs_err on the dequantized values code * scale")
+    q8 = qrec[(8, 768)]
+    report.add("quantize", route="cuda",
+               source="src/repro_torch/kernels/csrc/rmsnorm_quant.cu",
+               header="src/repro_torch/kernels/csrc/pdl.cuh",
+               replaces="src/repro/kernels/ops.py:60",
+               replaces_note="no Pallas kernel: the reference's jnp "
+                             "quantize in front of each product, fused by "
+                             "XLA; the CUDA entry is rmsnorm_quant's "
+                             "kernel without the norm",
+               max_abs_err=0.0, **q8, library_ms=None,
+               by_shape={f"{m}x{kk}": r for (m, kk), r in qrec.items()},
+               chain_ms=qpair, chain_pred_ms=qpred,
+               per="one call at M=8, K=768 (wo_f's input; by_shape at "
+                   "w2's 8 x 2048, the chunk step's 2048 x 2048 and the "
+                   "reduced config's 1 x 128); bitwise")
+    return turn
+
+
+DIV_CHECK_CU = r"""
+#include "%s"
+__global__ void div127_check(unsigned lo, int* bad) {
+  const unsigned bits = lo + blockIdx.x * blockDim.x + threadIdx.x;
+  const float a = __uint_as_float(bits);
+  if (__float_as_uint(div127_tame(a)) !=
+      __float_as_uint(__fdiv_rn(127.0f, a)))
+    atomicAdd(bad, 1);
+}
+extern "C" int div127_check_range(unsigned lo, unsigned n, int* bad) {
+  div127_check<<<n / 256, 256>>>(lo, bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def check_div127(dev):
+    """``rmsnorm_quant.cu``'s branch-free 127 / a (``div127_tame``) against
+    ``__fdiv_rn`` on every f32 a in [2^-64, 2^64), the range where the
+    kernels take it: 2^30 values, built from the kernel's own source."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = build.BUILD_DIR / "div127_check.cu"
+    lib = build.BUILD_DIR / "div127_check.so"
+    src.write_text(DIV_CHECK_CU % (build.CSRC / "rmsnorm_quant.cu"))
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS[:-2], "-o", str(lib),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).div127_check_range
+    fn.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    lo, hi = (127 - 64) << 23, (127 + 64) << 23      # 2^-64 .. 2^64
+    for start in range(lo, hi, 1 << 28):
+        if fn(start, min(1 << 28, hi - start), bad.data_ptr()):
+            raise AssertionError("div127_check failed to launch")
+    torch.cuda.synchronize()
+    n_bad = int(bad.item())
+    log(f"  div127_tame: {n_bad} of {hi - lo} f32 values in [2^-64, 2^64) "
+        "differ from __fdiv_rn(127, a)")
+    if n_bad:
+        raise AssertionError(f"div127_tame differs from __fdiv_rn on {n_bad} "
+                             "values")
+    return hi - lo
+
+
+def pdl_turn(dev):
+    """The chains of ``check_rope`` and ``check_rmsnorm_quant`` (and
+    quantize after silu * mul) with the kernels as built, and with the same
+    sources built with the PDL attribute set to 0, in turns (PDL, none,
+    none, PDL): what PDL buys at the predecessor boundary.  A measurement
+    only, from a patched copy in the build directory: the port has no such
+    switch.  Prints and returns {kernel: [(pair ms, predecessor ms)]}."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build, ops
+    build.build(["rope", "rmsnorm_quant", "q8_matvec"])
+    off = build.BUILD_DIR / "nopdl"
+    off.mkdir(parents=True, exist_ok=True)
+    for name in ("pdl.cuh", "rope.cu", "rmsnorm_quant.cu"):
+        shutil.copy(build.CSRC / name, off / name)
+    hdr = off / "pdl.cuh"
+    text = hdr.read_text()
+    assert "programmaticStreamSerializationAllowed = 1" in text
+    hdr.write_text(text.replace("programmaticStreamSerializationAllowed = 1",
+                                "programmaticStreamSerializationAllowed = 0"))
+    variants = {"pdl": {}, "none": {}}
+    for name, entries in (("rope", ("rope",)),
+                          ("rmsnorm_quant", ("rmsnorm_quant", "quantize"))):
+        lib = off / f"{name}.so"
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS[:-2], "-o",
+                        str(lib), str(off / f"{name}.cu")], check=True,
+                       capture_output=True, timeout=300)
+        for e in entries:
+            variants["pdl"][e] = build._entry(e)
+            fn = getattr(ctypes.CDLL(str(lib)), e)
+            fn.argtypes, fn.restype = build.SIGNATURES[e], ctypes.c_int
+            variants["none"][e] = fn
+    gen = torch.Generator(device=dev).manual_seed(9)
+    gemv13 = _gemv_pred(gen, dev, 4096, 768)
+    gemv_qkv = _gemv_pred(gen, dev, 2304, 768)
+    gamma = torch.randn((768,), generator=gen, device=dev)
+    x8 = _norm_input(gen, dev, 8, 768, 64)
+    cos, sin = torch.randn((2, 8, 64), generator=gen, device=dev)
+    h13 = torch.randn((8, 4096), generator=gen, device=dev)
+
+    def silu_mul():
+        return torch.nn.functional.silu(h13[:, :2048]) * h13[:, 2048:]
+    chains = {
+        "rope": (gemv_qkv, lambda out: ops.rope_kernel(
+            out.reshape(8, 36, 64)[:, :24], cos, sin)),
+        "rmsnorm_quant": (gemv13, lambda _: ops.rmsnorm_quant_kernel(
+            x8, gamma, 1e-5, 64)),
+        "quantize": (silu_mul, lambda h: ops.quantize_kernel(h, 64)),
+    }
+    out = {k: {"pdl": [], "none": []} for k in chains}
+    try:
+        for turn in ("pdl", "none", "none", "pdl"):
+            build._fns.update(variants[turn])
+            for k, (pred, fn) in chains.items():
+                out[k][turn].append(chain_ms(pred, fn))
+    finally:
+        build._fns.update(variants["pdl"])
+    for k, r in out.items():
+        log(f"  {k} chain (pair, predecessor alone) ms: with PDL "
+            f"{r['pdl']}, without {r['none']}")
+    return out
+
+
+def norm_rope_turn(dev):
+    """One turn of parent against change: ``check_rope`` and
+    ``check_rmsnorm_quant`` with ``parent=True`` (every call held as the
+    checks hold it, the times, the chains, and the activation quantization
+    -- the plain ``quantize`` on a tree without the kernel); works on
+    either tree.  Prints and returns the times."""
+    from repro_torch.kernels import build
+    build.build(["rope", "rmsnorm_quant", "q8_matvec"])
+    out = {**check_rope(Report(), dev, parent=True),
+           **check_rmsnorm_quant(Report(), dev, parent=True)}
+    log(f"  norm/rope turn (ms): {json.dumps(out)}")
+    return out
 
 
 def _pools(gen, dev, nb, bs, kvh, d, int8):
@@ -1397,39 +1703,57 @@ def device_launches(prof):
 
 def decode_step_launches(model, params, dev):
     """Device operations of one dense decode step at 8 slots with the fused
-    norm-and-quantize, and with the unfused pair (the norm, then the
-    product's own quantization) put back in its place for the count."""
+    norm-and-quantize and the quantize kernel; with the unfused pair (the
+    norm, then the product's own quantization) put back in the fused
+    norm's place; and with the plain ``quantize`` put back in the quantize
+    kernel's place (``ops.q8_matmul``), for the count."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import qlinear
-    from repro_torch.kernels import build
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.ref import rms_norm
     from repro_torch.models import layers, transformer
     cache = model.init_cache(8, 64, device=dev)
     tokens = torch.arange(8, device=dev)
+    kernel_q = ops.quantize_kernel
+
+    def plain_q(x, gs):
+        t = quantize(x, gs, 8)
+        return t.q, t.scale
+    unfused = (lambda x, g, eps, w: qlinear.qdot(rms_norm(x, g, eps), w))
     out = {}
     try:
-        for name, fn in (("fused", qlinear.norm_qdot),
-                         ("unfused", lambda x, g, eps, w: qlinear.qdot(
-                             rms_norm(x, g, eps), w))):
-            transformer.norm_qdot = layers.norm_qdot = fn
-            before = build.LAUNCHES["rmsnorm_quant"]
+        for name, norm_fn, q_fn in (
+                ("fused", qlinear.norm_qdot, kernel_q),
+                ("unfused", unfused, kernel_q),
+                ("plain_quantize", qlinear.norm_qdot, plain_q)):
+            transformer.norm_qdot = layers.norm_qdot = norm_fn
+            ops.quantize_kernel = q_fn
+            before = dict(build.LAUNCHES)
             model.decode_step(params, cache, tokens)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 model.decode_step(params, cache, tokens)
                 torch.cuda.synchronize()
             out[name] = device_launches(prof)
-            fused = build.LAUNCHES["rmsnorm_quant"] - before
-            if (fused > 0) != (name == "fused"):
+            fused, quant = (build.LAUNCHES[k] - before[k]
+                            for k in ("rmsnorm_quant", "quantize"))
+            if ((fused > 0) != (name != "unfused")
+                    or (quant > 0) != (name != "plain_quantize")):
                 raise AssertionError(
                     f"the {name} decode step launched rmsnorm_quant {fused} "
-                    f"times: the swap of norm_qdot no longer reaches the "
-                    f"step")
+                    f"and quantize {quant} times: the swap no longer "
+                    f"reaches the step")
     finally:
         transformer.norm_qdot = layers.norm_qdot = qlinear.norm_qdot
+        ops.quantize_kernel = kernel_q
     log(f"  one dense decode step at 8 slots: {out['fused'][0]} device "
-        f"operations ({out['fused'][1]} elementwise) with rmsnorm_quant, "
-        f"{out['unfused'][0]} ({out['unfused'][1]}) with the unfused pair")
+        f"operations ({out['fused'][1]} elementwise) with rmsnorm_quant and "
+        f"quantize, {out['unfused'][0]} ({out['unfused'][1]}) with the "
+        f"unfused norm pair, {out['plain_quantize'][0]} "
+        f"({out['plain_quantize'][1]}) with the plain quantize: the kernel "
+        f"takes {out['plain_quantize'][0] - out['fused'][0]} operations off "
+        "the step")
     return out
 
 
@@ -1472,12 +1796,14 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     path's shape says.  Each decode step: 4 GEMVs per layer + the head, one
     rope and one attention call per layer, and one rmsnorm_quant per
     norm-then-product pair (norm1 -> wqkv, norm2 -> w13 per layer, the
-    final norm -> head: 2 per layer + 1).  Paged, each chunk step: the
-    MLP's two products per layer, the head's GEMV, one prefix-attention
-    call per layer and rmsnorm_quant for norm2 -> w13 and the final norm
-    (1 per layer + 1).  Dense, each whole-prompt prefill of S tokens: one
-    flash_prefill per layer, the MLP's two products per layer at M = S, the
-    head's GEMV and rmsnorm_quant as the chunk step.  Q4_0 weights put every
+    final norm -> head: 2 per layer + 1), and one quantize in front of each
+    product no norm feeds (wo_f and w2: 2 per layer).  Paged, each chunk
+    step: the MLP's two products per layer, the head's GEMV, one
+    prefix-attention call per layer, rmsnorm_quant for norm2 -> w13 and
+    the final norm (1 per layer + 1) and quantize for w2 (1 per layer).
+    Dense, each whole-prompt prefill of S tokens: one flash_prefill per
+    layer, the MLP's two products per layer at M = S, the head's GEMV,
+    rmsnorm_quant and quantize as the chunk step.  Q4_0 weights put every
     product on q4_matvec.  No q8_matmul or tiled q4_matvec call of a served
     path may take its dp4a kernel (``q8_matmul_dp4a`` and
     ``q4_matvec_dp4a`` stay 0, as every counter the path does not set):
@@ -1493,6 +1819,7 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     want[gemv] += (4 * nl + 1) * d
     want["rope"] += nl * d
     want["rmsnorm_quant"] += (2 * nl + 1) * d
+    want["quantize"] += 2 * nl * d
     if eng.paged:
         attn = ("paged_decode_attention", "paged_prefill_attention")
         c = eng.metrics["chunk_batch_calls"]
@@ -1500,6 +1827,7 @@ def check_launches(eng, launches, cfg, counted, bits=8):
         want[gemm if rows > 32 else gemv] += 2 * nl * c
         want[gemv] += c
         want["rmsnorm_quant"] += (nl + 1) * c
+        want["quantize"] += nl * c
         want[attn[0]] += nl * d
         want[attn[1]] += nl * c
     else:
@@ -1509,16 +1837,18 @@ def check_launches(eng, launches, cfg, counted, bits=8):
             want[gemm if n > 32 else gemv] += 2 * nl
             want[gemv] += 1
             want["rmsnorm_quant"] += nl + 1
+            want["quantize"] += nl
         want[attn[0]] += nl * d
         want[attn[1]] += nl * len(pre)
-    path = {gemv, gemm, "rope", "rmsnorm_quant", *attn}
+    path = {gemv, gemm, "rope", "rmsnorm_quant", "quantize", *attn}
     if launches != want or min(launches[k] for k in path) <= 0:
         raise AssertionError(f"launches {launches} != expected {want}")
     for k, v in launches.items():
         counted[k] = counted.get(k, 0) + v
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
-        f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {nl} rope and "
-        f"{nl} {attn[0]} per decode step over {d} steps")
+        f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {2 * nl} "
+        f"quantize, {nl} rope and {nl} {attn[0]} per decode step over {d} "
+        "steps")
 
 
 def compare_streams(tag, got, want, prompts, gap_fn, tol):
@@ -1986,8 +2316,9 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     secs = build.build()
-    phase(f"phase 1: built {len(build.SIGNATURES)} kernels in {secs:.1f} s")
-    for name in build.SIGNATURES:
+    phase(f"phase 1: built {len(build.SIGNATURES)} kernels from "
+          f"{len(build.SOURCES)} sources in {secs:.1f} s")
+    for name in build.SOURCES:
         tail = (build.BUILD_DIR / f"{name}.log")
         if tail.exists():
             for line in tail.read_text().splitlines():

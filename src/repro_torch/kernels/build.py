@@ -1,7 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` holds one kernel behind a plain C entry point of the
-same name.  :func:`build` compiles every source with its own ``nvcc`` process
+same name (``rmsnorm_quant.cu`` also holds ``quantize``, its quantizer
+without the norm: ``SOURCE_OF``).  :func:`build` compiles every source with
+its own ``nvcc`` process
 (all started together) into a shared library under ``build/repro_torch/`` at
 the repository root, named by a hash of the source, the ``csrc/*.cuh``
 headers it includes and the flags, so an edited source or header is
@@ -44,8 +46,13 @@ SIGNATURES: Dict[str, list] = {
     "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
     "rope": [_P] * 4 + [_I] * 4 + [_P],
-    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F, _I, _P],
+    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
+    "quantize": [_P] * 3 + [_I] * 6 + [_P],
 }
+
+# entry points held by another entry's source, csrc/<source>.cu
+SOURCE_OF: Dict[str, str] = {"quantize": "rmsnorm_quant"}
+SOURCES = tuple(dict.fromkeys(SOURCE_OF.get(n, n) for n in SIGNATURES))
 
 # q8_matmul_dp4a / q4_matvec_dp4a: the q8_matmul / q4_matvec launches
 # (counted there too) that the C entry sent to the dp4a kernel rather than
@@ -89,8 +96,10 @@ def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
 
 
 def library_path(name: str) -> Path:
-    """The library of kernel ``name``, named by a hash of its source, the
-    headers it includes and the flags: an edit to any of them rebuilds."""
+    """The library of kernel ``name`` (a source, or an entry point held by
+    one), named by a hash of its source, the headers it includes and the
+    flags: an edit to any of them rebuilds."""
+    name = SOURCE_OF.get(name, name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path, text in _sources(CSRC / f"{name}.cu", {}).items():
         h.update(path.name.encode() + b"\0" + text)
@@ -98,13 +107,16 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:
-    """Compile every named kernel (default: all) whose library is missing,
-    one ``nvcc`` per source, all running at once.  Returns the seconds it
-    took; raises with the compiler's output if any source fails.  The
-    compiler's log (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside each library as ``<name>.log``."""
+    """Compile the source of every named kernel (default: all ``SOURCES``)
+    whose library is missing, one ``nvcc`` per source, all running at
+    once.  Returns the seconds it took; raises with the compiler's output
+    if any source fails.  The compiler's log (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as
+    ``<source>.log``."""
     t0 = time.perf_counter()
-    todo = [n for n in (names or SIGNATURES) if not library_path(n).exists()]
+    todo = [n for n in dict.fromkeys(SOURCE_OF.get(n, n)
+                                     for n in (names or SOURCES))
+            if not library_path(n).exists()]
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,40 +9,87 @@
 //   cos/sin  (B, D) f32, one angle row per batch row, broadcast over heads
 //   out      (B, H, D) f32 contiguous = x * cos + [-x2, x1] * sin
 //
-// What bounds it on an H100: bytes (and, at decode sizes, the launch): each
-// element is read and written once with three multiplies and an add.
+// What bounds it on an H100: bytes -- each element is read and written once
+// with three multiplies and an add -- and at decode sizes (B <= 8, 24 heads
+// of 64) the launch and one trip to memory, which is all the call is.
 //
-// Design: one block per batch row stages its angle row in shared memory,
-// then its threads walk the row's H*D outputs, each reading its own element
-// and its rotation partner.  Products and the sum are rounded separately
-// (no fused multiply-add), so the result is bitwise the plain version's.
+// Design (a latency kernel): one thread owns a 4-wide slice d..d+3 of one
+// head's first half and the matching slice d + D/2.. of its second half:
+// float4 loads of x1, x2 and of cos and sin at both places, two float4
+// stores, no shared memory and no barrier.  The grid spans (row, head,
+// slice), 128 threads a block: at B = 8, 24 heads of 64 that is 1536
+// threads in 12 blocks.  Where D is not a multiple of 8, or x, its row
+// stride, cos, sin or out do not allow 16-byte accesses, the same mapping
+// runs one column a thread (the scalar path).  Products and the sum are
+// rounded separately (no fused multiply-add), so the result is bitwise the
+// plain version's.  PDL (pdl.cuh): only cos and sin (computed before the
+// step's first layer) may be read before griddepcontrol.wait; x is read
+// after it (through L2, coherent), and out written after it.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "pdl.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
-__global__ void rope_kernel(const float* __restrict__ x,
-                            const float* __restrict__ cs,
-                            const float* __restrict__ sn,
-                            float* __restrict__ out, int H, int D,
-                            int x_stride) {
-  extern __shared__ float ang[];  // [2][D]: cos then sin
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    ang[i] = cs[(size_t)b * D + i];
-    ang[D + i] = sn[(size_t)b * D + i];
-  }
-  __syncthreads();
+__device__ __forceinline__ float rot_lo(float x1, float x2, float c,
+                                        float s) {
+  return __fadd_rn(__fmul_rn(x1, c), __fmul_rn(-x2, s));
+}
+
+__device__ __forceinline__ float rot_hi(float x1, float x2, float c,
+                                        float s) {
+  return __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
+}
+
+// kW columns a thread (4: float4 accesses; 1: the scalar path)
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+rope_kernel(const float* x, const float* __restrict__ cs,
+            const float* __restrict__ sn, float* __restrict__ out, int B,
+            int H, int D, int x_stride) {
+  using V = typename std::conditional<kW == 4, float4, float>::type;
   const int half = D / 2;
-  const float* xb = x + (size_t)b * x_stride;
-  float* ob = out + (size_t)b * H * D;
-  for (int i = threadIdx.x; i < H * D; i += kThreads) {
-    const int d = i % D;
-    const float xv = xb[i];
-    const float rot = d < half ? -xb[i + half] : xb[i - half];
-    ob[i] = __fadd_rn(__fmul_rn(xv, ang[d]), __fmul_rn(rot, ang[D + d]));
+  const int slices = half / kW;                         // a head
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= B * H * slices) return;
+  const int d = (idx % slices) * kW;
+  const int bh = idx / slices;
+  const int h = bh % H, b = bh / H;
+  const V* ca = reinterpret_cast<const V*>(cs + (size_t)b * D + d);
+  const V* sa = reinterpret_cast<const V*>(sn + (size_t)b * D + d);
+  const V c1 = __ldg(ca), c2 = __ldg(ca + half / kW);
+  const V s1 = __ldg(sa), s2 = __ldg(sa + half / kW);
+  grid_dependency_wait();
+
+  const V* xr = reinterpret_cast<const V*>(x + (size_t)b * x_stride +
+                                           (size_t)h * D + d);
+  V* orow = reinterpret_cast<V*>(out + ((size_t)b * H + h) * D + d);
+  const V x1 = __ldcg(xr), x2 = __ldcg(xr + half / kW);
+  V o1, o2;
+  if constexpr (kW == 4) {
+    o1 = make_float4(rot_lo(x1.x, x2.x, c1.x, s1.x),
+                     rot_lo(x1.y, x2.y, c1.y, s1.y),
+                     rot_lo(x1.z, x2.z, c1.z, s1.z),
+                     rot_lo(x1.w, x2.w, c1.w, s1.w));
+    o2 = make_float4(rot_hi(x1.x, x2.x, c2.x, s2.x),
+                     rot_hi(x1.y, x2.y, c2.y, s2.y),
+                     rot_hi(x1.z, x2.z, c2.z, s2.z),
+                     rot_hi(x1.w, x2.w, c2.w, s2.w));
+  } else {
+    o1 = rot_lo(x1, x2, c1, s1);
+    o2 = rot_hi(x1, x2, c2, s2);
   }
+  orow[0] = o1;
+  orow[half / kW] = o2;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -51,10 +98,17 @@ __global__ void rope_kernel(const float* __restrict__ x,
 extern "C" int rope(const void* x, const void* cos, const void* sin,
                     void* out, int B, int H, int D, int x_stride,
                     void* stream) {
-  rope_kernel<<<B, kThreads, 2 * D * sizeof(float),
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<float*>(out), H, D,
-      x_stride);
-  return (int)cudaGetLastError();
+  const bool vec = D % 8 == 0 && x_stride % 4 == 0 && aligned16(x) &&
+                   aligned16(cos) && aligned16(sin) && aligned16(out);
+  const int threads = B * H * (D / 2) / (vec ? 4 : 1);
+  const dim3 grid((threads + kThreads - 1) / kThreads), block(kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(cos);
+  const float* sf = static_cast<const float*>(sin);
+  float* of = static_cast<float*>(out);
+  return vec ? (int)launch_pdl(rope_kernel<4>, grid, block, s, xf, cf, sf,
+                               of, B, H, D, x_stride)
+             : (int)launch_pdl(rope_kernel<1>, grid, block, s, xf, cf, sf,
+                               of, B, H, D, x_stride);
 }

@@ -8,10 +8,10 @@ in ``build.LAUNCHES`` -- or raises.  There is no fallback from a CUDA tensor
 to the plain version.
 
 The public functions below them mirror ``repro/kernels/ops.py``: activation
-quantization and the Q4 / GEMV / GEMM dispatch (``q8_matmul``, or
-``q8_matmul_quantized`` for activations already quantized by the fused
-``rmsnorm_quant``), the GQA reshapes of the decode attention kernels, and
-the per-row extents of ``flash_prefill``.
+quantization (``quantize_kernel``) and the Q4 / GEMV / GEMM dispatch
+(``q8_matmul``, or ``q8_matmul_quantized`` for activations already
+quantized by the fused ``rmsnorm_quant``), the GQA reshapes of the decode
+attention kernels, and the per-row extents of ``flash_prefill``.
 """
 
 from __future__ import annotations
@@ -385,6 +385,57 @@ def _torch_row_mean_order(m: int, k: int):
     return width, float(np.float32(m) / np.float32(m * k))
 
 
+# float4s a thread that rmsnorm_quant.cu instantiates (kVecs)
+Q8_ROWS_VECS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+# the most threads a block of several rows holds
+Q8_ROWS_BLOCK = 256
+# an H100's SMs: rows share blocks only once there is a block for each
+H100_SMS = 132
+
+
+def rmsnorm_quant_plan(m: int, k: int, width: int):
+    """Launch plan of ``rmsnorm_quant.cu`` for M rows of K columns, with
+    ``width`` threads a row (PyTorch's, or 32 for ``quantize``): (width,
+    rows a block, float4s a thread).  Thread t of a row holds the float4s
+    t, t + width, ... (the last sweep may be part dead).  A row of more
+    than 128 threads has a block of its own; narrower rows share blocks of
+    at most ``Q8_ROWS_BLOCK`` threads, but only as many as it takes to
+    keep one block for each of the card's SMs, so that a few decode rows
+    spread over as many SMs as there are rows."""
+    need = -(-(k // 4) // width)
+    vecs = next((v for v in Q8_ROWS_VECS if v >= need), None)
+    if vecs is None:
+        raise ValueError(f"rmsnorm_quant: K={k} needs {need} float4s a "
+                         f"thread at {width} threads a row, more than "
+                         f"{Q8_ROWS_VECS[-1]}")
+    rows = max(1, min(Q8_ROWS_BLOCK // width, -(-m // H100_SMS)))
+    return width, rows, vecs
+
+
+def _check_q8_rows(name: str, x, group_size: int, k_min: int) -> None:
+    """x (M >= 1, k_min <= K <= 4096) f32, 16-byte aligned, with a group
+    of 4..128 (4 x a power of two) dividing K."""
+    m, k = x.shape
+    lanes = group_size // 4
+    if (group_size < 4 or group_size % 4 or lanes & (lanes - 1) or lanes > 32
+            or k % group_size or not k_min <= k <= 4096 or m < 1):
+        raise ValueError(f"{name}: needs x (M >= 1, {k_min} <= K <= 4096) "
+                         f"and a group of 4..128 (4 x a power of two) "
+                         f"dividing K; got x {tuple(x.shape)}, group "
+                         f"{group_size}")
+    _check(name, x.device, x=x)
+    _dtype(name, x, torch.float32)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+
+
+def _q8_outputs(x, group_size: int):
+    m, k = x.shape
+    return (torch.empty((m, k), dtype=torch.int8, device=x.device),
+            torch.empty((m, k // group_size), dtype=torch.float32,
+                        device=x.device))
+
+
 def rmsnorm_quant_kernel(x, gamma, eps: float,
                          group_size: int) -> tuple:
     """x (M, K) f32, gamma (K,) f32 -> (codes (M, K) int8, scales
@@ -393,24 +444,36 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
         return ref.ref_rmsnorm_quant(x, gamma, eps, group_size)
     name = "rmsnorm_quant"
     m, k = x.shape
-    lanes = group_size // 4
-    if (group_size % 4 or lanes & (lanes - 1) or lanes > 32 or k % group_size
-            or not 128 <= k <= 4096 or m < 1 or gamma.shape != (k,)):
-        raise ValueError(f"{name}: needs x (M >= 1, 128 <= K <= 4096), "
-                         f"gamma (K,) and a group of 4..128 (4 x a power of "
-                         f"two) dividing K; got x {tuple(x.shape)}, gamma "
-                         f"{tuple(gamma.shape)}, group {group_size}")
-    _check(name, x.device, x=x, gamma=gamma)
-    _dtype(name, x, torch.float32)
+    if gamma.shape != (k,):
+        raise ValueError(f"{name}: gamma {tuple(gamma.shape)} for K={k}")
+    _check_q8_rows(name, x, group_size, 128)
+    _check(name, x.device, gamma=gamma)
     _dtype(name, gamma, torch.float32)
-    if x.data_ptr() % 16 or gamma.data_ptr() % 16:
-        raise ValueError(f"{name}: x and gamma must be 16-byte aligned")
-    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    s = torch.empty((m, k // group_size), dtype=torch.float32,
-                    device=x.device)
+    if gamma.data_ptr() % 16:
+        raise ValueError(f"{name}: gamma must be 16-byte aligned")
+    q, s = _q8_outputs(x, group_size)
     width, factor = _torch_row_mean_order(m, k)
     launch(name, x.data_ptr(), gamma.data_ptr(), q.data_ptr(), s.data_ptr(),
-           m, k, group_size, eps, factor, width, _stream(x))
+           m, k, group_size, eps, factor,
+           *rmsnorm_quant_plan(m, k, width), _stream(x))
+    return q, s
+
+
+def quantize_kernel(x, group_size: int) -> tuple:
+    """x (M, K) f32 -> (codes (M, K) int8, scales (M, K / group_size)
+    f32): Q8_0 per group, bitwise ``quantize(x, group_size, 8)`` --
+    ``rmsnorm_quant``'s kernel without the norm, 32 threads a row."""
+    m, k = x.shape
+    if k % group_size:
+        raise ValueError(f"quantize: K={k} does not split into groups of "
+                         f"{group_size}")
+    if x.device.type == "cpu":
+        t = quantize(x, group_size=group_size, bits=8)
+        return t.q, t.scale
+    _check_q8_rows("quantize", x, group_size, group_size)
+    q, s = _q8_outputs(x, group_size)
+    launch("quantize", x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+           group_size, *rmsnorm_quant_plan(m, k, 32), _stream(x))
     return q, s
 
 
@@ -421,18 +484,14 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
 
 def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x (..., K) f32 @ w (N, K).T with the paper's integer semantics:
-    activations are Q8_0-quantized on the fly with ``w.group_size``, then
-    :func:`q8_matmul_quantized` dispatches."""
+    activations are Q8_0-quantized on the fly with ``w.group_size``
+    (:func:`quantize_kernel`), then :func:`q8_matmul_quantized`
+    dispatches."""
     if w.bits not in (4, 8):
         raise ValueError(f"q8_matmul: bits={w.bits}")
-    gs = w.group_size
     *lead, k = x.shape
-    xt = quantize(x.reshape(-1, k), group_size=gs, bits=8)
-    if xt.group_size != gs:
-        raise ValueError(f"q8_matmul: K={k} does not split into groups of "
-                         f"{gs}")
-    return q8_matmul_quantized(xt.q, xt.scale, w).reshape(*lead,
-                                                          w.q.shape[0])
+    xq, xs = quantize_kernel(x.reshape(-1, k).contiguous(), w.group_size)
+    return q8_matmul_quantized(xq, xs, w).reshape(*lead, w.q.shape[0])
 
 
 def q8_matmul_quantized(xq: torch.Tensor, xs: torch.Tensor,
