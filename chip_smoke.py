@@ -12,7 +12,11 @@ the same weights on the CPU, greedy and sampled, with the threefry gumbel
 noise bitwise (phase 5), the dense per-slot cache with f32 and int8 KV
 (phase 7), Q4_0 weights on both caches (phase 8), the paper's batch-1
 single stream (phase 9), ``launch/serve.py`` at its own sampling defaults
-(phase 11) and best-of-4 sampling groups over shared blocks (phase 12).
+(phase 11), best-of-4 sampling groups over shared blocks (phase 12) and
+open-loop serving (phase 13): seeded Poisson arrivals through
+``serving/async_serving.py`` bitwise equal to the closed batch, a decode
+step dispatched under CUDA's sync debug mode, deadlines, shedding and
+``serve.py --open-loop``.
 Every served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
@@ -1681,15 +1685,22 @@ def engine_line(tag, eng, streams, wall):
     dec = m["t_decode"] / max(1, m["decode_steps"]) * 1e3
     n_pre = m["chunk_batch_calls"] if eng.paged else m["prefill_chunks"]
     pre = m["t_prefill"] / max(1, n_pre) * 1e3
+    out = {"tok_s": toks / wall, "decode_step_ms": dec,
+           ("chunk_step_ms" if eng.paged else "prefill_ms"): pre}
+    energy = ""
+    if "energy_joules" in m:        # a parent tree's engine may lack it
+        out["energy_joules"] = joules = m["energy_joules"]
+        out["tok_per_joule"] = m["tokens_out"] / joules if joules else 0.0
+        energy = (f"; roofline energy {joules:.4g} J = "
+                  f"{out['tok_per_joule']:.1f} tok/J (model, not measured)")
     log(f"  {tag}: {len(streams)} requests, {toks} tokens in {wall:.3f} s "
         f"= {toks / wall:.1f} tok/s; {m['decode_steps']} decode steps "
         f"{dec:.3f} ms each; {n_pre} "
         f"{'chunk steps' if eng.paged else 'whole-prompt prefills'} "
         f"{pre:.3f} ms each; prefix hits {m['prefix_hits']} "
         f"({m['prefix_cached_tokens']} tokens); preemptions "
-        f"{m['preemptions']}")
-    return {"tok_s": toks / wall, "decode_step_ms": dec,
-            ("chunk_step_ms" if eng.paged else "prefill_ms"): pre}
+        f"{m['preemptions']}{energy}")
+    return out
 
 
 def device_launches(prof):
@@ -2253,6 +2264,255 @@ def best_of_n(dev, cfg, params, counted):
     return eng.metrics["fanouts"], sampler_cost(dev)
 
 
+def _overlap_timer(eng):
+    """Wrap ``eng``'s step_async / finish_step to record the host seconds
+    between a step's dispatch and its completion (the overlap window)."""
+    windows, stamp = [], [0.0]
+    step_async, finish_step = eng.step_async, eng.finish_step
+
+    def timed_async():
+        out = step_async()
+        stamp[0] = time.perf_counter()
+        return out
+
+    def timed_finish(pending=None):
+        if pending is not None:
+            windows.append(time.perf_counter() - stamp[0])
+        return finish_step(pending)
+    eng.step_async, eng.finish_step = timed_async, timed_finish
+    return windows
+
+
+def _chunks_of(plan_log):
+    """Each request's prompt chunks, (start, end) in order."""
+    out = {}
+    for plan in plan_log:
+        for uid, start, end in plan["prefills"]:
+            out.setdefault(uid, []).append((start, end))
+    return out
+
+
+def open_loop(dev, cfg, params, counted, closed_energy):
+    """Phase 13: 16 of phase 3's requests, half greedy and half at
+    temperature 0.8, top_p 0.95, each with its own seed, served closed,
+    then open loop (seeded Poisson arrivals at 0.85 of the closed run's
+    request rate, ``async_serving.run_open_loop``), then replayed closed
+    with ``Engine.step`` and each request submitted before the step the
+    open loop released it to.  The replay must give the open loop's plans
+    and streams bitwise: stepping asynchronously and arriving mid-flight
+    change nothing.  Against the all-at-once closed run a request whose
+    prompt was cut into other chunks may part, under the integer
+    arithmetic, only at a near-tie (as phase 7's dense-vs-paged streams).
+    No block may stay leased and the chunk step may take no new shape.
+    Then a decode-only ``step_async`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, a request past its
+    deadline, a burst shed by the queue bound, and ``serve.py
+    --open-loop`` as a subprocess."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import async_serving as tas
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.faults import ERR_DEADLINE, ERR_SHED
+    model = build_model(cfg)
+    prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0, shared_len=128,
+                        shared_at=(0, 9, 12, 15))
+    sampling = [dict(temperature=TEMP, top_p=TOP_P, seed=300 + i)
+                if i % 2 else dict(temperature=0.0, seed=300 + i)
+                for i in range(len(prompts))]
+    phase("phase 13: llama2-110m full width, paged f32 pool, 16 requests "
+          f"(half greedy, half t {TEMP} top_p {TOP_P}) closed")
+    build.reset_launches()
+    eng, closed, wall = serve(model, params, prompts, dev, 32, sampling,
+                              **PAGED_KW)
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    engine_line("closed", eng, closed, wall)
+    shapes = eng.prefill_compile_count()
+    rate = 0.85 * len(prompts) / wall
+    offsets = tas.poisson_arrivals(13, len(prompts), rate)
+    workload = [(float(t), p, dict(max_new_tokens=32, **kw))
+                for t, p, kw in zip(offsets, prompts, sampling)]
+    phase(f"phase 13: the same requests open loop, Poisson arrivals at "
+          f"{rate:.2f} req/s (0.85 of the closed run's)")
+    closed_chunks = _chunks_of(eng.plan_log)
+    build.reset_launches()
+    eng = Engine(model, params, device=dev, **PAGED_KW)
+    windows = _overlap_timer(eng)
+    marks, submit_request = [], eng.submit_request
+
+    def marked(prompt, **kw):
+        marks.append(len(eng.plan_log))
+        return submit_request(prompt, **kw)
+    eng.submit_request = marked
+    t0 = time.perf_counter()
+    handles, report = tas.run_open_loop(eng, workload)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    bad = [(h.uid, h.error) for h in handles if h.error is not None]
+    streams = [list(h.req.output) for h in handles]
+    if bad or any(eng.pager.refcount) \
+            or eng.prefill_compile_count() != shapes:
+        raise AssertionError(f"open loop: failed {bad}, or leaked blocks, "
+                             "or took a new chunk shape")
+    m = eng.metrics
+    open_log = eng.plan_log
+
+    build.reset_launches()
+    eng = Engine(model, params, device=dev, **PAGED_KW)
+    order = iter(zip(marks, prompts, sampling))
+    nxt, done = next(order, None), []
+    while nxt is not None or eng.scheduler.has_work():
+        while nxt is not None and nxt[0] == len(eng.plan_log):
+            eng.submit(nxt[1], max_new_tokens=32, **nxt[2])
+            nxt = next(order, None)
+        out = eng.step()
+        if out is None and nxt is not None:
+            raise AssertionError("the replay idled before its next arrival")
+        done.extend(out or [])
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    replay = [list(r.output) for r in sorted(done, key=lambda r: r.uid)]
+    if eng.plan_log != open_log or replay != streams:
+        raise AssertionError("the closed replay of the open loop's arrivals "
+                             "gave other plans or streams")
+    open_chunks = _chunks_of(open_log)
+    recut = [u - 1 for u in sorted(open_chunks)
+             if open_chunks[u] != closed_chunks[u]]
+    log(f"  closed replay (Engine.step, each request submitted before the "
+        f"step the open loop released it to): the open loop's {len(marks)} "
+        f"arrivals, {len(open_log)} plans and 16 streams, bitwise; requests "
+        f"{recut} were cut into other chunks than in the all-at-once closed "
+        "run")
+    greedy_gap = (lambda seq, *_: _top2_gap(model, params, seq, dev))
+    sampled_gap = _sampled_gap(model, params, dev,
+                               [(300 + i, 0) for i in range(len(prompts))],
+                               TEMP, TOP_P)
+    compare_streams("open loop vs all-at-once closed", streams, closed,
+                    prompts, lambda seq, n, i: (sampled_gap if i % 2 else
+                                                greedy_gap)(seq, n, i),
+                    FULL_FLIP_TOL)
+    win_ms = 1e3 * sum(windows) / max(1, len(windows))
+    out = {"goodput_tok_s": report.goodput_tok_s,
+           "ttft_ms": {k: report.ttft_ms[k] for k in ("p50", "p99")},
+           "tpot_ms": {k: report.tpot_ms[k] for k in ("p50", "p99")},
+           "midflight_submits": report.midflight_submits,
+           "peak_queue_depth": report.peak_queue_depth,
+           "overlap_window_host_ms": win_ms,
+           "energy_joules": m["energy_joules"],
+           "tok_per_joule": m["tokens_out"] / m["energy_joules"],
+           "closed_energy_joules": closed_energy["energy_joules"],
+           "closed_tok_per_joule": closed_energy["tok_per_joule"]}
+    ttft, tpot = report.ttft_ms, report.tpot_ms
+    log(f"  open loop: 16/16 requests served, no block leased, {shapes} "
+        f"chunk shapes; goodput "
+        f"{report.goodput_tok_s:.1f} tok/s over {report.wall_s:.3f} s "
+        f"({wall:.3f} s with the last sync); TTFT p50 {ttft['p50']:.1f} ms, "
+        f"p99 {ttft['p99']:.1f} ms; TPOT p50 {tpot['p50']:.2f} ms, p99 "
+        f"{tpot['p99']:.2f} ms (from true arrival); "
+        f"{report.midflight_submits} arrivals mid-flight, peak queue depth "
+        f"{report.peak_queue_depth}; host {win_ms:.3f} ms in the overlap "
+        f"window over {len(windows)} steps; roofline energy "
+        f"{m['energy_joules']:.4g} J = {out['tok_per_joule']:.1f} tok/J "
+        f"(phase 3 closed: {closed_energy['energy_joules']:.4g} J = "
+        f"{closed_energy['tok_per_joule']:.1f} tok/J; model, not measured)")
+
+    phase("phase 13: a decode-only step_async under sync debug mode "
+          "'error', then a request past its deadline")
+    build.reset_launches()
+    eng = Engine(model, params, device=dev, **PAGED_KW)
+    for p, kw in zip(prompts[:8], sampling[:8]):
+        eng.submit(p, max_new_tokens=8, **kw)
+    while eng.scheduler.has_work() and (
+            eng.scheduler.waiting or not eng.plan_log
+            or eng.plan_log[-1]["prefills"]):
+        eng.step()
+    # a ~0.5 s spin queued first: a dispatch that waited for the card
+    # would return after it, with its tokens' event already passed
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(int(1e9))
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        done, pending = eng.step_async()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if pending is None or eng.plan_log[-1]["prefills"]:
+        raise AssertionError("the checked step was not a decode-only "
+                             "dispatch")
+    if pending.decode.draw.event.query():
+        raise AssertionError(f"step_async returned after {host_ms:.1f} ms "
+                             "with the card idle: it waited for the card")
+    done += eng.finish_step(pending)
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    late = eng.submit(prompts[8], max_new_tokens=8, deadline_ms=0.001)
+    done += eng.run()
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    kinds = {r.uid: r.error_kind for r in done}
+    if kinds.pop(late) != ERR_DEADLINE or any(kinds.values()) \
+            or eng.metrics["deadline_misses"] != 1:
+        raise AssertionError(f"deadline check: {kinds}, late request "
+                             f"{late}")
+    log(f"  {len(pending.decode.slots)} rows dispatched in {host_ms:.2f} ms "
+        f"of host time with no sync, the card still busy with the spin "
+        f"queued before it (finish_step returned at {wait_ms:.1f} ms); the "
+        f"request with deadline_ms=0.001 failed with {ERR_DEADLINE!r}, the "
+        "other 8 completed")
+
+    phase("phase 13: AsyncServer(max_queue_depth=2) under a burst of 6")
+    build.reset_launches()
+    eng = Engine(model, params, device=dev, **PAGED_KW)
+    server = tas.AsyncServer(eng, max_queue_depth=2)
+    burst = [server.submit(p, max_new_tokens=8, **kw)
+             for p, kw in zip(prompts[:6], sampling[:6])]
+    while server.has_work():
+        server.step()
+    check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+    shed = [h for h in burst if h.error_kind == ERR_SHED]
+    if not shed or any(h.error for h in burst if h not in shed) \
+            or eng.metrics["shed_requests"] != len(shed):
+        raise AssertionError(f"shed check: {[h.error for h in burst]}")
+    log(f"  {len(shed)} of 6 shed with {ERR_SHED!r}, the rest served")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--open-loop",
+           "--full", "--requests", "16", "--slots", "8", "--max-seq", "1024"]
+    phase(f"phase 13: {' '.join(cmd[1:])} as a subprocess")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    secs = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"    {line}")
+    if res.returncode != 0 or "[serve] open loop: 16/16 ok" not in res.stdout:
+        raise AssertionError(f"serve --open-loop exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    log(f"  serve --open-loop ran in {secs:.1f} s")
+    out["module_s"] = secs
+    return out
+
+
+def closed_batch_turn(dev, runs: int = 4):
+    """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
+    kernel strategy) served ``runs`` times on the tree this script is run
+    from; prints each run's tok/s, decode step and chunk step.  For turns
+    against a parent tree: copy this script over the parent's own and call
+    it from each tree in turn (parent, change, change, parent)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import qlinear
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    build.build()
+    qlinear.set_default_strategy("kernel")
+    cfg = get_config("llama2-110m")
+    model = build_model(cfg)
+    params = model.quantize(model.init(seed=0, device=dev))
+    prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0, shared_len=128,
+                        shared_at=(0, 9, 12, 15))
+    for i in range(runs):
+        eng, streams, wall = serve(model, params, prompts, dev, 32,
+                                   **PAGED_KW)
+        engine_line(f"run {i}", eng, streams, wall)
+
+
 def sampler_cost(dev):
     """sample_logits_per_row on (8, 32000) against the greedy argmax: host
     wall ms per call (it is launch-bound), and the device time and device
@@ -2352,6 +2612,8 @@ def main() -> int:
     fanouts, sampler = best_of_n(dev, cfg, params, counted)
     phase(f"phase 12: serve CLI {json.dumps(cli)}; best-of-4 fanouts "
           f"{fanouts}; sampler {json.dumps(sampler)}")
+    ol = open_loop(dev, cfg, params, counted, e2e)
+    phase(f"phase 13: open loop {json.dumps(ol)}")
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -1,16 +1,23 @@
 """Serving entry point: quantize a fresh model per the paper's PTQ flow and
-serve a closed batch of requests with the continuous-batching engine.
+serve it with the continuous-batching engine: a closed batch by default, or
+an open-loop stream of seeded Poisson arrivals with per-step token
+streaming (``--open-loop``).
 
-PyTorch counterpart of ``repro/launch/serve.py``'s closed batch, on the
-card unless ``--device cpu`` is given:
+PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
+``--device cpu`` is given:
 
   # llama2-110m at full width on one card
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 16 \\
       --slots 8 --max-seq 1024
 
-  # the reduced config on the CPU
+  # the same open loop: arrivals at 0.85 of the capacity a closed
+  # calibration pass measures; goodput and TTFT / TPOT from true arrival
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 16 \\
+      --slots 8 --max-seq 1024 --open-loop
+
+  # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
-      --device cpu
+      --device cpu --open-loop --rate 50 --stream
 
 Requests sample at the engine's defaults, temperature 1.0 and top-p 1.0
 (the paper's evaluation setup), with keys split from ``--seed``.  The
@@ -19,10 +26,12 @@ integer arithmetic on the port's CUDA kernels (the ``kernel`` strategy; the
 plain versions on the CPU), where the reference CLI runs its process
 default, ``dequant``.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP, status
-after PR 13): ``--open-loop`` (async stepping), ``--spec-tokens``
-(speculative decoding), ``--mesh`` (sharded serving) and ``--ckpt-dir``
-(checkpoint restore).
+The closed batch also prints the engine's roofline energy and tokens per
+joule: a model on the H100's data-sheet constants, not a measurement.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP, queue A):
+``--spec-tokens`` (speculative decoding), ``--mesh`` (sharded serving) and
+``--ckpt-dir`` (checkpoint restore).
 """
 
 from __future__ import annotations
@@ -38,9 +47,12 @@ from repro_torch.core import qlinear
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.model import build_model
+from repro_torch.serving.async_serving import (first_token_latencies,
+                                               poisson_arrivals,
+                                               run_open_loop)
 from repro_torch.serving.engine import Engine
 
-NOT_PORTED = "is not yet ported (ROADMAP, status after PR 13: {})"
+NOT_PORTED = "is not yet ported (ROADMAP, queue A: {})"
 
 
 def _make_prompts(rng, cfg, n: int):
@@ -49,25 +61,16 @@ def _make_prompts(rng, cfg, n: int):
             for _ in range(n)]
 
 
-def first_token_latencies(requests) -> np.ndarray:
-    """Seconds from arrival to the first token, for the requests that
-    produced one (a rejected request keeps ``t_first_token == 0.0``)."""
-    return np.asarray([r.t_first_token - r.t_enqueue for r in requests
-                       if r.t_first_token > 0.0], np.float64)
-
-
 def _print_throughput(eng, toks: int, wall: float) -> None:
     print(f"[serve] throughput: {toks/wall:,.1f} tok/s end-to-end "
           f"wall-clock | {eng.throughput_tok_s():,.1f} tok/s decode-only "
           f"(tokens_out/t_decode)")
 
 
-def _refuse_unported(ckpt_dir, spec_tokens, open_loop, mesh_size) -> None:
+def _refuse_unported(ckpt_dir, spec_tokens, mesh_size) -> None:
     for on, flag, item in ((ckpt_dir, "--ckpt-dir", "checkpoint restore"),
                            (spec_tokens > 0, "--spec-tokens",
                             "speculative decoding"),
-                           (open_loop, "--open-loop",
-                            "async stepping and open-loop serving"),
                            (mesh_size > 0, "--mesh", "mesh sharding")):
         if on:
             raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
@@ -81,13 +84,12 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         open_loop: bool = False, rate: float = 0.0,
         load_factor: float = 0.85, stream: bool = False,
         stream_interval: int = 1, mesh_size: int = 0, device=None):
-    """Serve ``requests`` seeded prompts as one closed batch; returns the
-    engine and the finished requests.  The batch runs under the ``kernel``
-    strategy; the process default is restored after it.  ``rate``,
-    ``load_factor``, ``stream`` and ``stream_interval`` belong to the open
-    loop, ``draft`` to speculation; they are accepted as the reference
-    accepts them."""
-    _refuse_unported(ckpt_dir, spec_tokens, open_loop, mesh_size)
+    """Serve ``requests`` seeded prompts as one closed batch, or open loop
+    (:func:`_run_open_loop`); returns the engine and the requests.  The
+    run is under the ``kernel`` strategy; the process default is restored
+    after it.  ``draft`` belongs to speculation and is accepted as the
+    reference accepts it."""
+    _refuse_unported(ckpt_dir, spec_tokens, mesh_size)
     dev = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:
@@ -105,19 +107,24 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         print(f"[serve] Q{bits}_0 post-training quantization "
               f"in {time.perf_counter()-t0:.2f}s")
 
+    def make_engine():
+        return Engine(model, params, max_slots=slots, max_seq=max_seq,
+                      seed=seed, spec_tokens=spec_tokens,
+                      draft_proposer=draft, device=dev)
+
+    prompts = _make_prompts(np.random.default_rng(seed), cfg, requests)
     old = qlinear.default_strategy()
     qlinear.set_default_strategy("kernel")
     try:
-        eng = Engine(model, params, max_slots=slots, max_seq=max_seq,
-                     seed=seed, spec_tokens=spec_tokens,
-                     draft_proposer=draft, device=dev)
-        rng = np.random.default_rng(seed)
-        for prompt in _make_prompts(rng, cfg, requests):
+        if open_loop:
+            return _run_open_loop(make_engine, prompts, max_new, seed, rate,
+                                  load_factor, stream, stream_interval)
+        eng = make_engine()
+        for prompt in prompts:
             eng.submit(prompt, max_new_tokens=max_new)
         t0 = time.perf_counter()
         done = eng.run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(dev)
         wall = time.perf_counter() - t0
     finally:
         qlinear.set_default_strategy(old)
@@ -134,7 +141,73 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         print(f"[serve] TTFT p50 {np.median(lat)*1e3:.0f}ms  "
               f"p95 {np.percentile(lat, 95)*1e3:.0f}ms "
               f"(from arrival, {len(lat)}/{len(done)} with first token)")
+    joules = eng.metrics["energy_joules"]
+    if joules > 0:
+        print(f"[serve] roofline energy {joules:.3g} J -> "
+              f"{toks/joules:,.0f} tok/J (model, not measured)")
     return eng, done
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_open_loop(make_engine, prompts, max_new: int, seed: int,
+                   rate: float, load_factor: float, stream: bool,
+                   stream_interval: int):
+    """Continuous arrivals: requests arrive mid-flight on a seeded Poisson
+    process and tokens stream back per step.  Without ``rate`` a short
+    closed calibration pass measures the service capacity and the arrival
+    rate is set to ``load_factor`` of it: loaded enough for queueing delay
+    to show, light enough for the queue to drain."""
+    if rate <= 0:
+        n_cal = min(4, len(prompts))
+        cal = make_engine()
+        for p in prompts[:n_cal]:
+            cal.submit(p, max_new_tokens=max_new)
+        t0 = time.perf_counter()
+        cal.run()
+        _sync(cal.device)
+        cal_wall = max(time.perf_counter() - t0, 1e-6)
+        rate = load_factor * n_cal / cal_wall
+        print(f"[serve] calibrated: {n_cal} requests in {cal_wall:.2f}s "
+              f"-> open-loop arrival rate {rate:.2f} req/s "
+              f"({load_factor:.0%} of measured capacity)")
+
+    on_token = None
+    if stream:
+        def on_token(handle, sibling, tokens, done):
+            for t in tokens:
+                print(f"[stream] uid={handle.uid} sib={sibling} tok={t}")
+            if done:
+                tag = "ok" if handle.error is None else handle.error_kind
+                print(f"[stream] uid={handle.uid} done ({tag})")
+
+    arrivals = poisson_arrivals(seed, len(prompts), rate)
+    workload = [(float(t), p, {"max_new_tokens": max_new, "seed": seed + i})
+                for i, (t, p) in enumerate(zip(arrivals, prompts))]
+    eng = make_engine()
+    t0 = time.perf_counter()
+    handles, report = run_open_loop(
+        eng, workload, stream_interval_steps=stream_interval,
+        on_token=on_token)
+    _sync(eng.device)
+    wall = time.perf_counter() - t0
+    toks = eng.metrics["tokens_out"]
+    print(f"[serve] open loop: {report.completed_ok}/{report.n_requests} "
+          f"ok ({report.failed} failed), {report.midflight_submits} "
+          f"arrivals landed mid-flight, peak queue depth "
+          f"{report.peak_queue_depth}")
+    print(f"[serve] goodput {report.goodput_tok_s:,.1f} tok/s "
+          f"({report.goodput_req_s:.2f} req/s) at offered "
+          f"{report.arrival_rate_req_s:.2f} req/s over {report.wall_s:.2f}s")
+    print(f"[serve] TTFT p50 {report.ttft_ms['p50']:.0f}ms "
+          f"p99 {report.ttft_ms['p99']:.0f}ms | TPOT p50 "
+          f"{report.tpot_ms['p50']:.1f}ms p99 {report.tpot_ms['p99']:.1f}ms "
+          f"(from true arrival time)")
+    _print_throughput(eng, toks, wall)
+    return eng, [h.req for h in handles]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -155,11 +228,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "not yet ported)")
     ap.add_argument("--draft", default="ngram")
     ap.add_argument("--open-loop", action="store_true",
-                    help="continuous arrivals (not yet ported)")
-    ap.add_argument("--rate", type=float, default=0.0)
-    ap.add_argument("--load-factor", type=float, default=0.85)
-    ap.add_argument("--stream", action="store_true")
-    ap.add_argument("--stream-interval", type=int, default=1)
+                    help="continuous Poisson arrivals instead of a "
+                         "closed batch; reports goodput and TTFT/TPOT "
+                         "percentiles from true arrival time")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop arrival rate in req/s "
+                         "(0 = calibrate to --load-factor of capacity)")
+    ap.add_argument("--load-factor", type=float, default=0.85,
+                    help="target utilization for rate calibration")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they stream back per step")
+    ap.add_argument("--stream-interval", type=int, default=1,
+                    help="flush streamed tokens every N engine steps")
     ap.add_argument("--mesh", type=int, default=0,
                     help="tensor-parallel mesh size (0 = single device; "
                          "not yet ported)")

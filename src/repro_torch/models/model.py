@@ -6,11 +6,13 @@ PyTorch counterpart of ``repro/models/model.py`` for the dense family.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device
 from repro_torch.core.policy import QuantPolicy, quantize_params
+from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.models import transformer
 
 
@@ -64,6 +66,16 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} is "
                                   "not yet ported")
     return Model(cfg=cfg)
+
+
+def count_params(params: Any) -> int:
+    """Number of parameters in a tree; a quantized leaf counts its
+    unpacked elements, as the reference's ``count_params`` does."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, QuantizedTensor):
+        return math.prod(params.q.shape[:-1]) * params.orig_dim
+    return math.prod(params.shape)
 
 
 def params_to(params: Any, device: Device):

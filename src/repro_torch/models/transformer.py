@@ -200,17 +200,35 @@ def supports_paged_cache(cfg: ModelConfig) -> bool:
 
 
 def _attn_bank(cfg: ModelConfig, lead: Tuple[int, ...],
-               dev: torch.device) -> Dict[str, torch.Tensor]:
+               dev: torch.device, scratch: bool = False
+               ) -> Dict[str, torch.Tensor]:
     """Stacked K/V buffers (n_layers, *lead, KVH, hd), plus one f32 scale
-    per row and head for an int8 cache."""
+    per row and head for an int8 cache.  With ``scratch`` each buffer is a
+    view of one with an extra block behind the last (``lead[0] + 1``
+    blocks): the paged decode step sends the rows that must write nothing
+    there (:func:`_scratch_view`), and nothing reads it."""
     kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
     shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.hd())
-    attn = {"k": torch.zeros(shape, dtype=kvd, device=dev),
-            "v": torch.zeros(shape, dtype=kvd, device=dev)}
+    dtypes = {"k": kvd, "v": kvd}
     if _kv_int8(cfg):
-        attn["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
-        attn["vs"] = torch.zeros_like(attn["ks"])
+        dtypes.update(ks=torch.float32, vs=torch.float32)
+    attn = {}
+    for name, dt in dtypes.items():
+        shp = shape if name in ("k", "v") else shape[:-1]
+        if scratch:
+            full = torch.zeros((shp[0], shp[1] + 1, *shp[2:]), dtype=dt,
+                               device=dev)
+            attn[name] = full[:, :shp[1]]
+        else:
+            attn[name] = torch.zeros(shp, dtype=dt, device=dev)
     return attn
+
+
+def _scratch_view(buf: torch.Tensor) -> torch.Tensor:
+    """One layer's pool (NB, BS, ...) with the scratch block NB that
+    :func:`_attn_bank` keeps behind it (a view of the same storage)."""
+    return torch.as_strided(buf, (buf.shape[0] + 1, *buf.shape[1:]),
+                            buf.stride())
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -231,7 +249,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
     return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "page_table": torch.full((batch, max_blocks_per_seq), -1,
                                      dtype=torch.int32, device=dev),
-            "attn": _attn_bank(cfg, (n_blocks, block_size), dev)}
+            "attn": _attn_bank(cfg, (n_blocks, block_size), dev,
+                               scratch=True)}
 
 
 def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
@@ -293,9 +312,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     the cache carries a ``page_table``, else on the dense cache.
 
     Paged: each slot's new K/V row lands at its current (block, offset); a
-    slot whose page-table entry there is -1 (released) writes nothing, so a
-    dead slot never corrupts blocks leased to others, and ``lens`` comes
-    back as ``pos + 1``, pinned to 0 where ``page_table[:, 0] < 0``.
+    slot whose page-table entry there is -1 (released, or mid-prefill past
+    its leased blocks) writes its row to the pool's scratch block instead,
+    so a dead slot never corrupts blocks leased to others and the write
+    keeps every row without the host reading which rows live; ``lens``
+    comes back as ``pos + 1``, pinned to 0 where ``page_table[:, 0] < 0``.
     Dense: every row writes at its position, clamped to the last one as the
     reference's ``dynamic_update_slice`` clamps it, and ``lens`` comes back
     as ``pos + 1``.  Attention runs on ``paged_decode_attention`` /
@@ -313,12 +334,13 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         mb = pt.shape[1]
         blk_idx = torch.clamp(pos // bs, 0, mb - 1).long()
         blk_id = torch.gather(pt, 1, blk_idx[:, None])[:, 0]
-        # rows whose target block exists; one host sync per step picks them
-        rows = torch.nonzero(blk_id >= 0).squeeze(1)
-        dst = (blk_id[rows].long(), (pos % bs).long()[rows])
+        # rows without a target block write to the scratch block (index
+        # NB): a fixed row count, so the host never reads which rows live
+        nb = cache["attn"]["k"].shape[1]
+        dst = (torch.where(blk_id >= 0, blk_id, nb).long(),
+               (pos % bs).long())
     else:
         s = cache["attn"]["k"].shape[2]
-        rows = slice(None)
         dst = (torch.arange(pos.shape[0], device=pos.device),
                torch.clamp(pos, 0, s - 1).long())
 
@@ -326,7 +348,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         lp = _layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache["attn"].items()}
         q, k, v = _decode_qkv(lp, x, cfg, cos, sin)
-        _write_rows(lc, k[rows], v[rows], *dst)
+        _write_rows({n: _scratch_view(b) for n, b in lc.items()} if paged
+                    else lc, k, v, *dst)
         if paged:
             out = ops.paged_decode_attention(
                 q * (hd ** -0.5), lc["k"], lc["v"], pt, lens_now,

@@ -30,8 +30,27 @@ token, draws ``n`` tokens from the one prompt row and forks into ``n``
 siblings that share the prompt's blocks (``Scheduler.fork_group``); their
 tails un-share through copy-on-write.
 
-Not ported yet (ROADMAP): speculative decoding, fault injection, async
-stepping and mesh sharding raise at construction or call.
+**Stepping.**  :meth:`Engine.step` runs one step to its end;
+:meth:`Engine.step_async` plans the step, runs its chunks, dispatches the
+batched decode and its sampling, and returns without waiting on the card;
+:meth:`Engine.finish_step` waits for the sampled tokens and does the
+token-dependent bookkeeping.  The dispatch reads nothing back from the
+card: the step's operands go up from pinned host memory without blocking,
+the paged write of the decode step needs no host read
+(``transformer.decode_step``), and the tokens come back by a non-blocking
+copy into pinned memory with an event behind it.  ``submit`` is legal
+while a step is in flight; ``t_enqueue`` stamps a request's true arrival,
+from which its deadlines (``deadline_ms``, ``ttft_deadline_ms``) are
+charged by the per-step watchdog.  ``serving/async_serving.py`` is the
+open-loop front end over this split.
+
+**Energy.**  Every device call is charged the roofline energy of the
+weights it streams, the KV rows it touches and its operations
+(``launch/roofline.step_joules``, H100 constants):
+``metrics["energy_joules"]`` is a model, not a measurement.
+
+Not ported yet (ROADMAP): speculative decoding, fault injection and mesh
+sharding raise at construction.
 """
 
 from __future__ import annotations
@@ -39,15 +58,17 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
-from repro_torch.models.model import Model, params_to
-from repro_torch.serving.faults import ERR_NAN
+from repro_torch.launch.roofline import step_joules, tree_bytes
+from repro_torch.models.model import Model, count_params, params_to
+from repro_torch.serving.faults import (ERR_DEADLINE, ERR_NAN, ERR_SHED,
+                                        SchedulerStall)
 from repro_torch.serving.paged_cache import (BlockAllocator, PagedConfig,
                                              chain_hash)
 from repro_torch.serving.scheduler import (PrefillChunk, Scheduler,
@@ -67,9 +88,8 @@ class Request:
     seed: Optional[int] = None    # PRNG root (None: engine-assigned)
     stream: int = 0               # sibling i draws stream ``stream + i``
     stop_tokens: Optional[Sequence[int]] = None  # per-request stop ids
-    deadline_ms: Optional[float] = None       # total budget since submit
+    deadline_ms: Optional[float] = None       # total budget since arrival
     ttft_deadline_ms: Optional[float] = None  # first-token budget
-    #                               (no watchdog yet: submit raises)
     # filled by the engine:
     output: Optional[List[int]] = None           # == outputs[0]
     outputs: Optional[List[List[int]]] = None    # one stream per sibling
@@ -121,6 +141,19 @@ def sample_logits_per_row(keys, logits: torch.Tensor, temperature=1.0,
     return sample_logits(keys, logits, temperature, top_p)
 
 
+def legacy_chunk_shape_keys(plan_log) -> set:
+    """The ``(B, chunk_len, pos_offset)`` shape keys a per-shape-grouped
+    chunk step would have used for the chunks in ``plan_log``: the
+    counterfactual cost that the padded chunk step avoids."""
+    keys = set()
+    for plan in plan_log:
+        groups: Dict[Any, int] = {}
+        for (_, s, e) in plan.get("prefills", []):
+            groups[(e - s, s)] = groups.get((e - s, s), 0) + 1
+        keys |= {(n, ln, off) for (ln, off), n in groups.items()}
+    return keys
+
+
 def _copy_pool_blocks(attn: Dict[str, torch.Tensor], src: torch.Tensor,
                       dst: torch.Tensor) -> None:
     """Copy whole pool blocks src -> dst across every layer (and the scale
@@ -128,6 +161,55 @@ def _copy_pool_blocks(attn: Dict[str, torch.Tensor], src: torch.Tensor,
     rows are gathered before any destination is written."""
     for buf in attn.values():
         buf[:, dst] = buf[:, src]
+
+
+class _Draw:
+    """A step's sampled tokens and logits-row finiteness on their way to the
+    host.  On the card they are copied into pinned memory without blocking
+    and an event is recorded behind the copy; :meth:`wait` blocks on that
+    event alone.  On the CPU they are there already.  ``wait`` returns
+    (tokens, finite): the first ``n_tok`` values, picked at ``rows`` when
+    given, and the rest as booleans."""
+
+    def __init__(self, both: torch.Tensor, n_tok: int,
+                 rows: Optional[List[int]] = None):
+        self.n_tok, self.rows = n_tok, rows
+        self.event = None
+        self.host = both
+        if both.is_cuda:
+            self.host = torch.empty(both.shape, dtype=both.dtype,
+                                    pin_memory=True)
+            self.host.copy_(both, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        both = self.host.numpy()
+        toks = both[:self.n_tok]
+        if self.rows is not None:
+            toks = toks[self.rows]
+        return toks, both[self.n_tok:].astype(bool)
+
+
+@dataclasses.dataclass
+class _PendingDecode:
+    """A dispatched batched decode whose tokens have not been read:
+    ``draw`` holds them on their way to the host."""
+
+    slots: List[int]
+    draw: _Draw
+    t0: float
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """A step that :meth:`Engine.step_async` returned before its decode's
+    tokens were read; :meth:`Engine.finish_step` completes it."""
+
+    decode: _PendingDecode
+    plan: StepPlan
 
 
 class Engine:
@@ -145,7 +227,11 @@ class Engine:
     is accepted as in the reference and inert while ``spec_tokens`` is 0.
     ``prefix_caching`` turns the allocator's prefix index on or off,
     ``preempt_limit`` is the scheduler's starvation bound and
-    ``nan_guard`` fails a request whose logits row is not finite; the
+    ``nan_guard`` fails a request whose logits row is not finite.
+    ``clock`` is None (the wall clock), a callable or an object with
+    ``now()`` such as :class:`~repro_torch.serving.faults.SimClock`: every
+    time stamp and deadline reads it.  ``shed_after_preempts`` sheds the
+    lowest-value waiter after that many preempting steps in a row.  The
     arguments the port shares with the reference come in its order."""
 
     def __init__(self, model: Model, params: Any, max_slots: int = 8,
@@ -154,7 +240,9 @@ class Engine:
                  n_pages: Optional[int] = None,
                  prefill_chunk_tokens: int = 512,
                  prefix_caching: bool = True, preempt_limit: int = 3,
-                 faults: Any = None, nan_guard: bool = True,
+                 faults: Any = None, clock: Any = None,
+                 nan_guard: bool = True,
+                 shed_after_preempts: Optional[int] = None,
                  spec_tokens: int = 0, draft_proposer: Any = None,
                  mesh: Any = None, device: Device = None):
         if cache_kind not in ("paged", "dense"):
@@ -166,6 +254,14 @@ class Engine:
             if off:
                 raise NotImplementedError(f"Engine({name}) is {NOT_PORTED}")
         self.device = resolve_device(device)
+        if clock is None:
+            self._now: Callable[[], float] = time.perf_counter
+        elif hasattr(clock, "now"):
+            self._now = clock.now
+        else:
+            self._now = clock
+        self._clock = clock
+        self.shed_after_preempts = shed_after_preempts
         self.key = prng.prng_key(seed)
         self.model = model
         self.params = params_to(params, self.device)
@@ -196,6 +292,18 @@ class Engine:
             max_slots=max_slots, max_seq=max_seq, pager=self.pager,
             prefill_chunk_tokens=prefill_chunk_tokens,
             preempt_limit=preempt_limit)
+        # roofline energy model: every device call streams the weights once
+        # plus the KV rows it touches (paged pool only, as the reference)
+        self._param_bytes = float(tree_bytes(params))
+        self._n_params = float(count_params(params))
+        self._kv_row_bytes = 0
+        if self.paged:
+            attn = self.cache["attn"]
+            per_pos = (2 * model.cfg.n_kv_heads * model.cfg.hd()
+                       * attn["k"].element_size())
+            if "ks" in attn:
+                per_pos += 2 * model.cfg.n_kv_heads * 4   # dequant scales
+            self._kv_row_bytes = per_pos * model.cfg.n_layers
         self.plan_log: List[Dict[str, Any]] = []
         self.metrics = {"tokens_out": 0, "requests_done": 0,
                         "decode_steps": 0, "t_decode": 0.0,
@@ -210,14 +318,31 @@ class Engine:
                         # uid -> {cached_tokens, cache_hit}
                         "requests": {},
                         "requests_failed": 0, "requests_rejected": 0,
-                        "nan_rows": 0}
+                        "nan_rows": 0, "deadline_misses": 0,
+                        "shed_requests": 0,
+                        # roofline accounting: prefix K/V bytes a chunk
+                        # step reads through the page table, against the
+                        # full-extent gather; modeled energy
+                        "prefix_attn_bytes": 0,
+                        "prefix_attn_bytes_gather": 0,
+                        "energy_joules": 0.0}
         self._host_pt: Optional[np.ndarray] = None
         self._done_at_prefill: List[Request] = []
         self._rejected: List[Request] = []
         self._uid = 0
+        self._step = 0
+        self._pending: Optional[_PendingStep] = None
+        self._preempt_streak = 0
 
     def _put(self, x, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+        """Host -> device upload of a step operand.  On the card the array
+        is staged in pinned memory and copied without blocking the host;
+        the caching host allocator keeps each staging block until an event
+        behind its copy has passed, so none is rewritten in flight."""
+        t = torch.as_tensor(np.asarray(x), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt: np.ndarray, **kw) -> int:
@@ -227,15 +352,18 @@ class Engine:
         dense cache, a prompt that could never fit the pool) gets ``.error``
         here and comes back from the next :meth:`run` without entering the
         scheduler.  Its root key is ``prng_key(seed)``, or the next split
-        of the engine's key when no seed is given.  Deadlines
-        (``deadline_ms``, ``ttft_deadline_ms``) are not ported yet and
-        raise."""
-        for name in ("deadline_ms", "ttft_deadline_ms"):
-            if kw.get(name) is not None:
-                raise NotImplementedError(f"submit({name}) is {NOT_PORTED}")
+        of the engine's key when no seed is given.
+
+        Legal at any time, also between :meth:`step_async` and
+        :meth:`finish_step`: the request waits for the next plan.
+        ``t_enqueue`` stamps its true arrival (an open-loop front end
+        releases arrivals between steps, after their instant); queueing
+        delay and deadlines are charged from it."""
         self._uid += 1
+        t_enq = kw.pop("t_enqueue", None)
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32),
-                      t_enqueue=time.perf_counter(), output=[], **kw)
+                      t_enqueue=self._now() if t_enq is None else t_enq,
+                      output=[], **kw)
         if req.seed is not None:
             req.rng_key = prng.prng_key(req.seed)
         else:
@@ -249,9 +377,20 @@ class Engine:
         self.scheduler.add(req)
         return req.uid
 
+    def submit_request(self, prompt: np.ndarray, **kw) -> Request:
+        """:meth:`submit`, returning the :class:`Request` itself: the async
+        front end holds it to stream its outputs while it is in flight."""
+        uid = self.submit(prompt, **kw)
+        if self._rejected and self._rejected[-1].uid == uid:
+            return self._rejected[-1]
+        req = self.scheduler.request(uid)
+        assert req is not None, f"submitted uid {uid} vanished"
+        return req
+
     def run(self, max_steps: int = 10_000) -> List[Request]:
-        """Serve until the scheduler drains; returns every finished or
-        rejected request."""
+        """Serve until the scheduler drains; returns every finished,
+        rejected or failed request (deadline, shed, NaN), each failure
+        with its typed ``error_kind``."""
         done: List[Request] = []
         for _ in range(max_steps):
             out = self.step()
@@ -260,32 +399,75 @@ class Engine:
             done.extend(out)
         return done
 
-    def step_async(self):
-        raise NotImplementedError(f"Engine.step_async is {NOT_PORTED}")
-
     def step(self) -> Optional[List[Request]]:
-        """Execute one scheduler step; returns the requests that completed
-        or were rejected during it, or None when the engine is idle."""
+        """Execute one scheduler step to its end; returns the requests that
+        completed, were rejected or failed during it, or None when the
+        engine is idle."""
+        done, pending = self._step_impl(sync=True)
+        assert pending is None
+        return done
+
+    def step_async(self):
+        """:meth:`step` without waiting for the decode's tokens: returns
+        ``(done, pending)``; ``pending`` (when not None) is the dispatched
+        decode, which :meth:`finish_step` completes.  The card computes
+        the decode and its sampling while the host takes arrivals and
+        flushes streams.  The chunk step runs to its end first, as in the
+        reference: its first tokens decide fanouts and stops."""
+        return self._step_impl(sync=False)
+
+    def finish_step(self, pending: Optional[_PendingStep] = None
+                    ) -> List[Request]:
+        """Complete a :meth:`step_async` step: wait for its tokens, append
+        them, register filled blocks, retire stops.  Returns ``[]`` when
+        nothing is pending."""
+        if pending is None:
+            pending = self._pending
+        if pending is None:
+            return []
+        self._pending = None
+        done = self._decode_complete(pending.decode)
+        self._step_tail(pending.plan)
+        return done
+
+    def _step_impl(self, sync: bool):
+        """One scheduler step; returns ``(done, pending)``, ``done`` None
+        when the engine was idle.  ``sync=False`` leaves the decode's
+        completion to :meth:`finish_step`."""
+        if self._pending is not None:
+            raise RuntimeError(
+                "finish_step() must complete the in-flight step before "
+                "the next one is dispatched")
         done: List[Request] = []
-        now = time.perf_counter()
-        for req in self._rejected:
-            req.t_done = now
-            self.metrics["requests_rejected"] += 1
-            done.append(req)
-        self._rejected = []
+        if self._rejected:
+            now = self._now()
+            for req in self._rejected:
+                req.t_done = now
+                self.metrics["requests_rejected"] += 1
+                done.append(req)
+            self._rejected = []
         if not self.scheduler.has_work():
-            return done if done else None
+            return (done if done else None), None
+        self._step += 1
         plan = self.scheduler.schedule()
-        now = time.perf_counter()
+        now = self._now()
         for req in plan.rejected:
             req.t_done = now
             self.metrics["requests_rejected"] += 1
             done.append(req)
-        if not plan.made_progress():
-            raise RuntimeError(
-                "scheduler made no progress with work pending (waiting="
-                f"{len(self.scheduler.waiting)}, running="
-                f"{len(self.scheduler.running)})")
+        expired = self._enforce_deadlines(plan)
+        done.extend(expired)
+        if not plan.made_progress() and not expired:
+            self._handle_stall()
+        if plan.preempted and self.shed_after_preempts is not None:
+            self._preempt_streak += 1
+            if self._preempt_streak >= self.shed_after_preempts:
+                done.extend(self._shed(
+                    f"{self._preempt_streak} consecutive preempting "
+                    "steps (thrash)"))
+                self._preempt_streak = 0
+        elif not plan.preempted:
+            self._preempt_streak = 0
         self.plan_log.append(plan.summary())
         for uid, cached in plan.admitted:
             self.metrics["requests"].setdefault(
@@ -308,16 +490,19 @@ class Engine:
             self.metrics["cow_copies"] += len(plan.cows)
         if plan.prefills:
             done.extend(self._run_chunks(plan.prefills))
-            self.metrics["prefill_compiles"] = \
-                self.model.prefill_compile_count()
+            self.metrics["prefill_compiles"] = self.prefill_compile_count()
             self.plan_log[-1]["prefill_compiles"] = \
                 self.metrics["prefill_compiles"]
         done.extend(self._done_at_prefill)
         self._done_at_prefill = []
         if plan.decodes:
+            if not sync:
+                self._pending = _PendingStep(
+                    self._decode_dispatch(plan.decodes), plan)
+                return done, self._pending
             done.extend(self._decode_once(plan.decodes))
         self._step_tail(plan)
-        return done
+        return done, None
 
     def _step_tail(self, plan: StepPlan) -> None:
         self.metrics["steps_per_token"] = (
@@ -346,6 +531,89 @@ class Engine:
         t = self.metrics["t_decode"]
         return self.metrics["tokens_out"] / t if t > 0 else 0.0
 
+    def prefill_compile_count(self) -> int:
+        """Distinct padded shapes the chunk step has run with for this
+        model config (the counterpart of the reference's compile count:
+        one per pool key)."""
+        return self.model.prefill_compile_count()
+
+    # -- deadlines, shedding, stalls -----------------------------------------
+    def _fail_request(self, req: Request, msg: str, kind: str,
+                      plan: Any = None, quarantine: bool = False
+                      ) -> Request:
+        """Fail one request (its whole sampling group) while the rest of the
+        batch serves on: quarantine the blocks it wrote when their content
+        is suspect (NaN), retract what it still has planned in ``plan``,
+        release its leases, stamp the typed error."""
+        if self.paged and quarantine:
+            bs = self.page_size
+            for slot, seq in list(self.scheduler.running.items()):
+                if seq.req is req:
+                    self.pager.quarantine(slot, seq.cached_len // bs)
+        self.scheduler.fail_request(req, plan)
+        req.error, req.error_kind = msg, kind
+        req.t_done = self._now()
+        self.metrics["requests_failed"] += 1
+        return req
+
+    def _enforce_deadlines(self, plan: StepPlan) -> List[Request]:
+        """The per-step watchdog: fail every request in flight past its
+        TTFT or total deadline, charged from its arrival (work it had
+        planned this step retracts; the others' streams are unaffected,
+        their sampling being keyed per row)."""
+        failed: List[Request] = []
+        now = self._now()
+        reqs: Dict[int, Request] = {}
+        for seq in (list(self.scheduler.running.values())
+                    + list(self.scheduler.waiting)):
+            reqs.setdefault(seq.req.uid, seq.req)
+        for req in reqs.values():
+            if req.error is not None:
+                continue
+            age_ms = (now - req.t_enqueue) * 1e3
+            if (req.ttft_deadline_ms is not None
+                    and req.t_first_token == 0.0
+                    and age_ms > req.ttft_deadline_ms):
+                which, budget = "ttft", req.ttft_deadline_ms
+            elif req.deadline_ms is not None and age_ms > req.deadline_ms:
+                which, budget = "total", req.deadline_ms
+            else:
+                continue
+            self.metrics["deadline_misses"] += 1
+            failed.append(self._fail_request(
+                req, f"{which} deadline of {budget:g} ms exceeded "
+                     f"({age_ms:.1f} ms since submit)", ERR_DEADLINE,
+                plan=plan))
+        return failed
+
+    def _shed(self, reason: str) -> List[Request]:
+        """Admission-reject the lowest-value waiter (typed error)."""
+        shed: List[Request] = []
+        for req in self.scheduler.shed_load(1):
+            req.error = f"load shed: {reason}"
+            req.error_kind = ERR_SHED
+            req.t_done = self._now()
+            self.metrics["shed_requests"] += 1
+            self.metrics["requests_failed"] += 1
+            shed.append(req)
+        return shed
+
+    def _handle_stall(self) -> None:
+        """An idle plan with work pending breaks the scheduler's contract
+        (defer, preempt or reject): raise :class:`SchedulerStall` with the
+        queue snapshot.  (The reference's fault layer sheds instead; it is
+        not ported.)"""
+        waiting, running = (len(self.scheduler.waiting),
+                            len(self.scheduler.running))
+        snapshot = {
+            "step": self._step, "injected": False,
+            "waiting": [s.req.uid for s in self.scheduler.waiting],
+            "running": {slot: seq.req.uid for slot, seq
+                        in sorted(self.scheduler.running.items())}}
+        raise SchedulerStall(
+            "scheduler made no progress with work pending "
+            f"(waiting={waiting}, running={running})", snapshot)
+
     # -- internals ------------------------------------------------------
     def _seq_key(self, seq) -> torch.Tensor:
         """The sequence's sampling-stream root, ``fold_in(request_root,
@@ -357,14 +625,14 @@ class Engine:
         return seq.sample_key
 
     def _draw(self, logits: torch.Tensor, rows: List[int], make_keys,
-              temps: List[float], top_ps: List[float]):
+              temps: List[float], top_ps: List[float]) -> _Draw:
         """Sample one token from logits row ``rows[j]`` with key
         ``make_keys()[j]``, ``temps[j]`` and ``top_ps[j]`` for each j (rows
         may repeat), and check every logits row for finiteness; both come
-        to the host in one copy.  When every draw is greedy the argmax is
-        the sampler's result whatever the keys, so neither the keys nor the
-        draw are computed.  Without ``nan_guard`` every row counts as
-        finite."""
+        to the host in one copy, which the returned :class:`_Draw` waits
+        for.  When every draw is greedy the argmax is the sampler's result
+        whatever the keys, so neither the keys nor the draw are computed.
+        Without ``nan_guard`` every row counts as finite."""
         if self.nan_guard:
             finite = torch.isfinite(logits).all(dim=-1).to(torch.int64)
         else:
@@ -373,20 +641,17 @@ class Engine:
         if all(t <= 0.0 for t in temps):
             # greedy: every row's argmax, picked on the host
             both = torch.cat([torch.argmax(logits, dim=-1), finite])
-            both = both.cpu().numpy()
-            b = logits.shape[0]
-            return both[:b][rows], both[b:].astype(bool)
+            return _Draw(both, logits.shape[0], rows)
         # one host-to-card copy: rows, the two key words, t, top_p
-        args = torch.cat([
+        args = self._put(torch.cat([
             torch.tensor(rows, dtype=torch.float64)[:, None],
             make_keys().to(torch.float64),
             torch.tensor([temps, top_ps], dtype=torch.float64).T],
-            dim=1).to(self.device)
+            dim=1), torch.float64)
         tok = sample_logits_per_row(args[:, 1:3].long(),
                                     logits[args[:, 0].long()],
                                     args[:, 3].float(), args[:, 4].float())
-        both = torch.cat([tok.to(torch.int64), finite]).cpu().numpy()
-        return both[:len(rows)], both[len(rows):].astype(bool)
+        return _Draw(torch.cat([tok.to(torch.int64), finite]), len(rows))
 
     def _first_tokens(self, logits: torch.Tensor,
                       chunks: List[PrefillChunk]):
@@ -415,21 +680,52 @@ class Engine:
         toks, finite = self._draw(
             logits, rows, lambda: prng.fold_in(prng.fold_in(
                 torch.stack(roots), torch.tensor(streams)), 0),
-            temps, top_ps)
+            temps, top_ps).wait()
         return {i: toks[span] for i, span in spans.items()}, finite
 
-    def _fail_request(self, req: Request, msg: str, kind: str) -> Request:
-        """Fail one request whose KV is suspect: quarantine the blocks it
-        wrote, release its leases, stamp the typed error."""
-        bs = self.page_size
-        for slot, seq in list(self.scheduler.running.items()):
-            if seq.req is req and self.paged:
-                self.pager.quarantine(slot, seq.cached_len // bs)
-        self.scheduler.fail_request(req)
-        req.error, req.error_kind = msg, kind
-        req.t_done = time.perf_counter()
-        self.metrics["requests_failed"] += 1
-        return req
+    def _account_energy(self, n_tokens: float, attn_pairs: float,
+                        kv_rows_read: float) -> None:
+        """Add the modeled energy of one device call to
+        ``metrics["energy_joules"]`` (``roofline.step_joules``): the call
+        streams the weights once plus the KV rows it touches
+        (``kv_rows_read`` reads and one write a token) and runs ``2 P``
+        operations a token plus ``4 H hd`` per (query, key) pair a
+        layer."""
+        if n_tokens <= 0:
+            return
+        cfg = self.model.cfg
+        bytes_moved = (self._param_bytes
+                       + (kv_rows_read + n_tokens) * self._kv_row_bytes)
+        flops = (2.0 * self._n_params * n_tokens
+                 + 4.0 * cfg.n_heads * cfg.hd() * cfg.n_layers
+                 * attn_pairs)
+        self.metrics["energy_joules"] += step_joules(bytes_moved, flops)
+
+    def _account_prefix_bytes(self, offs: np.ndarray,
+                              lens: np.ndarray) -> None:
+        """The prefix K/V bytes one chunk step reads, per layer and row:
+        the paged kernel fetches ``ceil(prefix / block_size)`` live blocks
+        through the page table, where a gather would take every row's
+        whole ``max_blocks x block_size`` extent.  The same numbers charge
+        the call's energy: the prefix rows are its KV reads, and each row
+        attends causally within its own chunk."""
+        k = self.cache["attn"]["k"]
+        _, _, bs, kvh, hd = k.shape
+        mb = self.pager.cfg.max_blocks_per_seq
+        n_layers = self.model.cfg.n_layers
+        per_pos = 2 * kvh * hd * k.element_size()
+        if "ks" in self.cache["attn"]:
+            per_pos += 2 * kvh * 4               # f32 dequant scales
+        live = lens > 0
+        live_tiles = int((-(-offs[live] // bs)).sum())
+        self.metrics["prefix_attn_bytes"] += (
+            live_tiles * bs * per_pos * n_layers)
+        self.metrics["prefix_attn_bytes_gather"] += (
+            int(live.sum()) * mb * bs * per_pos * n_layers)
+        ln = lens.astype(np.int64)
+        pairs = float((ln * offs + ln * (ln + 1) // 2).sum())
+        self._account_energy(float(ln.sum()), pairs,
+                             float(live_tiles * bs))
 
     def _run_chunks(self, chunks: List[PrefillChunk]) -> List[Request]:
         """Paged: all of this step's chunks as ONE call padded to the fixed
@@ -449,13 +745,14 @@ class Engine:
             toks[i, :lens[i]] = c.seq.tokens[c.start:c.end]
             offs[i] = c.start
             slots[i] = c.seq.slot
-        t0 = time.perf_counter()
+        t0 = self._now()
         logits, self.cache = self.model.prefill_chunk_batch(
             self.params, toks, self.cache, slots, offs,
             page_table=self._host_pt, chunk_lens=lens)
-        first, finite = self._first_tokens(logits, chunks)
-        self.metrics["t_prefill"] += time.perf_counter() - t0
         self.metrics["chunk_batch_calls"] += 1
+        self._account_prefix_bytes(offs, lens)
+        first, finite = self._first_tokens(logits, chunks)
+        self.metrics["t_prefill"] += self._now() - t0
         for i, c in enumerate(chunks):
             seq = c.seq
             if self.scheduler.running.get(seq.slot) is not seq:
@@ -463,7 +760,8 @@ class Engine:
             if not finite[i]:
                 self.metrics["nan_rows"] += 1
                 failed.append(self._fail_request(
-                    seq.req, "non-finite logits during prefill", ERR_NAN))
+                    seq.req, "non-finite logits during prefill", ERR_NAN,
+                    quarantine=True))
                 continue
             self._register_blocks(seq)
             self._finish_chunk(c, first.get(i))
@@ -473,17 +771,18 @@ class Engine:
                             ) -> List[Request]:
         failed: List[Request] = []
         for c in chunks:
-            t0 = time.perf_counter()
+            t0 = self._now()
             logits, pcache = self.model.prefill(
                 self.params, {"tokens": c.seq.tokens[None, c.start:c.end]},
                 max_seq=self.max_seq)
             self._merge_slot_cache(c.seq.slot, pcache, c.end)
             first, finite = self._first_tokens(logits, [c])
-            self.metrics["t_prefill"] += time.perf_counter() - t0
+            self.metrics["t_prefill"] += self._now() - t0
             if not finite[0]:
                 self.metrics["nan_rows"] += 1
                 failed.append(self._fail_request(
-                    c.seq.req, "non-finite logits during prefill", ERR_NAN))
+                    c.seq.req, "non-finite logits during prefill", ERR_NAN,
+                    quarantine=True))
                 continue
             self._finish_chunk(c, first.get(0))
         return failed
@@ -511,10 +810,11 @@ class Engine:
             seq.group.finished += 1
             if seq.group.finished < seq.group.n:
                 return None
-        req.t_done = time.perf_counter()
+        req.t_done = self._now()
         if req.outputs is None:
             req.outputs = [seq.output]
         self.metrics["requests_done"] += 1
+        self._preempt_streak = 0     # a completion shows no thrash
         return req
 
     def _finish_chunk(self, chunk: PrefillChunk, first) -> None:
@@ -546,7 +846,7 @@ class Engine:
             # first decode; their page-table rows publish at the next
             # step's republish
             self.cache["lens"][[s.slot for s in sibs[1:]]] = seq.kv_len
-        req.t_first_token = time.perf_counter()
+        req.t_first_token = self._now()
         for s in sibs:
             # a first token can already be terminal (a stop id, eos or
             # max_new_tokens=1): retire the sibling before any decode
@@ -576,35 +876,55 @@ class Engine:
         seq.registered = full
 
     def _decode_once(self, slots: List[int]) -> List[Request]:
-        """One batched decode step over every slot row; rows outside
-        ``slots`` are ignored and their lengths re-synced after.  Row ``i``
-        draws with ``fold_in(stream_key, len(output))`` of its sequence."""
+        """One batched decode step over every slot row, dispatched and
+        completed back to back (the synchronous path); rows outside
+        ``slots`` are ignored and their lengths re-synced after."""
+        return self._decode_complete(self._decode_dispatch(slots))
+
+    def _decode_dispatch(self, slots: List[int]) -> _PendingDecode:
+        """The token-independent half of a decode step: upload the rows'
+        tokens, run the batched ``decode_step`` and the sampling, and start
+        the tokens' copy to the host, without waiting for the card.  Row
+        ``i`` draws with ``fold_in(stream_key, len(output))`` of its
+        sequence."""
         tokens = np.zeros((self.max_slots,), np.int32)
         seqs = [self.scheduler.running[i] for i in slots]
         for i, seq in zip(slots, seqs):
             tokens[i] = seq.output[-1]
-        t0 = time.perf_counter()
+        t0 = self._now()
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._put(tokens))
-        drawn, finite = self._draw(
+        draw = self._draw(
             logits, slots, lambda: prng.fold_in(
                 torch.stack([self._seq_key(seq) for seq in seqs]),
                 torch.tensor([len(seq.output) for seq in seqs])),
             [seq.req.temperature for seq in seqs],
             [seq.req.top_p for seq in seqs])
-        nxt = dict(zip(slots, drawn))
-        self.metrics["t_decode"] += time.perf_counter() - t0
         self.metrics["decode_steps"] += 1
         self.metrics["seq_steps"] += len(slots)
+        kv_now = sum(seq.kv_len for seq in seqs)
+        self._account_energy(float(len(slots)), float(kv_now),
+                             float(kv_now))
+        return _PendingDecode(slots=slots, draw=draw, t0=t0)
+
+    def _decode_complete(self, p: _PendingDecode) -> List[Request]:
+        """The token-dependent half: wait for the tokens, append them,
+        register filled blocks, retire stops, re-sync lengths.  ``t_decode``
+        is charged from dispatch to here, the host's overlap window
+        included, as in the reference."""
+        drawn, finite = p.draw.wait()
+        nxt = dict(zip(p.slots, drawn))
+        self.metrics["t_decode"] += self._now() - p.t0
         finished: List[Request] = []
-        for i in slots:
+        for i in p.slots:
             seq = self.scheduler.running.get(i)
             if seq is None or seq.req.error is not None:
                 continue
             if not finite[i]:
                 self.metrics["nan_rows"] += 1
                 finished.append(self._fail_request(
-                    seq.req, "non-finite logits during decode", ERR_NAN))
+                    seq.req, "non-finite logits during decode", ERR_NAN,
+                    quarantine=True))
                 continue
             tok = int(nxt[i])
             seq.output.append(tok)

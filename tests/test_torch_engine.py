@@ -34,7 +34,7 @@ from repro_torch.core import qlinear as tqlinear
 from repro_torch.kernels import build
 from repro_torch.models.model import Model, build_model
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.faults import ERR_NAN
+from repro_torch.serving.faults import ERR_DEADLINE, ERR_NAN, SimClock
 
 torch.set_num_threads(2)
 
@@ -146,16 +146,26 @@ def test_engine_arguments_follow_the_reference_order():
 
 
 @pytest.mark.parametrize("name", ["deadline_ms", "ttft_deadline_ms"])
-def test_submit_with_a_deadline_is_not_ported_yet(name):
-    """A deadline is a field of the port's Request, as of the
-    reference's, but no watchdog enforces it yet: submit raises
-    NotImplementedError (never TypeError) and queues nothing."""
+def test_submit_with_a_deadline_is_enforced(name):
+    """A deadline is charged from arrival on the engine's clock: a request
+    whose budget has passed before its first step fails with the typed
+    deadline error, counted in ``deadline_misses``, and the request beside
+    it is served."""
     tm = build_model(tconfigs.reduced(tconfigs.get_config("llama2-110m")))
-    eng = Engine(tm, tm.init(0, device="cpu"), **ENGINE, nan_guard=False,
+    clock = SimClock(start=1.0)
+    eng = Engine(tm, tm.init(0, device="cpu"), **ENGINE, clock=clock,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        eng.submit(np.arange(4, 9, dtype=np.int32), **{name: 100.0})
-    assert not eng.scheduler.has_work() and eng.run() == []
+    late = eng.submit(np.arange(4, 9, dtype=np.int32), max_new_tokens=3,
+                      **{name: 100.0})
+    eng.submit(np.arange(4, 11, dtype=np.int32), max_new_tokens=3,
+               temperature=0.0)
+    clock.advance_ms(150.0)
+    done = {r.uid: r for r in eng.run()}
+    assert done[late].error_kind == ERR_DEADLINE
+    assert done[late].t_done == clock.now() and done[late].output == []
+    assert [r.error for u, r in done.items() if u != late] == [None]
+    assert eng.metrics["deadline_misses"] == 1
+    assert all(rc == 0 for rc in eng.pager.refcount)
 
 
 @pytest.mark.parametrize("nan_guard", [True, False])

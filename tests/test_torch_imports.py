@@ -83,8 +83,15 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         serve.run(requests=1)
     eng = Engine(m, params, max_slots=2, max_seq=16, page_size=8,
                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.step_async()
+    assert eng.step_async() == (None, None)          # idle
+    eng.submit([5, 6, 7], max_new_tokens=3, temperature=0.0)
+    pending = None
+    while pending is None and eng.scheduler.has_work():
+        _, pending = eng.step_async()
+    assert pending is not None
+    eng.finish_step(pending)
+    assert eng.finish_step() == [] and eng._pending is None
+    eng.run()
     # sampled requests and best-of-n groups are served now
     eng.submit([5, 6, 7], max_new_tokens=2)          # temperature 1.0
     eng.submit([5, 6, 7], max_new_tokens=2, temperature=0.7, top_p=0.9,

@@ -199,3 +199,56 @@ def test_norm_and_rope_match_jax():
                       ts[..., None, :]).numpy(),
         np.asarray(JL.apply_rope(jnp.asarray(xr), jc[..., None, :],
                                  js[..., None, :])), atol=1e-5)
+
+
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+def test_paged_decode_write_equals_the_nonzero_form(kv, monkeypatch):
+    """The paged decode step writes every row, sending rows without a
+    target block to the pool's scratch block, so that no host read picks
+    the live rows.  Its pool stays bitwise what the former write gave:
+    each layer's K/V rows of ``nonzero(block >= 0)`` written at (block,
+    offset), the rest dropped.  Rows: live mid-block, live at a block's
+    first offset, released (all -1) and mid-prefill (its next block not
+    leased yet); the pool starts random, so a stray write would show."""
+    from repro_torch.models import transformer
+    cfg = tconfigs.reduced(tconfigs.get_config("llama2-110m")).with_(
+        kv_cache_dtype=kv)
+    tm = build_model(cfg)
+    params = tm.quantize(tm.init(0, device="cpu"))
+    b, bs, nb, mb = 4, 4, 12, 4
+    cache = tm.init_paged_cache(b, block_size=bs, n_blocks=nb,
+                                max_blocks_per_seq=mb, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for name, buf in cache["attn"].items():
+        if buf.dtype == torch.int8:
+            buf.copy_(torch.randint(-127, 128, buf.shape, generator=gen))
+        else:
+            buf.copy_(torch.rand(buf.shape, generator=gen))
+    pt = torch.full((b, mb), -1, dtype=torch.int32)
+    pt[0, :2] = torch.tensor([3, 7])          # live, pos 6: block 7 off 2
+    pt[1, :3] = torch.tensor([0, 5, 9])       # live, pos 8: block 9 off 0
+    pt[3, :1] = torch.tensor([2])             # mid-prefill, pos 5: no block
+    cache["page_table"] = pt
+    cache["lens"] = torch.tensor([6, 8, 0, 5], dtype=torch.int32)
+    before = {n: buf.clone() for n, buf in cache["attn"].items()}
+
+    seen = []
+    write = transformer._write_rows
+
+    def spy(lc, k, v, blk, off):
+        seen.append((k.clone(), v.clone()))
+        write(lc, k, v, blk, off)
+
+    monkeypatch.setattr(transformer, "_write_rows", spy)
+    tm.decode_step(params, cache, torch.tensor([5, 6, 7, 8]))
+    assert len(seen) == cfg.n_layers
+
+    pos = torch.tensor([6, 8, 0, 5])
+    blk_id = pt[torch.arange(b), torch.clamp(pos // bs, 0, mb - 1)]
+    rows = torch.nonzero(blk_id >= 0).squeeze(1)
+    assert rows.tolist() == [0, 1]
+    for i, (k, v) in enumerate(seen):
+        write({n: buf[i] for n, buf in before.items()}, k[rows], v[rows],
+              blk_id[rows].long(), (pos % bs)[rows].long())
+    for name, buf in cache["attn"].items():
+        assert torch.equal(buf, before[name]), name

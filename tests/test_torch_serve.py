@@ -2,8 +2,9 @@
 
 Same seeded prompts, the same argparse surface and defaults (the port adds
 ``--device``), a closed batch served at the reference's default sampling
-(temperature 1.0, top-p 1.0) on the reduced config, and a
-``NotImplementedError`` for every flag whose path is not ported yet.
+(temperature 1.0, top-p 1.0) on the reduced config, the open loop
+(``--open-loop``), and a ``NotImplementedError`` for every flag whose path
+is not ported yet.
 """
 
 import argparse
@@ -59,8 +60,8 @@ def test_argparse_defaults_match_the_reference(monkeypatch):
     assert got["device"] is None
 
 
-@pytest.mark.parametrize("flags", [["--spec-tokens", "1"], ["--open-loop"],
-                                   ["--mesh", "2"], ["--ckpt-dir", "x"]],
+@pytest.mark.parametrize("flags", [["--spec-tokens", "1"], ["--mesh", "2"],
+                                   ["--ckpt-dir", "x"]],
                          ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -94,3 +95,24 @@ def test_module_entry_point_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "[serve] 3/3 requests" in out.stdout
     assert "TTFT p50" in out.stdout
+
+
+def test_open_loop_serves_every_request_at_a_fixed_rate(capsys):
+    """``--open-loop --rate 50``: seeded Poisson arrivals served while
+    earlier requests decode; every request completes, the report's
+    latencies are charged from true arrival and none is negative, and the
+    streams equal the closed batch's (same seeds, same order)."""
+    build.reset_launches()
+    args = ["--requests", "4", "--slots", "2", "--max-seq", "64",
+            "--max-new", "6", "--device", "cpu"]
+    serve.main(args + ["--open-loop", "--rate", "50", "--stream"])
+    out = capsys.readouterr().out
+    assert "[serve] open loop: 4/4 ok (0 failed)" in out
+    assert "TTFT p50" in out and "goodput" in out
+    assert out.count(" done (ok)") == 4
+    assert all(v == 0 for v in build.LAUNCHES.values())   # CPU: plain
+    eng, reqs = serve.run(use_reduced=True, requests=4, slots=2, max_seq=64,
+                          max_new=6, device="cpu", open_loop=True, rate=50.0)
+    assert all(r.error is None and 1 <= len(r.output) <= 6 for r in reqs)
+    assert all(r.t_first_token >= r.t_enqueue for r in reqs)
+    assert all(rc == 0 for rc in eng.pager.refcount)
