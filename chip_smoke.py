@@ -16,7 +16,13 @@ single stream (phase 9), ``launch/serve.py`` at its own sampling defaults
 open-loop serving (phase 13): seeded Poisson arrivals through
 ``serving/async_serving.py`` bitwise equal to the closed batch, a decode
 step dispatched under CUDA's sync debug mode, deadlines, shedding and
-``serve.py --open-loop``.
+``serve.py --open-loop``, speculative decoding (phase 14): n-gram drafts
+verified on the f32 pool at 8 x 5 rows and the int8 pool at 8 x 4, f32
+weights, a replay oracle, always-wrong drafts and a draft model, each
+against the plain streams under a tolerance measured in the run, and the
+fault domain (phase 15): retries, isolation, NaN rows (a verify row too),
+the allocator audit and slow steps, survivors bitwise.  Phase 2 also
+holds the kernels at the verify's shapes.
 Every served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
@@ -532,17 +538,16 @@ def check_q4(report, dev):
 def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
                       d=64, timed=False, yardsticks=True):
     """One decode_attention call on a (B, S, KVH, D) cache against its plain
-    version (tolerance 2e-5; a length-0 row exactly 0) and bitwise against
-    paged_decode_attention on the identity page table over the same rows
-    (pages of 64, a table S / 64 wide).  ``timed``: also its device time on
+    version (tolerance 2e-5; a length-0 row exactly 0) and, where S is a
+    multiple of 64, bitwise against paged_decode_attention on the identity
+    page table over the same rows (pages of 64, a table S / 64 wide).
+    ``timed``: also its device time on
     L2-cold caches and its bound; ``yardsticks``: the plain version's and
     SDPA's times beside it.  Returns a dict."""
     from repro_torch.core.quantization import quantize_rows
     from repro_torch.kernels import ops, ref
     b, h = len(lens_l), kvh * hq
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    pt = torch.arange(b * s // 64, dtype=torch.int32,
-                      device=dev).reshape(b, s // 64)
 
     def cache():
         k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
@@ -557,10 +562,15 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
     q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
     got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
     want = ref.ref_decode_attention(q, k, v, lens.reshape(b, 1), ksc, vsc)
-    pool = [None if t is None else t.reshape(b * s // 64, 64, *t.shape[2:])
-            for t in (k, v, ksc, vsc)]
-    paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt, lens,
-                                              pool[2], pool[3])
+    paged = got
+    if s % 64 == 0:
+        pt = torch.arange(b * s // 64, dtype=torch.int32,
+                          device=dev).reshape(b, s // 64)
+        pool = [None if t is None else
+                t.reshape(b * s // 64, 64, *t.shape[2:])
+                for t in (k, v, ksc, vsc)]
+        paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt,
+                                                  lens, pool[2], pool[3])
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 2e-5   # online vs one-pass softmax: f32 summation order only
@@ -642,6 +652,47 @@ def check_dense_attention(report, dev):
                b1_1024_library_ms=b1[1024]["lib"],
                per="one layer's call, f32 cache (int8_* for the int8 cache, "
                    "b1_* at batch 1)")
+
+
+def check_verify_edges(report, dev):
+    """The kernels at the speculative verify's shapes, untimed, at their
+    checks' tolerances (a GEMV within 2e-5, a GEMM bitwise): q8_matvec at
+    M = 32 = 8 slots x (3 + 1) and q8_matmul at M = 40 = 8 x (4 + 1), at
+    the head's N = 32000 and the MLP's products; paged_prefill_attention
+    with chunks of 4 and 5 rows at 8 slots over phase 2's prefix lengths,
+    f32 and int8 pools; decode_attention at S = 613, no multiple of a page
+    (the draft model's dense cache holds len(context) + k positions).  Each
+    kernel's worst error joins its row of the kernels line."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(9)
+    operands = _q8_operands(gen, dev)
+    worst = {}
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+    for name, kernel, m in (("q8_matvec", ops.q8_matvec_kernel, 32),
+                            ("q8_matmul", ops.q8_matmul_kernel, 40)):
+        for n, k in ((32000, 768), (4096, 768), (2048, 768), (768, 2048)):
+            note(name, _quant_check(kernel, ref.ref_q8_matmul, name, m, n, k,
+                                    64, *operands(m, n, k))[0])
+    for c in (4, 5):
+        for int8 in (False, True):
+            note("paged_prefill_attention", paged_prefill_case(
+                gen, dev, PREFILL_PFX, [c, c, 1, c - 1, c, 0, c, 2], int8,
+                c=c)["err"])
+    for int8 in (False, True):
+        note("decode_attention", dense_decode_case(
+            gen, dev, [613, 609, 1, 0, 300, 612, 64, 65], int8,
+            s=613)["err"])
+    for name, err in worst.items():
+        row = report.rows.get(name)
+        if row is not None:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"  verify shapes: q8_matvec at M=32 and q8_matmul at M=40 (N 32000, "
+        f"4096, 2048 at K 768; N 768 at K 2048), paged_prefill_attention at "
+        f"C = 4 and 5 (8 slots, f32 and int8), decode_attention at S = 613 "
+        f"(f32 and int8): within tolerance, worst "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
 
 
 def sass_count(name: str, *words: str) -> int:
@@ -1657,13 +1708,16 @@ def _requests(n, lo, hi, vocab, seed, shared_len=0, shared_at=()):
     return out
 
 
-def serve(model, params, prompts, dev, max_new, sampling=None, **engine_kw):
+def serve(model, params, prompts, dev, max_new, sampling=None, setup=None,
+          **engine_kw):
     """Serve ``prompts`` greedily, or with the per-request ``sampling``
     keyword dicts; returns the engine, each request's streams (its output,
     or its list of sibling outputs when it has several) and the wall
-    time."""
+    time.  ``setup(engine)`` runs before the first submit."""
     from repro_torch.serving.engine import Engine
     eng = Engine(model, params, device=dev, **engine_kw)
+    if setup is not None:
+        setup(eng)
     for i, p in enumerate(prompts):
         kw = dict(temperature=0.0) if sampling is None else sampling[i]
         eng.submit(p, max_new_tokens=max_new, **kw)
@@ -1802,7 +1856,8 @@ def profiled(fn):
     return out, busy / wall
 
 
-def check_launches(eng, launches, cfg, counted, bits=8):
+def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
+                   float_weights=False):
     """Every kernel of the run's path ran, and exactly as often as the
     path's shape says.  Each decode step: 4 GEMVs per layer + the head, one
     rope and one attention call per layer, and one rmsnorm_quant per
@@ -1819,7 +1874,15 @@ def check_launches(eng, launches, cfg, counted, bits=8):
     path may take its dp4a kernel (``q8_matmul_dp4a`` and
     ``q4_matvec_dp4a`` stay 0, as every counter the path does not set):
     llama2-110m's group 64 with 16-byte aligned codes runs on the tensor
-    cores.  The counts are added
+    cores.  Each speculative verify call (the chunk step at ``max_slots x
+    (spec_tokens + 1)`` rows with the head over all of them): one
+    prefix-attention call per layer, the MLP's two products per layer and
+    the head's, all at M = max_slots * (spec_tokens + 1) (the GEMM above 32
+    rows, the GEMV at or below), rmsnorm_quant 1 per layer + 1 and
+    quantize 1 per layer.  ``extra`` adds launches made beside the engine
+    on the same run (a draft model's).  ``float_weights`` (unquantized
+    parameters): the products run on torch.matmul and no norm quantizes,
+    so only the attention kernels and rope launch.  The counts are added
     to ``counted`` for the kernels line."""
     from repro_torch.kernels import build
     nl = cfg.n_layers
@@ -1841,6 +1904,12 @@ def check_launches(eng, launches, cfg, counted, bits=8):
         want["quantize"] += nl * c
         want[attn[0]] += nl * d
         want[attn[1]] += nl * c
+        v = eng.metrics.get("verify_steps", 0)   # a parent tree may lack it
+        rows = eng.max_slots * (getattr(eng, "spec_tokens", 0) + 1)
+        want[gemm if rows > 32 else gemv] += (2 * nl + 1) * v
+        want["rmsnorm_quant"] += (nl + 1) * v
+        want["quantize"] += nl * v
+        want[attn[1]] += nl * v
     else:
         attn = ("decode_attention", "flash_prefill")
         pre = [e - s for plan in eng.plan_log for _, s, e in plan["prefills"]]
@@ -1852,14 +1921,23 @@ def check_launches(eng, launches, cfg, counted, bits=8):
         want[attn[0]] += nl * d
         want[attn[1]] += nl * len(pre)
     path = {gemv, gemm, "rope", "rmsnorm_quant", "quantize", *attn}
+    if float_weights:
+        for k in (gemv, gemm, "rmsnorm_quant", "quantize"):
+            want[k] = 0
+        path = {"rope", *attn}
+    for k, n in (extra or {}).items():
+        want[k] += n
     if launches != want or min(launches[k] for k in path) <= 0:
         raise AssertionError(f"launches {launches} != expected {want}")
     for k, v in launches.items():
         counted[k] = counted.get(k, 0) + v
+    step = (f"{nl} rope and {nl} {attn[0]}" if float_weights else
+            f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {2 * nl} "
+            f"quantize, {nl} rope and {nl} {attn[0]}")
+    verifies = eng.metrics.get("verify_steps", 0)
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
-        f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {2 * nl} "
-        f"quantize, {nl} rope and {nl} {attn[0]} per decode step over {d} "
-        "steps")
+        f"{step} per decode step over {d} steps"
+        + (f", {verifies} verify calls" if verifies else ""))
 
 
 def compare_streams(tag, got, want, prompts, gap_fn, tol):
@@ -2490,6 +2568,407 @@ def open_loop(dev, cfg, params, counted, closed_energy):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: speculative decoding and the fault domain
+# ---------------------------------------------------------------------------
+
+
+class _Replay:
+    """A proposer replaying known greedy streams, looked up by prompt: its
+    drafts are right until the served stream parts from the known one,
+    then it proposes nothing."""
+
+    def __init__(self, prompts, streams):
+        self.ref = {p.tobytes(): [int(t) for t in s]
+                    for p, s in zip(prompts, streams)}
+
+    def propose(self, prompt, output, k):
+        ref = self.ref[np.asarray(prompt, np.int32).tobytes()]
+        m = len(output)
+        return ref[m:m + k] if output == ref[:m] else []
+
+
+class _Wrong(_Replay):
+    """Drafts that are always wrong: the known stream's tokens plus one."""
+
+    def propose(self, prompt, output, k):
+        ref = self.ref[np.asarray(prompt, np.int32).tobytes()]
+        m = len(output)
+        return [(t + 1) % 32000 for t in ref[m:m + k]] or [3] * k
+
+
+class _CountingDraft:
+    """Wraps a ``DraftModelProposer``: records (context length, drafts) of
+    each call that ran the draft model, for its launches and the log."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def propose(self, prompt, output, k):
+        drafts = self.inner.propose(prompt, output, k)
+        if drafts:
+            self.calls.append((len(prompt) + len(output), list(drafts)))
+        return drafts
+
+
+def _draft_launches(nl, calls):
+    """The launches of the draft model's calls: per call one whole-context
+    prefill (as a dense-cache prefill in ``check_launches``) and one dense
+    decode step per draft after the first."""
+    out = {}
+
+    def add(k, n):
+        out[k] = out.get(k, 0) + n
+    for s, drafts in calls:
+        add("flash_prefill", nl)
+        add("q8_matmul" if s > 32 else "q8_matvec", 2 * nl)
+        add("q8_matvec", 1)
+        add("rmsnorm_quant", nl + 1)
+        add("quantize", nl)
+        d = len(drafts) - 1
+        add("q8_matvec", (4 * nl + 1) * d)
+        add("rope", nl * d)
+        add("rmsnorm_quant", (2 * nl + 1) * d)
+        add("quantize", 2 * nl * d)
+        add("decode_attention", nl * d)
+    return out
+
+
+def _step_timers(eng):
+    """Record the wall ms of each of ``eng``'s synchronous decode calls and
+    verify calls: both end by waiting for their tokens, so each spans its
+    device step and its host work."""
+    times = {"decode": [], "verify": []}
+    for key, name in (("decode", "_decode_once"),
+                      ("verify", "_run_verifies")):
+        def timed(*args, _fn=getattr(eng, name), _key=key):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            times[_key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        setattr(eng, name, timed)
+    return times
+
+
+def verify_decode_delta(model, params, prompts, streams, dev, k):
+    """How far the verify step's logits are from the decode step's at the
+    same positions: ``prompts`` (at most 8) prefilled as one chunk each
+    into a fresh pool, then along their greedy ``streams``, for each
+    stretch of k + 1 tokens, one ``verify_chunk_batch`` at the engine's
+    (8, k + 1) extent and k + 1 ``decode_step`` s over the same positions,
+    the decode's K/V rows written last, so each verify reads a prefix the
+    decode wrote, as in the engine.  Runs under a config of its own, so
+    the served config's shape counts do not move.  Returns (max |diff|
+    over every position and logit, the median of the per-position
+    maxima, the positions)."""
+    from repro_torch.models.model import build_model
+    m = build_model(model.cfg.with_(arch_id=model.cfg.arch_id + "-delta"))
+    b, mb, bs = 8, 16, 64
+    cache = m.init_paged_cache(b, block_size=bs, n_blocks=b * mb,
+                               max_blocks_per_seq=mb, device=dev)
+    pt = np.arange(b * mb, dtype=np.int32).reshape(b, mb)
+    cache["page_table"] = torch.from_numpy(pt).to(dev)
+    n = len(prompts)
+    plen = np.zeros(b, np.int32)
+    plen[:n] = [len(p) for p in prompts]
+    toks = np.zeros((b, plen.max()), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    slots = np.where(np.arange(b) < n, np.arange(b), -1)
+    _, cache = m.prefill_chunk_batch(params, toks, cache, slots, 0,
+                                     page_table=pt, chunk_lens=plen)
+    steps = min(len(s) for s in streams) - 1
+    width, per = k + 1, []
+    for start in range(0, steps, width):
+        c = min(width, steps - start)
+        vt = np.zeros((b, width), np.int32)
+        for i, st in enumerate(streams):
+            vt[i, :c] = st[start:start + c]
+        offs = plen + start
+        vl, cache = m.verify_chunk_batch(
+            params, vt, cache, slots, offs, page_table=pt,
+            chunk_lens=np.where(slots >= 0, c, 0))
+        cache["lens"] = torch.as_tensor(offs, device=dev)
+        for j in range(c):
+            dl, cache = m.decode_step(params, cache,
+                                      torch.as_tensor(vt[:, j], device=dev))
+            per.append((dl[:n] - vl[:n, j]).abs().amax(dim=-1))
+    per = torch.stack(per).flatten()
+    return per.max().item(), per.median().item(), per.numel()
+
+
+def speculation(dev, cfg, params, prompts, counted):
+    """Phase 14: phase 3's 16 requests plus 4 repetitive ones (a tiled
+    8-token pattern), 32 greedy tokens each, served with and without
+    speculation: the f32 pool at spec_tokens=4 (verify extent 8 x 5 = 40
+    rows: q8_matmul) and the int8 pool at spec_tokens=3 (8 x 4 = 32 rows:
+    q8_matvec), n-gram drafts.  Under the integer arithmetic the verify's
+    logits come from the chunk path (dequant Q/K/V/O) and the decode's
+    from the integer wqkv / wo_f GEMVs, so before comparing streams the
+    difference is measured (``verify_decode_delta``) and the streams may
+    part only at a step whose top-2 gap is below three times it (twice is
+    what a flip takes).  Then f32 weights (no activation quantization:
+    the paths differ by the attention kernels), a replay oracle
+    (acceptance near 1), always-wrong drafts (a rollback on every verify
+    row, the plain streams), one verify shape per pool and no new chunk
+    shape, drained pools, and ``DraftModelProposer`` with the target as
+    its own draft over 2 requests."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.spec_decode import DraftModelProposer
+    nl = cfg.n_layers
+    rng = np.random.default_rng(14)
+    reqs = prompts + [np.tile(rng.integers(4, cfg.vocab_size, size=8), 6)
+                      .astype(np.int32) for _ in range(4)]
+    out = {}
+
+    def served(tag, model, p, kw, reqs_=reqs, extra=None, **spec):
+        build.reset_launches()
+        times = {}
+        shapes = model.prefill_compile_count()
+        eng, streams, wall = serve(
+            model, p, reqs_, dev, 32,
+            setup=lambda e: times.update(_step_timers(e)), **kw, **spec)
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted,
+                       extra=extra(eng) if extra else None,
+                       float_weights=p is not params)
+        m = eng.metrics
+        if any(eng.pager.refcount) or not eng.pager.audit().clean:
+            raise AssertionError(f"{tag}: the pool did not drain clean")
+        if spec and model.prefill_compile_count() != shapes:
+            raise AssertionError(f"{tag}: the chunk step took a new shape")
+        if spec and eng.verify_compile_count() != 1:
+            raise AssertionError(f"{tag}: the verify step ran at "
+                                 f"{eng.verify_compile_count()} shapes")
+        toks = sum(len(s) for s in streams)
+        rec = {"tok_s": toks / wall,
+               "steps_per_token": m["steps_per_token"],
+               "decode_step_ms": float(np.mean(times["decode"]))
+               if times["decode"] else None,
+               "verify_step_ms": float(np.mean(times["verify"]))
+               if times["verify"] else None,
+               "accept_ratio": m["accept_ratio"]}
+        log(f"  {tag}: {len(streams)} requests, {toks} tokens in {wall:.3f} "
+            f"s = {rec['tok_s']:.1f} tok/s; steps/token "
+            f"{m['steps_per_token']:.3f}; {len(times['decode'])} decode "
+            f"calls {rec['decode_step_ms'] or 0:.3f} ms, "
+            f"{len(times['verify'])} verify calls "
+            f"{rec['verify_step_ms'] or 0:.3f} ms each; drafts "
+            f"{m['draft_tokens']}, accepted {m['accepted_tokens']} "
+            f"(ratio {m['accept_ratio']:.3f}), rollbacks "
+            f"{m['spec_rollbacks']}; pool drained, audit clean")
+        return eng, streams, rec
+
+    for kv, k in (("float32", 4), ("int8", 3)):
+        model = build_model(cfg.with_(kv_cache_dtype=kv))
+        phase(f"phase 14: speculation, {kv} pool, 20 greedy requests (16 of "
+              f"phase 3's + 4 repetitive), plain then spec_tokens={k} "
+              f"(verify at M = {8 * (k + 1)} rows)")
+        _, base, rec_base = served(f"{kv} pool, plain", model, params,
+                                   PAGED_KW)
+        eng, spec, rec_spec = served(f"{kv} pool, spec_tokens={k}", model,
+                                     params, PAGED_KW, spec_tokens=k)
+        if eng.metrics["verify_steps"] == 0:
+            raise AssertionError(f"{kv}: no verify step ran")
+        delta, med, npos = verify_decode_delta(model, params, reqs[:8],
+                                               base[:8], dev, k)
+        tol = 3 * delta
+        log(f"  {kv} pool: verify vs decode logits at the same positions "
+            f"({npos} positions of 8 streams): max |diff| {delta:.4g}, "
+            f"median of the per-position maxima {med:.4g}; streams are held "
+            f"to a top-2 gap of {tol:.4g} (3x the max)")
+        compare_streams(f"{kv} pool, spec_tokens={k} vs plain", spec, base,
+                        reqs, lambda seq, *_: _top2_gap(model, params, seq,
+                                                        dev), tol)
+        out[kv] = {"plain": rec_base, "spec": rec_spec,
+                   "verify_decode_max_abs_diff": delta,
+                   "verify_decode_median_diff": med, "stream_tol": tol}
+        if kv == "float32":
+            model32, base32 = model, base
+
+    phase("phase 14: f32 (unquantized) weights, f32 pool, plain then "
+          "spec_tokens=4")
+    p32 = model32.init(seed=0, device=dev)
+    _, fbase, _ = served("f32 weights, plain", model32, p32, PAGED_KW)
+    _, fspec, _ = served("f32 weights, spec_tokens=4", model32, p32,
+                         PAGED_KW, spec_tokens=4)
+    delta, med, npos = verify_decode_delta(model32, p32, reqs[:8],
+                                           fbase[:8], dev, 4)
+    log(f"  f32 weights: verify vs decode logits max |diff| {delta:.4g} "
+        f"(median {med:.4g}, {npos} positions)")
+    compare_streams("f32 weights, spec_tokens=4 vs plain", fspec, fbase,
+                    reqs, lambda seq, *_: _top2_gap(model32, p32, seq, dev),
+                    3 * delta)
+    out["f32_weights_verify_decode_max_abs_diff"] = delta
+
+    phase("phase 14: replay-oracle and always-wrong drafts, f32 weights, "
+          "f32 pool, spec_tokens=4, 8 requests")
+    few, ref = reqs[12:], fbase[12:]
+    gap = (lambda seq, *_: _top2_gap(model32, p32, seq, dev))
+    eng, replay, rec = served("replay oracle", model32, p32, PAGED_KW, few,
+                              spec_tokens=4,
+                              draft_proposer=_Replay(few, ref))
+    if not rec["accept_ratio"] > 0.95:
+        raise AssertionError(f"replay oracle: accept_ratio "
+                             f"{rec['accept_ratio']}")
+    eng, wrong, _ = served("always-wrong drafts", model32, p32, PAGED_KW,
+                           few, spec_tokens=4,
+                           draft_proposer=_Wrong(few, ref))
+    rows = sum(len(pl["verifies"]) for pl in eng.plan_log)
+    m = eng.metrics
+    if not (rows > 0 and m["spec_rollbacks"] == rows
+            and m["accepted_tokens"] == 0):
+        raise AssertionError(f"always-wrong drafts: {m['spec_rollbacks']} "
+                             f"rollbacks over {rows} verify rows, "
+                             f"{m['accepted_tokens']} accepted")
+    log(f"  always-wrong drafts: a rollback on each of the {rows} verify "
+        "rows, none accepted")
+    compare_streams("replay oracle vs plain", replay, ref, few, gap,
+                    3 * delta)
+    compare_streams("always-wrong drafts vs plain", wrong, ref, few, gap,
+                    3 * delta)
+    out["replay_accept_ratio"] = rec["accept_ratio"]
+    del p32
+
+    phase("phase 14: DraftModelProposer (the target drafting for itself), "
+          "2 requests, spec_tokens=4")
+    draft = _CountingDraft(DraftModelProposer(model32, params, max_seq=1024))
+    two = [reqs[16], reqs[1]]
+    eng, dstreams, rec = served(
+        "draft model", model32, params, PAGED_KW, two, spec_tokens=4,
+        draft_proposer=draft,
+        extra=lambda e: _draft_launches(nl, draft.calls))
+    for s, d in draft.calls[:6]:
+        log(f"    draft model at context {s}: proposed {d}")
+    log(f"    ... {len(draft.calls)} proposals in all")
+    compare_streams("draft model vs plain", dstreams, [base32[16], base32[1]],
+                    two, lambda seq, *_: _top2_gap(model32, params, seq, dev),
+                    out["float32"]["stream_tol"])
+    out["draft_model_accept_ratio"] = rec["accept_ratio"]
+    return out
+
+
+def fault_domain(dev, cfg, params, counted):
+    """Phase 15: 8 requests of 30 tokens (all admitted and prefilled in the
+    first step, so a failure never moves another request's admission or
+    chunks), 40 greedy tokens each, f32 pool.  Against the run without a
+    fault layer: an empty ``FaultPlan`` gives the same streams and plans
+    bitwise; a transient decode-step fault is retried (one retry) with the
+    streams bitwise; a persistent fault aimed at one request fails it alone
+    (``ERR_FAULT``); a NaN written into one request's decode row after its
+    first block is registered fails it (``ERR_NAN``) and its blocks leave
+    the prefix index; under spec_tokens=4 the same NaN hits a verify row;
+    a corrupted refcount is repaired by the per-step audit, failing its
+    leaseholder (``ERR_AUDIT``); a latency fault under ``SimClock`` counts
+    a slow step.  Every survivor's stream is bitwise its fault-free
+    one."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.faults import (ERR_AUDIT, ERR_FAULT, ERR_NAN,
+                                            FaultPlan, SimClock)
+    model = build_model(cfg)
+    reqs = _requests(8, 30, 30, cfg.vocab_size, seed=15)
+
+    def run(tag, plan=None, reqs_=reqs, **kw):
+        build.reset_launches()
+        if plan is not None:
+            kw.update(faults=plan, clock=SimClock())
+        from repro_torch.serving.engine import Engine
+        eng = Engine(model, params, device=dev, **PAGED_KW, **kw)
+        for p in reqs_:
+            eng.submit(p, max_new_tokens=40, temperature=0.0)
+        done = {r.uid: r for r in eng.run()}
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+        if any(eng.pager.refcount) or not eng.pager.audit().clean:
+            raise AssertionError(f"{tag}: the pool did not drain clean")
+        return eng, done
+
+    def survivors(tag, done, clean, failed, kind):
+        bad = {u: (r.error_kind, r.error) for u, r in done.items()
+               if (u in failed) != (r.error is not None)}
+        wrong = [u for u in failed if done[u].error_kind != kind]
+        diff = [u for u, r in done.items()
+                if u not in failed and r.output != clean[u]]
+        if bad or wrong or diff:
+            raise AssertionError(f"{tag}: unexpected failures {bad}, kinds "
+                                 f"{wrong}, survivors not bitwise {diff}")
+        log(f"  {tag}: uids {sorted(failed)} failed ({kind}), the other "
+            f"{len(done) - len(failed)} streams bitwise the fault-free ones")
+
+    phase("phase 15: faults, 8 requests of 30 tokens, 40 greedy tokens, f32 "
+          "pool")
+    eng0, done = run("no fault layer")
+    clean = {u: r.output for u, r in done.items()}
+    full = [u for u, o in clean.items() if len(o) == 40]
+    if len(full) < 4:
+        raise AssertionError(f"too few full-length streams: {full}")
+    eng, done = run("empty plan", FaultPlan())
+    if {u: r.output for u, r in done.items()} != clean \
+            or eng.plan_log != eng0.plan_log or eng.fault_log:
+        raise AssertionError("an empty FaultPlan changed streams or plans")
+    log("  empty FaultPlan: streams and plan_log bitwise the run without a "
+        "fault layer, nothing logged")
+    eng, done = run("transient", FaultPlan().step_exception(step=3))
+    survivors("transient decode fault at step 3", done, clean, set(), None)
+    if eng.metrics["step_retries"] != 1:
+        raise AssertionError(f"transient: {eng.metrics['step_retries']} "
+                             "retries")
+    a, b, c = full[:3]
+    eng, done = run("persistent", FaultPlan().step_exception(
+        step=4, uid=a, times=10**6))
+    survivors(f"persistent decode fault on uid {a}", done, clean, {a},
+              ERR_FAULT)
+    eng, done = run("nan", FaultPlan().nan_logits(step=40, uid=b))
+    survivors(f"NaN in uid {b}'s decode row at step 40", done, clean, {b},
+              ERR_NAN)
+    req = done[b]
+    hashes = eng.pager.prefix_hashes(np.concatenate(
+        [req.prompt, np.asarray(req.output, np.int32)]))
+    clean_hashes = eng0.pager.prefix_hashes(np.concatenate(
+        [req.prompt, np.asarray(clean[b], np.int32)]))
+    if not hashes or any(h in eng.pager.index for h in hashes) \
+            or not all(h in eng0.pager.index for h in clean_hashes):
+        raise AssertionError(f"NaN: uid {b}'s {len(hashes)} full blocks "
+                             "were not quarantined out of the prefix index")
+    log(f"  NaN: uid {b}'s {len(hashes)} full block(s) are out of the prefix "
+        f"index (in the fault-free run they stay cached)")
+    eng, done = run("audit", FaultPlan().corrupt_pages(step=10, uid=c),
+                    audit_interval=1)
+    survivors(f"refcount corruption of uid {c}'s tail block at step 10",
+              done, clean, {c}, ERR_AUDIT)
+    if eng.metrics["audit_repairs"] < 1:
+        raise AssertionError("audit: no repair")
+    eng, done = run("latency", FaultPlan()
+                    .advance_clock(step=1, ms=10.0, site="decode",
+                                   times=10**6)
+                    .advance_clock(step=20, ms=200.0, site="decode"))
+    survivors("latency faults (10 ms a step, 200 ms at step 20)", done,
+              clean, set(), None)
+    if eng.metrics["slow_steps"] < 1:
+        raise AssertionError("latency: no slow step counted")
+    out = {"step_retries": 1, "slow_steps": eng.metrics["slow_steps"]}
+
+    phase("phase 15: a NaN on a verify row, spec_tokens=4, 4 repetitive and "
+          "2 random requests")
+    rng = np.random.default_rng(15)
+    spec_reqs = [np.tile(rng.integers(4, cfg.vocab_size, size=8), 5)
+                 .astype(np.int32) for _ in range(4)] + reqs[:2]
+    eng0, done = run("speculation, no fault", reqs_=spec_reqs,
+                     spec_tokens=4)
+    sclean = {u: r.output for u, r in done.items()}
+    step, uid = next((i + 1, v[0]) for i, pl in enumerate(eng0.plan_log)
+                     for v in pl["verifies"] if i >= 3)
+    eng, done = run("speculation, NaN", FaultPlan().nan_logits(
+        step=step, uid=uid), reqs_=spec_reqs, spec_tokens=4)
+    survivors(f"NaN in uid {uid}'s verify row at step {step}", done, sclean,
+              {uid}, ERR_NAN)
+    if "verify" not in done[uid].error:
+        raise AssertionError(f"the NaN did not hit a verify row: "
+                             f"{done[uid].error}")
+    out["nan_verify"] = {"step": step, "uid": uid}
+    return out
+
+
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
     kernel strategy) served ``runs`` times on the tree this script is run
@@ -2597,6 +3076,7 @@ def main() -> int:
     check_flash_prefill(report, dev)
     check_rope(report, dev)
     check_rmsnorm_quant(report, dev)
+    check_verify_edges(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
@@ -2614,6 +3094,10 @@ def main() -> int:
           f"{fanouts}; sampler {json.dumps(sampler)}")
     ol = open_loop(dev, cfg, params, counted, e2e)
     phase(f"phase 13: open loop {json.dumps(ol)}")
+    spec = speculation(dev, cfg, params, prompts, counted)
+    phase(f"phase 14: speculation {json.dumps(spec)}")
+    faults = fault_domain(dev, cfg, params, counted)
+    phase(f"phase 15: faults {json.dumps(faults)}")
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -19,6 +19,11 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream
 
+  # speculative decoding: n-gram drafts (or --draft draft_model, the
+  # served model drafting for itself), verified 4 at a time
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 16 \\
+      --slots 8 --max-seq 1024 --spec-tokens 4
+
 Requests sample at the engine's defaults, temperature 1.0 and top-p 1.0
 (the paper's evaluation setup), with keys split from ``--seed``.  The
 weights are random, drawn from ``--seed``.  The matmuls run the paper's
@@ -27,11 +32,13 @@ plain versions on the CPU), where the reference CLI runs its process
 default, ``dequant``.
 
 The closed batch also prints the engine's roofline energy and tokens per
-joule: a model on the H100's data-sheet constants, not a measurement.
+joule: a model on the H100's data-sheet constants, not a measurement; with
+``--spec-tokens`` it prints the speculation line (acceptance, steps per
+token, rollbacks).  ``--draft draft_model`` drafts with the served model
+and weights themselves (the reference's CLI cannot build that proposer).
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP, queue A):
-``--spec-tokens`` (speculative decoding), ``--mesh`` (sharded serving) and
-``--ckpt-dir`` (checkpoint restore).
+``--mesh`` (sharded serving) and ``--ckpt-dir`` (checkpoint restore).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from repro_torch.serving.async_serving import (first_token_latencies,
                                                poisson_arrivals,
                                                run_open_loop)
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.spec_decode import DraftModelProposer
 
 NOT_PORTED = "is not yet ported (ROADMAP, queue A: {})"
 
@@ -67,10 +75,8 @@ def _print_throughput(eng, toks: int, wall: float) -> None:
           f"(tokens_out/t_decode)")
 
 
-def _refuse_unported(ckpt_dir, spec_tokens, mesh_size) -> None:
+def _refuse_unported(ckpt_dir, mesh_size) -> None:
     for on, flag, item in ((ckpt_dir, "--ckpt-dir", "checkpoint restore"),
-                           (spec_tokens > 0, "--spec-tokens",
-                            "speculative decoding"),
                            (mesh_size > 0, "--mesh", "mesh sharding")):
         if on:
             raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
@@ -87,9 +93,9 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     """Serve ``requests`` seeded prompts as one closed batch, or open loop
     (:func:`_run_open_loop`); returns the engine and the requests.  The
     run is under the ``kernel`` strategy; the process default is restored
-    after it.  ``draft`` belongs to speculation and is accepted as the
-    reference accepts it."""
-    _refuse_unported(ckpt_dir, spec_tokens, mesh_size)
+    after it.  ``spec_tokens > 0`` speculates with the ``draft`` proposer:
+    ``"ngram"``, or ``"draft_model"`` with the served model and weights."""
+    _refuse_unported(ckpt_dir, mesh_size)
     dev = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:
@@ -107,10 +113,13 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         print(f"[serve] Q{bits}_0 post-training quantization "
               f"in {time.perf_counter()-t0:.2f}s")
 
+    proposer = (DraftModelProposer(model, params, max_seq=max_seq)
+                if spec_tokens > 0 and draft == "draft_model" else draft)
+
     def make_engine():
         return Engine(model, params, max_slots=slots, max_seq=max_seq,
                       seed=seed, spec_tokens=spec_tokens,
-                      draft_proposer=draft, device=dev)
+                      draft_proposer=proposer, device=dev)
 
     prompts = _make_prompts(np.random.default_rng(seed), cfg, requests)
     old = qlinear.default_strategy()
@@ -145,6 +154,13 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     if joules > 0:
         print(f"[serve] roofline energy {joules:.3g} J -> "
               f"{toks/joules:,.0f} tok/J (model, not measured)")
+    if spec_tokens > 0:
+        print(f"[serve] speculation ({draft}, k={spec_tokens}): "
+              f"accept_ratio {eng.metrics['accept_ratio']:.2f} "
+              f"({eng.metrics['accepted_tokens']}"
+              f"/{eng.metrics['draft_tokens']} drafts), "
+              f"steps/token {eng.metrics['steps_per_token']:.3f}, "
+              f"{eng.metrics['spec_rollbacks']} rollbacks")
     return eng, done
 
 
@@ -224,8 +240,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--spec-tokens", type=int, default=0,
-                    help="draft-then-verify speculation depth (0 = off; "
-                         "not yet ported)")
+                    help="draft-then-verify speculation depth (0 = off)")
     ap.add_argument("--draft", default="ngram")
     ap.add_argument("--open-loop", action="store_true",
                     help="continuous Poisson arrivals instead of a "

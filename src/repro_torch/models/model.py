@@ -51,6 +51,10 @@ class Model:
         return transformer.decode_step(params, self.cfg, cache, tokens,
                                        positions)
 
+    def prefill_chunk(self, params, tokens, cache, slot, offset):
+        return transformer.prefill_chunk(params, self.cfg, tokens, cache,
+                                         slot, offset)
+
     def prefill_chunk_batch(self, params, tokens, cache, slots, offs,
                             page_table=None, chunk_lens=None):
         return transformer.prefill_chunk_batch(
@@ -59,6 +63,15 @@ class Model:
 
     def prefill_compile_count(self) -> int:
         return transformer.prefill_chunk_compiles(self.cfg)
+
+    def verify_chunk_batch(self, params, tokens, cache, slots, offs,
+                           page_table=None, chunk_lens=None):
+        return transformer.verify_chunk_batch(
+            params, self.cfg, tokens, cache, slots, offs,
+            page_table=page_table, chunk_lens=chunk_lens)
+
+    def verify_compile_count(self) -> int:
+        return transformer.verify_chunk_compiles(self.cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:

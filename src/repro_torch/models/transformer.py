@@ -7,11 +7,12 @@ Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
 is a Python loop over the stacked leading axis.
 
 Serving runs on the paged KV pool (``init_paged_cache``, filled by
-``prefill_chunk_batch``) or on the dense per-slot reservation
-(``init_cache``, filled by the one-shot ``prefill``).  Unlike the
+``prefill_chunk_batch``; ``verify_chunk_batch`` is its twin with logits at
+every chunk position, for speculative decoding) or on the dense per-slot
+reservation (``init_cache``, filled by the one-shot ``prefill``).  Unlike the
 reference, which donates the cache to a jitted step, the port writes it in
-place: ``decode_step`` and ``prefill_chunk_batch`` return the same cache
-tensors they were given, updated.
+place: ``decode_step`` and the chunk steps return the same cache tensors
+they were given, updated.
 """
 
 from __future__ import annotations
@@ -434,16 +435,25 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 # chunked prefill
 # ---------------------------------------------------------------------------
 
-# distinct padded (B, c) extents + pool shapes the chunk step has run with,
-# per config: the counterpart of the reference's compile count (one
-# specialization per pool key)
+# distinct padded (B, c) extents + pool shapes the chunk step and its verify
+# twin have run with, per config: the counterpart of the reference's compile
+# counts (one specialization per pool key and entry).  The two entries keep
+# separate sets, as the reference keeps two jit entries.
 _CHUNK_KEYS: Dict[ModelConfig, set] = {}
+_VERIFY_KEYS: Dict[ModelConfig, set] = {}
 
 
 def prefill_chunk_compiles(cfg: ModelConfig) -> int:
     """How many distinct padded shapes the chunk step has run with for
     ``cfg`` in this process -- the shape-stability probe."""
     return len(_CHUNK_KEYS.get(cfg, ()))
+
+
+def verify_chunk_compiles(cfg: ModelConfig) -> int:
+    """The same probe for the verify entry (:func:`verify_chunk_batch`):
+    the engine pads every verify call to one ``(max_slots, spec_tokens +
+    1)`` extent, so this too stays at one per pool key."""
+    return len(_VERIFY_KEYS.get(cfg, ()))
 
 
 @dataclasses.dataclass
@@ -512,6 +522,18 @@ def _chunk_call_args(tokens_chunks, cache: Cache, slots, pos_offsets,
         slot_idx=put(slots[valid]), slot_row=put(np.nonzero(valid)[0]))
 
 
+def prefill_chunk(params: Params, cfg: ModelConfig, tokens_chunk, cache: Cache,
+                  slot: int, pos_offset: int) -> Tuple[torch.Tensor, Cache]:
+    """One prompt chunk of slot ``slot`` at global positions ``pos_offset ..
+    pos_offset + c - 1``: the single-sequence view (B = 1) of
+    :func:`prefill_chunk_batch`.  The slot's blocks must cover
+    ``pos_offset + c`` rows in ``cache["page_table"]``.  Returns the
+    chunk's last-position logits (1, V) and the cache with ``lens[slot] =
+    pos_offset + c``."""
+    toks = np.asarray(tokens_chunk, np.int64).reshape(1, -1)
+    return prefill_chunk_batch(params, cfg, toks, cache, [slot], pos_offset)
+
+
 def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
                         cache: Cache, slots, pos_offsets, page_table=None,
                         chunk_lens=None) -> Tuple[torch.Tensor, Cache]:
@@ -532,11 +554,36 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
     strategy, as in the reference; the MLP and head go through
     ``norm_qdot`` (norm2 and the final norm fused with their quantization
     under the kernel strategy) and ``qdot``."""
+    return _chunk_step(params, cfg, tokens_chunks, cache, slots, pos_offsets,
+                       page_table, chunk_lens, all_logits=False)
+
+
+def verify_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
+                       cache: Cache, slots, pos_offsets, page_table=None,
+                       chunk_lens=None) -> Tuple[torch.Tensor, Cache]:
+    """The speculative verify step: exactly :func:`prefill_chunk_batch` --
+    the same addressing, prefix read and K/V writes -- but returning the
+    logits of all ``c`` chunk positions, (B, c, V), instead of each row's
+    last.  A row feeds ``[output[-1], drafts...]`` at ``pos_offset =
+    kv_len``; position ``j``'s logits condition on the prefix and drafts
+    ``< j``.  Positions past ``chunk_lens`` are garbage and must not be
+    read.  The head runs over all ``B * c`` rows at once.  Its shapes go
+    into their own key set (:func:`verify_chunk_compiles`)."""
+    return _chunk_step(params, cfg, tokens_chunks, cache, slots, pos_offsets,
+                       page_table, chunk_lens, all_logits=True)
+
+
+def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
+                cache: Cache, slots, pos_offsets, page_table, chunk_lens,
+                all_logits: bool) -> Tuple[torch.Tensor, Cache]:
+    """The body :func:`prefill_chunk_batch` and :func:`verify_chunk_batch`
+    share; ``all_logits`` picks the head's rows and the key set."""
     a = _chunk_call_args(tokens_chunks, cache, slots, pos_offsets,
                          page_table, chunk_lens)
     hd, kvh = cfg.hd(), cfg.n_kv_heads
     b, c = a.toks.shape
-    _CHUNK_KEYS.setdefault(cfg, set()).add(
+    keys = _VERIFY_KEYS if all_logits else _CHUNK_KEYS
+    keys.setdefault(cfg, set()).add(
         (b, c) + tuple(tuple(t.shape) for t in cache["attn"].values()))
     q_pos = a.offs[:, None] + torch.arange(c, dtype=torch.int32,
                                            device=a.offs.device)[None]
@@ -567,8 +614,12 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
         _write_rows(lc, k[a.w_row, a.w_col], v[a.w_row, a.w_col], a.w_blk,
                     a.w_off)
 
-    last = torch.clamp(a.lens.long() - 1, 0, c - 1)
-    logits = _head(params, cfg, x[torch.arange(b, device=x.device), last])
+    if all_logits:
+        logits = _head(params, cfg, x)                   # (B, c, V)
+    else:
+        last = torch.clamp(a.lens.long() - 1, 0, c - 1)
+        logits = _head(params, cfg, x[torch.arange(b, device=x.device),
+                                      last])
     new_cache = dict(cache)
     new_lens = cache["lens"].clone()
     new_lens[a.slot_idx] = (a.offs + a.lens)[a.slot_row]

@@ -44,13 +44,41 @@ from which its deadlines (``deadline_ms``, ``ttft_deadline_ms``) are
 charged by the per-step watchdog.  ``serving/async_serving.py`` is the
 open-loop front end over this split.
 
+**Speculative decoding (``spec_tokens > 0``, paged pool).**  A host-side
+proposer (``serving/spec_decode.py``: n-gram prompt lookup by default, or a
+draft model) guesses up to ``spec_tokens`` next tokens per running
+sequence, and the scheduler plans a ``SpecVerify`` in place of that slot's
+decode.  All of a step's verifies run as one ``verify_chunk_batch`` call
+(the chunk step with logits at every position) padded to the fixed
+``(max_slots, spec_tokens + 1)`` extent, after the step's decodes.  Every
+position ``j`` is sampled with the key plain decode would have used for
+output position ``m + j``, so the drafts decide how many tokens commit per
+step, never which.  A rejected tail is rolled back by
+``BlockAllocator.truncate`` before the accepted blocks are registered in
+the prefix index, so speculative K/V never reaches it.  ``metrics`` counts
+``draft_tokens``, ``accepted_tokens``, ``accept_ratio``, ``verify_steps``,
+``spec_rollbacks`` and ``verify_compiles``; ``steps_per_token`` falls
+below 1 when speculation pays.
+
+**Fault domain (``faults=``).**  A ``FaultPlan`` or ``FaultInjector``
+(``serving/faults.py``) fires seeded faults through the engine's hooks.  An
+injected step exception fires before the chunk, decode or verify dispatch,
+is retried up to ``retry_limit`` times and then fails only the request it
+targets (``ERR_FAULT``); a NaN logits row fails its request and quarantines
+the blocks it wrote (``ERR_NAN``); every ``audit_interval`` steps the
+allocator audits itself before scheduling, repairs what it finds and fails
+the leaseholders of corrupted blocks (``ERR_AUDIT``); an idle plan with
+work pending sheds the newest waiter, up to ``stall_shed_limit`` stalls in
+a row with nothing to shed.  ``fault_log`` records each event; the
+``StragglerDetector`` counts ``slow_steps``.  Steps with verifies, or with
+a fault layer, run to their end in :meth:`Engine.step_async` too.
+
 **Energy.**  Every device call is charged the roofline energy of the
 weights it streams, the KV rows it touches and its operations
 (``launch/roofline.step_joules``, H100 constants):
 ``metrics["energy_joules"]`` is a model, not a measurement.
 
-Not ported yet (ROADMAP): speculative decoding, fault injection and mesh
-sharding raise at construction.
+Not ported yet (ROADMAP): mesh sharding raises at construction.
 """
 
 from __future__ import annotations
@@ -67,12 +95,17 @@ from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.launch.roofline import step_joules, tree_bytes
 from repro_torch.models.model import Model, count_params, params_to
-from repro_torch.serving.faults import (ERR_DEADLINE, ERR_NAN, ERR_SHED,
-                                        SchedulerStall)
+from repro_torch.runtime.health import StragglerDetector
+from repro_torch.serving.faults import (ERR_AUDIT, ERR_DEADLINE, ERR_FAULT,
+                                        ERR_NAN, ERR_SHED, SITE_DECODE,
+                                        SITE_PREFILL, FaultInjector,
+                                        InjectedFault, SchedulerStall)
 from repro_torch.serving.paged_cache import (BlockAllocator, PagedConfig,
                                              chain_hash)
 from repro_torch.serving.scheduler import (PrefillChunk, Scheduler,
-                                           StepPlan, validate_request)
+                                           SpecVerify, StepPlan,
+                                           validate_request)
+from repro_torch.serving.spec_decode import build_proposer
 
 NOT_PORTED = "not yet ported"
 
@@ -196,11 +229,14 @@ class _Draw:
 @dataclasses.dataclass
 class _PendingDecode:
     """A dispatched batched decode whose tokens have not been read:
-    ``draw`` holds them on their way to the host."""
+    ``draw`` holds them on their way to the host.  ``failed`` are the
+    requests the fault layer isolated before the dispatch; with no slot
+    left there is no draw."""
 
     slots: List[int]
-    draw: _Draw
-    t0: float
+    failed: List["Request"]
+    draw: Optional[_Draw] = None
+    t0: float = 0.0
 
 
 @dataclasses.dataclass
@@ -210,6 +246,7 @@ class _PendingStep:
 
     decode: _PendingDecode
     plan: StepPlan
+    t_step: float
 
 
 class Engine:
@@ -223,16 +260,22 @@ class Engine:
     shrinking it oversubscribes, which the scheduler absorbs by deferring
     admission and preempting on mid-decode growth.  Requests that could
     never run come back from :meth:`run` with ``.error`` set.  ``seed``
-    roots the keys of requests submitted without one; ``draft_proposer``
-    is accepted as in the reference and inert while ``spec_tokens`` is 0.
+    roots the keys of requests submitted without one.
     ``prefix_caching`` turns the allocator's prefix index on or off,
     ``preempt_limit`` is the scheduler's starvation bound and
     ``nan_guard`` fails a request whose logits row is not finite.
     ``clock`` is None (the wall clock), a callable or an object with
     ``now()`` such as :class:`~repro_torch.serving.faults.SimClock`: every
-    time stamp and deadline reads it.  ``shed_after_preempts`` sheds the
-    lowest-value waiter after that many preempting steps in a row.  The
-    arguments the port shares with the reference come in its order."""
+    time stamp and deadline reads it.  ``faults`` is a ``FaultPlan`` or
+    ``FaultInjector``; ``retry_limit`` bounds the retries of a faulted
+    dispatch, ``audit_interval`` (0 = never) spaces the allocator's
+    self-audits and ``stall_shed_limit`` the stalls with nothing to shed.
+    ``shed_after_preempts`` sheds the lowest-value waiter after that many
+    preempting steps in a row.  ``spec_tokens`` turns speculation on, with
+    ``draft_proposer`` an object with ``propose(prompt, output, k)`` or a
+    name for :func:`~repro_torch.serving.spec_decode.build_proposer`
+    (None: ``"ngram"``).  The arguments the port shares with the reference
+    come in its order."""
 
     def __init__(self, model: Model, params: Any, max_slots: int = 8,
                  max_seq: int = 1024, eos_id: int = 2, seed: int = 0,
@@ -241,19 +284,23 @@ class Engine:
                  prefill_chunk_tokens: int = 512,
                  prefix_caching: bool = True, preempt_limit: int = 3,
                  faults: Any = None, clock: Any = None,
-                 nan_guard: bool = True,
+                 nan_guard: bool = True, retry_limit: int = 2,
+                 audit_interval: int = 0,
                  shed_after_preempts: Optional[int] = None,
+                 stall_shed_limit: int = 3,
                  spec_tokens: int = 0, draft_proposer: Any = None,
                  mesh: Any = None, device: Device = None):
         if cache_kind not in ("paged", "dense"):
             raise ValueError(f"cache_kind must be 'paged' or 'dense', got "
                              f"{cache_kind!r}")
-        for name, off in (("spec_tokens", spec_tokens),
-                          ("faults", faults is not None),
-                          ("mesh", mesh is not None)):
-            if off:
-                raise NotImplementedError(f"Engine({name}) is {NOT_PORTED}")
+        if mesh is not None:
+            raise NotImplementedError(f"Engine(mesh) is {NOT_PORTED}")
         self.device = resolve_device(device)
+        self.spec_tokens = spec_tokens
+        if spec_tokens > 0 and (draft_proposer is None
+                                or isinstance(draft_proposer, str)):
+            draft_proposer = build_proposer(draft_proposer or "ngram")
+        self.draft_proposer = draft_proposer
         if clock is None:
             self._now: Callable[[], float] = time.perf_counter
         elif hasattr(clock, "now"):
@@ -261,7 +308,15 @@ class Engine:
         else:
             self._now = clock
         self._clock = clock
+        if faults is not None and not isinstance(faults, FaultInjector):
+            faults = FaultInjector(faults)       # a bare FaultPlan
+        self.faults: Optional[FaultInjector] = faults
+        self.retry_limit = retry_limit           # dispatch retries a step
+        self.audit_interval = audit_interval     # 0 = no periodic audit
         self.shed_after_preempts = shed_after_preempts
+        self.stall_shed_limit = stall_shed_limit
+        self.fault_log: List[Dict[str, Any]] = []
+        self.straggler = StragglerDetector(n_hosts=1)
         self.key = prng.prng_key(seed)
         self.model = model
         self.params = params_to(params, self.device)
@@ -291,7 +346,8 @@ class Engine:
         self.scheduler = Scheduler(
             max_slots=max_slots, max_seq=max_seq, pager=self.pager,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            preempt_limit=preempt_limit)
+            preempt_limit=preempt_limit, spec_tokens=spec_tokens,
+            draft_proposer=self.draft_proposer)
         # roofline energy model: every device call streams the weights once
         # plus the KV rows it touches (paged pool only, as the reference)
         self._param_bytes = float(tree_bytes(params))
@@ -313,13 +369,23 @@ class Engine:
                         "prefix_cached_tokens": 0, "prefix_evictions": 0,
                         "fanouts": 0, "blocks_live_peak": 0,
                         "blocks_saved_by_sharing_peak": 0,
-                        "prefill_compiles": 0, "seq_steps": 0,
-                        "steps_per_token": 0.0,
+                        "prefill_compiles": 0,
+                        # speculation: drafts proposed and accepted, verify
+                        # calls and their shape count, rollbacks; seq_steps
+                        # counts per-sequence device steps, so
+                        # steps_per_token is 1.0 for plain decode
+                        "draft_tokens": 0, "accepted_tokens": 0,
+                        "verify_steps": 0, "spec_rollbacks": 0,
+                        "verify_compiles": 0, "seq_steps": 0,
+                        "accept_ratio": 0.0, "steps_per_token": 0.0,
                         # uid -> {cached_tokens, cache_hit}
                         "requests": {},
-                        "requests_failed": 0, "requests_rejected": 0,
-                        "nan_rows": 0, "deadline_misses": 0,
-                        "shed_requests": 0,
+                        # the fault domain
+                        "step_retries": 0, "requests_failed": 0,
+                        "requests_rejected": 0, "nan_rows": 0,
+                        "deadline_misses": 0, "shed_requests": 0,
+                        "stalls": 0, "audit_repairs": 0,
+                        "audit_violations": 0, "slow_steps": 0,
                         # roofline accounting: prefix K/V bytes a chunk
                         # step reads through the page table, against the
                         # full-extent gather; modeled energy
@@ -332,7 +398,10 @@ class Engine:
         self._uid = 0
         self._step = 0
         self._pending: Optional[_PendingStep] = None
+        self._stall_streak = 0
         self._preempt_streak = 0
+        if self.faults is not None:
+            self.faults.bind(clock=self._clock, pager=self.pager)
 
     def _put(self, x, dtype=torch.int32) -> torch.Tensor:
         """Host -> device upload of a step operand.  On the card the array
@@ -413,7 +482,11 @@ class Engine:
         decode, which :meth:`finish_step` completes.  The card computes
         the decode and its sampling while the host takes arrivals and
         flushes streams.  The chunk step runs to its end first, as in the
-        reference: its first tokens decide fanouts and stops."""
+        reference: its first tokens decide fanouts and stops.  A step with
+        verifies (their truncation and registration follow the tokens
+        within the step) or with a fault layer (its isolation reads each
+        row's outcome before the step closes) runs to its end and returns
+        ``pending=None``."""
         return self._step_impl(sync=False)
 
     def finish_step(self, pending: Optional[_PendingStep] = None
@@ -427,7 +500,7 @@ class Engine:
             return []
         self._pending = None
         done = self._decode_complete(pending.decode)
-        self._step_tail(pending.plan)
+        self._step_tail(pending.plan, pending.t_step)
         return done
 
     def _step_impl(self, sync: bool):
@@ -449,7 +522,18 @@ class Engine:
         if not self.scheduler.has_work():
             return (done if done else None), None
         self._step += 1
-        plan = self.scheduler.schedule()
+        stalled = (self.faults is not None
+                   and self.faults.pre_step(self._step, self.scheduler))
+        if (self.paged and self.audit_interval
+                and self._step % self.audit_interval == 0):
+            # before schedule(): a corrupted block is quarantined before
+            # the allocator can hand it out again
+            done.extend(self._run_audit())
+            if not self.scheduler.has_work():
+                return done, None
+        # an injected stall skips scheduling: the engine sees the idle
+        # plan a wedged scheduler would give
+        plan = StepPlan() if stalled else self.scheduler.schedule()
         now = self._now()
         for req in plan.rejected:
             req.t_done = now
@@ -458,7 +542,9 @@ class Engine:
         expired = self._enforce_deadlines(plan)
         done.extend(expired)
         if not plan.made_progress() and not expired:
-            self._handle_stall()
+            done.extend(self._handle_stall(stalled))
+            return done, None
+        self._stall_streak = 0
         if plan.preempted and self.shed_after_preempts is not None:
             self._preempt_streak += 1
             if self._preempt_streak >= self.shed_after_preempts:
@@ -488,6 +574,7 @@ class Engine:
                               self._put([s for s, _ in plan.cows], torch.long),
                               self._put([d for _, d in plan.cows], torch.long))
             self.metrics["cow_copies"] += len(plan.cows)
+        t_step = self._now()
         if plan.prefills:
             done.extend(self._run_chunks(plan.prefills))
             self.metrics["prefill_compiles"] = self.prefill_compile_count()
@@ -496,17 +583,34 @@ class Engine:
         done.extend(self._done_at_prefill)
         self._done_at_prefill = []
         if plan.decodes:
-            if not sync:
+            if sync or plan.verifies or self.faults is not None:
+                done.extend(self._decode_once(plan.decodes))
+            else:
                 self._pending = _PendingStep(
-                    self._decode_dispatch(plan.decodes), plan)
+                    self._decode_dispatch(plan.decodes), plan, t_step)
                 return done, self._pending
-            done.extend(self._decode_once(plan.decodes))
-        self._step_tail(plan)
+        if plan.verifies:
+            # after the decodes: a verify's truncation frees blocks that
+            # re-enter circulation only at the next schedule()
+            done.extend(self._run_verifies(plan.verifies))
+            self.metrics["verify_compiles"] = self.verify_compile_count()
+            self.plan_log[-1]["verify_compiles"] = \
+                self.metrics["verify_compiles"]
+        self._step_tail(plan, t_step)
         return done, None
 
-    def _step_tail(self, plan: StepPlan) -> None:
+    def _step_tail(self, plan: StepPlan, t_step: float) -> None:
+        """Accounting after the step's tokens have landed: the speculation
+        ratios read ``tokens_out``, the straggler detector the step's
+        time, the sharing peaks the refcounts after releases."""
+        drafted = self.metrics["draft_tokens"]
+        self.metrics["accept_ratio"] = (
+            self.metrics["accepted_tokens"] / drafted if drafted else 0.0)
         self.metrics["steps_per_token"] = (
             self.metrics["seq_steps"] / max(1, self.metrics["tokens_out"]))
+        if plan.has_work() and self.straggler.record_slow(
+                0, self._now() - t_step):
+            self.metrics["slow_steps"] += 1
         if not self.paged:
             return
         live = shared = 0
@@ -537,7 +641,12 @@ class Engine:
         one per pool key)."""
         return self.model.prefill_compile_count()
 
-    # -- deadlines, shedding, stalls -----------------------------------------
+    def verify_compile_count(self) -> int:
+        """The same count for the speculative verify step, a separate entry
+        with its own one-per-pool-key bar."""
+        return self.model.verify_compile_count()
+
+    # -- the fault domain: deadlines, shedding, stalls, audits -----------------
     def _fail_request(self, req: Request, msg: str, kind: str,
                       plan: Any = None, quarantine: bool = False
                       ) -> Request:
@@ -555,6 +664,48 @@ class Engine:
         req.t_done = self._now()
         self.metrics["requests_failed"] += 1
         return req
+
+    def _nan_row(self, site: str, req: Request) -> None:
+        """Count and log one non-finite logits row of ``req``."""
+        self.metrics["nan_rows"] += 1
+        self.fault_log.append({"step": self._step, "kind": "nan",
+                               "site": site, "uid": req.uid})
+
+    def _survive_faults(self, site: str, items: List[Any], uid_of,
+                        alive) -> tuple:
+        """The fault gate in front of one device batch.  Injected step
+        exceptions fire before the call writes the cache, so a retry is
+        clean; a fault that outlasts ``retry_limit`` retries fails the
+        request it targets, and the surviving rows dispatch without it.
+        Returns (surviving items, failed requests)."""
+        failed: List[Request] = []
+        attempts = 0
+        while items:
+            try:
+                self.faults.raise_if_armed(
+                    site, self._step, [uid_of(x) for x in items])
+                break
+            except InjectedFault as exc:
+                attempts += 1
+                self.metrics["step_retries"] += 1
+                self.fault_log.append(
+                    {"step": self._step, "kind": "retry", "site": site,
+                     "uid": exc.uid, "attempt": attempts})
+                if attempts <= self.retry_limit:
+                    continue
+                if exc.uid is None:
+                    raise    # untargeted and persistent: nothing to isolate
+                req = next(s.req for s in self.scheduler.running.values()
+                           if s.req.uid == exc.uid)
+                failed.append(self._fail_request(
+                    req, f"persistent {site}-step fault "
+                         f"({attempts} attempts)", ERR_FAULT))
+                self.fault_log.append(
+                    {"step": self._step, "kind": "isolated", "site": site,
+                     "uid": exc.uid, "attempts": attempts})
+                items = [x for x in items if alive(x)]
+                attempts = 0
+        return items, failed
 
     def _enforce_deadlines(self, plan: StepPlan) -> List[Request]:
         """The per-step watchdog: fail every request in flight past its
@@ -580,6 +731,8 @@ class Engine:
             else:
                 continue
             self.metrics["deadline_misses"] += 1
+            self.fault_log.append({"step": self._step, "kind": "deadline",
+                                   "uid": req.uid, "budget": which})
             failed.append(self._fail_request(
                 req, f"{which} deadline of {budget:g} ms exceeded "
                      f"({age_ms:.1f} ms since submit)", ERR_DEADLINE,
@@ -595,24 +748,67 @@ class Engine:
             req.t_done = self._now()
             self.metrics["shed_requests"] += 1
             self.metrics["requests_failed"] += 1
+            self.fault_log.append({"step": self._step, "kind": "shed",
+                                   "uid": req.uid})
             shed.append(req)
         return shed
 
-    def _handle_stall(self) -> None:
-        """An idle plan with work pending breaks the scheduler's contract
-        (defer, preempt or reject): raise :class:`SchedulerStall` with the
-        queue snapshot.  (The reference's fault layer sheds instead; it is
-        not ported.)"""
+    def _handle_stall(self, injected: bool) -> List[Request]:
+        """An idle plan with work pending.  Without a fault layer it breaks
+        the scheduler's contract (defer, preempt or reject): raise
+        :class:`SchedulerStall` with the queue snapshot.  With one, shed
+        the lowest-value waiter and serve on, until ``stall_shed_limit``
+        stalls in a row found nothing to shed: then the wedge is real and
+        raises too."""
+        self.metrics["stalls"] += 1
+        self._stall_streak += 1
         waiting, running = (len(self.scheduler.waiting),
                             len(self.scheduler.running))
         snapshot = {
-            "step": self._step, "injected": False,
+            "step": self._step, "injected": injected,
             "waiting": [s.req.uid for s in self.scheduler.waiting],
             "running": {slot: seq.req.uid for slot, seq
                         in sorted(self.scheduler.running.items())}}
-        raise SchedulerStall(
-            "scheduler made no progress with work pending "
-            f"(waiting={waiting}, running={running})", snapshot)
+        if self.faults is None:
+            raise SchedulerStall(
+                "scheduler made no progress with work pending "
+                f"(waiting={waiting}, running={running})", snapshot)
+        shed = self._shed("scheduler stall with work pending")
+        self.fault_log.append({"step": self._step, "kind": "stall",
+                               "injected": injected,
+                               "shed": [r.uid for r in shed]})
+        if not shed and self._stall_streak > self.stall_shed_limit:
+            raise SchedulerStall(
+                f"scheduler stalled {self._stall_streak} consecutive "
+                f"steps with nothing left to shed (waiting={waiting}, "
+                f"running={running})", snapshot)
+        return shed
+
+    def _run_audit(self) -> List[Request]:
+        """The allocator's periodic self-audit (every ``audit_interval``
+        steps, before scheduling).  A dirty report is repaired in place --
+        corrupted blocks quarantined, free list, LRU and refcounts rebuilt
+        -- and exactly the requests leasing corrupted blocks fail."""
+        report = self.pager.audit(repair=True)
+        if report.clean:
+            return []
+        self.metrics["audit_repairs"] += 1
+        self.metrics["audit_violations"] += len(report.violations)
+        victims: Dict[int, Request] = {}
+        for slot in report.victim_slots:
+            seq = self.scheduler.running.get(slot)
+            if seq is not None:
+                victims.setdefault(seq.req.uid, seq.req)
+        self.fault_log.append(
+            {"step": self._step, "kind": "audit",
+             "violations": list(report.violations),
+             "corrupted_blocks": list(report.corrupted_blocks),
+             "victims": sorted(victims)})
+        return [self._fail_request(
+                    req, "KV blocks quarantined by allocator audit "
+                         f"({len(report.corrupted_blocks)} corrupted)",
+                    ERR_AUDIT)
+                for req in victims.values()]
 
     # -- internals ------------------------------------------------------
     def _seq_key(self, seq) -> torch.Tensor:
@@ -735,6 +931,14 @@ class Engine:
         if not self.paged:
             return self._run_dense_prefills(chunks)
         failed: List[Request] = []
+        if self.faults is not None:
+            chunks, failed = self._survive_faults(
+                SITE_PREFILL, list(chunks),
+                uid_of=lambda c: c.seq.req.uid,
+                alive=lambda c:
+                    self.scheduler.running.get(c.seq.slot) is c.seq)
+            if not chunks:
+                return failed
         nrows, width = self.max_slots, self.prefill_chunk_tokens
         toks = np.zeros((nrows, width), np.int32)
         lens = np.zeros((nrows,), np.int32)
@@ -751,6 +955,10 @@ class Engine:
             page_table=self._host_pt, chunk_lens=lens)
         self.metrics["chunk_batch_calls"] += 1
         self._account_prefix_bytes(offs, lens)
+        if self.faults is not None:
+            logits = self.faults.corrupt_logits(
+                SITE_PREFILL, self._step, logits,
+                [c.seq.req.uid for c in chunks])
         first, finite = self._first_tokens(logits, chunks)
         self.metrics["t_prefill"] += self._now() - t0
         for i, c in enumerate(chunks):
@@ -758,7 +966,9 @@ class Engine:
             if self.scheduler.running.get(seq.slot) is not seq:
                 continue
             if not finite[i]:
-                self.metrics["nan_rows"] += 1
+                # the K/V this chunk wrote is suspect: quarantine before
+                # anything registers, fail the request (its whole group)
+                self._nan_row(SITE_PREFILL, seq.req)
                 failed.append(self._fail_request(
                     seq.req, "non-finite logits during prefill", ERR_NAN,
                     quarantine=True))
@@ -887,13 +1097,28 @@ class Engine:
         the tokens' copy to the host, without waiting for the card.  Row
         ``i`` draws with ``fold_in(stream_key, len(output))`` of its
         sequence."""
+        failed: List[Request] = []
+        if self.faults is not None:
+            slots, failed = self._survive_faults(
+                SITE_DECODE, list(slots),
+                uid_of=lambda s: self.scheduler.running[s].req.uid,
+                alive=lambda s: s in self.scheduler.running)
+            if not slots:
+                return _PendingDecode(slots=[], failed=failed)
         tokens = np.zeros((self.max_slots,), np.int32)
         seqs = [self.scheduler.running[i] for i in slots]
+        row_uids: List[Optional[int]] = [None] * self.max_slots
         for i, seq in zip(slots, seqs):
             tokens[i] = seq.output[-1]
+            row_uids[i] = seq.req.uid
         t0 = self._now()
+        if self.faults is not None:
+            self.faults.latency(self._step)    # a simulated slow step
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._put(tokens))
+        if self.faults is not None:
+            logits = self.faults.corrupt_logits(SITE_DECODE, self._step,
+                                                logits, row_uids)
         draw = self._draw(
             logits, slots, lambda: prng.fold_in(
                 torch.stack([self._seq_key(seq) for seq in seqs]),
@@ -905,13 +1130,16 @@ class Engine:
         kv_now = sum(seq.kv_len for seq in seqs)
         self._account_energy(float(len(slots)), float(kv_now),
                              float(kv_now))
-        return _PendingDecode(slots=slots, draw=draw, t0=t0)
+        return _PendingDecode(slots=slots, failed=failed, draw=draw, t0=t0)
 
     def _decode_complete(self, p: _PendingDecode) -> List[Request]:
         """The token-dependent half: wait for the tokens, append them,
         register filled blocks, retire stops, re-sync lengths.  ``t_decode``
         is charged from dispatch to here, the host's overlap window
         included, as in the reference."""
+        if not p.slots:
+            self.cache["lens"] = self._put(self.scheduler.device_lens())
+            return p.failed
         drawn, finite = p.draw.wait()
         nxt = dict(zip(p.slots, drawn))
         self.metrics["t_decode"] += self._now() - p.t0
@@ -921,8 +1149,11 @@ class Engine:
             if seq is None or seq.req.error is not None:
                 continue
             if not finite[i]:
-                self.metrics["nan_rows"] += 1
-                finished.append(self._fail_request(
+                # the row's token is garbage and the K/V row it wrote is
+                # suspect: quarantine and fail the request (its group);
+                # every other row's draw is its own
+                self._nan_row(SITE_DECODE, seq.req)
+                p.failed.append(self._fail_request(
                     seq.req, "non-finite logits during decode", ERR_NAN,
                     quarantine=True))
                 continue
@@ -934,8 +1165,126 @@ class Engine:
                 done = self._finish_seq(seq)
                 if done is not None:
                     finished.append(done)
+        finished.extend(p.failed)
         # the scheduler's lengths are authoritative: decoded rows advanced
         # at planning, finished/free rows drop to 0, a mid-prefill row gets
         # its prefill progress back
+        self.cache["lens"] = self._put(self.scheduler.device_lens())
+        return finished
+
+    def _run_verifies(self, verifies: List[SpecVerify]) -> List[Request]:
+        """This step's speculative verifies as ONE ``verify_chunk_batch``
+        call padded to the fixed ``(max_slots, spec_tokens + 1)`` extent
+        (padding rows carry slot -1 and write nothing, as in the chunk
+        step).
+
+        Row ``i`` feeds ``[output[-1], drafts...]`` at positions ``start ..
+        start + k`` and gets logits at all ``k + 1``; position ``j`` is
+        sampled with ``fold_in(stream_key, m + j)`` (``m`` tokens emitted so
+        far), the key plain decode would use, so the stream does not depend
+        on the drafts.  The walk appends tokens while they agree with the
+        drafts and always commits the first; on disagreement or a stop it
+        rolls the slot's lease back to the accepted length with
+        ``BlockAllocator.truncate`` before ``_register_blocks``, so the
+        prefix index never serves speculative K/V.  The NaN guard reads a
+        row's first ``k + 1`` positions only."""
+        failed: List[Request] = []
+        if self.faults is not None:
+            verifies, failed = self._survive_faults(
+                SITE_DECODE, list(verifies),
+                uid_of=lambda v: v.seq.req.uid,
+                alive=lambda v:
+                    self.scheduler.running.get(v.seq.slot) is v.seq)
+            if not verifies:
+                self.cache["lens"] = self._put(self.scheduler.device_lens())
+                return failed
+        nrows, width = self.max_slots, self.spec_tokens + 1
+        toks = np.zeros((nrows, width), np.int32)
+        lens = np.zeros((nrows,), np.int32)
+        offs = np.zeros((nrows,), np.int32)
+        slots = np.full((nrows,), -1, np.int32)
+        row_uids: List[Optional[int]] = [None] * nrows
+        rows: List[int] = []            # logits rows to sample, flattened
+        keys: List[torch.Tensor] = []
+        positions: List[int] = []
+        temps: List[float] = []
+        top_ps: List[float] = []
+        for i, v in enumerate(verifies):
+            seq = v.seq
+            k = len(v.drafts)
+            lens[i] = k + 1
+            toks[i, 0] = seq.output[-1]
+            toks[i, 1:k + 1] = v.drafts
+            offs[i] = v.start
+            slots[i] = seq.slot
+            row_uids[i] = seq.req.uid
+            m = len(seq.output)
+            rows += range(i * width, i * width + k + 1)
+            keys += [self._seq_key(seq)] * (k + 1)
+            positions += range(m, m + k + 1)
+            temps += [seq.req.temperature] * (k + 1)
+            top_ps += [seq.req.top_p] * (k + 1)
+
+        t0 = self._now()
+        if self.faults is not None:
+            self.faults.latency(self._step)
+        logits, self.cache = self.model.verify_chunk_batch(
+            self.params, toks, self.cache, slots, offs,
+            page_table=self._host_pt, chunk_lens=lens)
+        if self.faults is not None:
+            logits = self.faults.corrupt_logits(SITE_DECODE, self._step,
+                                                logits, row_uids)
+        emitted, finite = self._draw(
+            logits.reshape(nrows * width, logits.shape[-1]), rows,
+            lambda: prng.fold_in(torch.stack(keys), torch.tensor(positions)),
+            temps, top_ps).wait()
+        self.metrics["verify_steps"] += 1
+        self.metrics["seq_steps"] += len(verifies)
+        self.metrics["t_decode"] += self._now() - t0
+        # the verify reads the prefix through the same paged path as a
+        # chunk: its tile traffic and energy are charged the same way
+        self._account_prefix_bytes(offs, lens)
+
+        finished: List[Request] = []
+        at = 0                          # row i's draws start at emitted[at]
+        for i, v in enumerate(verifies):
+            seq = v.seq
+            k = len(v.drafts)
+            drawn, at = emitted[at:at + k + 1], at + k + 1
+            if self.scheduler.running.get(seq.slot) is not seq \
+                    or seq.req.error is not None:
+                continue         # torn down by an earlier row this step
+            if not finite[i * width:i * width + k + 1].all():
+                # a poisoned position taints the row's K/V writes:
+                # quarantine and fail, as on the decode path
+                self._nan_row(SITE_DECODE, seq.req)
+                failed.append(self._fail_request(
+                    seq.req, "non-finite logits during verify", ERR_NAN,
+                    quarantine=True))
+                continue
+            appended = 0
+            stop = False
+            for j in range(k + 1):
+                tok = int(drawn[j])
+                seq.output.append(tok)
+                appended += 1
+                self.metrics["tokens_out"] += 1
+                seq.kv_len = v.start + appended
+                stop = self._stop_hit(seq, tok)
+                if stop or j >= k or v.drafts[j] != tok:
+                    break
+            self.metrics["draft_tokens"] += k
+            self.metrics["accepted_tokens"] += appended - 1
+            if appended <= k:
+                self.metrics["spec_rollbacks"] += 1
+            # rollback by truncation first, then register: rejected rows
+            # can neither stay leased nor reach the prefix index
+            self.pager.truncate(seq.slot, seq.kv_len)
+            self._register_blocks(seq)
+            if stop:
+                done = self._finish_seq(seq)
+                if done is not None:
+                    finished.append(done)
+        finished.extend(failed)
         self.cache["lens"] = self._put(self.scheduler.device_lens())
         return finished

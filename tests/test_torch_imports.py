@@ -77,7 +77,7 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         Engine(m, params, max_slots=1, max_seq=16, page_size=8)
     with pytest.raises(NotImplementedError):
         Engine(m, params, max_slots=1, max_seq=16, page_size=8,
-               spec_tokens=1, device="cpu")
+               mesh=object(), device="cpu")
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run(requests=1)

@@ -60,8 +60,7 @@ def test_argparse_defaults_match_the_reference(monkeypatch):
     assert got["device"] is None
 
 
-@pytest.mark.parametrize("flags", [["--spec-tokens", "1"], ["--mesh", "2"],
-                                   ["--ckpt-dir", "x"]],
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--ckpt-dir", "x"]],
                          ids=lambda f: f[0])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
