@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
 sources, ten entry points: ``rmsnorm_quant.cu`` also holds ``quantize``;
 phase 1), holds each against its plain PyTorch version at the shapes the
-llama2-110m paths give it (phase 2), and serves llama2-110m at full width
+served paths give it (phase 2), and serves llama2-110m at full width
 through ``repro_torch.serving.engine.Engine`` on the card: the paged pool
 with f32 and int8 KV (phases 3-4), the reduced config on the card against
 the same weights on the CPU, greedy and sampled, with the threefry gumbel
@@ -22,7 +22,12 @@ weights, a replay oracle, always-wrong drafts and a draft model, each
 against the plain streams under a tolerance measured in the run, and the
 fault domain (phase 15): retries, isolation, NaN rows (a verify row too),
 the allocator audit and slow steps, survivors bitwise.  Phase 2 also
-holds the kernels at the verify's shapes.
+holds the kernels at the verify's shapes, and the seven kernels of the
+paged path at llama3.2-3b's (GQA 24/8, head_dim 128, bf16 and int8
+pools, K 3072 and 8192, the 128256-row head); phase 5 also runs the
+reduced llama3.2-3b; phase 16 serves llama3.2-3b at full width and depth
+(28 layers, bf16 compute) on a bf16 and an int8 pool, held against the
+same engine on the plain versions.
 Every served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
@@ -37,6 +42,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -247,15 +253,18 @@ def check_q8_matvec(report, dev):
                per="decode step at 8 slots: 48 layer GEMVs + head")
 
 
-def q8_matmul_chunk(dev, m, operands):
-    """The chunk step's MLP products at m rows, 12 layers x (w13, w2): each
-    call checked (bitwise) and timed by ``_quant_timed``, with ``torch._int_mm`` on the raw codes beside it for
-    information only (the tensor cores' integer product without the group
-    scales).  Returns the per-step sums.  Runs on any tree's
-    ``q8_matmul_kernel``, so parent and change can be timed in turns."""
+def q8_matmul_chunk(dev, m, operands, shapes=((4096, 768), (768, 2048)),
+                    layers=12):
+    """The chunk step's MLP products at m rows, ``layers`` x (w13, w2)
+    (``shapes``: llama2-110m's by default): each call checked (bitwise)
+    and timed by ``_quant_timed``, with ``torch._int_mm`` on the raw codes
+    beside it for information only (the tensor cores' integer product
+    without the group scales).  Returns the per-step sums.  Runs on any
+    tree's ``q8_matmul_kernel``, so parent and change can be timed in
+    turns."""
     from repro_torch.kernels import ops, ref
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for n, k in [(4096, 768), (768, 2048)]:
+    for n, k in shapes:
         err, ms, plain, lib, b_ms, b_by = _quant_timed(
             ops.q8_matmul_kernel, ref.ref_q8_matmul, "q8_matmul", operands,
             m, n, k, dev)
@@ -263,7 +272,7 @@ def q8_matmul_chunk(dev, m, operands):
         chunk.setdefault("by", b_by)      # w13's: the larger product
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                        ("bound", b_ms)):
-            chunk[key] += 12 * v
+            chunk[key] += layers * v
         codes = rotating(lambda: operands(m, n, k)[::2], m * k + n * k)
 
         def int_mm():
@@ -275,7 +284,7 @@ def q8_matmul_chunk(dev, m, operands):
             imm = f"not measured ({str(exc).splitlines()[0][:80]})"
         log(f"    torch._int_mm on the codes (no group scales; information "
             f"only): {imm}")
-    log(f"  q8_matmul per chunk step (12 x (w13, w2), M={m}): kernel "
+    log(f"  q8_matmul per chunk step ({layers} x (w13, w2), M={m}): kernel "
         f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, bound "
         f"{chunk['bound']:.4f} ms, {100 * chunk['bound'] / chunk['ms']:.1f}%"
         f" of it; bitwise")
@@ -695,6 +704,243 @@ def check_verify_edges(report, dev):
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
 
 
+
+# llama3.2-3b (phase 2's second part, phase 16): 28 layers, d_model 3072,
+# 24 query heads over 8 KV heads of 128 (HQ = 3), d_ff 8192, vocab 128256,
+# bf16 compute.  Its decode GEMVs (wqkv, wo_f, w13, w2) and head, and the
+# chunk step's MLP GEMMs (w13, w2) at 8 slots x 256 rows.
+L3 = "llama3.2-3b"
+L3_LAYERS, L3_D, L3_KVH, L3_HQ, L3_HD = 28, 3072, 8, 3, 128
+L3_GEMV = [(5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192)]
+L3_HEAD = (128256, 3072)
+L3_GEMM = ((16384, 3072), (3072, 8192))
+# rmsnorm_quant on bf16 input rounds the norm to bf16 before quantizing,
+# as the plain rms_norm returns it: where the kernel's f32 norm parted from
+# the plain one's by an ulp, that rounding could flip by one bf16 ulp (at
+# most 2^-7 of the value), moving the group's scale by 2^-7 relative and a
+# code by 127 * 2^-7 < 1 for the scale and < 1 for the value itself: at
+# most 2 codes.  The f32 tolerances (1 code, 3e-7) hold where no rounding
+# flips; the count of differing codes is printed.
+BF16_NORM_CODES, BF16_NORM_SCALE = 2, 2.0 ** -7
+
+
+def check_llama3(report, dev):
+    """The seven kernels of the paged path at llama3.2-3b's shapes, each
+    against its plain version at its check's tolerance and timed beside it
+    and its library call: q8_matvec at the decode GEMVs and the head (M =
+    1 and 8), summed per decode step; q8_matmul at the chunk step's MLP
+    (M = 8 x 256), bitwise; paged_decode_attention and
+    paged_prefill_attention at HQ 3, D 128 on bf16 and int8 pools (phase
+    2's lens and prefixes, B = 1 too, -1 entries inside rows);
+    rmsnorm_quant on bf16 rows at K = 3072 (M = 1, 8, 2048); quantize on
+    bf16 rows at wo_f's and w2's K = 3072 and 8192, bitwise; rope on the q
+    and k heads of a bf16 qkv row (32 heads of 128), bitwise.  Each adds a
+    row ``<kernel>@llama3.2-3b`` to the kernels line."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import rope_angles
+    gen = torch.Generator(device=dev).manual_seed(25)
+    operands = _q8_operands(gen, dev)
+    src = "src/repro_torch/kernels/csrc/"
+
+    # ---- q8_matvec: a decode step's 4 x 28 layer GEMVs + the head
+    step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+    for m in (1, 8):
+        for n, k in L3_GEMV + [L3_HEAD]:
+            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
+                ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
+                operands, m, n, k, dev)
+            step["err"] = max(step["err"], err)
+            if m == 8:
+                w = L3_LAYERS if (n, k) != L3_HEAD else 1
+                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
+                               ("bound", b_ms)):
+                    step[key] += w * v
+    log(f"  {L3} q8_matvec per decode step ({L3_LAYERS} layers x 4 + head, "
+        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
+        f"ms, bound {step['bound']:.4f} ms, "
+        f"{100 * step['bound'] / step['ms']:.1f}% of it")
+    report.add(f"q8_matvec@{L3}", route="cuda", source=src + "q8_matvec.cu",
+               replaces="src/repro/kernels/q8_matvec.py:67",
+               max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
+               bound_ms=step["bound"], bound_by="bytes",
+               library_ms=step["lib"],
+               per=f"decode step at 8 slots: {4 * L3_LAYERS} layer GEMVs "
+                   "(N x K 5120 x 3072, 3072 x 3072, 16384 x 3072, 3072 x "
+                   "8192) + head 128256 x 3072")
+
+    # ---- q8_matmul: the chunk step's MLP, 28 x (w13, w2) at 2048 rows
+    chunk = q8_matmul_chunk(dev, 2048, operands, shapes=L3_GEMM,
+                            layers=L3_LAYERS)
+    report.add(f"q8_matmul@{L3}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=chunk["err"], ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per=f"chunk step at 8 x 256 rows: {L3_LAYERS} x (w13 16384 x "
+                   "3072, w2 3072 x 8192); bitwise")
+
+    # ---- the attentions at HQ 3, D 128 on bf16 and int8 pools
+    geo = dict(kvh=L3_KVH, hq=L3_HQ, d=L3_HD)
+    dec, pre = {}, {}
+    for kind in ("bf16", "int8"):
+        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
+        dec[kind] = paged_decode_case(gen, dev, DECODE_LENS, timed=True,
+                                      **flags, **geo)
+        pre[kind] = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS,
+                                       timed=True, **flags, **geo)
+    dec_b1 = paged_decode_case(gen, dev, [1024], False, bf16=True,
+                               timed=True, **geo)
+    pre_b1 = paged_prefill_case(gen, dev, [768], [256], False, bf16=True,
+                                timed=True, **geo)
+    worst_dec = max(r["err"] for r in (*dec.values(), dec_b1))
+    worst_pre = max(r["err"] for r in (*pre.values(), pre_b1))
+    mb, bs = 16, 64
+    for kind in ("bf16", "int8"):
+        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
+        holes = _holes_table(gen, dev, mb, len(HOLE_LENS) * mb, bs,
+                             HOLE_LENS)
+        worst_dec = max(worst_dec, paged_decode_case(
+            gen, dev, HOLE_LENS, pt=holes, **flags, **geo)["err"])
+        worst_pre = max(worst_pre, paged_prefill_case(
+            gen, dev, HOLE_LENS, [7, 20, 256, 100], pt=holes, **flags,
+            **geo)["err"])
+        for lens_l in ([127, 128, 129, 511, 512, 513, 1, 0],):
+            worst_dec = max(worst_dec, paged_decode_case(
+                gen, dev, lens_l, **flags, **geo)["err"])
+        worst_dec = max(worst_dec, paged_decode_case(
+            gen, dev, [17, 300, 0, 1000], bs=16, mb=64, **flags,
+            **geo)["err"])
+        worst_pre = max(worst_pre, paged_prefill_case(
+            gen, dev, [0, 17, 300, 1000], [256, 100, 1, 256], bs=16, mb=64,
+            **flags, **geo)["err"])
+    log(f"  {L3} attentions: -1 entries inside rows ({HOLE_LENS}), lens at "
+        f"split boundaries and pages of 16 (bf16 and int8 pools) within "
+        f"2e-5, worst decode {worst_dec:.2e}, prefill {worst_pre:.2e}")
+    d, i8 = dec["bf16"], dec["int8"]
+    report.add(f"paged_decode_attention@{L3}", route="cuda",
+               source=src + "paged_decode_attention.cu",
+               header=src + "flash_decode.cuh",
+               replaces="src/repro/kernels/paged_decode_attention.py:138",
+               max_abs_err=worst_dec, ms=d["ms"], plain_ms=d["plain"],
+               library_ms=d["lib"], bound_ms=d["bound"], bound_by=d["by"],
+               int8_ms=i8["ms"], int8_plain_ms=i8["plain"],
+               int8_library_ms=i8["lib"], int8_bound_ms=i8["bound"],
+               b1_1024_ms=dec_b1["ms"], b1_1024_bound_ms=dec_b1["bound"],
+               b1_1024_library_ms=dec_b1["lib"],
+               per="one layer's call at 8 slots, 8 KV heads x HQ 3 x D 128, "
+                   "bf16 pool (int8_* for the int8 pool, b1_* at batch 1)")
+    p, i8 = pre["bf16"], pre["int8"]
+    report.add(f"paged_prefill_attention@{L3}", route="cuda",
+               source=src + "paged_prefill_attention.cu",
+               header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/paged_prefill_attention.py:215",
+               max_abs_err=worst_pre, ms=p["ms"], plain_ms=p["plain"],
+               library_ms=p["lib"], bound_ms=p["bound"], bound_by=p["by"],
+               f32_bound_ms=p["f32_bound"], int8_ms=i8["ms"],
+               int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
+               int8_bound_ms=i8["bound"], b1_ms=pre_b1["ms"],
+               b1_bound_ms=pre_b1["bound"], b1_library_ms=pre_b1["lib"],
+               per="one layer's call at 8 x 256 rows, 8 KV heads x HQ 3 x D "
+                   "128, bf16 pool (int8_* for the int8 pool, b1_* for B = "
+                   "1, 256 rows against prefix 768)")
+
+    # ---- rmsnorm_quant on bf16 rows at K = 3072 (norm1 -> wqkv, norm2 ->
+    # w13, final norm -> head)
+    k, gs, eps = L3_D, 64, 1e-5
+    gamma = torch.randn((k,), generator=gen, device=dev)
+    norm = {}
+    for m in (1, 8, 2048):
+        def mk():
+            return _norm_input(gen, dev, m, k, gs).bfloat16()
+        n_diff, rel, err, _, _ = _norm_held(ops, ref, mk(), gamma, eps, gs,
+                                            BF16_NORM_CODES, BF16_NORM_SCALE)
+        nbytes = m * k * 2 + k * 4 + m * k + m * (k // gs) * 4
+        b_ms, b_by = bound(nbytes, 6.0 * m * k, F32_FLOPS_PER_S)
+        nxt = rotating(mk, m * k * 2)
+        ms = time_ms(lambda: ops.rmsnorm_quant_kernel(nxt(), gamma, eps, gs),
+                     iters=50)
+        plain = time_ms(lambda: ref.ref_rmsnorm_quant(nxt(), gamma, eps, gs),
+                        iters=20)
+        norm[m] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       codes_differing=n_diff, scale_rel_err=rel, err=err)
+        log(f"  {L3} rmsnorm_quant bf16 M={m:5d} K={k}: {n_diff} of {m * k} "
+            f"codes differ, max scale diff {rel:.2e} relative (tol "
+            f"{BF16_NORM_CODES} codes, {BF16_NORM_SCALE:.2e}: one bf16 "
+            f"rounding), dequantized max abs err {err:.2e}  kernel "
+            f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
+            f"({b_by})")
+    r8 = norm[8]
+    report.add(f"rmsnorm_quant@{L3}", route="cuda",
+               source=src + "rmsnorm_quant.cu", header=src + "pdl.cuh",
+               replaces="src/repro/kernels/rmsnorm_quant.py:58",
+               max_abs_err=max(r["err"] for r in norm.values()),
+               ms=r8["ms"], plain_ms=r8["plain_ms"], library_ms=None,
+               bound_ms=r8["bound_ms"], bound_by=r8["bound_by"],
+               m1_ms=norm[1]["ms"], m2048_ms=norm[2048]["ms"],
+               m2048_plain_ms=norm[2048]["plain_ms"],
+               m2048_bound_ms=norm[2048]["bound_ms"],
+               codes_differing={str(m): r["codes_differing"]
+                                for m, r in norm.items()},
+               scale_rel_err=max(r["scale_rel_err"] for r in norm.values()),
+               per="one call at M=8 decode rows of bf16, K=3072 (m2048_* "
+                   "for a chunk step's rows); max_abs_err on the "
+                   "dequantized values code * scale")
+
+    # ---- quantize on bf16 rows: wo_f's and w2's inputs, decode and chunk
+    qrec = {}
+    for m, kk in ((8, 3072), (8, 8192), (2048, 8192)):
+        def mkq():
+            return _norm_input(gen, dev, m, kk, gs).bfloat16()
+        _quantize_held(ops, mkq(), gs)
+        nxt = rotating(mkq, m * kk * 2)
+        ms = time_ms(lambda: ops.quantize_kernel(nxt(), gs), iters=50)
+        plain = time_ms(lambda: quantize(nxt(), gs, 8), iters=20)
+        nbytes = m * kk * 2 + m * kk + m * (kk // gs) * 4
+        b_ms, b_by = bound(nbytes, 4.0 * m * kk, F32_FLOPS_PER_S)
+        qrec[f"{m}x{kk}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                 bound_by=b_by)
+        log(f"  {L3} quantize bf16 M={m:5d} K={kk:5d}: bitwise  kernel "
+            f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
+            f"({b_by})")
+    report.add(f"quantize@{L3}", route="cuda",
+               source=src + "rmsnorm_quant.cu", header=src + "pdl.cuh",
+               replaces="src/repro/kernels/ops.py:60", max_abs_err=0.0,
+               **qrec["8x8192"], library_ms=None, by_shape=qrec,
+               per="one call at M=8 bf16 rows, K=8192 (w2's input; "
+                   "by_shape also wo_f's 8 x 3072 and the chunk step's "
+                   "2048 x 8192); bitwise")
+
+    # ---- rope on the q and k heads of a bf16 qkv row, read in place
+    nh, heads = 24 + L3_KVH, 24 + 2 * L3_KVH
+    rec = {}
+    for b in (1, 8):
+        qkv = torch.randn((b, heads, L3_HD), generator=gen,
+                          device=dev).bfloat16()
+        pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
+        cos, sin = rope_angles(pos, L3_HD, 5e5)
+        x = qkv[:, :nh]
+        got, want = ops.rope_kernel(x, cos, sin), ref.ref_rope(x, cos, sin)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{L3} rope B={b}: max abs err "
+                                 f"{(got.float() - want.float()).abs().max()}"
+                                 ", expected bitwise equality")
+        nbytes = 2 * b * nh * L3_HD * 2 + 2 * b * L3_HD * 4
+        b_ms, b_by = bound(nbytes, 4.0 * b * nh * L3_HD, F32_FLOPS_PER_S)
+        ms = time_ms(lambda: ops.rope_kernel(x, cos, sin), iters=50)
+        plain = time_ms(lambda: ref.ref_rope(x, cos, sin), iters=50)
+        rec[b] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        log(f"  {L3} rope bf16 B={b} heads {nh} D={L3_HD}: bitwise  kernel "
+            f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
+            f"({b_by})")
+    report.add(f"rope@{L3}", route="cuda", source=src + "rope.cu",
+               header=src + "pdl.cuh", replaces="src/repro/kernels/rope.py:48",
+               max_abs_err=0.0, **rec[8], library_ms=None,
+               b1_ms=rec[1]["ms"],
+               per="one layer's call at 8 slots: 32 q and k heads of 128 of "
+                   "a bf16 qkv row; bitwise")
+
 def sass_count(name: str, *words: str) -> int:
     """Lines of kernel ``name``'s built library, disassembled by
     ``cuobjdump -sass``, that hold every one of ``words``.  Builds the
@@ -938,10 +1184,11 @@ def _norm_input(gen, dev, m, k, gs):
     return x
 
 
-def _norm_held(ops, ref, x, gamma, eps, gs):
-    """rmsnorm_quant against its plain version: codes within 1, scales
-    within 3e-7 relative, the zero group exact.  Returns (codes differing,
-    scale rel, dequantized max abs err, plain codes, plain scales)."""
+def _norm_held(ops, ref, x, gamma, eps, gs, codes=1, scale_rel=3e-7):
+    """rmsnorm_quant against its plain version: codes within ``codes``,
+    scales within ``scale_rel`` relative, the zero group exact.  Returns
+    (codes differing, scale rel, dequantized max abs err, plain codes,
+    plain scales)."""
     m, k = x.shape
     q, sc = ops.rmsnorm_quant_kernel(x, gamma, eps, gs)
     wq, ws = ref.ref_rmsnorm_quant(x, gamma, eps, gs)
@@ -952,7 +1199,7 @@ def _norm_held(ops, ref, x, gamma, eps, gs):
     zero_ok = bool((q[0, gs:2 * gs] == 0).all()) and sc[0, 1].item() == 0.0
     deq = (q.float().reshape(m, -1, gs) * sc[..., None]
            - wq.float().reshape(m, -1, gs) * ws[..., None])
-    if not (dq.max().item() <= 1 and rel <= 3e-7 and zero_ok):
+    if not (dq.max().item() <= codes and rel <= scale_rel and zero_ok):
         raise AssertionError(
             f"rmsnorm_quant M={m} K={k}: codes differ by up to "
             f"{dq.max().item()} ({n_diff} of {m * k}), scales by "
@@ -1018,7 +1265,7 @@ def check_rmsnorm_quant(report, dev, parent=False):
             asc = torch.empty_like(ws)
             build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
                          aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
-                         *ops.rmsnorm_quant_plan(m, k, alt),
+                         *ops.rmsnorm_quant_plan(m, k, alt), 0,
                          torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             alt_rel = ((asc - ws).abs()
@@ -1238,10 +1485,14 @@ def norm_rope_turn(dev):
     return out
 
 
-def _pools(gen, dev, nb, bs, kvh, d, int8):
+def _pools(gen, dev, nb, bs, kvh, d, int8, bf16=False):
+    """Random K/V pools: f32, bf16 (``bf16``) or int8 codes with their
+    f32 scales (``int8``)."""
     from repro_torch.core.quantization import quantize_rows
     k = torch.randn((nb, bs, kvh, d), generator=gen, device=dev)
     v = torch.randn((nb, bs, kvh, d), generator=gen, device=dev)
+    if bf16:
+        return k.bfloat16(), v.bfloat16(), None, None
     if not int8:
         return k, v, None, None
     kq, ks = quantize_rows(k)
@@ -1277,17 +1528,20 @@ def _holes_table(gen, dev, mb, nb, bs, lens_l):
 
 
 def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
-                      mb=16, pt=None, timed=False, yardsticks=True):
+                      mb=16, pt=None, timed=False, yardsticks=True,
+                      bf16=False):
     """One paged_decode_attention call against its plain version (tolerance
-    2e-5; a length-0 row exactly 0) on random pools of B * MB pages and a
-    table of distinct random pages (or ``pt``).  ``timed``: also its
-    device time on L2-cold pools and its bound; ``yardsticks``: the plain
-    version's and SDPA's (on gathered K/V) times beside it.  Returns a dict
-    with the inputs of the call and its output."""
+    2e-5; a length-0 row exactly 0) on random pools of B * MB pages (f32,
+    bf16 with ``bf16``: widened exactly by both, so the same tolerance, or
+    int8) and a table of distinct random pages (or ``pt``).  ``timed``:
+    also its device time on L2-cold pools and its bound; ``yardsticks``:
+    the plain version's and SDPA's (on gathered K/V, repeated over the
+    query heads) times beside it.  Returns a dict with the inputs of the
+    call and its output."""
     from repro_torch.kernels import ops, ref
     b, h, nb = len(lens_l), kvh * hq, len(lens_l) * mb
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-    pools = _pools(gen, dev, nb, bs, kvh, d, int8)
+    pools = _pools(gen, dev, nb, bs, kvh, d, int8, bf16)
     if pt is None:
         pt = _page_table(gen, dev, b, mb, nb, [-(-n // bs) for n in lens_l])
     q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
@@ -1296,7 +1550,7 @@ def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
     want = ref.ref_paged_decode_attention(q, pools[0], pools[1], pt, lens,
                                           pools[2], pools[3])
     torch.cuda.synchronize()
-    kind = "int8" if int8 else "f32"
+    kind = "int8" if int8 else "bf16" if bf16 else "f32"
     err = (got - want).abs().max().item()
     tol = 2e-5   # online vs one-pass softmax: f32 summation order only
     zero = all(got[i].abs().max().item() == 0.0
@@ -1310,13 +1564,14 @@ def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
            "out": got}
     if not timed:
         return rec
-    elem = 1 if int8 else 4
+    elem = 1 if int8 else 2 if bf16 else 4
     nrows = sum(min(max(n, 0), mb * bs) for n in lens_l)
     nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
               + 2 * b * h * d * 4 + 4 * b * mb + 4 * b)
     rec["bound"], rec["by"] = bound(nbytes, 4.0 * nrows * h * d,
                                     F32_FLOPS_PER_S)
-    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
+    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8,
+                                       bf16)),
                    2 * nb * bs * kvh * d * elem, budget=96 << 20)
 
     def run_kernel():
@@ -1339,7 +1594,8 @@ def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
         if int8:
             kg = kg * ref.gather_rows(pools[2], pt)[..., None]
             vg = vg * ref.gather_rows(pools[3], pt)[..., None]
-        kg, vg = kg.transpose(1, 2), vg.transpose(1, 2)      # (B, H, S, D)
+        kg = torch.repeat_interleave(kg, hq, dim=2).transpose(1, 2)
+        vg = torch.repeat_interleave(vg, hq, dim=2).transpose(1, 2)
         mask = (torch.arange(mb * bs, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
@@ -1421,11 +1677,13 @@ PREFILL_QLENS = [256, 256, 100, 256, 17, 0, 256, 255]
 
 def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
                        kvh=12, hq=1, d=64, bs=64, mb=16, timed=False,
-                       yardsticks=True):
+                       yardsticks=True, bf16=False):
     """One paged_prefill_attention call against its plain version on the
     rows below q_lens (out, m and l relative to max(1, l), tolerance 2e-5);
     an empty prefix and every skipped row exactly (0, -1e30, 0).  Pools of
-    B * MB pages, a table of distinct random pages (or ``pt``).  ``timed``:
+    B * MB pages (f32, bf16 with ``bf16``: widened exactly by both, so the
+    same tolerance, or int8), a table of distinct random pages (or
+    ``pt``).  ``timed``:
     also its device time on L2-cold pools and its bound, the lesser of the
     3xTF32 tensor-core floor (three TF32 products a product) and the f32
     CUDA-core one; ``yardsticks``: the plain version's and SDPA's (on
@@ -1435,7 +1693,7 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
     b, h, nb = len(pfx_l), kvh * hq, len(pfx_l) * mb
     pfx = torch.tensor(pfx_l, dtype=torch.int32, device=dev)
     qlens = torch.tensor(qlen_l, dtype=torch.int32, device=dev)
-    pools = _pools(gen, dev, nb, bs, kvh, d, int8)
+    pools = _pools(gen, dev, nb, bs, kvh, d, int8, bf16)
     if pt is None:
         pt = _page_table(gen, dev, b, mb, nb, [-(-p // bs) for p in pfx_l])
     q = torch.randn((b, c, kvh, hq, d), generator=gen,
@@ -1456,7 +1714,7 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
                   (m - wm).abs()[rows].max().item(),
                   ((l - wl).abs() / wl.clamp(min=1.0))[rows].max().item())
     tol = 2e-5
-    kind = "int8" if int8 else "f32"
+    kind = "int8" if int8 else "bf16" if bf16 else "f32"
     empty = [i for i, p in enumerate(pfx_l) if p == 0]
     empty_exact = (bool((out[empty] == 0).all())
                    and bool((l[empty] == 0).all())
@@ -1474,7 +1732,7 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
     rec = {"err": err, "args": args, "out": (out, m, l)}
     if not timed:
         return rec
-    elem = 1 if int8 else 4
+    elem = 1 if int8 else 2 if bf16 else 4
     kv_rows = sum(min(max(p, 0), mb * bs) for p in pfx_l)
     nbytes = (2 * kv_rows * kvh * d * elem + (8 * kv_rows * kvh if int8
                                               else 0)
@@ -1484,7 +1742,8 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
                       for p, n in zip(pfx_l, qlen_l)) * h * d
     rec["bound"], rec["by"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
     rec["f32_bound"], rec["f32_by"] = bound(nbytes, flops, F32_FLOPS_PER_S)
-    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8)),
+    nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8,
+                                       bf16)),
                    2 * nb * bs * kvh * d * elem, budget=96 << 20)
 
     def run_kernel():
@@ -2151,15 +2410,18 @@ def single_stream(dev, model, by_bits):
     return out
 
 
-def reduced_cpu_vs_card(dev):
+def reduced_cpu_vs_card(dev, arch="llama2-110m"):
     """The reduced config with the same weights: plain versions on the CPU
     against the kernels on the card, on the paged and the dense Engine.
     Logits may differ by the ~3e-2 an int8 activation code flipped by a
     last-place difference moves them (the CPU tests measure this); streams
-    may part only at a step whose top-2 gap is below that."""
+    may part only at a step whose top-2 gap is below that.  A bf16 config
+    (llama3.2-3b) runs the paged Engine only (the dense cache takes f32
+    configs), greedy: the sampled check is llama2-110m's."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import build_model, params_to
-    cfg = reduced(get_config("llama2-110m"))
+    cfg = reduced(get_config(arch))
+    f32 = cfg.compute_dtype == "float32"
     model = build_model(cfg)
     p_cpu = model.quantize(model.init(seed=0, device="cpu"))
     p_dev = params_to(p_cpu, dev)
@@ -2189,22 +2451,26 @@ def reduced_cpu_vs_card(dev):
 
     diff = (first_logits(p_cpu, cpu)
             - first_logits(p_dev, dev)).abs().max().item()
-    ddiff = (prefill_logits(p_cpu) - prefill_logits(p_dev)).abs().max().item()
-    phase(f"phase 5: reduced config, CPU plain vs card kernels: first chunk "
-          f"step logits max |diff| {diff:.3g}, whole-prompt prefill logits "
-          f"{ddiff:.3g} (tol {FLIP_TOL})")
+    ddiff = ((prefill_logits(p_cpu) - prefill_logits(p_dev)).abs().max()
+             .item() if f32 else 0.0)
+    phase(f"phase 5: reduced {arch} ({cfg.compute_dtype}), CPU plain vs card "
+          f"kernels: first chunk step logits max |diff| {diff:.3g}"
+          + (f", whole-prompt prefill logits {ddiff:.3g}" if f32 else "")
+          + f" (tol {FLIP_TOL})")
     if not (diff <= FLIP_TOL and ddiff <= FLIP_TOL):
         raise AssertionError(f"first-step logits differ by {diff}, {ddiff}")
-    for extra in ({}, {"cache_kind": "dense"}):
+    for extra in ({}, {"cache_kind": "dense"}) if f32 else ({},):
         _, cpu_streams, _ = serve(model, p_cpu, prompts, cpu, 8, **kw,
                                   **extra)
         _, dev_streams, _ = serve(model, p_dev, prompts, dev, 8, **kw,
                                   **extra)
-        compare_streams(f"{extra.get('cache_kind', 'paged')} CPU vs card",
+        compare_streams(f"{arch} {extra.get('cache_kind', 'paged')} CPU vs "
+                        "card",
                         dev_streams, cpu_streams, prompts,
                         lambda seq, *_: _top2_gap(model, p_cpu, seq, cpu),
                         FLIP_TOL)
-    check_sampling_cpu_vs_card(model, p_cpu, p_dev, prompts, dev, kw)
+    if f32:
+        check_sampling_cpu_vs_card(model, p_cpu, p_dev, prompts, dev, kw)
 
 
 # the sampled phases' settings (phases 5 and 12)
@@ -2969,6 +3235,172 @@ def fault_domain(dev, cfg, params, counted):
     return out
 
 
+
+@contextlib.contextmanager
+def plain_versions():
+    """For the duration, every kernel entry on the paged path
+    (``kernels/ops.py``) is its plain version (``kernels/ref.py``): the
+    same engine then serves on the card in plain PyTorch, launching no
+    kernel.  A measurement device of this script; the port has no such
+    switch (a CUDA tensor reaches its kernel or raises)."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ops, ref
+
+    def quantize_plain(x, gs):
+        t = quantize(x, group_size=gs, bits=8)
+        return t.q, t.scale
+
+    def prefill_plain(q, k_pool, v_pool, page_table, pfx_lens, q_lens,
+                      ks_pool=None, vs_pool=None):
+        b, c, kvh, hq, d = q.shape
+        out, m, l = ref.ref_paged_prefill_attention(
+            q.reshape(b, c, kvh * hq, d), k_pool, v_pool, page_table,
+            pfx_lens, ks_pool, vs_pool)
+        m = m[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+        l = l[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
+        return out.reshape(b, c, kvh, hq, d), m, l
+
+    swap = {"q8_matvec_kernel": ref.ref_q8_matmul,
+            "q8_matmul_kernel": ref.ref_q8_matmul,
+            "q4_matvec_kernel": ref.ref_q4_matvec,
+            "rmsnorm_quant_kernel": ref.ref_rmsnorm_quant,
+            "quantize_kernel": quantize_plain,
+            "rope": ref.ref_rope, "rope_kernel": ref.ref_rope,
+            "paged_decode_attention_kernel": ref.ref_paged_decode_attention,
+            "paged_prefill_attention_kernel": prefill_plain}
+    saved = {name: getattr(ops, name) for name in swap}
+    try:
+        for name, fn in swap.items():
+            setattr(ops, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def kernel_plain_delta(model, params, prompts, dev):
+    """Logits of the kernels against the plain versions on the same inputs:
+    one chunk step (each prompt's first 256 tokens, 8 slots) on the same
+    empty pool, then one decode step on the plain step's pool.  Returns
+    (chunk max |diff|, decode max |diff|)."""
+    b, mb, c = len(prompts), 16, 256
+    cache = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
+                                   max_blocks_per_seq=mb, device=dev)
+    cache["page_table"] = torch.arange(b * mb, dtype=torch.int32,
+                                       device=dev).reshape(b, mb)
+    toks = np.zeros((b, c), np.int32)
+    lens = [min(len(p), c) for p in prompts]
+    for i, p in enumerate(prompts):
+        toks[i, :lens[i]] = p[:lens[i]]
+
+    def fresh(src):
+        # a new pool (with the scratch block the decode step writes dead
+        # rows to) holding src's contents
+        new = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
+                                     max_blocks_per_seq=mb, device=dev)
+        for name, t in src["attn"].items():
+            new["attn"][name].copy_(t)
+        new["lens"].copy_(src["lens"])
+        new["page_table"] = src["page_table"].clone()
+        return new
+    args = (toks, list(range(b)), [0] * b)
+    got, _ = model.prefill_chunk_batch(params, args[0], fresh(cache),
+                                       *args[1:], chunk_lens=lens)
+    with plain_versions():
+        want, pcache = model.prefill_chunk_batch(
+            params, args[0], fresh(cache), *args[1:], chunk_lens=lens)
+        nxt = torch.argmax(want, dim=-1)
+        dwant, _ = model.decode_step(params, fresh(pcache), nxt)
+    dgot, _ = model.decode_step(params, fresh(pcache), nxt)
+    torch.cuda.synchronize()
+    return ((got - want).abs().max().item(),
+            (dgot - dwant).abs().max().item())
+
+
+def llama3_path(dev, counted):
+    """Phase 16: llama3.2-3b at full width and depth (28 layers, d_model
+    3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab 128256,
+    bf16 compute) from the port's own seeded ``init_params`` on the card,
+    Q8_0 with the fused decode weights; the paged Engine (page 64, chunk
+    256, 8 slots, max_seq 1024) on a bf16 pool, then an int8 pool; 8
+    requests of 16..600 tokens, two sharing a 128-token prefix, 32 greedy
+    tokens.  Per pool: the kernels' logits against the plain versions' on
+    the same inputs (``kernel_plain_delta``) first, then the kernel run
+    with its exact launch counts, then the same engine on the plain
+    versions (``plain_versions``: no launch); the streams must be equal or
+    part only at a step whose top-2 gap (plain) is below the larger
+    measured difference (a parting needs the two logits' differences to
+    close the gap, which they can up to twice the largest: the check
+    holds the streams to half of that).  Last, the bf16 pool's run is
+    repeated under the profiler for the card's busy share and the
+    heaviest kernels.  Launches are counted under
+    ``<kernel>@llama3.2-3b``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    cfg = get_config(L3)
+    t0 = time.perf_counter()
+    params = build_model(cfg).quantize(build_model(cfg).init(seed=0,
+                                                             device=dev))
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    prompts = _requests(8, 16, 600, cfg.vocab_size, seed=16, shared_len=128,
+                        shared_at=(0, 5))
+    phase(f"phase 16: {L3} full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.hd()}, vocab {cfg.vocab_size}, {cfg.compute_dtype}), "
+          f"Q8_0 parameters {param_bytes(params) / 1e9:.2f} GB made on the "
+          f"card in {made:.1f} s; 8 requests of {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens, 32 greedy tokens")
+    mine, out, runs = {}, {}, {}
+    for kv in ("bfloat16", "int8"):
+        model = build_model(cfg.with_(kv_cache_dtype=kv))
+        d_chunk, d_dec = kernel_plain_delta(model, params, prompts, dev)
+        tol = max(d_chunk, d_dec)
+        log(f"  {kv} pool: kernels vs plain versions on the same inputs: "
+            f"chunk step logits max |diff| {d_chunk:.4g}, decode step "
+            f"{d_dec:.4g}; streams may part at a top-2 gap below {tol:.4g}")
+        build.reset_launches()
+        eng, streams, wall = serve(model, params, prompts, dev, 32,
+                                   **PAGED_KW)
+        check_launches(eng, dict(build.LAUNCHES), cfg, mine)
+        if eng.metrics["prefix_hits"] < 1:
+            raise AssertionError(f"{L3}: the shared-prefix requests never "
+                                 "hit the prefix cache")
+        rec = engine_line(f"{L3}, {kv} pool, kernel strategy", eng,
+                          streams, wall)
+        rec["kernel_plain_delta"] = {"chunk": d_chunk, "decode": d_dec}
+        with plain_versions():
+            build.reset_launches()
+            _, plain, pwall = serve(model, params, prompts, dev, 32,
+                                    **PAGED_KW)
+            if any(build.LAUNCHES.values()):
+                raise AssertionError(f"the plain run launched kernels: "
+                                     f"{build.LAUNCHES}")
+            log(f"  {L3}, {kv} pool, plain versions: {pwall:.3f} s, no "
+                "kernel launched")
+            compare_streams(f"{L3} {kv} pool, kernels vs plain", streams,
+                            plain, prompts,
+                            lambda seq, *_: _top2_gap(model, params, seq,
+                                                      dev), tol)
+        rec["plain_wall_s"] = pwall
+        rec["streams_equal"] = sum(a == b for a, b in zip(streams, plain))
+        out[kv] = rec
+        runs[kv] = model, streams
+    # the profiled run last, so that no pool's timed run follows it
+    model, streams = runs["bfloat16"]
+    again, out["bfloat16"]["device_busy_share"] = profiled(
+        lambda: serve(model, params, prompts, dev, 32, **PAGED_KW)[1])
+    if again != streams:
+        raise AssertionError(f"{L3}: a second run gave different greedy "
+                             "streams")
+    log("  bf16 pool, second run (profiled): identical streams")
+    for k, v in mine.items():
+        counted[f"{k}@{L3}"] = counted.get(f"{k}@{L3}", 0) + v
+    del params
+    torch.cuda.empty_cache()
+    return out
+
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
     kernel strategy) served ``runs`` times on the tree this script is run
@@ -3077,10 +3509,12 @@ def main() -> int:
     check_rope(report, dev)
     check_rmsnorm_quant(report, dev)
     check_verify_edges(report, dev)
+    check_llama3(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
     reduced_cpu_vs_card(dev)
+    reduced_cpu_vs_card(dev, L3)
     phase(f"phase 6: end to end (f32 pool) {json.dumps(e2e)}; int8 pool "
           f"{json.dumps(e2e_int8)}")
     dense = dense_path(dev, cfg, params, prompts, paged, counted)
@@ -3098,6 +3532,10 @@ def main() -> int:
     phase(f"phase 14: speculation {json.dumps(spec)}")
     faults = fault_domain(dev, cfg, params, counted)
     phase(f"phase 15: faults {json.dumps(faults)}")
+    del params, p4
+    torch.cuda.empty_cache()
+    l3 = llama3_path(dev, counted)
+    phase(f"phase 16: {L3} {json.dumps(l3)}")
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -99,12 +99,13 @@ def qdot(x: torch.Tensor, w: Weight,
 def norm_qdot(x: torch.Tensor, gamma: torch.Tensor, eps: float,
               w: Weight) -> torch.Tensor:
     """``qdot(rms_norm(x, gamma, eps), w)``.  Under ``kernel`` with a
-    quantized weight and f32 activations the norm and the quantization of
-    its output are one ``ops.rmsnorm_quant`` launch feeding
-    ``ops.q8_matmul_quantized``; the codes and scales are those the
-    unfused pair computes."""
+    quantized weight and f32 or bf16 activations the norm and the
+    quantization of its output are one ``ops.rmsnorm_quant`` launch
+    feeding ``ops.q8_matmul_quantized``; the codes and scales are those
+    the unfused pair computes (a bf16 norm rounds its output to bf16
+    before the quantization, as ``rms_norm`` returns it)."""
     if (_DEFAULT_STRATEGY != "kernel" or not isinstance(w, QuantizedTensor)
-            or x.dtype != torch.float32):
+            or x.dtype not in (torch.float32, torch.bfloat16)):
         return qdot(rms_norm(x, gamma, eps), w)
     *lead, k = x.shape
     if k % w.group_size:

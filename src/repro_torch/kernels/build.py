@@ -45,9 +45,9 @@ SIGNATURES: Dict[str, list] = {
     "q4_matvec": [_P] * 5 + [_I] * 4 + [_P, _P],
     "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "rope": [_P] * 4 + [_I] * 4 + [_P],
-    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P],
-    "quantize": [_P] * 3 + [_I] * 6 + [_P],
+    "rope": [_P] * 4 + [_I] * 5 + [_P],
+    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P],
+    "quantize": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 # entry points held by another entry's source, csrc/<source>.cu

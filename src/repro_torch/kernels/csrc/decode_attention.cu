@@ -16,7 +16,8 @@
 #include "flash_decode.cuh"
 
 // All tensors contiguous, D % 4 == 0 and HQ*D <= 1024 (the wrapper checks).
-// ks/vs are ignored unless int8 != 0.  Returns a cudaError_t (0 = launched).
+// ks/vs are ignored unless int8 != 0 (flash_decode::kInt8; the wrapper
+// passes no other kind).  Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* lens, void* out, int B, int S,

@@ -7,14 +7,15 @@
 // on the same rows they are bitwise equal.
 //
 //   q      (B, KVH, HQ, D) f32, already scaled by 1/sqrt(D)
-//   k/v    rows of D values, f32, or int8 with one f32 scale a row
+//   k/v    rows of D values, f32 or bf16 (widened to f32 as they are
+//          read from shared memory), or int8 with one f32 scale a row
 //   lens   (B,) int32: row b attends positions < min(lens[b], limit)
 //   out    (B, KVH, HQ, D) f32 = softmax(q k^T over those positions) v;
 //          a length-0 row is exactly 0
 //
 // What bounds it on an H100: bytes, at the least.  Every live K/V row is
-// read once and used by HQ query heads only (HQ = 1 for llama2-110m).  At
-// llama2-110m's lengths the call is short enough that latency bounds it:
+// read once and used by HQ query heads only (HQ = 1 for llama2-110m, 3 for
+// llama3.2-3b's 24 heads over 8 KV heads).  At llama2-110m's lengths the call is short enough that latency bounds it:
 // the launch, one page-table read, one or two trips to device memory, the
 // fold and the merge.  The design keeps that chain short.
 //
@@ -28,10 +29,11 @@
 // - Within a split, each warp owns positions: the 16-position chunks c =
 //   warp, warp + nw, ... of the split's tiles, 4 chunks a tile.  It copies
 //   them by 16-byte cp.async (8 or 4 bytes for int8 rows that are not
-//   16-byte aligned) into its own slot of shared memory (int8 rows as raw
-//   codes and scales) and keeps its own online-softmax state, so a chunk
-//   needs no block barrier.  Positions past len are zero-filled, never
-//   read.  One slot a warp keeps 6 blocks of 4 warps on an SM at D = 64;
+//   16-byte aligned) into its own slot of shared memory (bf16 and int8
+//   rows as they are in the pool, int8 with their scales) and keeps its
+//   own online-softmax state, so a chunk needs no block barrier.
+//   Positions past len are zero-filled, never read.  One slot a warp
+//   keeps 6 blocks of 4 warps on an SM at D = 64;
 //   a second slot, to copy chunk j + 1 while chunk j is folded, halves
 //   that and measured slower on an H100 at caches of 1024 and of 4096
 //   positions: at these lengths the blocks in flight hide the latency.
@@ -39,8 +41,8 @@
 //   (16-byte words read in a lane-rotated order, free of bank conflicts at
 //   D = 64 and 128), one shuffle to add the halves; int8 codes are summed
 //   raw and scaled once.  P.V: each lane holds HQ*D/32 accumulators (NA,
-//   a template parameter); an int8 V row's scale is folded into its
-//   probability.
+//   a template parameter, at most 32: hence HQ*D <= 1024); an int8 V row's
+//   scale is folded into its probability.
 // - Merge inside the launch.  The warps of a block merge in warp order;
 //   the kSplit blocks of a (b, kv-head) are one thread-block cluster, and
 //   each writes its (m, l, acc) into rank 0's shared memory (distributed
@@ -56,8 +58,13 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace flash_decode {
 
@@ -102,9 +109,10 @@ __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-__host__ __device__ inline Layout layout(int HQ, int D, bool int8, int nw) {
+// elem: bytes of a K/V value (4 f32, 2 bf16, 1 int8, which adds scales)
+__host__ __device__ inline Layout layout(int HQ, int D, int elem, int nw) {
   Layout L;
-  const size_t elem = int8 ? 1 : 4;
+  const bool int8 = elem == 1;
   // K [kChunk][D], V [kChunk][D], then (int8) k and v scales [kChunk]
   L.slot = align16(2 * kChunk * D * elem + (int8 ? 2 * kChunk * 4 : 0));
   L.q = (size_t)nw * L.slot;
@@ -152,44 +160,54 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// values 4w..4w+3 of row t of a staged K or V matrix (int8: raw codes)
-template <bool INT8>
+// values 4w..4w+3 of row t of a staged K or V matrix of T (int8: raw
+// codes), widened to f32
+template <class T>
 __device__ __forceinline__ float4 word(const unsigned char* m, int t, int w,
                                        int D) {
-  if (INT8) {
+  if constexpr (std::is_same<T, int8_t>::value) {
     const char4 c = *reinterpret_cast<const char4*>(m + t * D + 4 * w);
     return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return widen4(reinterpret_cast<const uint2*>(m)[t * (D / 4) + w]);
+  } else {
+    return reinterpret_cast<const float4*>(m)[t * (D / 4) + w];
   }
-  return reinterpret_cast<const float4*>(m)[t * (D / 4) + w];
 }
 
-template <bool INT8>
+template <class T>
 __device__ __forceinline__ float value(const unsigned char* m, int t, int d,
                                        int D) {
-  if (INT8) return (float)reinterpret_cast<const int8_t*>(m)[t * D + d];
-  return reinterpret_cast<const float*>(m)[t * D + d];
+  if constexpr (std::is_same<T, int8_t>::value)
+    return (float)reinterpret_cast<const int8_t*>(m)[t * D + d];
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(
+        reinterpret_cast<const __nv_bfloat16*>(m)[t * D + d]);
+  else
+    return reinterpret_cast<const float*>(m)[t * D + d];
 }
 
+// T: the pool's element (float, __nv_bfloat16, or int8_t with scales).
 // NA: accumulators of a lane, a power of two >= HQ*D / 32 (HQ*D <= 1024).
 // G: bytes of one copy (16, 8 or 4).
-template <bool INT8, int NA, class Rows>
+template <class T, int NA, class Rows>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ kp,
     const unsigned char* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ lens,
     float* __restrict__ out, const Rows rows, int KVH, int HQ, int D,
     int G) {
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(16) unsigned char sm[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();  // waited on before the first remote write
   const int nw = blockDim.x >> 5;
-  const Layout L = layout(HQ, D, INT8, nw);
+  const Layout L = layout(HQ, D, (int)sizeof(T), nw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int HD = HQ * D;
   const int len = max(min(__ldg(lens + b), rows.limit()), 0);
-  constexpr int E = INT8 ? 1 : 4;
-  const int rb = D * E;                  // bytes of one K or V row
+  const int rb = D * (int)sizeof(T);     // bytes of one K or V row
   const int per_row = rb / G;            // copies of one row
   // a chunk is 2 * kChunk rows (K, then V) of per_row copies: per_row
   // copies a lane; this lane's first (row, copy) and its step
@@ -282,7 +300,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
       int c = rot;
 #pragma unroll 4
       for (int i = 0; i < nwd; ++i) {
-        const float4 kv = word<INT8>(km, t, w0 + c, D);
+        const float4 kv = word<T>(km, t, w0 + c, D);
         const float4 qv = qh[w0 + c];
         sa = fmaf(qv.x, kv.x, sa);
         sb = fmaf(qv.y, kv.y, sb);
@@ -324,8 +342,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
         float s0 = 0.f, s1 = 0.f;
 #pragma unroll
         for (int u = 0; u < kChunk; u += 2) {
-          s0 = fmaf(ph[u], value<INT8>(vm, u, d, D), s0);
-          s1 = fmaf(ph[u + 1], value<INT8>(vm, u + 1, d, D), s1);
+          s0 = fmaf(ph[u], value<T>(vm, u, d, D), s0);
+          s1 = fmaf(ph[u + 1], value<T>(vm, u + 1, d, D), s1);
         }
         acc[a] = fmaf(acc[a], wa[hq], s0 + s1);
       }
@@ -389,22 +407,23 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
 }
 
 // Launch on stream st.  Returns a cudaError_t (0 = launched).
-template <bool INT8, int NA, class Rows>
+template <class T, int NA, class Rows>
 int launch(const Rows& rows, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* lens, void* out,
            int B, int KVH, int HQ, int D, cudaStream_t st) {
+  constexpr int E = (int)sizeof(T);
   int nw = kWarps;
-  Layout L = layout(HQ, D, INT8, nw);
-  while (L.total > kMaxSmem && nw > 1) L = layout(HQ, D, INT8, nw >>= 1);
+  Layout L = layout(HQ, D, E, nw);
+  while (L.total > kMaxSmem && nw > 1) L = layout(HQ, D, E, nw >>= 1);
   if (L.total > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto* fn = decode_kernel<INT8, NA, Rows>;
+  auto* fn = decode_kernel<T, NA, Rows>;
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (e != cudaSuccess) return (int)e;
   }
   // the widest copy that keeps every row of both matrices aligned
-  const size_t rb = (size_t)D * (INT8 ? 1 : 4);
+  const size_t rb = (size_t)D * E;
   auto fits = [&](size_t g) {
     return rb % g == 0 && reinterpret_cast<uintptr_t>(k) % g == 0 &&
            reinterpret_cast<uintptr_t>(v) % g == 0;
@@ -432,29 +451,41 @@ int launch(const Rows& rows, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <bool INT8, class Rows>
+template <class T, class Rows>
 int run_na(const Rows& rows, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* lens, void* out,
            int B, int KVH, int HQ, int D, cudaStream_t st) {
   const int n = (HQ * D + 31) / 32;
 #define FD_LAUNCH(NA)                                                      \
   if (n <= NA)                                                             \
-    return launch<INT8, NA>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, \
-                            D, st);
+    return launch<T, NA>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ,    \
+                         D, st);
   FD_LAUNCH(1) FD_LAUNCH(2) FD_LAUNCH(4) FD_LAUNCH(8) FD_LAUNCH(16)
   FD_LAUNCH(32)
 #undef FD_LAUNCH
   return (int)cudaErrorInvalidValue;    // HQ*D > 1024
 }
 
+// The cache's element: kind 0 f32, 1 int8 (with ks/vs), 2 bf16.
+constexpr int kF32 = 0, kInt8 = 1, kBf16 = 2;
+
 template <class Rows>
 int run(const Rows& rows, const void* q, const void* k, const void* v,
         const void* ks, const void* vs, const void* lens, void* out, int B,
-        int KVH, int HQ, int D, int int8, cudaStream_t st) {
-  if (int8)
-    return run_na<true>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, D, st);
-  return run_na<false>(rows, q, k, v, nullptr, nullptr, lens, out, B, KVH,
-                       HQ, D, st);
+        int KVH, int HQ, int D, int kind, cudaStream_t st) {
+  switch (kind) {
+    case kF32:
+      return run_na<float>(rows, q, k, v, nullptr, nullptr, lens, out, B,
+                           KVH, HQ, D, st);
+    case kInt8:
+      return run_na<int8_t>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, D,
+                            st);
+    case kBf16:
+      return run_na<__nv_bfloat16>(rows, q, k, v, nullptr, nullptr, lens,
+                                   out, B, KVH, HQ, D, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace flash_decode

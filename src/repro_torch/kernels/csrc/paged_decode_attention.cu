@@ -4,7 +4,8 @@
 // paged_decode_attention_pallas (pallas_call at paged_decode_attention.py:138).
 //
 //   q          (B, KVH, HQ, D) f32, already scaled by 1/sqrt(D)
-//   k/v pool   (NB, BS, KVH, D) f32, or int8 with ks/vs (NB, BS, KVH) f32
+//   k/v pool   (NB, BS, KVH, D) f32 or bf16, or int8 with ks/vs (NB, BS,
+//              KVH) f32
 //   page_table (B, MB) int32, -1 = unassigned;  lens (B,) int32
 //   out        (B, KVH, HQ, D) f32 = softmax(q k^T over positions < lens[b]) v
 //
@@ -16,15 +17,16 @@
 #include "flash_decode.cuh"
 
 // All tensors contiguous, D % 4 == 0 and HQ*D <= 1024 (the wrapper checks).
-// ks/vs are ignored unless int8 != 0.  Returns a cudaError_t (0 = launched).
+// kind: the pool's element, 0 f32, 1 int8 (ks/vs are ignored otherwise),
+// 2 bf16.  Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* kpool,
                                       const void* vpool, const void* ks,
                                       const void* vs, const void* page_table,
                                       const void* lens, void* out, int B,
                                       int KVH, int HQ, int D, int BS, int MB,
-                                      int int8, void* stream) {
+                                      int kind, void* stream) {
   const flash_decode::PagedRows rows{static_cast<const int*>(page_table), MB,
                                      BS, KVH};
   return flash_decode::run(rows, q, kpool, vpool, ks, vs, lens, out, B, KVH,
-                           HQ, D, int8, static_cast<cudaStream_t>(stream));
+                           HQ, D, kind, static_cast<cudaStream_t>(stream));
 }

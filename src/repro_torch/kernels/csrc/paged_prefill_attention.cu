@@ -5,7 +5,8 @@
 // paged_prefill_attention_pallas (pallas_call at paged_prefill_attention.py:215).
 //
 //   q          (B, C, KVH, HQ, D) f32, already scaled by 1/sqrt(D)
-//   k/v pool   (NB, BS, KVH, D) f32, or int8 with ks/vs (NB, BS, KVH) f32
+//   k/v pool   (NB, BS, KVH, D) f32 or bf16, or int8 with ks/vs (NB, BS,
+//              KVH) f32
 //   page_table (B, MB) int32, -1 = unassigned
 //   pfx_lens   (B,) int32: row b attends pool positions < pfx_lens[b]
 //   q_lens     (B,) int32: chunk rows at or past q_lens[b] are skipped
@@ -39,10 +40,12 @@
 //    only pfx_lens masks), so a tile may span pages of any size; keys past
 //    the prefix are zero-filled by the src-size operand.  Consecutive lanes
 //    copy consecutive 16 bytes of a row.
-//  * int8 pool.  The codes (D bytes a row) and the row's two scales are
-//    copied (the scales by 4-byte cp.async.ca); the split dequantizes each
-//    code as code * scale in f32, the plain version's one rounding, and
-//    writes big and small parts into f32 tiles.
+//  * int8 and bf16 pools.  The rows are copied as they are in the pool (D
+//    codes, or D bf16 values, a row; an int8 row's two scales by 4-byte
+//    cp.async.ca) into a staging ring of two tiles; the split widens each
+//    value to f32 (an int8 code as code * scale, the plain version's one
+//    rounding; a bf16 value exactly) and writes big and small parts into
+//    f32 tiles.
 //  * Order.  Blocks go heaviest first: block i takes the i-th of the
 //    (b, kv-head, row tile) triples with b ranked by its live tile count
 //    (ceil(prefix / 64), 0 when q_lens[b] is 0; ties by b), so the longest
@@ -50,10 +53,15 @@
 //    pfx_lens and q_lens: one launch, and the host never reads the lens.
 //  * No split over the prefix: the longest block walks every tile of its
 //    prefix.  At D = 64 a block holds 105 KB (f32 pool) or 87 KB (int8) of
-//    shared memory: one block (8 warps) an SM.
+//    shared memory, at D = 128 201 KB (f32), 198 KB (bf16) or 167 KB
+//    (int8): one block (8 warps) an SM.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -94,6 +102,26 @@ __device__ __forceinline__ void split_tile_int8(
   }
 }
 
+// The same for a bf16 tile: each value widened to f32 exactly, then split
+template <int D>
+__device__ __forceinline__ void split_tile_bf16(const __nv_bfloat16* kc,
+                                                const __nv_bfloat16* vc,
+                                                float* Kb, float* Vb,
+                                                float* Kl, float* Vl) {
+  constexpr int LK = D + 8, LV = D + 4, W = D / 4;  // 4-value words a row
+  for (int i = threadIdx.x; i < kTK * W; i += kThreads) {
+    const int r = i / W, c = (i - r * W) * 4;
+    float4 x = widen4(*reinterpret_cast<const uint2*>(kc + r * D + c)), y;
+    split4(x, y);
+    *reinterpret_cast<float4*>(Kb + r * LK + c) = x;
+    *reinterpret_cast<float4*>(Kl + r * LK + c) = y;
+    x = widen4(*reinterpret_cast<const uint2*>(vc + r * D + c));
+    split4(x, y);
+    *reinterpret_cast<float4*>(Vb + r * LV + c) = x;
+    *reinterpret_cast<float4*>(Vl + r * LV + c) = y;
+  }
+}
+
 // live 64-key tiles of row b (0 when it has no query row)
 __device__ __forceinline__ int live_tiles(const int* pfx_lens,
                                           const int* q_lens, int b, int C,
@@ -102,7 +130,8 @@ __device__ __forceinline__ int live_tiles(const int* pfx_lens,
   return (max(min(pfx_lens[b], cap), 0) + kTK - 1) / kTK;
 }
 
-template <int D, bool INT8>
+// T: the pool's element (float, __nv_bfloat16, or int8_t with scales)
+template <int D, class T>
 __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     const float* __restrict__ q, const void* __restrict__ kpool,
     const void* __restrict__ vpool, const float* __restrict__ ks,
@@ -111,19 +140,23 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
     float* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int B, int C, int KVH, int HQ, int BS,
     int MB) {
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
+  constexpr bool RAW = !std::is_same<T, float>::value;  // staged, then split
   constexpr int LK = D + 8, LV = D + 4;   // padded row strides (floats)
   constexpr int KS = D / 8;               // k-steps of S, d-tiles of O
-  constexpr int CH = INT8 ? D / 16 : D / 4;  // 16-byte chunks a row
-  constexpr int NS = INT8 ? 1 : 2;        // stages of the f32 tiles
+  constexpr int PB = D * (int)sizeof(T);  // bytes of a pool row
+  constexpr int CH = PB / 16;             // 16-byte chunks a row
+  constexpr int NS = RAW ? 1 : 2;         // stages of the f32 tiles
   extern __shared__ __align__(16) float sm[];
   float* Ks = sm;                         // [NS][kTK][LK] f32 (raw), big
   float* Vs = Ks + NS * kTK * LK;         // [NS][kTK][LV]
   float* Kl = Vs + NS * kTK * LV;         // [kTK][LK]     small
   float* Vl = Kl + kTK * LK;              // [kTK][LV]     small
-  // int8 only: the codes [2][kTK][D] and the scales [2][kTK] as they land
-  int8_t* Kc = reinterpret_cast<int8_t*>(Vl + kTK * LV);
-  int8_t* Vc = Kc + 2 * kTK * D;
-  float* Ksc = reinterpret_cast<float*>(Vc + 2 * kTK * D);  // [2][kTK]
+  // int8 and bf16: the rows [2][kTK][PB bytes] as they land; int8 also the
+  // scales [2][kTK]
+  unsigned char* Kc = reinterpret_cast<unsigned char*>(Vl + kTK * LV);
+  unsigned char* Vc = Kc + 2 * kTK * PB;
+  float* Ksc = reinterpret_cast<float*>(Vc + 2 * kTK * PB);  // [2][kTK]
   float* Vsc = Ksc + 2 * kTK;
   __shared__ int s_b;
 
@@ -221,15 +254,17 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
         if (in)  // a -1 entry reads pool block 0: only len masks
           row = ((size_t)max(page[p], 0) * BS
                  + (sh >= 0 ? pos & (BS - 1) : pos % BS)) * KVH + h;
-        if (INT8) {
-          const int at = (stage * kTK + r) * D + 16 * c;
+        if (RAW) {
+          const int at = (stage * kTK + r) * PB + 16 * c;
           cp_async16(Kc + at,
-                     static_cast<const int8_t*>(kpool) + row * D + 16 * c,
+                     static_cast<const unsigned char*>(kpool) + row * PB +
+                         16 * c,
                      in);
           cp_async16(Vc + at,
-                     static_cast<const int8_t*>(vpool) + row * D + 16 * c,
+                     static_cast<const unsigned char*>(vpool) + row * PB +
+                         16 * c,
                      in);
-          if (c == 0) {
+          if (INT8 && c == 0) {
             cp_async4(Ksc + stage * kTK + r, ks + row, in);
             cp_async4(Vsc + stage * kTK + r, vs + row, in);
           }
@@ -253,12 +288,19 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
         load(it + 1, (it + 1) & 1);
         if (it + 2 < ntiles) lookup(it + 2);
       }
-      const int st = INT8 ? 0 : it & 1;
+      const int st = RAW ? 0 : it & 1;
       float* kt = Ks + st * kTK * LK;
       float* vt = Vs + st * kTK * LV;
-      if (INT8)
-        split_tile_int8<D>(Kc + (it & 1) * kTK * D, Vc + (it & 1) * kTK * D,
+      const unsigned char* kc = Kc + (it & 1) * kTK * PB;
+      const unsigned char* vc = Vc + (it & 1) * kTK * PB;
+      if constexpr (INT8)
+        split_tile_int8<D>(reinterpret_cast<const int8_t*>(kc),
+                           reinterpret_cast<const int8_t*>(vc),
                            Ksc + (it & 1) * kTK, Vsc + (it & 1) * kTK, kt,
+                           vt, Kl, Vl);
+      else if constexpr (RAW)
+        split_tile_bf16<D>(reinterpret_cast<const __nv_bfloat16*>(kc),
+                           reinterpret_cast<const __nv_bfloat16*>(vc), kt,
                            vt, Kl, Vl);
       else
         split_tile<D>(kt, vt, Kl, Vl);  // big in place, small beside it
@@ -295,22 +337,24 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   }
 }
 
-template <int D, bool INT8>
+template <int D, class T>
 int launch(const void* q, const void* kpool, const void* vpool,
            const void* ks, const void* vs, const void* pt, const void* pfx,
            const void* qlens, void* out, void* m, void* l, int B, int C,
            int KVH, int HQ, int BS, int MB, cudaStream_t stream) {
-  const int ns = INT8 ? 1 : 2;
+  constexpr bool RAW = !std::is_same<T, float>::value;
+  const int ns = RAW ? 1 : 2;
   size_t smem = (ns + 1) * kTK * ((D + 8) + (D + 4)) * sizeof(float);
-  if (INT8) smem += 4 * kTK * D + 4 * kTK * sizeof(float);
+  if (RAW) smem += 4 * kTK * D * sizeof(T);   // two stages of K and V rows
+  if (std::is_same<T, int8_t>::value) smem += 4 * kTK * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<D, INT8>,
+        paged_prefill_kernel<D, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = B * KVH * ((C * HQ + kR - 1) / kR);
-  paged_prefill_kernel<D, INT8><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), kpool, vpool,
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(pt), static_cast<const int*>(pfx),
@@ -320,38 +364,49 @@ int launch(const void* q, const void* kpool, const void* vpool,
   return (int)cudaGetLastError();
 }
 
+// kind: the pool's element, 0 f32, 1 int8 (with ks/vs), 2 bf16
 template <int D>
-int launch_d(int int8, const void* q, const void* kpool, const void* vpool,
+int launch_d(int kind, const void* q, const void* kpool, const void* vpool,
              const void* ks, const void* vs, const void* pt, const void* pfx,
              const void* qlens, void* out, void* m, void* l, int B, int C,
              int KVH, int HQ, int BS, int MB, cudaStream_t stream) {
-  if (int8)
-    return launch<D, true>(q, kpool, vpool, ks, vs, pt, pfx, qlens, out, m, l,
-                           B, C, KVH, HQ, BS, MB, stream);
-  return launch<D, false>(q, kpool, vpool, nullptr, nullptr, pt, pfx, qlens,
-                          out, m, l, B, C, KVH, HQ, BS, MB, stream);
+  switch (kind) {
+    case 0:
+      return launch<D, float>(q, kpool, vpool, nullptr, nullptr, pt, pfx,
+                              qlens, out, m, l, B, C, KVH, HQ, BS, MB,
+                              stream);
+    case 1:
+      return launch<D, int8_t>(q, kpool, vpool, ks, vs, pt, pfx, qlens, out,
+                               m, l, B, C, KVH, HQ, BS, MB, stream);
+    case 2:
+      return launch<D, __nv_bfloat16>(q, kpool, vpool, nullptr, nullptr, pt,
+                                      pfx, qlens, out, m, l, B, C, KVH, HQ,
+                                      BS, MB, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // All tensors contiguous; q, pools and scales 16-byte aligned; D in {32, 64,
-// 128} (the wrapper checks); ks/vs are ignored unless int8 != 0.  Returns a
-// cudaError_t (0 = launched).
+// 128} (the wrapper checks); kind 0 f32, 1 int8 (ks/vs are ignored
+// otherwise), 2 bf16.  Returns a cudaError_t (0 = launched).
 extern "C" int paged_prefill_attention(
     const void* q, const void* kpool, const void* vpool, const void* ks,
     const void* vs, const void* page_table, const void* pfx_lens,
     const void* q_lens, void* out, void* m, void* l, int B, int C, int KVH,
-    int HQ, int D, int BS, int MB, int int8, void* stream) {
+    int HQ, int D, int BS, int MB, int kind, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<32>(int8, q, kpool, vpool, ks, vs, page_table, pfx_lens,
+      return launch_d<32>(kind, q, kpool, vpool, ks, vs, page_table, pfx_lens,
                           q_lens, out, m, l, B, C, KVH, HQ, BS, MB, st);
     case 64:
-      return launch_d<64>(int8, q, kpool, vpool, ks, vs, page_table, pfx_lens,
+      return launch_d<64>(kind, q, kpool, vpool, ks, vs, page_table, pfx_lens,
                           q_lens, out, m, l, B, C, KVH, HQ, BS, MB, st);
     case 128:
-      return launch_d<128>(int8, q, kpool, vpool, ks, vs, page_table,
+      return launch_d<128>(kind, q, kpool, vpool, ks, vs, page_table,
                            pfx_lens, q_lens, out, m, l, B, C, KVH, HQ, BS, MB,
                            st);
     default:

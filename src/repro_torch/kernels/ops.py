@@ -117,8 +117,14 @@ def q8_matmul_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     return out
 
 
+# a pool's element as the attention kernels' C entries name it
+POOL_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+
+
 def _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
-                kvh: int, d: int):
+                kvh: int, d: int) -> int:
+    """Check a paged pool and return its kind (``POOL_KINDS``): f32 or
+    bf16 rows, or int8 rows with f32 scale pools."""
     if k_pool.shape != v_pool.shape or tuple(k_pool.shape[2:]) != (kvh, d):
         raise ValueError(f"{name}: pool {tuple(k_pool.shape)} does not match "
                          f"q's kv-heads/dim {(kvh, d)}")
@@ -126,7 +132,10 @@ def _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
     _check(name, q.device, q=q, k_pool=k_pool, v_pool=v_pool,
            page_table=page_table, ks_pool=ks_pool, vs_pool=vs_pool)
     _dtype(name, q, torch.float32)
-    _dtype(name, k_pool, torch.int8 if int8 else torch.float32)
+    if int8:
+        _dtype(name, k_pool, torch.int8)
+    else:
+        _dtype(name, k_pool, torch.float32, torch.bfloat16)
     _dtype(name, v_pool, k_pool.dtype)
     _dtype(name, page_table, torch.int32)
     if int8:
@@ -135,42 +144,51 @@ def _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
             raise ValueError(f"{name}: scale pools must be {k_pool.shape[:3]}")
         _dtype(name, ks_pool, torch.float32)
         _dtype(name, vs_pool, torch.float32)
-    return int8
+    return POOL_KINDS[k_pool.dtype]
+
+
+# a lane of the decode kernels holds HQ*D/32 f32 accumulators, at most 32
+# (flash_decode.cuh's NA): llama2-110m has HQ*D = 64, llama3.2-3b 384,
+# glm4-9b's 16 query heads a KV head of 128 would need 2048
+DECODE_MAX_HQ_D = 1024
 
 
 def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
                                   ks_pool=None, vs_pool=None) -> torch.Tensor:
-    """q: (B, KVH, HQ, D) pre-scaled; k/v_pool: (NB, BS, KVH, D) (int8 when
-    ks/vs_pool (NB, BS, KVH) are given); page_table (B, MB) int32; lens
-    (B,) int32.  Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0.
-    A -1 entry inside a row's length reads pool block 0, as the
-    reference does: only lens masks."""
+    """q: (B, KVH, HQ, D) f32 pre-scaled; k/v_pool: (NB, BS, KVH, D) f32
+    or bf16 (int8 when ks/vs_pool (NB, BS, KVH) are given); page_table (B,
+    MB) int32; lens (B,) int32.  Returns (B, KVH, HQ, D) f32; a length-0
+    row is exactly 0.  A -1 entry inside a row's length reads pool block
+    0, as the reference does: only lens masks."""
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pool, v_pool, page_table,
                                               lens, ks_pool, vs_pool)
     b, kvh, hq, d = q.shape
     name = "paged_decode_attention"
-    int8 = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
-                       kvh, d)
+    kind = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool,
+                       vs_pool, kvh, d)
     _check(name, q.device, lens=lens)
     _dtype(name, lens, torch.int32)
-    if d % 4 or hq * d > 1024 or lens.shape != (b,) or \
+    if d % 4 or hq * d > DECODE_MAX_HQ_D or lens.shape != (b,) or \
             page_table.shape[0] != b:
-        raise ValueError(f"{name}: needs D % 4 == 0, HQ*D <= 1024, lens "
-                         f"(B,), page_table (B, MB); got q {tuple(q.shape)}")
+        raise ValueError(f"{name}: needs D % 4 == 0, HQ*D <= "
+                         f"{DECODE_MAX_HQ_D} (a lane holds HQ*D/32 <= 32 "
+                         f"accumulators), lens (B,), page_table (B, MB); got "
+                         f"q {tuple(q.shape)} (HQ*D = {hq * d})")
     nb, bs = k_pool.shape[:2]
     out = torch.empty_like(q)
     launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
            lens.data_ptr(), out.data_ptr(), b, kvh, hq, d, bs,
-           page_table.shape[1], int(int8), _stream(q))
+           page_table.shape[1], kind, _stream(q))
     return out
 
 
 def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
                                    q_lens, ks_pool=None, vs_pool=None):
-    """q: (B, C, KVH, HQ, D) pre-scaled; k/v_pool (NB, BS, KVH, D) (int8
-    with ks/vs_pool); page_table (B, MB) int32; pfx_lens/q_lens (B,) int32.
+    """q: (B, C, KVH, HQ, D) f32 pre-scaled; k/v_pool (NB, BS, KVH, D) f32
+    or bf16 (int8 with ks/vs_pool); page_table (B, MB) int32;
+    pfx_lens/q_lens (B,) int32.
     Returns the prefix segment's flash state out (B, C, KVH, HQ, D),
     m and l (B, C, KVH, HQ), f32.  Rows at or past q_lens[b] (the CUDA
     kernel skips them) and an empty prefix are (0, -1e30, 0).
@@ -194,14 +212,15 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned for "
                              "cp.async")
-    int8 = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
-                       kvh, d)
+    kind = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool,
+                       vs_pool, kvh, d)
     _check(name, q.device, pfx_lens=pfx_lens, q_lens=q_lens)
     _dtype(name, pfx_lens, torch.int32)
     _dtype(name, q_lens, torch.int32)
     if d not in (32, 64, 128) or pfx_lens.shape != (b,) or \
             q_lens.shape != (b,) or page_table.shape[0] != b:
-        raise ValueError(f"{name}: needs D in (32, 64, 128), pfx_lens/q_lens "
+        raise ValueError(f"{name}: needs D in (32, 64, 128) (the head dims "
+                         f"the kernel is instantiated for), pfx_lens/q_lens "
                          f"(B,), page_table (B, MB); got q {tuple(q.shape)}")
     bs = k_pool.shape[1]
     out = torch.empty_like(q)
@@ -211,7 +230,7 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
            _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
            pfx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
            m.data_ptr(), l.data_ptr(), b, c, kvh, hq, d, bs,
-           page_table.shape[1], int(int8), _stream(q))
+           page_table.shape[1], kind, _stream(q))
     return out, m, l
 
 
@@ -272,10 +291,12 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     name = "decode_attention"
     int8 = k_scale is not None
     if (k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:])
-            != (kvh, d) or lens.shape != (b,) or d % 4 or hq * d > 1024):
+            != (kvh, d) or lens.shape != (b,) or d % 4
+            or hq * d > DECODE_MAX_HQ_D):
         raise ValueError(f"{name}: needs k/v (B, S, KVH, D) matching q "
                          f"{tuple(q.shape)}, lens (B,), D % 4 == 0 and "
-                         f"HQ*D <= 1024; got k {tuple(k.shape)}")
+                         f"HQ*D <= {DECODE_MAX_HQ_D} (a lane holds HQ*D/32 "
+                         f"<= 32 accumulators); got k {tuple(k.shape)}")
     _check(name, q.device, q=q, k=k, v=v, lens=lens, k_scale=k_scale,
            v_scale=v_scale)
     _dtype(name, q, torch.float32)
@@ -338,9 +359,10 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
 
 
 def rope_kernel(x, cos, sin) -> torch.Tensor:
-    """x: (B, H, D) f32 with heads contiguous in a row (rows may lie
-    further apart: the q and k heads of a fused qkv row); cos/sin (B, D)
-    f32.  Returns (B, H, D) f32 contiguous, ``x*cos + [-x2, x1]*sin``."""
+    """x: (B, H, D) f32 or bf16 with heads contiguous in a row (rows may
+    lie further apart: the q and k heads of a fused qkv row); cos/sin (B,
+    D) f32.  Returns (B, H, D) of x's dtype, contiguous, ``x*cos + [-x2,
+    x1]*sin`` computed in f32."""
     if x.device.type == "cpu":
         return ref.ref_rope(x, cos, sin)
     name = "rope"
@@ -351,11 +373,13 @@ def rope_kernel(x, cos, sin) -> torch.Tensor:
                          f"and cos/sin (B, D); got x {tuple(x.shape)} "
                          f"strides {x.stride()}, cos {tuple(cos.shape)}")
     _check(name, x.device, cos=cos, sin=sin)
-    for t in (x, cos, sin):
+    _dtype(name, x, torch.float32, torch.bfloat16)
+    for t in (cos, sin):
         _dtype(name, t, torch.float32)
-    out = torch.empty((b, h, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, h, d), dtype=x.dtype, device=x.device)
     launch(name, x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-           out.data_ptr(), b, h, d, x.stride(0), _stream(x))
+           out.data_ptr(), b, h, d, x.stride(0),
+           int(x.dtype == torch.bfloat16), _stream(x))
     return out
 
 
@@ -393,40 +417,57 @@ Q8_ROWS_BLOCK = 256
 H100_SMS = 132
 
 
+def quantize_width(k: int) -> int:
+    """Threads a row of ``quantize``: 32, or the fewest (a power of two)
+    that hold a row of K in ``Q8_ROWS_VECS[-1]`` float4s a thread (64 for
+    w2's K = 8192).  Without a norm there is no order to copy: any width
+    gives the same bits."""
+    width = 32
+    while width < 512 and width * 4 * Q8_ROWS_VECS[-1] < k:
+        width *= 2
+    return width
+
+
 def rmsnorm_quant_plan(m: int, k: int, width: int):
     """Launch plan of ``rmsnorm_quant.cu`` for M rows of K columns, with
-    ``width`` threads a row (PyTorch's, or 32 for ``quantize``): (width,
-    rows a block, float4s a thread).  Thread t of a row holds the float4s
-    t, t + width, ... (the last sweep may be part dead).  A row of more
-    than 128 threads has a block of its own; narrower rows share blocks of
-    at most ``Q8_ROWS_BLOCK`` threads, but only as many as it takes to
-    keep one block for each of the card's SMs, so that a few decode rows
-    spread over as many SMs as there are rows."""
+    ``width`` threads a row (PyTorch's, or :func:`quantize_width` for
+    ``quantize``): (width, rows a block, float4s a thread).  Thread t of a
+    row holds the float4s t, t + width, ... (the last sweep may be part
+    dead).  A row of more than 128 threads has a block of its own;
+    narrower rows share blocks of at most ``Q8_ROWS_BLOCK`` threads, but
+    only as many as it takes to keep one block for each of the card's
+    SMs, so that a few decode rows spread over as many SMs as there are
+    rows.  The kernel holds a thread's float4s in registers: at most
+    ``Q8_ROWS_VECS[-1]`` of them, in blocks of at most 256 threads from
+    16 on (its launch bounds), which bounds K at a given width."""
     need = -(-(k // 4) // width)
     vecs = next((v for v in Q8_ROWS_VECS if v >= need), None)
-    if vecs is None:
-        raise ValueError(f"rmsnorm_quant: K={k} needs {need} float4s a "
-                         f"thread at {width} threads a row, more than "
-                         f"{Q8_ROWS_VECS[-1]}")
+    if vecs is None or (vecs >= 16 and width > Q8_ROWS_BLOCK):
+        raise ValueError(f"rmsnorm_quant: K={k} at {width} threads a row "
+                         f"needs {need} float4s a thread; the kernel holds "
+                         f"at most {Q8_ROWS_VECS[-1]}, and at most 16 in a "
+                         f"row of more than {Q8_ROWS_BLOCK} threads")
     rows = max(1, min(Q8_ROWS_BLOCK // width, -(-m // H100_SMS)))
     return width, rows, vecs
 
 
 def _check_q8_rows(name: str, x, group_size: int, k_min: int) -> None:
-    """x (M >= 1, k_min <= K <= 4096) f32, 16-byte aligned, with a group
-    of 4..128 (4 x a power of two) dividing K."""
+    """x (M >= 1, K >= k_min) f32 (16-byte aligned) or bf16 (8-byte
+    aligned: four values a load), with a group of 4..128 (4 x a power of
+    two) dividing K.  How wide K may be is the launch plan's to say
+    (:func:`rmsnorm_quant_plan`)."""
     m, k = x.shape
     lanes = group_size // 4
     if (group_size < 4 or group_size % 4 or lanes & (lanes - 1) or lanes > 32
-            or k % group_size or not k_min <= k <= 4096 or m < 1):
-        raise ValueError(f"{name}: needs x (M >= 1, {k_min} <= K <= 4096) "
-                         f"and a group of 4..128 (4 x a power of two) "
-                         f"dividing K; got x {tuple(x.shape)}, group "
-                         f"{group_size}")
+            or k % group_size or k < k_min or m < 1):
+        raise ValueError(f"{name}: needs x (M >= 1, K >= {k_min}) and a "
+                         f"group of 4..128 (4 x a power of two) dividing K; "
+                         f"got x {tuple(x.shape)}, group {group_size}")
     _check(name, x.device, x=x)
-    _dtype(name, x, torch.float32)
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
+    _dtype(name, x, torch.float32, torch.bfloat16)
+    if x.data_ptr() % (4 * x.element_size()):
+        raise ValueError(f"{name}: x must be {4 * x.element_size()}-byte "
+                         "aligned")
 
 
 def _q8_outputs(x, group_size: int):
@@ -438,8 +479,10 @@ def _q8_outputs(x, group_size: int):
 
 def rmsnorm_quant_kernel(x, gamma, eps: float,
                          group_size: int) -> tuple:
-    """x (M, K) f32, gamma (K,) f32 -> (codes (M, K) int8, scales
-    (M, K / group_size) f32): RMSNorm then Q8_0 per group, in one pass."""
+    """x (M, K) f32 or bf16, gamma (K,) f32 -> (codes (M, K) int8,
+    scales (M, K / group_size) f32): RMSNorm (its output rounded to x's
+    dtype, as the plain norm returns it) then Q8_0 per group, in one
+    pass."""
     if x.device.type == "cpu":
         return ref.ref_rmsnorm_quant(x, gamma, eps, group_size)
     name = "rmsnorm_quant"
@@ -455,14 +498,16 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
     width, factor = _torch_row_mean_order(m, k)
     launch(name, x.data_ptr(), gamma.data_ptr(), q.data_ptr(), s.data_ptr(),
            m, k, group_size, eps, factor,
-           *rmsnorm_quant_plan(m, k, width), _stream(x))
+           *rmsnorm_quant_plan(m, k, width),
+           int(x.dtype == torch.bfloat16), _stream(x))
     return q, s
 
 
 def quantize_kernel(x, group_size: int) -> tuple:
-    """x (M, K) f32 -> (codes (M, K) int8, scales (M, K / group_size)
-    f32): Q8_0 per group, bitwise ``quantize(x, group_size, 8)`` --
-    ``rmsnorm_quant``'s kernel without the norm, 32 threads a row."""
+    """x (M, K) f32 or bf16 -> (codes (M, K) int8, scales (M, K /
+    group_size) f32): Q8_0 per group, bitwise ``quantize(x, group_size,
+    8)`` -- ``rmsnorm_quant``'s kernel without the norm,
+    :func:`quantize_width` threads a row."""
     m, k = x.shape
     if k % group_size:
         raise ValueError(f"quantize: K={k} does not split into groups of "
@@ -473,7 +518,8 @@ def quantize_kernel(x, group_size: int) -> tuple:
     _check_q8_rows("quantize", x, group_size, group_size)
     q, s = _q8_outputs(x, group_size)
     launch("quantize", x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-           group_size, *rmsnorm_quant_plan(m, k, 32), _stream(x))
+           group_size, *rmsnorm_quant_plan(m, k, quantize_width(k)),
+           int(x.dtype == torch.bfloat16), _stream(x))
     return q, s
 
 
@@ -483,10 +529,10 @@ def quantize_kernel(x, group_size: int) -> tuple:
 
 
 def q8_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """x (..., K) f32 @ w (N, K).T with the paper's integer semantics:
-    activations are Q8_0-quantized on the fly with ``w.group_size``
-    (:func:`quantize_kernel`), then :func:`q8_matmul_quantized`
-    dispatches."""
+    """x (..., K) f32 or bf16 @ w (N, K).T with the paper's integer
+    semantics: activations are Q8_0-quantized on the fly with
+    ``w.group_size`` (:func:`quantize_kernel`), then
+    :func:`q8_matmul_quantized` dispatches."""
     if w.bits not in (4, 8):
         raise ValueError(f"q8_matmul: bits={w.bits}")
     *lead, k = x.shape
@@ -512,7 +558,7 @@ def q8_matmul_quantized(xq: torch.Tensor, xs: torch.Tensor,
 
 def rmsnorm_quant(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
                   group_size: int = 64):
-    """Fused RMSNorm + Q8_0: (..., K) f32 -> ((..., K) int8,
+    """Fused RMSNorm + Q8_0: (..., K) f32 or bf16 -> ((..., K) int8,
     (..., K / group_size) f32)."""
     *lead, k = x.shape
     q, s = rmsnorm_quant_kernel(x.reshape(-1, k).contiguous(),
@@ -549,27 +595,31 @@ def flash_prefill(q, k, v, *, causal: bool = True, q_offset=None,
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lens,
                            ks_pool=None, vs_pool=None) -> torch.Tensor:
-    """q: (B, H, D) pre-scaled -> (B, H, D) f32 attention over each row's
-    pool positions < lens[b], read through ``page_table``."""
+    """q: (B, H, D) pre-scaled -> (B, H, D) attention over each row's
+    pool positions < lens[b], read through ``page_table``: computed in
+    f32 (q widened exactly) and returned in q's dtype, as the reference's
+    ``attention_decode`` returns it."""
     b, h, d = q.shape
     kvh = k_pool.shape[2]
     out = paged_decode_attention_kernel(
-        q.reshape(b, kvh, h // kvh, d).contiguous(), k_pool, v_pool,
+        q.reshape(b, kvh, h // kvh, d).float().contiguous(), k_pool, v_pool,
         page_table, lens, ks_pool, vs_pool)
-    return out.reshape(b, h, d)
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, page_table, pfx_lens,
                             q_lens=None, ks_pool=None, vs_pool=None):
-    """q: (B, C, H, D) pre-scaled.  Returns the prefix segment's flash state
-    in ``layers.attention_chunk_merge``'s ``pfx_state`` layout: out
-    (B, C, H, D), m (B, H, C, 1), l (B, H, C, 1), all f32."""
+    """q: (B, C, H, D) pre-scaled (f32, or bf16 widened exactly).
+    Returns the prefix segment's flash state in
+    ``layers.attention_chunk_merge``'s ``pfx_state`` layout: out
+    (B, C, H, D), m (B, H, C, 1), l (B, H, C, 1), all f32, as the
+    reference's Pallas kernel returns it."""
     b, c, h, d = q.shape
     kvh = k_pool.shape[2]
     if q_lens is None:
         q_lens = torch.full((b,), c, dtype=torch.int32, device=q.device)
     out, m, l = paged_prefill_attention_kernel(
-        q.reshape(b, c, kvh, h // kvh, d).contiguous(), k_pool, v_pool,
+        q.reshape(b, c, kvh, h // kvh, d).float().contiguous(), k_pool, v_pool,
         page_table, pfx_lens, q_lens, ks_pool, vs_pool)
     m = m.reshape(b, c, h).transpose(1, 2)[..., None]
     l = l.reshape(b, c, h).transpose(1, 2)[..., None]

@@ -15,6 +15,12 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 16 \\
       --slots 8 --max-seq 1024 --open-loop
 
+  # llama3.2-3b (GQA 24/8, head_dim 128, bf16 compute and KV pool) at
+  # full width; --kv-int8 for the int8 pool.  Its reduced config on the
+  # CPU: --arch llama3.2-3b --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch llama3.2-3b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream

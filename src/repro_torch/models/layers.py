@@ -167,7 +167,11 @@ def attention_chunk_merge(q, k_pfx, v_pfx, k_chunk, v_chunk,
         m = torch.amax(scores, dim=-1, keepdim=True)
         e = torch.exp(scores - m)
         l = torch.sum(e, dim=-1, keepdim=True)
-        out = torch.einsum("bhqt,bthd->bqhd", (e / l).to(q.dtype), vg)
+        # p rounded to q's dtype as the reference rounds it; the product
+        # sums in f32 and rounds once, as XLA computes a bf16 dot (and
+        # PyTorch's own bf16 CPU product may split its sum by thread)
+        out = torch.einsum("bhqt,bthd->bqhd", (e / l).to(q.dtype).float(),
+                           vg.float()).to(q.dtype)
         return out, m, l
 
     def merge(out_c, m_c, l_c, out_p, m_p, l_p):

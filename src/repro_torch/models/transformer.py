@@ -45,6 +45,13 @@ def _pdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def _q_scale(cfg: ModelConfig) -> float:
+    """hd^-1/2 rounded to the compute dtype, as the reference's weakly
+    typed ``q * hd ** -0.5`` rounds it before the product (PyTorch would
+    multiply a bfloat16 ``q`` by the unrounded scalar)."""
+    return float(torch.tensor(cfg.hd() ** -0.5, dtype=_cdt(cfg)))
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -323,7 +330,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     as ``pos + 1``.  Attention runs on ``paged_decode_attention`` /
     ``decode_attention`` (the CUDA kernels on the card, which read only each
     row's live positions; their plain versions on the CPU)."""
-    hd = cfg.hd()
+    qscale = _q_scale(cfg)
     paged = "page_table" in cache
     pos = cache["lens"] if positions is None else positions
     x = embed_inputs(params, cfg, tokens)
@@ -353,10 +360,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                     else lc, k, v, *dst)
         if paged:
             out = ops.paged_decode_attention(
-                q * (hd ** -0.5), lc["k"], lc["v"], pt, lens_now,
+                q * qscale, lc["k"], lc["v"], pt, lens_now,
                 lc.get("ks"), lc.get("vs"))
         else:
-            out = ops.decode_attention(q * (hd ** -0.5), lc["k"], lc["v"],
+            out = ops.decode_attention(q * qscale, lc["k"], lc["v"],
                                        lens_now, lc.get("ks"), lc.get("vs"))
         x = x + _decode_out_proj(lp["attn"], out, x.dtype)
         x = x + _mlp(lp, x, cfg)
@@ -580,7 +587,7 @@ def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
     share; ``all_logits`` picks the head's rows and the key set."""
     a = _chunk_call_args(tokens_chunks, cache, slots, pos_offsets,
                          page_table, chunk_lens)
-    hd, kvh = cfg.hd(), cfg.n_kv_heads
+    hd, kvh, qscale = cfg.hd(), cfg.n_kv_heads, _q_scale(cfg)
     b, c = a.toks.shape
     keys = _VERIFY_KEYS if all_logits else _CHUNK_KEYS
     keys.setdefault(cfg, set()).add(
@@ -602,7 +609,7 @@ def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
         v = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wv"])
         q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
         k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
-        qs = q * (hd ** -0.5)
+        qs = q * qscale
         pfx_state = ops.paged_prefill_attention(
             qs, lc["k"], lc["v"], a.pt_rows, a.offs, a.lens, lc.get("ks"),
             lc.get("vs"))

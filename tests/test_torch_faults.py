@@ -89,10 +89,12 @@ def _both(models, build_plan=None, prompts=None, deadlines=None,
     for mod, make in ((jfaults, lambda **a: JaxEngine(jm, jparams, **a)),
                       (tfaults, lambda **a: Engine(tm, tparams,
                                                    device="cpu", **a))):
-        extra = dict(kw)
+        # every run, the fault-free one too, reads a simulated clock: on the
+        # wall clock a step that the machine's load slows is counted in
+        # ``slow_steps`` by one engine and not by the other
+        extra = dict(kw, clock=mod.SimClock())
         if build_plan is not None:
-            extra.update(faults=build_plan(mod.FaultPlan),
-                         clock=mod.SimClock())
+            extra.update(faults=build_plan(mod.FaultPlan))
         eng = make(**ENGINE, **extra)
         runs.append((eng, _serve(eng, prompts, deadlines, n_samples,
                                  max_new)))

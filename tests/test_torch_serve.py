@@ -67,8 +67,11 @@ def test_unported_flags_raise(flags):
         serve.main(flags + ["--device", "cpu", "--requests", "1"])
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(kv_int8=True, bits=4)],
-                         ids=["q8-f32", "q4-int8"])
+@pytest.mark.parametrize("kw", [dict(), dict(kv_int8=True, bits=4),
+                                dict(arch="llama3.2-3b"),
+                                dict(arch="llama3.2-3b", kv_int8=True)],
+                         ids=["q8-f32", "q4-int8", "llama3.2-3b-bf16",
+                              "llama3.2-3b-int8"])
 def test_run_serves_every_request_at_the_default_sampling(kw):
     build.reset_launches()
     before = qlinear.default_strategy()
