@@ -22,12 +22,27 @@ weights, a replay oracle, always-wrong drafts and a draft model, each
 against the plain streams under a tolerance measured in the run, and the
 fault domain (phase 15): retries, isolation, NaN rows (a verify row too),
 the allocator audit and slow steps, survivors bitwise.  Phase 2 also
-holds the kernels at the verify's shapes, and the seven kernels of the
-paged path at llama3.2-3b's (GQA 24/8, head_dim 128, bf16 and int8
-pools, K 3072 and 8192, the 128256-row head); phase 5 also runs the
-reduced llama3.2-3b; phase 16 serves llama3.2-3b at full width and depth
-(28 layers, bf16 compute) on a bf16 and an int8 pool, held against the
-same engine on the plain versions.
+holds the kernels at the verify's shapes, and every kernel at
+llama3.2-3b's (GQA 24/8, head_dim 128, bf16 and int8 pools, K 3072 and
+8192, the 128256-row head): the seven of the paged path, and since then
+the dense cache's ``flash_prefill`` (bf16, 24 / 8 heads, one prompt of
+17..1024 tokens) and ``decode_attention`` (bf16 and int8 caches, bitwise
+equal to the paged kernel) and ``q4_matvec`` (GEMVs and the tiled M =
+2048 path), and ``q8_matvec`` at phi4-mini-3.8b's 200192-row head; phase 5
+also runs the reduced llama3.2-3b on both caches; phase 16 serves
+llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
+and an int8 pool, held against the same engine on the plain versions;
+phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
+(paged and dense); phase 18 serves phi4-mini-3.8b at full width and depth
+(32 layers, vocab 200064) on a bf16 pool.  On every llama3.2-3b and phi4
+path the kernels' logits are held against the plain versions' on the same
+inputs to a fixed bound derived from bf16 and Q8_0 rounding
+(``plain_delta_bound``), with each kernel's share: the difference with
+only that kernel on its plain version, and with only it launched
+(``kernel_plain_delta``); planted wiring faults, the controls of that
+bound (a GEMV's K loop one group short, GQA groups on the wrong KV head,
+the one-shot prefill's causal diagonal one key short), must each move the
+logits past it, and a decode length one short is measured beside them.
 Every served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
@@ -62,6 +77,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 
 T0 = time.perf_counter()
@@ -192,6 +208,24 @@ def _quant_timed(kernel, plain, name, operands, m, n, k, dev):
     return err, ms, plain_ms, lib, b_ms, b_by
 
 
+def _gemv_step(kernel, plain, name, operands, layer, head, layers, dev):
+    """Check and time a decode step's GEMVs (``_quant_timed``): each of
+    ``layer``'s (N, K) and the ``head`` at M = 1 and 8 slots.  Returns the
+    M = 8 step's sums, ``layers`` x each layer GEMV plus the head (``err``
+    over both M)."""
+    step = dict.fromkeys(("err", "ms", "plain", "lib", "bound"), 0.0)
+    for m in (1, 8):
+        for n, k in list(layer) + [head]:
+            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
+                kernel, plain, name, operands, m, n, k, dev)
+            step["err"] = max(step["err"], err)
+            if m == 8:
+                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
+                               ("bound", b_ms)):
+                    step[key] += v if (n, k) == head else layers * v
+    return step
+
+
 def check_q8_matvec(report, dev):
     """q8_matvec at the decode path's shapes: the layer GEMVs and the head
     at M = 1 and 8 slots, summed per decode step; then the GEMV's edges:
@@ -206,17 +240,8 @@ def check_q8_matvec(report, dev):
     # decode step: per layer wqkv, wo_f, w13, w2; then the head (M = slots)
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
     head = (32000, 768)
-    step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for m in (1, 8):
-        for n, k in layer + [head]:
-            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
-                kernel, plain, "q8_matvec", operands, m, n, k, dev)
-            step["err"] = max(step["err"], err)
-            if m == 8:
-                w = 12 if (n, k) != head else 1
-                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
-                               ("bound", b_ms)):
-                    step[key] += w * v
+    step = _gemv_step(kernel, plain, "q8_matvec", operands, layer, head,
+                         12, dev)
     log(f"  q8_matvec per decode step (12 layers x 4 + head, M=8): kernel "
         f"{step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} ms, bound "
         f"{step['bound']:.4f} ms, {100 * step['bound'] / step['ms']:.1f}% "
@@ -380,17 +405,19 @@ def _q4_operands(gen, dev):
     return operands
 
 
-def q4_matmul_chunk(dev, m, operands):
-    """The Q4_0 chunk step's MLP products at m rows, 12 layers x (w13, w2):
-    each call checked (bitwise) and timed by ``_quant_timed``, with ``q8_matmul`` on the unpacked codes of the same
-    weights beside it (the same function at Q8_0's bytes; information
-    only).  Returns the per-step sums.  Runs on any tree's
+def q4_matmul_chunk(dev, m, operands, shapes=((4096, 768), (768, 2048)),
+                    layers=12):
+    """The Q4_0 chunk step's MLP products at m rows, ``layers`` x (w13, w2)
+    (``shapes``: llama2-110m's by default): each call checked (bitwise)
+    and timed by ``_quant_timed``, with ``q8_matmul`` on the unpacked codes
+    of the same weights beside it (the same function at Q8_0's bytes;
+    information only).  Returns the per-step sums.  Runs on any tree's
     ``q4_matvec_kernel``, so parent and change can be timed in turns."""
     from repro_torch.core.quantization import _unpack_nibbles
     from repro_torch.kernels import ops, ref
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
              "q8": 0.0}
-    for n, k in [(4096, 768), (768, 2048)]:
+    for n, k in shapes:
         err, ms, plain, lib, b_ms, _ = _quant_timed(
             ops.q4_matvec_kernel, ref.ref_q4_matvec, "q4_matvec", operands,
             m, n, k, dev)
@@ -405,8 +432,8 @@ def q4_matmul_chunk(dev, m, operands):
             f"(information only): {q8_ms:.4f} ms")
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                        ("bound", b_ms), ("q8", q8_ms)):
-            chunk[key] += 12 * v
-    log(f"  q4_matvec per chunk step (12 x (w13, w2), M={m}): kernel "
+            chunk[key] += layers * v
+    log(f"  q4_matvec per chunk step ({layers} x (w13, w2), M={m}): kernel "
         f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, "
         f"q8_matmul {chunk['q8']:.4f} ms, bound {chunk['bound']:.4f} ms, "
         f"{100 * chunk['bound'] / chunk['ms']:.1f}% of it; bitwise")
@@ -443,17 +470,8 @@ def check_q4(report, dev):
 
     layer = [(2304, 768), (768, 768), (4096, 768), (768, 2048)]
     head = (32000, 768)
-    step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for m in (1, 8):
-        for n, k in layer + [head]:
-            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
-                kernel, plain, "q4_matvec", operands, m, n, k, dev)
-            step["err"] = max(step["err"], err)
-            if m == 8:
-                w = 12 if (n, k) != head else 1
-                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
-                               ("bound", b_ms)):
-                    step[key] += w * v
+    step = _gemv_step(kernel, plain, "q4_matvec", operands, layer, head,
+                         12, dev)
     log(f"  q4_matvec per decode step (12 layers x 4 + head, M=8): kernel "
         f"{step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} ms, bound "
         f"{step['bound']:.4f} ms, {100 * step['bound'] / step['ms']:.1f}% "
@@ -545,14 +563,15 @@ def check_q4(report, dev):
 
 
 def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
-                      d=64, timed=False, yardsticks=True):
-    """One decode_attention call on a (B, S, KVH, D) cache against its plain
-    version (tolerance 2e-5; a length-0 row exactly 0) and, where S is a
-    multiple of 64, bitwise against paged_decode_attention on the identity
-    page table over the same rows (pages of 64, a table S / 64 wide).
-    ``timed``: also its device time on
-    L2-cold caches and its bound; ``yardsticks``: the plain version's and
-    SDPA's times beside it.  Returns a dict."""
+                      d=64, timed=False, yardsticks=True, bf16=False):
+    """One decode_attention call on a (B, S, KVH, D) cache (f32, bf16 with
+    ``bf16``, or int8) against its plain version (tolerance 2e-5; a
+    length-0 row exactly 0) and, where S is a multiple of 64, bitwise
+    against paged_decode_attention on the identity page table over the
+    same rows (pages of 64, a table S / 64 wide).  ``timed``: also its
+    device time on L2-cold caches and its bound; ``yardsticks``: the plain
+    version's and SDPA's (on the dequantized K/V, repeated over the query
+    heads) times beside it.  Returns a dict."""
     from repro_torch.core.quantization import quantize_rows
     from repro_torch.kernels import ops, ref
     b, h = len(lens_l), kvh * hq
@@ -561,12 +580,14 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
     def cache():
         k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
         v = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+        if bf16:
+            return k.bfloat16(), v.bfloat16(), None, None
         if not int8:
             return k, v, None, None
         (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
         return kq, vq, ks, vs
 
-    kind = "int8" if int8 else "f32"
+    kind = "int8" if int8 else "bf16" if bf16 else "f32"
     k, v, ksc, vsc = cache()
     q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
     got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
@@ -593,7 +614,7 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
     rec = {"err": err}
     if not timed:
         return rec
-    elem = 1 if int8 else 4
+    elem = 1 if int8 else 2 if bf16 else 4
     nrows = sum(min(max(n, 0), s) for n in lens_l)
     nbytes = (2 * nrows * kvh * d * elem + (8 * nrows * kvh if int8 else 0)
               + 2 * b * h * d * 4 + 4 * b)
@@ -619,7 +640,8 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
         kf, vf = k.float(), v.float()
         if int8:
             kf, vf = kf * ksc[..., None], vf * vsc[..., None]
-        kf, vf = kf.transpose(1, 2), vf.transpose(1, 2)       # (B, H, S, D)
+        kf = torch.repeat_interleave(kf, hq, dim=2).transpose(1, 2)
+        vf = torch.repeat_interleave(vf, hq, dim=2).transpose(1, 2)
         mask = (torch.arange(s, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
@@ -714,6 +736,7 @@ L3_LAYERS, L3_D, L3_KVH, L3_HQ, L3_HD = 28, 3072, 8, 3, 128
 L3_GEMV = [(5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192)]
 L3_HEAD = (128256, 3072)
 L3_GEMM = ((16384, 3072), (3072, 8192))
+P4 = "phi4-mini-3.8b"
 # rmsnorm_quant on bf16 input rounds the norm to bf16 before quantizing,
 # as the plain rms_norm returns it: where the kernel's f32 norm parted from
 # the plain one's by an ulp, that rounding could flip by one bf16 ulp (at
@@ -744,18 +767,8 @@ def check_llama3(report, dev):
     src = "src/repro_torch/kernels/csrc/"
 
     # ---- q8_matvec: a decode step's 4 x 28 layer GEMVs + the head
-    step = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for m in (1, 8):
-        for n, k in L3_GEMV + [L3_HEAD]:
-            err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
-                ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
-                operands, m, n, k, dev)
-            step["err"] = max(step["err"], err)
-            if m == 8:
-                w = L3_LAYERS if (n, k) != L3_HEAD else 1
-                for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
-                               ("bound", b_ms)):
-                    step[key] += w * v
+    step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
+                      operands, L3_GEMV, L3_HEAD, L3_LAYERS, dev)
     log(f"  {L3} q8_matvec per decode step ({L3_LAYERS} layers x 4 + head, "
         f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
         f"ms, bound {step['bound']:.4f} ms, "
@@ -941,6 +954,161 @@ def check_llama3(report, dev):
                per="one layer's call at 8 slots: 32 q and k heads of 128 of "
                    "a bf16 qkv row; bitwise")
 
+
+def check_llama3_dense_q4(report, dev):
+    """The dense cache's two kernels and the Q4_0 kernel at llama3.2-3b's
+    shapes (phase 17's paths), each against its plain version and timed
+    beside it and its library call: flash_prefill on one bf16 prompt of
+    17, 256, 600 and 1024 tokens (24 query heads over 8 KV heads of 128, q
+    pre-scaled in bf16 as the model does, scale 1), within 2e-5, beside
+    SDPA (``is_causal``, ``enable_gqa``) on the same bf16 tensors, its
+    bound the function's flops at the bf16 rate (the kernel's own 3xTF32
+    floor beside it as ``tf32x3_bound_ms``);
+    decode_attention on a bf16 and an int8 cache of 8 slots x 1024 at phase
+    2's lens and at batch 1, bitwise equal to paged_decode_attention on
+    the same rows (and at S = 832), beside SDPA on the dequantized K/V;
+    q4_matvec at the decode GEMVs and the head (M = 1 and 8, within 2e-5)
+    and the chunk step's MLP (M = 8 x 256, bitwise), beside
+    ``torch.matmul`` on dequantized weights, none of it on the dp4a
+    kernel.  Each adds a row ``<kernel>@llama3.2-3b``."""
+    from repro_torch.kernels import build, ops, ref
+    gen = torch.Generator(device=dev).manual_seed(26)
+    src = "src/repro_torch/kernels/csrc/"
+    h, kvh, d = 24, L3_KVH, L3_HD
+    qscale = torch.tensor(d ** -0.5).bfloat16().item()
+
+    # ---- flash_prefill: one bf16 prompt, GQA 24 / 8, D 128
+    timed, err_max = {}, 0.0
+    for n in (17, 256, 600, 1024):
+        def mk():
+            q = torch.randn((1, n, h, d), generator=gen, device=dev)
+            return ((q.bfloat16() * qscale),
+                    torch.randn((1, n, kvh, d), generator=gen,
+                                device=dev).bfloat16(),
+                    torch.randn((1, n, kvh, d), generator=gen,
+                                device=dev).bfloat16())
+        q, k, v = mk()
+        got = ops.flash_prefill_kernel(q, k, v, causal=True, scale=1.0)
+        want = ref.ref_flash_prefill(q, k, v, True, scale=1.0)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= 2e-5:
+            raise AssertionError(f"flash_prefill bf16 S={n}: err {err:.3g} "
+                                 "> 2e-5")
+        err_max = max(err_max, err)
+        pairs = n * (n + 1) // 2
+        nbytes = 2 * n * d * (h + 2 * kvh) + 4 * n * h * d
+        flops = 4.0 * pairs * h * d
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        tf32x3_ms, _ = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        nxt = rotating(mk, 2 * n * d * (h + 2 * kvh), budget=96 << 20)
+        ms = time_ms(lambda: ops.flash_prefill_kernel(*nxt(), causal=True,
+                                                      scale=1.0))
+        plain = time_ms(lambda: ref.ref_flash_prefill(*nxt(), True,
+                                                      scale=1.0), iters=5)
+
+        def sdpa():
+            qt, kt, vt = (t.transpose(1, 2) for t in nxt())
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True)
+        lib = time_ms(sdpa)
+        log(f"  {L3} flash_prefill bf16 S={n} H={h} KVH={kvh} D={d}  err "
+            f"{err:.2e} (tol 2e-05)  kernel {ms:.4f} ms  plain {plain:.4f} "
+            f"ms  sdpa {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, bf16 "
+            f"tensor cores), {100 * b_ms / ms:.1f}% of it; 3xTF32 floor "
+            f"{tf32x3_ms:.4f} ms, {100 * tf32x3_ms / ms:.1f}% of it")
+        timed[str(n)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=b_ms, bound_by=b_by,
+                             tf32x3_bound_ms=tf32x3_ms)
+    report.add(f"flash_prefill@{L3}", route="cuda",
+               source=src + "flash_prefill.cu", header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/flash_prefill.py:173",
+               max_abs_err=err_max, **timed["600"], by_prompt=timed,
+               per="one layer's call, one 600-token bf16 prompt, 24 / 8 "
+                   "heads of 128 (by_prompt at 17, 256, 600, 1024)")
+
+    # ---- decode_attention: 8 slots x 1024, bf16 and int8 caches
+    geo = dict(kvh=kvh, hq=L3_HQ, d=d)
+    dec = {kind: dense_decode_case(gen, dev, DECODE_LENS, kind == "int8",
+                                   bf16=kind == "bf16", timed=True, **geo)
+           for kind in ("bf16", "int8")}
+    b1 = dense_decode_case(gen, dev, [1024], False, bf16=True, timed=True,
+                           **geo)
+    worst = max(r["err"] for r in (*dec.values(), b1))
+    for kind in ("bf16", "int8"):
+        worst = max(worst, dense_decode_case(
+            gen, dev, [0, 1, 64, 832, 700, 511, 513, 900], kind == "int8",
+            s=832, bf16=kind == "bf16", **geo)["err"])
+    log(f"  {L3} decode_attention: bitwise equal to paged_decode_attention "
+        "at S = 1024 and S = 832, bf16 and int8 caches")
+    r, i8 = dec["bf16"], dec["int8"]
+    report.add(f"decode_attention@{L3}", route="cuda",
+               source=src + "decode_attention.cu",
+               header=src + "flash_decode.cuh",
+               replaces="src/repro/kernels/decode_attention.py:206",
+               max_abs_err=worst, ms=r["ms"], plain_ms=r["plain"],
+               library_ms=r["lib"], bound_ms=r["bound"], bound_by=r["by"],
+               int8_ms=i8["ms"], int8_plain_ms=i8["plain"],
+               int8_library_ms=i8["lib"], int8_bound_ms=i8["bound"],
+               b1_1024_ms=b1["ms"], b1_1024_bound_ms=b1["bound"],
+               b1_1024_library_ms=b1["lib"],
+               per="one layer's call at 8 slots x 1024, 8 KV heads x HQ 3 x "
+                   "D 128, bf16 cache (int8_* for the int8 cache, b1_* at "
+                   "batch 1)")
+
+    # ---- q4_matvec: a decode step's GEMVs + head, the chunk step's MLP
+    operands = _q4_operands(gen, dev)
+    dp4a = build.LAUNCHES["q4_matvec_dp4a"]
+    step = _gemv_step(ops.q4_matvec_kernel, ref.ref_q4_matvec,
+                         "q4_matvec", operands, L3_GEMV, L3_HEAD, L3_LAYERS,
+                         dev)
+    log(f"  {L3} q4_matvec per decode step ({L3_LAYERS} layers x 4 + head, "
+        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
+        f"ms, bound {step['bound']:.4f} ms, "
+        f"{100 * step['bound'] / step['ms']:.1f}% of it")
+    chunk = q4_matmul_chunk(dev, 2048, operands, shapes=L3_GEMM,
+                            layers=L3_LAYERS)
+    if build.LAUNCHES["q4_matvec_dp4a"] != dp4a:
+        raise AssertionError(f"q4_matvec at {L3}'s shapes ran on the dp4a "
+                             "kernel")
+    report.add(f"q4_matvec@{L3}", route="cuda", source=src + "q4_matvec.cu",
+               replaces="src/repro/kernels/q4_matmul.py:69",
+               max_abs_err=max(step["err"], chunk["err"]), ms=step["ms"],
+               plain_ms=step["plain"], bound_ms=step["bound"],
+               bound_by="bytes", library_ms=step["lib"],
+               chunk_ms=chunk["ms"], chunk_plain_ms=chunk["plain"],
+               chunk_library_ms=chunk["lib"],
+               chunk_bound_ms=chunk["bound"],
+               chunk_q8_matmul_ms=chunk["q8"],
+               per=f"decode step at 8 slots: {4 * L3_LAYERS} layer GEMVs + "
+                   f"head 128256 x 3072 (chunk_*: chunk step, {L3_LAYERS} x "
+                   "(w13, w2) at M = 2048, bitwise)")
+
+
+def check_phi4_head(report, dev):
+    """q8_matvec at phi4-mini-3.8b's one new shape, the 200192-row (padded
+    vocab 200064) head at K 3072, M = 1 and 8, within 2e-5 and timed
+    beside its plain version and ``torch.matmul``.  Its other kernels run
+    llama3.2-3b's shapes (the same d_model, heads and d_ff): their rows are
+    the ``@llama3.2-3b`` ones, and phase 18's record lists their launches
+    on phi4's path."""
+    from repro_torch.kernels import ops, ref
+    operands = _q8_operands(torch.Generator(device=dev).manual_seed(18), dev)
+    n, k = 200192, L3_D
+    head = {m: _quant_timed(ops.q8_matvec_kernel, ref.ref_q8_matmul,
+                            "q8_matvec", operands, m, n, k, dev)
+            for m in (1, 8)}
+    err, ms, plain, lib, b_ms, b_by = head[8]
+    report.add(f"q8_matvec@{P4}", route="cuda",
+               source="src/repro_torch/kernels/csrc/q8_matvec.cu",
+               replaces="src/repro/kernels/q8_matvec.py:67",
+               max_abs_err=max(head[1][0], err), ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+               m1_ms=head[1][1], m1_plain_ms=head[1][2],
+               m1_library_ms=head[1][3], m1_bound_ms=head[1][4],
+               per=f"the head alone, {n} x {k} at M = 8 (m1_*: M = 1)")
+
+
 def sass_count(name: str, *words: str) -> int:
     """Lines of kernel ``name``'s built library, disassembled by
     ``cuobjdump -sass``, that hold every one of ``words``.  Builds the
@@ -1061,6 +1229,62 @@ def check_flash_prefill(report, dev):
                sdpa_kernels=sdpa_kernels,
                by_prompt={str(n): timed[n] for n in timed},
                per="one layer's call, one 600-token prompt")
+
+
+def prefill_bits(dev, path, bf16=True):
+    """The prefill attentions' outputs on seeded inputs, saved to ``path``
+    when it does not exist, else held bitwise against what it holds: the
+    f32 ``flash_prefill`` at check_flash_prefill's shapes (llama2-110m's
+    one-shot prefill, B = 1, H = 12, D = 64, S 17, 256, 600, 1024; GQA with
+    per-row extents; D = 32 and 128; non-causal) and, with ``bf16``, the
+    bf16 ``flash_prefill`` at llama3.2-3b's (24 / 8 heads of 128, S 17,
+    256, 600, 1024, scale 1) and ``paged_prefill_attention`` on a bf16
+    pool at phase 2's prefixes (8 KV heads x HQ 3 x D 128).  Run it from a
+    tree before a change (with this script copied over its own), then
+    from the change: a change that must keep the bits passes only if every
+    output is equal.  ``bf16`` needs a tree whose ``flash_prefill`` takes
+    bf16 (README: how to run it on the card)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = [(1, n, n, 12, 12, 64, True) for n in (17, 256, 600, 1024)]
+    cases += [(4, 200, 456, 12, 6, 64, True), (2, 150, 150, 4, 2, 32, True),
+              (2, 150, 150, 4, 2, 128, True), (2, 100, 300, 4, 4, 64, False)]
+    outs = []
+    for b, sq, sk, h, kvh, d, causal in cases:
+        outs.append(ops.flash_prefill_kernel(
+            rand(b, sq, h, d), rand(b, sk, kvh, d), rand(b, sk, kvh, d),
+            causal=causal))
+    if bf16:
+        for n in (17, 256, 600, 1024):
+            q, k, v = (rand(1, n, hh, L3_HD, dtype=torch.bfloat16)
+                       for hh in (24, L3_KVH, L3_KVH))
+            outs.append(ops.flash_prefill_kernel(q, k, v, causal=True,
+                                                 scale=1.0))
+        b, mb, bs = len(PREFILL_PFX), 16, 64
+        kp, vp, _, _ = _pools(gen, dev, b * mb, bs, L3_KVH, L3_HD, False,
+                              bf16=True)
+        pt = _page_table(gen, dev, b, mb, b * mb,
+                         [-(-p // bs) for p in PREFILL_PFX])
+        q = rand(b, 256, L3_KVH, L3_HQ, L3_HD)
+        outs += ops.paged_prefill_attention_kernel(
+            q, kp, vp, pt,
+            torch.tensor(PREFILL_PFX, dtype=torch.int32, device=dev),
+            torch.tensor(PREFILL_QLENS, dtype=torch.int32, device=dev))
+    outs = [o.cpu() for o in outs]
+    path = Path(path)
+    if not path.exists():
+        torch.save(outs, path)
+        log(f"  prefill attentions: {len(outs)} outputs saved to {path}")
+        return True
+    saved = torch.load(path)
+    same = [torch.equal(a, b) for a, b in zip(outs, saved)]
+    log(f"  prefill attentions: {sum(same)} of {len(saved)} outputs bitwise "
+        f"equal to {path}'s")
+    return len(outs) == len(saved) and all(same)
 
 
 # the SASS instruction that `griddepcontrol.wait` (csrc/pdl.cuh) becomes
@@ -2416,8 +2640,7 @@ def reduced_cpu_vs_card(dev, arch="llama2-110m"):
     Logits may differ by the ~3e-2 an int8 activation code flipped by a
     last-place difference moves them (the CPU tests measure this); streams
     may part only at a step whose top-2 gap is below that.  A bf16 config
-    (llama3.2-3b) runs the paged Engine only (the dense cache takes f32
-    configs), greedy: the sampled check is llama2-110m's."""
+    (llama3.2-3b) runs greedy only: the sampled check is llama2-110m's."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.model import build_model, params_to
     cfg = reduced(get_config(arch))
@@ -2451,15 +2674,14 @@ def reduced_cpu_vs_card(dev, arch="llama2-110m"):
 
     diff = (first_logits(p_cpu, cpu)
             - first_logits(p_dev, dev)).abs().max().item()
-    ddiff = ((prefill_logits(p_cpu) - prefill_logits(p_dev)).abs().max()
-             .item() if f32 else 0.0)
+    ddiff = (prefill_logits(p_cpu) - prefill_logits(p_dev)).abs().max() \
+        .item()
     phase(f"phase 5: reduced {arch} ({cfg.compute_dtype}), CPU plain vs card "
-          f"kernels: first chunk step logits max |diff| {diff:.3g}"
-          + (f", whole-prompt prefill logits {ddiff:.3g}" if f32 else "")
-          + f" (tol {FLIP_TOL})")
+          f"kernels: first chunk step logits max |diff| {diff:.3g}, "
+          f"whole-prompt prefill logits {ddiff:.3g} (tol {FLIP_TOL})")
     if not (diff <= FLIP_TOL and ddiff <= FLIP_TOL):
         raise AssertionError(f"first-step logits differ by {diff}, {ddiff}")
-    for extra in ({}, {"cache_kind": "dense"}) if f32 else ({},):
+    for extra in ({}, {"cache_kind": "dense"}):
         _, cpu_streams, _ = serve(model, p_cpu, prompts, cpu, 8, **kw,
                                   **extra)
         _, dev_streams, _ = serve(model, p_dev, prompts, dev, 8, **kw,
@@ -3236,15 +3458,11 @@ def fault_domain(dev, cfg, params, counted):
 
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """For the duration, every kernel entry on the paged path
-    (``kernels/ops.py``) is its plain version (``kernels/ref.py``): the
-    same engine then serves on the card in plain PyTorch, launching no
-    kernel.  A measurement device of this script; the port has no such
-    switch (a CUDA tensor reaches its kernel or raises)."""
+def _plain_entries():
+    """Each kernel's entries of ``kernels/ops.py`` and their plain versions
+    (``kernels/ref.py``), by the kernel's name."""
     from repro_torch.core.quantization import quantize
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
     def quantize_plain(x, gs):
         t = quantize(x, group_size=gs, bits=8)
@@ -3260,14 +3478,49 @@ def plain_versions():
         l = l[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
         return out.reshape(b, c, kvh, hq, d), m, l
 
-    swap = {"q8_matvec_kernel": ref.ref_q8_matmul,
-            "q8_matmul_kernel": ref.ref_q8_matmul,
-            "q4_matvec_kernel": ref.ref_q4_matvec,
-            "rmsnorm_quant_kernel": ref.ref_rmsnorm_quant,
-            "quantize_kernel": quantize_plain,
-            "rope": ref.ref_rope, "rope_kernel": ref.ref_rope,
-            "paged_decode_attention_kernel": ref.ref_paged_decode_attention,
-            "paged_prefill_attention_kernel": prefill_plain}
+    def decode_plain(q, k, v, lens, k_scale=None, v_scale=None):
+        return ref.ref_decode_attention(q, k, v, lens.reshape(-1, 1),
+                                        k_scale, v_scale)
+
+    def flash_plain(q, k, v, q_offset=None, q_lens=None, k_lens=None,
+                    causal=True, scale=None):
+        return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
+                                     k_lens, scale)
+
+    return {"q8_matvec": {"q8_matvec_kernel": ref.ref_q8_matmul},
+            "q8_matmul": {"q8_matmul_kernel": ref.ref_q8_matmul},
+            "q4_matvec": {"q4_matvec_kernel": ref.ref_q4_matvec},
+            "rmsnorm_quant": {"rmsnorm_quant_kernel": ref.ref_rmsnorm_quant},
+            "quantize": {"quantize_kernel": quantize_plain},
+            "rope": {"rope": ref.ref_rope, "rope_kernel": ref.ref_rope},
+            "paged_decode_attention": {
+                "paged_decode_attention_kernel":
+                    ref.ref_paged_decode_attention},
+            "paged_prefill_attention": {
+                "paged_prefill_attention_kernel": prefill_plain},
+            "decode_attention": {"decode_attention_kernel": decode_plain},
+            "flash_prefill": {"flash_prefill_kernel": flash_plain}}
+
+
+PLAIN_KERNELS = ("q8_matvec", "q8_matmul", "q4_matvec", "rmsnorm_quant",
+                 "quantize", "rope", "paged_decode_attention",
+                 "paged_prefill_attention", "decode_attention",
+                 "flash_prefill")
+
+
+@contextlib.contextmanager
+def plain_versions(kernels=PLAIN_KERNELS):
+    """For the duration, the entries of ``kernels/ops.py`` of each named
+    kernel (default: all ten) are their plain versions
+    (``kernels/ref.py``): with all of them the same engine serves on the
+    card in plain PyTorch, launching no kernel.  A measurement device of
+    this script; the port has no such switch (a CUDA tensor reaches its
+    kernel or raises)."""
+    from repro_torch.kernels import ops
+    entries = _plain_entries()
+    swap = {}
+    for name in kernels:
+        swap.update(entries[name])
     saved = {name: getattr(ops, name) for name in swap}
     try:
         for name, fn in swap.items():
@@ -3278,88 +3531,304 @@ def plain_versions():
             setattr(ops, name, fn)
 
 
-def kernel_plain_delta(model, params, prompts, dev):
+# The fixed bound on the logits of the kernels against the plain versions
+# on the same inputs (PERF.md section 6).  Both sides compute the same
+# function; they part only where an f32 sum is taken in another order (a
+# GEMV's groups, the attentions' online softmax, a norm's mean) and a
+# rounding after it flips: a bf16 value by one ulp, or a requantized int8
+# activation code by one step.  The unit of one such site is the larger of
+# bf16's u = 2^-8 and half a Q8_0 code step, 1/254 of a group's largest
+# value (under the kernel strategy every product's input is requantized).
+# The CPU tests' form (tests/test_torch_llama3.py) charges each of a
+# layer's two residual adds one unit of the logits' scale and adds them:
+# 2 * n_layers units, every flip the same way.  Flips are independent and
+# of either sign, so they add as a random walk: the probabilistic bound
+# lambda * sqrt(N) * unit (Higham and Mary, SIAM J. Sci. Comput. 41(5),
+# 2019) with N = 2 * n_layers sites and lambda = 3 (one such sum exceeds
+# it with probability at most 2 exp(-lambda^2 / 2) = 0.022).  It bounds the
+# final hidden state's relative error, and a logit moves with it, so the
+# unit of the logits is the plain logits' largest magnitude: logits within
+# 3 * sqrt(2 * n_layers) * max|plain logit| / 254.  It depends on the
+# config and on the plain run's logits, never on the measured difference.
+PLAIN_DELTA_UNIT = max(2.0 ** -8, 1.0 / 254)
+PLAIN_DELTA_LAMBDA = 3.0
+
+
+def plain_delta_bound(cfg, scale: float, sites_per_layer: float = 2) -> float:
+    return (PLAIN_DELTA_LAMBDA * math.sqrt(sites_per_layer * cfg.n_layers)
+            * PLAIN_DELTA_UNIT * scale)
+
+
+# Dense against paged streams (phase 17): two computations of the same
+# function that round differently, each with its own sites, the paged path
+# 2 a layer and the dense one 2 + 1/2 (its one-shot prefill keeps P in f32
+# where the chunk merge rounds its own keys' P to bf16, at most 2^-9 of
+# max |V|: half a unit; tests/test_torch_llama3_dense.py): one random walk
+# over both paths' sites.
+def dense_paged_bound(cfg, scale: float) -> float:
+    return plain_delta_bound(cfg, scale, sites_per_layer=2 + 2 + 0.5)
+
+
+def _planted_faults():
+    """The controls of the fixed bound: wiring faults that the per-kernel
+    checks of phase 2 cannot see (they call each kernel right), each
+    wrapping one kernel entry of ``kernels/ops.py``.  By name: (entry, the
+    wrapper of the entry, whether the bound must reject it).  A decode
+    length one short moves the logits by 0.49-1.15 at 28-32 layers, 3-8x
+    rounding's own difference and 0.85-2.3x the bound (PERF.md section 6):
+    it is measured, not required; phase 2 holds each kernel's lengths
+    exactly and the CPU tests hold the model's wiring against JAX."""
+    def last_group(fn):      # a K loop one Q8_0 group short
+        def f(xq, xs, wq, ws, group_size):
+            xs = xs.clone()
+            xs[:, -1] = 0
+            return fn(xq, xs, wq, ws, group_size)
+        return f
+
+    def newest_key(at):      # a length one short: the newest key dropped
+        def wrap(fn):
+            def f(*args):
+                args = list(args)
+                args[at] = (args[at] - 1).clamp(min=0)
+                return fn(*args)
+            return f
+        return wrap
+
+    def kv_heads(fn):        # GQA groups read the neighbouring KV head
+        def f(q, *args):
+            return fn(q.roll(1, dims=1).contiguous(), *args)
+        return f
+
+    def diagonal(fn):        # the causal diagonal one key short
+        def f(q, k, v, q_offset=None, *args):
+            off = (torch.zeros(q.shape[0], dtype=torch.int32,
+                               device=q.device)
+                   if q_offset is None else q_offset)
+            return fn(q, k, v, off - 1, *args)
+        return f
+
+    return {
+        "q8_matvec: last K group dropped": (
+            "q8_matvec_kernel", last_group, True),
+        "q4_matvec: last K group dropped": (
+            "q4_matvec_kernel", last_group, True),
+        "paged_decode_attention: newest key dropped": (
+            "paged_decode_attention_kernel", newest_key(4), False),
+        "paged_decode_attention: KV heads rotated": (
+            "paged_decode_attention_kernel", kv_heads, True),
+        "decode_attention: newest key dropped": (
+            "decode_attention_kernel", newest_key(3), False),
+        "decode_attention: KV heads rotated": (
+            "decode_attention_kernel", kv_heads, True),
+        "flash_prefill: causal diagonal one key short": (
+            "flash_prefill_kernel", diagonal, True)}
+
+
+@contextlib.contextmanager
+def planted(name):
+    """For the duration, one planted fault (``_planted_faults``) wraps its
+    kernel entry of ``kernels/ops.py``."""
+    from repro_torch.kernels import ops
+    entry, wrap, _ = _planted_faults()[name]
+    saved = getattr(ops, entry)
+    setattr(ops, entry, wrap(saved))
+    try:
+        yield
+    finally:
+        setattr(ops, entry, saved)
+
+
+def _fresh_cache(model, src, dev):
+    """A new cache holding ``src``'s contents: a paged pool (with the
+    scratch block the decode step writes dead rows to), or a dense cache."""
+    if "page_table" not in src:
+        return {"lens": src["lens"].clone(),
+                "attn": {k: v.clone() for k, v in src["attn"].items()}}
+    nb, bs = src["attn"]["k"].shape[1:3]
+    b, mb = src["page_table"].shape
+    new = model.init_paged_cache(b, block_size=bs, n_blocks=nb,
+                                 max_blocks_per_seq=mb, device=dev)
+    for name, t in src["attn"].items():
+        new["attn"][name].copy_(t)
+    new["lens"].copy_(src["lens"])
+    new["page_table"] = src["page_table"].clone()
+    return new
+
+
+def kernel_plain_delta(model, params, prompts, dev, shares=(),
+                       dense=False, controls=()):
     """Logits of the kernels against the plain versions on the same inputs:
-    one chunk step (each prompt's first 256 tokens, 8 slots) on the same
-    empty pool, then one decode step on the plain step's pool.  Returns
-    (chunk max |diff|, decode max |diff|)."""
+    one chunk step on an empty pool (each prompt's first 256 tokens, 8
+    slots) or, ``dense``, one one-shot prefill of 8 x 256 tokens (a prompt
+    shorter than 256 repeated) into an empty dense cache; then one decode
+    step on the plain step's cache.  For each kernel of ``shares``, the
+    same two differences with only that kernel on its plain version (all
+    others launched) and with only that kernel launched (all others
+    plain).  For each planted fault of ``controls`` (``_planted_faults``),
+    the same two differences with every kernel launched and that fault
+    planted.  Returns a dict: ``chunk`` and ``decode`` max |diff| with
+    every kernel launched, ``scale`` (the plain logits' largest
+    magnitude), ``bound`` (``plain_delta_bound``), ``shares`` and
+    ``controls``; raises if any difference but a control's exceeds the
+    bound, or if a required control's does not: the check must reject
+    those planted faults."""
     b, mb, c = len(prompts), 16, 256
-    cache = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
-                                   max_blocks_per_seq=mb, device=dev)
-    cache["page_table"] = torch.arange(b * mb, dtype=torch.int32,
-                                       device=dev).reshape(b, mb)
-    toks = np.zeros((b, c), np.int32)
-    lens = [min(len(p), c) for p in prompts]
-    for i, p in enumerate(prompts):
-        toks[i, :lens[i]] = p[:lens[i]]
+    if dense:
+        toks = np.stack([np.resize(p, c) for p in prompts]).astype(np.int32)
+    else:
+        toks = np.zeros((b, c), np.int32)
+        lens = [min(len(p), c) for p in prompts]
+        for i, p in enumerate(prompts):
+            toks[i, :lens[i]] = p[:lens[i]]
+        empty = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
+                                       max_blocks_per_seq=mb, device=dev)
+        empty["page_table"] = torch.arange(b * mb, dtype=torch.int32,
+                                           device=dev).reshape(b, mb)
 
-    def fresh(src):
-        # a new pool (with the scratch block the decode step writes dead
-        # rows to) holding src's contents
-        new = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
-                                     max_blocks_per_seq=mb, device=dev)
-        for name, t in src["attn"].items():
-            new["attn"][name].copy_(t)
-        new["lens"].copy_(src["lens"])
-        new["page_table"] = src["page_table"].clone()
-        return new
-    args = (toks, list(range(b)), [0] * b)
-    got, _ = model.prefill_chunk_batch(params, args[0], fresh(cache),
-                                       *args[1:], chunk_lens=lens)
+    def first():
+        if dense:
+            return model.prefill(params, {"tokens": toks}, max_seq=1024)
+        return model.prefill_chunk_batch(params, toks,
+                                         _fresh_cache(model, empty, dev),
+                                         list(range(b)), [0] * b,
+                                         chunk_lens=lens)
+
     with plain_versions():
-        want, pcache = model.prefill_chunk_batch(
-            params, args[0], fresh(cache), *args[1:], chunk_lens=lens)
+        want, pcache = first()
         nxt = torch.argmax(want, dim=-1)
-        dwant, _ = model.decode_step(params, fresh(pcache), nxt)
-    dgot, _ = model.decode_step(params, fresh(pcache), nxt)
-    torch.cuda.synchronize()
-    return ((got - want).abs().max().item(),
-            (dgot - dwant).abs().max().item())
+        dwant, _ = model.decode_step(params, _fresh_cache(model, pcache, dev),
+                                     nxt)
+
+    def run(plain):
+        with plain_versions(plain):
+            got, _ = first()
+            dgot, _ = model.decode_step(params,
+                                        _fresh_cache(model, pcache, dev),
+                                        nxt)
+        torch.cuda.synchronize()
+        return ((got - want).abs().max().item(),
+                (dgot - dwant).abs().max().item())
+
+    scale = max(want.abs().max().item(), dwant.abs().max().item())
+    tol = plain_delta_bound(model.cfg, scale)
+    d_chunk, d_dec = run(())
+    rec = {"chunk": d_chunk, "decode": d_dec, "scale": scale, "bound": tol,
+           "shares": {}, "controls": {}}
+    for name in shares:
+        alone = run((name,))
+        only = run(tuple(k for k in PLAIN_KERNELS if k != name))
+        rec["shares"][name] = {"plain_alone": alone, "launched_alone": only}
+        log(f"    {name}: on its plain version alone chunk {alone[0]:.4g}, "
+            f"decode {alone[1]:.4g}; launched alone chunk {only[0]:.4g}, "
+            f"decode {only[1]:.4g}")
+    worst = max([d_chunk, d_dec] + [x for r in rec["shares"].values()
+                                    for pair in r.values() for x in pair])
+    log(f"  kernels vs plain versions on the same inputs: "
+        f"{'prefill' if dense else 'chunk step'} logits max |diff| "
+        f"{d_chunk:.4g}, decode step {d_dec:.4g}; plain logits' scale "
+        f"{scale:.4g}; fixed bound {PLAIN_DELTA_LAMBDA:g} * sqrt(2 * "
+        f"{model.cfg.n_layers}) * {PLAIN_DELTA_UNIT:.5f} * scale = "
+        f"{tol:.4g}; worst of "
+        f"{1 + 2 * len(shares)} runs {worst:.4g}")
+    if not worst <= tol:
+        raise AssertionError(f"{model.cfg.arch_id}: kernels vs plain logits "
+                             f"differ by {worst} > the fixed bound {tol}: "
+                             f"{rec}")
+    faults = _planted_faults()
+    for name in controls:
+        with planted(name):
+            rec["controls"][name] = hit = run(())
+        log(f"    control, {name}: chunk {hit[0]:.4g}, decode {hit[1]:.4g} "
+            f"({max(hit) / tol:.2f} x the bound"
+            f"{'' if faults[name][2] else '; measured, not required'})")
+    missed = [n for n, hit in rec["controls"].items()
+              if faults[n][2] and not max(hit) > tol]
+    if missed:
+        raise AssertionError(f"{model.cfg.arch_id}: the fixed bound {tol} "
+                             f"does not reject the planted faults {missed}: "
+                             f"{rec['controls']}")
+    return rec
 
 
-def llama3_path(dev, counted):
-    """Phase 16: llama3.2-3b at full width and depth (28 layers, d_model
-    3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab 128256,
-    bf16 compute) from the port's own seeded ``init_params`` on the card,
-    Q8_0 with the fused decode weights; the paged Engine (page 64, chunk
-    256, 8 slots, max_seq 1024) on a bf16 pool, then an int8 pool; 8
-    requests of 16..600 tokens, two sharing a 128-token prefix, 32 greedy
-    tokens.  Per pool: the kernels' logits against the plain versions' on
-    the same inputs (``kernel_plain_delta``) first, then the kernel run
-    with its exact launch counts, then the same engine on the plain
-    versions (``plain_versions``: no launch); the streams must be equal or
-    part only at a step whose top-2 gap (plain) is below the larger
-    measured difference (a parting needs the two logits' differences to
-    close the gap, which they can up to twice the largest: the check
-    holds the streams to half of that).  Last, the bf16 pool's run is
-    repeated under the profiler for the card's busy share and the
-    heaviest kernels.  Launches are counted under
-    ``<kernel>@llama3.2-3b``."""
+# the kernels of each llama3.2-3b path (phases 16-18), for the per-kernel
+# shares of kernel_plain_delta
+L3_PAGED_KERNELS = ("q8_matvec", "q8_matmul", "rmsnorm_quant", "quantize",
+                    "rope", "paged_decode_attention",
+                    "paged_prefill_attention")
+# the planted faults each path's check must reject (kernel_plain_delta's
+# controls): phases 16 (bf16 pool) and 18, phase 17's dense bf16 run
+PAGED_CONTROLS = ("q8_matvec: last K group dropped",
+                  "paged_decode_attention: newest key dropped",
+                  "paged_decode_attention: KV heads rotated")
+DENSE_CONTROLS = ("decode_attention: newest key dropped",
+                  "decode_attention: KV heads rotated",
+                  "flash_prefill: causal diagonal one key short")
+Q4_POLICY = dict(bits=4, min_size=512)        # launch/serve.py --bits 4
+
+
+def llama3_params(dev):
+    """llama3.2-3b's parameters from the port's own seeded ``init_params``
+    on the card, drawn once: Q8_0 (phases 16-17) and Q4_0 (``serve.py
+    --bits 4``'s policy, phase 17) from the same f32 draw, which is then
+    freed.  Returns (config, Q8_0, Q4_0, prompts, seconds)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
+    from repro_torch.core.policy import QuantPolicy
     from repro_torch.models.model import build_model
     cfg = get_config(L3)
+    model = build_model(cfg)
     t0 = time.perf_counter()
-    params = build_model(cfg).quantize(build_model(cfg).init(seed=0,
-                                                             device=dev))
+    init = model.init(seed=0, device=dev)
+    params = model.quantize(init)
+    p4 = model.quantize(init, QuantPolicy(**Q4_POLICY))
     torch.cuda.synchronize()
     made = time.perf_counter() - t0
+    del init
+    torch.cuda.empty_cache()
     prompts = _requests(8, 16, 600, cfg.vocab_size, seed=16, shared_len=128,
                         shared_at=(0, 5))
+    return cfg, params, p4, prompts, made
+
+
+def _suffixed(counted, mine, arch):
+    for k, v in mine.items():
+        counted[f"{k}@{arch}"] = counted.get(f"{k}@{arch}", 0) + v
+
+
+def llama3_path(dev, cfg, params, prompts, made, counted):
+    """Phase 16: llama3.2-3b at full width and depth (28 layers, d_model
+    3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab 128256,
+    bf16 compute), Q8_0 with the fused decode weights (``llama3_params``);
+    the paged Engine (page 64, chunk 256, 8 slots, max_seq 1024) on a bf16
+    pool, then an int8 pool; 8 requests of 16..600 tokens, two sharing a
+    128-token prefix, 32 greedy tokens.  Per pool: the kernels' logits
+    against the plain versions' on the same inputs (``kernel_plain_delta``,
+    held to the fixed bound ``plain_delta_bound``; on the bf16 pool each
+    kernel's share too) first, then the kernel run with its exact launch
+    counts, then the same engine on the plain versions
+    (``plain_versions``: no launch); the streams must be equal or part
+    only at a step whose top-2 gap (plain) is below the fixed bound.
+    Last, the bf16 pool's run is repeated under the profiler for the
+    card's busy share and the heaviest kernels.  Launches are counted
+    under ``<kernel>@llama3.2-3b``.  Returns (record, each pool's
+    streams)."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
     phase(f"phase 16: {L3} full width and depth ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
           f"{cfg.hd()}, vocab {cfg.vocab_size}, {cfg.compute_dtype}), "
           f"Q8_0 parameters {param_bytes(params) / 1e9:.2f} GB made on the "
-          f"card in {made:.1f} s; 8 requests of {min(map(len, prompts))}.."
-          f"{max(map(len, prompts))} tokens, 32 greedy tokens")
+          f"card in {made:.1f} s (with the Q4_0 copy); 8 requests of "
+          f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens, 32 "
+          "greedy tokens")
     mine, out, runs = {}, {}, {}
     for kv in ("bfloat16", "int8"):
         model = build_model(cfg.with_(kv_cache_dtype=kv))
-        d_chunk, d_dec = kernel_plain_delta(model, params, prompts, dev)
-        tol = max(d_chunk, d_dec)
-        log(f"  {kv} pool: kernels vs plain versions on the same inputs: "
-            f"chunk step logits max |diff| {d_chunk:.4g}, decode step "
-            f"{d_dec:.4g}; streams may part at a top-2 gap below {tol:.4g}")
+        log(f"  {kv} pool:")
+        bf16 = kv == "bfloat16"
+        delta = kernel_plain_delta(
+            model, params, prompts, dev,
+            shares=L3_PAGED_KERNELS if bf16 else (),
+            controls=PAGED_CONTROLS if bf16 else ())
         build.reset_launches()
         eng, streams, wall = serve(model, params, prompts, dev, 32,
                                    **PAGED_KW)
@@ -3369,7 +3838,7 @@ def llama3_path(dev, counted):
                                  "hit the prefix cache")
         rec = engine_line(f"{L3}, {kv} pool, kernel strategy", eng,
                           streams, wall)
-        rec["kernel_plain_delta"] = {"chunk": d_chunk, "decode": d_dec}
+        rec["kernel_plain_delta"] = delta
         with plain_versions():
             build.reset_launches()
             _, plain, pwall = serve(model, params, prompts, dev, 32,
@@ -3382,7 +3851,7 @@ def llama3_path(dev, counted):
             compare_streams(f"{L3} {kv} pool, kernels vs plain", streams,
                             plain, prompts,
                             lambda seq, *_: _top2_gap(model, params, seq,
-                                                      dev), tol)
+                                                      dev), delta["bound"])
         rec["plain_wall_s"] = pwall
         rec["streams_equal"] = sum(a == b for a, b in zip(streams, plain))
         out[kv] = rec
@@ -3395,11 +3864,167 @@ def llama3_path(dev, counted):
         raise AssertionError(f"{L3}: a second run gave different greedy "
                              "streams")
     log("  bf16 pool, second run (profiled): identical streams")
-    for k, v in mine.items():
-        counted[f"{k}@{L3}"] = counted.get(f"{k}@{L3}", 0) + v
+    _suffixed(counted, mine, L3)
+    return out, {kv: s for kv, (_, s) in runs.items()}
+
+
+def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
+                    plain_requests=4):
+    """Phase 17: llama3.2-3b at full width and depth on the dense cache (8
+    slots x 1024: one-shot prefill on ``flash_prefill``, decode on
+    ``decode_attention``) and with Q4_0 weights (``q4_matvec`` the only
+    product kernel), from phase 16's draw (``llama3_params``): dense with
+    Q8_0 on a bf16 and then an int8 cache, then Q4_0 on the paged bf16
+    pool and on the dense bf16 cache; phase 16's 8 requests, 32 greedy
+    tokens.  Each run: ``kernel_plain_delta`` on its own path (the one-shot
+    prefill for the dense cache), with the shares of the kernels the path
+    adds, held to the fixed bound; its exact launch counts.  The dense bf16
+    and the Q4_0 paged runs are held against the same engine on the plain
+    versions (the first ``plain_requests`` requests: 4 of the 8 keep the
+    whole script near 600 s of command time), parting only at a
+    top-2 gap below the fixed bound; the dense streams against phase 16's
+    paged ones (``paged``, by pool) and Q4_0 dense against Q4_0 paged,
+    parting only at a top-2 gap below ``dense_paged_bound``.  Launches are
+    counted under ``<kernel>@llama3.2-3b``."""
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    runs = (("dense bf16", "bfloat16", 8, DENSE_KW, True),
+            ("dense int8", "int8", 8, DENSE_KW, False),
+            ("Q4_0 paged bf16", "bfloat16", 4, PAGED_KW, True),
+            ("Q4_0 dense bf16", "bfloat16", 4, DENSE_KW, False))
+    phase(f"phase 17: {L3} full width and depth, dense cache 8 x 1024 and "
+          f"Q4_0 weights ({param_bytes(p4) / 1e9:.2f} GB against "
+          f"{param_bytes(params) / 1e9:.2f} GB for Q8_0), 8 greedy requests "
+          "a run")
+    mine, out, streams = {}, {}, {}
+    for tag, kv, bits, kw, with_plain in runs:
+        model = build_model(cfg.with_(kv_cache_dtype=kv))
+        prm = p4 if bits == 4 else params
+        dense = kw is DENSE_KW
+        shares = ("q4_matvec",) if bits == 4 else ()
+        controls = ()
+        if dense and bits == 8:
+            shares = ("flash_prefill", "decode_attention")
+            controls = DENSE_CONTROLS if kv == "bfloat16" else ()
+        elif bits == 4 and not dense:
+            controls = ("q4_matvec: last K group dropped",)
+        phase(f"phase 17: {L3}, {tag}")
+        delta = kernel_plain_delta(model, prm, prompts, dev, shares,
+                                   dense=dense, controls=controls)
+        build.reset_launches()
+        eng, got, wall = serve(model, prm, prompts, dev, 32, **kw)
+        check_launches(eng, dict(build.LAUNCHES), cfg, mine, bits=bits)
+        rec = engine_line(f"{L3}, {tag}, kernel strategy", eng, got, wall)
+        rec["kernel_plain_delta"] = delta
+
+        def gap(seq, *_):
+            return _top2_gap(model, prm, seq, dev)
+        if with_plain:
+            n = plain_requests
+            with plain_versions():
+                build.reset_launches()
+                _, plain, pwall = serve(model, prm, prompts[:n], dev, 32,
+                                        **kw)
+                if any(build.LAUNCHES.values()):
+                    raise AssertionError(f"the plain run launched kernels: "
+                                         f"{build.LAUNCHES}")
+                log(f"  {L3}, {tag}, plain versions ({n} requests): "
+                    f"{pwall:.3f} s, no kernel launched")
+                compare_streams(f"{L3} {tag}, kernels vs plain", got[:n],
+                                plain, prompts, gap, delta["bound"])
+            rec["plain_wall_s"] = pwall
+            rec["streams_equal"] = sum(a == b for a, b in zip(got, plain))
+        if dense:
+            rec["dense_paged_bound"] = tol = dense_paged_bound(
+                cfg, delta["scale"])
+            want = paged[kv] if bits == 8 else streams["Q4_0 paged bf16"]
+            compare_streams(f"{L3} {tag} vs {'Q4_0 ' * (bits == 4)}paged "
+                            f"(bound {tol:.4g})", got, want, prompts, gap,
+                            tol)
+        streams[tag] = got
+        out[tag] = rec
+    _suffixed(counted, mine, L3)
+    return out
+
+
+def phi4_path(dev, counted):
+    """Phase 18: phi4-mini-3.8b at full width and depth (32 layers,
+    d_model 3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab
+    200064, rope theta 1e4, bf16 compute) from the port's own seeded
+    ``init_params`` on the card (~15 GB of f32, freed after Q8_0), the
+    paged Engine on a bf16 pool as phase 16; 8 requests of 16..600 tokens,
+    two sharing a 128-token prefix, 32 greedy tokens.  The new shape is
+    the 200192-row (padded) head GEMV and the greedy argmax over it.
+    ``kernel_plain_delta`` with every kernel's share, held to the fixed
+    bound at 32 layers (and its planted faults rejected), stands in for
+    the plain-version engine run and the int8 pool.  Launches are counted
+    under ``<kernel>@phi4-mini-3.8b`` and listed in the record: the kernels
+    line has a phi4 row for the head GEMV only (the others run
+    llama3.2-3b's shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    cfg = get_config(P4)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    init = model.init(seed=0, device=dev)
+    f32_gb = param_bytes(init) / 1e9
+    params = model.quantize(init)
+    del init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    made = time.perf_counter() - t0
+    prompts = _requests(8, 16, 600, cfg.vocab_size, seed=18, shared_len=128,
+                        shared_at=(0, 5))
+    phase(f"phase 18: {P4} full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.hd()}, vocab {cfg.vocab_size} (head {cfg.padded_vocab()} "
+          f"rows), rope theta {cfg.rope_theta:g}, {cfg.compute_dtype}), "
+          f"{f32_gb:.2f} GB of f32 then Q8_0 parameters "
+          f"{param_bytes(params) / 1e9:.2f} GB made on the card in "
+          f"{made:.1f} s; 8 requests of {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens, 32 greedy tokens, paged bf16 "
+          "pool")
+    delta = kernel_plain_delta(model, params, prompts, dev,
+                               shares=L3_PAGED_KERNELS,
+                               controls=PAGED_CONTROLS)
+    mine = {}
+    build.reset_launches()
+    eng, streams, wall = serve(model, params, prompts, dev, 32, **PAGED_KW)
+    check_launches(eng, dict(build.LAUNCHES), cfg, mine)
+    if eng.metrics["prefix_hits"] < 1:
+        raise AssertionError(f"{P4}: the shared-prefix requests never hit "
+                             "the prefix cache")
+    if any(t >= cfg.padded_vocab() for s in streams for t in s):
+        raise AssertionError(f"{P4}: a token past the head's rows")
+    rec = engine_line(f"{P4}, bf16 pool, kernel strategy", eng, streams,
+                      wall)
+    rec["kernel_plain_delta"] = delta
+    rec["launches"] = mine
+    _suffixed(counted, mine, P4)
     del params
     torch.cuda.empty_cache()
-    return out
+    return rec
+
+
+def bf16_paths(dev, counted):
+    """Phases 16-18, the bf16 configs: llama3.2-3b's parameters drawn once
+    (``llama3_params``), the paged pools (phase 16), the dense cache and
+    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18).  Alone on the card:
+    ``build.build()``, ``qlinear.set_default_strategy("kernel")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
+    does, then ``bf16_paths(torch.device("cuda"), {})``."""
+    cfg, params, p4, prompts, made = llama3_params(dev)
+    l3, paged = llama3_path(dev, cfg, params, prompts, made, counted)
+    phase(f"phase 16: {L3} {json.dumps(l3)}")
+    l3b = llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted)
+    phase(f"phase 17: {L3} {json.dumps(l3b)}")
+    del params, p4
+    torch.cuda.empty_cache()
+    phi = phi4_path(dev, counted)
+    phase(f"phase 18: {P4} {json.dumps(phi)}")
+    return l3, l3b, phi
+
 
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
@@ -3510,6 +4135,8 @@ def main() -> int:
     check_rmsnorm_quant(report, dev)
     check_verify_edges(report, dev)
     check_llama3(report, dev)
+    check_llama3_dense_q4(report, dev)
+    check_phi4_head(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
@@ -3534,8 +4161,7 @@ def main() -> int:
     phase(f"phase 15: faults {json.dumps(faults)}")
     del params, p4
     torch.cuda.empty_cache()
-    l3 = llama3_path(dev, counted)
-    phase(f"phase 16: {L3} {json.dumps(l3)}")
+    bf16_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

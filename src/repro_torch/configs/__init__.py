@@ -1,4 +1,5 @@
-"""Architecture configs of the port: llama2-110m and llama3.2-3b."""
+"""Architecture configs of the port: llama2-110m, llama3.2-3b and
+phi4-mini-3.8b."""
 from repro_torch.configs.base import ModelConfig, get_config, reduced
 
 __all__ = ["ModelConfig", "get_config", "reduced"]

@@ -44,7 +44,7 @@ SIGNATURES: Dict[str, list] = {
     "paged_prefill_attention": [_P] * 11 + [_I] * 8 + [_P],
     "q4_matvec": [_P] * 5 + [_I] * 4 + [_P, _P],
     "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
-    "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "rope": [_P] * 4 + [_I] * 5 + [_P],
     "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P],
     "quantize": [_P] * 3 + [_I] * 7 + [_P],

@@ -1,6 +1,7 @@
 // bf16 rows widened to f32, for the kernels that read bf16 activations or
-// KV pools (rope.cu, rmsnorm_quant.cu, flash_decode.cuh,
-// paged_prefill_attention.cu).  A bf16 value widens to f32 exactly.
+// KV pools (rope.cu, rmsnorm_quant.cu, flash_decode.cuh, tf32x3.cuh's
+// split for flash_prefill.cu and paged_prefill_attention.cu).  A bf16
+// value widens to f32 exactly.
 #pragma once
 
 #include <cuda_bf16.h>

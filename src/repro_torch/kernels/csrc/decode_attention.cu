@@ -4,7 +4,7 @@
 // (pallas_call at decode_attention.py:206).
 //
 //   q      (B, KVH, HQ, D) f32, already scaled by 1/sqrt(D)
-//   k/v    (B, S, KVH, D) f32, or int8 with ks/vs (B, S, KVH) f32
+//   k/v    (B, S, KVH, D) f32 or bf16, or int8 with ks/vs (B, S, KVH) f32
 //   lens   (B,) int32: row b attends positions < min(lens[b], S)
 //   out    (B, KVH, HQ, D) f32 = softmax(q k^T over live positions) v
 //
@@ -16,14 +16,14 @@
 #include "flash_decode.cuh"
 
 // All tensors contiguous, D % 4 == 0 and HQ*D <= 1024 (the wrapper checks).
-// ks/vs are ignored unless int8 != 0 (flash_decode::kInt8; the wrapper
-// passes no other kind).  Returns a cudaError_t (0 = launched).
+// kind: the cache's element, 0 f32, 1 int8 (ks/vs are ignored otherwise),
+// 2 bf16.  Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* lens, void* out, int B, int S,
-                                int KVH, int HQ, int D, int int8,
+                                int KVH, int HQ, int D, int kind,
                                 void* stream) {
   const flash_decode::DenseRows rows{S, KVH};
   return flash_decode::run(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, D,
-                           int8, static_cast<cudaStream_t>(stream));
+                           kind, static_cast<cudaStream_t>(stream));
 }

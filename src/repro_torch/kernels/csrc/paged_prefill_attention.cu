@@ -45,7 +45,9 @@
 //    cp.async.ca) into a staging ring of two tiles; the split widens each
 //    value to f32 (an int8 code as code * scale, the plain version's one
 //    rounding; a bf16 value exactly) and writes big and small parts into
-//    f32 tiles.
+//    f32 tiles.  A widened bf16 value is exact in TF32: it is only widened
+//    (tf32x3.cuh's widen_tile_bf16), has no small-part tile, and each
+//    product runs two MMAs instead of three, with the same bits.
 //  * Order.  Blocks go heaviest first: block i takes the i-th of the
 //    (b, kv-head, row tile) triples with b ranked by its live tile count
 //    (ceil(prefix / 64), 0 when q_lens[b] is 0; ties by b), so the longest
@@ -53,7 +55,7 @@
 //    pfx_lens and q_lens: one launch, and the host never reads the lens.
 //  * No split over the prefix: the longest block walks every tile of its
 //    prefix.  At D = 64 a block holds 105 KB (f32 pool) or 87 KB (int8) of
-//    shared memory, at D = 128 201 KB (f32), 198 KB (bf16) or 167 KB
+//    shared memory, at D = 128 201 KB (f32), 131 KB (bf16) or 167 KB
 //    (int8): one block (8 warps) an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,7 +63,6 @@
 
 #include <type_traits>
 
-#include "bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -102,26 +103,6 @@ __device__ __forceinline__ void split_tile_int8(
   }
 }
 
-// The same for a bf16 tile: each value widened to f32 exactly, then split
-template <int D>
-__device__ __forceinline__ void split_tile_bf16(const __nv_bfloat16* kc,
-                                                const __nv_bfloat16* vc,
-                                                float* Kb, float* Vb,
-                                                float* Kl, float* Vl) {
-  constexpr int LK = D + 8, LV = D + 4, W = D / 4;  // 4-value words a row
-  for (int i = threadIdx.x; i < kTK * W; i += kThreads) {
-    const int r = i / W, c = (i - r * W) * 4;
-    float4 x = widen4(*reinterpret_cast<const uint2*>(kc + r * D + c)), y;
-    split4(x, y);
-    *reinterpret_cast<float4*>(Kb + r * LK + c) = x;
-    *reinterpret_cast<float4*>(Kl + r * LK + c) = y;
-    x = widen4(*reinterpret_cast<const uint2*>(vc + r * D + c));
-    split4(x, y);
-    *reinterpret_cast<float4*>(Vb + r * LV + c) = x;
-    *reinterpret_cast<float4*>(Vl + r * LV + c) = y;
-  }
-}
-
 // live 64-key tiles of row b (0 when it has no query row)
 __device__ __forceinline__ int live_tiles(const int* pfx_lens,
                                           const int* q_lens, int b, int C,
@@ -146,15 +127,17 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
   constexpr int KS = D / 8;               // k-steps of S, d-tiles of O
   constexpr int PB = D * (int)sizeof(T);  // bytes of a pool row
   constexpr int CH = PB / 16;             // 16-byte chunks a row
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;  // in TF32
   constexpr int NS = RAW ? 1 : 2;         // stages of the f32 tiles
+  constexpr int NL = EXACT ? 0 : 1;       // small-part tiles (bf16: none)
   extern __shared__ __align__(16) float sm[];
   float* Ks = sm;                         // [NS][kTK][LK] f32 (raw), big
   float* Vs = Ks + NS * kTK * LK;         // [NS][kTK][LV]
-  float* Kl = Vs + NS * kTK * LV;         // [kTK][LK]     small
-  float* Vl = Kl + kTK * LK;              // [kTK][LV]     small
+  float* Kl = Vs + NS * kTK * LV;         // [NL][kTK][LK] small
+  float* Vl = Kl + NL * kTK * LK;         // [NL][kTK][LV] small
   // int8 and bf16: the rows [2][kTK][PB bytes] as they land; int8 also the
   // scales [2][kTK]
-  unsigned char* Kc = reinterpret_cast<unsigned char*>(Vl + kTK * LV);
+  unsigned char* Kc = reinterpret_cast<unsigned char*>(Vl + NL * kTK * LV);
   unsigned char* Vc = Kc + 2 * kTK * PB;
   float* Ksc = reinterpret_cast<float*>(Vc + 2 * kTK * PB);  // [2][kTK]
   float* Vsc = Ksc + 2 * kTK;
@@ -298,18 +281,18 @@ __global__ void __launch_bounds__(kThreads, 1) paged_prefill_kernel(
                            reinterpret_cast<const int8_t*>(vc),
                            Ksc + (it & 1) * kTK, Vsc + (it & 1) * kTK, kt,
                            vt, Kl, Vl);
-      else if constexpr (RAW)
-        split_tile_bf16<D>(reinterpret_cast<const __nv_bfloat16*>(kc),
+      else if constexpr (EXACT)  // no small parts
+        widen_tile_bf16<D>(reinterpret_cast<const __nv_bfloat16*>(kc),
                            reinterpret_cast<const __nv_bfloat16*>(vc), kt,
-                           vt, Kl, Vl);
+                           vt);
       else
         split_tile<D>(kt, vt, Kl, Vl);  // big in place, small beside it
       __syncthreads();
       const int k0 = kh * (kTK / kKH);  // this warp's keys in the tile
       const int t0 = it * kTK + k0;
       if (t0 >= wend) continue;  // warp-uniform: nothing this warp needs
-      warp_tile<D>(kt, Kl, vt, Vl, k0, t0, lim_a, lim_b, qb, qs, mrow,
-                   lrow, o);
+      warp_tile<D, EXACT>(kt, Kl, vt, Vl, k0, t0, lim_a, lim_b, qb, qs,
+                          mrow, lrow, o);
     }
   }
 
@@ -343,8 +326,10 @@ int launch(const void* q, const void* kpool, const void* vpool,
            const void* qlens, void* out, void* m, void* l, int B, int C,
            int KVH, int HQ, int BS, int MB, cudaStream_t stream) {
   constexpr bool RAW = !std::is_same<T, float>::value;
-  const int ns = RAW ? 1 : 2;
-  size_t smem = (ns + 1) * kTK * ((D + 8) + (D + 4)) * sizeof(float);
+  // f32 tiles: f32 two stages and small; int8 one and small; bf16 one
+  const int tiles = RAW ? (std::is_same<T, __nv_bfloat16>::value ? 1 : 2)
+                        : 3;
+  size_t smem = tiles * kTK * ((D + 8) + (D + 4)) * sizeof(float);
   if (RAW) smem += 4 * kTK * D * sizeof(T);   // two stages of K and V rows
   if (std::is_same<T, int8_t>::value) smem += 4 * kTK * sizeof(float);
   if (smem > 48 * 1024) {

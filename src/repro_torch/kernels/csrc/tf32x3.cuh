@@ -34,10 +34,19 @@
 // independent accumulators (every big.small, then every small.big, then
 // every big.big: CUTLASS's mma_tensor_op_fast_f32 order for each sum), so no
 // MMA waits on the one before it.
+//
+// Exact operands.  A bf16 value widened to f32 fits TF32 exactly (8 bits of
+// mantissa against 10), so a bf16 K or V tile has small parts exactly 0: a
+// bf16 tile is only widened, holds no small-part buffer, and each product
+// skips its big.small MMA (warp_tile's EXACT).  Dropping a product that
+// adds exact zeros leaves every accumulator's bits as they were.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
 
 namespace {
 
@@ -93,6 +102,22 @@ __device__ __forceinline__ void mma3(float (&c)[N][4],
     mma(c[i], ab, __float_as_uint(b[i].x), __float_as_uint(b[i].y));
 }
 
+// The same when b is exact in TF32 (small parts 0): the small.big products,
+// then the big.big, as mma3 issues them after its big.small ones.  b[i]
+// holds (big0, big1).
+template <int N>
+__device__ __forceinline__ void mma2(float (&c)[N][4],
+                                     const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const float2 (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma(c[i], as, __float_as_uint(b[i].x), __float_as_uint(b[i].y));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mma(c[i], ab, __float_as_uint(b[i].x), __float_as_uint(b[i].y));
+}
+
 // x -> (big, small) in place of x and in `small`, both as floats
 __device__ __forceinline__ void split_to(float& x, float& small) {
   uint32_t big, lo;
@@ -137,12 +162,31 @@ __device__ __forceinline__ void split_tile(float* kt, float* vt, float* Kl,
   }
 }
 
+// A bf16 K/V tile staged as it is stored (rows of D values), widened to f32
+// into Kb / Vb (same strides): exact, and exact in TF32, so it is its own
+// big part and has no small part
+template <int D>
+__device__ __forceinline__ void widen_tile_bf16(const __nv_bfloat16* kc,
+                                                const __nv_bfloat16* vc,
+                                                float* Kb, float* Vb) {
+  constexpr int LK = D + 8, LV = D + 4, W = D / 4;  // 4-value words a row
+  for (int i = threadIdx.x; i < kTK * W; i += kThreads) {
+    const int r = i / W, c = (i - r * W) * 4;
+    *reinterpret_cast<float4*>(Kb + r * LK + c) =
+        widen4(*reinterpret_cast<const uint2*>(kc + r * D + c));
+    *reinterpret_cast<float4*>(Vb + r * LV + c) =
+        widen4(*reinterpret_cast<const uint2*>(vc + r * D + c));
+  }
+}
+
 // One warp's part of one split tile: S = Q.K^T over the tile's keys k0 ..
 // k0 + 31 (t0 = the position of key k0), keys at or past lim_a / lim_b
 // masked for the lane's rows g / g + 8 (probability exactly 0), the online
 // softmax, and O += P.V.  kt / Kl and vt / Vl hold the tile's big and small
-// parts; qb / qs are Q's A fragments, scaled to base 2 and split.
-template <int D>
+// parts; qb / qs are Q's A fragments, scaled to base 2 and split.  EXACT:
+// the tile is exact in TF32 (widened bf16), Kl / Vl are not read and each
+// product runs two MMAs (mma2) instead of three.
+template <int D, bool EXACT = false>
 __device__ __forceinline__ void warp_tile(
     const float* kt, const float* Kl, const float* vt, const float* Vl,
     int k0, int t0, int lim_a, int lim_b, const uint32_t (&qb)[D / 8][4],
@@ -159,15 +203,24 @@ __device__ __forceinline__ void warp_tile(
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    float4 kb[kJ];
+    if constexpr (EXACT) {
+      float2 kb[kJ];
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int at = (k0 + 8 * j + g) * LK + 8 * kk + 2 * t;
-      const float2 xb = *reinterpret_cast<const float2*>(kt + at);
-      const float2 xs = *reinterpret_cast<const float2*>(Kl + at);
-      kb[j] = make_float4(xb.x, xb.y, xs.x, xs.y);
+      for (int j = 0; j < kJ; ++j)
+        kb[j] = *reinterpret_cast<const float2*>(
+            kt + (k0 + 8 * j + g) * LK + 8 * kk + 2 * t);
+      mma2(s, qb[kk], qs[kk], kb);
+    } else {
+      float4 kb[kJ];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int at = (k0 + 8 * j + g) * LK + 8 * kk + 2 * t;
+        const float2 xb = *reinterpret_cast<const float2*>(kt + at);
+        const float2 xs = *reinterpret_cast<const float2*>(Kl + at);
+        kb[j] = make_float4(xb.x, xb.y, xs.x, xs.y);
+      }
+      mma3(s, qb[kk], qs[kk], kb);
     }
-    mma3(s, qb[kk], qs[kk], kb);
   }
 
   // online softmax on the fragments: rows g (s[.][0..1]) and g + 8
@@ -220,12 +273,20 @@ __device__ __forceinline__ void warp_tile(
     split(s[j][1], pb[2], ps[2]);
     split(s[j][3], pb[3], ps[3]);
     const int at = (k0 + 8 * j + 2 * t) * LV + g;
-    float4 vb[KS];
+    if constexpr (EXACT) {
+      float2 vb[KS];
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
-      vb[n] = make_float4(vt[at + 8 * n], vt[at + LV + 8 * n],
-                          Vl[at + 8 * n], Vl[at + LV + 8 * n]);
-    mma3(o, pb, ps, vb);
+      for (int n = 0; n < KS; ++n)
+        vb[n] = make_float2(vt[at + 8 * n], vt[at + LV + 8 * n]);
+      mma2(o, pb, ps, vb);
+    } else {
+      float4 vb[KS];
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+        vb[n] = make_float4(vt[at + 8 * n], vt[at + LV + 8 * n],
+                            Vl[at + 8 * n], Vl[at + LV + 8 * n]);
+      mma3(o, pb, ps, vb);
+    }
   }
 }
 

@@ -281,9 +281,9 @@ def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
 
 def decode_attention_kernel(q, k, v, lens, k_scale=None,
                             v_scale=None) -> torch.Tensor:
-    """q: (B, KVH, HQ, D) pre-scaled; k/v: (B, S, KVH, D) (int8 when
-    k/v_scale (B, S, KVH) are given); lens (B,) int32, clamped to S.
-    Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0."""
+    """q: (B, KVH, HQ, D) f32 pre-scaled; k/v: (B, S, KVH, D) f32 or bf16
+    (int8 when k/v_scale (B, S, KVH) are given); lens (B,) int32, clamped
+    to S.  Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0."""
     b, kvh, hq, d = q.shape
     if q.device.type == "cpu":
         return ref.ref_decode_attention(q, k, v, lens.reshape(b, 1),
@@ -300,7 +300,10 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     _check(name, q.device, q=q, k=k, v=v, lens=lens, k_scale=k_scale,
            v_scale=v_scale)
     _dtype(name, q, torch.float32)
-    _dtype(name, k, torch.int8 if int8 else torch.float32)
+    if int8:
+        _dtype(name, k, torch.int8)
+    else:
+        _dtype(name, k, torch.float32, torch.bfloat16)
     _dtype(name, v, k.dtype)
     _dtype(name, lens, torch.int32)
     if int8:
@@ -311,27 +314,30 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     out = torch.empty_like(q)
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
            _ptr(v_scale), lens.data_ptr(), out.data_ptr(), b, k.shape[1],
-           kvh, hq, d, int(int8), _stream(q))
+           kvh, hq, d, POOL_KINDS[k.dtype], _stream(q))
     return out
 
 
 def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
-                         causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, D) f32 unscaled (scaled by D^-1/2 inside); k/v:
-    (B, Sk, KVH, D) f32; q_offset/q_lens/k_lens (B,) int32 or None
-    (0, Sq, Sk).  Returns (B, Sq, H, D) f32: causal flash attention with
-    GQA heads indexed, queries past q_lens and queries with no live key 0.
+                         causal: bool = True, scale=None) -> torch.Tensor:
+    """q: (B, Sq, H, D) f32 or bf16, scaled by ``scale`` inside (None:
+    D^-1/2; a caller that pre-scaled q passes 1.0); k/v: (B, Sk, KVH, D) of
+    q's dtype; q_offset/q_lens/k_lens (B,) int32 or None (0, Sq, Sk).
+    Returns (B, Sq, H, D) f32: causal flash attention with GQA heads
+    indexed, queries past q_lens and queries with no live key 0.
 
     The CUDA kernel runs both products on the tensor cores in 3xTF32 (each
     f32 operand split into two TF32 parts, three MMAs a product: about
-    f32's accuracy) and streams K/V tiles into shared memory with 16-byte
-    ``cp.async`` copies, so q, k and v must be 16-byte aligned: a view
-    that is not raises ``ValueError``."""
+    f32's accuracy; a bf16 value is widened to f32 exactly first) and
+    streams K/V tiles into shared memory with 16-byte ``cp.async`` copies,
+    so q, k and v must be 16-byte aligned: a view that is not raises
+    ``ValueError``."""
+    b, sq, h, d = q.shape
+    scale = d ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
-                                     k_lens)
+                                     k_lens, scale)
     name = "flash_prefill"
-    b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or d not in (32, 64, 128) or h % kvh):
@@ -344,17 +350,18 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
                              "cp.async")
     _check(name, q.device, q=q, k=k, v=v, q_offset=q_offset, q_lens=q_lens,
            k_lens=k_lens)
-    for t in (q, k, v):
-        _dtype(name, t, torch.float32)
+    _dtype(name, q, torch.float32, torch.bfloat16)
+    for t in (k, v):
+        _dtype(name, t, q.dtype)
     for t in (q_offset, q_lens, k_lens):
         if t is not None:
             _dtype(name, t, torch.int32)
             if t.shape != (b,):
                 raise ValueError(f"{name}: per-row extents must be (B,)")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_offset),
            _ptr(q_lens), _ptr(k_lens), out.data_ptr(), b, sq, sk, h, kvh, d,
-           int(causal), d ** -0.5, _stream(q))
+           int(causal), scale, POOL_KINDS[q.dtype], _stream(q))
     return out
 
 
@@ -573,24 +580,31 @@ rope = rope_kernel
 
 def decode_attention(q, k, v, lens, k_scale=None,
                      v_scale=None) -> torch.Tensor:
-    """q: (B, H, D) pre-scaled -> (B, H, D) f32 attention over each row's
-    dense cache positions < lens[b]; k/v (B, S, KVH, D)."""
+    """q: (B, H, D) pre-scaled -> (B, H, D) attention over each row's
+    dense cache positions < lens[b]; k/v (B, S, KVH, D): computed in f32
+    (q widened exactly) and returned in q's dtype, as the reference's
+    ``attention_decode`` returns it."""
     b, h, d = q.shape
     kvh = k.shape[2]
-    out = decode_attention_kernel(q.reshape(b, kvh, h // kvh, d).contiguous(),
-                                  k, v, lens, k_scale, v_scale)
-    return out.reshape(b, h, d)
+    out = decode_attention_kernel(
+        q.reshape(b, kvh, h // kvh, d).float().contiguous(), k, v, lens,
+        k_scale, v_scale)
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, q_offset=None,
-                  q_lens=None, k_lens=None) -> torch.Tensor:
-    """Full-sequence attention: q (B, Sq, H, D) unscaled; k/v
-    (B, Sk, KVH, D) -> (B, Sq, H, D) f32.  ``q_offset``, ``q_lens`` and
-    ``k_lens`` ((B,) int32 or None) are per-row data, as in the reference;
-    GQA heads are indexed, not repeated."""
-    return flash_prefill_kernel(q.contiguous(), k.contiguous(),
-                                v.contiguous(), q_offset, q_lens, k_lens,
-                                causal)
+                  q_lens=None, k_lens=None, scale=None) -> torch.Tensor:
+    """Full-sequence attention: q (B, Sq, H, D), scaled by ``scale``
+    inside (None: D^-1/2, for an unscaled f32 q; a bf16 caller pre-scales
+    q in its own dtype, as the reference does, and passes 1.0); k/v
+    (B, Sk, KVH, D) -> (B, Sq, H, D) computed in f32 and returned in q's
+    dtype.  ``q_offset``, ``q_lens`` and ``k_lens`` ((B,) int32 or None)
+    are per-row data, as in the reference; GQA heads are indexed, not
+    repeated."""
+    out = flash_prefill_kernel(q.contiguous(), k.contiguous(),
+                               v.contiguous(), q_offset, q_lens, k_lens,
+                               causal, scale)
+    return out.to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lens,

@@ -72,9 +72,10 @@ def ref_rope(x, cos, sin):
 
 
 def ref_flash_prefill(q, k, v, causal: bool = True, q_offset=None,
-                      q_lens=None, k_lens=None):
-    """Flash-prefill attention as one softmax.  q (B, Sq, H, D) unscaled
-    (scaled by D^-1/2 here, as the kernel does); k/v (B, Sk, KVH, D), kv
+                      q_lens=None, k_lens=None, scale=None):
+    """Flash-prefill attention as one softmax, in f32.  q (B, Sq, H, D)
+    scaled by ``scale`` here, as the kernel does (None: D^-1/2; 1.0 for a
+    q the caller pre-scaled); k/v (B, Sk, KVH, D), kv
     head ``h // (H / KVH)``.  Row b's query i sits at position
     ``q_offset[b] + i`` and attends keys ``< k_lens[b]`` (and ``<=`` its
     position when causal); queries at or past ``q_lens[b]``, and queries
@@ -92,7 +93,8 @@ def ref_flash_prefill(q, k, v, causal: bool = True, q_offset=None,
                                                                      sk)
     kr = torch.repeat_interleave(k.float(), h // kvh, dim=2)
     vr = torch.repeat_interleave(v.float(), h // kvh, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * (d ** -0.5), kr)
+    scale = d ** -0.5 if scale is None else scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kr)
     kpos = torch.arange(sk, device=dev)
     qi = torch.arange(sq, device=dev)
     mask = (kpos[None, None] < kl[:, None, None]) \
@@ -110,7 +112,9 @@ def ref_flash_prefill(q, k, v, causal: bool = True, q_offset=None,
 
 
 def ref_decode_attention(q, k, v, lens, k_scale=None, v_scale=None):
-    """q: (B, KVH, HQ, D) pre-scaled; k/v: (B, S, KVH, D); lens (B, 1)."""
+    """q: (B, KVH, HQ, D) pre-scaled; k/v: (B, S, KVH, D) f32, bf16 or
+    int8 codes with k/v_scale (B, S, KVH); lens (B, 1).  Computed in
+    f32."""
     s = k.shape[1]
     kf = k.float()
     vf = v.float()

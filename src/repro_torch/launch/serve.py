@@ -21,6 +21,15 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch llama3.2-3b --requests 16 --slots 8 --max-seq 1024
 
+  # the same with Q4_0 weights (QuantPolicy(bits=4, min_size=512))
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch llama3.2-3b --bits 4 --requests 16 --slots 8 --max-seq 1024
+
+  # phi4-mini-3.8b (llama3.2-3b's head layout, 32 layers, vocab 200064):
+  # ~15 GB of f32 parameters made on the card, then ~4 GB of Q8_0
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch phi4-mini-3.8b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream

@@ -385,16 +385,24 @@ def _attn_seq(p, x, cfg: ModelConfig, cos, sin):
     """x (B, S, D) -> (attention output (B, S, D), the layer's (k, v)).
 
     The Q/K/V/O projections go through the dequant ``qeinsum`` whatever the
-    strategy, as in the reference.  ``flash_prefill`` scales q by hd^-1/2
-    itself, so q goes in unscaled (the reference pre-scales q for its jnp
-    ``attention_scores_blockwise``)."""
+    strategy, as in the reference.  The reference pre-scales q by hd^-1/2
+    in the compute dtype for its jnp ``attention_scores_blockwise``; so
+    does a bf16 config here (hd^-1/2 rounded to bf16 first, then the
+    product rounded, ``_q_scale``), and ``flash_prefill`` scales by 1.  An
+    f32 config's q goes in unscaled and the kernel scales it in f32, as
+    the TPU kernel does (pre-scaling would round an f32 q a second
+    time)."""
     h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
     q = qeinsum("bsd,hkd->bshk", h, p["attn"]["wq"])
     k = qeinsum("bsd,hkd->bshk", h, p["attn"]["wk"])
     v = qeinsum("bsd,hkd->bshk", h, p["attn"]["wv"])
     q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
     k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
-    out = ops.flash_prefill(q, k, v, causal=True)
+    if q.dtype == torch.float32:
+        out = ops.flash_prefill(q, k, v, causal=True)
+    else:
+        out = ops.flash_prefill(q * _q_scale(cfg), k, v, causal=True,
+                                scale=1.0)
     out = qeinsum("bshk,dhk->bsd", out, p["attn"]["wo"])
     return out.to(x.dtype), (k, v)
 

@@ -255,8 +255,7 @@ class Engine:
     ``device`` is where the cache lives and the steps run (the card unless
     ``"cpu"`` is passed); ``params`` are moved there.  ``cache_kind`` is
     ``"paged"`` (the block pool) or ``"dense"`` (a contiguous
-    ``max_seq`` reservation per slot; f32-compute configs only for now).
-    ``n_pages`` sizes the pool
+    ``max_seq`` reservation per slot).  ``n_pages`` sizes the pool
     (default: the full ``max_slots * max_seq`` reservation);
     shrinking it oversubscribes, which the scheduler absorbs by deferring
     admission and preempting on mid-decode growth.  Requests that could
@@ -296,11 +295,6 @@ class Engine:
                              f"{cache_kind!r}")
         if mesh is not None:
             raise NotImplementedError(f"Engine(mesh) is {NOT_PORTED}")
-        if cache_kind == "dense" and model.cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"Engine(cache_kind='dense') for {model.cfg.arch_id}'s "
-                f"{model.cfg.compute_dtype} compute is {NOT_PORTED} (ROADMAP "
-                "queue A item 10: the dense cache's kernels take f32 only)")
         self.device = resolve_device(device)
         self.spec_tokens = spec_tokens
         if spec_tokens > 0 and (draft_proposer is None

@@ -354,16 +354,6 @@ def test_engine_matches_jax_engine(over, pinned):
             assert gap < 2 * 2 * tm.cfg.n_layers * U * scale, (part, gaps)
 
 
-def test_dense_cache_refuses_a_bf16_config():
-    """The dense cache's kernels take f32 only: an Engine on it for a
-    bf16 config raises, naming the ROADMAP item, and computes nothing."""
-    tm = build_model(tconfigs.reduced(tconfigs.get_config(ARCH)))
-    params = tm.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        Engine(tm, params, **ENGINE, cache_kind="dense", device="cpu")
-    Engine(tm, params, **ENGINE, device="cpu")            # paged is served
-
-
 def test_fused_norm_on_bf16_is_the_unfused_pair():
     """Under the kernel strategy a bf16 row's norm and quantization are
     one ``rmsnorm_quant`` call (its plain version on the CPU), equal to
