@@ -18,8 +18,12 @@ open-loop serving (phase 13): seeded Poisson arrivals through
 step dispatched under CUDA's sync debug mode, deadlines, shedding and
 ``serve.py --open-loop``, speculative decoding (phase 14): n-gram drafts
 verified on the f32 pool at 8 x 5 rows and the int8 pool at 8 x 4, f32
-weights, a replay oracle, always-wrong drafts and a draft model, each
-against the plain streams under a tolerance measured in the run, and the
+weights, a replay oracle, always-wrong drafts and a draft model, the
+verify step's logits held against the decode step's, and the streams
+against the plain ones, to a fixed bound counted from the rounding sites
+where the two paths part (``verify_decode_bound``, at the plain
+versions' logits' scale), which planted faults on the verify path must
+exceed (``VERIFY_CONTROLS``, ``F32_VERIFY_CONTROLS``), and the
 fault domain (phase 15): retries, isolation, NaN rows (a verify row too),
 the allocator audit and slow steps, survivors bitwise.  Phase 2 also
 holds the kernels at the verify's shapes, and every kernel at
@@ -28,14 +32,22 @@ llama3.2-3b's (GQA 24/8, head_dim 128, bf16 and int8 pools, K 3072 and
 the dense cache's ``flash_prefill`` (bf16, 24 / 8 heads, one prompt of
 17..1024 tokens) and ``decode_attention`` (bf16 and int8 caches, bitwise
 equal to the paged kernel) and ``q4_matvec`` (GEMVs and the tiled M =
-2048 path), and ``q8_matvec`` at phi4-mini-3.8b's 200192-row head; phase 5
+2048 path), ``q8_matvec`` at phi4-mini-3.8b's 200192-row head, and every
+kernel of the paged path at glm4-9b's shapes (``check_glm4``: both decode
+attentions at 16 query heads a KV head of 128, cut into two head groups,
+bitwise equal to two calls on q's halves and to each other; the GEMVs at
+K 13696 and the 151552-row head; ``q8_matmul`` at N 27392 and K 13696;
+``quantize`` at K 13696; ``rmsnorm_quant`` at K 4096, 0 codes apart; the
+prefix attention at HQ 16; rope on 34 heads); phase 5
 also runs the reduced llama3.2-3b on both caches; phase 16 serves
 llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
 and an int8 pool, held against the same engine on the plain versions;
 phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
 (paged and dense); phase 18 serves phi4-mini-3.8b at full width and depth
-(32 layers, vocab 200064) on a bf16 pool.  On every llama3.2-3b and phi4
-path the kernels' logits are held against the plain versions' on the same
+(32 layers, vocab 200064) on a bf16 pool, and phase 19 glm4-9b (40
+layers, d_model 4096, 32 query heads over 2 KV heads of 128, d_ff 13696,
+vocab 151552) the same way.  On every llama3.2-3b, phi4 and glm4 path the
+kernels' logits are held against the plain versions' on the same
 inputs to a fixed bound derived from bf16 and Q8_0 rounding
 (``plain_delta_bound``), with each kernel's share: the difference with
 only that kernel on its plain version, and with only it launched
@@ -563,7 +575,8 @@ def check_q4(report, dev):
 
 
 def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
-                      d=64, timed=False, yardsticks=True, bf16=False):
+                      d=64, timed=False, yardsticks=True, bf16=False,
+                      gqa=False):
     """One decode_attention call on a (B, S, KVH, D) cache (f32, bf16 with
     ``bf16``, or int8) against its plain version (tolerance 2e-5; a
     length-0 row exactly 0) and, where S is a multiple of 64, bitwise
@@ -571,7 +584,8 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
     same rows (pages of 64, a table S / 64 wide).  ``timed``: also its
     device time on L2-cold caches and its bound; ``yardsticks``: the plain
     version's and SDPA's (on the dequantized K/V, repeated over the query
-    heads) times beside it.  Returns a dict."""
+    heads, or with ``gqa`` indexed by SDPA's ``enable_gqa``) times beside
+    it.  Returns a dict with the inputs of the call and its output."""
     from repro_torch.core.quantization import quantize_rows
     from repro_torch.kernels import ops, ref
     b, h = len(lens_l), kvh * hq
@@ -611,7 +625,7 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
             f"decode_attention {kind} S {s} lens {lens_l}: err {err:.3g} "
             f"(tol {tol}), len=0 rows exactly 0: {zero}, bitwise equal to "
             f"the paged kernel: {torch.equal(got, paged)}")
-    rec = {"err": err}
+    rec = {"err": err, "args": (q, k, v, lens, ksc, vsc), "out": got}
     if not timed:
         return rec
     elem = 1 if int8 else 2 if bf16 else 4
@@ -640,14 +654,15 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
         kf, vf = k.float(), v.float()
         if int8:
             kf, vf = kf * ksc[..., None], vf * vsc[..., None]
-        kf = torch.repeat_interleave(kf, hq, dim=2).transpose(1, 2)
-        vf = torch.repeat_interleave(vf, hq, dim=2).transpose(1, 2)
+        rep = 1 if gqa else hq
+        kf = torch.repeat_interleave(kf, rep, dim=2).transpose(1, 2)
+        vf = torch.repeat_interleave(vf, rep, dim=2).transpose(1, 2)
         mask = (torch.arange(s, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
         rec["lib"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kf, vf, attn_mask=mask, scale=1.0))
+                qs, kf, vf, attn_mask=mask, scale=1.0, enable_gqa=gqa))
         line += f"  plain {rec['plain']:.4f} ms  sdpa {rec['lib']:.4f} ms"
     log(line)
     return rec
@@ -759,9 +774,7 @@ def check_llama3(report, dev):
     bf16 rows at wo_f's and w2's K = 3072 and 8192, bitwise; rope on the q
     and k heads of a bf16 qkv row (32 heads of 128), bitwise.  Each adds a
     row ``<kernel>@llama3.2-3b`` to the kernels line."""
-    from repro_torch.core.quantization import quantize
     from repro_torch.kernels import ops, ref
-    from repro_torch.models.layers import rope_angles
     gen = torch.Generator(device=dev).manual_seed(25)
     operands = _q8_operands(gen, dev)
     src = "src/repro_torch/kernels/csrc/"
@@ -850,7 +863,8 @@ def check_llama3(report, dev):
                replaces="src/repro/kernels/paged_prefill_attention.py:215",
                max_abs_err=worst_pre, ms=p["ms"], plain_ms=p["plain"],
                library_ms=p["lib"], bound_ms=p["bound"], bound_by=p["by"],
-               f32_bound_ms=p["f32_bound"], int8_ms=i8["ms"],
+               f32_bound_ms=p["f32_bound"],
+               tf32x3_bound_ms=p["tf32x3_bound"], int8_ms=i8["ms"],
                int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
                int8_bound_ms=i8["bound"], b1_ms=pre_b1["ms"],
                b1_bound_ms=pre_b1["bound"], b1_library_ms=pre_b1["lib"],
@@ -858,16 +872,27 @@ def check_llama3(report, dev):
                    "128, bf16 pool (int8_* for the int8 pool, b1_* for B = "
                    "1, 256 rows against prefix 768)")
 
-    # ---- rmsnorm_quant on bf16 rows at K = 3072 (norm1 -> wqkv, norm2 ->
-    # w13, final norm -> head)
-    k, gs, eps = L3_D, 64, 1e-5
+    _bf16_norm_row(report, gen, dev, L3, L3_D, BF16_NORM_CODES)
+    _bf16_quantize_row(report, gen, dev, L3, L3_D, 8192)
+    _bf16_rope_row(report, gen, dev, L3, 24, L3_KVH, L3_HD, 5e5)
+
+
+def _bf16_norm_row(report, gen, dev, arch, k, codes):
+    """rmsnorm_quant on bf16 rows at ``arch``'s d_model K (norm1 -> wqkv,
+    norm2 -> w13, final norm -> head), M = 1, 8 and 2048: codes within
+    ``codes`` of the plain version's, scales within one bf16 rounding;
+    timed beside the plain version.  Adds the row
+    ``rmsnorm_quant@<arch>``."""
+    from repro_torch.kernels import ops, ref
+    src = "src/repro_torch/kernels/csrc/"
+    gs, eps = 64, 1e-5
     gamma = torch.randn((k,), generator=gen, device=dev)
     norm = {}
     for m in (1, 8, 2048):
         def mk():
             return _norm_input(gen, dev, m, k, gs).bfloat16()
         n_diff, rel, err, _, _ = _norm_held(ops, ref, mk(), gamma, eps, gs,
-                                            BF16_NORM_CODES, BF16_NORM_SCALE)
+                                            codes, BF16_NORM_SCALE)
         nbytes = m * k * 2 + k * 4 + m * k + m * (k // gs) * 4
         b_ms, b_by = bound(nbytes, 6.0 * m * k, F32_FLOPS_PER_S)
         nxt = rotating(mk, m * k * 2)
@@ -877,14 +902,13 @@ def check_llama3(report, dev):
                         iters=20)
         norm[m] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        codes_differing=n_diff, scale_rel_err=rel, err=err)
-        log(f"  {L3} rmsnorm_quant bf16 M={m:5d} K={k}: {n_diff} of {m * k} "
-            f"codes differ, max scale diff {rel:.2e} relative (tol "
-            f"{BF16_NORM_CODES} codes, {BF16_NORM_SCALE:.2e}: one bf16 "
-            f"rounding), dequantized max abs err {err:.2e}  kernel "
-            f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
-            f"({b_by})")
+        log(f"  {arch} rmsnorm_quant bf16 M={m:5d} K={k}: {n_diff} of "
+            f"{m * k} codes differ, max scale diff {rel:.2e} relative (tol "
+            f"{codes} codes, {BF16_NORM_SCALE:.2e}: one bf16 rounding), "
+            f"dequantized max abs err {err:.2e}  kernel {ms:.5f} ms  plain "
+            f"{plain:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
     r8 = norm[8]
-    report.add(f"rmsnorm_quant@{L3}", route="cuda",
+    report.add(f"rmsnorm_quant@{arch}", route="cuda",
                source=src + "rmsnorm_quant.cu", header=src + "pdl.cuh",
                replaces="src/repro/kernels/rmsnorm_quant.py:58",
                max_abs_err=max(r["err"] for r in norm.values()),
@@ -896,13 +920,23 @@ def check_llama3(report, dev):
                codes_differing={str(m): r["codes_differing"]
                                 for m, r in norm.items()},
                scale_rel_err=max(r["scale_rel_err"] for r in norm.values()),
-               per="one call at M=8 decode rows of bf16, K=3072 (m2048_* "
-                   "for a chunk step's rows); max_abs_err on the "
-                   "dequantized values code * scale")
+               per=f"one call at M=8 decode rows of bf16, K={k} (m2048_* "
+                   f"for a chunk step's rows), codes within {codes}; "
+                   "max_abs_err on the dequantized values code * scale")
 
-    # ---- quantize on bf16 rows: wo_f's and w2's inputs, decode and chunk
+
+def _bf16_quantize_row(report, gen, dev, arch, d_model, d_ff):
+    """quantize on bf16 rows, bitwise against the plain ``quantize``:
+    wo_f's input (8 x d_model) where it differs from d_ff, and w2's at a
+    decode step (8 x d_ff) and a chunk step (2048 x d_ff); timed beside
+    the plain version.  Adds the row ``quantize@<arch>``."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import ops
+    src = "src/repro_torch/kernels/csrc/"
+    gs = 64
+    shapes = [(8, d_model)] * (d_model != d_ff) + [(8, d_ff), (2048, d_ff)]
     qrec = {}
-    for m, kk in ((8, 3072), (8, 8192), (2048, 8192)):
+    for m, kk in shapes:
         def mkq():
             return _norm_input(gen, dev, m, kk, gs).bfloat16()
         _quantize_held(ops, mkq(), gs)
@@ -913,46 +947,54 @@ def check_llama3(report, dev):
         b_ms, b_by = bound(nbytes, 4.0 * m * kk, F32_FLOPS_PER_S)
         qrec[f"{m}x{kk}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                  bound_by=b_by)
-        log(f"  {L3} quantize bf16 M={m:5d} K={kk:5d}: bitwise  kernel "
+        log(f"  {arch} quantize bf16 M={m:5d} K={kk:5d}: bitwise  kernel "
             f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
             f"({b_by})")
-    report.add(f"quantize@{L3}", route="cuda",
+    main = f"8x{d_ff}"
+    report.add(f"quantize@{arch}", route="cuda",
                source=src + "rmsnorm_quant.cu", header=src + "pdl.cuh",
                replaces="src/repro/kernels/ops.py:60", max_abs_err=0.0,
-               **qrec["8x8192"], library_ms=None, by_shape=qrec,
-               per="one call at M=8 bf16 rows, K=8192 (w2's input; "
-                   "by_shape also wo_f's 8 x 3072 and the chunk step's "
-                   "2048 x 8192); bitwise")
+               **qrec[main], library_ms=None, by_shape=qrec,
+               per=f"one call at M=8 bf16 rows, K={d_ff} (w2's input); "
+                   "by_shape: each shape (M x K), wo_f's input at a decode "
+                   "step, w2's at a decode and a chunk step; bitwise")
 
-    # ---- rope on the q and k heads of a bf16 qkv row, read in place
-    nh, heads = 24 + L3_KVH, 24 + 2 * L3_KVH
+
+def _bf16_rope_row(report, gen, dev, arch, nq, kvh, hd, theta):
+    """rope on the nq + kvh q and k heads of a bf16 qkv row, read in
+    place, B = 1 and 8, bitwise against its plain version; timed beside
+    it.  Adds the row ``rope@<arch>``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import rope_angles
+    nh, heads = nq + kvh, nq + 2 * kvh
     rec = {}
     for b in (1, 8):
-        qkv = torch.randn((b, heads, L3_HD), generator=gen,
+        qkv = torch.randn((b, heads, hd), generator=gen,
                           device=dev).bfloat16()
         pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
-        cos, sin = rope_angles(pos, L3_HD, 5e5)
+        cos, sin = rope_angles(pos, hd, theta)
         x = qkv[:, :nh]
         got, want = ops.rope_kernel(x, cos, sin), ref.ref_rope(x, cos, sin)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"{L3} rope B={b}: max abs err "
+            raise AssertionError(f"{arch} rope B={b}: max abs err "
                                  f"{(got.float() - want.float()).abs().max()}"
                                  ", expected bitwise equality")
-        nbytes = 2 * b * nh * L3_HD * 2 + 2 * b * L3_HD * 4
-        b_ms, b_by = bound(nbytes, 4.0 * b * nh * L3_HD, F32_FLOPS_PER_S)
+        nbytes = 2 * b * nh * hd * 2 + 2 * b * hd * 4
+        b_ms, b_by = bound(nbytes, 4.0 * b * nh * hd, F32_FLOPS_PER_S)
         ms = time_ms(lambda: ops.rope_kernel(x, cos, sin), iters=50)
         plain = time_ms(lambda: ref.ref_rope(x, cos, sin), iters=50)
         rec[b] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-        log(f"  {L3} rope bf16 B={b} heads {nh} D={L3_HD}: bitwise  kernel "
+        log(f"  {arch} rope bf16 B={b} heads {nh} D={hd}: bitwise  kernel "
             f"{ms:.5f} ms  plain {plain:.4f} ms  bound {b_ms:.6f} ms "
             f"({b_by})")
-    report.add(f"rope@{L3}", route="cuda", source=src + "rope.cu",
-               header=src + "pdl.cuh", replaces="src/repro/kernels/rope.py:48",
-               max_abs_err=0.0, **rec[8], library_ms=None,
-               b1_ms=rec[1]["ms"],
-               per="one layer's call at 8 slots: 32 q and k heads of 128 of "
-                   "a bf16 qkv row; bitwise")
+    report.add(f"rope@{arch}", route="cuda",
+               source="src/repro_torch/kernels/csrc/rope.cu",
+               header="src/repro_torch/kernels/csrc/pdl.cuh",
+               replaces="src/repro/kernels/rope.py:48", max_abs_err=0.0,
+               **rec[8], library_ms=None, b1_ms=rec[1]["ms"],
+               per=f"one layer's call at 8 slots: {nh} q and k heads of "
+                   f"{hd} of a bf16 qkv row; bitwise")
 
 
 def check_llama3_dense_q4(report, dev):
@@ -1107,6 +1149,185 @@ def check_phi4_head(report, dev):
                m1_ms=head[1][1], m1_plain_ms=head[1][2],
                m1_library_ms=head[1][3], m1_bound_ms=head[1][4],
                per=f"the head alone, {n} x {k} at M = 8 (m1_*: M = 1)")
+
+
+# glm4-9b (phase 2's last part, phase 19): 40 layers, d_model 4096, 32
+# query heads over 2 KV heads of 128 (HQ 16: the decode attentions' first
+# shape past HQ*D = 1024, two head groups), d_ff 13696, vocab 151552.  Its
+# decode GEMVs (wqkv, wo_f, w13, w2) and head, the chunk step's MLP GEMMs.
+G4 = "glm4-9b"
+G4_LAYERS, G4_D, G4_KVH, G4_HQ, G4_HD, G4_FF = 40, 4096, 2, 16, 128, 13696
+G4_GEMV = [(4608, 4096), (4096, 4096), (27392, 4096), (4096, 13696)]
+G4_HEAD = (151552, 4096)
+G4_GEMM = ((27392, 4096), (4096, 13696))
+
+
+def _halves_bitwise(name, fn, args, out):
+    """A call at HQ 16 against two calls on q's halves (HQ 8 each, one
+    head group each): a head's arithmetic does not depend on the heads
+    beside it, so both halves must be bitwise equal."""
+    q, rest = args[0], args[1:]
+    half = q.shape[2] // 2
+    lo = fn(q[:, :, :half].contiguous(), *rest)
+    hi = fn(q[:, :, half:].contiguous(), *rest)
+    torch.cuda.synchronize()
+    if not (torch.equal(out[:, :, :half], lo)
+            and torch.equal(out[:, :, half:], hi)):
+        raise AssertionError(f"{name} at HQ {q.shape[2]}: not bitwise equal "
+                             f"to two calls on q's halves")
+
+
+def check_glm4(report, dev):
+    """The kernels at glm4-9b's new shapes, each against its plain version
+    and timed beside it and its library call, never copied from another
+    config's row.  Both decode attentions at KVH 2, HQ 16, D 128 (two head
+    groups): 8 slots x 1024 at phase 2's lens on bf16 and int8 pools and
+    caches, batch 1 at 1024, -1 entries inside rows; within 2e-5, each
+    call bitwise equal to two calls on q's halves, the dense kernel
+    bitwise equal to the paged one on the same rows; SDPA with
+    ``enable_gqa`` beside them.  q8_matvec at a decode step's 160 layer
+    GEMVs (w2 at K 13696, 13 whole 1024-code slabs and 384 codes) and the
+    151552-row head, M = 1 and 8; q8_matmul at the chunk step's w13 (N
+    27392) and w2 (K 13696) at M = 2048, bitwise; quantize on bf16 rows at
+    K 13696 (M 8 and 2048), bitwise; rmsnorm_quant on bf16 rows at K 4096
+    (M 1, 8, 2048), 0 codes apart; paged_prefill_attention at HQ 16 on a
+    bf16 pool; rope on 34 heads of 128.  Each adds a row
+    ``<kernel>@glm4-9b``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(27)
+    src = "src/repro_torch/kernels/csrc/"
+    geo = dict(kvh=G4_KVH, hq=G4_HQ, d=G4_HD)
+    if ops.decode_head_groups(G4_HQ, G4_HD) != 2:
+        raise AssertionError(f"{G4}: expected two head groups")
+
+    # ---- the decode attentions, HQ 16, two head groups
+    paged, dense = {}, {}
+    for kind in ("bf16", "int8"):
+        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
+        paged[kind] = paged_decode_case(gen, dev, DECODE_LENS, timed=True,
+                                        gqa=True, **flags, **geo)
+        dense[kind] = dense_decode_case(gen, dev, DECODE_LENS, timed=True,
+                                        gqa=True, **flags, **geo)
+    paged["b1"] = paged_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    dense["b1"] = dense_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    mb, bs = 16, 64
+    for kind in ("bf16", "int8"):
+        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
+        holes = _holes_table(gen, dev, mb, len(HOLE_LENS) * mb, bs,
+                             HOLE_LENS)
+        paged[f"holes {kind}"] = paged_decode_case(
+            gen, dev, HOLE_LENS, pt=holes, **flags, **geo)
+        paged[f"split {kind}"] = paged_decode_case(
+            gen, dev, [127, 128, 129, 511, 512, 513, 1, 0], **flags, **geo)
+        dense[f"s832 {kind}"] = dense_decode_case(
+            gen, dev, [0, 1, 64, 832, 700, 511, 513, 900], s=832, **flags,
+            **geo)
+    for name, fn, recs in (
+            ("paged_decode_attention", ops.paged_decode_attention_kernel,
+             paged),
+            ("decode_attention", ops.decode_attention_kernel, dense)):
+        for rec in recs.values():
+            _halves_bitwise(name, fn, rec["args"], rec["out"])
+    log(f"  {G4} decode attentions (KVH 2, HQ 16, D 128: two head groups): "
+        f"within 2e-5 on bf16 and int8 pools and caches, -1 entries inside "
+        f"rows, lens at split boundaries; every call bitwise equal to two "
+        f"calls on q's halves, dense bitwise equal to paged at S = 1024 "
+        f"and 832")
+    for name, recs, file, at, kind in (
+            ("paged_decode_attention", paged, "paged_decode_attention.cu",
+             "paged_decode_attention.py:138", "pool"),
+            ("decode_attention", dense, "decode_attention.cu",
+             "decode_attention.py:206", "cache")):
+        r, i8, b1 = recs["bf16"], recs["int8"], recs["b1"]
+        report.add(f"{name}@{G4}", route="cuda", source=src + file,
+                   header=src + "flash_decode.cuh",
+                   replaces=f"src/repro/kernels/{at}",
+                   max_abs_err=max(x["err"] for x in recs.values()),
+                   ms=r["ms"], plain_ms=r["plain"], library_ms=r["lib"],
+                   bound_ms=r["bound"], bound_by=r["by"], int8_ms=i8["ms"],
+                   int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
+                   int8_bound_ms=i8["bound"], b1_1024_ms=b1["ms"],
+                   b1_1024_bound_ms=b1["bound"], b1_1024_library_ms=b1["lib"],
+                   head_groups=2,
+                   per=f"one layer's call at 8 slots x 1024 (lens "
+                       f"{DECODE_LENS}), 2 KV heads x HQ 16 x D 128 in two "
+                       f"head groups, bf16 {kind} (int8_* for int8, b1_* at "
+                       f"batch 1, len 1024); library: SDPA, enable_gqa")
+
+    # ---- q8_matvec: a decode step's 4 x 40 layer GEMVs + the head
+    operands = _q8_operands(gen, dev)
+    step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
+                      operands, G4_GEMV, G4_HEAD, G4_LAYERS, dev)
+    log(f"  {G4} q8_matvec per decode step ({G4_LAYERS} layers x 4 + head, "
+        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
+        f"ms, bound {step['bound']:.4f} ms, "
+        f"{100 * step['bound'] / step['ms']:.1f}% of it")
+    report.add(f"q8_matvec@{G4}", route="cuda", source=src + "q8_matvec.cu",
+               replaces="src/repro/kernels/q8_matvec.py:67",
+               max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
+               bound_ms=step["bound"], bound_by="bytes",
+               library_ms=step["lib"],
+               per=f"decode step at 8 slots: {4 * G4_LAYERS} layer GEMVs "
+                   "(N x K 4608 x 4096, 4096 x 4096, 27392 x 4096, 4096 x "
+                   "13696) + head 151552 x 4096")
+
+    # ---- q8_matmul: the chunk step's MLP, 40 x (w13, w2) at 2048 rows
+    chunk = q8_matmul_chunk(dev, 2048, operands, shapes=G4_GEMM,
+                            layers=G4_LAYERS)
+    report.add(f"q8_matmul@{G4}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=chunk["err"], ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per=f"chunk step at 8 x 256 rows: {G4_LAYERS} x (w13 27392 x "
+                   "4096, w2 4096 x 13696); bitwise")
+
+    # ---- paged_prefill_attention: 4096 rows a (slot, KV head), bf16 pool
+    pre = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False,
+                             bf16=True, timed=True, **geo)
+    worst_pre = max(pre["err"], paged_prefill_case(
+        gen, dev, PREFILL_PFX, PREFILL_QLENS, True, **geo)["err"])
+    report.add(f"paged_prefill_attention@{G4}", route="cuda",
+               source=src + "paged_prefill_attention.cu",
+               header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/paged_prefill_attention.py:215",
+               max_abs_err=worst_pre, ms=pre["ms"], plain_ms=pre["plain"],
+               library_ms=pre["lib"], bound_ms=pre["bound"],
+               bound_by=pre["by"], f32_bound_ms=pre["f32_bound"],
+               tf32x3_bound_ms=pre["tf32x3_bound"],
+               per="one layer's call at 8 x 256 rows, 2 KV heads x HQ 16 x "
+                   "D 128, bf16 pool (an int8 pool held, untimed)")
+
+    _bf16_norm_row(report, gen, dev, G4, G4_D, 0)
+    _bf16_quantize_row(report, gen, dev, G4, G4_D, G4_FF)
+    _bf16_rope_row(report, gen, dev, G4, 32, G4_KVH, G4_HD, 1e4)
+
+
+def decode_bits(dev, path):
+    """Both decode attentions' outputs on seeded inputs at every shape
+    served before glm4-9b (one head group): llama2-110m's (12 KV heads x
+    HQ 1 x D 64, f32 and int8, 8 slots at phase 2's lens and batch 1) and
+    llama3.2-3b's (8 x HQ 3 x D 128, bf16 and int8), with the edges' HQ
+    2..8 x D 32/128 and D 512; saved to ``path`` when it does not exist,
+    else held bitwise against what it holds.  Run it from the tree before
+    a change to flash_decode.cuh (with this script copied over its own),
+    then from the change."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [dict(int8=i8, bf16=bf) for i8, bf in ((False, False),
+                                                    (True, False))]
+    l3 = [dict(int8=i8, bf16=not i8, kvh=L3_KVH, hq=L3_HQ, d=L3_HD)
+          for i8 in (False, True)]
+    edges = [dict(int8=False, bf16=False, kvh=2, hq=hq, d=d)
+             for hq in (2, 4, 8) for d in (32, 128)]
+    edges.append(dict(int8=False, bf16=False, kvh=2, hq=1, d=512))
+    outs = []
+    for kw in cases + l3 + edges:
+        for lens_l in (DECODE_LENS, [1024], [80]):
+            outs.append(paged_decode_case(gen, dev, lens_l, **kw)["out"])
+            outs.append(dense_decode_case(gen, dev, lens_l, **kw)["out"])
+    return _bits_held("decode attentions", outs, path)
 
 
 def sass_count(name: str, *words: str) -> int:
@@ -1274,16 +1495,22 @@ def prefill_bits(dev, path, bf16=True):
             q, kp, vp, pt,
             torch.tensor(PREFILL_PFX, dtype=torch.int32, device=dev),
             torch.tensor(PREFILL_QLENS, dtype=torch.int32, device=dev))
+    return _bits_held("prefill attentions", outs, path)
+
+
+def _bits_held(what, outs, path):
+    """Save ``outs`` to ``path`` when it does not exist (True), else
+    whether every output is bitwise equal to the saved one."""
     outs = [o.cpu() for o in outs]
     path = Path(path)
     if not path.exists():
         torch.save(outs, path)
-        log(f"  prefill attentions: {len(outs)} outputs saved to {path}")
+        log(f"  {what}: {len(outs)} outputs saved to {path}")
         return True
     saved = torch.load(path)
     same = [torch.equal(a, b) for a, b in zip(outs, saved)]
-    log(f"  prefill attentions: {sum(same)} of {len(saved)} outputs bitwise "
-        f"equal to {path}'s")
+    log(f"  {what}: {sum(same)} of {len(saved)} outputs bitwise equal to "
+        f"{path}'s")
     return len(outs) == len(saved) and all(same)
 
 
@@ -1753,15 +1980,16 @@ def _holes_table(gen, dev, mb, nb, bs, lens_l):
 
 def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
                       mb=16, pt=None, timed=False, yardsticks=True,
-                      bf16=False):
+                      bf16=False, gqa=False):
     """One paged_decode_attention call against its plain version (tolerance
     2e-5; a length-0 row exactly 0) on random pools of B * MB pages (f32,
     bf16 with ``bf16``: widened exactly by both, so the same tolerance, or
     int8) and a table of distinct random pages (or ``pt``).  ``timed``:
     also its device time on L2-cold pools and its bound; ``yardsticks``:
     the plain version's and SDPA's (on gathered K/V, repeated over the
-    query heads) times beside it.  Returns a dict with the inputs of the
-    call and its output."""
+    query heads, or with ``gqa`` indexed by SDPA's ``enable_gqa``) times
+    beside it.  Returns a dict with the inputs of the call and its
+    output."""
     from repro_torch.kernels import ops, ref
     b, h, nb = len(lens_l), kvh * hq, len(lens_l) * mb
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
@@ -1818,14 +2046,15 @@ def paged_decode_case(gen, dev, lens_l, int8, *, kvh=12, hq=1, d=64, bs=64,
         if int8:
             kg = kg * ref.gather_rows(pools[2], pt)[..., None]
             vg = vg * ref.gather_rows(pools[3], pt)[..., None]
-        kg = torch.repeat_interleave(kg, hq, dim=2).transpose(1, 2)
-        vg = torch.repeat_interleave(vg, hq, dim=2).transpose(1, 2)
+        rep = 1 if gqa else hq
+        kg = torch.repeat_interleave(kg, rep, dim=2).transpose(1, 2)
+        vg = torch.repeat_interleave(vg, rep, dim=2).transpose(1, 2)
         mask = (torch.arange(mb * bs, device=dev)[None] < lens[:, None])
         mask = mask[:, None, None, :]
         qs = q.reshape(b, h, 1, d)
         rec["lib"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kg, vg, attn_mask=mask, scale=1.0))
+                qs, kg, vg, attn_mask=mask, scale=1.0, enable_gqa=gqa))
         line += (f"  plain {rec['plain']:.4f} ms  sdpa {rec['lib']:.4f} ms")
     log(line)
     return rec
@@ -1908,10 +2137,12 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
     B * MB pages (f32, bf16 with ``bf16``: widened exactly by both, so the
     same tolerance, or int8), a table of distinct random pages (or
     ``pt``).  ``timed``:
-    also its device time on L2-cold pools and its bound, the lesser of the
-    3xTF32 tensor-core floor (three TF32 products a product) and the f32
-    CUDA-core one; ``yardsticks``: the plain version's and SDPA's (on
-    gathered K/V) times beside it.  Returns a dict with the call's
+    also its device time on L2-cold pools and its bound: on f32 and int8
+    pools the lesser of the 3xTF32 tensor-core floor (three TF32 products
+    a product) and the f32 CUDA-core one; on a bf16 pool, whose values
+    are exact in TF32, the function's products once at the TF32 rate,
+    with the 3xTF32 floor beside it (``tf32x3_bound``); ``yardsticks``:
+    the plain version's and SDPA's (on gathered K/V) times beside it.  Returns a dict with the call's
     operands, its outputs, its error and, when timed, its times."""
     from repro_torch.kernels import ops, ref
     b, h, nb = len(pfx_l), kvh * hq, len(pfx_l) * mb
@@ -1964,7 +2195,9 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
               + 4 * b * mb + 8 * b)
     flops = 4.0 * sum(min(max(p, 0), mb * bs) * n
                       for p, n in zip(pfx_l, qlen_l)) * h * d
-    rec["bound"], rec["by"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    rec["tf32x3_bound"] = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0]
+    rec["bound"], rec["by"] = bound(nbytes, (1 if bf16 else 3) * flops,
+                                    TF32_FLOPS_PER_S)
     rec["f32_bound"], rec["f32_by"] = bound(nbytes, flops, F32_FLOPS_PER_S)
     nxt = rotating(lambda: (q, *_pools(gen, dev, nb, bs, kvh, d, int8,
                                        bf16)),
@@ -1984,9 +2217,10 @@ def paged_prefill_case(gen, dev, pfx_l, qlen_l, int8, *, pt=None, c=256,
     line = (f"  paged_prefill_attention {kind}: B {b} pfx {pfx_l} q_lens "
             f"{qlen_l}  err {err:.2e} (tol {tol:.0e})  kernel "
             f"{rec['ms']:.4f} ms  bound {rec['bound']:.4f} ms ({rec['by']}, "
-            f"3xTF32 tensor cores; f32 CUDA cores {rec['f32_bound']:.4f} "
-            f"ms, {rec['f32_by']}), {100 * rec['bound'] / rec['ms']:.1f}% "
-            "of it")
+            f"{'TF32' if bf16 else '3xTF32'} tensor cores; 3xTF32 "
+            f"{rec['tf32x3_bound']:.4f} ms; f32 CUDA cores "
+            f"{rec['f32_bound']:.4f} ms, {rec['f32_by']}), "
+            f"{100 * rec['bound'] / rec['ms']:.1f}% of it")
     if yardsticks:
         rec["plain"] = time_ms(run_plain, iters=5)
         kg = ref.gather_rows(pools[0], pt).float()
@@ -3138,17 +3372,60 @@ def _step_timers(eng):
     return times
 
 
-def verify_decode_delta(model, params, prompts, streams, dev, k):
+# Phase 14's fixed bound (C2) on the verify step's logits against the
+# decode step's at the same positions: plain_delta_bound's form, lambda *
+# sqrt(N) * unit * scale, with the rounding sites where the two paths part
+# counted from models/transformer.py, and the scale the plain logits'
+# largest magnitude (the verify step on the plain versions over the same
+# positions).  It never reads the measured difference.
+#   Q8_0 weights, unit half a Q8_0 code step (1/254 of a group's largest
+#   value).  A layer's verify (the chunk path, ``_chunk_step``) takes
+#   Q/K/V/O through the dequant ``qeinsum`` on unquantized activations;
+#   its decode requantizes them for the ``wqkv`` and ``wo_f`` GEMVs
+#   (``norm_qdot``, ``qdot``): 2 sites a layer, each activation off by up
+#   to half a step.  Both paths requantize the MLP's two inputs (norm2
+#   for ``w13``, the SwiGLU product for ``w2``) and the head's (the final
+#   norm), from inputs that already differ: a code flips only where that
+#   difference carries a value over a rounding boundary, by one step at
+#   most, so each is counted as one more site at the same unit: N = 4 *
+#   n_layers + 1.
+#   f32 weights: nothing is requantized.  The unit is the attention
+#   kernels' own rounding, 2e-5 of the values' scale: the tolerance phase
+#   2 holds both to against their plain versions (f32 summation order;
+#   the prefix attention's 3xTF32 drops only the low x low products, ~2^-22
+#   of each).  A layer's attention (the verify's prefix attention merged
+#   with its chunk's keys, the decode's split-K) is one site; its four
+#   f32 products run at M = 8 (k + 1) rows against 8, where the library
+#   may sum K in another order, within 3 sqrt(K) 2^-24 < 2e-5 of the
+#   values (K <= 2048): one site each at the same unit, and the head's one
+#   more: N = 5 * n_layers + 1.
+VERIFY_F32_UNIT = 2e-5
+
+
+def verify_decode_bound(cfg, scale: float, quantized: bool = True) -> float:
+    if quantized:
+        return (PLAIN_DELTA_LAMBDA * math.sqrt(4 * cfg.n_layers + 1)
+                * PLAIN_DELTA_UNIT * scale)
+    return (PLAIN_DELTA_LAMBDA * math.sqrt(5 * cfg.n_layers + 1)
+            * VERIFY_F32_UNIT * scale)
+
+
+def verify_decode_delta(model, params, prompts, streams, dev, k,
+                        fault=None, decode=True):
     """How far the verify step's logits are from the decode step's at the
     same positions: ``prompts`` (at most 8) prefilled as one chunk each
     into a fresh pool, then along their greedy ``streams``, for each
     stretch of k + 1 tokens, one ``verify_chunk_batch`` at the engine's
     (8, k + 1) extent and k + 1 ``decode_step`` s over the same positions,
     the decode's K/V rows written last, so each verify reads a prefix the
-    decode wrote, as in the engine.  Runs under a config of its own, so
-    the served config's shape counts do not move.  Returns (max |diff|
-    over every position and logit, the median of the per-position
-    maxima, the positions)."""
+    decode wrote, as in the engine.  ``fault``: a planted fault
+    (``_planted_faults``) wrapping its kernel entry for the verify calls
+    only; ``decode=False``: the verify calls alone, each reading the
+    prefix the verifies before it wrote (no difference: the first two
+    results are None).  Runs under a config of its own, so the served
+    config's shape counts do not move.  Returns (max |diff| over every
+    position and logit, the median of the per-position maxima, the
+    positions, both steps' logits' largest magnitude)."""
     from repro_torch.models.model import build_model
     m = build_model(model.cfg.with_(arch_id=model.cfg.arch_id + "-delta"))
     b, mb, bs = 8, 16, 64
@@ -3166,23 +3443,87 @@ def verify_decode_delta(model, params, prompts, streams, dev, k):
     _, cache = m.prefill_chunk_batch(params, toks, cache, slots, 0,
                                      page_table=pt, chunk_lens=plen)
     steps = min(len(s) for s in streams) - 1
-    width, per = k + 1, []
+    width, per, top = k + 1, [], []
     for start in range(0, steps, width):
         c = min(width, steps - start)
         vt = np.zeros((b, width), np.int32)
         for i, st in enumerate(streams):
             vt[i, :c] = st[start:start + c]
         offs = plen + start
-        vl, cache = m.verify_chunk_batch(
-            params, vt, cache, slots, offs, page_table=pt,
-            chunk_lens=np.where(slots >= 0, c, 0))
+        with planted(fault) if fault else contextlib.nullcontext():
+            vl, cache = m.verify_chunk_batch(
+                params, vt, cache, slots, offs, page_table=pt,
+                chunk_lens=np.where(slots >= 0, c, 0))
+        top.append(vl[:n, :c].abs().amax())
+        if not decode:
+            continue
         cache["lens"] = torch.as_tensor(offs, device=dev)
         for j in range(c):
             dl, cache = m.decode_step(params, cache,
                                       torch.as_tensor(vt[:, j], device=dev))
             per.append((dl[:n] - vl[:n, j]).abs().amax(dim=-1))
+            top.append(dl[:n].abs().amax())
+    scale = torch.stack(top).max().item()
+    if not decode:
+        return None, None, n * steps, scale
     per = torch.stack(per).flatten()
-    return per.max().item(), per.median().item(), per.numel()
+    return per.max().item(), per.median().item(), per.numel(), scale
+
+
+# the planted faults on the verify path that phase 14's bound must reject
+# (f32 pool, spec_tokens=4: the verify's M = 40 rows run q8_matmul; the
+# prefix read runs paged_prefill_attention), and on the f32-weights run
+# (no Q8_0 product; the prefix read)
+VERIFY_CONTROLS = ("q8_matmul: last K group dropped",
+                   "paged_prefill_attention: prefix one key short")
+F32_VERIFY_CONTROLS = ("paged_prefill_attention: prefix one key short",)
+
+
+def _verify_held(tag, model, params, reqs, streams, dev, k, quantized=True,
+                 controls=()):
+    """The verify step's logits against the decode step's
+    (``verify_decode_delta`` over the first 8 requests along their plain
+    ``streams``), held to the fixed bound ``verify_decode_bound`` at the
+    scale of the plain versions' verify logits over the same positions
+    (``plain_versions``, the verify calls alone); then,
+    for each planted fault of ``controls``, the same difference with the
+    fault on the verify calls.  Raises if the difference exceeds the
+    bound, or a required control's does not.  Returns the record."""
+    with plain_versions():
+        scale = verify_decode_delta(model, params, reqs[:8], streams[:8],
+                                    dev, k, decode=False)[3]
+    delta, med, npos, _ = verify_decode_delta(model, params, reqs[:8],
+                                              streams[:8], dev, k)
+    tol = verify_decode_bound(model.cfg, scale, quantized)
+    sites = (4 if quantized else 5) * model.cfg.n_layers + 1
+    unit = PLAIN_DELTA_UNIT if quantized else VERIFY_F32_UNIT
+    log(f"  {tag}: verify vs decode logits at the same positions ({npos} "
+        f"positions of 8 streams): max |diff| {delta:.4g}, median of the "
+        f"per-position maxima {med:.4g}; the plain versions' verify "
+        f"logits' scale {scale:.4g}; fixed bound {PLAIN_DELTA_LAMBDA:g} * "
+        f"sqrt({sites}) * {unit:.4g} * scale = {tol:.4g} "
+        f"({delta / tol:.3f} of it)")
+    if not delta <= tol:
+        raise AssertionError(f"{tag}: verify vs decode logits differ by "
+                             f"{delta} > the fixed bound {tol}")
+    rec = {"verify_decode_max_abs_diff": delta,
+           "verify_decode_median_diff": med, "scale": scale, "bound": tol,
+           "controls": {}}
+    faults = _planted_faults()
+    for name in controls:
+        hit = verify_decode_delta(model, params, reqs[:8], streams[:8], dev,
+                                  k, fault=name)[0]
+        rec["controls"][name] = hit
+        log(f"    control, {name} (verify calls only): max |diff| "
+            f"{hit:.4g} ({hit / tol:.2f} x the bound"
+            f"{'' if faults[name][2] else '; measured, not required'})")
+    missed = [n for n, hit in rec["controls"].items()
+              if faults[n][2] and not hit > tol]
+    if missed:
+        raise AssertionError(f"{tag}: the fixed bound {tol} does not reject "
+                             f"the planted faults {missed}: "
+                             f"{rec['controls']}")
+    return rec
 
 
 def speculation(dev, cfg, params, prompts, counted):
@@ -3192,11 +3533,15 @@ def speculation(dev, cfg, params, prompts, counted):
     rows: q8_matmul) and the int8 pool at spec_tokens=3 (8 x 4 = 32 rows:
     q8_matvec), n-gram drafts.  Under the integer arithmetic the verify's
     logits come from the chunk path (dequant Q/K/V/O) and the decode's
-    from the integer wqkv / wo_f GEMVs, so before comparing streams the
-    difference is measured (``verify_decode_delta``) and the streams may
-    part only at a step whose top-2 gap is below three times it (twice is
-    what a flip takes).  Then f32 weights (no activation quantization:
-    the paths differ by the attention kernels), a replay oracle
+    from the integer wqkv / wo_f GEMVs: their difference
+    (``verify_decode_delta``) is held to the fixed bound
+    ``verify_decode_bound`` (written before the run; never read from the
+    measurement), which planted faults on the verify path must exceed
+    (``VERIFY_CONTROLS`` on the f32 pool, ``F32_VERIFY_CONTROLS`` on the
+    f32-weights run), and the streams may part only
+    at a step whose top-2 gap is below that bound.  Then f32 weights (no
+    activation quantization: the paths differ by the attention kernels'
+    and the f32 products' rounding, their own bound), a replay oracle
     (acceptance near 1), always-wrong drafts (a rollback on every verify
     row, the plain streams), one verify shape per pool and no new chunk
     shape, drained pools, and ``DraftModelProposer`` with the target as
@@ -3258,19 +3603,13 @@ def speculation(dev, cfg, params, prompts, counted):
                                      params, PAGED_KW, spec_tokens=k)
         if eng.metrics["verify_steps"] == 0:
             raise AssertionError(f"{kv}: no verify step ran")
-        delta, med, npos = verify_decode_delta(model, params, reqs[:8],
-                                               base[:8], dev, k)
-        tol = 3 * delta
-        log(f"  {kv} pool: verify vs decode logits at the same positions "
-            f"({npos} positions of 8 streams): max |diff| {delta:.4g}, "
-            f"median of the per-position maxima {med:.4g}; streams are held "
-            f"to a top-2 gap of {tol:.4g} (3x the max)")
+        held = _verify_held(
+            f"{kv} pool", model, params, reqs, base, dev, k,
+            controls=VERIFY_CONTROLS if kv == "float32" else ())
         compare_streams(f"{kv} pool, spec_tokens={k} vs plain", spec, base,
                         reqs, lambda seq, *_: _top2_gap(model, params, seq,
-                                                        dev), tol)
-        out[kv] = {"plain": rec_base, "spec": rec_spec,
-                   "verify_decode_max_abs_diff": delta,
-                   "verify_decode_median_diff": med, "stream_tol": tol}
+                                                        dev), held["bound"])
+        out[kv] = {"plain": rec_base, "spec": rec_spec, **held}
         if kv == "float32":
             model32, base32 = model, base
 
@@ -3280,14 +3619,13 @@ def speculation(dev, cfg, params, prompts, counted):
     _, fbase, _ = served("f32 weights, plain", model32, p32, PAGED_KW)
     _, fspec, _ = served("f32 weights, spec_tokens=4", model32, p32,
                          PAGED_KW, spec_tokens=4)
-    delta, med, npos = verify_decode_delta(model32, p32, reqs[:8],
-                                           fbase[:8], dev, 4)
-    log(f"  f32 weights: verify vs decode logits max |diff| {delta:.4g} "
-        f"(median {med:.4g}, {npos} positions)")
+    out["f32_weights"] = held = _verify_held(
+        "f32 weights", model32, p32, reqs, fbase, dev, 4, quantized=False,
+        controls=F32_VERIFY_CONTROLS)
+    tol32 = held["bound"]
     compare_streams("f32 weights, spec_tokens=4 vs plain", fspec, fbase,
                     reqs, lambda seq, *_: _top2_gap(model32, p32, seq, dev),
-                    3 * delta)
-    out["f32_weights_verify_decode_max_abs_diff"] = delta
+                    tol32)
 
     phase("phase 14: replay-oracle and always-wrong drafts, f32 weights, "
           "f32 pool, spec_tokens=4, 8 requests")
@@ -3311,10 +3649,9 @@ def speculation(dev, cfg, params, prompts, counted):
                              f"{m['accepted_tokens']} accepted")
     log(f"  always-wrong drafts: a rollback on each of the {rows} verify "
         "rows, none accepted")
-    compare_streams("replay oracle vs plain", replay, ref, few, gap,
-                    3 * delta)
+    compare_streams("replay oracle vs plain", replay, ref, few, gap, tol32)
     compare_streams("always-wrong drafts vs plain", wrong, ref, few, gap,
-                    3 * delta)
+                    tol32)
     out["replay_accept_ratio"] = rec["accept_ratio"]
     del p32
 
@@ -3331,7 +3668,7 @@ def speculation(dev, cfg, params, prompts, counted):
     log(f"    ... {len(draft.calls)} proposals in all")
     compare_streams("draft model vs plain", dstreams, [base32[16], base32[1]],
                     two, lambda seq, *_: _top2_gap(model32, params, seq, dev),
-                    out["float32"]["stream_tol"])
+                    out["float32"]["bound"])
     out["draft_model_accept_ratio"] = rec["accept_ratio"]
     return out
 
@@ -3570,14 +3907,17 @@ def dense_paged_bound(cfg, scale: float) -> float:
 
 
 def _planted_faults():
-    """The controls of the fixed bound: wiring faults that the per-kernel
+    """The controls of the fixed bounds (``kernel_plain_delta``'s and
+    phase 14's ``_verify_held``): wiring faults that the per-kernel
     checks of phase 2 cannot see (they call each kernel right), each
     wrapping one kernel entry of ``kernels/ops.py``.  By name: (entry, the
     wrapper of the entry, whether the bound must reject it).  A decode
     length one short moves the logits by 0.49-1.15 at 28-32 layers, 3-8x
     rounding's own difference and 0.85-2.3x the bound (PERF.md section 6):
     it is measured, not required; phase 2 holds each kernel's lengths
-    exactly and the CPU tests hold the model's wiring against JAX."""
+    exactly and the CPU tests hold the model's wiring against JAX.  The
+    verify's prefix one key short is required: phase 14's bound rejects
+    it at 12 layers (PERF.md section 6)."""
     def last_group(fn):      # a K loop one Q8_0 group short
         def f(xq, xs, wq, ws, group_size):
             xs = xs.clone()
@@ -3621,7 +3961,11 @@ def _planted_faults():
         "decode_attention: KV heads rotated": (
             "decode_attention_kernel", kv_heads, True),
         "flash_prefill: causal diagonal one key short": (
-            "flash_prefill_kernel", diagonal, True)}
+            "flash_prefill_kernel", diagonal, True),
+        "q8_matmul: last K group dropped": (
+            "q8_matmul_kernel", last_group, True),
+        "paged_prefill_attention: prefix one key short": (
+            "paged_prefill_attention_kernel", newest_key(4), True)}
 
 
 @contextlib.contextmanager
@@ -3947,25 +4291,24 @@ def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
     return out
 
 
-def phi4_path(dev, counted):
-    """Phase 18: phi4-mini-3.8b at full width and depth (32 layers,
-    d_model 3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab
-    200064, rope theta 1e4, bf16 compute) from the port's own seeded
-    ``init_params`` on the card (~15 GB of f32, freed after Q8_0), the
+def full_width_path(dev, counted, arch, n):
+    """Phase ``n``: ``arch`` (phi4-mini-3.8b, phase 18; glm4-9b, phase 19)
+    at full width and depth from the port's own seeded ``init_params`` on
+    the card (f32, freed after Q8_0 with the fused decode operands), the
     paged Engine on a bf16 pool as phase 16; 8 requests of 16..600 tokens,
-    two sharing a 128-token prefix, 32 greedy tokens.  The new shape is
-    the 200192-row (padded) head GEMV and the greedy argmax over it.
+    two sharing a 128-token prefix, 32 greedy tokens.
     ``kernel_plain_delta`` with every kernel's share, held to the fixed
-    bound at 32 layers (and its planted faults rejected), stands in for
-    the plain-version engine run and the int8 pool.  Launches are counted
-    under ``<kernel>@phi4-mini-3.8b`` and listed in the record: the kernels
-    line has a phi4 row for the head GEMV only (the others run
-    llama3.2-3b's shapes)."""
+    bound at the config's depth (and its planted faults rejected), stands
+    in for the plain-version engine run and the int8 pool.  Asserts the
+    exact launch counts, a prefix-cache hit and no token past the head's
+    rows.  Launches are counted under ``<kernel>@<arch>`` and listed in the
+    record; the parameters are freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.model import build_model
-    cfg = get_config(P4)
+    cfg = get_config(arch)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     init = model.init(seed=0, device=dev)
     f32_gb = param_bytes(init) / 1e9
@@ -3974,17 +4317,18 @@ def phi4_path(dev, counted):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     made = time.perf_counter() - t0
-    prompts = _requests(8, 16, 600, cfg.vocab_size, seed=18, shared_len=128,
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prompts = _requests(8, 16, 600, cfg.vocab_size, seed=n, shared_len=128,
                         shared_at=(0, 5))
-    phase(f"phase 18: {P4} full width and depth ({cfg.n_layers} layers, "
+    phase(f"phase {n}: {arch} full width and depth ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
-          f"{cfg.hd()}, vocab {cfg.vocab_size} (head {cfg.padded_vocab()} "
-          f"rows), rope theta {cfg.rope_theta:g}, {cfg.compute_dtype}), "
-          f"{f32_gb:.2f} GB of f32 then Q8_0 parameters "
-          f"{param_bytes(params) / 1e9:.2f} GB made on the card in "
-          f"{made:.1f} s; 8 requests of {min(map(len, prompts))}.."
-          f"{max(map(len, prompts))} tokens, 32 greedy tokens, paged bf16 "
-          "pool")
+          f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (head "
+          f"{cfg.padded_vocab()} rows), rope theta {cfg.rope_theta:g}, "
+          f"{cfg.compute_dtype}), {f32_gb:.2f} GB of f32 then Q8_0 "
+          f"parameters {param_bytes(params) / 1e9:.2f} GB made on the card "
+          f"in {made:.1f} s (peak {peak:.2f} GB allocated); 8 requests of "
+          f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens, 32 "
+          "greedy tokens, paged bf16 pool")
     delta = kernel_plain_delta(model, params, prompts, dev,
                                shares=L3_PAGED_KERNELS,
                                controls=PAGED_CONTROLS)
@@ -3993,27 +4337,28 @@ def phi4_path(dev, counted):
     eng, streams, wall = serve(model, params, prompts, dev, 32, **PAGED_KW)
     check_launches(eng, dict(build.LAUNCHES), cfg, mine)
     if eng.metrics["prefix_hits"] < 1:
-        raise AssertionError(f"{P4}: the shared-prefix requests never hit "
+        raise AssertionError(f"{arch}: the shared-prefix requests never hit "
                              "the prefix cache")
     if any(t >= cfg.padded_vocab() for s in streams for t in s):
-        raise AssertionError(f"{P4}: a token past the head's rows")
-    rec = engine_line(f"{P4}, bf16 pool, kernel strategy", eng, streams,
+        raise AssertionError(f"{arch}: a token past the head's rows")
+    rec = engine_line(f"{arch}, bf16 pool, kernel strategy", eng, streams,
                       wall)
-    rec["kernel_plain_delta"] = delta
-    rec["launches"] = mine
-    _suffixed(counted, mine, P4)
+    rec.update(kernel_plain_delta=delta, launches=mine, f32_gb=f32_gb,
+               q8_gb=param_bytes(params) / 1e9, peak_gb=peak)
+    _suffixed(counted, mine, arch)
     del params
     torch.cuda.empty_cache()
     return rec
 
 
 def bf16_paths(dev, counted):
-    """Phases 16-18, the bf16 configs: llama3.2-3b's parameters drawn once
+    """Phases 16-19, the bf16 configs: llama3.2-3b's parameters drawn once
     (``llama3_params``), the paged pools (phase 16), the dense cache and
-    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18).  Alone on the card:
-    ``build.build()``, ``qlinear.set_default_strategy("kernel")`` and
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
-    does, then ``bf16_paths(torch.device("cuda"), {})``."""
+    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18) and glm4-9b (phase
+    19), each drawn after the last one's parameters are freed.  Alone on
+    the card: ``build.build()``, ``qlinear.set_default_strategy("kernel")``
+    and ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as
+    ``main`` does, then ``bf16_paths(torch.device("cuda"), {})``."""
     cfg, params, p4, prompts, made = llama3_params(dev)
     l3, paged = llama3_path(dev, cfg, params, prompts, made, counted)
     phase(f"phase 16: {L3} {json.dumps(l3)}")
@@ -4021,9 +4366,11 @@ def bf16_paths(dev, counted):
     phase(f"phase 17: {L3} {json.dumps(l3b)}")
     del params, p4
     torch.cuda.empty_cache()
-    phi = phi4_path(dev, counted)
+    phi = full_width_path(dev, counted, P4, 18)
     phase(f"phase 18: {P4} {json.dumps(phi)}")
-    return l3, l3b, phi
+    glm = full_width_path(dev, counted, G4, 19)
+    phase(f"phase 19: {G4} {json.dumps(glm)}")
+    return l3, l3b, phi, glm
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -4137,6 +4484,7 @@ def main() -> int:
     check_llama3(report, dev)
     check_llama3_dense_q4(report, dev)
     check_phi4_head(report, dev)
+    check_glm4(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)

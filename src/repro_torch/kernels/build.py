@@ -40,10 +40,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, list] = {
     "q8_matvec": [_P] * 5 + [_I] * 4 + [_P],
     "q8_matmul": [_P] * 5 + [_I] * 4 + [_P, _P],
-    "paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
+    "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "paged_prefill_attention": [_P] * 11 + [_I] * 8 + [_P],
     "q4_matvec": [_P] * 5 + [_I] * 4 + [_P, _P],
-    "decode_attention": [_P] * 7 + [_I] * 6 + [_P],
+    "decode_attention": [_P] * 7 + [_I] * 7 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "rope": [_P] * 4 + [_I] * 5 + [_P],
     "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P],

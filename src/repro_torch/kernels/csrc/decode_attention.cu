@@ -15,15 +15,16 @@
 // kernels are bitwise equal on the same rows.
 #include "flash_decode.cuh"
 
-// All tensors contiguous, D % 4 == 0 and HQ*D <= 1024 (the wrapper checks).
+// All tensors contiguous, D % 4 == 0, the HQ heads of a KV head in NG
+// groups of at most 1024 / D (the wrapper checks: ops.decode_head_groups).
 // kind: the cache's element, 0 f32, 1 int8 (ks/vs are ignored otherwise),
 // 2 bf16.  Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* lens, void* out, int B, int S,
-                                int KVH, int HQ, int D, int kind,
+                                int KVH, int HQ, int D, int kind, int NG,
                                 void* stream) {
   const flash_decode::DenseRows rows{S, KVH};
-  return flash_decode::run(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, D,
-                           kind, static_cast<cudaStream_t>(stream));
+  return flash_decode::run(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, NG,
+                           D, kind, static_cast<cudaStream_t>(stream));
 }

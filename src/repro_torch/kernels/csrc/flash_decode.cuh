@@ -15,17 +15,29 @@
 //
 // What bounds it on an H100: bytes, at the least.  Every live K/V row is
 // read once and used by HQ query heads only (HQ = 1 for llama2-110m, 3 for
-// llama3.2-3b's 24 heads over 8 KV heads).  At llama2-110m's lengths the call is short enough that latency bounds it:
+// llama3.2-3b's 24 heads over 8 KV heads, 16 for glm4-9b's 32 over 2).  At
+// llama2-110m's lengths the call is short enough that latency bounds it:
 // the launch, one page-table read, one or two trips to device memory, the
 // fold and the merge.  The design keeps that chain short.
 //
 // Design:
-// - Split over positions.  The grid is (kSplit, KVH, B), fixed by shapes:
-//   it never depends on lens, and the host never reads them.  Split r of
-//   (b, kv-head) takes the 64-position tiles r, r + kSplit, ... of
-//   [0, len), so the work of the longest row spreads over kSplit blocks.
-//   The partition depends on len and the constants only, never on the
-//   table width or the cache length.
+// - Split over positions.  The grid is (kSplit, KVH * NG, B), fixed by
+//   shapes: it never depends on lens, and the host never reads them.
+//   Split r of (b, kv-head, head group) takes the 64-position tiles r,
+//   r + kSplit, ... of [0, len), so the work of the longest row spreads
+//   over kSplit blocks.  The partition depends on len and the constants
+//   only, never on the table width or the cache length.
+// - Split over query heads.  A lane holds HQ*D/32 accumulators of the
+//   heads it folds, at most 32 (NA): past HQ*D = 1024 the HQ heads of a KV
+//   head are cut into NG groups of HQ/NG heads (the wrapper's rule,
+//   ops.decode_head_groups), each its own cluster that reads the KV head's
+//   rows again (mostly from L2: the NG clusters of a KV head run
+//   together).  q and out are (B, KVH * NG, HQ/NG, D) in memory, so a
+//   group is addressed as a KV head of its own; only the rows are shared.
+//   A head's arithmetic does not depend on the heads beside it (the same
+//   positions, warps and ranks), so a call is bitwise equal to NG calls on
+//   the groups' slices of q, and NG = 1 is the launch of every shape up to
+//   HQ*D = 1024.
 // - Within a split, each warp owns positions: the 16-position chunks c =
 //   warp, warp + nw, ... of the split's tiles, 4 chunks a tile.  It copies
 //   them by 16-byte cp.async (8 or 4 bytes for int8 rows that are not
@@ -40,13 +52,14 @@
 // - Scores: two lanes a position, each the dot product over half of D
 //   (16-byte words read in a lane-rotated order, free of bank conflicts at
 //   D = 64 and 128), one shuffle to add the halves; int8 codes are summed
-//   raw and scaled once.  P.V: each lane holds HQ*D/32 accumulators (NA,
-//   a template parameter, at most 32: hence HQ*D <= 1024); an int8 V row's
-//   scale is folded into its probability.
+//   raw and scaled once.  P.V: each lane holds HQ*D/32 accumulators of its
+//   block's heads (NA, a template parameter, at most 32: hence the head
+//   groups); an int8 V row's scale is folded into its probability.
 // - Merge inside the launch.  The warps of a block merge in warp order;
-//   the kSplit blocks of a (b, kv-head) are one thread-block cluster, and
-//   each writes its (m, l, acc) into rank 0's shared memory (distributed
-//   shared memory), then arrives on the cluster barrier with release.
+//   the kSplit blocks of a (b, kv-head, group) are one thread-block
+//   cluster, and each writes its (m, l, acc) into rank 0's shared memory
+//   (distributed shared memory), then arrives on the cluster barrier with
+//   release.
 //   Rank 0 waits with acquire and writes sum_r a_r acc_r / sum_r a_r l_r,
 //   a_r = exp(m_r - max m), folding the blocks in rank order: no
 //   workspace, no atomics, no second kernel, and a repeated call is bitwise
@@ -189,13 +202,14 @@ __device__ __forceinline__ float value(const unsigned char* m, int t, int d,
 
 // T: the pool's element (float, __nv_bfloat16, or int8_t with scales).
 // NA: accumulators of a lane, a power of two >= HQ*D / 32 (HQ*D <= 1024).
-// G: bytes of one copy (16, 8 or 4).
+// NG: head groups a KV head (blockIdx.y = kv-head * NG + group); HQ: query
+// heads of a group.  G: bytes of one copy (16, 8 or 4).
 template <class T, int NA, class Rows>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ kp,
     const unsigned char* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ lens,
-    float* __restrict__ out, const Rows rows, int KVH, int HQ, int D,
+    float* __restrict__ out, const Rows rows, int NG, int HQ, int D,
     int G) {
   constexpr bool INT8 = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(16) unsigned char sm[];
@@ -204,8 +218,10 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
   const int nw = blockDim.x >> 5;
   const Layout L = layout(HQ, D, (int)sizeof(T), nw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, h = blockIdx.y / NG, b = blockIdx.z;
   const int HD = HQ * D;
+  // this group's q and out: (B, KVH * NG, HQ, D)
+  const size_t qo = ((size_t)b * gridDim.y + blockIdx.y) * HD;
   const int len = max(min(__ldg(lens + b), rows.limit()), 0);
   const int rb = D * (int)sizeof(T);     // bytes of one K or V row
   const int per_row = rb / G;            // copies of one row
@@ -274,7 +290,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
   int next = row_of(1);
   fetch(0, r0);
   for (int i = threadIdx.x; i < HD; i += blockDim.x)
-    qs[i] = q[((size_t)b * KVH + h) * HD + i];
+    qs[i] = q[qo + i];
   for (int i = lane; i < HQ; i += 32) {
     wm[i] = kNegInf;
     wl[i] = 0.f;
@@ -388,7 +404,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
   if (split != 0) return;
   cluster_wait();                    // acquire every block's state
 
-  float* ob = out + ((size_t)b * KVH + h) * HD;
+  float* ob = out + qo;
   for (int i = threadIdx.x; i < HD; i += blockDim.x) {
     const int hq = i / D;
     float mx = kNegInf;
@@ -406,11 +422,12 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) decode_kernel(
   }
 }
 
-// Launch on stream st.  Returns a cudaError_t (0 = launched).
+// Launch on stream st; HQ is a group's heads.  Returns a cudaError_t (0 =
+// launched).
 template <class T, int NA, class Rows>
 int launch(const Rows& rows, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* lens, void* out,
-           int B, int KVH, int HQ, int D, cudaStream_t st) {
+           int B, int KVH, int NG, int HQ, int D, cudaStream_t st) {
   constexpr int E = (int)sizeof(T);
   int nw = kWarps;
   Layout L = layout(HQ, D, E, nw);
@@ -430,7 +447,7 @@ int launch(const Rows& rows, const void* q, const void* k, const void* v,
   };
   const int G = fits(16) ? 16 : fits(8) ? 8 : 4;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSplit, KVH, B);
+  cfg.gridDim = dim3(kSplit, KVH * NG, B);
   cfg.blockDim = dim3(32 * nw);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = st;
@@ -446,24 +463,26 @@ int launch(const Rows& rows, const void* q, const void* k, const void* v,
       static_cast<const unsigned char*>(k),
       static_cast<const unsigned char*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(lens),
-      static_cast<float*>(out), rows, KVH, HQ, D, G);
+      static_cast<float*>(out), rows, NG, HQ, D, G);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// HQ: query heads a KV head, in NG groups of HQ / NG
 template <class T, class Rows>
 int run_na(const Rows& rows, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* lens, void* out,
-           int B, int KVH, int HQ, int D, cudaStream_t st) {
-  const int n = (HQ * D + 31) / 32;
+           int B, int KVH, int HQ, int NG, int D, cudaStream_t st) {
+  if (NG < 1 || HQ % NG) return (int)cudaErrorInvalidValue;
+  const int hq = HQ / NG, n = (hq * D + 31) / 32;
 #define FD_LAUNCH(NA)                                                      \
   if (n <= NA)                                                             \
-    return launch<T, NA>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ,    \
+    return launch<T, NA>(rows, q, k, v, ks, vs, lens, out, B, KVH, NG, hq, \
                          D, st);
   FD_LAUNCH(1) FD_LAUNCH(2) FD_LAUNCH(4) FD_LAUNCH(8) FD_LAUNCH(16)
   FD_LAUNCH(32)
 #undef FD_LAUNCH
-  return (int)cudaErrorInvalidValue;    // HQ*D > 1024
+  return (int)cudaErrorInvalidValue;    // a group's HQ*D > 1024
 }
 
 // The cache's element: kind 0 f32, 1 int8 (with ks/vs), 2 bf16.
@@ -472,17 +491,17 @@ constexpr int kF32 = 0, kInt8 = 1, kBf16 = 2;
 template <class Rows>
 int run(const Rows& rows, const void* q, const void* k, const void* v,
         const void* ks, const void* vs, const void* lens, void* out, int B,
-        int KVH, int HQ, int D, int kind, cudaStream_t st) {
+        int KVH, int HQ, int NG, int D, int kind, cudaStream_t st) {
   switch (kind) {
     case kF32:
       return run_na<float>(rows, q, k, v, nullptr, nullptr, lens, out, B,
-                           KVH, HQ, D, st);
+                           KVH, HQ, NG, D, st);
     case kInt8:
-      return run_na<int8_t>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ, D,
-                            st);
+      return run_na<int8_t>(rows, q, k, v, ks, vs, lens, out, B, KVH, HQ,
+                            NG, D, st);
     case kBf16:
       return run_na<__nv_bfloat16>(rows, q, k, v, nullptr, nullptr, lens,
-                                   out, B, KVH, HQ, D, st);
+                                   out, B, KVH, HQ, NG, D, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

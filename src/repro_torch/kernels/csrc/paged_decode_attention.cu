@@ -16,7 +16,8 @@
 // flash_decode.cuh's, shared with decode_attention.cu.
 #include "flash_decode.cuh"
 
-// All tensors contiguous, D % 4 == 0 and HQ*D <= 1024 (the wrapper checks).
+// All tensors contiguous, D % 4 == 0, the HQ heads of a KV head in NG
+// groups of at most 1024 / D (the wrapper checks: ops.decode_head_groups).
 // kind: the pool's element, 0 f32, 1 int8 (ks/vs are ignored otherwise),
 // 2 bf16.  Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* kpool,
@@ -24,9 +25,9 @@ extern "C" int paged_decode_attention(const void* q, const void* kpool,
                                       const void* vs, const void* page_table,
                                       const void* lens, void* out, int B,
                                       int KVH, int HQ, int D, int BS, int MB,
-                                      int kind, void* stream) {
+                                      int kind, int NG, void* stream) {
   const flash_decode::PagedRows rows{static_cast<const int*>(page_table), MB,
                                      BS, KVH};
   return flash_decode::run(rows, q, kpool, vpool, ks, vs, lens, out, B, KVH,
-                           HQ, D, kind, static_cast<cudaStream_t>(stream));
+                           HQ, NG, D, kind, static_cast<cudaStream_t>(stream));
 }

@@ -147,10 +147,27 @@ def _check_pool(name, q, k_pool, v_pool, page_table, ks_pool, vs_pool,
     return POOL_KINDS[k_pool.dtype]
 
 
-# a lane of the decode kernels holds HQ*D/32 f32 accumulators, at most 32
-# (flash_decode.cuh's NA): llama2-110m has HQ*D = 64, llama3.2-3b 384,
-# glm4-9b's 16 query heads a KV head of 128 would need 2048
+# a lane of the decode kernels holds HQ*D/32 f32 accumulators of its
+# block's query heads, at most 32 (flash_decode.cuh's NA): a block folds
+# at most this many (head, dim) values of a KV head
 DECODE_MAX_HQ_D = 1024
+
+
+def decode_head_groups(hq: int, d: int) -> int:
+    """The groups the HQ query heads of a KV head are cut into across the
+    decode kernels' grid (``flash_decode.cuh``): the fewest, each of the
+    same HQ / G heads, that hold at most ``DECODE_MAX_HQ_D`` values of D.
+    1 up to HQ*D = 1024 (llama2-110m 64, llama3.2-3b 384), 2 for glm4-9b's
+    16 heads of 128.  Raises where no G serves: D not a multiple of 4, or
+    one head wider than a block holds."""
+    if hq < 1 or d < 4 or d % 4 or d > DECODE_MAX_HQ_D:
+        raise ValueError(f"decode attention: needs D % 4 == 0 and D <= "
+                         f"{DECODE_MAX_HQ_D} (a lane holds a block's "
+                         f"HQ*D/32 <= 32 accumulators); got HQ {hq}, D {d}")
+    g = -(-hq * d // DECODE_MAX_HQ_D)
+    while hq % g:
+        g += 1
+    return g
 
 
 def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
@@ -159,7 +176,8 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
     or bf16 (int8 when ks/vs_pool (NB, BS, KVH) are given); page_table (B,
     MB) int32; lens (B,) int32.  Returns (B, KVH, HQ, D) f32; a length-0
     row is exactly 0.  A -1 entry inside a row's length reads pool block
-    0, as the reference does: only lens masks."""
+    0, as the reference does: only lens masks.  The kernel cuts a KV
+    head's HQ query heads into :func:`decode_head_groups` groups."""
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pool, v_pool, page_table,
                                               lens, ks_pool, vs_pool)
@@ -169,18 +187,18 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
                        vs_pool, kvh, d)
     _check(name, q.device, lens=lens)
     _dtype(name, lens, torch.int32)
-    if d % 4 or hq * d > DECODE_MAX_HQ_D or lens.shape != (b,) or \
-            page_table.shape[0] != b:
-        raise ValueError(f"{name}: needs D % 4 == 0, HQ*D <= "
-                         f"{DECODE_MAX_HQ_D} (a lane holds HQ*D/32 <= 32 "
-                         f"accumulators), lens (B,), page_table (B, MB); got "
-                         f"q {tuple(q.shape)} (HQ*D = {hq * d})")
-    nb, bs = k_pool.shape[:2]
+    if lens.shape != (b,) or page_table.shape[0] != b:
+        raise ValueError(f"{name}: needs lens (B,) and page_table (B, MB); "
+                         f"got q {tuple(q.shape)}, lens "
+                         f"{tuple(lens.shape)}, page_table "
+                         f"{tuple(page_table.shape)}")
+    groups = decode_head_groups(hq, d)
+    bs = k_pool.shape[1]
     out = torch.empty_like(q)
     launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
            lens.data_ptr(), out.data_ptr(), b, kvh, hq, d, bs,
-           page_table.shape[1], kind, _stream(q))
+           page_table.shape[1], kind, groups, _stream(q))
     return out
 
 
@@ -283,7 +301,9 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
                             v_scale=None) -> torch.Tensor:
     """q: (B, KVH, HQ, D) f32 pre-scaled; k/v: (B, S, KVH, D) f32 or bf16
     (int8 when k/v_scale (B, S, KVH) are given); lens (B,) int32, clamped
-    to S.  Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0."""
+    to S.  Returns (B, KVH, HQ, D) f32; a length-0 row is exactly 0.
+    The kernel cuts a KV head's HQ query heads into
+    :func:`decode_head_groups` groups."""
     b, kvh, hq, d = q.shape
     if q.device.type == "cpu":
         return ref.ref_decode_attention(q, k, v, lens.reshape(b, 1),
@@ -291,12 +311,11 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     name = "decode_attention"
     int8 = k_scale is not None
     if (k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:])
-            != (kvh, d) or lens.shape != (b,) or d % 4
-            or hq * d > DECODE_MAX_HQ_D):
+            != (kvh, d) or lens.shape != (b,)):
         raise ValueError(f"{name}: needs k/v (B, S, KVH, D) matching q "
-                         f"{tuple(q.shape)}, lens (B,), D % 4 == 0 and "
-                         f"HQ*D <= {DECODE_MAX_HQ_D} (a lane holds HQ*D/32 "
-                         f"<= 32 accumulators); got k {tuple(k.shape)}")
+                         f"{tuple(q.shape)} and lens (B,); got k "
+                         f"{tuple(k.shape)}")
+    groups = decode_head_groups(hq, d)
     _check(name, q.device, q=q, k=k, v=v, lens=lens, k_scale=k_scale,
            v_scale=v_scale)
     _dtype(name, q, torch.float32)
@@ -314,7 +333,7 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     out = torch.empty_like(q)
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
            _ptr(v_scale), lens.data_ptr(), out.data_ptr(), b, k.shape[1],
-           kvh, hq, d, POOL_KINDS[k.dtype], _stream(q))
+           kvh, hq, d, POOL_KINDS[k.dtype], groups, _stream(q))
     return out
 
 

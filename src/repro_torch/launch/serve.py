@@ -30,6 +30,12 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch phi4-mini-3.8b --requests 16 --slots 8 --max-seq 1024
 
+  # glm4-9b (40 layers, d_model 4096, 32 query heads over 2 KV heads of
+  # 128, d_ff 13696, vocab 151552): ~35 GB of f32 parameters made on the
+  # card, then Q8_0 with the fused decode operands
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch glm4-9b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream
