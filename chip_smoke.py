@@ -38,17 +38,27 @@ attentions at 16 query heads a KV head of 128, cut into two head groups,
 bitwise equal to two calls on q's halves and to each other; the GEMVs at
 K 13696 and the 151552-row head; ``q8_matmul`` at N 27392 and K 13696;
 ``quantize`` at K 13696; ``rmsnorm_quant`` at K 4096, 0 codes apart; the
-prefix attention at HQ 16; rope on 34 heads); phase 5
+prefix attention at HQ 16; rope on 34 heads) and at command-r-35b's
+(``check_command_r``: the GEMVs at K 8192 and 22528 and the 256000-row
+head, ``q8_matmul`` at N 45056, K 22528 and the verify step's head,
+``rmsnorm_quant`` at K 8192, where PyTorch's row mean splits a row over
+its warp-rows, 0 codes apart with every scale equal, the decode and
+prefix attentions at 8 query heads a KV head, rope on 72 heads at theta
+8e6); phase 5
 also runs the reduced llama3.2-3b on both caches; phase 16 serves
 llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
 and an int8 pool, held against the same engine on the plain versions;
 phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
 (paged and dense); phase 18 serves phi4-mini-3.8b at full width and depth
-(32 layers, vocab 200064) on a bf16 pool, and phase 19 glm4-9b (40
-layers, d_model 4096, 32 query heads over 2 KV heads of 128, d_ff 13696,
-vocab 151552) the same way.  On every llama3.2-3b, phi4 and glm4 path the
-kernels' logits are held against the plain versions' on the same
-inputs to a fixed bound derived from bf16 and Q8_0 rounding
+(32 layers, vocab 200064) on a bf16 pool, phase 19 glm4-9b (d_model
+4096, 32 query heads over 2 KV heads of 128, d_ff 13696, vocab 151552; its
+40 layers cut to 10 for time) the same way, and phase 20 command-r-35b
+(40 layers, d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
+22528, vocab 256000), its 121 GB f32 tree never held: phases 18-20 draw
+through ``Model.init_quantized``, which phase 16 holds bitwise against
+``Model.quantize(Model.init(0))``.  On every llama3.2-3b, phi4, glm4 and
+command-r path the kernels' logits are held against the plain versions'
+on the same inputs to a fixed bound derived from bf16 and Q8_0 rounding
 (``plain_delta_bound``), with each kernel's share: the difference with
 only that kernel on its plain version, and with only it launched
 (``kernel_plain_delta``); planted wiring faults, the controls of that
@@ -877,22 +887,23 @@ def check_llama3(report, dev):
     _bf16_rope_row(report, gen, dev, L3, 24, L3_KVH, L3_HD, 5e5)
 
 
-def _bf16_norm_row(report, gen, dev, arch, k, codes):
+def _bf16_norm_row(report, gen, dev, arch, k, codes, ms=(1, 8, 2048),
+                   scale_rel=BF16_NORM_SCALE):
     """rmsnorm_quant on bf16 rows at ``arch``'s d_model K (norm1 -> wqkv,
-    norm2 -> w13, final norm -> head), M = 1, 8 and 2048: codes within
-    ``codes`` of the plain version's, scales within one bf16 rounding;
-    timed beside the plain version.  Adds the row
+    norm2 -> w13, final norm -> head), M = ``ms``: codes within ``codes``
+    of the plain version's, scales within ``scale_rel`` (one bf16 rounding
+    by default); timed beside the plain version.  Adds the row
     ``rmsnorm_quant@<arch>``."""
     from repro_torch.kernels import ops, ref
     src = "src/repro_torch/kernels/csrc/"
     gs, eps = 64, 1e-5
     gamma = torch.randn((k,), generator=gen, device=dev)
     norm = {}
-    for m in (1, 8, 2048):
+    for m in ms:
         def mk():
             return _norm_input(gen, dev, m, k, gs).bfloat16()
         n_diff, rel, err, _, _ = _norm_held(ops, ref, mk(), gamma, eps, gs,
-                                            codes, BF16_NORM_SCALE)
+                                            codes, scale_rel)
         nbytes = m * k * 2 + k * 4 + m * k + m * (k // gs) * 4
         b_ms, b_by = bound(nbytes, 6.0 * m * k, F32_FLOPS_PER_S)
         nxt = rotating(mk, m * k * 2)
@@ -904,7 +915,7 @@ def _bf16_norm_row(report, gen, dev, arch, k, codes):
                        codes_differing=n_diff, scale_rel_err=rel, err=err)
         log(f"  {arch} rmsnorm_quant bf16 M={m:5d} K={k}: {n_diff} of "
             f"{m * k} codes differ, max scale diff {rel:.2e} relative (tol "
-            f"{codes} codes, {BF16_NORM_SCALE:.2e}: one bf16 rounding), "
+            f"{codes} codes, {scale_rel:.2e}), "
             f"dequantized max abs err {err:.2e}  kernel {ms:.5f} ms  plain "
             f"{plain:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
     r8 = norm[8]
@@ -914,9 +925,9 @@ def _bf16_norm_row(report, gen, dev, arch, k, codes):
                max_abs_err=max(r["err"] for r in norm.values()),
                ms=r8["ms"], plain_ms=r8["plain_ms"], library_ms=None,
                bound_ms=r8["bound_ms"], bound_by=r8["bound_by"],
-               m1_ms=norm[1]["ms"], m2048_ms=norm[2048]["ms"],
                m2048_plain_ms=norm[2048]["plain_ms"],
                m2048_bound_ms=norm[2048]["bound_ms"],
+               **{f"m{m}_ms": r["ms"] for m, r in norm.items() if m != 8},
                codes_differing={str(m): r["codes_differing"]
                                 for m, r in norm.items()},
                scale_rel_err=max(r["scale_rel_err"] for r in norm.values()),
@@ -1303,6 +1314,211 @@ def check_glm4(report, dev):
     _bf16_norm_row(report, gen, dev, G4, G4_D, 0)
     _bf16_quantize_row(report, gen, dev, G4, G4_D, G4_FF)
     _bf16_rope_row(report, gen, dev, G4, 32, G4_KVH, G4_HD, 1e4)
+
+
+# command-r-35b (phase 2's last part, phase 20): 40 layers, d_model 8192,
+# 64 query heads over 8 KV heads of 128 (HQ 8: HQ*D = 1024, one head
+# group), d_ff 22528, vocab 256000 (the head's 2.1e9 codes, 2.3% under
+# 2^31).  Its decode GEMVs (wqkv, wo_f, w13, w2) and head, the chunk step's
+# MLP GEMMs.
+CR = "command-r-35b"
+CR_LAYERS, CR_D, CR_KVH, CR_HQ, CR_HD, CR_FF = 40, 8192, 8, 8, 128, 22528
+CR_GEMV = [(10240, 8192), (8192, 8192), (45056, 8192), (8192, 22528)]
+CR_HEAD = (256000, 8192)
+CR_GEMM = ((45056, 8192), (8192, 22528))
+# rmsnorm_quant's rows at command-r-35b: decode steps (1, 8), a verify step
+# (16 at k = 1, 40 at k = 4) and a chunk step (2048)
+CR_NORM_M = (1, 8, 16, 40, 2048)
+
+
+def _norm_order_control(gen, dev, m, k):
+    """rmsnorm_quant at (M, K) summed in another order than PyTorch's: the
+    same 512 threads a row holding the same float4s, folded as one
+    512-thread tree (the unsplit order, M = 1's) where PyTorch splits the
+    row over warp-rows.  Returns (codes, scales) differing from the plain
+    version's: what the 0-codes check would see if the kernel took the
+    wrong order.  Raises if no scale differs: the check could then not
+    tell the two orders apart."""
+    from repro_torch.kernels import build, ops, ref
+    gs, eps = 64, 1e-5
+    x = _norm_input(gen, dev, m, k, gs)
+    gamma = torch.randn((k,), generator=gen, device=dev)
+    wq, ws = ref.ref_rmsnorm_quant(x, gamma, eps, gs)
+    _, factor = ops._torch_row_mean_order(m, k)
+    threads = 512
+    aq, asc = torch.empty_like(wq), torch.empty_like(ws)
+    build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
+                 aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
+                 *ops.rmsnorm_quant_plan(m, k, threads), threads, 0,
+                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    codes, scales = int((aq != wq).sum().item()), int((asc != ws).sum().item())
+    if scales == 0:
+        raise AssertionError(f"rmsnorm_quant at M={m} K={k}: the unsplit "
+                             "order gives the plain version's scales, so "
+                             "the 0-codes check cannot tell the orders apart")
+    return codes, scales
+
+
+def check_command_r(report, dev):
+    """The kernels at command-r-35b's shapes, each against its plain
+    version and timed beside it and its library call.  Both decode
+    attentions at KVH 8, HQ 8, D 128 (one head group): 8 slots x 1024 at
+    phase 2's lens on bf16 and int8 pools and caches, batch 1 at 1024, -1
+    entries inside rows, the dense kernel bitwise equal to the paged one;
+    q8_matvec at a decode step's 160 layer GEMVs (w2 at K 22528) and the
+    256000-row head, M = 1 and 8; q8_matmul at the chunk step's w13 (N
+    45056) and w2 (K 22528) at M = 2048, and at the verify step's head (M
+    40, its offsets up to 2.1e9), bitwise; paged_prefill_attention at HQ 8
+    on a bf16 pool (int8 untimed); rmsnorm_quant on bf16 rows at K 8192, M
+    1, 8, 16, 40 and 2048 (PyTorch's row mean splits a row over its
+    warp-rows from M = 2 on): 0 codes apart and every scale equal, f32
+    rows too, with the unsplit order as a control; quantize on bf16 rows
+    at K 8192 and 22528, bitwise; rope on 72 heads of 128 at theta 8e6.
+    Each adds a row ``<kernel>@command-r-35b``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(28)
+    src = "src/repro_torch/kernels/csrc/"
+    geo = dict(kvh=CR_KVH, hq=CR_HQ, d=CR_HD)
+    if ops.decode_head_groups(CR_HQ, CR_HD) != 1:
+        raise AssertionError(f"{CR}: expected one head group")
+
+    # ---- the decode attentions, HQ 8, one head group
+    paged, dense = {}, {}
+    for kind in ("bf16", "int8"):
+        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
+        paged[kind] = paged_decode_case(gen, dev, DECODE_LENS, timed=True,
+                                        gqa=True, **flags, **geo)
+        dense[kind] = dense_decode_case(gen, dev, DECODE_LENS, timed=True,
+                                        gqa=True, **flags, **geo)
+        holes = _holes_table(gen, dev, 16, len(HOLE_LENS) * 16, 64,
+                             HOLE_LENS)
+        paged[f"holes {kind}"] = paged_decode_case(
+            gen, dev, HOLE_LENS, pt=holes, **flags, **geo)
+        dense[f"s832 {kind}"] = dense_decode_case(
+            gen, dev, [0, 1, 64, 832, 700, 511, 513, 900], s=832, **flags,
+            **geo)
+    paged["b1"] = paged_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    dense["b1"] = dense_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    log(f"  {CR} decode attentions (KVH 8, HQ 8, D 128: one head group): "
+        f"within 2e-5 on bf16 and int8 pools and caches, -1 entries inside "
+        f"rows; dense bitwise equal to paged at S = 1024 and 832")
+    for name, recs, file, at, kind in (
+            ("paged_decode_attention", paged, "paged_decode_attention.cu",
+             "paged_decode_attention.py:138", "pool"),
+            ("decode_attention", dense, "decode_attention.cu",
+             "decode_attention.py:206", "cache")):
+        r, i8, b1 = recs["bf16"], recs["int8"], recs["b1"]
+        report.add(f"{name}@{CR}", route="cuda", source=src + file,
+                   header=src + "flash_decode.cuh",
+                   replaces=f"src/repro/kernels/{at}",
+                   max_abs_err=max(x["err"] for x in recs.values()),
+                   ms=r["ms"], plain_ms=r["plain"], library_ms=r["lib"],
+                   bound_ms=r["bound"], bound_by=r["by"], int8_ms=i8["ms"],
+                   int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
+                   int8_bound_ms=i8["bound"], b1_1024_ms=b1["ms"],
+                   b1_1024_bound_ms=b1["bound"], b1_1024_library_ms=b1["lib"],
+                   head_groups=1,
+                   per=f"one layer's call at 8 slots x 1024 (lens "
+                       f"{DECODE_LENS}), 8 KV heads x HQ 8 x D 128, bf16 "
+                       f"{kind} (int8_* for int8, b1_* at batch 1, len "
+                       f"1024); library: SDPA, enable_gqa")
+
+    # ---- q8_matvec: a decode step's 4 x 40 layer GEMVs + the head
+    operands = _q8_operands(gen, dev)
+    step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
+                      operands, CR_GEMV, CR_HEAD, CR_LAYERS, dev)
+    log(f"  {CR} q8_matvec per decode step ({CR_LAYERS} layers x 4 + head, "
+        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
+        f"ms, bound {step['bound']:.4f} ms, "
+        f"{100 * step['bound'] / step['ms']:.1f}% of it")
+    report.add(f"q8_matvec@{CR}", route="cuda", source=src + "q8_matvec.cu",
+               replaces="src/repro/kernels/q8_matvec.py:67",
+               max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
+               bound_ms=step["bound"], bound_by="bytes",
+               library_ms=step["lib"],
+               per=f"decode step at 8 slots: {4 * CR_LAYERS} layer GEMVs "
+                   "(N x K 10240 x 8192, 8192 x 8192, 45056 x 8192, 8192 x "
+                   "22528) + head 256000 x 8192")
+
+    # ---- q8_matmul: the chunk step's MLP, 40 x (w13, w2) at 2048 rows,
+    # and the verify step's head at 40 rows (offsets past 2^31 / 1.02)
+    chunk = q8_matmul_chunk(dev, 2048, operands, shapes=CR_GEMM,
+                            layers=CR_LAYERS)
+    n, k = CR_HEAD
+    err, _ = _quant_check(ops.q8_matmul_kernel, ref.ref_q8_matmul,
+                          "q8_matmul", 40, n, k, 64, *operands(40, n, k))
+    log(f"  {CR} q8_matmul at the verify step's head (M=40, N x K {n} x "
+        f"{k}): bitwise, err {err:.2e}")
+    report.add(f"q8_matmul@{CR}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=chunk["err"], ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per=f"chunk step at 8 x 256 rows: {CR_LAYERS} x (w13 45056 x "
+                   "8192, w2 8192 x 22528); bitwise; the verify head "
+                   "(M 40, 256000 x 8192) bitwise, untimed")
+
+    # ---- paged_prefill_attention: 2048 rows a (slot, KV head), bf16 pool
+    pre = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False,
+                             bf16=True, timed=True, **geo)
+    worst_pre = max(pre["err"], paged_prefill_case(
+        gen, dev, PREFILL_PFX, PREFILL_QLENS, True, **geo)["err"])
+    report.add(f"paged_prefill_attention@{CR}", route="cuda",
+               source=src + "paged_prefill_attention.cu",
+               header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/paged_prefill_attention.py:215",
+               max_abs_err=worst_pre, ms=pre["ms"], plain_ms=pre["plain"],
+               library_ms=pre["lib"], bound_ms=pre["bound"],
+               bound_by=pre["by"], f32_bound_ms=pre["f32_bound"],
+               tf32x3_bound_ms=pre["tf32x3_bound"],
+               per="one layer's call at 8 x 256 rows, 8 KV heads x HQ 8 x "
+                   "D 128, bf16 pool (an int8 pool held, untimed)")
+
+    # ---- rmsnorm_quant at K 8192: 0 codes apart, scales equal; f32 rows
+    # (no bf16 rounding to hide an ulp of the mean) and the order control
+    _bf16_norm_row(report, gen, dev, CR, CR_D, 0, ms=CR_NORM_M,
+                   scale_rel=0.0)
+    for m in CR_NORM_M:
+        _norm_held(ops, ref, _norm_input(gen, dev, m, CR_D, 64),
+                   torch.randn((CR_D,), generator=gen, device=dev), 1e-5, 64,
+                   0, 0.0)
+    codes, scales = _norm_order_control(gen, dev, 2048, CR_D)
+    log(f"  {CR} rmsnorm_quant f32 rows K={CR_D} M={CR_NORM_M}: 0 codes "
+        f"apart, every scale equal; control, M=2048 summed as one "
+        f"512-thread tree (not PyTorch's split over warp-rows): {codes} "
+        f"codes and {scales} of {2048 * CR_D // 64} scales differ")
+    report.rows[f"rmsnorm_quant@{CR}"].update(
+        order_control={"codes_differing": codes, "scales_differing": scales})
+
+    _bf16_quantize_row(report, gen, dev, CR, CR_D, CR_FF)
+    _bf16_rope_row(report, gen, dev, CR, 64, CR_KVH, CR_HD, 8e6)
+
+
+def norm_bits(dev, path):
+    """rmsnorm_quant's and quantize's outputs on seeded inputs at every
+    shape served before command-r-35b (K 768 f32, K 3072 and 4096 bf16 and
+    f32, at M 1, 8, 16, 40 and 2048, the edges NORM_EDGES; quantize at
+    QUANT_TIMED, QUANT_EDGES and K 13696), saved to ``path`` when it does
+    not exist, else held bitwise against what it holds.  Run it from the
+    tree before a change to rmsnorm_quant.cu (with this script copied over
+    its own), then from the change."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(11)
+    outs = []
+    shapes = [(m, k) for k in (768, 3072, 4096) for m in CR_NORM_M]
+    for m, k in shapes + NORM_EDGES:
+        gamma = torch.randn((k,), generator=gen, device=dev)
+        for bf16 in (False, True):
+            x = _norm_input(gen, dev, m, k, 64)
+            outs += ops.rmsnorm_quant_kernel(x.bfloat16() if bf16 else x,
+                                             gamma, 1e-5, 64)
+    for m, k, gs in QUANT_TIMED + QUANT_EDGES + [(8, 13696, 64),
+                                                 (2048, 13696, 64)]:
+        outs += ops.quantize_kernel(_norm_input(gen, dev, m, k, gs), gs)
+    return _bits_held("rmsnorm_quant and quantize", outs, path)
 
 
 def decode_bits(dev, path):
@@ -1716,7 +1932,7 @@ def check_rmsnorm_quant(report, dev, parent=False):
             asc = torch.empty_like(ws)
             build.launch("rmsnorm_quant", x.data_ptr(), gamma.data_ptr(),
                          aq.data_ptr(), asc.data_ptr(), m, k, gs, eps, factor,
-                         *ops.rmsnorm_quant_plan(m, k, alt), 0,
+                         *ops.rmsnorm_quant_plan(m, k, alt), alt, 0,
                          torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             alt_rel = ((asc - ws).abs()
@@ -4008,9 +4224,9 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
     step on the plain step's cache.  For each kernel of ``shares``, the
     same two differences with only that kernel on its plain version (all
     others launched) and with only that kernel launched (all others
-    plain).  For each planted fault of ``controls`` (``_planted_faults``),
-    the same two differences with every kernel launched and that fault
-    planted.  Returns a dict: ``chunk`` and ``decode`` max |diff| with
+    plain).  For each planted fault of ``controls``
+    (``_planted_faults``), the same two differences with every kernel
+    launched and that fault planted.  Returns a dict: ``chunk`` and ``decode`` max |diff| with
     every kernel launched, ``scale`` (the plain logits' largest
     magnitude), ``bound`` (``plain_delta_bound``), ``shares`` and
     ``controls``; raises if any difference but a control's exceeds the
@@ -4059,12 +4275,13 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
     rec = {"chunk": d_chunk, "decode": d_dec, "scale": scale, "bound": tol,
            "shares": {}, "controls": {}}
     for name in shares:
-        alone = run((name,))
-        only = run(tuple(k for k in PLAIN_KERNELS if k != name))
-        rec["shares"][name] = {"plain_alone": alone, "launched_alone": only}
-        log(f"    {name}: on its plain version alone chunk {alone[0]:.4g}, "
-            f"decode {alone[1]:.4g}; launched alone chunk {only[0]:.4g}, "
-            f"decode {only[1]:.4g}")
+        rec["shares"][name] = {
+            "plain_alone": run((name,)),
+            "launched_alone": run(tuple(k for k in PLAIN_KERNELS
+                                        if k != name))}
+        log(f"    {name}: " + "; ".join(
+            f"{how.replace('_', ' ')} chunk {d[0]:.4g}, decode {d[1]:.4g}"
+            for how, d in rec["shares"][name].items()))
     worst = max([d_chunk, d_dec] + [x for r in rec["shares"].values()
                                     for pair in r.values() for x in pair])
     log(f"  kernels vs plain versions on the same inputs: "
@@ -4117,6 +4334,7 @@ def llama3_params(dev):
     freed.  Returns (config, Q8_0, Q4_0, prompts, seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.quantization import tree_differs
     from repro_torch.models.model import build_model
     cfg = get_config(L3)
     model = build_model(cfg)
@@ -4128,6 +4346,17 @@ def llama3_params(dev):
     made = time.perf_counter() - t0
     del init
     torch.cuda.empty_cache()
+    for tag, want, policy in (("Q8_0", params, None),
+                              ("Q4_0", p4, QuantPolicy(**Q4_POLICY))):
+        differ = tree_differs(model.init_quantized(0, policy, device=dev),
+                              want)
+        if differ:
+            raise AssertionError(f"{L3}: init_quantized {tag} differs from "
+                                 f"quantize(init) at {differ}")
+    torch.cuda.empty_cache()
+    log(f"  {L3}: Model.init_quantized(0) bitwise equal to "
+        "Model.quantize(Model.init(0)), Q8_0 and Q4_0, every leaf and the "
+        "fused operands")
     prompts = _requests(8, 16, 600, cfg.vocab_size, seed=16, shared_len=128,
                         shared_at=(0, 5))
     return cfg, params, p4, prompts, made
@@ -4291,44 +4520,71 @@ def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
     return out
 
 
-def full_width_path(dev, counted, arch, n):
-    """Phase ``n``: ``arch`` (phi4-mini-3.8b, phase 18; glm4-9b, phase 19)
-    at full width and depth from the port's own seeded ``init_params`` on
-    the card (f32, freed after Q8_0 with the fused decode operands), the
-    paged Engine on a bf16 pool as phase 16; 8 requests of 16..600 tokens,
-    two sharing a 128-token prefix, 32 greedy tokens.
-    ``kernel_plain_delta`` with every kernel's share, held to the fixed
-    bound at the config's depth (and its planted faults rejected), stands
-    in for the plain-version engine run and the int8 pool.  Asserts the
-    exact launch counts, a prefix-cache hit and no token past the head's
-    rows.  Launches are counted under ``<kernel>@<arch>`` and listed in the
-    record; the parameters are freed before it returns."""
+def f32_init_bytes(cfg) -> int:
+    """Bytes of ``init_params``'s f32 tree at ``cfg``: what a draw in full
+    before quantizing would hold (the tree built on the meta device)."""
+    from repro_torch.models.transformer import _dense_tree
+    meta = torch.device("meta")
+
+    def leaf(path, shape, scale):
+        return torch.empty(shape, device=meta)
+
+    def total(t):
+        if isinstance(t, dict):
+            return sum(map(total, t.values()))
+        return t.numel() * 4
+
+    return total(_dense_tree(cfg, leaf, meta))
+
+
+def full_width_path(dev, counted, arch, n, n_layers=None):
+    """Phase ``n``: ``arch`` (phi4-mini-3.8b, phase 18; glm4-9b, phase 19;
+    command-r-35b, phase 20) at full width, and full depth unless
+    ``n_layers`` cuts it, from the port's own seeded init quantized as it
+    draws (``Model.init_quantized``: Q8_0 with the fused decode operands,
+    bitwise ``quantize(init)``, the f32 tree never held), the paged Engine
+    on a bf16 pool as phase 16; 8 requests of 16..600 tokens, two sharing
+    a 128-token prefix, 32 greedy tokens.  ``kernel_plain_delta`` with
+    every kernel's share (each kernel plain alone and launched alone),
+    held to the fixed bound at the config's depth (and its planted faults
+    rejected), stands in for the plain-version engine run and the int8
+    pool.  Asserts the exact launch counts, a prefix-cache hit and no token
+    past the head's rows.  Launches are counted under ``<kernel>@<arch>``
+    and listed in the record, with the init's seconds, the f32 GB never
+    held, the Q8_0 GB, the peak GB allocated by the init and over the
+    phase, and a digest of the streams; the parameters are freed before it
+    returns."""
+    import hashlib
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.model import build_model
     cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    init = model.init(seed=0, device=dev)
-    f32_gb = param_bytes(init) / 1e9
-    params = model.quantize(init)
-    del init
+    params = model.init_quantized(seed=0, device=dev)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     made = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    f32_gb = f32_init_bytes(cfg) / 1e9
     prompts = _requests(8, 16, 600, cfg.vocab_size, seed=n, shared_len=128,
                         shared_at=(0, 5))
-    phase(f"phase {n}: {arch} full width and depth ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+    phase(f"phase {n}: {arch} full width, {cfg.n_layers} layers"
+          f"{' (cut)' if n_layers else ''} (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
           f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (head "
           f"{cfg.padded_vocab()} rows), rope theta {cfg.rope_theta:g}, "
-          f"{cfg.compute_dtype}), {f32_gb:.2f} GB of f32 then Q8_0 "
-          f"parameters {param_bytes(params) / 1e9:.2f} GB made on the card "
-          f"in {made:.1f} s (peak {peak:.2f} GB allocated); 8 requests of "
-          f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens, 32 "
-          "greedy tokens, paged bf16 pool")
+          f"{cfg.compute_dtype}), Q8_0 parameters "
+          f"{param_bytes(params) / 1e9:.2f} GB ({held:.2f} GB allocated) "
+          f"quantized as drawn on the card in {made:.1f} s, their "
+          f"{f32_gb:.2f} GB of f32 never held (peak {peak:.2f} GB "
+          f"allocated); 8 requests of {min(map(len, prompts))}.."
+          f"{max(map(len, prompts))} tokens, 32 greedy tokens, paged bf16 "
+          "pool")
     delta = kernel_plain_delta(model, params, prompts, dev,
                                shares=L3_PAGED_KERNELS,
                                controls=PAGED_CONTROLS)
@@ -4343,20 +4599,31 @@ def full_width_path(dev, counted, arch, n):
         raise AssertionError(f"{arch}: a token past the head's rows")
     rec = engine_line(f"{arch}, bf16 pool, kernel strategy", eng, streams,
                       wall)
-    rec.update(kernel_plain_delta=delta, launches=mine, f32_gb=f32_gb,
-               q8_gb=param_bytes(params) / 1e9, peak_gb=peak)
+    rec.update(kernel_plain_delta=delta, launches=mine, n_layers=cfg.n_layers,
+               init_s=made, f32_gb_never_held=f32_gb,
+               q8_gb=param_bytes(params) / 1e9, allocated_gb=held,
+               init_peak_gb=peak,
+               run_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               streams_sha1=hashlib.sha1(
+                   json.dumps(streams).encode()).hexdigest()[:12])
     _suffixed(counted, mine, arch)
     del params
     torch.cuda.empty_cache()
     return rec
 
 
+# phase 19's depth: glm4-9b's 40 layers cut to make room for phase 20 in
+# the script's time (its kernels at its shapes stay in phase 2)
+G4_PHASE_LAYERS = 10
+
+
 def bf16_paths(dev, counted):
-    """Phases 16-19, the bf16 configs: llama3.2-3b's parameters drawn once
+    """Phases 16-20, the bf16 configs: llama3.2-3b's parameters drawn once
     (``llama3_params``), the paged pools (phase 16), the dense cache and
-    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18) and glm4-9b (phase
-    19), each drawn after the last one's parameters are freed.  Alone on
-    the card: ``build.build()``, ``qlinear.set_default_strategy("kernel")``
+    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18), glm4-9b at
+    ``G4_PHASE_LAYERS`` layers (phase 19) and command-r-35b (phase 20),
+    each drawn after the last one's parameters are freed.  Alone on the
+    card: ``build.build()``, ``qlinear.set_default_strategy("kernel")``
     and ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as
     ``main`` does, then ``bf16_paths(torch.device("cuda"), {})``."""
     cfg, params, p4, prompts, made = llama3_params(dev)
@@ -4368,9 +4635,11 @@ def bf16_paths(dev, counted):
     torch.cuda.empty_cache()
     phi = full_width_path(dev, counted, P4, 18)
     phase(f"phase 18: {P4} {json.dumps(phi)}")
-    glm = full_width_path(dev, counted, G4, 19)
+    glm = full_width_path(dev, counted, G4, 19, n_layers=G4_PHASE_LAYERS)
     phase(f"phase 19: {G4} {json.dumps(glm)}")
-    return l3, l3b, phi, glm
+    cr = full_width_path(dev, counted, CR, 20)
+    phase(f"phase 20: {CR} {json.dumps(cr)}")
+    return l3, l3b, phi, glm, cr
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -4485,6 +4754,7 @@ def main() -> int:
     check_llama3_dense_q4(report, dev)
     check_phi4_head(report, dev)
     check_glm4(report, dev)
+    check_command_r(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)

@@ -57,6 +57,26 @@ class QuantizedTensor:
                                    scale=self.scale.to(device))
 
 
+def tree_differs(got, want, path: str = "") -> list:
+    """The paths at which two parameter trees differ: keys, type, dtype,
+    shape, or a bit of a float leaf or of a quantized leaf's codes or
+    scales.  Empty when they are bitwise the same."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "/"]
+        return [p for k in want
+                for p in tree_differs(got[k], want[k], f"{path}/{k}")]
+    if type(got) is not type(want):
+        return [path]
+    pairs = ([(got.q, want.q), (got.scale, want.scale)]
+             if isinstance(want, QuantizedTensor) else [(got, want)])
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    if isinstance(want, QuantizedTensor):
+        same = same and (got.group_size, got.bits, got.orig_dim) == (
+            want.group_size, want.bits, want.orig_dim)
+    return [] if same else [path]
+
+
 def _ratio(qmax: int, absmax: torch.Tensor) -> torch.Tensor:
     """``qmax / absmax`` as a true f32 division (``scalar / tensor`` in
     PyTorch multiplies by the reciprocal, which rounds differently), 0

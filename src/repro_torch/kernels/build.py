@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, list] = {
     "decode_attention": [_P] * 7 + [_I] * 7 + [_P],
     "flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "rope": [_P] * 4 + [_I] * 5 + [_P],
-    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P],
+    "rmsnorm_quant": [_P] * 4 + [_I] * 3 + [_F, _F] + [_I] * 5 + [_P],
     "quantize": [_P] * 3 + [_I] * 7 + [_P],
 }
 

@@ -420,19 +420,43 @@ def _last_pow2(n: int) -> int:
 TORCH_ROW_MEAN_ORDER_OF = "2.11"
 
 
-def _torch_row_mean_order(m: int, k: int):
-    """How PyTorch's CUDA reduction takes the mean of each contiguous f32
-    row of an (M, K) tensor, K >= 128 and a multiple of 4
+def _torch_reduce_block(m: int, k: int):
+    """The block PyTorch's CUDA reduction launches for the mean of each
+    contiguous f32 row of an (M, K) tensor, K >= 128 and a multiple of 4
     (``setReduceConfig`` in ATen/native/cuda/Reduce.cuh, torch
-    ``TORCH_ROW_MEAN_ORDER_OF``): the threads that share a row (a power of
-    two, each summing every that-many-th float4) and the factor
-    ``f32(M) / f32(M * K)`` the sum is multiplied by."""
+    ``TORCH_ROW_MEAN_ORDER_OF``; vectorized by 4): (x threads, y warp-rows)."""
     dim0 = k // 4
     dim0_pow2 = _last_pow2(dim0) if dim0 < 512 else 512
     dim1_pow2 = _last_pow2(m) if m < 512 else 512
     height = min(dim1_pow2, 512 // min(dim0_pow2, 32))
-    width = min(dim0_pow2, 512 // height)
+    return min(dim0_pow2, 512 // height), height
+
+
+def _torch_row_mean_order(m: int, k: int):
+    """How PyTorch's CUDA reduction takes the mean of each row of an (M, K)
+    f32 tensor (:func:`_torch_reduce_block`): the x threads of its block,
+    which share a row or a slice of one (a power of two, each summing every
+    that-many-th float4 of its slice), and the factor ``f32(M) / f32(M *
+    K)`` the sum is multiplied by."""
+    width, _ = _torch_reduce_block(m, k)
     return width, float(np.float32(m) / np.float32(m * k))
+
+
+def _torch_row_split(m: int, k: int) -> int:
+    """How many of PyTorch's warp-rows (y) share one row: all of them
+    where each x thread would otherwise sum at least min(16 * height, 256)
+    values (``split_across_warps``; K = 8192 from M = 2 on), else 1.  A
+    split row's thread (x, y) sums the float4s x + width * y, + 512, ...;
+    the slices' sums fold over y after each slice's own tree.  Raises
+    where PyTorch would also split a row across blocks."""
+    width, height = _torch_reduce_block(m, k)
+    if -(-k // width) < min(16 * height, 256):
+        return 1
+    if height > 1 and -(-k // (width * height)) >= 256:
+        raise ValueError(f"rmsnorm_quant: K={k} at M={m}: PyTorch splits "
+                         "such a row across blocks, an order the kernel "
+                         "does not take")
+    return height
 
 
 # float4s a thread that rmsnorm_quant.cu instantiates (kVecs)
@@ -454,18 +478,21 @@ def quantize_width(k: int) -> int:
     return width
 
 
-def rmsnorm_quant_plan(m: int, k: int, width: int):
+def rmsnorm_quant_plan(m: int, k: int, width: int, split: int = 1):
     """Launch plan of ``rmsnorm_quant.cu`` for M rows of K columns, with
-    ``width`` threads a row (PyTorch's, or :func:`quantize_width` for
-    ``quantize``): (width, rows a block, float4s a thread).  Thread t of a
-    row holds the float4s t, t + width, ... (the last sweep may be part
-    dead).  A row of more than 128 threads has a block of its own;
-    narrower rows share blocks of at most ``Q8_ROWS_BLOCK`` threads, but
+    ``width`` threads a row slice (PyTorch's x threads, or
+    :func:`quantize_width` for ``quantize``) and ``split`` slices a row
+    (:func:`_torch_row_split`): (threads a row, rows a block, float4s a
+    thread).  Thread t of a row holds the float4s t, t + width * split,
+    ... (the last sweep may be part dead).  A row of more than 128
+    threads has a block of its own; narrower rows share blocks of at most
+    ``Q8_ROWS_BLOCK`` threads, but
     only as many as it takes to keep one block for each of the card's
     SMs, so that a few decode rows spread over as many SMs as there are
     rows.  The kernel holds a thread's float4s in registers: at most
     ``Q8_ROWS_VECS[-1]`` of them, in blocks of at most 256 threads from
     16 on (its launch bounds), which bounds K at a given width."""
+    width *= split
     need = -(-(k // 4) // width)
     vecs = next((v for v in Q8_ROWS_VECS if v >= need), None)
     if vecs is None or (vecs >= 16 and width > Q8_ROWS_BLOCK):
@@ -524,7 +551,7 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
     width, factor = _torch_row_mean_order(m, k)
     launch(name, x.data_ptr(), gamma.data_ptr(), q.data_ptr(), s.data_ptr(),
            m, k, group_size, eps, factor,
-           *rmsnorm_quant_plan(m, k, width),
+           *rmsnorm_quant_plan(m, k, width, _torch_row_split(m, k)), width,
            int(x.dtype == torch.bfloat16), _stream(x))
     return q, s
 

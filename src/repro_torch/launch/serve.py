@@ -26,15 +26,23 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
       --arch llama3.2-3b --bits 4 --requests 16 --slots 8 --max-seq 1024
 
   # phi4-mini-3.8b (llama3.2-3b's head layout, 32 layers, vocab 200064):
-  # ~15 GB of f32 parameters made on the card, then ~4 GB of Q8_0
+  # ~7 GB of Q8_0 with the fused operands
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch phi4-mini-3.8b --requests 16 --slots 8 --max-seq 1024
 
   # glm4-9b (40 layers, d_model 4096, 32 query heads over 2 KV heads of
-  # 128, d_ff 13696, vocab 151552): ~35 GB of f32 parameters made on the
-  # card, then Q8_0 with the fused decode operands
+  # 128, d_ff 13696, vocab 151552): Q8_0 with the fused decode operands,
+  # each weight quantized as it is drawn
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch glm4-9b --requests 16 --slots 8 --max-seq 1024
+
+  # command-r-35b (40 layers, d_model 8192, 64 query heads over 8 KV heads
+  # of 128, d_ff 22528, vocab 256000): ~54 GB of Q8_0 with the fused
+  # operands; its 121 GB f32 tree is never held (at most w2's 29.5 GB
+  # draw).  Its reduced config on the CPU: --arch command-r-35b
+  # --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch command-r-35b --requests 16 --slots 8 --max-seq 1024
 
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
@@ -124,15 +132,19 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     if kv_int8:
         cfg = cfg.with_(kv_cache_dtype="int8")
     model = build_model(cfg)
-    params = model.init(seed, device=dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {dev} ({name})")
-    if not no_quant:
+    if no_quant:
+        params = model.init(seed, device=dev)
+    else:
+        # post-training quantization as each weight is drawn: the same bits
+        # as quantize(init(seed)), without the float tree
         t0 = time.perf_counter()
-        params = model.quantize(params, QuantPolicy(bits=bits, min_size=512))
-        print(f"[serve] Q{bits}_0 post-training quantization "
-              f"in {time.perf_counter()-t0:.2f}s")
+        params = model.init_quantized(
+            seed, QuantPolicy(bits=bits, min_size=512), device=dev)
+        print(f"[serve] Q{bits}_0 post-training quantization, drawn and "
+              f"quantized in {time.perf_counter()-t0:.2f}s")
 
     proposer = (DraftModelProposer(model, params, max_seq=max_seq)
                 if spec_tokens > 0 and draft == "draft_model" else draft)

@@ -23,6 +23,16 @@ class Model:
     def init(self, seed: int = 0, device: Device = None):
         return transformer.init_params(self.cfg, seed, device=device)
 
+    def init_quantized(self, seed: int = 0,
+                       policy: Optional[QuantPolicy] = None,
+                       device: Device = None):
+        """``quantize(init(seed), policy)``, fused decode operands
+        included, bit for bit, without ever holding the float tree: each
+        weight is quantized as it is drawn
+        (``transformer.init_quantized``)."""
+        return transformer.init_quantized(self.cfg, seed, policy,
+                                          device=device)
+
     def quantize(self, params, policy: Optional[QuantPolicy] = None,
                  fuse_decode: bool = True):
         """Post-training quantization (the paper's section 3.2 flow), plus

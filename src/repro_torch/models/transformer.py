@@ -26,10 +26,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlinear import norm_qdot, qdot, qeinsum
-from repro_torch.core.quantization import (QuantizedTensor, qt_concat,
+from repro_torch.core.quantization import (QuantizedTensor,
+                                           choose_group_size, qt_concat,
                                            qt_fold_lead_into_groups,
-                                           qt_reshape_lead, quantize_rows)
+                                           qt_reshape_lead, quantize,
+                                           quantize_rows)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -57,43 +60,104 @@ def _q_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" \
+            or cfg.mlp_type != "swiglu" or not cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU "
+                                  "family with tied embeddings is ported")
+
+
+def _dense_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
+    """The dense parameter tree on ``dev``, each weight made by
+    ``leaf(path, shape, scale)`` (a normal draw times ``scale``, path as
+    ``quantize_params`` names it) in the order the reference draws them:
+    the embedding, then wq, wk, wv, wo, w1, w3, w2; norm gammas of ones."""
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    nl, d, hd = cfg.n_layers, cfg.d_model, cfg.hd()
+    h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
+    return {
+        "embed": leaf("embed", (cfg.padded_vocab(), d), 0.02),
+        "final_norm": {"gamma": ones(d)},
+        "blocks": {
+            "norm1": {"gamma": ones(nl, d)},
+            "attn": {"wq": leaf("blocks/attn/wq", (nl, h, hd, d), sc),
+                     "wk": leaf("blocks/attn/wk", (nl, kvh, hd, d), sc),
+                     "wv": leaf("blocks/attn/wv", (nl, kvh, hd, d), sc),
+                     "wo": leaf("blocks/attn/wo", (nl, d, h, hd), so)},
+            "norm2": {"gamma": ones(nl, d)},
+            "mlp": {"w1": leaf("blocks/mlp/w1", (nl, f, d), sc),
+                    "w3": leaf("blocks/mlp/w3", (nl, f, d), sc),
+                    "w2": leaf("blocks/mlp/w2", (nl, d, f),
+                               1.0 / math.sqrt(f))},
+        },
+    }
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Device = None) -> Params:
     """Random dense parameters from ``seed``: the reference's shapes and
     scales (normal draws times 1/sqrt(fan-in); embedding times 0.02), drawn
     from a ``torch.Generator``, so the values differ from the reference's."""
-    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" \
-            or cfg.mlp_type != "swiglu" or not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU "
-                                  "family with tied embeddings is ported")
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = _pdt(cfg)
-    nl, d, hd = cfg.n_layers, cfg.d_model, cfg.hd()
-    h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
 
-    def normal(*shape, scale):
+    def normal(path, shape, scale):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return _dense_tree(cfg, normal, dev)
 
-    sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
-    return {
-        "embed": normal(cfg.padded_vocab(), d, scale=0.02),
-        "final_norm": {"gamma": ones(d)},
-        "blocks": {
-            "norm1": {"gamma": ones(nl, d)},
-            "attn": {"wq": normal(nl, h, hd, d, scale=sc),
-                     "wk": normal(nl, kvh, hd, d, scale=sc),
-                     "wv": normal(nl, kvh, hd, d, scale=sc),
-                     "wo": normal(nl, d, h, hd, scale=so)},
-            "norm2": {"gamma": ones(nl, d)},
-            "mlp": {"w1": normal(nl, f, d, scale=sc),
-                    "w3": normal(nl, f, d, scale=sc),
-                    "w2": normal(nl, d, f, scale=1.0 / math.sqrt(f))},
-        },
-    }
+
+# values a quantized slice of ``init_quantized`` holds at most (1 GB of f32)
+_INIT_SLICE = 1 << 28
+
+
+def _quantize_slices(x: torch.Tensor, policy: QuantPolicy) -> QuantizedTensor:
+    """``quantize(x)`` by slices of the leading axis (one layer, or rows of
+    the embedding) into codes and scales allocated once: groups lie along
+    the last axis, so each slice's codes and scales are the whole
+    tensor's."""
+    k = x.shape[-1]
+    gs = choose_group_size(k, policy.group_size)
+    kq = k // 2 if policy.bits == 4 else k
+    q = torch.empty((*x.shape[:-1], kq), dtype=torch.int8, device=x.device)
+    s = torch.empty((*x.shape[:-1], k // gs), dtype=torch.float32,
+                    device=x.device)
+    step = max(1, _INIT_SLICE * x.shape[0] // x.numel())
+    for i in range(0, x.shape[0], step):
+        t = quantize(x[i:i + step], group_size=gs, bits=policy.bits)
+        q[i:i + step] = t.q
+        s[i:i + step] = t.scale
+    return QuantizedTensor(q=q, scale=s, group_size=gs, bits=policy.bits,
+                           orig_dim=k)
+
+
+def init_quantized(cfg: ModelConfig, seed: int = 0,
+                   policy: Optional[QuantPolicy] = None,
+                   device: Device = None) -> Params:
+    """``init_params`` quantized as it draws: bitwise
+    ``fuse_decode_weights(quantize_params(init_params(cfg, seed), policy))``
+    without the float tree.  Each weight is the same generator call at the
+    same shape, in the same order; it is scaled in place, quantized by
+    slices (``_quantize_slices``) and freed before the next draw.  At most
+    one weight's float draw is held beside the codes made so far: at
+    command-r-35b 29.5 GB (w2) instead of the 121 GB tree."""
+    _check_family(cfg)
+    policy = policy or QuantPolicy()
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _pdt(cfg)
+
+    def leaf(path, shape, scale):
+        x = torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
+        return _quantize_slices(x, policy) if policy.wants(path, shape) else x
+
+    return fuse_decode_weights(_dense_tree(cfg, leaf, dev), cfg)
 
 
 # ---------------------------------------------------------------------------
