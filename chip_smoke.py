@@ -44,7 +44,11 @@ head, ``q8_matmul`` at N 45056, K 22528 and the verify step's head,
 ``rmsnorm_quant`` at K 8192, where PyTorch's row mean splits a row over
 its warp-rows, 0 codes apart with every scale equal, the decode and
 prefix attentions at 8 query heads a KV head, rope on 72 heads at theta
-8e6); phase 5
+8e6) and at qwen3-moe-30b-a3b's (``check_qwen3_moe``: both decode
+attentions, the prefix attention and ``flash_prefill`` at 4 KV heads x HQ
+8 x D 64 in bf16, the first bf16 config at D 64; the GEMVs at K 2048 and
+the 152064-row head, the verify head at M 40, ``rmsnorm_quant`` and
+``quantize`` at K 2048, rope on 36 heads at theta 1e6); phase 5
 also runs the reduced llama3.2-3b on both caches; phase 16 serves
 llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
 and an int8 pool, held against the same engine on the plain versions;
@@ -52,19 +56,29 @@ phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
 (paged and dense); phase 18 serves phi4-mini-3.8b at full width and depth
 (32 layers, vocab 200064) on a bf16 pool, phase 19 glm4-9b (d_model
 4096, 32 query heads over 2 KV heads of 128, d_ff 13696, vocab 151552; its
-40 layers cut to 10 for time) the same way, and phase 20 command-r-35b
-(40 layers, d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
-22528, vocab 256000), its 121 GB f32 tree never held: phases 18-20 draw
-through ``Model.init_quantized``, which phase 16 holds bitwise against
-``Model.quantize(Model.init(0))``.  On every llama3.2-3b, phi4, glm4 and
-command-r path the kernels' logits are held against the plain versions'
-on the same inputs to a fixed bound derived from bf16 and Q8_0 rounding
+40 layers cut to 10 for time) the same way, phase 20 command-r-35b
+(d_model 8192, 64 query heads over 8 KV heads of 128, d_ff 22528, vocab
+256000; its 40 layers cut to 10 for time) and phase 21 qwen3-moe-30b-a3b
+(48 layers, d_model 2048, 32 query heads over 4 KV heads of 64, 128
+experts of d_ff 768, top 8, vocab 151936: the MoE router and both
+dispatches in plain PyTorch, as the reference's jnp), its 119 GB f32 tree
+never held: phases 18-21 draw through ``Model.init_quantized``, which
+phase 16 holds bitwise against ``Model.quantize(Model.init(0))``, and
+phase 21 again for the MoE tree at 2 layers.  On every llama3.2-3b, phi4,
+glm4, command-r and qwen3-moe path the kernels' logits are held against
+the plain versions' on the same inputs to a fixed bound derived from bf16
+and Q8_0 rounding
 (``plain_delta_bound``), with each kernel's share: the difference with
 only that kernel on its plain version, and with only it launched
 (``kernel_plain_delta``); planted wiring faults, the controls of that
 bound (a GEMV's K loop one group short, GQA groups on the wrong KV head,
 the one-shot prefill's causal diagonal one key short), must each move the
 logits past it, and a decode length one short is measured beside them.
+On the MoE path the routes are pinned to the plain run's for that check
+(``moe_routes``), then one run with free routes counts the flipped
+routing decisions, each first flip held to its layer's fixed gap bound
+(``route_flips``), and the same planted faults with free routes must
+each flip a decision past it.
 Every served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
@@ -1008,31 +1022,20 @@ def _bf16_rope_row(report, gen, dev, arch, nq, kvh, hd, theta):
                    f"{hd} of a bf16 qkv row; bitwise")
 
 
-def check_llama3_dense_q4(report, dev):
-    """The dense cache's two kernels and the Q4_0 kernel at llama3.2-3b's
-    shapes (phase 17's paths), each against its plain version and timed
-    beside it and its library call: flash_prefill on one bf16 prompt of
-    17, 256, 600 and 1024 tokens (24 query heads over 8 KV heads of 128, q
-    pre-scaled in bf16 as the model does, scale 1), within 2e-5, beside
-    SDPA (``is_causal``, ``enable_gqa``) on the same bf16 tensors, its
+def _bf16_flash_row(report, gen, dev, arch, h, kvh, d,
+                    prompts=(17, 256, 600, 1024)):
+    """flash_prefill on one bf16 prompt of each length in ``prompts`` (h
+    query heads over kvh KV heads of d, q pre-scaled in bf16 as the model
+    does, scale 1), within 2e-5 of its plain version, timed beside it and
+    SDPA (``is_causal``, ``enable_gqa``) on the same bf16 tensors; its
     bound the function's flops at the bf16 rate (the kernel's own 3xTF32
-    floor beside it as ``tf32x3_bound_ms``);
-    decode_attention on a bf16 and an int8 cache of 8 slots x 1024 at phase
-    2's lens and at batch 1, bitwise equal to paged_decode_attention on
-    the same rows (and at S = 832), beside SDPA on the dequantized K/V;
-    q4_matvec at the decode GEMVs and the head (M = 1 and 8, within 2e-5)
-    and the chunk step's MLP (M = 8 x 256, bitwise), beside
-    ``torch.matmul`` on dequantized weights, none of it on the dp4a
-    kernel.  Each adds a row ``<kernel>@llama3.2-3b``."""
-    from repro_torch.kernels import build, ops, ref
-    gen = torch.Generator(device=dev).manual_seed(26)
+    floor beside it as ``tf32x3_bound_ms``).  Adds the row
+    ``flash_prefill@<arch>`` (its times at 600 tokens)."""
+    from repro_torch.kernels import ops, ref
     src = "src/repro_torch/kernels/csrc/"
-    h, kvh, d = 24, L3_KVH, L3_HD
     qscale = torch.tensor(d ** -0.5).bfloat16().item()
-
-    # ---- flash_prefill: one bf16 prompt, GQA 24 / 8, D 128
     timed, err_max = {}, 0.0
-    for n in (17, 256, 600, 1024):
+    for n in prompts:
         def mk():
             q = torch.randn((1, n, h, d), generator=gen, device=dev)
             return ((q.bfloat16() * qscale),
@@ -1065,7 +1068,7 @@ def check_llama3_dense_q4(report, dev):
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True)
         lib = time_ms(sdpa)
-        log(f"  {L3} flash_prefill bf16 S={n} H={h} KVH={kvh} D={d}  err "
+        log(f"  {arch} flash_prefill bf16 S={n} H={h} KVH={kvh} D={d}  err "
             f"{err:.2e} (tol 2e-05)  kernel {ms:.4f} ms  plain {plain:.4f} "
             f"ms  sdpa {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, bf16 "
             f"tensor cores), {100 * b_ms / ms:.1f}% of it; 3xTF32 floor "
@@ -1073,12 +1076,36 @@ def check_llama3_dense_q4(report, dev):
         timed[str(n)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=b_ms, bound_by=b_by,
                              tf32x3_bound_ms=tf32x3_ms)
-    report.add(f"flash_prefill@{L3}", route="cuda",
+    report.add(f"flash_prefill@{arch}", route="cuda",
                source=src + "flash_prefill.cu", header=src + "tf32x3.cuh",
                replaces="src/repro/kernels/flash_prefill.py:173",
                max_abs_err=err_max, **timed["600"], by_prompt=timed,
-               per="one layer's call, one 600-token bf16 prompt, 24 / 8 "
-                   "heads of 128 (by_prompt at 17, 256, 600, 1024)")
+               per=f"one layer's call, one 600-token bf16 prompt, {h} / "
+                   f"{kvh} heads of {d} (by_prompt at "
+                   f"{', '.join(map(str, prompts))})")
+
+
+def check_llama3_dense_q4(report, dev):
+    """The dense cache's two kernels and the Q4_0 kernel at llama3.2-3b's
+    shapes (phase 17's paths), each against its plain version and timed
+    beside it and its library call: flash_prefill on one bf16 prompt of
+    17, 256, 600 and 1024 tokens (24 query heads over 8 KV heads of 128, q
+    pre-scaled in bf16 as the model does, scale 1), within 2e-5, beside
+    SDPA (``is_causal``, ``enable_gqa``) on the same bf16 tensors, its
+    bound the function's flops at the bf16 rate (the kernel's own 3xTF32
+    floor beside it as ``tf32x3_bound_ms``);
+    decode_attention on a bf16 and an int8 cache of 8 slots x 1024 at phase
+    2's lens and at batch 1, bitwise equal to paged_decode_attention on
+    the same rows (and at S = 832), beside SDPA on the dequantized K/V;
+    q4_matvec at the decode GEMVs and the head (M = 1 and 8, within 2e-5)
+    and the chunk step's MLP (M = 8 x 256, bitwise), beside
+    ``torch.matmul`` on dequantized weights, none of it on the dp4a
+    kernel.  Each adds a row ``<kernel>@llama3.2-3b``."""
+    from repro_torch.kernels import build, ops, ref
+    gen = torch.Generator(device=dev).manual_seed(26)
+    src = "src/repro_torch/kernels/csrc/"
+    h, kvh, d = 24, L3_KVH, L3_HD
+    _bf16_flash_row(report, gen, dev, L3, h, kvh, d)
 
     # ---- decode_attention: 8 slots x 1024, bf16 and int8 caches
     geo = dict(kvh=kvh, hq=L3_HQ, d=d)
@@ -1188,30 +1215,21 @@ def _halves_bitwise(name, fn, args, out):
                              f"to two calls on q's halves")
 
 
-def check_glm4(report, dev):
-    """The kernels at glm4-9b's new shapes, each against its plain version
-    and timed beside it and its library call, never copied from another
-    config's row.  Both decode attentions at KVH 2, HQ 16, D 128 (two head
-    groups): 8 slots x 1024 at phase 2's lens on bf16 and int8 pools and
-    caches, batch 1 at 1024, -1 entries inside rows; within 2e-5, each
-    call bitwise equal to two calls on q's halves, the dense kernel
-    bitwise equal to the paged one on the same rows; SDPA with
-    ``enable_gqa`` beside them.  q8_matvec at a decode step's 160 layer
-    GEMVs (w2 at K 13696, 13 whole 1024-code slabs and 384 codes) and the
-    151552-row head, M = 1 and 8; q8_matmul at the chunk step's w13 (N
-    27392) and w2 (K 13696) at M = 2048, bitwise; quantize on bf16 rows at
-    K 13696 (M 8 and 2048), bitwise; rmsnorm_quant on bf16 rows at K 4096
-    (M 1, 8, 2048), 0 codes apart; paged_prefill_attention at HQ 16 on a
-    bf16 pool; rope on 34 heads of 128.  Each adds a row
-    ``<kernel>@glm4-9b``."""
-    from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device=dev).manual_seed(27)
+def _decode_attention_rows(report, gen, dev, arch, kvh, hq, d, groups):
+    """Both decode attentions at one config's KVH x HQ x D, each against
+    its plain version: 8 slots x 1024 at phase 2's lens on bf16 and int8
+    pools and caches (timed, SDPA with ``enable_gqa`` beside them), -1
+    entries inside rows and lens at the split boundaries (paged), S = 832
+    (dense), batch 1 at 1024 (bf16, timed); within 2e-5, the dense kernel
+    bitwise equal to the paged one.  ``groups``: the head groups
+    ``ops.decode_head_groups`` must give; with two, every call is also
+    bitwise equal to two calls on q's halves.  Adds the rows
+    ``paged_decode_attention@<arch>`` and ``decode_attention@<arch>``."""
+    from repro_torch.kernels import ops
     src = "src/repro_torch/kernels/csrc/"
-    geo = dict(kvh=G4_KVH, hq=G4_HQ, d=G4_HD)
-    if ops.decode_head_groups(G4_HQ, G4_HD) != 2:
-        raise AssertionError(f"{G4}: expected two head groups")
-
-    # ---- the decode attentions, HQ 16, two head groups
+    geo = dict(kvh=kvh, hq=hq, d=d)
+    if ops.decode_head_groups(hq, d) != groups:
+        raise AssertionError(f"{arch}: expected {groups} head groups")
     paged, dense = {}, {}
     for kind in ("bf16", "int8"):
         flags = dict(int8=kind == "int8", bf16=kind == "bf16")
@@ -1219,14 +1237,7 @@ def check_glm4(report, dev):
                                         gqa=True, **flags, **geo)
         dense[kind] = dense_decode_case(gen, dev, DECODE_LENS, timed=True,
                                         gqa=True, **flags, **geo)
-    paged["b1"] = paged_decode_case(gen, dev, [1024], False, bf16=True,
-                                    timed=True, gqa=True, **geo)
-    dense["b1"] = dense_decode_case(gen, dev, [1024], False, bf16=True,
-                                    timed=True, gqa=True, **geo)
-    mb, bs = 16, 64
-    for kind in ("bf16", "int8"):
-        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
-        holes = _holes_table(gen, dev, mb, len(HOLE_LENS) * mb, bs,
+        holes = _holes_table(gen, dev, 16, len(HOLE_LENS) * 16, 64,
                              HOLE_LENS)
         paged[f"holes {kind}"] = paged_decode_case(
             gen, dev, HOLE_LENS, pt=holes, **flags, **geo)
@@ -1235,24 +1246,31 @@ def check_glm4(report, dev):
         dense[f"s832 {kind}"] = dense_decode_case(
             gen, dev, [0, 1, 64, 832, 700, 511, 513, 900], s=832, **flags,
             **geo)
-    for name, fn, recs in (
-            ("paged_decode_attention", ops.paged_decode_attention_kernel,
-             paged),
-            ("decode_attention", ops.decode_attention_kernel, dense)):
-        for rec in recs.values():
-            _halves_bitwise(name, fn, rec["args"], rec["out"])
-    log(f"  {G4} decode attentions (KVH 2, HQ 16, D 128: two head groups): "
-        f"within 2e-5 on bf16 and int8 pools and caches, -1 entries inside "
-        f"rows, lens at split boundaries; every call bitwise equal to two "
-        f"calls on q's halves, dense bitwise equal to paged at S = 1024 "
-        f"and 832")
+    paged["b1"] = paged_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    dense["b1"] = dense_decode_case(gen, dev, [1024], False, bf16=True,
+                                    timed=True, gqa=True, **geo)
+    fns = {"paged_decode_attention": ops.paged_decode_attention_kernel,
+           "decode_attention": ops.decode_attention_kernel}
+    if groups == 2:
+        for name, recs in (("paged_decode_attention", paged),
+                           ("decode_attention", dense)):
+            for rec in recs.values():
+                _halves_bitwise(name, fns[name], rec["args"], rec["out"])
+    in_groups = f"{groups} head group{'s' if groups > 1 else ''}"
+    log(f"  {arch} decode attentions (KVH {kvh}, HQ {hq}, D {d}: "
+        f"{in_groups}): within 2e-5 on bf16 and int8 pools and caches, -1 "
+        f"entries inside rows, lens at split boundaries; "
+        + ("every call bitwise equal to two calls on q's halves, "
+           if groups == 2 else "")
+        + "dense bitwise equal to paged at S = 1024 and 832")
     for name, recs, file, at, kind in (
             ("paged_decode_attention", paged, "paged_decode_attention.cu",
              "paged_decode_attention.py:138", "pool"),
             ("decode_attention", dense, "decode_attention.cu",
              "decode_attention.py:206", "cache")):
         r, i8, b1 = recs["bf16"], recs["int8"], recs["b1"]
-        report.add(f"{name}@{G4}", route="cuda", source=src + file,
+        report.add(f"{name}@{arch}", route="cuda", source=src + file,
                    header=src + "flash_decode.cuh",
                    replaces=f"src/repro/kernels/{at}",
                    max_abs_err=max(x["err"] for x in recs.values()),
@@ -1261,28 +1279,92 @@ def check_glm4(report, dev):
                    int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
                    int8_bound_ms=i8["bound"], b1_1024_ms=b1["ms"],
                    b1_1024_bound_ms=b1["bound"], b1_1024_library_ms=b1["lib"],
-                   head_groups=2,
+                   head_groups=groups,
                    per=f"one layer's call at 8 slots x 1024 (lens "
-                       f"{DECODE_LENS}), 2 KV heads x HQ 16 x D 128 in two "
-                       f"head groups, bf16 {kind} (int8_* for int8, b1_* at "
-                       f"batch 1, len 1024); library: SDPA, enable_gqa")
+                       f"{DECODE_LENS}), {kvh} KV heads x HQ {hq} x D {d} "
+                       f"in {in_groups}, bf16 {kind} (int8_* for int8, b1_* "
+                       f"at batch 1, len 1024); library: SDPA, enable_gqa")
 
-    # ---- q8_matvec: a decode step's 4 x 40 layer GEMVs + the head
-    operands = _q8_operands(gen, dev)
+
+def _q8_matvec_row(report, dev, arch, operands, gemv, head, layers):
+    """q8_matvec at a decode step of one config: each layer GEMV of
+    ``gemv`` (N, K) and the ``head`` at M = 1 and 8 (``_gemv_step``),
+    timed at 8 slots.  Adds the row ``q8_matvec@<arch>``."""
+    from repro_torch.kernels import ops, ref
+    src = "src/repro_torch/kernels/csrc/"
     step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
-                      operands, G4_GEMV, G4_HEAD, G4_LAYERS, dev)
-    log(f"  {G4} q8_matvec per decode step ({G4_LAYERS} layers x 4 + head, "
-        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
-        f"ms, bound {step['bound']:.4f} ms, "
+                      operands, gemv, head, layers, dev)
+    log(f"  {arch} q8_matvec per decode step ({layers} layers x {len(gemv)} "
+        f"+ head, M=8): kernel {step['ms']:.4f} ms, torch.matmul "
+        f"{step['lib']:.4f} ms, bound {step['bound']:.4f} ms, "
         f"{100 * step['bound'] / step['ms']:.1f}% of it")
-    report.add(f"q8_matvec@{G4}", route="cuda", source=src + "q8_matvec.cu",
+    report.add(f"q8_matvec@{arch}", route="cuda", source=src + "q8_matvec.cu",
                replaces="src/repro/kernels/q8_matvec.py:67",
                max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
                bound_ms=step["bound"], bound_by="bytes",
                library_ms=step["lib"],
-               per=f"decode step at 8 slots: {4 * G4_LAYERS} layer GEMVs "
-                   "(N x K 4608 x 4096, 4096 x 4096, 27392 x 4096, 4096 x "
-                   "13696) + head 151552 x 4096")
+               per=f"decode step at 8 slots: {len(gemv) * layers} layer "
+                   f"GEMVs (N x K "
+                   + ", ".join(f"{n} x {k}" for n, k in gemv)
+                   + f") + head {head[0]} x {head[1]}")
+
+
+def _paged_prefill_row(report, gen, dev, arch, kvh, hq, d):
+    """paged_prefill_attention at one config's KVH x HQ x D against its
+    plain version: 8 x 256 rows over phase 2's prefixes on a bf16 and an
+    int8 pool and 256 rows over a 768-token prefix at B 1 (all timed, SDPA
+    beside them), and over tables with -1 entries inside rows.  Adds the
+    row ``paged_prefill_attention@<arch>``."""
+    src = "src/repro_torch/kernels/csrc/"
+    geo = dict(kvh=kvh, hq=hq, d=d)
+    pre = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False,
+                             bf16=True, timed=True, **geo)
+    pre_i8 = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, True,
+                                timed=True, **geo)
+    pre_b1 = paged_prefill_case(gen, dev, [768], [256], False, bf16=True,
+                                timed=True, **geo)
+    worst_pre = max(pre["err"], pre_i8["err"], pre_b1["err"])
+    for kind in ("bf16", "int8"):
+        holes = _holes_table(gen, dev, 16, len(HOLE_LENS) * 16, 64,
+                             HOLE_LENS)
+        worst_pre = max(worst_pre, paged_prefill_case(
+            gen, dev, HOLE_LENS, [7, 20, 256, 100], kind == "int8",
+            pt=holes, bf16=kind == "bf16", **geo)["err"])
+    report.add(f"paged_prefill_attention@{arch}", route="cuda",
+               source=src + "paged_prefill_attention.cu",
+               header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/paged_prefill_attention.py:215",
+               max_abs_err=worst_pre, ms=pre["ms"], plain_ms=pre["plain"],
+               library_ms=pre["lib"], bound_ms=pre["bound"],
+               bound_by=pre["by"], f32_bound_ms=pre["f32_bound"],
+               tf32x3_bound_ms=pre["tf32x3_bound"], int8_ms=pre_i8["ms"],
+               int8_plain_ms=pre_i8["plain"],
+               int8_library_ms=pre_i8["lib"],
+               int8_bound_ms=pre_i8["bound"], b1_ms=pre_b1["ms"],
+               b1_bound_ms=pre_b1["bound"], b1_library_ms=pre_b1["lib"],
+               per=f"one layer's call at 8 x 256 rows, {kvh} KV heads x HQ "
+                   f"{hq} x D {d}, bf16 pool (int8_* for the int8 pool, b1_* "
+                   "for B = 1, 256 rows against prefix 768)")
+
+
+def check_glm4(report, dev):
+    """The kernels at glm4-9b's new shapes, each against its plain version
+    and timed beside it and its library call, never copied from another
+    config's row.  Both decode attentions at KVH 2, HQ 16, D 128 (two head
+    groups), each call bitwise equal to two calls on q's halves
+    (``_decode_attention_rows``).  q8_matvec at a decode step's 160 layer
+    GEMVs (w2 at K 13696, 13 whole 1024-code slabs and 384 codes) and the
+    151552-row head, M = 1 and 8; q8_matmul at the chunk step's w13 (N
+    27392) and w2 (K 13696) at M = 2048, bitwise; quantize on bf16 rows at
+    K 13696 (M 8 and 2048), bitwise; rmsnorm_quant on bf16 rows at K 4096
+    (M 1, 8, 2048), 0 codes apart; paged_prefill_attention at HQ 16
+    (``_paged_prefill_row``); rope on 34 heads of 128.  Each adds a row
+    ``<kernel>@glm4-9b``."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    src = "src/repro_torch/kernels/csrc/"
+    _decode_attention_rows(report, gen, dev, G4, G4_KVH, G4_HQ, G4_HD, 2)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, G4, operands, G4_GEMV, G4_HEAD, G4_LAYERS)
 
     # ---- q8_matmul: the chunk step's MLP, 40 x (w13, w2) at 2048 rows
     chunk = q8_matmul_chunk(dev, 2048, operands, shapes=G4_GEMM,
@@ -1295,22 +1377,7 @@ def check_glm4(report, dev):
                per=f"chunk step at 8 x 256 rows: {G4_LAYERS} x (w13 27392 x "
                    "4096, w2 4096 x 13696); bitwise")
 
-    # ---- paged_prefill_attention: 4096 rows a (slot, KV head), bf16 pool
-    pre = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False,
-                             bf16=True, timed=True, **geo)
-    worst_pre = max(pre["err"], paged_prefill_case(
-        gen, dev, PREFILL_PFX, PREFILL_QLENS, True, **geo)["err"])
-    report.add(f"paged_prefill_attention@{G4}", route="cuda",
-               source=src + "paged_prefill_attention.cu",
-               header=src + "tf32x3.cuh",
-               replaces="src/repro/kernels/paged_prefill_attention.py:215",
-               max_abs_err=worst_pre, ms=pre["ms"], plain_ms=pre["plain"],
-               library_ms=pre["lib"], bound_ms=pre["bound"],
-               bound_by=pre["by"], f32_bound_ms=pre["f32_bound"],
-               tf32x3_bound_ms=pre["tf32x3_bound"],
-               per="one layer's call at 8 x 256 rows, 2 KV heads x HQ 16 x "
-                   "D 128, bf16 pool (an int8 pool held, untimed)")
-
+    _paged_prefill_row(report, gen, dev, G4, G4_KVH, G4_HQ, G4_HD)
     _bf16_norm_row(report, gen, dev, G4, G4_D, 0)
     _bf16_quantize_row(report, gen, dev, G4, G4_D, G4_FF)
     _bf16_rope_row(report, gen, dev, G4, 32, G4_KVH, G4_HD, 1e4)
@@ -1363,14 +1430,12 @@ def _norm_order_control(gen, dev, m, k):
 def check_command_r(report, dev):
     """The kernels at command-r-35b's shapes, each against its plain
     version and timed beside it and its library call.  Both decode
-    attentions at KVH 8, HQ 8, D 128 (one head group): 8 slots x 1024 at
-    phase 2's lens on bf16 and int8 pools and caches, batch 1 at 1024, -1
-    entries inside rows, the dense kernel bitwise equal to the paged one;
-    q8_matvec at a decode step's 160 layer GEMVs (w2 at K 22528) and the
+    attentions at KVH 8, HQ 8, D 128 (one head group;
+    ``_decode_attention_rows``); q8_matvec at a decode step's 160 layer GEMVs (w2 at K 22528) and the
     256000-row head, M = 1 and 8; q8_matmul at the chunk step's w13 (N
     45056) and w2 (K 22528) at M = 2048, and at the verify step's head (M
     40, its offsets up to 2.1e9), bitwise; paged_prefill_attention at HQ 8
-    on a bf16 pool (int8 untimed); rmsnorm_quant on bf16 rows at K 8192, M
+    (``_paged_prefill_row``); rmsnorm_quant on bf16 rows at K 8192, M
     1, 8, 16, 40 and 2048 (PyTorch's row mean splits a row over its
     warp-rows from M = 2 on): 0 codes apart and every scale equal, f32
     rows too, with the unsplit order as a control; quantize on bf16 rows
@@ -1379,69 +1444,9 @@ def check_command_r(report, dev):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(28)
     src = "src/repro_torch/kernels/csrc/"
-    geo = dict(kvh=CR_KVH, hq=CR_HQ, d=CR_HD)
-    if ops.decode_head_groups(CR_HQ, CR_HD) != 1:
-        raise AssertionError(f"{CR}: expected one head group")
-
-    # ---- the decode attentions, HQ 8, one head group
-    paged, dense = {}, {}
-    for kind in ("bf16", "int8"):
-        flags = dict(int8=kind == "int8", bf16=kind == "bf16")
-        paged[kind] = paged_decode_case(gen, dev, DECODE_LENS, timed=True,
-                                        gqa=True, **flags, **geo)
-        dense[kind] = dense_decode_case(gen, dev, DECODE_LENS, timed=True,
-                                        gqa=True, **flags, **geo)
-        holes = _holes_table(gen, dev, 16, len(HOLE_LENS) * 16, 64,
-                             HOLE_LENS)
-        paged[f"holes {kind}"] = paged_decode_case(
-            gen, dev, HOLE_LENS, pt=holes, **flags, **geo)
-        dense[f"s832 {kind}"] = dense_decode_case(
-            gen, dev, [0, 1, 64, 832, 700, 511, 513, 900], s=832, **flags,
-            **geo)
-    paged["b1"] = paged_decode_case(gen, dev, [1024], False, bf16=True,
-                                    timed=True, gqa=True, **geo)
-    dense["b1"] = dense_decode_case(gen, dev, [1024], False, bf16=True,
-                                    timed=True, gqa=True, **geo)
-    log(f"  {CR} decode attentions (KVH 8, HQ 8, D 128: one head group): "
-        f"within 2e-5 on bf16 and int8 pools and caches, -1 entries inside "
-        f"rows; dense bitwise equal to paged at S = 1024 and 832")
-    for name, recs, file, at, kind in (
-            ("paged_decode_attention", paged, "paged_decode_attention.cu",
-             "paged_decode_attention.py:138", "pool"),
-            ("decode_attention", dense, "decode_attention.cu",
-             "decode_attention.py:206", "cache")):
-        r, i8, b1 = recs["bf16"], recs["int8"], recs["b1"]
-        report.add(f"{name}@{CR}", route="cuda", source=src + file,
-                   header=src + "flash_decode.cuh",
-                   replaces=f"src/repro/kernels/{at}",
-                   max_abs_err=max(x["err"] for x in recs.values()),
-                   ms=r["ms"], plain_ms=r["plain"], library_ms=r["lib"],
-                   bound_ms=r["bound"], bound_by=r["by"], int8_ms=i8["ms"],
-                   int8_plain_ms=i8["plain"], int8_library_ms=i8["lib"],
-                   int8_bound_ms=i8["bound"], b1_1024_ms=b1["ms"],
-                   b1_1024_bound_ms=b1["bound"], b1_1024_library_ms=b1["lib"],
-                   head_groups=1,
-                   per=f"one layer's call at 8 slots x 1024 (lens "
-                       f"{DECODE_LENS}), 8 KV heads x HQ 8 x D 128, bf16 "
-                       f"{kind} (int8_* for int8, b1_* at batch 1, len "
-                       f"1024); library: SDPA, enable_gqa")
-
-    # ---- q8_matvec: a decode step's 4 x 40 layer GEMVs + the head
+    _decode_attention_rows(report, gen, dev, CR, CR_KVH, CR_HQ, CR_HD, 1)
     operands = _q8_operands(gen, dev)
-    step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
-                      operands, CR_GEMV, CR_HEAD, CR_LAYERS, dev)
-    log(f"  {CR} q8_matvec per decode step ({CR_LAYERS} layers x 4 + head, "
-        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul {step['lib']:.4f} "
-        f"ms, bound {step['bound']:.4f} ms, "
-        f"{100 * step['bound'] / step['ms']:.1f}% of it")
-    report.add(f"q8_matvec@{CR}", route="cuda", source=src + "q8_matvec.cu",
-               replaces="src/repro/kernels/q8_matvec.py:67",
-               max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
-               bound_ms=step["bound"], bound_by="bytes",
-               library_ms=step["lib"],
-               per=f"decode step at 8 slots: {4 * CR_LAYERS} layer GEMVs "
-                   "(N x K 10240 x 8192, 8192 x 8192, 45056 x 8192, 8192 x "
-                   "22528) + head 256000 x 8192")
+    _q8_matvec_row(report, dev, CR, operands, CR_GEMV, CR_HEAD, CR_LAYERS)
 
     # ---- q8_matmul: the chunk step's MLP, 40 x (w13, w2) at 2048 rows,
     # and the verify step's head at 40 rows (offsets past 2^31 / 1.02)
@@ -1461,21 +1466,7 @@ def check_command_r(report, dev):
                    "8192, w2 8192 x 22528); bitwise; the verify head "
                    "(M 40, 256000 x 8192) bitwise, untimed")
 
-    # ---- paged_prefill_attention: 2048 rows a (slot, KV head), bf16 pool
-    pre = paged_prefill_case(gen, dev, PREFILL_PFX, PREFILL_QLENS, False,
-                             bf16=True, timed=True, **geo)
-    worst_pre = max(pre["err"], paged_prefill_case(
-        gen, dev, PREFILL_PFX, PREFILL_QLENS, True, **geo)["err"])
-    report.add(f"paged_prefill_attention@{CR}", route="cuda",
-               source=src + "paged_prefill_attention.cu",
-               header=src + "tf32x3.cuh",
-               replaces="src/repro/kernels/paged_prefill_attention.py:215",
-               max_abs_err=worst_pre, ms=pre["ms"], plain_ms=pre["plain"],
-               library_ms=pre["lib"], bound_ms=pre["bound"],
-               bound_by=pre["by"], f32_bound_ms=pre["f32_bound"],
-               tf32x3_bound_ms=pre["tf32x3_bound"],
-               per="one layer's call at 8 x 256 rows, 8 KV heads x HQ 8 x "
-                   "D 128, bf16 pool (an int8 pool held, untimed)")
+    _paged_prefill_row(report, gen, dev, CR, CR_KVH, CR_HQ, CR_HD)
 
     # ---- rmsnorm_quant at K 8192: 0 codes apart, scales equal; f32 rows
     # (no bf16 rounding to hide an ulp of the mean) and the order control
@@ -1495,6 +1486,61 @@ def check_command_r(report, dev):
 
     _bf16_quantize_row(report, gen, dev, CR, CR_D, CR_FF)
     _bf16_rope_row(report, gen, dev, CR, 64, CR_KVH, CR_HD, 8e6)
+
+
+# qwen3-moe-30b-a3b (phase 2's last part, phase 21): 48 layers, d_model
+# 2048, 32 query heads over 4 KV heads of 64 (HQ 8: HQ*D = 512, one head
+# group; the first bf16 config at D 64), 128 experts of d_ff 768, top 8,
+# vocab 151936 (head 152064 rows).  Its decode GEMVs are wqkv and wo_f
+# alone: the experts are the reference's f32 einsums on dequantized
+# weights, plain PyTorch, and the MoE leaves no w13 / w2 GEMV.
+Q3 = "qwen3-moe-30b-a3b"
+Q3_LAYERS, Q3_D, Q3_KVH, Q3_HQ, Q3_HD = 48, 2048, 4, 8, 64
+Q3_GEMV = [(2560, 2048), (2048, 2048)]
+Q3_HEAD = (152064, 2048)
+
+
+def check_qwen3_moe(report, dev):
+    """The kernels at qwen3-moe-30b-a3b's shapes, each against its plain
+    version and timed beside it and its library call.  Both decode
+    attentions (``_decode_attention_rows``) and paged_prefill_attention
+    (``_paged_prefill_row``) at KVH 4, HQ 8, D 64 (one head group);
+    flash_prefill on one bf16 prompt of 17..1024
+    tokens at 32 / 4 heads of 64; q8_matvec at a decode step's 96 layer
+    GEMVs (wqkv 2560 x 2048, wo_f 2048 x 2048) and the 152064-row head, M =
+    1 and 8; q8_matmul at the verify step's head (M 40), bitwise;
+    rmsnorm_quant on bf16 rows at K 2048 (M 1, 8 and 2048), 0 codes apart;
+    quantize on bf16 rows at K 2048 (wo_f's input), bitwise; rope on 36
+    heads of 64 at theta 1e6.  Each adds a row
+    ``<kernel>@qwen3-moe-30b-a3b``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(29)
+    src = "src/repro_torch/kernels/csrc/"
+    _decode_attention_rows(report, gen, dev, Q3, Q3_KVH, Q3_HQ, Q3_HD, 1)
+    _paged_prefill_row(report, gen, dev, Q3, Q3_KVH, Q3_HQ, Q3_HD)
+    _bf16_flash_row(report, gen, dev, Q3, Q3_KVH * Q3_HQ, Q3_KVH, Q3_HD)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, Q3, operands, Q3_GEMV, Q3_HEAD, Q3_LAYERS)
+
+    # ---- q8_matmul: the verify step's head at 40 rows (k = 4), bitwise
+    n, k = Q3_HEAD
+    err, ms, plain, lib, b_ms, b_by = _quant_timed(
+        ops.q8_matmul_kernel, ref.ref_q8_matmul, "q8_matmul", operands, 40,
+        n, k, dev)
+    report.add(f"q8_matmul@{Q3}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib,
+               per=f"the verify step's head at M 40 (8 slots x (4 + 1)), "
+                   f"{n} x {k}; bitwise")
+
+    _bf16_norm_row(report, gen, dev, Q3, Q3_D, 0)
+    _bf16_quantize_row(report, gen, dev, Q3, Q3_D, Q3_D)
+    report.rows[f"quantize@{Q3}"]["per"] = (
+        f"one call at M=8 bf16 rows, K={Q3_D} (wo_f's input, the one "
+        "quantize a layer); by_shape: at a decode step and at 2048 rows; "
+        "bitwise")
+    _bf16_rope_row(report, gen, dev, Q3, Q3_KVH * Q3_HQ, Q3_KVH, Q3_HD, 1e6)
 
 
 def norm_bits(dev, path):
@@ -2796,8 +2842,12 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     rope and one attention call per layer, and one rmsnorm_quant per
     norm-then-product pair (norm1 -> wqkv, norm2 -> w13 per layer, the
     final norm -> head: 2 per layer + 1), and one quantize in front of each
-    product no norm feeds (wo_f and w2: 2 per layer).  Paged, each chunk
-    step: the MLP's two products per layer, the head's GEMV, one
+    product no norm feeds (wo_f and w2: 2 per layer).  An MoE layer
+    (``cfg.family == "moe"``) has no MLP product on a kernel: its experts
+    are the reference's f32 einsums, plain PyTorch, after the plain norm2;
+    so 2 GEMVs, 1 rmsnorm_quant and 1 quantize a layer in a decode step,
+    and none in a chunk, verify or prefill step but the head's.  Paged,
+    each chunk step: the MLP's two products per layer, the head's GEMV, one
     prefix-attention call per layer, rmsnorm_quant for norm2 -> w13 and
     the final norm (1 per layer + 1) and quantize for w2 (1 per layer).
     Dense, each whole-prompt prefill of S tokens: one flash_prefill per
@@ -2822,38 +2872,46 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     d = eng.metrics["decode_steps"]
     gemv = "q8_matvec" if bits == 8 else "q4_matvec"
     gemm = "q8_matmul" if bits == 8 else "q4_matvec"
+    # a dense MLP's products a layer (w13, w2: one fed by norm2's
+    # rmsnorm_quant, one by a quantize); an MoE layer has none
+    moe = cfg.family == "moe"
+    mlp = 0 if moe else 2
     want = dict.fromkeys(build.LAUNCHES, 0)
-    want[gemv] += (4 * nl + 1) * d
+    want[gemv] += ((2 + mlp) * nl + 1) * d
     want["rope"] += nl * d
-    want["rmsnorm_quant"] += (2 * nl + 1) * d
-    want["quantize"] += 2 * nl * d
+    want["rmsnorm_quant"] += ((1 + mlp // 2) * nl + 1) * d
+    want["quantize"] += (1 + mlp // 2) * nl * d
     if eng.paged:
         attn = ("paged_decode_attention", "paged_prefill_attention")
         c = eng.metrics["chunk_batch_calls"]
         rows = eng.max_slots * eng.prefill_chunk_tokens
-        want[gemm if rows > 32 else gemv] += 2 * nl * c
+        want[gemm if rows > 32 else gemv] += mlp * nl * c
         want[gemv] += c
-        want["rmsnorm_quant"] += (nl + 1) * c
-        want["quantize"] += nl * c
+        want["rmsnorm_quant"] += (mlp // 2 * nl + 1) * c
+        want["quantize"] += mlp // 2 * nl * c
         want[attn[0]] += nl * d
         want[attn[1]] += nl * c
         v = eng.metrics.get("verify_steps", 0)   # a parent tree may lack it
         rows = eng.max_slots * (getattr(eng, "spec_tokens", 0) + 1)
-        want[gemm if rows > 32 else gemv] += (2 * nl + 1) * v
-        want["rmsnorm_quant"] += (nl + 1) * v
-        want["quantize"] += nl * v
+        want[gemm if rows > 32 else gemv] += (mlp * nl + 1) * v
+        want["rmsnorm_quant"] += (mlp // 2 * nl + 1) * v
+        want["quantize"] += mlp // 2 * nl * v
         want[attn[1]] += nl * v
     else:
         attn = ("decode_attention", "flash_prefill")
         pre = [e - s for plan in eng.plan_log for _, s, e in plan["prefills"]]
         for n in pre:
-            want[gemm if n > 32 else gemv] += 2 * nl
+            want[gemm if n > 32 else gemv] += mlp * nl
             want[gemv] += 1
-            want["rmsnorm_quant"] += nl + 1
-            want["quantize"] += nl
+            want["rmsnorm_quant"] += mlp // 2 * nl + 1
+            want["quantize"] += mlp // 2 * nl
         want[attn[0]] += nl * d
         want[attn[1]] += nl * len(pre)
-    path = {gemv, gemm, "rope", "rmsnorm_quant", "quantize", *attn}
+    # every kernel of the path must launch: an MoE path makes no M > 32
+    # product but its verify step's head
+    path = {gemv, "rope", "rmsnorm_quant", "quantize", *attn}
+    if not moe or want[gemm]:
+        path.add(gemm)
     if float_weights:
         for k in (gemv, gemm, "rmsnorm_quant", "quantize"):
             want[k] = 0
@@ -2865,8 +2923,9 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     for k, v in launches.items():
         counted[k] = counted.get(k, 0) + v
     step = (f"{nl} rope and {nl} {attn[0]}" if float_weights else
-            f"{4 * nl + 1} {gemv}, {2 * nl + 1} rmsnorm_quant, {2 * nl} "
-            f"quantize, {nl} rope and {nl} {attn[0]}")
+            f"{(2 + mlp) * nl + 1} {gemv}, {(1 + mlp // 2) * nl + 1} "
+            f"rmsnorm_quant, {(1 + mlp // 2) * nl} quantize, {nl} rope and "
+            f"{nl} {attn[0]}")
     verifies = eng.metrics.get("verify_steps", 0)
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
         f"{step} per decode step over {d} steps"
@@ -4084,6 +4143,130 @@ def plain_versions(kernels=PLAIN_KERNELS):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def moe_routes(replay=None):
+    """For the duration, every MoE layer's routing (``layers.moe_route``,
+    the one place ``moe_mlp`` routes) is recorded, call by call, into the
+    list this yields: the chosen experts (B, S, K), the gap between each
+    token's k-th and (k+1)-th router logit, and the router logits' largest
+    magnitude.  With ``replay`` (a list recorded so), each call takes its
+    experts from the same call of ``replay`` instead of choosing them, its
+    gates a softmax over its own logits at those experts: pinned routes.
+    A measurement device of this script, as ``plain_versions``."""
+    from repro_torch.models import layers
+    route = layers.moe_route
+    calls = []
+
+    def patched(x, router, top_k):
+        logits = layers.router_logits(x, router)
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        if replay is None:
+            gates, idx = route(x, router, top_k)
+        else:
+            idx = replay[len(calls)]["idx"]
+            if idx.shape != (*x.shape[:-1], top_k):
+                raise AssertionError(f"replayed routes {tuple(idx.shape)} "
+                                     f"at a call of {tuple(x.shape)}")
+            gates = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+        calls.append({"idx": idx,
+                      "gap": srt[..., top_k - 1] - srt[..., top_k],
+                      "scale": logits.abs().amax()})
+        return gates, idx
+
+    layers.moe_route = patched
+    try:
+        yield calls
+    finally:
+        layers.moe_route = route
+    if replay is not None and len(calls) != len(replay):
+        raise AssertionError(f"{len(calls)} routing calls replayed "
+                             f"{len(replay)} recorded ones")
+
+
+# A routing decision flips where the k-th and the (k+1)-th router logits
+# trade places.  The router of layer l (counted from 0) reads the hidden
+# state after 2l + 1 of the rounding sites that plain_delta_bound counts
+# (two residual adds a layer before it, its own attention's add), and the
+# gap is one linear function of that state, as a logit is of the final
+# one.  So a flip that rounding alone causes at layer l sits at a plain-run
+# gap below plain_delta_bound's form over 2l + 1 sites at the router
+# logits' largest magnitude.  A flip whose inputs hold an earlier flip (an
+# earlier layer of the same row, at its position or, through the causal
+# attention, before it) moves them by a whole expert's share: it is
+# counted, not bounded.
+def route_flip_bound(scale: float, layer: int) -> float:
+    return (PLAIN_DELTA_LAMBDA * math.sqrt(2 * layer + 1) * PLAIN_DELTA_UNIT
+            * scale)
+
+
+def route_flips(cfg, want, got, valid, what="free routes"):
+    """Flipped routing decisions of one run (``got``) against the plain
+    run's (``want``), both recorded by ``moe_routes`` over one chunk step
+    (or one-shot prefill) and one decode step, ``valid`` (B, S) the chunk's
+    positions within their rows' lengths.  A decision flips where its set
+    of experts differs.  A flip is first when no flip precedes it in its
+    inputs (an earlier layer of its row, at or before its position); it is
+    out of bound where its plain-run gap is not below its layer's
+    ``route_flip_bound``.  Returns the counts, the largest gaps, the share
+    of the plain run's decisions whose gap sits below their layer's bound
+    (the share a rounding could flip: the check's blind share) and
+    ``rejected``, true where a first flip is out of bound."""
+    nl = cfg.n_layers
+    scale = max(float(c["scale"]) for c in want)
+    tol = torch.tensor([route_flip_bound(scale, layer) for layer in
+                        range(nl)], device=valid.device)[:, None, None]
+    rec = {"decisions": 0, "flips": 0, "first": 0, "router_scale": scale,
+           "bound_layer0": float(tol[0]), "bound_last": float(tol[-1]),
+           "under_bound": 0, "under_bound_layer0": 0, "first_max_gap": 0.0,
+           "first_max_ratio": 0.0, "later_max_gap": 0.0}
+    for part, calls, mask in (("chunk", slice(0, nl), valid),
+                              ("decode", slice(nl, 2 * nl), None)):
+        w, g = want[calls], got[calls]
+        flip = torch.stack([
+            (torch.sort(a["idx"], -1).values
+             != torch.sort(b["idx"], -1).values).any(-1)
+            for a, b in zip(w, g)])                       # (nl, B, S)
+        gap = torch.stack([a["gap"] for a in w])
+        live = (torch.ones_like(flip) if mask is None
+                else mask[None].expand_as(flip))
+        flip &= live
+        before = torch.cumsum(flip.int(), 0) - flip.int()  # earlier layers
+        fed = torch.cummax((before > 0).int(), dim=2).values > 0
+        first = flip & ~fed
+        rec["decisions"] += int(live.sum())
+        rec["under_bound"] += int((live & (gap < tol)).sum())
+        rec["under_bound_layer0"] += int((live[0] & (gap[0] < tol[0])).sum())
+        rec["flips"] += int(flip.sum())
+        rec["first"] += int(first.sum())
+        if bool(first.any()):
+            rec["first_max_gap"] = max(rec["first_max_gap"],
+                                       float(gap[first].max()))
+            rec["first_max_ratio"] = max(rec["first_max_ratio"], float(
+                (gap / tol)[first].max()))
+        if bool((flip & fed).any()):
+            rec["later_max_gap"] = max(rec["later_max_gap"],
+                                       float(gap[flip & fed].max()))
+        rec[part] = {"flips": int(flip.sum()), "first": int(first.sum())}
+    rec["under_bound_share"] = rec["under_bound"] / rec["decisions"]
+    rec["under_bound_layer0_share"] = (rec["under_bound_layer0"] * nl
+                                       / rec["decisions"])
+    rec["rejected"] = not rec["first_max_ratio"] < 1.0
+    log(f"  routing flips, {what} against the plain run's: "
+        f"{rec['flips']} of {rec['decisions']} (layer, token) decisions "
+        f"(chunk {rec['chunk']['flips']}, decode {rec['decode']['flips']}); "
+        f"{rec['first']} first flips, largest plain gap "
+        f"{rec['first_max_gap']:.4g}, {rec['first_max_ratio']:.3g} x its "
+        f"layer's fixed bound {PLAIN_DELTA_LAMBDA:g} * sqrt(2 l + 1) * "
+        f"{PLAIN_DELTA_UNIT:.5f} * {scale:.4g} ({rec['bound_layer0']:.4g} "
+        f"at layer 0 .. {rec['bound_last']:.4g} at layer {nl - 1}; "
+        f"{100 * rec['under_bound_share']:.1f}% of the plain decisions "
+        f"under it, {100 * rec['under_bound_layer0_share']:.1f}% of layer "
+        f"0's); {rec['flips'] - rec['first']} flips fed by earlier "
+        f"ones, largest gap {rec['later_max_gap']:.4g} (counted, not "
+        "bounded)")
+    return rec
+
+
 # The fixed bound on the logits of the kernels against the plain versions
 # on the same inputs (PERF.md section 6).  Both sides compute the same
 # function; they part only where an f32 sum is taken in another order (a
@@ -4226,20 +4409,33 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
     others launched) and with only that kernel launched (all others
     plain).  For each planted fault of ``controls``
     (``_planted_faults``), the same two differences with every kernel
-    launched and that fault planted.  Returns a dict: ``chunk`` and ``decode`` max |diff| with
+    launched and that fault planted.  An MoE model's routes are pinned:
+    the plain run records each layer's chosen experts and every other run
+    replays them, its gates from its own router logits (``moe_routes``),
+    so that a routing near-tie flipped by rounding cannot move a token by
+    a whole expert's share; one more run with every kernel launched and
+    free routes then counts the flipped decisions (``route_flips``), and
+    so does one for each planted fault of ``controls``.
+    Returns a dict: ``chunk`` and ``decode`` max |diff| with
     every kernel launched, ``scale`` (the plain logits' largest
-    magnitude), ``bound`` (``plain_delta_bound``), ``shares`` and
-    ``controls``; raises if any difference but a control's exceeds the
-    bound, or if a required control's does not: the check must reject
-    those planted faults."""
+    magnitude), ``bound`` (``plain_delta_bound``), ``shares``,
+    ``controls`` and, for an MoE model, ``routes`` and
+    ``route_controls``; raises if any difference but a control's exceeds
+    the bound, or if a required control's does not: the check must reject
+    those planted faults; for an MoE model also if a first flip of the
+    free run is past its layer's bound, or if no first flip of a required
+    control's free run is."""
     b, mb, c = len(prompts), 16, 256
     if dense:
         toks = np.stack([np.resize(p, c) for p in prompts]).astype(np.int32)
+        valid = torch.ones((b, c), dtype=torch.bool, device=dev)
     else:
         toks = np.zeros((b, c), np.int32)
         lens = [min(len(p), c) for p in prompts]
         for i, p in enumerate(prompts):
             toks[i, :lens[i]] = p[:lens[i]]
+        valid = (torch.arange(c, device=dev)[None]
+                 < torch.tensor(lens, device=dev)[:, None])
         empty = model.init_paged_cache(b, block_size=64, n_blocks=b * mb,
                                        max_blocks_per_seq=mb, device=dev)
         empty["page_table"] = torch.arange(b * mb, dtype=torch.int32,
@@ -4253,21 +4449,24 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
                                          list(range(b)), [0] * b,
                                          chunk_lens=lens)
 
-    with plain_versions():
+    moe = model.cfg.family == "moe"
+    with plain_versions(), moe_routes() as plain_routes:
         want, pcache = first()
         nxt = torch.argmax(want, dim=-1)
         dwant, _ = model.decode_step(params, _fresh_cache(model, pcache, dev),
                                      nxt)
 
-    def run(plain):
-        with plain_versions(plain):
+    def run(plain, pinned=True):
+        with plain_versions(plain), moe_routes(
+                plain_routes if pinned else None) as routes:
             got, _ = first()
             dgot, _ = model.decode_step(params,
                                         _fresh_cache(model, pcache, dev),
                                         nxt)
         torch.cuda.synchronize()
-        return ((got - want).abs().max().item(),
+        diff = ((got - want).abs().max().item(),
                 (dgot - dwant).abs().max().item())
+        return diff if pinned else (diff, routes)
 
     scale = max(want.abs().max().item(), dwant.abs().max().item())
     tol = plain_delta_bound(model.cfg, scale)
@@ -4284,7 +4483,8 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
             for how, d in rec["shares"][name].items()))
     worst = max([d_chunk, d_dec] + [x for r in rec["shares"].values()
                                     for pair in r.values() for x in pair])
-    log(f"  kernels vs plain versions on the same inputs: "
+    pin = " (routes pinned to the plain run's)" if moe else ""
+    log(f"  kernels vs plain versions on the same inputs{pin}: "
         f"{'prefill' if dense else 'chunk step'} logits max |diff| "
         f"{d_chunk:.4g}, decode step {d_dec:.4g}; plain logits' scale "
         f"{scale:.4g}; fixed bound {PLAIN_DELTA_LAMBDA:g} * sqrt(2 * "
@@ -4308,6 +4508,32 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
         raise AssertionError(f"{model.cfg.arch_id}: the fixed bound {tol} "
                              f"does not reject the planted faults {missed}: "
                              f"{rec['controls']}")
+    if moe:
+        (d_free, d_free_dec), free = run((), pinned=False)
+        rec["routes"] = route_flips(model.cfg, plain_routes, free, valid)
+        rec["routes"].update(chunk_free=d_free, decode_free=d_free_dec)
+        log(f"  free routes: logits max |diff| chunk {d_free:.4g}, decode "
+            f"{d_free_dec:.4g} (measured, not bounded)")
+        if rec["routes"]["rejected"]:
+            raise AssertionError(f"{model.cfg.arch_id}: a first routing flip "
+                                 "at a plain gap past its layer's fixed "
+                                 f"bound: {rec['routes']}")
+        # the same planted faults with free routes: the controls of the
+        # flip bound
+        rec["route_controls"] = {}
+        for name in controls:
+            with planted(name):
+                _, hit = run((), pinned=False)
+            rec["route_controls"][name] = route_flips(
+                model.cfg, plain_routes, hit, valid,
+                what=f"control, {name},"
+                + ("" if faults[name][2] else " (measured, not required)"))
+        missed = [n for n, r in rec["route_controls"].items()
+                  if faults[n][2] and not r["rejected"]]
+        if missed:
+            raise AssertionError(f"{model.cfg.arch_id}: the flip bound "
+                                 f"rejects no first flip of the planted "
+                                 f"faults {missed}")
     return rec
 
 
@@ -4318,6 +4544,10 @@ L3_PAGED_KERNELS = ("q8_matvec", "q8_matmul", "rmsnorm_quant", "quantize",
                     "paged_prefill_attention")
 # the planted faults each path's check must reject (kernel_plain_delta's
 # controls): phases 16 (bf16 pool) and 18, phase 17's dense bf16 run
+# the six kernels of the MoE paged path (phase 21): no MLP product runs
+# on a kernel, so no q8_matmul
+MOE_PAGED_KERNELS = ("q8_matvec", "rmsnorm_quant", "quantize", "rope",
+                     "paged_decode_attention", "paged_prefill_attention")
 PAGED_CONTROLS = ("q8_matvec: last K group dropped",
                   "paged_decode_attention: newest key dropped",
                   "paged_decode_attention: KV heads rotated")
@@ -4523,10 +4753,10 @@ def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
 def f32_init_bytes(cfg) -> int:
     """Bytes of ``init_params``'s f32 tree at ``cfg``: what a draw in full
     before quantizing would hold (the tree built on the meta device)."""
-    from repro_torch.models.transformer import _dense_tree
+    from repro_torch.models.transformer import _param_tree
     meta = torch.device("meta")
 
-    def leaf(path, shape, scale):
+    def leaf(path, shape, scale, dtype=None, by_layer=False):
         return torch.empty(shape, device=meta)
 
     def total(t):
@@ -4534,26 +4764,53 @@ def f32_init_bytes(cfg) -> int:
             return sum(map(total, t.values()))
         return t.numel() * 4
 
-    return total(_dense_tree(cfg, leaf, meta))
+    return total(_param_tree(cfg, leaf, meta))
+
+
+def moe_init_bitwise(dev, cfg, n_layers=2):
+    """``Model.init_quantized`` against ``Model.quantize(Model.init(0))``
+    at ``cfg``'s full width cut to ``n_layers`` (qwen3-moe-30b-a3b: ~6 GB
+    of f32 at 2 layers, its banks drawn a layer at a time in both): every
+    code and scale equal, the router f32 in both.  Raises otherwise."""
+    from repro_torch.core.quantization import tree_differs
+    from repro_torch.models.model import build_model
+    model = build_model(cfg.with_(n_layers=n_layers))
+    want = model.quantize(model.init(seed=0, device=dev))
+    got = model.init_quantized(seed=0, device=dev)
+    differ = tree_differs(got, want)
+    router = got["blocks"]["moe"]["router"]
+    del got, want
+    torch.cuda.empty_cache()
+    if differ or router.dtype != torch.float32:
+        raise AssertionError(f"{cfg.arch_id} at {n_layers} layers: "
+                             f"init_quantized differs from quantize(init) "
+                             f"at {differ}, router {router.dtype}")
+    log(f"  {cfg.arch_id} at {n_layers} layers of full width: "
+        "Model.init_quantized(0) bitwise equal to "
+        "Model.quantize(Model.init(0)), every leaf, the router f32")
 
 
 def full_width_path(dev, counted, arch, n, n_layers=None):
     """Phase ``n``: ``arch`` (phi4-mini-3.8b, phase 18; glm4-9b, phase 19;
-    command-r-35b, phase 20) at full width, and full depth unless
-    ``n_layers`` cuts it, from the port's own seeded init quantized as it
-    draws (``Model.init_quantized``: Q8_0 with the fused decode operands,
-    bitwise ``quantize(init)``, the f32 tree never held), the paged Engine
-    on a bf16 pool as phase 16; 8 requests of 16..600 tokens, two sharing
-    a 128-token prefix, 32 greedy tokens.  ``kernel_plain_delta`` with
-    every kernel's share (each kernel plain alone and launched alone),
-    held to the fixed bound at the config's depth (and its planted faults
-    rejected), stands in for the plain-version engine run and the int8
-    pool.  Asserts the exact launch counts, a prefix-cache hit and no token
-    past the head's rows.  Launches are counted under ``<kernel>@<arch>``
-    and listed in the record, with the init's seconds, the f32 GB never
-    held, the Q8_0 GB, the peak GB allocated by the init and over the
-    phase, and a digest of the streams; the parameters are freed before it
-    returns."""
+    command-r-35b, phase 20; qwen3-moe-30b-a3b, phase 21) at full width,
+    and full depth unless ``n_layers`` cuts it, from the port's own seeded
+    init quantized as it draws (``Model.init_quantized``: Q8_0 with the
+    fused decode operands, bitwise ``quantize(init)``, the f32 tree never
+    held; for the MoE config first held bitwise at 2 layers,
+    ``moe_init_bitwise``), the paged Engine on a bf16 pool as phase 16; 8
+    requests of 16..600 tokens, two sharing a 128-token prefix, 32 greedy
+    tokens.  ``kernel_plain_delta`` with every kernel's share (each kernel
+    plain alone and launched alone; the MoE config's routes pinned, then
+    its flips counted), held to the fixed bound at the config's depth (and
+    its planted faults rejected), stands in for the plain-version engine
+    run and the int8 pool.  Asserts the exact launch counts, a
+    prefix-cache hit and no token past the head's rows; for the MoE config
+    a short run (two requests, 8 tokens) under the profiler gives the
+    card's busy share and the heaviest device operations.  Launches are
+    counted under ``<kernel>@<arch>`` and listed in the record, with the
+    init's seconds, the f32 GB never held, the Q8_0 GB, the peak GB
+    allocated by the init and over the phase, and a digest of the streams;
+    the parameters are freed before it returns."""
     import hashlib
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -4561,6 +4818,9 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
     cfg = get_config(arch)
     if n_layers:
         cfg = cfg.with_(n_layers=n_layers)
+    moe = cfg.family == "moe"
+    if moe:
+        moe_init_bitwise(dev, cfg)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4573,10 +4833,12 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
     f32_gb = f32_init_bytes(cfg) / 1e9
     prompts = _requests(8, 16, 600, cfg.vocab_size, seed=n, shared_len=128,
                         shared_at=(0, 5))
+    mlp = (f"{cfg.n_experts} experts of d_ff {cfg.d_ff}, top {cfg.top_k}"
+           if moe else f"d_ff {cfg.d_ff}")
     phase(f"phase {n}: {arch} full width, {cfg.n_layers} layers"
           f"{' (cut)' if n_layers else ''} (d_model {cfg.d_model}, "
           f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
-          f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (head "
+          f"{cfg.hd()}, {mlp}, vocab {cfg.vocab_size} (head "
           f"{cfg.padded_vocab()} rows), rope theta {cfg.rope_theta:g}, "
           f"{cfg.compute_dtype}), Q8_0 parameters "
           f"{param_bytes(params) / 1e9:.2f} GB ({held:.2f} GB allocated) "
@@ -4585,9 +4847,10 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
           f"allocated); 8 requests of {min(map(len, prompts))}.."
           f"{max(map(len, prompts))} tokens, 32 greedy tokens, paged bf16 "
           "pool")
-    delta = kernel_plain_delta(model, params, prompts, dev,
-                               shares=L3_PAGED_KERNELS,
-                               controls=PAGED_CONTROLS)
+    delta = kernel_plain_delta(
+        model, params, prompts, dev,
+        shares=MOE_PAGED_KERNELS if moe else L3_PAGED_KERNELS,
+        controls=PAGED_CONTROLS)
     mine = {}
     build.reset_launches()
     eng, streams, wall = serve(model, params, prompts, dev, 32, **PAGED_KW)
@@ -4599,6 +4862,13 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
         raise AssertionError(f"{arch}: a token past the head's rows")
     rec = engine_line(f"{arch}, bf16 pool, kernel strategy", eng, streams,
                       wall)
+    if moe:
+        # the MoE step's time is the plain experts' glue, which phase 2's
+        # kernel times do not show: a profile splits it.  Two requests and
+        # 8 tokens: profiling the whole run (~180000 device operations)
+        # made the phase ~150 s longer, past the script's time
+        _, rec["device_busy_share"] = profiled(
+            lambda: serve(model, params, prompts[:2], dev, 8, **PAGED_KW))
     rec.update(kernel_plain_delta=delta, launches=mine, n_layers=cfg.n_layers,
                init_s=made, f32_gb_never_held=f32_gb,
                q8_gb=param_bytes(params) / 1e9, allocated_gb=held,
@@ -4613,16 +4883,19 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
 
 
 # phase 19's depth: glm4-9b's 40 layers cut to make room for phase 20 in
-# the script's time (its kernels at its shapes stay in phase 2)
+# the script's time (its kernels at its shapes stay in phase 2); phase
+# 20's: command-r-35b's 40 cut to make room for phase 21 the same way
 G4_PHASE_LAYERS = 10
+CR_PHASE_LAYERS = 10
 
 
 def bf16_paths(dev, counted):
-    """Phases 16-20, the bf16 configs: llama3.2-3b's parameters drawn once
+    """Phases 16-21, the bf16 configs: llama3.2-3b's parameters drawn once
     (``llama3_params``), the paged pools (phase 16), the dense cache and
     Q4_0 (phase 17), then phi4-mini-3.8b (phase 18), glm4-9b at
-    ``G4_PHASE_LAYERS`` layers (phase 19) and command-r-35b (phase 20),
-    each drawn after the last one's parameters are freed.  Alone on the
+    ``G4_PHASE_LAYERS`` layers (phase 19), command-r-35b at
+    ``CR_PHASE_LAYERS`` (phase 20) and qwen3-moe-30b-a3b at all 48 (phase
+    21), each drawn after the last one's parameters are freed.  Alone on the
     card: ``build.build()``, ``qlinear.set_default_strategy("kernel")``
     and ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as
     ``main`` does, then ``bf16_paths(torch.device("cuda"), {})``."""
@@ -4637,9 +4910,11 @@ def bf16_paths(dev, counted):
     phase(f"phase 18: {P4} {json.dumps(phi)}")
     glm = full_width_path(dev, counted, G4, 19, n_layers=G4_PHASE_LAYERS)
     phase(f"phase 19: {G4} {json.dumps(glm)}")
-    cr = full_width_path(dev, counted, CR, 20)
+    cr = full_width_path(dev, counted, CR, 20, n_layers=CR_PHASE_LAYERS)
     phase(f"phase 20: {CR} {json.dumps(cr)}")
-    return l3, l3b, phi, glm, cr
+    q3 = full_width_path(dev, counted, Q3, 21)
+    phase(f"phase 21: {Q3} {json.dumps(q3)}")
+    return l3, l3b, phi, glm, cr, q3
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -4755,6 +5030,7 @@ def main() -> int:
     check_phi4_head(report, dev)
     check_glm4(report, dev)
     check_command_r(report, dev)
+    check_qwen3_moe(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)

@@ -44,6 +44,15 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch command-r-35b --requests 16 --slots 8 --max-seq 1024
 
+  # qwen3-moe-30b-a3b (48 layers, d_model 2048, 32 query heads over 4 KV
+  # heads of 64, 128 experts of d_ff 768, top 8, vocab 151936): ~32 GB of
+  # Q8_0, the router f32; each expert bank drawn a layer at a time, its
+  # 119 GB f32 tree never held.  The experts run the reference's f32
+  # products on dequantized weights.  Its reduced config on the CPU:
+  # --arch qwen3-moe-30b-a3b --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch qwen3-moe-30b-a3b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream

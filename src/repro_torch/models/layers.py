@@ -1,6 +1,7 @@
-"""Layers of the dense decoder, as plain functions on tensors.
+"""Layers of the decoder, as plain functions on tensors.
 
-PyTorch counterpart of the dense subset of ``repro/models/layers.py``.
+PyTorch counterpart of the dense and MoE subset of
+``repro/models/layers.py``.
 Weights are stored contraction-last ``(out, in)``, so ``qdot`` takes float
 or quantized leaves alike.  The model's attention calls go to
 :mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
@@ -16,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.qlinear import norm_qdot, qdot
+from repro_torch.core.qlinear import as_float, norm_qdot, qdot
 from repro_torch.core.quantization import QuantizedTensor, _unpack_nibbles
 from repro_torch.kernels.ref import ref_decode_attention, rms_norm
 
@@ -217,6 +218,95 @@ def swiglu_mlp(p, x, gamma, eps: float = 1e-5) -> torch.Tensor:
         hn = rms_norm(x, gamma, eps)
         h = torch.nn.functional.silu(qdot(hn, p["w1"])) * qdot(hn, p["w3"])
     return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style grouped einsum dispatch)
+# ---------------------------------------------------------------------------
+
+
+def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) -> f32 router logits (B, S, E) against ``router`` (E, D)."""
+    return torch.einsum("bsd,ed->bse", x.float(), router.float())
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Token-choice routing: (gates (B, S, K) f32, idx (B, S, K) int64).
+
+    The experts are ``lax.top_k``'s: the largest logits first, ties to the
+    lower expert index (a stable descending sort; ``torch.topk`` breaks
+    ties otherwise); the gates a softmax over the chosen logits.  The one
+    place ``moe_mlp`` routes, so that a caller can record or replay the
+    routes by patching it."""
+    logits = router_logits(x, router)
+    idx = torch.sort(logits, dim=-1, descending=True,
+                     stable=True).indices[..., :top_k]
+    gates = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+    return gates, idx
+
+
+def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
+            capacity_factor: float = 1.25,
+            dense_dispatch: bool = False) -> torch.Tensor:
+    """Token-choice MoE: the counterpart of the reference's ``moe_mlp``.
+
+    p: router (E, D) f32; w1 / w3 (E, F, D), w2 (E, D, F), float or
+    quantized; x (B, S, D).  Every expert product is f32 on dequantized
+    weights, as in the reference, whatever the qlinear strategy.
+
+    ``dense_dispatch`` (the decode step) computes every expert for every
+    token and mixes them by a combine weight that is 0 off the top k: no
+    capacity limit.  Otherwise tokens are cut into groups of ``group_size``
+    (lowered until it divides S, so a group never crosses a row) and each
+    expert takes at most ``cap`` tokens a group, in token order and then
+    choice order; a dropped (token, choice) pair gets gate 0, the others
+    are not renormalized.  Dispatch and combine are one-hot einsums, as in
+    the reference (no float scatter-add, so the card repeats bitwise)."""
+    b, s, d = x.shape
+    e = n_experts
+    gates, idx = moe_route(x, p["router"], top_k)
+
+    if dense_dispatch:
+        xf = x.float()
+        onehot = torch.nn.functional.one_hot(idx, e).float()     # (B,S,K,E)
+        combine = torch.einsum("bske,bsk->bse", onehot, gates)
+        h1 = torch.einsum("bsd,efd->bsef", xf, as_float(p["w1"]))
+        h3 = torch.einsum("bsd,efd->bsef", xf, as_float(p["w3"]))
+        hh = torch.nn.functional.silu(h1) * h3
+        ye = torch.einsum("bsef,edf->bsed", hh, as_float(p["w2"]))
+        return torch.einsum("bsed,bse->bsd", ye, combine).to(x.dtype)
+
+    g_sz = min(group_size, s)
+    while s % g_sz:
+        g_sz -= 1
+    g = (b * s) // g_sz
+    cap = max(int(capacity_factor * g_sz * top_k / e), 1)
+    cap = (cap + 3) & ~3            # a multiple of 4, as the reference
+
+    xg = x.reshape(g, g_sz, d)
+    oh_e = torch.nn.functional.one_hot(idx.reshape(g, g_sz, top_k), e)
+    # each (token, choice)'s place in its expert's queue, in token order
+    flat = oh_e.reshape(g, g_sz * top_k, e)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1)
+    pos = pos.reshape(g, g_sz, top_k)
+    keep = pos < cap
+    gates_kept = torch.where(keep, gates.reshape(g, g_sz, top_k),
+                             torch.zeros((), device=x.device))
+
+    oh_e = oh_e.float()                                       # (G,Sg,K,E)
+    # a dropped pair's one-hot slot is the extra class cap, cut off
+    oh_c = torch.nn.functional.one_hot(
+        torch.where(keep, pos, cap), cap + 1)[..., :cap].float()
+    disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
+    combine = torch.einsum("gske,gskc,gsk->gsec", oh_e, oh_c, gates_kept)
+
+    xin = torch.einsum("gsec,gsd->egcd", disp.to(x.dtype), xg)  # (E,G,C,D)
+    h1 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w1"]))
+    h3 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w3"]))
+    hh = torch.nn.functional.silu(h1) * h3
+    yo = torch.einsum("egcf,edf->egcd", hh, as_float(p["w2"]))
+    y = torch.einsum("gsec,egcd->gsd", combine, yo)
+    return y.reshape(b, s, d).to(x.dtype)
 
 
 def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:

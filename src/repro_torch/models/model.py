@@ -1,6 +1,7 @@
 """Model facade: the entry points the serving engine calls.
 
-PyTorch counterpart of ``repro/models/model.py`` for the dense family.
+PyTorch counterpart of ``repro/models/model.py`` for the dense family and
+the MoE family without an interleave.
 """
 
 from __future__ import annotations
@@ -85,9 +86,7 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense" or not transformer.supports_paged_cache(cfg):
-        raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} is "
-                                  "not yet ported")
+    transformer.check_family(cfg)
     return Model(cfg=cfg)
 
 

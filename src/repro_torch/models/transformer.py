@@ -1,7 +1,8 @@
-"""Dense decoder-only LM: init, decode-weight fusion, decode on the paged
-pool or the dense per-slot cache, chunked and one-shot prefill.
+"""Decoder-only LM: init, decode-weight fusion, decode on the paged pool or
+the dense per-slot cache, chunked and one-shot prefill.
 
-PyTorch counterpart of the dense family of ``repro/models/transformer.py``.
+PyTorch counterpart of the dense family and the MoE family without an
+interleave (every layer MoE) of ``repro/models/transformer.py``.
 Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
 ``Model.quantize``) stacked per layer, as in the reference; the layer loop
 is a Python loop over the stacked leading axis.
@@ -60,18 +61,54 @@ def _q_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.norm_type != "rmsnorm" \
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port does not serve."""
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the llama4-style interleave (an MoE layer "
+            f"every {cfg.moe_every} layers, dense ones between) is not "
+            "ported")
+    if cfg.family not in ("dense", "moe") or cfg.norm_type != "rmsnorm" \
             or cfg.mlp_type != "swiglu" or not cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU "
-                                  "family with tied embeddings is ported")
+                                  "and the MoE families with tied "
+                                  "embeddings are ported")
 
 
-def _dense_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
-    """The dense parameter tree on ``dev``, each weight made by
-    ``leaf(path, shape, scale)`` (a normal draw times ``scale``, path as
-    ``quantize_params`` names it) in the order the reference draws them:
-    the embedding, then wq, wk, wv, wo, w1, w3, w2; norm gammas of ones."""
+def _draw_leaf(shape, by_layer: bool, draw):
+    """``draw(shape)``; with ``by_layer``, ``draw(shape[1:])`` once a layer,
+    each layer's leaf (float or quantized) written into one leaf stacked on
+    the leading axis as it is made: only one layer's draw is held beside
+    the stack."""
+    if not by_layer:
+        return draw(shape)
+    n, out = shape[0], None
+    for i in range(n):
+        w = draw(shape[1:])
+        if out is None:
+            out = (dataclasses.replace(
+                w, q=w.q.new_empty((n, *w.q.shape)),
+                scale=w.scale.new_empty((n, *w.scale.shape)))
+                if isinstance(w, QuantizedTensor)
+                else w.new_empty((n, *w.shape)))
+        if isinstance(w, QuantizedTensor):
+            out.q[i], out.scale[i] = w.q, w.scale
+        else:
+            out[i] = w
+        del w
+    return out
+
+
+def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
+    """The parameter tree on ``dev``, each weight made by ``leaf(path,
+    shape, scale, dtype=None, by_layer=False)`` (a normal draw times
+    ``scale`` in ``dtype``, the param dtype by default, path as
+    ``quantize_params`` names it; ``by_layer``: drawn one layer at a time
+    into the stack) in the order the reference draws them: the embedding,
+    then wq, wk, wv, wo, then w1, w3, w2 (the dense MLP), or the MoE's f32
+    router and its expert banks w1, w3, w2, each bank a layer at a time
+    (qwen3-moe-30b-a3b's bank is 38.7 GB of f32 at once, 0.8 GB a layer);
+    norm gammas of ones."""
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
@@ -79,38 +116,49 @@ def _dense_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
     nl, d, hd = cfg.n_layers, cfg.d_model, cfg.hd()
     h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
-    return {
-        "embed": leaf("embed", (cfg.padded_vocab(), d), 0.02),
-        "final_norm": {"gamma": ones(d)},
-        "blocks": {
-            "norm1": {"gamma": ones(nl, d)},
-            "attn": {"wq": leaf("blocks/attn/wq", (nl, h, hd, d), sc),
-                     "wk": leaf("blocks/attn/wk", (nl, kvh, hd, d), sc),
-                     "wv": leaf("blocks/attn/wv", (nl, kvh, hd, d), sc),
-                     "wo": leaf("blocks/attn/wo", (nl, d, h, hd), so)},
-            "norm2": {"gamma": ones(nl, d)},
-            "mlp": {"w1": leaf("blocks/mlp/w1", (nl, f, d), sc),
-                    "w3": leaf("blocks/mlp/w3", (nl, f, d), sc),
-                    "w2": leaf("blocks/mlp/w2", (nl, d, f),
-                               1.0 / math.sqrt(f))},
-        },
+    sf = 1.0 / math.sqrt(f)
+    embed = leaf("embed", (cfg.padded_vocab(), d), 0.02)
+    blocks = {
+        "norm1": {"gamma": ones(nl, d)},
+        "attn": {"wq": leaf("blocks/attn/wq", (nl, h, hd, d), sc),
+                 "wk": leaf("blocks/attn/wk", (nl, kvh, hd, d), sc),
+                 "wv": leaf("blocks/attn/wv", (nl, kvh, hd, d), sc),
+                 "wo": leaf("blocks/attn/wo", (nl, d, h, hd), so)},
+        "norm2": {"gamma": ones(nl, d)},
     }
+    if cfg.family == "moe":
+        e = cfg.n_experts
+        blocks["moe"] = {
+            "router": leaf("blocks/moe/router", (nl, e, d), sc,
+                           torch.float32),
+            "w1": leaf("blocks/moe/w1", (nl, e, f, d), sc, by_layer=True),
+            "w3": leaf("blocks/moe/w3", (nl, e, f, d), sc, by_layer=True),
+            "w2": leaf("blocks/moe/w2", (nl, e, d, f), sf, by_layer=True)}
+    else:
+        blocks["mlp"] = {"w1": leaf("blocks/mlp/w1", (nl, f, d), sc),
+                         "w3": leaf("blocks/mlp/w3", (nl, f, d), sc),
+                         "w2": leaf("blocks/mlp/w2", (nl, d, f), sf)}
+    return {"embed": embed, "final_norm": {"gamma": ones(d)},
+            "blocks": blocks}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Device = None) -> Params:
-    """Random dense parameters from ``seed``: the reference's shapes and
-    scales (normal draws times 1/sqrt(fan-in); embedding times 0.02), drawn
-    from a ``torch.Generator``, so the values differ from the reference's."""
-    _check_family(cfg)
+    """Random parameters from ``seed``: the reference's shapes and scales
+    (normal draws times 1/sqrt(fan-in); embedding times 0.02; the MoE
+    router in f32), drawn from a ``torch.Generator``, so the values differ
+    from the reference's."""
+    check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = _pdt(cfg)
 
-    def normal(path, shape, scale):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+    def normal(path, shape, scale, dtype=None, by_layer=False):
+        def draw(shp):
+            return (torch.randn(shp, generator=gen, device=dev)
+                    * scale).to(dtype or _pdt(cfg))
+        return _draw_leaf(shape, by_layer, draw)
 
-    return _dense_tree(cfg, normal, dev)
+    return _param_tree(cfg, normal, dev)
 
 
 # values a quantized slice of ``init_quantized`` holds at most (1 GB of f32)
@@ -143,21 +191,27 @@ def init_quantized(cfg: ModelConfig, seed: int = 0,
     """``init_params`` quantized as it draws: bitwise
     ``fuse_decode_weights(quantize_params(init_params(cfg, seed), policy))``
     without the float tree.  Each weight is the same generator call at the
-    same shape, in the same order; it is scaled in place, quantized by
-    slices (``_quantize_slices``) and freed before the next draw.  At most
-    one weight's float draw is held beside the codes made so far: at
-    command-r-35b 29.5 GB (w2) instead of the 121 GB tree."""
-    _check_family(cfg)
+    same shape, in the same order (an expert bank's, a layer at a time);
+    it is scaled in place, quantized by slices (``_quantize_slices``) and
+    freed before the next draw.  At most one draw's float values are held
+    beside the codes made so far: at command-r-35b 29.5 GB (w2) instead of
+    the 121 GB tree, at qwen3-moe-30b-a3b 1.2 GB (the embedding) instead
+    of 119 GB."""
+    check_family(cfg)
     policy = policy or QuantPolicy()
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = _pdt(cfg)
 
-    def leaf(path, shape, scale):
-        x = torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
-        return _quantize_slices(x, policy) if policy.wants(path, shape) else x
+    def leaf(path, shape, scale, dtype=None, by_layer=False):
+        quantized = policy.wants(path, shape)
 
-    return fuse_decode_weights(_dense_tree(cfg, leaf, dev), cfg)
+        def draw(shp):
+            x = torch.randn(shp, generator=gen, device=dev).mul_(scale).to(
+                dtype or _pdt(cfg))
+            return _quantize_slices(x, policy) if quantized else x
+        return _draw_leaf(shape, by_layer, draw)
+
+    return fuse_decode_weights(_param_tree(cfg, leaf, dev), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +298,22 @@ def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
     return L.rope_angles(positions, cfg.hd(), cfg.rope_theta)
 
 
-def _mlp(p, x, cfg: ModelConfig):
-    return L.swiglu_mlp(p["mlp"], x, L.norm_gamma(p["norm2"], cfg.norm_type),
-                        cfg.eps)
+def _mlp(p, x, cfg: ModelConfig, decode: bool = False):
+    """The block's MLP on the pre-norm hidden x, (B, S, D) or, at a decode
+    step, (B, D).  Dense: ``swiglu_mlp`` (norm2 fused into the w13 GEMV).
+    MoE: the plain norm, then ``moe_mlp`` as the reference runs it, the
+    dense dispatch at a decode step (x as (B, 1, D)) and the grouped one at
+    the chunk, verify and one-shot prefill steps."""
+    if cfg.family != "moe":
+        return L.swiglu_mlp(p["mlp"], x,
+                            L.norm_gamma(p["norm2"], cfg.norm_type), cfg.eps)
+    h = L.apply_norm(x, p["norm2"], cfg.norm_type, cfg.eps)
+    y = L.moe_mlp(p["moe"], h[:, None] if decode else h,
+                  n_experts=cfg.n_experts, top_k=cfg.top_k,
+                  group_size=cfg.moe_group,
+                  capacity_factor=cfg.capacity_factor,
+                  dense_dispatch=decode)
+    return (y[:, 0] if decode else y).to(x.dtype)
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -430,7 +497,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
             out = ops.decode_attention(q * qscale, lc["k"], lc["v"],
                                        lens_now, lc.get("ks"), lc.get("vs"))
         x = x + _decode_out_proj(lp["attn"], out, x.dtype)
-        x = x + _mlp(lp, x, cfg)
+        x = x + _mlp(lp, x, cfg, decode=True)
 
     logits = _head(params, cfg, x)
     new_cache = dict(cache)
