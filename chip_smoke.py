@@ -48,27 +48,43 @@ prefix attentions at 8 query heads a KV head, rope on 72 heads at theta
 attentions, the prefix attention and ``flash_prefill`` at 4 KV heads x HQ
 8 x D 64 in bf16, the first bf16 config at D 64; the GEMVs at K 2048 and
 the 152064-row head, the verify head at M 40, ``rmsnorm_quant`` and
-``quantize`` at K 2048, rope on 36 heads at theta 1e6); phase 5
+``quantize`` at K 2048, rope on 36 heads at theta 1e6) and at the SSM
+families' (``check_mamba2``, ``check_zamba2``: the GEMVs of a decode
+step, wB / wC at N 128 and 64, out_proj at K 2048 and 4096, the 50432-
+and 32000-row heads, ``q8_matmul`` at one 577-token prefill,
+``rmsnorm_quant`` on the gated norm's f32 rows at K 2048 and 4096,
+``quantize`` at K 1024 and 2048, and zamba2-1.2b's shared block:
+``decode_attention`` at 32 KV heads x HQ 1 x D 64, bf16 and int8,
+``flash_prefill`` at 32 / 32 heads of 64, rope on 64 heads); phase 5
 also runs the reduced llama3.2-3b on both caches; phase 16 serves
 llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
 and an int8 pool, held against the same engine on the plain versions;
 phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
-(paged and dense); phase 18 serves phi4-mini-3.8b at full width and depth
-(32 layers, vocab 200064) on a bf16 pool, phase 19 glm4-9b (d_model
-4096, 32 query heads over 2 KV heads of 128, d_ff 13696, vocab 151552; its
-40 layers cut to 10 for time) the same way, phase 20 command-r-35b
-(d_model 8192, 64 query heads over 8 KV heads of 128, d_ff 22528, vocab
-256000; its 40 layers cut to 10 for time) and phase 21 qwen3-moe-30b-a3b
-(48 layers, d_model 2048, 32 query heads over 4 KV heads of 64, 128
-experts of d_ff 768, top 8, vocab 151936: the MoE router and both
-dispatches in plain PyTorch, as the reference's jnp), its 119 GB f32 tree
-never held: phases 18-21 draw through ``Model.init_quantized``, which
-phase 16 holds bitwise against ``Model.quantize(Model.init(0))``, and
-phase 21 again for the MoE tree at 2 layers.  On every llama3.2-3b, phi4,
-glm4, command-r and qwen3-moe path the kernels' logits are held against
-the plain versions' on the same inputs to a fixed bound derived from bf16
-and Q8_0 rounding
-(``plain_delta_bound``), with each kernel's share: the difference with
+(paged and dense); phase 18 serves phi4-mini-3.8b at full width (vocab
+200064; its 32 layers cut to 12 for time) on a bf16 pool, phase 19
+glm4-9b (d_model 4096, 32 query heads over 2 KV heads of 128, d_ff 13696,
+vocab 151552; its 40 layers cut to 4 for time) the same way, phase 20
+command-r-35b (d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
+22528, vocab 256000; its 40 layers cut to 4) and phase 21
+qwen3-moe-30b-a3b (d_model 2048, 32 query heads over 4 KV heads of 64,
+128 experts of d_ff 768, top 8, vocab 151936: the MoE router and both
+dispatches in plain PyTorch, as the reference's jnp; its 48 layers cut to
+4), its f32 tree never held: phases 18-21 draw through
+``Model.init_quantized``, which phase 16 holds bitwise against
+``Model.quantize(Model.init(0))``, and phase 21 again for the MoE tree at
+2 layers.  Phases 22 and 23 serve the SSM families at full width and
+depth, mamba2-370m (48 Mamba2 layers) and zamba2-1.2b (38 Mamba2 layers
+and one shared attention block applied after every 6th), through
+``Engine(model, params)`` with the default ``cache_kind``, which falls
+back to the dense per-slot cache; the scan, the convolutions and the
+recurrence are plain PyTorch, as the reference's jnp; their logits are
+held to the fixed bound counted from the Mamba2 layer's and the shared
+block's code (``delta_sites``), the one-shot prefill at every position
+(``every_position_lambda``).  On every llama3.2-3b, phi4, glm4,
+command-r, qwen3-moe, mamba2 and zamba2 path the kernels' logits are held
+against the plain versions' on the same inputs to a fixed bound derived
+from bf16 and Q8_0 rounding (``plain_delta_bound``), with each kernel's
+share: the difference with
 only that kernel on its plain version, and with only it launched
 (``kernel_plain_delta``); planted wiring faults, the controls of that
 bound (a GEMV's K loop one group short, GQA groups on the wrong KV head,
@@ -246,19 +262,23 @@ def _quant_timed(kernel, plain, name, operands, m, n, k, dev):
 
 def _gemv_step(kernel, plain, name, operands, layer, head, layers, dev):
     """Check and time a decode step's GEMVs (``_quant_timed``): each of
-    ``layer``'s (N, K) and the ``head`` at M = 1 and 8 slots.  Returns the
-    M = 8 step's sums, ``layers`` x each layer GEMV plus the head (``err``
-    over both M)."""
+    ``layer``'s (N, K) -- or (N, K, calls a step), where a shape's count is
+    not ``layers`` -- and the ``head`` at M = 1 and 8 slots.  Returns the
+    M = 8 step's sums, each layer GEMV times its count plus the head
+    (``err`` over both M)."""
     step = dict.fromkeys(("err", "ms", "plain", "lib", "bound"), 0.0)
     for m in (1, 8):
-        for n, k in list(layer) + [head]:
+        for shape in list(layer) + [head]:
+            n, k = shape[:2]
+            times = 1 if shape is head else (
+                shape[2] if len(shape) > 2 else layers)
             err, ms, plain_ms, lib, b_ms, _ = _quant_timed(
                 kernel, plain, name, operands, m, n, k, dev)
             step["err"] = max(step["err"], err)
             if m == 8:
                 for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
                                ("bound", b_ms)):
-                    step[key] += v if (n, k) == head else layers * v
+                    step[key] += times * v
     return step
 
 
@@ -317,15 +337,17 @@ def check_q8_matvec(report, dev):
 def q8_matmul_chunk(dev, m, operands, shapes=((4096, 768), (768, 2048)),
                     layers=12):
     """The chunk step's MLP products at m rows, ``layers`` x (w13, w2)
-    (``shapes``: llama2-110m's by default): each call checked (bitwise)
-    and timed by ``_quant_timed``, with ``torch._int_mm`` on the raw codes
-    beside it for information only (the tensor cores' integer product
-    without the group scales).  Returns the per-step sums.  Runs on any
-    tree's ``q8_matmul_kernel``, so parent and change can be timed in
-    turns."""
+    (``shapes``: llama2-110m's by default; a shape (N, K, calls) takes its
+    own count): each call checked (bitwise) and timed by
+    ``_quant_timed``, with ``torch._int_mm`` on the raw codes beside it
+    for information only (the tensor cores' integer product without the
+    group scales).  Returns the per-step sums.  Runs on any tree's
+    ``q8_matmul_kernel``, so parent and change can be timed in turns."""
     from repro_torch.kernels import ops, ref
     chunk = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
-    for n, k in shapes:
+    for shape in shapes:
+        n, k = shape[:2]
+        times = shape[2] if len(shape) > 2 else layers
         err, ms, plain, lib, b_ms, b_by = _quant_timed(
             ops.q8_matmul_kernel, ref.ref_q8_matmul, "q8_matmul", operands,
             m, n, k, dev)
@@ -333,7 +355,7 @@ def q8_matmul_chunk(dev, m, operands, shapes=((4096, 768), (768, 2048)),
         chunk.setdefault("by", b_by)      # w13's: the larger product
         for key, v in (("ms", ms), ("plain", plain), ("lib", lib),
                        ("bound", b_ms)):
-            chunk[key] += layers * v
+            chunk[key] += times * v
         codes = rotating(lambda: operands(m, n, k)[::2], m * k + n * k)
 
         def int_mm():
@@ -345,7 +367,9 @@ def q8_matmul_chunk(dev, m, operands, shapes=((4096, 768), (768, 2048)),
             imm = f"not measured ({str(exc).splitlines()[0][:80]})"
         log(f"    torch._int_mm on the codes (no group scales; information "
             f"only): {imm}")
-    log(f"  q8_matmul per chunk step ({layers} x (w13, w2), M={m}): kernel "
+    what = (f"{layers} x (w13, w2)" if all(len(x) == 2 for x in shapes)
+            else f"{sum(x[2] for x in shapes)} products")
+    log(f"  q8_matmul per chunk step ({what}, M={m}): kernel "
         f"{chunk['ms']:.4f} ms, torch.matmul {chunk['lib']:.4f} ms, bound "
         f"{chunk['bound']:.4f} ms, {100 * chunk['bound'] / chunk['ms']:.1f}%"
         f" of it; bitwise")
@@ -1294,8 +1318,9 @@ def _q8_matvec_row(report, dev, arch, operands, gemv, head, layers):
     src = "src/repro_torch/kernels/csrc/"
     step = _gemv_step(ops.q8_matvec_kernel, ref.ref_q8_matmul, "q8_matvec",
                       operands, gemv, head, layers, dev)
-    log(f"  {arch} q8_matvec per decode step ({layers} layers x {len(gemv)} "
-        f"+ head, M=8): kernel {step['ms']:.4f} ms, torch.matmul "
+    n_gemv = sum(g[2] if len(g) > 2 else layers for g in gemv)
+    log(f"  {arch} q8_matvec per decode step ({n_gemv} layer GEMVs + head, "
+        f"M=8): kernel {step['ms']:.4f} ms, torch.matmul "
         f"{step['lib']:.4f} ms, bound {step['bound']:.4f} ms, "
         f"{100 * step['bound'] / step['ms']:.1f}% of it")
     report.add(f"q8_matvec@{arch}", route="cuda", source=src + "q8_matvec.cu",
@@ -1303,9 +1328,9 @@ def _q8_matvec_row(report, dev, arch, operands, gemv, head, layers):
                max_abs_err=step["err"], ms=step["ms"], plain_ms=step["plain"],
                bound_ms=step["bound"], bound_by="bytes",
                library_ms=step["lib"],
-               per=f"decode step at 8 slots: {len(gemv) * layers} layer "
-                   f"GEMVs (N x K "
-                   + ", ".join(f"{n} x {k}" for n, k in gemv)
+               per=f"decode step at 8 slots: {n_gemv} layer GEMVs (N x K"
+                   + (" x calls " if len(gemv[0]) > 2 else " ")
+                   + ", ".join(" x ".join(map(str, g)) for g in gemv)
                    + f") + head {head[0]} x {head[1]}")
 
 
@@ -1541,6 +1566,154 @@ def check_qwen3_moe(report, dev):
         "quantize a layer); by_shape: at a decode step and at 2048 rows; "
         "bitwise")
     _bf16_rope_row(report, gen, dev, Q3, Q3_KVH * Q3_HQ, Q3_KVH, Q3_HD, 1e6)
+
+
+# The SSM families (phase 2's last part, phases 22-23).  mamba2-370m: 48
+# Mamba2 layers, d_model 1024 (d_inner 2048), state 128, vocab 50280 (head
+# 50432 rows); a decode step's GEMVs: wz and wx (2048 x 1024), wB and wC
+# (128 x 1024: the narrowest outputs either Q8_0 kernel has met), out_proj
+# (1024 x 2048), each a layer.  zamba2-1.2b: 38 Mamba2 layers, d_model 2048
+# (d_inner 4096), state 64 (wB and wC 64 x 2048), out_proj at K 4096, and
+# the shared block's wqkv (6144 x 2048: 32 + 2 x 32 heads of 64), wo_f,
+# w13 (16384 x 2048) and w2 (2048 x 8192) at each of its 6 applications;
+# head 32000 x 2048.  (N, K, calls a decode step or prefill.)
+M2, Z2 = "mamba2-370m", "zamba2-1.2b"
+M2_LAYERS, M2_D, M2_DI = 48, 1024, 2048
+M2_GEMV = [(2048, 1024, 96), (128, 1024, 96), (1024, 2048, 48)]
+M2_HEAD = (50432, 1024)
+Z2_LAYERS, Z2_APPS, Z2_D, Z2_DI, Z2_FF = 38, 6, 2048, 4096, 8192
+Z2_GEMV = [(4096, 2048, 76), (64, 2048, 76), (2048, 4096, 38),
+           (6144, 2048, 6), (2048, 2048, 6), (16384, 2048, 6),
+           (2048, 8192, 6)]
+Z2_HEAD = (32000, 2048)
+# a prefill's products: the Mamba2 layers' five and the shared MLP's two
+# (its Q/K/V/O run on the dequant qeinsum, as in the reference)
+Z2_GEMM = [g for g in Z2_GEMV if g[:2] not in ((6144, 2048), (2048, 2048))]
+# a prefill's prompt: phases 22-23's longest prompts are near 600 tokens
+# (577 is prime: the scan's chunk of 1 there)
+SSM_PREFILL_M = 577
+
+
+def _gated_norm_rows(report, gen, dev, arch, k):
+    """rmsnorm_quant on the f32 rows of a Mamba2 layer's gated norm (y *
+    silu(z), K = d_inner), M 1, 8 and a prefill's: 0 codes apart and every
+    scale equal to the plain version's (f32 rows: PyTorch's row-mean
+    order), timed at M = 8 and at a prefill's rows beside the plain
+    version.  Adds ``gated_*`` keys to the row ``rmsnorm_quant@<arch>``."""
+    from repro_torch.kernels import ops, ref
+    gs, eps = 64, 1e-5
+    gamma = torch.randn((k,), generator=gen, device=dev)
+    rec = {}
+    ms = (1, 8, SSM_PREFILL_M)
+    for m in ms:
+        _norm_held(ops, ref, _norm_input(gen, dev, m, k, gs), gamma, eps, gs,
+                   0, 0.0)
+        if m == 1:
+            continue
+        nxt = rotating(lambda: _norm_input(gen, dev, m, k, gs), 4 * m * k)
+        ms_k = time_ms(lambda: ops.rmsnorm_quant_kernel(nxt(), gamma, eps,
+                                                        gs), iters=50)
+        plain = time_ms(lambda: ref.ref_rmsnorm_quant(nxt(), gamma, eps, gs),
+                        iters=20)
+        b_ms, b_by = bound(m * k * 4 + k * 4 + m * k + m * (k // gs) * 4,
+                           6.0 * m * k, F32_FLOPS_PER_S)
+        rec[m] = dict(ms=ms_k, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+        log(f"  {arch} rmsnorm_quant f32 M={m:5d} K={k} (the gated norm): 0 "
+            f"codes apart, every scale equal  kernel {ms_k:.5f} ms  plain "
+            f"{plain:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+    row = report.rows[f"rmsnorm_quant@{arch}"]
+    row.update(gated_k=k, gated_codes_differing=0,
+               **{f"gated_m{m}_{key}": v for m, r in rec.items()
+                  for key, v in r.items()})
+    row["per"] += (f"; gated_*: the gated norm's f32 rows at K={k} (M 1, 8, "
+                   f"{ms[-1]}), 0 codes apart, every scale equal")
+
+
+def _ssm_quantize_rows(report, gen, dev, arch, d_model, d_inner):
+    """quantize, bitwise, on the f32 rows a Mamba2 layer would requantize
+    unfused (the gated norm's output, K = d_inner; the served path fuses it
+    into rmsnorm_quant), untimed; and the row's ``per`` for the served
+    input, the normed bf16 hidden at K = d_model shared by the four
+    in-projections."""
+    from repro_torch.kernels import ops
+    for m in (1, 8, SSM_PREFILL_M):
+        _quantize_held(ops, _norm_input(gen, dev, m, d_inner, 64), 64)
+    report.rows[f"quantize@{arch}"]["per"] = (
+        f"one call at M=8 bf16 rows, K={d_model}: the normed input of a "
+        "Mamba2 layer, quantized once for its four in-projections "
+        "(by_shape also at 2048 rows); bitwise; f32 rows at K="
+        f"{d_inner} (M 1, 8, {SSM_PREFILL_M}) bitwise, untimed")
+
+
+def _ssm_gemm_row(report, dev, arch, operands, shapes, n_calls):
+    """q8_matmul at one whole-prompt prefill of ``SSM_PREFILL_M`` tokens:
+    every product of the prompt's layers (``shapes``, (N, K, calls)),
+    bitwise, timed.  Adds the row ``q8_matmul@<arch>``."""
+    from repro_torch.kernels import ops, ref
+    src = "src/repro_torch/kernels/csrc/"
+    chunk = q8_matmul_chunk(dev, SSM_PREFILL_M, operands, shapes=shapes)
+    ref_err, _ = _quant_check(ops.q8_matmul_kernel, ref.ref_q8_matmul,
+                              "q8_matmul", 33, shapes[1][0], shapes[1][1],
+                              64, *operands(33, *shapes[1][:2]))
+    report.add(f"q8_matmul@{arch}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=max(chunk["err"], ref_err), ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per=f"one whole-prompt prefill of {SSM_PREFILL_M} tokens: "
+                   f"{n_calls} products (N x K x calls "
+                   + ", ".join(f"{n} x {k} x {c}" for n, k, c in shapes)
+                   + f"); bitwise; the narrow N {shapes[1][0]} also at M 33")
+
+
+def check_mamba2(report, dev):
+    """The kernels at mamba2-370m's shapes (the SSM family's path: no
+    attention, no rope), each against its plain version and timed beside
+    it and its library call.  q8_matvec at a decode step's 240 layer GEMVs
+    (``M2_GEMV``; wB / wC at N 128) and the 50432-row head, M = 1 and 8;
+    q8_matmul at one 577-token prefill's 240 products, bitwise;
+    rmsnorm_quant on bf16 rows at K 1024 (the head; M 1, 8, 2048) and on
+    f32 rows at K 2048 (the gated norm; M 1, 8, 577), 0 codes apart;
+    quantize on bf16 rows at K 1024 (the in-projections' input) and f32
+    rows at K 2048, bitwise.  Each adds a row ``<kernel>@mamba2-370m``."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, M2, operands, M2_GEMV, M2_HEAD, M2_LAYERS)
+    _ssm_gemm_row(report, dev, M2, operands, M2_GEMV,
+                  sum(c for *_, c in M2_GEMV))
+    _bf16_norm_row(report, gen, dev, M2, M2_D, 0)
+    _gated_norm_rows(report, gen, dev, M2, M2_DI)
+    _bf16_quantize_row(report, gen, dev, M2, M2_D, M2_D)
+    _ssm_quantize_rows(report, gen, dev, M2, M2_D, M2_DI)
+
+
+def check_zamba2(report, dev):
+    """The kernels at zamba2-1.2b's shapes, each against its plain version
+    and timed beside it and its library call.  decode_attention (and the
+    paged kernel beside it, not on this path) at 32 KV heads x HQ 1 x D
+    64, bf16 and int8, 8 slots and batch 1 (``_decode_attention_rows``);
+    flash_prefill on one bf16 prompt of 17..1024 tokens at 32 / 32 heads
+    of 64; q8_matvec at a decode step's 214 layer GEMVs (``Z2_GEMV``: wB /
+    wC at N 64, out_proj at K 4096, w2 at K 8192) and the 32000-row head, M
+    = 1 and 8; q8_matmul at one 577-token prefill's 202 products, bitwise;
+    rmsnorm_quant on bf16 rows at K 2048 (norm1, norm2, the head) and f32
+    rows at K 4096 (the gated norm), 0 codes apart; quantize on bf16 rows at
+    K 2048 and 8192 and f32 rows at K 4096, bitwise; rope on 64 heads of 64
+    at theta 1e4.  Each adds a row ``<kernel>@zamba2-1.2b``."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    _decode_attention_rows(report, gen, dev, Z2, 32, 1, 64, 1)
+    _bf16_flash_row(report, gen, dev, Z2, 32, 32, 64)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, Z2, operands, Z2_GEMV, Z2_HEAD, Z2_LAYERS)
+    _ssm_gemm_row(report, dev, Z2, operands, Z2_GEMM,
+                  sum(c for *_, c in Z2_GEMM))
+    _bf16_norm_row(report, gen, dev, Z2, Z2_D, 0)
+    _gated_norm_rows(report, gen, dev, Z2, Z2_DI)
+    _bf16_quantize_row(report, gen, dev, Z2, Z2_D, Z2_FF)
+    _ssm_quantize_rows(report, gen, dev, Z2, Z2_D, Z2_DI)
+    report.rows[f"quantize@{Z2}"]["per"] += (
+        f"; the shared block's w2 input at K={Z2_FF}")
+    _bf16_rope_row(report, gen, dev, Z2, 32, 32, 64, 1e4)
 
 
 def norm_bits(dev, path):
@@ -2865,9 +3038,12 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     quantize 1 per layer.  ``extra`` adds launches made beside the engine
     on the same run (a draft model's).  ``float_weights`` (unquantized
     parameters): the products run on torch.matmul and no norm quantizes,
-    so only the attention kernels and rope launch.  The counts are added
-    to ``counted`` for the kernels line."""
+    so only the attention kernels and rope launch.  The SSM families
+    (dense cache only): ``_ssm_launches``.  The counts are added to
+    ``counted`` for the kernels line."""
     from repro_torch.kernels import build
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_launches(eng, launches, cfg, counted, bits)
     nl = cfg.n_layers
     d = eng.metrics["decode_steps"]
     gemv = "q8_matvec" if bits == 8 else "q4_matvec"
@@ -2930,6 +3106,61 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
         f"{step} per decode step over {d} steps"
         + (f", {verifies} verify calls" if verifies else ""))
+
+
+def _ssm_launches(eng, launches, cfg, counted, bits=8):
+    """``check_launches`` for the SSM and hybrid families on the dense
+    cache.  A Mamba2 layer at a decode step: its input quantized once for
+    the four in-projections (``quantize``), 4 GEMVs (wz, wx, wB, wC), the
+    gated norm fused with out_proj's quantization (``rmsnorm_quant``) and
+    out_proj's GEMV: 5 GEMVs, 1 ``quantize``, 1 ``rmsnorm_quant``; the
+    scan, the convolutions and the recurrence are plain PyTorch, as in the
+    reference.  A whole-prompt prefill of S tokens: the same 5 products at
+    M = S (the GEMM above 32 rows), 1 ``quantize``, 1 ``rmsnorm_quant`` a
+    layer.  The hybrid's shared block, at each of its n_layers //
+    attn_every applications, is the dense layer: at a decode step 4 GEMVs,
+    2 ``rmsnorm_quant``, 2 ``quantize``, 1 rope, 1 ``decode_attention``; at
+    a prefill 1 ``flash_prefill`` (Q/K/V/O on the dequant ``qeinsum``, rope
+    plain), the MLP's 2 products at M = S, 1 ``rmsnorm_quant``, 1
+    ``quantize``.  The head: 1 GEMV and 1 ``rmsnorm_quant`` a decode step
+    or prefill (its last row).  Every kernel of the path must launch."""
+    from repro_torch.kernels import build
+    n_ssm = cfg.n_layers
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    d = eng.metrics["decode_steps"]
+    gemv = "q8_matvec" if bits == 8 else "q4_matvec"
+    gemm = "q8_matmul" if bits == 8 else "q4_matvec"
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    want[gemv] += (5 * n_ssm + 4 * n_attn + 1) * d
+    want["quantize"] += (n_ssm + 2 * n_attn) * d
+    want["rmsnorm_quant"] += (n_ssm + 2 * n_attn + 1) * d
+    want["rope"] += n_attn * d
+    want["decode_attention"] += n_attn * d
+    pre = [e - s for plan in eng.plan_log for _, s, e in plan["prefills"]]
+    for n in pre:
+        want[gemm if n > 32 else gemv] += 5 * n_ssm + 2 * n_attn
+        want[gemv] += 1
+        want["quantize"] += n_ssm + n_attn
+        want["rmsnorm_quant"] += n_ssm + n_attn + 1
+        want["flash_prefill"] += n_attn
+    path = {gemv, "quantize", "rmsnorm_quant"}
+    if n_attn:
+        path |= {"rope", "decode_attention", "flash_prefill"}
+    if any(n > 32 for n in pre):
+        path.add(gemm)
+    if (eng.paged or launches != want
+            or min(launches[k] for k in path) <= 0):
+        raise AssertionError(f"{cfg.arch_id}: launches {launches} != "
+                             f"expected {want} (paged {eng.paged})")
+    for k, v in launches.items():
+        counted[k] = counted.get(k, 0) + v
+    log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
+        f"{5 * n_ssm + 4 * n_attn + 1} {gemv}, {n_ssm + 2 * n_attn + 1} "
+        f"rmsnorm_quant, {n_ssm + 2 * n_attn} quantize"
+        + (f", {n_attn} rope and {n_attn} decode_attention" if n_attn
+           else "")
+        + f" per decode step over {d} steps; {len(pre)} whole-prompt "
+        f"prefills")
 
 
 def compare_streams(tag, got, want, prompts, gap_fn, tol):
@@ -4295,6 +4526,25 @@ def plain_delta_bound(cfg, scale: float, sites_per_layer: float = 2) -> float:
             * PLAIN_DELTA_UNIT * scale)
 
 
+# The sites of the SSM families (PERF.md section 6, counted from
+# models/ssm.py and the shared block before their first run), as the dense
+# bound counts them: one unit for each residual add a layer makes, the
+# roundings inside its branch (a dense layer's requantized wqkv / wo_f /
+# w13 / w2 inputs) folded into it.  A Mamba2 layer is one branch, x +
+# out_proj(gated norm(scan(in-projections(norm(x))))): 1 site, its
+# requantized input and gated norm inside it, every value between them f32.
+# The hybrid's shared block is a dense layer, 2 sites at each of its
+# n_layers // attn_every applications.  mamba2-370m: 48 sites, 1 a layer;
+# zamba2-1.2b: 38 + 2 x 6 = 50, 1 + 12 / 38 a layer.
+def delta_sites(cfg) -> float:
+    """``plain_delta_bound``'s sites a layer for ``cfg``'s family."""
+    if cfg.family == "ssm":
+        return 1
+    if cfg.family == "hybrid":
+        return 1 + 2 * (cfg.n_layers // cfg.attn_every) / cfg.n_layers
+    return 2
+
+
 # Dense against paged streams (phase 17): two computations of the same
 # function that round differently, each with its own sites, the paged path
 # 2 a layer and the dense one 2 + 1/2 (its one-shot prefill keeps P in f32
@@ -4381,12 +4631,21 @@ def planted(name):
         setattr(ops, entry, saved)
 
 
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(map(_clone_tree, t))
+    return t.clone()
+
+
 def _fresh_cache(model, src, dev):
     """A new cache holding ``src``'s contents: a paged pool (with the
-    scratch block the decode step writes dead rows to), or a dense cache."""
+    scratch block the decode step writes dead rows to), or a dense cache,
+    every leaf of it (K/V, and an SSM family's conv rings and states, which
+    a decode step advances in place)."""
     if "page_table" not in src:
-        return {"lens": src["lens"].clone(),
-                "attn": {k: v.clone() for k, v in src["attn"].items()}}
+        return _clone_tree(src)
     nb, bs = src["attn"]["k"].shape[1:3]
     b, mb = src["page_table"].shape
     new = model.init_paged_cache(b, block_size=bs, n_blocks=nb,
@@ -4398,8 +4657,31 @@ def _fresh_cache(model, src, dev):
     return new
 
 
+def every_position_lambda(n: int) -> float:
+    """The lambda of ``plain_delta_bound`` for the largest of ``n`` sums
+    held at once, with the failure probability one sum has at
+    ``PLAIN_DELTA_LAMBDA`` (delta = 2 exp(-lambda^2 / 2) = 0.022): by the
+    union bound, sqrt(2 ln(2 n / delta)); 4.93 for 8 x 256 positions."""
+    delta = 2 * math.exp(-PLAIN_DELTA_LAMBDA ** 2 / 2)
+    return math.sqrt(2 * math.log(2 * n / delta))
+
+
+def _prefill_every_position(model, params, toks):
+    """The one-shot prefill's logits at every position, (B, S, V) f32:
+    ``transformer.prefill``'s forward pass with its head over every row."""
+    from repro_torch.models import transformer
+    dev = params["final_norm"]["gamma"].device
+    t = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    b, s = t.shape
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    hidden, _ = transformer.forward_layers(
+        params, model.cfg, transformer.embed_inputs(params, model.cfg, t),
+        pos)
+    return transformer._head(params, model.cfg, hidden)
+
+
 def kernel_plain_delta(model, params, prompts, dev, shares=(),
-                       dense=False, controls=()):
+                       dense=False, controls=(), every_position=False):
     """Logits of the kernels against the plain versions on the same inputs:
     one chunk step on an empty pool (each prompt's first 256 tokens, 8
     slots) or, ``dense``, one one-shot prefill of 8 x 256 tokens (a prompt
@@ -4424,7 +4706,13 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
     the bound, or if a required control's does not: the check must reject
     those planted faults; for an MoE model also if a first flip of the
     free run is past its layer's bound, or if no first flip of a required
-    control's free run is."""
+    control's free run is.  ``every_position`` (dense, no MoE): the
+    prefill's logits are compared at every position of every row, each
+    held to the bound with ``every_position_lambda`` in place of lambda
+    (``bound_every_position``); the decode step's keep lambda.  A fault
+    that acts on the first positions of a prompt (the causal diagonal one
+    key short leaves position 0 no key) shows there, where the last
+    position reads it only through the layers above it."""
     b, mb, c = len(prompts), 16, 256
     if dense:
         toks = np.stack([np.resize(p, c) for p in prompts]).astype(np.int32)
@@ -4450,29 +4738,52 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
                                          chunk_lens=lens)
 
     moe = model.cfg.family == "moe"
+    if every_position and not (dense and model.cfg.family != "moe"):
+        raise ValueError("every_position: the dense prefill of a model "
+                         "without MoE routes")
     with plain_versions(), moe_routes() as plain_routes:
         want, pcache = first()
         nxt = torch.argmax(want, dim=-1)
         dwant, _ = model.decode_step(params, _fresh_cache(model, pcache, dev),
                                      nxt)
+        want_all = (_prefill_every_position(model, params, toks)
+                    if every_position else want)
 
     def run(plain, pinned=True):
         with plain_versions(plain), moe_routes(
                 plain_routes if pinned else None) as routes:
-            got, _ = first()
+            got = (_prefill_every_position(model, params, toks)
+                   if every_position else first()[0])
             dgot, _ = model.decode_step(params,
                                         _fresh_cache(model, pcache, dev),
                                         nxt)
         torch.cuda.synchronize()
-        diff = ((got - want).abs().max().item(),
+        diff = ((got - want_all).abs().max().item(),
                 (dgot - dwant).abs().max().item())
         return diff if pinned else (diff, routes)
 
     scale = max(want.abs().max().item(), dwant.abs().max().item())
-    tol = plain_delta_bound(model.cfg, scale)
+    sites = delta_sites(model.cfg)
+    tol = plain_delta_bound(model.cfg, scale, sites)
+    # the prefill's bound: at every position with the union bound's lambda,
+    # at the scale of every position's plain logits
+    tol_first = tol
+    if every_position:
+        tol_first = (plain_delta_bound(model.cfg, want_all.abs().max().item(),
+                                       sites)
+                     * every_position_lambda(want_all.numel()
+                                             // want_all.shape[-1])
+                     / PLAIN_DELTA_LAMBDA)
+
+    def ratio(d):
+        """How far a (prefill, decode) difference is past its bounds."""
+        return max(d[0] / tol_first, d[1] / tol)
     d_chunk, d_dec = run(())
     rec = {"chunk": d_chunk, "decode": d_dec, "scale": scale, "bound": tol,
            "shares": {}, "controls": {}}
+    if every_position:
+        rec.update(bound_every_position=tol_first,
+                   scale_every_position=want_all.abs().max().item())
     for name in shares:
         rec["shares"][name] = {
             "plain_alone": run((name,)),
@@ -4481,29 +4792,35 @@ def kernel_plain_delta(model, params, prompts, dev, shares=(),
         log(f"    {name}: " + "; ".join(
             f"{how.replace('_', ' ')} chunk {d[0]:.4g}, decode {d[1]:.4g}"
             for how, d in rec["shares"][name].items()))
-    worst = max([d_chunk, d_dec] + [x for r in rec["shares"].values()
-                                    for pair in r.values() for x in pair])
+    worst = max([ratio((d_chunk, d_dec))]
+                + [ratio(pair) for r in rec["shares"].values()
+                   for pair in r.values()])
     pin = " (routes pinned to the plain run's)" if moe else ""
+    n_rows = want_all.numel() // want_all.shape[-1]
+    first_bound = (f"; the prefill's at every position, lambda "
+                   f"{every_position_lambda(n_rows):.3g} and scale "
+                   f"{want_all.abs().max().item():.4g}: {tol_first:.4g}"
+                   if every_position else "")
     log(f"  kernels vs plain versions on the same inputs{pin}: "
         f"{'prefill' if dense else 'chunk step'} logits max |diff| "
-        f"{d_chunk:.4g}, decode step {d_dec:.4g}; plain logits' scale "
-        f"{scale:.4g}; fixed bound {PLAIN_DELTA_LAMBDA:g} * sqrt(2 * "
-        f"{model.cfg.n_layers}) * {PLAIN_DELTA_UNIT:.5f} * scale = "
-        f"{tol:.4g}; worst of "
-        f"{1 + 2 * len(shares)} runs {worst:.4g}")
-    if not worst <= tol:
+        f"{d_chunk:.4g}{' (every position)' * every_position}, decode step "
+        f"{d_dec:.4g}; plain logits' scale {scale:.4g}; fixed bound "
+        f"{PLAIN_DELTA_LAMBDA:g} * sqrt({sites * model.cfg.n_layers:g} "
+        f"sites) * {PLAIN_DELTA_UNIT:.5f} * scale = {tol:.4g}{first_bound}; "
+        f"worst of {1 + 2 * len(shares)} runs {worst:.3g} x its bound")
+    if not worst <= 1:
         raise AssertionError(f"{model.cfg.arch_id}: kernels vs plain logits "
-                             f"differ by {worst} > the fixed bound {tol}: "
-                             f"{rec}")
+                             f"differ by {worst} x the fixed bound {tol} "
+                             f"(prefill {tol_first}): {rec}")
     faults = _planted_faults()
     for name in controls:
         with planted(name):
             rec["controls"][name] = hit = run(())
         log(f"    control, {name}: chunk {hit[0]:.4g}, decode {hit[1]:.4g} "
-            f"({max(hit) / tol:.2f} x the bound"
+            f"({ratio(hit):.2f} x the bound"
             f"{'' if faults[name][2] else '; measured, not required'})")
     missed = [n for n, hit in rec["controls"].items()
-              if faults[n][2] and not max(hit) > tol]
+              if faults[n][2] and not ratio(hit) > 1]
     if missed:
         raise AssertionError(f"{model.cfg.arch_id}: the fixed bound {tol} "
                              f"does not reject the planted faults {missed}: "
@@ -4882,20 +5199,157 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
     return rec
 
 
-# phase 19's depth: glm4-9b's 40 layers cut to make room for phase 20 in
-# the script's time (its kernels at its shapes stay in phase 2); phase
-# 20's: command-r-35b's 40 cut to make room for phase 21 the same way
-G4_PHASE_LAYERS = 10
-CR_PHASE_LAYERS = 10
+def ssm_init_bitwise(dev, cfg, n_layers):
+    """``Model.init_quantized`` against ``Model.quantize(Model.init(0))``
+    at ``cfg``'s full width cut to ``n_layers``: every code and scale
+    equal; ``wdt``, the convolutions and the SSM dynamics f32 and
+    unquantized in both.  Raises otherwise."""
+    from repro_torch.core.quantization import QuantizedTensor, tree_differs
+    from repro_torch.models.model import build_model
+    model = build_model(cfg.with_(n_layers=n_layers))
+    want = model.quantize(model.init(seed=0, device=dev))
+    got = model.init_quantized(seed=0, device=dev)
+    differ = tree_differs(got, want)
+    ssm = got["blocks" if cfg.family == "ssm" else "blocks_main"]["ssm"]
+    floats = [k for k in ("wdt", "conv_x", "A_log", "dt_bias", "D_skip")
+              if isinstance(ssm[k], QuantizedTensor)
+              or ssm[k].dtype != torch.float32]
+    del got, want
+    torch.cuda.empty_cache()
+    if differ or floats:
+        raise AssertionError(f"{cfg.arch_id} at {n_layers} layers: "
+                             f"init_quantized differs from quantize(init) "
+                             f"at {differ}; not f32: {floats}")
+    log(f"  {cfg.arch_id} at {n_layers} layers of full width: "
+        "Model.init_quantized(0) bitwise equal to "
+        "Model.quantize(Model.init(0)), every leaf, the SSM dynamics f32")
+
+
+# the kernels of each SSM family's path (phases 22-23), for the shares of
+# kernel_plain_delta, and the planted faults its bound must reject
+SSM_KERNELS = ("q8_matvec", "q8_matmul", "rmsnorm_quant", "quantize")
+HYBRID_KERNELS = SSM_KERNELS + ("rope", "decode_attention", "flash_prefill")
+SSM_CONTROLS = ("q8_matvec: last K group dropped",
+                "q8_matmul: last K group dropped")
+HYBRID_CONTROLS = SSM_CONTROLS + DENSE_CONTROLS
+# the engine as a user builds it: the default cache_kind, which an SSM
+# family's model turns into the dense per-slot cache
+SSM_KW = dict(max_slots=8, max_seq=1024)
+
+
+def ssm_path(dev, counted, arch, n):
+    """Phase ``n``: ``arch`` (mamba2-370m, phase 22; zamba2-1.2b, phase 23)
+    at full width and depth, from the port's own seeded init quantized as
+    it draws (``Model.init_quantized``, first held bitwise against
+    ``quantize(init)`` at a cut depth, ``ssm_init_bitwise``: 2 layers, or
+    for the hybrid 7, one super block and a tail layer), served by
+    ``Engine(model, params)`` with the default ``cache_kind``, which must
+    fall back to the dense per-slot cache (8 slots x 1024); phases 18-21's
+    8 requests of 16..600 tokens, 32 greedy tokens (two share a 128-token
+    prefix, which the dense cache never reuses: no prefix hit).
+    ``kernel_plain_delta`` on the one-shot prefill and a decode step, every
+    kernel's share, held to the fixed bound at the config's depth and
+    ``delta_sites`` (its planted faults rejected).  Asserts the exact
+    launch counts (``_ssm_launches``), no token past the head's rows, and
+    a short run (two requests, 8 tokens) under the profiler for the card's
+    busy share.  Launches are counted under ``<kernel>@<arch>``; the record
+    carries the init's numbers and a digest of the streams.  The
+    parameters are freed before it returns."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import QuantizedTensor
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    ssm_init_bitwise(dev, cfg, cfg.attn_every + 1 if hybrid else 2)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_quantized(seed=0, device=dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    # _ssm_launches counts five products a Mamba2 layer
+    float_proj = [(stack, k) for stack in ("blocks", "blocks_main",
+                                           "blocks_tail") if stack in params
+                  for k in ("wz", "wx", "wB", "wC", "out_proj")
+                  if not isinstance(params[stack]["ssm"][k], QuantizedTensor)]
+    if float_proj:
+        raise AssertionError(f"{arch}: projections left float {float_proj}")
+    f32_gb = f32_init_bytes(cfg) / 1e9
+    prompts = _requests(8, 16, 600, cfg.vocab_size, seed=n, shared_len=128,
+                        shared_at=(0, 5))
+    attn = (f"; one shared attention + SwiGLU block ({cfg.n_heads} / "
+            f"{cfg.n_kv_heads} heads of {cfg.hd()}, d_ff {cfg.d_ff}, rope "
+            f"theta {cfg.rope_theta:g}) after every {cfg.attn_every}"
+            if hybrid else "")
+    phase(f"phase {n}: {arch} full width and depth, {cfg.n_layers} Mamba2 "
+          f"layers (d_model {cfg.d_model}, state {cfg.ssm_state}, heads of "
+          f"{cfg.ssm_head_dim}){attn}, vocab {cfg.vocab_size} (head "
+          f"{cfg.padded_vocab()} rows), {cfg.compute_dtype}; Q8_0 "
+          f"parameters {param_bytes(params) / 1e9:.2f} GB ({held:.2f} GB "
+          f"allocated) quantized as drawn on the card in {made:.1f} s, "
+          f"their {f32_gb:.2f} GB of f32 never held (peak {peak:.2f} GB); "
+          f"8 requests of {min(map(len, prompts))}..{max(map(len, prompts))}"
+          " tokens, 32 greedy tokens, the default cache_kind")
+    delta = kernel_plain_delta(
+        model, params, prompts, dev,
+        shares=HYBRID_KERNELS if hybrid else SSM_KERNELS, dense=True,
+        controls=HYBRID_CONTROLS if hybrid else SSM_CONTROLS,
+        every_position=True)
+    mine = {}
+    build.reset_launches()
+    eng, streams, wall = serve(model, params, prompts, dev, 32, **SSM_KW)
+    if eng.paged or "page_table" in eng.cache:
+        raise AssertionError(f"{arch}: the engine did not fall back to the "
+                             "dense cache")
+    check_launches(eng, dict(build.LAUNCHES), cfg, mine)
+    if eng.metrics["prefix_hits"]:
+        raise AssertionError(f"{arch}: a prefix hit on the dense cache")
+    if any(t >= cfg.padded_vocab() for s in streams for t in s):
+        raise AssertionError(f"{arch}: a token past the head's rows")
+    rec = engine_line(f"{arch}, dense fallback ({'bf16 KV, ' * hybrid}"
+                      "kernel strategy)", eng, streams, wall)
+    _, rec["device_busy_share"] = profiled(
+        lambda: serve(model, params, prompts[:2], dev, 8, **SSM_KW))
+    rec.update(kernel_plain_delta=delta, launches=mine, n_layers=cfg.n_layers,
+               init_s=made, f32_gb_never_held=f32_gb,
+               q8_gb=param_bytes(params) / 1e9, allocated_gb=held,
+               init_peak_gb=peak,
+               run_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               prompt_lens=[len(p) for p in prompts],
+               streams_sha1=hashlib.sha1(
+                   json.dumps(streams).encode()).hexdigest()[:12])
+    _suffixed(counted, mine, arch)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+# phases 18-21's depths, cut to keep the script in its time: glm4-9b's
+# 40 layers (phase 19) to make room for phase 20, command-r-35b's 40
+# (phase 20) for phase 21, and, for phases 22-23 (~125 s), phi4-mini-3.8b's
+# 32 (phase 18, ~0.6 s a layer), qwen3-moe-30b-a3b's 48 (phase 21, ~2 s a
+# layer; its MoE init still held bitwise at 2 layers) and glm4-9b's and
+# command-r-35b's further; every kernel at each config's shapes stays in
+# phase 2
+P4_PHASE_LAYERS = 12
+G4_PHASE_LAYERS = 4
+CR_PHASE_LAYERS = 4
+Q3_PHASE_LAYERS = 4
 
 
 def bf16_paths(dev, counted):
     """Phases 16-21, the bf16 configs: llama3.2-3b's parameters drawn once
     (``llama3_params``), the paged pools (phase 16), the dense cache and
-    Q4_0 (phase 17), then phi4-mini-3.8b (phase 18), glm4-9b at
-    ``G4_PHASE_LAYERS`` layers (phase 19), command-r-35b at
-    ``CR_PHASE_LAYERS`` (phase 20) and qwen3-moe-30b-a3b at all 48 (phase
-    21), each drawn after the last one's parameters are freed.  Alone on the
+    Q4_0 (phase 17), then phi4-mini-3.8b at ``P4_PHASE_LAYERS`` layers
+    (phase 18), glm4-9b at ``G4_PHASE_LAYERS`` (phase 19), command-r-35b at
+    ``CR_PHASE_LAYERS`` (phase 20) and qwen3-moe-30b-a3b at
+    ``Q3_PHASE_LAYERS`` (phase 21), each drawn after the last one's
+    parameters are freed.  Alone on the
     card: ``build.build()``, ``qlinear.set_default_strategy("kernel")``
     and ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as
     ``main`` does, then ``bf16_paths(torch.device("cuda"), {})``."""
@@ -4906,15 +5360,29 @@ def bf16_paths(dev, counted):
     phase(f"phase 17: {L3} {json.dumps(l3b)}")
     del params, p4
     torch.cuda.empty_cache()
-    phi = full_width_path(dev, counted, P4, 18)
+    phi = full_width_path(dev, counted, P4, 18, n_layers=P4_PHASE_LAYERS)
     phase(f"phase 18: {P4} {json.dumps(phi)}")
     glm = full_width_path(dev, counted, G4, 19, n_layers=G4_PHASE_LAYERS)
     phase(f"phase 19: {G4} {json.dumps(glm)}")
     cr = full_width_path(dev, counted, CR, 20, n_layers=CR_PHASE_LAYERS)
     phase(f"phase 20: {CR} {json.dumps(cr)}")
-    q3 = full_width_path(dev, counted, Q3, 21)
+    q3 = full_width_path(dev, counted, Q3, 21, n_layers=Q3_PHASE_LAYERS)
     phase(f"phase 21: {Q3} {json.dumps(q3)}")
     return l3, l3b, phi, glm, cr, q3
+
+
+def ssm_paths(dev, counted):
+    """Phases 22-23, the SSM families on the dense fallback: mamba2-370m
+    (phase 22) and zamba2-1.2b (phase 23), each at full width and depth
+    (``ssm_path``).  Alone on the card: ``build.build()``,
+    ``qlinear.set_default_strategy("kernel")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
+    does, then ``ssm_paths(torch.device("cuda"), {})``."""
+    m2 = ssm_path(dev, counted, M2, 22)
+    phase(f"phase 22: {M2} {json.dumps(m2)}")
+    z2 = ssm_path(dev, counted, Z2, 23)
+    phase(f"phase 23: {Z2} {json.dumps(z2)}")
+    return m2, z2
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -5031,6 +5499,8 @@ def main() -> int:
     check_glm4(report, dev)
     check_command_r(report, dev)
     check_qwen3_moe(report, dev)
+    check_mamba2(report, dev)
+    check_zamba2(report, dev)
 
     counted = {}
     cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
@@ -5056,6 +5526,7 @@ def main() -> int:
     del params, p4
     torch.cuda.empty_cache()
     bf16_paths(dev, counted)
+    ssm_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

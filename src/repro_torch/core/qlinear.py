@@ -15,6 +15,8 @@ with one of three strategies of identical math:
              for Q8_0 the GEMV for <= 32 rows, the tiled GEMM above) --
              the counterpart of the reference's ``"pallas"``.
 
+``qdot_many(x, ws)`` is ``qdot`` of one ``x`` against several weights,
+quantizing x once under ``kernel``.
 ``norm_qdot(x, gamma, eps, w)`` is ``qdot`` of the RMS-normed ``x``: under
 ``kernel``, with a quantized weight, the norm and the activations' Q8_0
 quantization run as one ``rmsnorm_quant`` launch (the reference's fused
@@ -94,6 +96,23 @@ def qdot(x: torch.Tensor, w: Weight,
     if s == "kernel":
         return ops.q8_matmul(x, w)
     raise ValueError(f"unknown strategy {s!r}")
+
+
+def qdot_many(x: torch.Tensor, ws) -> list:
+    """``[qdot(x, w) for w in ws]``.  Under ``kernel``, when the quantized
+    weights among ``ws`` share one group size, x is quantized once (one
+    ``quantize`` launch) and its codes and scales feed each of their
+    products: the codes ``qdot`` would make for each.  Float weights take
+    ``qdot``."""
+    quantized = [w for w in ws if isinstance(w, QuantizedTensor)]
+    if (_DEFAULT_STRATEGY != "kernel" or not quantized
+            or len({w.group_size for w in quantized}) != 1):
+        return [qdot(x, w) for w in ws]
+    *lead, k = x.shape
+    xq, xs = ops.quantize_kernel(x.reshape(-1, k).contiguous(),
+                                 quantized[0].group_size)
+    return [ops.q8_matmul_quantized(xq, xs, w).reshape(*lead, w.q.shape[0])
+            if isinstance(w, QuantizedTensor) else qdot(x, w) for w in ws]
 
 
 def norm_qdot(x: torch.Tensor, gamma: torch.Tensor, eps: float,

@@ -53,6 +53,18 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch qwen3-moe-30b-a3b --requests 16 --slots 8 --max-seq 1024
 
+  # the SSM families on the dense per-slot cache (they have no paged
+  # pool; the Engine falls back as the reference's does): mamba2-370m (48
+  # Mamba2 layers, d_model 1024, no attention; ~0.40 GB of Q8_0) and
+  # zamba2-1.2b (38 Mamba2 layers, d_model 2048, one shared attention +
+  # SwiGLU block after every 6th; ~1.2 GB; --kv-int8 for an int8 KV
+  # cache).  Their reduced configs on the CPU: --arch mamba2-370m
+  # --requests 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch mamba2-370m --requests 16 --slots 8 --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch zamba2-1.2b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream

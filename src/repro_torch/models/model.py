@@ -1,7 +1,7 @@
 """Model facade: the entry points the serving engine calls.
 
-PyTorch counterpart of ``repro/models/model.py`` for the dense family and
-the MoE family without an interleave.
+PyTorch counterpart of ``repro/models/model.py`` for the dense family, the
+MoE family without an interleave, and the SSM and hybrid families.
 """
 
 from __future__ import annotations
@@ -43,6 +43,14 @@ class Model:
         if fuse_decode:
             qp = transformer.fuse_decode_weights(qp, self.cfg)
         return qp
+
+    @property
+    def supports_paged_cache(self) -> bool:
+        """Whether the family has the paged pool: the families whose cache
+        is one stacked attention bank.  The SSM and hybrid families keep
+        the dense per-slot cache (the reference's ``init_paged_cache`` is
+        None for them; here it raises)."""
+        return transformer.supports_paged_cache(self.cfg)
 
     def init_cache(self, batch: int, max_seq: int, device: Device = None):
         return transformer.init_cache(self.cfg, batch, max_seq,

@@ -1,19 +1,24 @@
 """Decoder-only LM: init, decode-weight fusion, decode on the paged pool or
 the dense per-slot cache, chunked and one-shot prefill.
 
-PyTorch counterpart of the dense family and the MoE family without an
-interleave (every layer MoE) of ``repro/models/transformer.py``.
+PyTorch counterpart of ``repro/models/transformer.py`` for the dense
+family, the MoE family without an interleave (every layer MoE), the SSM
+family (Mamba2 layers, ``models/ssm.py``) and the hybrid (Mamba2 layers
+with one shared attention block after every ``attn_every``-th).
 Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
-``Model.quantize``) stacked per layer, as in the reference; the layer loop
-is a Python loop over the stacked leading axis.
+``Model.quantize``) stacked per layer in the reference's layout (the
+hybrid's ``blocks_main`` on two leading axes, ``blocks_tail``, and the
+unstacked ``shared_attn``); the layer loop is a Python loop over the
+stacked leading axes (``_layers``).
 
 Serving runs on the paged KV pool (``init_paged_cache``, filled by
 ``prefill_chunk_batch``; ``verify_chunk_batch`` is its twin with logits at
 every chunk position, for speculative decoding) or on the dense per-slot
-reservation (``init_cache``, filled by the one-shot ``prefill``).  Unlike the
-reference, which donates the cache to a jitted step, the port writes it in
-place: ``decode_step`` and the chunk steps return the same cache tensors
-they were given, updated.
+reservation (``init_cache``, filled by the one-shot ``prefill``); the SSM
+and hybrid families have only the dense cache, their conv rings and SSM
+states beside the hybrid's K/V.  Unlike the reference, which donates the
+cache to a jitted step, the port writes it in place: ``decode_step`` and
+the chunk steps return the same cache tensors they were given, updated.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.core.quantization import (QuantizedTensor,
                                            quantize_rows)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -61,6 +67,12 @@ def _q_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
+# the families the port does not serve yet, by name
+_UNPORTED = {"audio": "the audio family (the encoder-decoder of "
+                      "models/encdec.py)",
+             "vlm": "the vlm family (mrope and the vision frontend)"}
+
+
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port does not serve."""
     if cfg.family == "moe" and cfg.moe_every > 1:
@@ -68,10 +80,14 @@ def check_family(cfg: ModelConfig) -> None:
             f"{cfg.arch_id}: the llama4-style interleave (an MoE layer "
             f"every {cfg.moe_every} layers, dense ones between) is not "
             "ported")
-    if cfg.family not in ("dense", "moe") or cfg.norm_type != "rmsnorm" \
-            or cfg.mlp_type != "swiglu" or not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU "
-                                  "and the MoE families with tied "
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(f"{cfg.arch_id}: {_UNPORTED[cfg.family]} "
+                                  "is not ported")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+            or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
+            or not cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU, "
+                                  "MoE, SSM and hybrid families with tied "
                                   "embeddings are ported")
 
 
@@ -99,47 +115,96 @@ def _draw_leaf(shape, by_layer: bool, draw):
     return out
 
 
-def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
-    """The parameter tree on ``dev``, each weight made by ``leaf(path,
-    shape, scale, dtype=None, by_layer=False)`` (a normal draw times
-    ``scale`` in ``dtype``, the param dtype by default, path as
-    ``quantize_params`` names it; ``by_layer``: drawn one layer at a time
-    into the stack) in the order the reference draws them: the embedding,
-    then wq, wk, wv, wo, then w1, w3, w2 (the dense MLP), or the MoE's f32
-    router and its expert banks w1, w3, w2, each bank a layer at a time
-    (qwen3-moe-30b-a3b's bank is 38.7 GB of f32 at once, 0.8 GB a layer);
-    norm gammas of ones."""
+def _ones(dev: torch.device, *shape) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    nl, d, hd = cfg.n_layers, cfg.d_model, cfg.hd()
+def _dense_block(cfg: ModelConfig, leaf, dev: torch.device,
+                 lead: Tuple[int, ...], prefix: str) -> Params:
+    """One attention + MLP block stacked on ``lead`` (``(n_layers,)``, or
+    ``()`` for the hybrid's unstacked shared block): wq, wk, wv, wo, then
+    w1, w3, w2 (the dense MLP), or the MoE's f32 router and its expert
+    banks w1, w3, w2, each bank a layer at a time (qwen3-moe-30b-a3b's bank
+    is 38.7 GB of f32 at once, 0.8 GB a layer); norm gammas of ones."""
+    d, hd = cfg.d_model, cfg.hd()
     h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
     sf = 1.0 / math.sqrt(f)
-    embed = leaf("embed", (cfg.padded_vocab(), d), 0.02)
-    blocks = {
-        "norm1": {"gamma": ones(nl, d)},
-        "attn": {"wq": leaf("blocks/attn/wq", (nl, h, hd, d), sc),
-                 "wk": leaf("blocks/attn/wk", (nl, kvh, hd, d), sc),
-                 "wv": leaf("blocks/attn/wv", (nl, kvh, hd, d), sc),
-                 "wo": leaf("blocks/attn/wo", (nl, d, h, hd), so)},
-        "norm2": {"gamma": ones(nl, d)},
+    blk = {
+        "norm1": {"gamma": _ones(dev, *lead, d)},
+        "attn": {"wq": leaf(f"{prefix}/attn/wq", (*lead, h, hd, d), sc),
+                 "wk": leaf(f"{prefix}/attn/wk", (*lead, kvh, hd, d), sc),
+                 "wv": leaf(f"{prefix}/attn/wv", (*lead, kvh, hd, d), sc),
+                 "wo": leaf(f"{prefix}/attn/wo", (*lead, d, h, hd), so)},
+        "norm2": {"gamma": _ones(dev, *lead, d)},
     }
     if cfg.family == "moe":
         e = cfg.n_experts
-        blocks["moe"] = {
-            "router": leaf("blocks/moe/router", (nl, e, d), sc,
+        blk["moe"] = {
+            "router": leaf(f"{prefix}/moe/router", (*lead, e, d), sc,
                            torch.float32),
-            "w1": leaf("blocks/moe/w1", (nl, e, f, d), sc, by_layer=True),
-            "w3": leaf("blocks/moe/w3", (nl, e, f, d), sc, by_layer=True),
-            "w2": leaf("blocks/moe/w2", (nl, e, d, f), sf, by_layer=True)}
+            "w1": leaf(f"{prefix}/moe/w1", (*lead, e, f, d), sc,
+                       by_layer=True),
+            "w3": leaf(f"{prefix}/moe/w3", (*lead, e, f, d), sc,
+                       by_layer=True),
+            "w2": leaf(f"{prefix}/moe/w2", (*lead, e, d, f), sf,
+                       by_layer=True)}
     else:
-        blocks["mlp"] = {"w1": leaf("blocks/mlp/w1", (nl, f, d), sc),
-                         "w3": leaf("blocks/mlp/w3", (nl, f, d), sc),
-                         "w2": leaf("blocks/mlp/w2", (nl, d, f), sf)}
-    return {"embed": embed, "final_norm": {"gamma": ones(d)},
-            "blocks": blocks}
+        blk["mlp"] = {"w1": leaf(f"{prefix}/mlp/w1", (*lead, f, d), sc),
+                      "w3": leaf(f"{prefix}/mlp/w3", (*lead, f, d), sc),
+                      "w2": leaf(f"{prefix}/mlp/w2", (*lead, d, f), sf)}
+    return blk
+
+
+def _ssm_dims(cfg: ModelConfig) -> S.SSMDims:
+    return S.make_ssm_dims(cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                           cfg.ssm_head_dim, cfg.ssm_groups, cfg.conv_width)
+
+
+def _ssm_block(cfg: ModelConfig, leaf, dev: torch.device,
+               lead: Tuple[int, ...], prefix: str) -> Params:
+    """Mamba2 layers stacked on ``lead``: norm1 and the ``ssm`` tree of
+    ``ssm.init_mamba2_params``."""
+    return {"norm1": {"gamma": _ones(dev, *lead, cfg.d_model)},
+            "ssm": S.init_mamba2_params(leaf, _ssm_dims(cfg),
+                                        f"{prefix}/ssm", lead, dev)}
+
+
+def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """The hybrid's (super blocks, tail layers): ``n_layers //
+    attn_every`` super blocks of ``attn_every`` Mamba2 layers and the
+    shared block, then the layers left over."""
+    n_super = cfg.n_layers // cfg.attn_every
+    return n_super, cfg.n_layers - n_super * cfg.attn_every
+
+
+def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
+    """The parameter tree on ``dev`` in the reference's layout, each weight
+    made by ``leaf(path, shape, scale, dtype=None, by_layer=False)`` (a
+    normal draw times ``scale`` in ``dtype``, the param dtype by default,
+    path as ``quantize_params`` names it; ``by_layer``: drawn one layer at
+    a time into the stack): the embedding, then the blocks.  Dense and MoE:
+    ``blocks`` (``_dense_block``).  SSM: ``blocks`` of Mamba2 layers.
+    Hybrid: ``blocks_main`` (n_super, attn_every, ...), ``blocks_tail``
+    (the layers left over) and the unstacked ``shared_attn``; each stack is
+    its own draw, so the quantization policy judges it at its own shape,
+    as the reference's does."""
+    nl, d = cfg.n_layers, cfg.d_model
+    params: Params = {"embed": leaf("embed", (cfg.padded_vocab(), d), 0.02),
+                      "final_norm": {"gamma": _ones(dev, d)}}
+    if cfg.family == "ssm":
+        params["blocks"] = _ssm_block(cfg, leaf, dev, (nl,), "blocks")
+    elif cfg.family == "hybrid":
+        n_super, n_tail = _hybrid_split(cfg)
+        params["blocks_main"] = _ssm_block(
+            cfg, leaf, dev, (n_super, cfg.attn_every), "blocks_main")
+        params["blocks_tail"] = _ssm_block(cfg, leaf, dev, (n_tail,),
+                                           "blocks_tail")
+        params["shared_attn"] = _dense_block(cfg, leaf, dev, (),
+                                             "shared_attn")
+    else:
+        params["blocks"] = _dense_block(cfg, leaf, dev, (nl,), "blocks")
+    return params
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -277,13 +342,37 @@ def fuse_decode_weights(params: Params, cfg: ModelConfig) -> Params:
     return walk(params)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a per-layer-stacked parameter tree (views)."""
+def _layer(tree, i):
+    """Layer ``i`` (an index, or a tuple of indices into several leading
+    axes) of a per-layer-stacked parameter or cache tree (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
         return dataclasses.replace(tree, q=tree.q[i], scale=tree.scale[i])
+    if isinstance(tree, tuple):
+        return tuple(_layer(t, i) for t in tree)
     return tree[i]
+
+
+def _layers(params: Params, cfg: ModelConfig):
+    """The layers in the reference's order: (kind, the layer's parameters,
+    its cache's key, its index there), kind ``"attn"`` for an attention
+    block (dense, MoE, or the hybrid's shared block, whose j-th
+    application reads ``cache["attn"]`` layer j) or ``"ssm"`` for a Mamba2
+    layer."""
+    if cfg.family == "hybrid":
+        n_super, n_tail = _hybrid_split(cfg)
+        for j in range(n_super):
+            for i in range(cfg.attn_every):
+                yield ("ssm", _layer(params["blocks_main"], (j, i)),
+                       "ssm_main", (j, i))
+            yield "attn", params["shared_attn"], "attn", j
+        for i in range(n_tail):
+            yield "ssm", _layer(params["blocks_tail"], i), "ssm_tail", i
+        return
+    kind, key = ("ssm", "ssm") if cfg.family == "ssm" else ("attn", "attn")
+    for i in range(cfg.n_layers):
+        yield kind, _layer(params["blocks"], i), key, i
 
 
 def embed_inputs(params: Params, cfg: ModelConfig,
@@ -292,6 +381,9 @@ def embed_inputs(params: Params, cfg: ModelConfig,
 
 
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) (..., hd) at ``positions``; None for ``rope_type`` none."""
+    if cfg.rope_type == "none":
+        return None
     if cfg.rope_type != "rope":
         raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
                                   "ported yet")
@@ -339,15 +431,16 @@ def supports_paged_cache(cfg: ModelConfig) -> bool:
 
 
 def _attn_bank(cfg: ModelConfig, lead: Tuple[int, ...],
-               dev: torch.device, scratch: bool = False
-               ) -> Dict[str, torch.Tensor]:
-    """Stacked K/V buffers (n_layers, *lead, KVH, hd), plus one f32 scale
-    per row and head for an int8 cache.  With ``scratch`` each buffer is a
+               dev: torch.device, scratch: bool = False,
+               n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stacked K/V buffers (n_layers, *lead, KVH, hd) (``n_layers``: the
+    config's by default), plus one f32 scale per row and head for an int8
+    cache.  With ``scratch`` each buffer is a
     view of one with an extra block behind the last (``lead[0] + 1``
     blocks): the paged decode step sends the rows that must write nothing
     there (:func:`_scratch_view`), and nothing reads it."""
     kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
-    shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.hd())
+    shape = (n_layers or cfg.n_layers, *lead, cfg.n_kv_heads, cfg.hd())
     dtypes = {"k": kvd, "v": kvd}
     if _kv_int8(cfg):
         dtypes.update(ks=torch.float32, vs=torch.float32)
@@ -370,12 +463,42 @@ def _scratch_view(buf: torch.Tensor) -> torch.Tensor:
                             buf.stride())
 
 
+def _ssm_cache(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
+               dev: torch.device) -> Dict[str, Any]:
+    """Mamba2 layers' decode state stacked on ``lead``: ``conv``, the (x, B,
+    C) rings of the last ``conv_width - 1`` pre-conv inputs, (*lead, batch,
+    W-1, C) f32 each, and ``state`` (*lead, batch, H, P, N) f32."""
+    d = _ssm_dims(cfg)
+    gn, w1 = d.n_groups * d.state, cfg.conv_width - 1
+
+    def zeros(*shape):
+        return torch.zeros((*lead, batch, *shape), dtype=torch.float32,
+                           device=dev)
+    return {"conv": (zeros(w1, d.d_inner), zeros(w1, gn), zeros(w1, gn)),
+            "state": zeros(d.n_heads, d.head_dim, d.state)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: Device = None) -> Cache:
-    """Dense per-slot KV cache: (n_layers, batch, max_seq, KVH, hd)."""
+    """Dense per-slot cache: ``attn``, K/V (n_layers, batch, max_seq, KVH,
+    hd); for the SSM family ``ssm`` (``_ssm_cache``) instead; for the
+    hybrid ``ssm_main`` (n_super, attn_every, batch, ...), ``ssm_tail`` and
+    ``attn`` with one layer per application of the shared block."""
     dev = resolve_device(device)
-    return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "attn": _attn_bank(cfg, (batch, max_seq), dev)}
+    cache: Cache = {"lens": torch.zeros((batch,), dtype=torch.int32,
+                                        device=dev)}
+    if cfg.family == "ssm":
+        cache["ssm"] = _ssm_cache(cfg, (cfg.n_layers,), batch, dev)
+    elif cfg.family == "hybrid":
+        n_super, n_tail = _hybrid_split(cfg)
+        cache["ssm_main"] = _ssm_cache(cfg, (n_super, cfg.attn_every), batch,
+                                       dev)
+        cache["ssm_tail"] = _ssm_cache(cfg, (n_tail,), batch, dev)
+        cache["attn"] = _attn_bank(cfg, (batch, max_seq), dev,
+                                   n_layers=n_super)
+    else:
+        cache["attn"] = _attn_bank(cfg, (batch, max_seq), dev)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
@@ -443,6 +566,41 @@ def _decode_out_proj(p_attn, out, x_dtype):
     return qeinsum("bhk,dhk->bd", out, p_attn["wo"]).to(x_dtype)
 
 
+def _attn_decode_layer(lp, x, cfg: ModelConfig, lc, rope, dst, lens_now,
+                       qscale: float, pt=None):
+    """One attention block at a decode step: q, k, v of the pre-norm x
+    (B, D), the new K/V rows written at ``dst`` ((block, offset) of the
+    paged pool when ``pt`` is its page table, else (slot, position) of
+    the dense cache ``lc``), attention over each row's ``lens_now``
+    positions (q scaled by ``qscale``), then the MLP."""
+    q, k, v = _decode_qkv(lp, x, cfg, *rope)
+    qs = q * qscale
+    if pt is not None:
+        _write_rows({n: _scratch_view(b) for n, b in lc.items()}, k, v, *dst)
+        out = ops.paged_decode_attention(qs, lc["k"], lc["v"], pt, lens_now,
+                                         lc.get("ks"), lc.get("vs"))
+    else:
+        _write_rows(lc, k, v, *dst)
+        out = ops.decode_attention(qs, lc["k"], lc["v"], lens_now,
+                                   lc.get("ks"), lc.get("vs"))
+    x = x + _decode_out_proj(lp["attn"], out, x.dtype)
+    return x + _mlp(lp, x, cfg, decode=True)
+
+
+def _ssm_decode_layer(lp, x, cfg: ModelConfig, lc) -> torch.Tensor:
+    """One Mamba2 layer at a decode step on the pre-norm x (B, D): norm1,
+    ``ssm.mamba2_decode_step``, the residual; the layer's conv rings and
+    state (``lc``, views of the cache) are overwritten in place by the new
+    ones, which are fresh tensors, so no read follows a write."""
+    h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
+    y, (conv, state) = S.mamba2_decode_step(lp["ssm"], h, _ssm_dims(cfg),
+                                            lc["conv"], lc["state"])
+    for buf, new in zip(lc["conv"], conv):
+        buf.copy_(new)
+    lc["state"].copy_(state)
+    return x + y
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
@@ -460,13 +618,16 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     reference's ``dynamic_update_slice`` clamps it, and ``lens`` comes back
     as ``pos + 1``.  Attention runs on ``paged_decode_attention`` /
     ``decode_attention`` (the CUDA kernels on the card, which read only each
-    row's live positions; their plain versions on the CPU)."""
-    qscale = _q_scale(cfg)
+    row's live positions; their plain versions on the CPU).  A Mamba2 layer
+    advances every row's conv rings and SSM state by its token
+    (``_ssm_decode_layer``)."""
     paged = "page_table" in cache
     pos = cache["lens"] if positions is None else positions
     x = embed_inputs(params, cfg, tokens)
-    cos, sin = _rope_cos_sin(cfg, pos)
+    rope = _rope_cos_sin(cfg, pos)
+    qscale = _q_scale(cfg) if cfg.n_heads else None
     lens_now = (pos + 1).int()
+    pt = dst = None
     if paged:
         pt = cache["page_table"]
         bs = cache["attn"]["k"].shape[2]
@@ -478,26 +639,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         nb = cache["attn"]["k"].shape[1]
         dst = (torch.where(blk_id >= 0, blk_id, nb).long(),
                (pos % bs).long())
-    else:
+    elif "attn" in cache:
         s = cache["attn"]["k"].shape[2]
         dst = (torch.arange(pos.shape[0], device=pos.device),
                torch.clamp(pos, 0, s - 1).long())
 
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        lc = {k: v[i] for k, v in cache["attn"].items()}
-        q, k, v = _decode_qkv(lp, x, cfg, cos, sin)
-        _write_rows({n: _scratch_view(b) for n, b in lc.items()} if paged
-                    else lc, k, v, *dst)
-        if paged:
-            out = ops.paged_decode_attention(
-                q * qscale, lc["k"], lc["v"], pt, lens_now,
-                lc.get("ks"), lc.get("vs"))
+    for kind, lp, key, idx in _layers(params, cfg):
+        lc = _layer(cache[key], idx)
+        if kind == "ssm":
+            x = _ssm_decode_layer(lp, x, cfg, lc)
         else:
-            out = ops.decode_attention(q * qscale, lc["k"], lc["v"],
-                                       lens_now, lc.get("ks"), lc.get("vs"))
-        x = x + _decode_out_proj(lp["attn"], out, x.dtype)
-        x = x + _mlp(lp, x, cfg, decode=True)
+            x = _attn_decode_layer(lp, x, cfg, lc, rope, dst, lens_now,
+                                   qscale, pt)
 
     logits = _head(params, cfg, x)
     new_cache = dict(cache)
@@ -541,25 +694,34 @@ def _attn_seq(p, x, cfg: ModelConfig, cos, sin):
 def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
     """x (B, S, D) input embeddings -> (hidden (B, S, D) before the final
-    norm, each layer's (k, v) (B, S, KVH, hd)).  The head's ``_head``
-    normalizes only the rows it reads."""
-    cos, sin = _rope_cos_sin(cfg, positions)
-    kvs = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        a, kv = _attn_seq(lp, x, cfg, cos, sin)
-        x = x + a
-        x = x + _mlp(lp, x, cfg)
-        kvs.append(kv)
-    return x, kvs
+    norm, each layer's (cache key, index, state)): an attention block's
+    (k, v) (B, S, KVH, hd), a Mamba2 layer's (conv rings, SSM state)
+    (``ssm.mamba2_forward``).  The head's ``_head`` normalizes only the
+    rows it reads."""
+    rope = _rope_cos_sin(cfg, positions)
+    parts = []
+    for kind, lp, key, idx in _layers(params, cfg):
+        if kind == "ssm":
+            h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
+            y, part = S.mamba2_forward(lp["ssm"], h, _ssm_dims(cfg),
+                                       cfg.ssm_chunk)
+            x = x + y
+        else:
+            a, part = _attn_seq(lp, x, cfg, *rope)
+            x = x + a
+            x = x + _mlp(lp, x, cfg)
+        parts.append((key, idx, part))
+    return x, parts
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Whole prompts ``batch["tokens"]`` (B, S) at positions 0..S-1 in one
     pass: returns the last position's logits (B, V) f32 and a dense cache
-    of ``max_seq`` positions (default S) holding the prompts' K/V,
-    ``lens = S``.  Runs where the parameters live."""
+    of ``max_seq`` positions (default S) holding the prompts' K/V (and,
+    for the SSM families, each Mamba2 layer's conv rings and final state,
+    cast to the cache's f32), ``lens = S``.  Runs where the parameters
+    live."""
     dev = params["final_norm"]["gamma"].device
     tokens = batch["tokens"]
     if not isinstance(tokens, torch.Tensor):
@@ -567,13 +729,20 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     tokens = tokens.to(dev)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    hidden, kvs = forward_layers(params, cfg, embed_inputs(params, cfg,
-                                                           tokens), positions)
+    hidden, parts = forward_layers(params, cfg, embed_inputs(params, cfg,
+                                                             tokens),
+                                   positions)
     cache = init_cache(cfg, b, max_seq or s, device=dev)
     cache["lens"].fill_(s)
-    for i, (k, v) in enumerate(kvs):
-        _write_rows({kk: vv[i] for kk, vv in cache["attn"].items()}, k, v,
-                    slice(None), slice(0, s))
+    for key, idx, part in parts:
+        lc = _layer(cache[key], idx)
+        if key == "attn":
+            _write_rows(lc, *part, slice(None), slice(0, s))
+            continue
+        conv, state = part
+        for buf, c in zip(lc["conv"], conv):
+            buf.copy_(c)
+        lc["state"].copy_(state)
     return _head(params, cfg, hidden[:, -1]), cache
 
 

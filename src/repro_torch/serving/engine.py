@@ -15,10 +15,17 @@ request with the same prompt prefix maps those blocks and prefills only
 the rest.
 
 ``cache_kind="dense"`` serves from the contiguous per-slot reservation
-instead: each admitted prompt runs as one whole-prompt ``prefill`` whose
-(1, max_seq) cache is copied into its slot, then decodes with the rest;
-there are no blocks, so no prefix reuse, copy-on-write or preemption, and
-``n_samples > 1`` is rejected as in the reference.
+instead, and so does every model without a paged cache (the SSM and hybrid
+families), whatever ``cache_kind`` asks, as in the reference: each admitted
+prompt runs as one whole-prompt ``prefill`` whose (1, max_seq) cache is
+copied into its slot (every leaf: K/V, conv rings, SSM states), then
+decodes with the rest; there are no blocks, so no prefix reuse,
+copy-on-write or preemption, and ``n_samples > 1`` and speculation are
+rejected as in the reference.  The batched decode step advances every
+row; a running row it does not decode (a prompt prefilled in the same
+step) keeps its SSM state, which the step would otherwise advance by a
+padding token for good (``_held_ssm_rows``; the reference's engine lets
+it advance).
 
 Sampling is the reference's, key for key: each request's root key is
 ``prng_key(seed)`` or the next split of the engine's key; sibling ``i``
@@ -255,8 +262,10 @@ class Engine:
     ``device`` is where the cache lives and the steps run (the card unless
     ``"cpu"`` is passed); ``params`` are moved there.  ``cache_kind`` is
     ``"paged"`` (the block pool) or ``"dense"`` (a contiguous
-    ``max_seq`` reservation per slot).  ``n_pages`` sizes the pool
-    (default: the full ``max_slots * max_seq`` reservation);
+    ``max_seq`` reservation per slot); a model without a paged cache
+    (``model.supports_paged_cache`` false) takes the dense one.
+    ``n_pages`` sizes the pool (default: the full ``max_slots * max_seq``
+    reservation);
     shrinking it oversubscribes, which the scheduler absorbs by deferring
     admission and preempting on mid-decode growth.  Requests that could
     never run come back from :meth:`run` with ``.error`` set.  ``seed``
@@ -326,7 +335,7 @@ class Engine:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.nan_guard = nan_guard
         self.page_size = page_size
-        self.paged = cache_kind == "paged"
+        self.paged = cache_kind == "paged" and model.supports_paged_cache
         self.pager: Optional[BlockAllocator] = None
         if self.paged:
             mb = -(-max_seq // page_size)
@@ -892,9 +901,11 @@ class Engine:
         cfg = self.model.cfg
         bytes_moved = (self._param_bytes
                        + (kv_rows_read + n_tokens) * self._kv_row_bytes)
+        # a config without attention heads (mamba2-370m) has no pair term;
+        # the reference's cfg.hd() divides by its zero heads there
+        heads = cfg.n_heads * cfg.hd() if cfg.n_heads else 0
         flops = (2.0 * self._n_params * n_tokens
-                 + 4.0 * cfg.n_heads * cfg.hd() * cfg.n_layers
-                 * attn_pairs)
+                 + 4.0 * heads * cfg.n_layers * attn_pairs)
         self.metrics["energy_joules"] += step_joules(bytes_moved, flops)
 
     def _account_prefix_bytes(self, offs: np.ndarray,
@@ -998,11 +1009,52 @@ class Engine:
         return failed
 
     def _merge_slot_cache(self, slot: int, pcache, plen: int) -> None:
-        """Copy a (1, max_seq) prefill cache into slot ``slot`` of the
-        dense cache (every buffer's batch axis follows its layer axis)."""
-        for key, buf in self.cache["attn"].items():
-            buf[:, slot] = pcache["attn"][key][:, 0]
+        """Copy a (1, ...) prefill cache into slot ``slot`` of the dense
+        cache: every leaf (tuples too), cast to the slot cache's dtype, its
+        batch axis the first where the prefill leaf has 1 row and the slot
+        cache ``max_slots`` (the layer axes come first), as the reference
+        finds it; ``lens[slot] = plen``."""
+        def merge(dst, src):
+            if isinstance(dst, dict):
+                for k in dst:
+                    merge(dst[k], src[k])
+            elif isinstance(dst, tuple):
+                for d, s in zip(dst, src):
+                    merge(d, s)
+            else:
+                for ax in range(dst.ndim):
+                    if src.shape[ax] == 1 and dst.shape[ax] == self.max_slots:
+                        dst.select(ax, slot).copy_(src.select(ax, 0))
+                        return
+
+        for key, tree in self.cache.items():
+            if key != "lens":
+                merge(tree, pcache[key])
         self.cache["lens"][slot] = plen
+
+    def _held_ssm_rows(self, slots: List[int]):
+        """The conv rings and SSM states of the running rows outside this
+        decode's ``slots`` (a prompt prefilled in this step, a row whose
+        dispatch faulted), copied before the batched ``decode_step``
+        advances every row by its token.  A K/V row written for such a row
+        is overwritten before it is read; a state advanced by a padding
+        token is wrong for good, so ``_restore_rows`` writes these copies
+        back after the step.  None without SSM state or such rows."""
+        rows = [i for i in self.scheduler.running if i not in slots]
+        leaves = [(t, t.ndim - (3 if j < 3 else 4))
+                  for key, tree in self.cache.items() if key.startswith("ssm")
+                  for j, t in enumerate((*tree["conv"], tree["state"]))]
+        if not rows or not leaves:
+            return None
+        idx = self._put(rows, torch.long)
+        return idx, [(t, ax, t.index_select(ax, idx)) for t, ax in leaves]
+
+    @staticmethod
+    def _restore_rows(held) -> None:
+        if held is not None:
+            idx, saved = held
+            for t, ax, rows in saved:
+                t.index_copy_(ax, idx, rows)
 
     def _stop_hit(self, seq, tok: int) -> bool:
         req = seq.req
@@ -1114,8 +1166,10 @@ class Engine:
         t0 = self._now()
         if self.faults is not None:
             self.faults.latency(self._step)    # a simulated slow step
+        held = None if self.paged else self._held_ssm_rows(slots)
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._put(tokens))
+        self._restore_rows(held)
         if self.faults is not None:
             logits = self.faults.corrupt_logits(SITE_DECODE, self._step,
                                                 logits, row_uids)
