@@ -1,6 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only phase2,main_path,bf16_paths,ssm_paths,
+                                  vlm_audio_paths]
+
+With no argument every group of phases runs, in that order; ``--only``
+runs a selection, each group with the phase-2 checks of its own shapes.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
 sources, ten entry points: ``rmsnorm_quant.cu`` also holds ``quantize``;
@@ -80,7 +84,20 @@ back to the dense per-slot cache; the scan, the convolutions and the
 recurrence are plain PyTorch, as the reference's jnp; their logits are
 held to the fixed bound counted from the Mamba2 layer's and the shared
 block's code (``delta_sites``), the one-shot prefill at every position
-(``every_position_lambda``).  On every llama3.2-3b, phi4, glm4,
+(``every_position_lambda``).  Phase 24 serves qwen2-vl-7b (the vlm
+family: 28 query heads over 4 KV heads of 128, d_ff 18944, vocab 152064,
+M-RoPE; its 28 layers cut to 4 for time) as phases 18-21 on text tokens,
+then one model-level ``Model.prefill`` on stub patch embeddings at three
+distinct M-RoPE position streams (``vlm_prefill``); phase 25 runs
+whisper-small (the audio family's encoder-decoder) at full width and
+depth at the model level, as the reference serves it (its engine cannot
+prefill frames, so the port's refuses the family): ``Model.prefill`` on
+stub frames, then 32 greedy ``decode_step``s on a bf16 and an int8 cache,
+held to the fixed bound at every prefill position and decode step
+(``whisper_plain_delta``) with its own planted faults
+(``_whisper_controls``); phase 2 holds the kernels at both configs'
+shapes (``check_qwen2_vl``, ``check_whisper``).  On every llama3.2-3b,
+phi4, glm4,
 command-r, qwen3-moe, mamba2 and zamba2 path the kernels' logits are held
 against the plain versions' on the same inputs to a fixed bound derived
 from bf16 and Q8_0 rounding (``plain_delta_bound``), with each kernel's
@@ -627,9 +644,10 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
                       gqa=False):
     """One decode_attention call on a (B, S, KVH, D) cache (f32, bf16 with
     ``bf16``, or int8) against its plain version (tolerance 2e-5; a
-    length-0 row exactly 0) and, where S is a multiple of 64, bitwise
-    against paged_decode_attention on the identity page table over the
-    same rows (pages of 64, a table S / 64 wide).  ``timed``: also its
+    length-0 row exactly 0) and bitwise against paged_decode_attention on
+    the identity page table over the same rows (pages of 64, a table
+    ceil(S / 64) wide; where S is no multiple of 64 the pool's last page
+    is padded with zeros no length reaches).  ``timed``: also its
     device time on L2-cold caches and its bound; ``yardsticks``: the plain
     version's and SDPA's (on the dequantized K/V, repeated over the query
     heads, or with ``gqa`` indexed by SDPA's ``enable_gqa``) times beside
@@ -654,15 +672,13 @@ def dense_decode_case(gen, dev, lens_l, int8, *, s=1024, kvh=12, hq=1,
     q = torch.randn((b, kvh, hq, d), generator=gen, device=dev) / math.sqrt(d)
     got = ops.decode_attention_kernel(q, k, v, lens, ksc, vsc)
     want = ref.ref_decode_attention(q, k, v, lens.reshape(b, 1), ksc, vsc)
-    paged = got
-    if s % 64 == 0:
-        pt = torch.arange(b * s // 64, dtype=torch.int32,
-                          device=dev).reshape(b, s // 64)
-        pool = [None if t is None else
-                t.reshape(b * s // 64, 64, *t.shape[2:])
-                for t in (k, v, ksc, vsc)]
-        paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt,
-                                                  lens, pool[2], pool[3])
+    mb = -(-s // 64)
+    pt = torch.arange(b * mb, dtype=torch.int32, device=dev).reshape(b, mb)
+    pool = [None if t is None else torch.cat(
+        [t, t.new_zeros((b, mb * 64 - s, *t.shape[2:]))], 1).reshape(
+            b * mb, 64, *t.shape[2:]) for t in (k, v, ksc, vsc)]
+    paged = ops.paged_decode_attention_kernel(q, pool[0], pool[1], pt,
+                                              lens, pool[2], pool[3])
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 2e-5   # online vs one-pass softmax: f32 summation order only
@@ -1009,19 +1025,24 @@ def _bf16_quantize_row(report, gen, dev, arch, d_model, d_ff):
                    "step, w2's at a decode and a chunk step; bitwise")
 
 
-def _bf16_rope_row(report, gen, dev, arch, nq, kvh, hd, theta):
+def _bf16_rope_row(report, gen, dev, arch, nq, kvh, hd, theta,
+                   angles=None):
     """rope on the nq + kvh q and k heads of a bf16 qkv row, read in
     place, B = 1 and 8, bitwise against its plain version; timed beside
-    it.  Adds the row ``rope@<arch>``."""
+    it.  ``angles(pos)`` makes the cos / sin tables (default
+    ``rope_angles`` at ``theta``).  Adds the row ``rope@<arch>``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import rope_angles
+    if angles is None:
+        def angles(pos):
+            return rope_angles(pos, hd, theta)
     nh, heads = nq + kvh, nq + 2 * kvh
     rec = {}
     for b in (1, 8):
         qkv = torch.randn((b, heads, hd), generator=gen,
                           device=dev).bfloat16()
         pos = torch.randint(0, 1024, (b,), generator=gen, device=dev)
-        cos, sin = rope_angles(pos, hd, theta)
+        cos, sin = angles(pos)
         x = qkv[:, :nh]
         got, want = ops.rope_kernel(x, cos, sin), ref.ref_rope(x, cos, sin)
         torch.cuda.synchronize()
@@ -1714,6 +1735,290 @@ def check_zamba2(report, dev):
     report.rows[f"quantize@{Z2}"]["per"] += (
         f"; the shared block's w2 input at K={Z2_FF}")
     _bf16_rope_row(report, gen, dev, Z2, 32, 32, 64, 1e4)
+
+
+# qwen2-vl-7b (phase 2's vlm part, phase 24): 28 layers, d_model 3584, 28
+# query heads over 4 KV heads of 128 (HQ 7, the second odd grouping after
+# llama3.2-3b's HQ 3; HQ*D = 896, one head group), d_ff 18944, vocab
+# 152064, M-RoPE at theta 1e6 (sections 16 / 24 / 24).  Its decode GEMVs
+# (wqkv 4608, wo_f, w13 37888, w2 at K 18944) and head, the chunk step's
+# MLP GEMMs.
+Q2 = "qwen2-vl-7b"
+Q2_LAYERS, Q2_D, Q2_KVH, Q2_HQ, Q2_HD, Q2_FF = 28, 3584, 4, 7, 128, 18944
+Q2_GEMV = [(4608, 3584), (3584, 3584), (37888, 3584), (3584, 18944)]
+Q2_HEAD = (152064, 3584)
+Q2_GEMM = ((37888, 3584), (3584, 18944))
+Q2_SECTIONS = (16, 24, 24)
+Q2_NORM_M = (1, 8, 2048)
+
+
+def _mrope_tables(hd, theta, sections):
+    """``pos`` (B,) -> M-RoPE cos / sin (B, hd) at three distinct streams
+    (temporal ``pos``, height and width derived from it), the case text
+    tokens (three equal streams) never reach."""
+    from repro_torch.models.layers import mrope_angles
+
+    def angles(pos):
+        streams = torch.stack([pos, pos // 2 + 3, (pos * 7) % 997])
+        return mrope_angles(streams, hd, theta, sections)
+    return angles
+
+
+def check_qwen2_vl(report, dev):
+    """The kernels at qwen2-vl-7b's shapes, each against its plain version
+    and timed beside it and its library call, never copied from another
+    config's row.  Both decode attentions (``_decode_attention_rows``) and
+    paged_prefill_attention (``_paged_prefill_row``) at KVH 4, HQ 7, D 128
+    (one head group); flash_prefill on one bf16 prompt of 17..1024 tokens
+    at 28 / 4 heads of 128 (phase 24's model-level prefill); q8_matvec at
+    a decode step's 112 layer GEMVs (w13 37888 x 3584, w2 at K 18944) and
+    the 152064-row head, M = 1 and 8; q8_matmul at the chunk step's w13
+    and w2 at M = 2048, bitwise; rmsnorm_quant at K 3584 (7 x 512: a
+    ragged last sweep at every width), bf16 and f32 rows at M 1, 8 and
+    2048, 0 codes apart and every scale equal in PyTorch's row-mean order;
+    quantize on bf16 rows at K 3584 and 18944, bitwise; rope on 32 heads
+    of 128 from M-RoPE tables at three distinct streams, bitwise.  Each
+    adds a row ``<kernel>@qwen2-vl-7b``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(24)
+    src = "src/repro_torch/kernels/csrc/"
+    _decode_attention_rows(report, gen, dev, Q2, Q2_KVH, Q2_HQ, Q2_HD, 1)
+    _paged_prefill_row(report, gen, dev, Q2, Q2_KVH, Q2_HQ, Q2_HD)
+    _bf16_flash_row(report, gen, dev, Q2, Q2_KVH * Q2_HQ, Q2_KVH, Q2_HD)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, Q2, operands, Q2_GEMV, Q2_HEAD, Q2_LAYERS)
+
+    chunk = q8_matmul_chunk(dev, 2048, operands, shapes=Q2_GEMM,
+                            layers=Q2_LAYERS)
+    report.add(f"q8_matmul@{Q2}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=chunk["err"], ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per=f"chunk step at 8 x 256 rows: {Q2_LAYERS} x (w13 37888 x "
+                   "3584, w2 3584 x 18944); bitwise")
+
+    _bf16_norm_row(report, gen, dev, Q2, Q2_D, 0, ms=Q2_NORM_M,
+                   scale_rel=0.0)
+    for m in Q2_NORM_M:
+        _norm_held(ops, ref, _norm_input(gen, dev, m, Q2_D, 64),
+                   torch.randn((Q2_D,), generator=gen, device=dev), 1e-5, 64,
+                   0, 0.0)
+    plans = {m: ops._torch_row_mean_order(m, Q2_D)[0] for m in Q2_NORM_M}
+    log(f"  {Q2} rmsnorm_quant f32 rows K={Q2_D} M={Q2_NORM_M}: 0 codes "
+        f"apart, every scale equal (threads a row by M: {plans})")
+    report.rows[f"rmsnorm_quant@{Q2}"].update(threads_a_row=plans)
+    _bf16_quantize_row(report, gen, dev, Q2, Q2_D, Q2_FF)
+    _bf16_rope_row(report, gen, dev, Q2, Q2_KVH * Q2_HQ, Q2_KVH, Q2_HD, 1e6,
+                   angles=_mrope_tables(Q2_HD, 1e6, Q2_SECTIONS))
+    report.rows[f"rope@{Q2}"]["per"] += (
+        "; M-RoPE tables at three distinct streams (sections 16 / 24 / 24)")
+
+
+# whisper-small (phase 2's audio part, phase 25): 12 encoder + 12 decoder
+# layers, d_model 768, 12 heads of 64 (MHA: KVH 12 x HQ 1), d_ff 3072,
+# vocab 51865 (head 51968 rows), 1504 encoder frames; 8 rows of a 16-token
+# prompt, the self cache at Whisper's 448-token text context.  A decode
+# step: w1 and w2 a decoder layer and the head on the GEMV (the Q/K/V/O
+# on the dequant qeinsum, as the reference), the self and the cross
+# attention on decode_attention; a prefill: the encoder's MLP at M = 8 x
+# 1504, the decoder's at 8 x 16, the 36 flash_prefill calls.
+WS = "whisper-small"
+WS_LAYERS, WS_ENC, WS_D, WS_H, WS_HD, WS_FF = 12, 12, 768, 12, 64, 3072
+WS_SEQ, WS_PROMPT, WS_MAX_SEQ, WS_B, WS_STEPS = 1504, 16, 448, 8, 32
+WS_GEMV = [(3072, 768), (768, 3072)]
+WS_HEAD = (51968, 768)
+WS_GEMM = ((3072, 768), (768, 3072))
+# the self cache's lens at a decode step (17..48) and edges; the cross
+# cache's edges (all 1504 on the served path)
+WS_SELF_LENS = [17, 24, 33, 48, 1, 0, 448, 300]
+WS_CROSS_EDGES = [1504, 1503, 1, 0, 64, 1000, 1471, 1447]
+WS_FLASH = {"encoder": (WS_SEQ, WS_SEQ, False),
+            "cross": (WS_PROMPT, WS_SEQ, False),
+            "self": (WS_PROMPT, WS_PROMPT, True)}
+WS_QLENS = [16, 9, 0, 1, 16, 5, 16, 12]
+
+
+def _whisper_decode_row(report, gen, dev):
+    """decode_attention at whisper-small's decode step, 12 KV heads x HQ 1
+    x D 64, 8 slots, bf16 and int8: the cross cache over its 1504 fixed
+    keys (no multiple of 64: the split-K's ragged tail) and the self cache
+    at 48 of its 448 positions, timed beside the plain version and SDPA;
+    edges of both (lens 0, 1, one short, at the split boundaries, the
+    whole cache), untimed.  Each call within 2e-5 of the plain version and
+    bitwise equal to paged_decode_attention on the same rows.  Adds the row
+    ``decode_attention@whisper-small``."""
+    src = "src/repro_torch/kernels/csrc/"
+    geo = dict(kvh=WS_H, hq=1, d=WS_HD, gqa=True)
+    rec = {}
+    for kind in ("bf16", "int8"):
+        flags = dict(bf16=kind == "bf16")
+        i8 = kind == "int8"
+        rec[f"cross {kind}"] = dense_decode_case(
+            gen, dev, [WS_SEQ] * WS_B, i8, s=WS_SEQ, timed=True, **flags,
+            **geo)
+        rec[f"self {kind}"] = dense_decode_case(
+            gen, dev, [WS_PROMPT + WS_STEPS] * WS_B, i8, s=WS_MAX_SEQ,
+            timed=True, **flags, **geo)
+        rec[f"cross edges {kind}"] = dense_decode_case(
+            gen, dev, WS_CROSS_EDGES, i8, s=WS_SEQ, **flags, **geo)
+        rec[f"self edges {kind}"] = dense_decode_case(
+            gen, dev, WS_SELF_LENS, i8, s=WS_MAX_SEQ, **flags, **geo)
+    log(f"  {WS} decode_attention (KVH {WS_H}, HQ 1, D {WS_HD}): the cross "
+        f"cache over {WS_SEQ} keys and the self cache over "
+        f"{WS_PROMPT + WS_STEPS} of {WS_MAX_SEQ}, bf16 and int8, within "
+        "2e-5 and bitwise equal to the paged kernel; edges too")
+    c, sf, c8, s8 = (rec[k] for k in ("cross bf16", "self bf16",
+                                      "cross int8", "self int8"))
+    report.add(f"decode_attention@{WS}", route="cuda",
+               source=src + "decode_attention.cu",
+               header=src + "flash_decode.cuh",
+               replaces="src/repro/kernels/decode_attention.py:206",
+               max_abs_err=max(r["err"] for r in rec.values()),
+               ms=c["ms"], plain_ms=c["plain"], library_ms=c["lib"],
+               bound_ms=c["bound"], bound_by=c["by"],
+               self_ms=sf["ms"], self_plain_ms=sf["plain"],
+               self_library_ms=sf["lib"], self_bound_ms=sf["bound"],
+               int8_ms=c8["ms"], int8_plain_ms=c8["plain"],
+               int8_library_ms=c8["lib"], int8_bound_ms=c8["bound"],
+               int8_self_ms=s8["ms"], int8_self_bound_ms=s8["bound"],
+               per=f"one layer's cross-attention call at 8 slots over the "
+                   f"{WS_SEQ}-key bf16 cross cache, {WS_H} heads of {WS_HD} "
+                   f"(self_*: the self cache at {WS_PROMPT + WS_STEPS} of "
+                   f"{WS_MAX_SEQ} positions; int8_* for int8 caches); "
+                   "library: SDPA")
+
+
+def _whisper_flash_row(report, gen, dev):
+    """flash_prefill at whisper-small's prefill, 8 rows, 12 / 12 heads of
+    64, q pre-scaled in bf16 as the model does (scale 1): the encoder's
+    non-causal 1504 x 1504, the cross-attention's non-causal rectangular
+    16 x 1504 and the decoder's causal 16 x 16, each within 2e-5 of its
+    plain version, timed beside it and SDPA (``is_causal`` as the call) on
+    the same L2-cold bf16 tensors; then 16 x 1504 with ``q_lens`` cutting
+    rows, the dead rows exactly 0.  The bound: the function's flops at the
+    bf16 rate (the kernel's 3xTF32 floor beside it).  Adds the row
+    ``flash_prefill@whisper-small`` (its times the encoder's call)."""
+    from repro_torch.kernels import ops, ref
+    src = "src/repro_torch/kernels/csrc/"
+    qscale = torch.tensor(WS_HD ** -0.5).bfloat16().item()
+    b, h, d = WS_B, WS_H, WS_HD
+    timed, err_max = {}, 0.0
+
+    def mk(sq, sk):
+        def make():
+            q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+            return (q.bfloat16() * qscale,
+                    torch.randn((b, sk, h, d), generator=gen,
+                                device=dev).bfloat16(),
+                    torch.randn((b, sk, h, d), generator=gen,
+                                device=dev).bfloat16())
+        return make
+
+    for name, (sq, sk, causal) in WS_FLASH.items():
+        make = mk(sq, sk)
+        q, k, v = make()
+        got = ops.flash_prefill_kernel(q, k, v, causal=causal, scale=1.0)
+        want = ref.ref_flash_prefill(q, k, v, causal, scale=1.0)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= 2e-5:
+            raise AssertionError(f"{WS} flash_prefill {name} bf16 {sq} x "
+                                 f"{sk}: err {err:.3g} > 2e-5")
+        err_max = max(err_max, err)
+        pairs = b * (sq * (sq + 1) // 2 if causal else sq * sk)
+        nbytes = 2 * b * d * h * (sq + 2 * sk) + 4 * b * sq * h * d
+        flops = 4.0 * pairs * h * d
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        tf32x3_ms, _ = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        nxt = rotating(make, 2 * b * d * h * (sq + 2 * sk), budget=96 << 20)
+        ms = time_ms(lambda: ops.flash_prefill_kernel(
+            *nxt(), causal=causal, scale=1.0))
+        plain = time_ms(lambda: ref.ref_flash_prefill(*nxt(), causal,
+                                                      scale=1.0), iters=5)
+
+        def sdpa():
+            qt, kt, vt = (t.transpose(1, 2) for t in nxt())
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=1.0)
+        lib = time_ms(sdpa)
+        log(f"  {WS} flash_prefill {name} bf16 B={b} Sq={sq} Sk={sk} H={h} "
+            f"D={d}{'' if causal else ' non-causal'}  err {err:.2e} (tol "
+            f"2e-05)  kernel {ms:.4f} ms  plain {plain:.4f} ms  sdpa "
+            f"{lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, bf16 tensor cores),"
+            f" {100 * b_ms / ms:.1f}% of it; 3xTF32 floor {tf32x3_ms:.4f} "
+            f"ms, {100 * tf32x3_ms / ms:.1f}% of it")
+        timed[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=b_ms, bound_by=b_by,
+                           tf32x3_bound_ms=tf32x3_ms)
+    q, k, v = mk(WS_PROMPT, WS_SEQ)()
+    ql = torch.tensor(WS_QLENS, dtype=torch.int32, device=dev)
+    got = ops.flash_prefill_kernel(q, k, v, q_lens=ql, causal=False,
+                                   scale=1.0)
+    want = ref.ref_flash_prefill(q, k, v, False, q_lens=ql, scale=1.0)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    dead = torch.arange(WS_PROMPT, device=dev)[None] >= ql[:, None]
+    if not (err <= 2e-5 and bool((got[dead] == 0).all())):
+        raise AssertionError(f"{WS} flash_prefill cross with q_lens "
+                             f"{WS_QLENS}: err {err:.3g} or a dead row not "
+                             "exactly 0")
+    err_max = max(err_max, err)
+    log(f"  {WS} flash_prefill cross bf16 16 x {WS_SEQ}, q_lens "
+        f"{WS_QLENS}: err {err:.2e}, {int(dead.sum())} dead rows exactly 0")
+    report.add(f"flash_prefill@{WS}", route="cuda",
+               source=src + "flash_prefill.cu", header=src + "tf32x3.cuh",
+               replaces="src/repro/kernels/flash_prefill.py:173",
+               max_abs_err=err_max, **timed["encoder"], by_call=timed,
+               per=f"one encoder layer's call: 8 rows, bf16, non-causal "
+                   f"{WS_SEQ} x {WS_SEQ}, {h} / {h} heads of {d} (by_call: "
+                   f"the cross-attention's non-causal {WS_PROMPT} x "
+                   f"{WS_SEQ} and the decoder's causal {WS_PROMPT} x "
+                   f"{WS_PROMPT}); library: SDPA")
+
+
+def check_whisper(report, dev):
+    """The kernels at whisper-small's shapes, each against its plain
+    version and timed beside it and its library call: decode_attention
+    over the 1504-key cross cache and the 448-position self cache, bf16
+    and int8 (``_whisper_decode_row``); flash_prefill non-causal at 1504 x
+    1504 and 16 x 1504 and causal at 16 x 16, bf16, q_lens cutting rows
+    (``_whisper_flash_row``); q8_matvec at a decode step's 24 layer GEMVs
+    (w1 3072 x 768, w2 768 x 3072) and the 51968-row head, M = 1 and 8;
+    q8_matmul at the encoder's MLP (M = 8 x 1504 = 12032, the largest M
+    any phase runs) and the decoder's (M = 128), bitwise; quantize on
+    bf16 rows at K 768 and 3072, bitwise, and untimed at M 12032 (the
+    encoder's MLP inputs).  No rmsnorm_quant or rope: the layer norm has
+    no fused kernel and whisper has no rope.  Each adds a row
+    ``<kernel>@whisper-small``."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(25)
+    src = "src/repro_torch/kernels/csrc/"
+    _whisper_decode_row(report, gen, dev)
+    _whisper_flash_row(report, gen, dev)
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, WS, operands, WS_GEMV, WS_HEAD, WS_LAYERS)
+    enc = q8_matmul_chunk(dev, WS_B * WS_SEQ, operands, shapes=WS_GEMM,
+                          layers=WS_ENC)
+    dec = q8_matmul_chunk(dev, WS_B * WS_PROMPT, operands, shapes=WS_GEMM,
+                          layers=WS_LAYERS)
+    report.add(f"q8_matmul@{WS}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=max(enc["err"], dec["err"]), ms=enc["ms"],
+               plain_ms=enc["plain"], bound_ms=enc["bound"],
+               bound_by=enc["by"], library_ms=enc["lib"],
+               m128_ms=dec["ms"], m128_plain_ms=dec["plain"],
+               m128_bound_ms=dec["bound"], m128_library_ms=dec["lib"],
+               per=f"the encoder's MLP at M {WS_B * WS_SEQ}: {WS_ENC} x (w1 "
+                   f"3072 x 768, w2 768 x 3072) (m128_*: the decoder's at M "
+                   f"{WS_B * WS_PROMPT}); bitwise")
+    _bf16_quantize_row(report, gen, dev, WS, WS_D, WS_FF)
+    for kk in (WS_D, WS_FF):
+        _quantize_held(ops, _norm_input(gen, dev, WS_B * WS_SEQ, kk,
+                                        64).bfloat16(), 64)
+    report.rows[f"quantize@{WS}"]["per"] += (
+        f"; bf16 rows at M {WS_B * WS_SEQ} (K {WS_D} and {WS_FF}) bitwise, "
+        "untimed")
 
 
 def norm_bits(dev, path):
@@ -4535,9 +4840,16 @@ def plain_delta_bound(cfg, scale: float, sites_per_layer: float = 2) -> float:
 # requantized input and gated norm inside it, every value between them f32.
 # The hybrid's shared block is a dense layer, 2 sites at each of its
 # n_layers // attn_every applications.  mamba2-370m: 48 sites, 1 a layer;
-# zamba2-1.2b: 38 + 2 x 6 = 50, 1 + 12 / 38 a layer.
+# zamba2-1.2b: 38 + 2 x 6 = 50, 1 + 12 / 38 a layer.  The encoder-decoder
+# (counted from models/encdec.py before its first run): a decoder layer's
+# three residual adds (self-attention, cross-attention, MLP), and an
+# encoder layer's two, which reach the logits through every decoder
+# layer's cross K/V: whisper-small 3 x 12 + 2 x 12 = 60 sites, 5 a
+# decoder layer.
 def delta_sites(cfg) -> float:
     """``plain_delta_bound``'s sites a layer for ``cfg``'s family."""
+    if cfg.family == "audio":
+        return 3 + 2 * cfg.n_enc_layers / cfg.n_layers
     if cfg.family == "ssm":
         return 1
     if cfg.family == "hybrid":
@@ -4675,8 +4987,9 @@ def _prefill_every_position(model, params, toks):
     b, s = t.shape
     pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     hidden, _ = transformer.forward_layers(
-        params, model.cfg, transformer.embed_inputs(params, model.cfg, t),
-        pos)
+        params, model.cfg,
+        transformer.embed_inputs(params, model.cfg, {"tokens": t}),
+        transformer._streams(model.cfg, pos))
     return transformer._head(params, model.cfg, hidden)
 
 
@@ -5107,9 +5420,84 @@ def moe_init_bitwise(dev, cfg, n_layers=2):
         "Model.quantize(Model.init(0)), every leaf, the router f32")
 
 
+def _vlm_positions(b, n_text, grid, dev):
+    """Qwen2-VL's three position streams (3, B, S) for ``n_text`` text
+    tokens, a ``grid`` x ``grid`` image of patches and ``n_text`` more text
+    tokens: text at t = h = w = its index; the image's patches at temporal
+    ``n_text``, height ``n_text + row``, width ``n_text + column``; the
+    text after it from ``n_text + grid`` on."""
+    head = torch.arange(n_text, device=dev)
+    r, c = torch.meshgrid(torch.arange(grid, device=dev),
+                          torch.arange(grid, device=dev), indexing="ij")
+    img = torch.stack([torch.full((grid * grid,), n_text, device=dev),
+                       n_text + r.reshape(-1), n_text + c.reshape(-1)])
+    tail = n_text + grid + torch.arange(n_text, device=dev)
+    pos = torch.cat([head.expand(3, -1), img, tail.expand(3, -1)], dim=1)
+    return pos[:, None].expand(3, b, pos.shape[1]).to(torch.int32)
+
+
+def vlm_prefill(model, params, dev, mine):
+    """The M-RoPE case text tokens never reach: one model-level
+    ``Model.prefill`` of 2 rows of stub patch embeddings (a seeded normal
+    draw at the embedding table's 0.02) over three distinct position
+    streams (``_vlm_positions``: 24 text tokens, a 16 x 16 patch grid, 24
+    text tokens; 304 positions), on the kernels against the same call on
+    the plain versions: last-position logits within ``plain_delta_bound``.
+    Launches asserted exactly (a dense prefill: ``flash_prefill`` a layer,
+    the MLP's two products a layer at M 608, the head's GEMV, norm2's and
+    the final norm's ``rmsnorm_quant``, w2's ``quantize``) and added to
+    ``mine``.  The same embeddings at text positions (three equal streams)
+    must part from the plain logits by more than the bound: the check sees
+    the streams.  Returns the record."""
+    from repro_torch.kernels import build
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, n_text, grid = 2, 24, 16
+    pos = _vlm_positions(b, n_text, grid, dev)
+    s = pos.shape[-1]
+    emb = torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.02
+    batch = {"embeds": emb, "positions": pos}
+    with plain_versions():
+        want, _ = model.prefill(params, batch)
+    build.reset_launches()
+    got, _ = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    text, _ = model.prefill(params, {"embeds": emb})
+    torch.cuda.synchronize()
+    nl = cfg.n_layers
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_prefill=nl, q8_matmul=2 * nl, q8_matvec=1,
+                  rmsnorm_quant=nl + 1, quantize=nl)
+    if launches != expect:
+        raise AssertionError(f"{cfg.arch_id} prefill on embeds: launches "
+                             f"{launches} != expected {expect}")
+    for k, v in launches.items():
+        mine[k] = mine.get(k, 0) + v
+    scale = want.abs().max().item()
+    tol = plain_delta_bound(cfg, scale)
+    diff = (got - want).abs().max().item()
+    moved = (text - want).abs().max().item()
+    rec = {"rows": b, "positions": s, "logits_diff": diff, "scale": scale,
+           "bound": tol, "text_positions_diff": moved,
+           "finite": bool(torch.isfinite(got).all())}
+    log(f"  {cfg.arch_id} Model.prefill on stub embeds (B {b}, S {s}: "
+        f"{n_text} text, a {grid} x {grid} patch grid, {n_text} text) at "
+        f"three distinct position streams: kernels vs plain versions, "
+        f"last-position logits max |diff| {diff:.4g}, bound {tol:.4g} "
+        f"({diff / tol:.3g} x); launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}; "
+        f"the same embeds at text positions part by {moved:.4g} "
+        f"({moved / tol:.3g} x the bound)")
+    if not (rec["finite"] and diff <= tol and moved > tol):
+        raise AssertionError(f"{cfg.arch_id} prefill on embeds: {rec}")
+    return rec
+
+
 def full_width_path(dev, counted, arch, n, n_layers=None):
     """Phase ``n``: ``arch`` (phi4-mini-3.8b, phase 18; glm4-9b, phase 19;
-    command-r-35b, phase 20; qwen3-moe-30b-a3b, phase 21) at full width,
+    command-r-35b, phase 20; qwen3-moe-30b-a3b, phase 21; qwen2-vl-7b,
+    phase 24, on text tokens, then ``vlm_prefill``) at full width,
     and full depth unless ``n_layers`` cuts it, from the port's own seeded
     init quantized as it draws (``Model.init_quantized``: Q8_0 with the
     fused decode operands, bitwise ``quantize(init)``, the f32 tree never
@@ -5179,6 +5567,8 @@ def full_width_path(dev, counted, arch, n, n_layers=None):
         raise AssertionError(f"{arch}: a token past the head's rows")
     rec = engine_line(f"{arch}, bf16 pool, kernel strategy", eng, streams,
                       wall)
+    if cfg.family == "vlm":
+        rec["mrope_prefill"] = vlm_prefill(model, params, dev, mine)
     if moe:
         # the MoE step's time is the plain experts' glue, which phase 2's
         # kernel times do not show: a profile splits it.  Two requests and
@@ -5329,17 +5719,350 @@ def ssm_path(dev, counted, arch, n):
     return rec
 
 
+# whisper-small (phase 25): the kernels of its path, for the shares of
+# whisper_plain_delta
+WS_KERNELS = ("q8_matvec", "q8_matmul", "quantize", "flash_prefill",
+              "decode_attention")
+
+
+def _whisper_controls(cfg):
+    """whisper-small's planted faults, which phase 2's per-kernel checks
+    cannot see: by name, (a context that patches one entry of the port
+    for its duration, or None; a function of the parameters, or None;
+    whether the bound must reject it).  The encoder's square call made
+    causal; the decoder's learned positions read one row on (every
+    position p reads row p + 1); the cross K/V made from the encoder's
+    last layer but one (its final norm kept); measured, not required: the
+    cross cache read one key short (lens 1503) and PyTorch's default exact
+    GELU in the tanh form's place."""
+    from repro_torch.core.qlinear import qdot
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, layers
+
+    def patch(mod, name, wrap):
+        @contextlib.contextmanager
+        def ctx():
+            saved = getattr(mod, name)
+            setattr(mod, name, wrap(saved))
+            try:
+                yield
+            finally:
+                setattr(mod, name, saved)
+        return ctx
+
+    def causal_encoder(fn):
+        def f(q, k, v, q_offset=None, q_lens=None, k_lens=None,
+              causal=True, scale=None):
+            causal = causal or q.shape[1] == k.shape[1]
+            return fn(q, k, v, q_offset, q_lens, k_lens, causal, scale)
+        return f
+
+    def wrong_layer(fn):
+        def f(params, c, frames):
+            return fn(params, c.with_(n_enc_layers=c.n_enc_layers - 1),
+                      frames)
+        return f
+
+    def short_cross(fn):
+        def f(q, k, v, lens, *args):
+            if k.shape[1] == cfg.enc_seq:
+                lens = lens - 1
+            return fn(q, k, v, lens, *args)
+        return f
+
+    def exact_gelu(fn):
+        def f(p, x):
+            h = torch.nn.functional.gelu(qdot(x, p["w1"]))
+            return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
+        return f
+
+    def shifted(params):
+        return dict(params, dec_pos=params["dec_pos"][1:])
+
+    return {
+        "flash_prefill: encoder made causal": (
+            patch(ops, "flash_prefill_kernel", causal_encoder), None, True),
+        "decoder positions shifted by one": (None, shifted, True),
+        "cross K/V from the wrong encoder layer": (
+            patch(encdec, "encode", wrong_layer), None, True),
+        "decode_attention: cross cache one key short": (
+            patch(ops, "decode_attention_kernel", short_cross), None,
+            False),
+        "gelu_mlp: exact GELU in place of tanh": (
+            patch(layers, "gelu_mlp", exact_gelu), None, False)}
+
+
+def _whisper_run(model, params, batch, feed=None):
+    """The logits at every prefill position (B, S, V) (the encoder, the
+    decoder over the prompts, the head over every row), then ``WS_STEPS``
+    decode steps from ``Model.prefill``'s caches, each fed ``feed``'s
+    token (default: its own greedy pick): (prefill logits, the steps'
+    logits (steps, B, V), the tokens fed (steps, B))."""
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    enc = encdec.encode(params, cfg, batch["frames"])
+    hidden, _ = encdec.decoder_hidden(params, cfg, batch["tokens"], enc)
+    every = encdec._lm_head(params, hidden)
+    logits, cache = model.prefill(params, batch, max_seq=WS_MAX_SEQ)
+    steps, fed = [], []
+    for t in range(WS_STEPS):
+        tok = torch.argmax(logits, -1) if feed is None else feed[t]
+        fed.append(tok)
+        logits, cache = model.decode_step(params, cache, tok)
+        steps.append(logits)
+    return every, torch.stack(steps), torch.stack(fed)
+
+
+def whisper_plain_delta(model, params, batch, shares=(), controls=None):
+    """``kernel_plain_delta`` for the encoder-decoder, at the model level:
+    ``_whisper_run`` on the kernels against the same run on the plain
+    versions, each decode step fed the plain run's greedy token (the same
+    inputs; each run keeps its own caches).  Logits at every prefill
+    position and at every decode step, each set held to the fixed bound
+    ``plain_delta_bound`` at ``delta_sites`` (three residual adds a
+    decoder layer, two an encoder layer through the cross K/V) with the
+    union bound's lambda for the rows held at once
+    (``every_position_lambda``: 8 x 16 prefill rows, 8 x 32 decode rows),
+    at the scale of its plain logits.  For each kernel of ``shares``, the
+    same with only it plain (its share: what the difference loses without
+    it; the runs with every other kernel plain, as ``kernel_plain_delta``
+    adds, take ~2 s each on the plain GEMV and are left out for the
+    script's time); each planted fault
+    of ``controls`` (``_whisper_controls``) with every kernel launched,
+    which the bound must reject where required.  Raises otherwise;
+    returns the record."""
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    with plain_versions():
+        p_every, p_steps, feed = _whisper_run(model, params, batch)
+
+    def run(plain, ctx=None, transform=None):
+        with plain_versions(plain), (ctx() if ctx else
+                                     contextlib.nullcontext()):
+            every, steps, _ = _whisper_run(
+                model, transform(params) if transform else params, batch,
+                feed)
+        torch.cuda.synchronize()
+        return ((every - p_every).abs().max().item(),
+                (steps - p_steps).abs().max().item())
+
+    sites = delta_sites(cfg)
+    n_pre = p_every.numel() // p_every.shape[-1]
+    n_dec = p_steps.numel() // p_steps.shape[-1]
+    tols = [plain_delta_bound(cfg, t.abs().max().item(), sites)
+            * every_position_lambda(n) / PLAIN_DELTA_LAMBDA
+            for t, n in ((p_every, n_pre), (p_steps, n_dec))]
+
+    def ratio(d):
+        return max(d[0] / tols[0], d[1] / tols[1])
+    d = run(())
+    rec = {"prefill": d[0], "decode": d[1], "bound_prefill": tols[0],
+           "bound_decode": tols[1], "sites": sites * cfg.n_layers,
+           "lambda_prefill": every_position_lambda(n_pre),
+           "lambda_decode": every_position_lambda(n_dec),
+           "scale_prefill": p_every.abs().max().item(),
+           "scale_decode": p_steps.abs().max().item(),
+           "shares": {}, "controls": {}}
+    rec["seconds"] = {"runs": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for name in shares:
+        rec["shares"][name] = x = run((name,))
+        log(f"    {name}: plain alone prefill {x[0]:.4g}, decode {x[1]:.4g}")
+    rec["seconds"]["shares"] = time.perf_counter() - t0
+    worst = max([ratio(d)] + [ratio(x) for x in rec["shares"].values()])
+    log(f"  kernels vs plain versions on the same inputs: logits max |diff| "
+        f"at every prefill position {d[0]:.4g}, over {WS_STEPS} decode "
+        f"steps {d[1]:.4g}; fixed bounds lambda * "
+        f"sqrt({sites * cfg.n_layers:g} sites) * {PLAIN_DELTA_UNIT:.5f} * "
+        f"scale: prefill (lambda "
+        f"{rec['lambda_prefill']:.3g}, scale {rec['scale_prefill']:.4g}) "
+        f"{tols[0]:.4g}, decode (lambda {rec['lambda_decode']:.3g}, scale "
+        f"{rec['scale_decode']:.4g}) {tols[1]:.4g}; worst of "
+        f"{1 + len(shares)} runs {worst:.3g} x its bound")
+    if not worst <= 1:
+        raise AssertionError(f"{cfg.arch_id}: kernels vs plain logits "
+                             f"differ by {worst} x the fixed bound: {rec}")
+    controls = controls or {}
+    t0 = time.perf_counter()
+    for name, (ctx, transform, _) in controls.items():
+        rec["controls"][name] = hit = run((), ctx, transform)
+        log(f"    control, {name}: prefill {hit[0]:.4g}, decode "
+            f"{hit[1]:.4g} ({ratio(hit):.2f} x the bound"
+            f"{'' if controls[name][2] else '; measured, not required'})")
+    rec["seconds"]["controls"] = time.perf_counter() - t0
+    missed = [k for k, hit in rec["controls"].items()
+              if controls[k][2] and not ratio(hit) > 1]
+    if missed:
+        raise AssertionError(f"{cfg.arch_id}: the fixed bounds do not "
+                             f"reject the planted faults {missed}: "
+                             f"{rec['controls']}")
+    return rec
+
+
+def _whisper_launches(launches, cfg, b, s, steps, counted):
+    """The launches of one ``Model.prefill`` of b rows of s tokens and
+    ``steps`` decode steps, exactly.  A prefill: ``flash_prefill`` once an
+    encoder layer and twice a decoder layer (causal self, non-causal
+    cross), the MLP's w1 and w2 a layer of both stacks (the GEMM above 32
+    rows) each behind a ``quantize``, the head's GEMV at the last
+    position's b rows behind one more; the Q/K/V/O run on the dequant
+    ``qeinsum`` and the layer norms in plain PyTorch.  A decode step: w1,
+    w2 a decoder layer and the head on the GEMV, each behind a
+    ``quantize``, ``decode_attention`` twice a layer (self, cross).  The
+    counts are added to ``counted``."""
+    from repro_torch.kernels import build
+    ne, nd = cfg.n_enc_layers, cfg.n_layers
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    want["flash_prefill"] = ne + 2 * nd
+    for rows, n in ((b * cfg.enc_seq, ne), (b * s, nd)):
+        want["q8_matmul" if rows > 32 else "q8_matvec"] += 2 * n
+    want["q8_matvec"] += 1 + (2 * nd + 1) * steps
+    want["quantize"] = 2 * (ne + nd) + 1 + (2 * nd + 1) * steps
+    want["decode_attention"] = 2 * nd * steps
+    if launches != want:
+        raise AssertionError(f"{cfg.arch_id}: launches {launches} != "
+                             f"expected {want}")
+    for k, v in launches.items():
+        counted[k] = counted.get(k, 0) + v
+    log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: per "
+        f"prefill {ne + 2 * nd} flash_prefill, {2 * (ne + nd)} q8_matmul, "
+        f"{2 * (ne + nd) + 1} quantize and 1 head q8_matvec; per decode "
+        f"step {2 * nd + 1} q8_matvec, {2 * nd + 1} quantize and {2 * nd} "
+        f"decode_attention, over {steps} steps")
+
+
+def whisper_path(dev, counted, n=25):
+    """Phase ``n``: whisper-small at full width and depth (12 encoder and
+    12 decoder layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865,
+    bf16 compute), served at the model level, as the reference serves its
+    audio family: the port's ``Engine`` must refuse it.  Q8_0 by the
+    reference's policy, drawn by ``Model.init_quantized`` and held bitwise
+    against ``Model.quantize(Model.init(0))``.  8 rows of stub frames
+    (8, 1504, 768) and 16-token prompts from the seed; one
+    ``Model.prefill`` into caches of Whisper's 448-token text context,
+    then 32 greedy ``decode_step``s, on a bf16 and on an int8 KV cache:
+    exact launches (``_whisper_launches``), finite logits, tokens inside
+    the head's rows, ``lens`` 48; ``whisper_plain_delta`` on each (on the
+    bf16 cache with every kernel's share and the planted faults); 4
+    profiled decode steps for the card's busy share.
+    Launches are counted under ``<kernel>@whisper-small``."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import tree_differs
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(WS)
+    model = build_model(cfg)
+    want = model.quantize(model.init(seed=0, device=dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_quantized(seed=0, device=dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    differ = tree_differs(params, want)
+    del want
+    torch.cuda.empty_cache()
+    if differ:
+        raise AssertionError(f"{WS}: init_quantized differs from "
+                             f"quantize(init) at {differ}")
+    try:
+        Engine(model, params, device=dev)
+    except NotImplementedError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError(f"{WS}: the engine took the audio family")
+    gen = torch.Generator(device=dev).manual_seed(n)
+    batch = {"frames": torch.randn((WS_B, cfg.enc_seq, cfg.d_model),
+                                   generator=gen, device=dev),
+             "tokens": torch.randint(4, cfg.vocab_size, (WS_B, WS_PROMPT),
+                                     generator=gen, device=dev)}
+    phase(f"phase {n}: {WS} full width and depth, {cfg.n_enc_layers} "
+          f"encoder + {cfg.n_layers} decoder layers (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd()}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (head {cfg.padded_vocab()} rows), "
+          f"{cfg.compute_dtype}), Q8_0 parameters "
+          f"{param_bytes(params) / 1e9:.3f} GB quantized as drawn in "
+          f"{made:.1f} s (peak {peak:.2f} GB), bitwise quantize(init); "
+          f"the engine refuses it ({refusal[:60]}...); {WS_B} rows of "
+          f"{cfg.enc_seq} stub frames and {WS_PROMPT}-token prompts, "
+          f"Model.prefill then {WS_STEPS} greedy decode steps at max_seq "
+          f"{WS_MAX_SEQ}")
+    rec = {"init_s": made, "init_peak_gb": peak,
+           "q8_gb": param_bytes(params) / 1e9, "refusal": refusal}
+    mine = {}
+    for kv in ("bfloat16", "int8"):
+        m = build_model(cfg.with_(kv_cache_dtype=kv))
+        build.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = m.prefill(params, batch, max_seq=WS_MAX_SEQ)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        out, finite = [], bool(torch.isfinite(logits).all())
+        t0 = time.perf_counter()
+        for _ in range(WS_STEPS):
+            out.append(torch.argmax(logits, -1))
+            logits, cache = m.decode_step(params, cache, out[-1])
+            finite &= bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        _whisper_launches(dict(build.LAUNCHES), cfg, WS_B, WS_PROMPT,
+                          WS_STEPS, mine)
+        streams = torch.stack(out, 1).tolist()
+        lens = cache["lens"].tolist()
+        if not (finite and logits.shape == (WS_B, cfg.padded_vocab())
+                and lens == [WS_PROMPT + WS_STEPS] * WS_B
+                and all(t < cfg.padded_vocab() for s in streams
+                        for t in s)):
+            raise AssertionError(f"{WS} {kv} cache: finite {finite}, "
+                                 f"logits {tuple(logits.shape)}, lens {lens}")
+        toks = WS_B * WS_STEPS
+        log(f"  {WS}, {kv} KV, kernel strategy: prefill {1e3 * t_pre:.2f} "
+            f"ms, {WS_STEPS} decode steps {1e3 * t_dec / WS_STEPS:.3f} ms "
+            f"each, {toks / (t_pre + t_dec):.1f} tok/s")
+        bf16 = kv == "bfloat16"
+        delta = whisper_plain_delta(
+            m, params, batch, shares=WS_KERNELS if bf16 else (),
+            controls=_whisper_controls(cfg) if bf16 else None)
+        rec[kv] = {"prefill_ms": 1e3 * t_pre,
+                   "decode_step_ms": 1e3 * t_dec / WS_STEPS,
+                   "tok_s": toks / (t_pre + t_dec),
+                   "kernel_plain_delta": delta,
+                   "streams_sha1": hashlib.sha1(
+                       json.dumps(streams).encode()).hexdigest()[:12]}
+
+    # the profile: decode steps alone (a prefill and 8 steps took ~20 s of
+    # the profiler's own time)
+    logits, cache = model.prefill(params, batch, max_seq=WS_MAX_SEQ)
+    tok = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    _, rec["decode_busy_share"] = profiled(
+        lambda: [model.decode_step(params, cache, tok) for _ in range(4)])
+    rec["profile_s"] = time.perf_counter() - t0
+    rec.update(launches=mine, run_peak_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    _suffixed(counted, mine, WS)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
 # phases 18-21's depths, cut to keep the script in its time: glm4-9b's
 # 40 layers (phase 19) to make room for phase 20, command-r-35b's 40
 # (phase 20) for phase 21, and, for phases 22-23 (~125 s), phi4-mini-3.8b's
 # 32 (phase 18, ~0.6 s a layer), qwen3-moe-30b-a3b's 48 (phase 21, ~2 s a
 # layer; its MoE init still held bitwise at 2 layers) and glm4-9b's and
 # command-r-35b's further; every kernel at each config's shapes stays in
-# phase 2
+# phase 2.  Phase 24 (qwen2-vl-7b, ~1.6 s a layer with its controls; 45 s
+# at all 28 layers) runs cut to 4 layers for phases 24-25; at all 28:
+# ``full_width_path(dev, {}, Q2, 24)`` alone
 P4_PHASE_LAYERS = 12
 G4_PHASE_LAYERS = 4
 CR_PHASE_LAYERS = 4
 Q3_PHASE_LAYERS = 4
+Q2_PHASE_LAYERS = 4
 
 
 def bf16_paths(dev, counted):
@@ -5383,6 +6106,22 @@ def ssm_paths(dev, counted):
     z2 = ssm_path(dev, counted, Z2, 23)
     phase(f"phase 23: {Z2} {json.dumps(z2)}")
     return m2, z2
+
+
+def vlm_audio_paths(dev, counted):
+    """Phases 24-25, the vlm and audio families: qwen2-vl-7b at
+    ``Q2_PHASE_LAYERS`` layers on the paged engine (``full_width_path``,
+    then ``vlm_prefill``) and whisper-small at full depth at the model
+    level (``whisper_path``).  Alone on the card: ``build.build()``,
+    ``qlinear.set_default_strategy("kernel")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
+    does, then ``vlm_audio_paths(torch.device("cuda"), {})``; or
+    ``python3 chip_smoke.py --only vlm_audio_paths``."""
+    q2 = full_width_path(dev, counted, Q2, 24, n_layers=Q2_PHASE_LAYERS)
+    phase(f"phase 24: {Q2} {json.dumps(q2)}")
+    ws = whisper_path(dev, counted, 25)
+    phase(f"phase 25: {WS} {json.dumps(ws)}")
+    return q2, ws
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -5453,7 +6192,41 @@ def sampler_cost(dev):
     return rec
 
 
-def main() -> int:
+# The groups of phases ``--only`` selects (all by default, in this order):
+# each with the phase-2 checks of the shapes its paths serve
+GROUPS = ("phase2", "main_path", "bf16_paths", "ssm_paths",
+          "vlm_audio_paths")
+PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
+                        "check_attention", "check_q4",
+                        "check_dense_attention", "check_flash_prefill",
+                        "check_rope", "check_rmsnorm_quant",
+                        "check_verify_edges"),
+          "bf16_paths": ("check_llama3", "check_llama3_dense_q4",
+                         "check_phi4_head", "check_glm4", "check_command_r",
+                         "check_qwen3_moe"),
+          "ssm_paths": ("check_mamba2", "check_zamba2"),
+          "vlm_audio_paths": ("check_qwen2_vl", "check_whisper")}
+
+
+def parse_groups(argv):
+    """``--only a,b`` -> the selected groups of ``GROUPS``, in its order;
+    no argument selects every group.  ``phase2`` alone runs every phase-2
+    check and no path."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the port on one NVIDIA card.")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups of phases: "
+                         + ", ".join(GROUPS))
+    only = {g for g in ap.parse_args(argv).only.split(",") if g}
+    bad = only - set(GROUPS)
+    if bad or not only:
+        ap.error(f"--only takes groups of {GROUPS}, got {sorted(bad)}")
+    return [g for g in GROUPS if g in only]
+
+
+def main(argv=None) -> int:
+    groups = parse_groups(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5469,7 +6242,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; groups {', '.join(groups)}")
     secs = build.build()
     phase(f"phase 1: built {len(build.SIGNATURES)} kernels from "
           f"{len(build.SOURCES)} sources in {secs:.1f} s")
@@ -5484,49 +6257,41 @@ def main() -> int:
     qlinear.set_default_strategy("kernel")
     report = Report()
     phase("phase 2: kernels against their plain versions")
-    check_q8_matvec(report, dev)
-    check_q8_matmul(report, dev)
-    check_attention(report, dev)
-    check_q4(report, dev)
-    check_dense_attention(report, dev)
-    check_flash_prefill(report, dev)
-    check_rope(report, dev)
-    check_rmsnorm_quant(report, dev)
-    check_verify_edges(report, dev)
-    check_llama3(report, dev)
-    check_llama3_dense_q4(report, dev)
-    check_phi4_head(report, dev)
-    check_glm4(report, dev)
-    check_command_r(report, dev)
-    check_qwen3_moe(report, dev)
-    check_mamba2(report, dev)
-    check_zamba2(report, dev)
+    for group, checks in PHASE2.items():
+        if "phase2" in groups or group in groups:
+            for check in checks:
+                globals()[check](report, dev)
 
     counted = {}
-    cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
-    reduced_cpu_vs_card(dev)
-    reduced_cpu_vs_card(dev, L3)
-    phase(f"phase 6: end to end (f32 pool) {json.dumps(e2e)}; int8 pool "
-          f"{json.dumps(e2e_int8)}")
-    dense = dense_path(dev, cfg, params, prompts, paged, counted)
-    model, p4, q4 = q4_path(dev, cfg, prompts, params, counted)
-    b1 = single_stream(dev, model, {"Q8_0": params, "Q4_0": p4})
-    phase(f"phase 10: dense cache {json.dumps(dense)}; Q4_0 {json.dumps(q4)}; "
-          f"batch 1 {json.dumps(b1)}")
-    cli = serve_cli(dev, cfg, counted)
-    fanouts, sampler = best_of_n(dev, cfg, params, counted)
-    phase(f"phase 12: serve CLI {json.dumps(cli)}; best-of-4 fanouts "
-          f"{fanouts}; sampler {json.dumps(sampler)}")
-    ol = open_loop(dev, cfg, params, counted, e2e)
-    phase(f"phase 13: open loop {json.dumps(ol)}")
-    spec = speculation(dev, cfg, params, prompts, counted)
-    phase(f"phase 14: speculation {json.dumps(spec)}")
-    faults = fault_domain(dev, cfg, params, counted)
-    phase(f"phase 15: faults {json.dumps(faults)}")
-    del params, p4
-    torch.cuda.empty_cache()
-    bf16_paths(dev, counted)
-    ssm_paths(dev, counted)
+    if "main_path" in groups:
+        cfg, params, prompts, paged, e2e, e2e_int8 = main_path(dev, counted)
+        reduced_cpu_vs_card(dev)
+        reduced_cpu_vs_card(dev, L3)
+        phase(f"phase 6: end to end (f32 pool) {json.dumps(e2e)}; int8 pool "
+              f"{json.dumps(e2e_int8)}")
+        dense = dense_path(dev, cfg, params, prompts, paged, counted)
+        model, p4, q4 = q4_path(dev, cfg, prompts, params, counted)
+        b1 = single_stream(dev, model, {"Q8_0": params, "Q4_0": p4})
+        phase(f"phase 10: dense cache {json.dumps(dense)}; Q4_0 "
+              f"{json.dumps(q4)}; batch 1 {json.dumps(b1)}")
+        cli = serve_cli(dev, cfg, counted)
+        fanouts, sampler = best_of_n(dev, cfg, params, counted)
+        phase(f"phase 12: serve CLI {json.dumps(cli)}; best-of-4 fanouts "
+              f"{fanouts}; sampler {json.dumps(sampler)}")
+        ol = open_loop(dev, cfg, params, counted, e2e)
+        phase(f"phase 13: open loop {json.dumps(ol)}")
+        spec = speculation(dev, cfg, params, prompts, counted)
+        phase(f"phase 14: speculation {json.dumps(spec)}")
+        faults = fault_domain(dev, cfg, params, counted)
+        phase(f"phase 15: faults {json.dumps(faults)}")
+        del params, p4
+        torch.cuda.empty_cache()
+    if "bf16_paths" in groups:
+        bf16_paths(dev, counted)
+    if "ssm_paths" in groups:
+        ssm_paths(dev, counted)
+    if "vlm_audio_paths" in groups:
+        vlm_audio_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

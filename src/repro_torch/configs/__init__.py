@@ -1,7 +1,8 @@
 """Architecture configs of the port: llama2-110m, llama3.2-3b,
 phi4-mini-3.8b, glm4-9b and command-r-35b (every dense config of the JAX
-package), qwen3-moe-30b-a3b (its MoE config without an interleave), and
-the SSM families: mamba2-370m (ssm) and zamba2-1.2b (hybrid)."""
+package), qwen3-moe-30b-a3b (its MoE config without an interleave), the SSM
+families, mamba2-370m (ssm) and zamba2-1.2b (hybrid), qwen2-vl-7b (vlm,
+M-RoPE) and whisper-small (audio, encoder-decoder)."""
 from repro_torch.configs.base import ModelConfig, get_config, reduced
 
 __all__ = ["ModelConfig", "get_config", "reduced"]

@@ -65,6 +65,15 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch zamba2-1.2b --requests 16 --slots 8 --max-seq 1024
 
+  # qwen2-vl-7b (the vlm family's language backbone on text tokens: 28
+  # layers, d_model 3584, 28 query heads over 4 KV heads of 128, d_ff
+  # 18944, vocab 152064, M-RoPE with its three position streams equal):
+  # 12.4 GB of Q8_0 with the fused operands, its 28.3 GB f32 tree never
+  # held.  Its reduced config on the CPU: --arch qwen2-vl-7b --requests 6
+  # --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch qwen2-vl-7b --requests 16 --slots 8 --max-seq 1024
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream
@@ -87,6 +96,11 @@ joule: a model on the H100's data-sheet constants, not a measurement; with
 token, rollbacks).  ``--draft draft_model`` drafts with the served model
 and weights themselves (the reference's CLI cannot build that proposer).
 
+whisper-small (the audio family) is refused with ``NotImplementedError``:
+the engine prefills tokens alone, as the reference's does, and its encoder
+needs frames; it is served at the model level (``Model.prefill`` with
+``frames`` and ``tokens``, then ``Model.decode_step``).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP, queue A):
 ``--mesh`` (sharded serving) and ``--ckpt-dir`` (checkpoint restore).
 """
@@ -107,7 +121,7 @@ from repro_torch.models.model import build_model
 from repro_torch.serving.async_serving import (first_token_latencies,
                                                poisson_arrivals,
                                                run_open_loop)
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, check_servable
 from repro_torch.serving.spec_decode import DraftModelProposer
 
 NOT_PORTED = "is not yet ported (ROADMAP, queue A: {})"
@@ -146,12 +160,13 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     after it.  ``spec_tokens > 0`` speculates with the ``draft`` proposer:
     ``"ngram"``, or ``"draft_model"`` with the served model and weights."""
     _refuse_unported(ckpt_dir, mesh_size)
-    dev = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
     if kv_int8:
         cfg = cfg.with_(kv_cache_dtype="int8")
+    check_servable(cfg)
+    dev = resolve_device(device)
     model = build_model(cfg)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "

@@ -1,7 +1,7 @@
 """Layers of the decoder, as plain functions on tensors.
 
-PyTorch counterpart of the dense and MoE subset of
-``repro/models/layers.py``.
+PyTorch counterpart of the dense, MoE, M-RoPE and encoder-decoder subset
+of ``repro/models/layers.py``.
 Weights are stored contraction-last ``(out, in)``, so ``qdot`` takes float
 or quantized leaves alike.  The model's attention calls go to
 :mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
@@ -29,15 +29,34 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm as the reference computes it: the f32 mean and the biased
+    variance of each row, ``rsqrt(var + eps)``, then gamma and beta in
+    f32, cast back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
 def norm_gamma(p, kind: str) -> torch.Tensor:
-    """The f32 scale of a norm's parameters (RMSNorm is the one ported)."""
+    """The f32 scale of an RMSNorm, for the fused norm-and-quantize path
+    (``norm_qdot``), which computes RMSNorm only: a layer norm, which also
+    centres its rows and adds beta, has no fused path and raises."""
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        raise ValueError(f"norm {kind!r} has no fused norm-and-quantize "
+                         "path: apply_norm, then qdot")
     return p["gamma"]
 
 
 def apply_norm(x, p, kind: str, eps: float = 1e-5):
-    return rms_norm(x, norm_gamma(p, kind), eps)
+    if kind == "rmsnorm":
+        return rms_norm(x, p["gamma"], eps)
+    if kind == "layernorm":
+        return layer_norm(x, p["gamma"], p["beta"], eps)
+    raise NotImplementedError(f"norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +82,31 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
     rot = torch.cat([-x2, x1], dim=-1)
     return (x32 * cos + rot * sin).to(x.dtype)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections):
+    """Qwen2-VL's multimodal rope: positions (3, ...), the temporal, height
+    and width streams -> cos/sin (..., head_dim) in rotate-half layout.
+    ``sections`` counts the rotation pairs each stream drives (summing to
+    head_dim // 2): frequency band j takes its position from stream
+    ``repeat(arange(3), sections)[j]``.  The frequencies are
+    ``rope_angles``', so with three equal streams (text tokens) the tables
+    are ``rope_angles``' bit for bit."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    dev = positions.device
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=dev) / half)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.as_tensor(tuple(sections), device=dev))          # (half,)
+    pos = positions.float()[stream]                             # (half, ...)
+    ang = torch.movedim(pos, 0, -1) * freqs
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +261,14 @@ def swiglu_mlp(p, x, gamma, eps: float = 1e-5) -> torch.Tensor:
     else:
         hn = rms_norm(x, gamma, eps)
         h = torch.nn.functional.silu(qdot(hn, p["w1"])) * qdot(hn, p["w3"])
+    return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
+
+
+def gelu_mlp(p, x) -> torch.Tensor:
+    """Whisper's MLP on the normed x: w1 (F, D), the GELU in its tanh form
+    (``jax.nn.gelu``'s default; PyTorch's default is the exact erf form),
+    w2 (D, F); both products through ``qdot``."""
+    h = torch.nn.functional.gelu(qdot(x, p["w1"]), approximate="tanh")
     return qdot(h.to(x.dtype), p["w2"]).to(x.dtype)
 
 

@@ -1,7 +1,9 @@
 """Model facade: the entry points the serving engine calls.
 
-PyTorch counterpart of ``repro/models/model.py`` for the dense family, the
-MoE family without an interleave, and the SSM and hybrid families.
+PyTorch counterpart of ``repro/models/model.py`` for the dense and vlm
+families, the MoE family without an interleave, the SSM and hybrid
+families (``models/transformer.py``) and the audio family
+(``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -14,50 +16,57 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device
 from repro_torch.core.policy import QuantPolicy, quantize_params
 from repro_torch.core.quantization import QuantizedTensor
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
+    @property
+    def _family(self):
+        """The module of the config's family: ``encdec`` for audio,
+        ``transformer`` for every other."""
+        return encdec if self.cfg.family == "audio" else transformer
+
     def init(self, seed: int = 0, device: Device = None):
-        return transformer.init_params(self.cfg, seed, device=device)
+        return self._family.init_params(self.cfg, seed, device=device)
 
     def init_quantized(self, seed: int = 0,
                        policy: Optional[QuantPolicy] = None,
                        device: Device = None):
         """``quantize(init(seed), policy)``, fused decode operands
-        included, bit for bit, without ever holding the float tree: each
-        weight is quantized as it is drawn
-        (``transformer.init_quantized``)."""
-        return transformer.init_quantized(self.cfg, seed, policy,
-                                          device=device)
+        included (none for the audio family), bit for bit, without ever
+        holding the float tree: each weight is quantized as it is drawn
+        (``transformer.draw_params``)."""
+        return self._family.init_quantized(self.cfg, seed, policy,
+                                           device=device)
 
     def quantize(self, params, policy: Optional[QuantPolicy] = None,
                  fuse_decode: bool = True):
         """Post-training quantization (the paper's section 3.2 flow), plus
         the fused decode GEMV operands (wqkv / w13 / wo_f) when
-        ``fuse_decode``: 4 weight GEMVs per decode layer instead of 7."""
+        ``fuse_decode``: 4 weight GEMVs per decode layer instead of 7.  The
+        audio family's tree gets none, as in the reference."""
         qp = quantize_params(params, policy or QuantPolicy())
-        if fuse_decode:
+        if fuse_decode and self.cfg.family != "audio":
             qp = transformer.fuse_decode_weights(qp, self.cfg)
         return qp
 
     @property
     def supports_paged_cache(self) -> bool:
         """Whether the family has the paged pool: the families whose cache
-        is one stacked attention bank.  The SSM and hybrid families keep
-        the dense per-slot cache (the reference's ``init_paged_cache`` is
-        None for them; here it raises)."""
+        is one stacked attention bank.  The SSM, hybrid and audio families
+        keep the dense per-slot cache (the reference's
+        ``init_paged_cache`` is None for them; here it raises)."""
         return transformer.supports_paged_cache(self.cfg)
 
     def init_cache(self, batch: int, max_seq: int, device: Device = None):
-        return transformer.init_cache(self.cfg, batch, max_seq,
-                                      device=device)
+        return self._family.init_cache(self.cfg, batch, max_seq,
+                                       device=device)
 
     def prefill(self, params, batch, max_seq: Optional[int] = None):
-        return transformer.prefill(params, self.cfg, batch, max_seq=max_seq)
+        return self._family.prefill(params, self.cfg, batch, max_seq=max_seq)
 
     def init_paged_cache(self, batch: int, *, block_size: int = 64,
                          n_blocks: int, max_blocks_per_seq: int,
@@ -67,8 +76,8 @@ class Model:
             max_blocks_per_seq=max_blocks_per_seq, device=device)
 
     def decode_step(self, params, cache, tokens, positions=None):
-        return transformer.decode_step(params, self.cfg, cache, tokens,
-                                       positions)
+        return self._family.decode_step(params, self.cfg, cache, tokens,
+                                        positions)
 
     def prefill_chunk(self, params, tokens, cache, slot, offset):
         return transformer.prefill_chunk(params, self.cfg, tokens, cache,

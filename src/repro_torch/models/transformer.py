@@ -2,9 +2,11 @@
 the dense per-slot cache, chunked and one-shot prefill.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
-family, the MoE family without an interleave (every layer MoE), the SSM
-family (Mamba2 layers, ``models/ssm.py``) and the hybrid (Mamba2 layers
-with one shared attention block after every ``attn_every``-th).
+family, the vlm family (the dense decoder with M-RoPE, on precomputed
+patch embeddings or text tokens), the MoE family without an interleave
+(every layer MoE), the SSM family (Mamba2 layers, ``models/ssm.py``) and
+the hybrid (Mamba2 layers with one shared attention block after every
+``attn_every``-th).  The audio family is ``models/encdec.py``.
 Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
 ``Model.quantize``) stacked per layer in the reference's layout (the
 hybrid's ``blocks_main`` on two leading axes, ``blocks_tail``, and the
@@ -67,28 +69,27 @@ def _q_scale(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-# the families the port does not serve yet, by name
-_UNPORTED = {"audio": "the audio family (the encoder-decoder of "
-                      "models/encdec.py)",
-             "vlm": "the vlm family (mrope and the vision frontend)"}
-
-
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not serve."""
+    """Raise ``NotImplementedError`` for a config the port does not serve:
+    the llama4-style MoE interleave, a family the JAX package does not
+    have, and a norm or MLP its family does not use (the audio family's
+    encoder-decoder, ``models/encdec.py``, has LayerNorm and a GELU MLP;
+    every other family RMSNorm and SwiGLU)."""
     if cfg.family == "moe" and cfg.moe_every > 1:
         raise NotImplementedError(
             f"{cfg.arch_id}: the llama4-style interleave (an MoE layer "
             f"every {cfg.moe_every} layers, dense ones between) is not "
             "ported")
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(f"{cfg.arch_id}: {_UNPORTED[cfg.family]} "
-                                  "is not ported")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-            or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu" \
+    blocks = (("layernorm", "gelu") if cfg.family == "audio"
+              else ("rmsnorm", "swiglu"))
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio") \
+            or (cfg.norm_type, cfg.mlp_type) != blocks \
             or not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.arch_id}: only the dense SwiGLU, "
-                                  "MoE, SSM and hybrid families with tied "
-                                  "embeddings are ported")
+        raise NotImplementedError(
+            f"{cfg.arch_id}: only the dense, vlm, MoE, SSM and hybrid "
+            "families with RMSNorm and SwiGLU, and the audio family with "
+            "LayerNorm and a GELU MLP, each with tied embeddings, are "
+            "ported")
 
 
 def _draw_leaf(shape, by_layer: bool, draw):
@@ -207,6 +208,30 @@ def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
     return params
 
 
+def draw_params(cfg: ModelConfig, tree, seed: int = 0,
+                policy: Optional[QuantPolicy] = None,
+                device: Device = None) -> Params:
+    """``tree(cfg, leaf, dev)`` (``_param_tree``, or ``encdec``'s) with
+    every weight drawn from one ``torch.Generator`` seeded ``seed``: a
+    normal draw times its scale, in its dtype.  With ``policy`` each weight
+    the policy quantizes is quantized as it is drawn, by slices
+    (``_quantize_slices``), and its float values freed before the next
+    draw."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(path, shape, scale, dtype=None, by_layer=False):
+        quantized = policy is not None and policy.wants(path, shape)
+
+        def draw(shp):
+            x = torch.randn(shp, generator=gen, device=dev).mul_(scale).to(
+                dtype or _pdt(cfg))
+            return _quantize_slices(x, policy) if quantized else x
+        return _draw_leaf(shape, by_layer, draw)
+
+    return tree(cfg, leaf, dev)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Device = None) -> Params:
     """Random parameters from ``seed``: the reference's shapes and scales
@@ -214,16 +239,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     router in f32), drawn from a ``torch.Generator``, so the values differ
     from the reference's."""
     check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def normal(path, shape, scale, dtype=None, by_layer=False):
-        def draw(shp):
-            return (torch.randn(shp, generator=gen, device=dev)
-                    * scale).to(dtype or _pdt(cfg))
-        return _draw_leaf(shape, by_layer, draw)
-
-    return _param_tree(cfg, normal, dev)
+    return draw_params(cfg, _param_tree, seed, device=device)
 
 
 # values a quantized slice of ``init_quantized`` holds at most (1 GB of f32)
@@ -263,20 +279,9 @@ def init_quantized(cfg: ModelConfig, seed: int = 0,
     the 121 GB tree, at qwen3-moe-30b-a3b 1.2 GB (the embedding) instead
     of 119 GB."""
     check_family(cfg)
-    policy = policy or QuantPolicy()
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def leaf(path, shape, scale, dtype=None, by_layer=False):
-        quantized = policy.wants(path, shape)
-
-        def draw(shp):
-            x = torch.randn(shp, generator=gen, device=dev).mul_(scale).to(
-                dtype or _pdt(cfg))
-            return _quantize_slices(x, policy) if quantized else x
-        return _draw_leaf(shape, by_layer, draw)
-
-    return fuse_decode_weights(_param_tree(cfg, leaf, dev), cfg)
+    return fuse_decode_weights(draw_params(cfg, _param_tree, seed,
+                                           policy or QuantPolicy(), device),
+                               cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -376,17 +381,39 @@ def _layers(params: Params, cfg: ModelConfig):
 
 
 def embed_inputs(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
+                 batch: Dict[str, Any]) -> torch.Tensor:
+    """The batch's input embeddings in the compute dtype: its ``embeds``
+    (B, S, D), precomputed by a modality frontend (a stub, as in the
+    reference), or the embedding rows of its ``tokens``."""
+    if "embeds" in batch:
+        return batch["embeds"].to(_cdt(cfg))
+    return L.embed_lookup(params["embed"], batch["tokens"]).to(_cdt(cfg))
+
+
+def _default_positions(cfg: ModelConfig, b: int, s: int, batch,
+                       dev: torch.device) -> torch.Tensor:
+    """The batch's ``positions``, else 0..S-1 for every row, (B, S), as
+    three equal streams (3, B, S) for mrope."""
+    if "positions" in batch:
+        return torch.as_tensor(batch["positions"]).to(dev)
+    return _streams(cfg, torch.arange(s, dtype=torch.int32,
+                                      device=dev).expand(b, s))
+
+
+def _streams(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Text positions (...) as the rope tables take them: mrope's three
+    equal streams (3, ...), else as they are."""
+    return pos.expand(3, *pos.shape) if cfg.rope_type == "mrope" else pos
 
 
 def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
-    """(cos, sin) (..., hd) at ``positions``; None for ``rope_type`` none."""
+    """(cos, sin) (..., hd) at ``positions``, (...) for rope and (3, ...)
+    for mrope; None for ``rope_type`` none."""
     if cfg.rope_type == "none":
         return None
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
-                                  "ported yet")
+    if cfg.rope_type == "mrope":
+        return L.mrope_angles(positions, cfg.hd(), cfg.rope_theta,
+                              cfg.mrope_sections)
     return L.rope_angles(positions, cfg.hd(), cfg.rope_theta)
 
 
@@ -623,8 +650,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     (``_ssm_decode_layer``)."""
     paged = "page_table" in cache
     pos = cache["lens"] if positions is None else positions
-    x = embed_inputs(params, cfg, tokens)
-    rope = _rope_cos_sin(cfg, pos)
+    x = embed_inputs(params, cfg, {"tokens": tokens})
+    rope = _rope_cos_sin(cfg, _streams(cfg, pos))
     qscale = _q_scale(cfg) if cfg.n_heads else None
     lens_now = (pos + 1).int()
     pt = dst = None
@@ -682,20 +709,27 @@ def _attn_seq(p, x, cfg: ModelConfig, cos, sin):
     v = qeinsum("bsd,hkd->bshk", h, p["attn"]["wv"])
     q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
     k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
-    if q.dtype == torch.float32:
-        out = ops.flash_prefill(q, k, v, causal=True)
-    else:
-        out = ops.flash_prefill(q * _q_scale(cfg), k, v, causal=True,
-                                scale=1.0)
-    out = qeinsum("bshk,dhk->bsd", out, p["attn"]["wo"])
+    out = qeinsum("bshk,dhk->bsd", prefill_attention(q, k, v, cfg),
+                  p["attn"]["wo"])
     return out.to(x.dtype), (k, v)
+
+
+def prefill_attention(q, k, v, cfg: ModelConfig,
+                      causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd) unscaled, k/v (B, Sk, KVH, hd) -> (B, Sq, H, hd)
+    on ``ops.flash_prefill``, q scaled as ``_attn_seq`` says."""
+    if q.dtype == torch.float32:
+        return ops.flash_prefill(q, k, v, causal=causal)
+    return ops.flash_prefill(q * _q_scale(cfg), k, v, causal=causal,
+                             scale=1.0)
 
 
 def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
-    """x (B, S, D) input embeddings -> (hidden (B, S, D) before the final
-    norm, each layer's (cache key, index, state)): an attention block's
-    (k, v) (B, S, KVH, hd), a Mamba2 layer's (conv rings, SSM state)
+    """x (B, S, D) input embeddings at ``positions`` ((B, S), or (3, B, S)
+    for mrope) -> (hidden (B, S, D) before the final norm, each layer's
+    (cache key, index, state)): an attention block's (k, v) (B, S, KVH,
+    hd), a Mamba2 layer's (conv rings, SSM state)
     (``ssm.mamba2_forward``).  The head's ``_head`` normalizes only the
     rows it reads."""
     rope = _rope_cos_sin(cfg, positions)
@@ -716,21 +750,28 @@ def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    """Whole prompts ``batch["tokens"]`` (B, S) at positions 0..S-1 in one
-    pass: returns the last position's logits (B, V) f32 and a dense cache
-    of ``max_seq`` positions (default S) holding the prompts' K/V (and,
-    for the SSM families, each Mamba2 layer's conv rings and final state,
+    """Whole prompts in one pass: ``batch["tokens"]`` (B, S), or the
+    ``embeds`` (B, S, D) of a modality frontend, at ``batch["positions"]``
+    ((B, S), or (3, B, S) for mrope; default 0..S-1 in every stream).
+    Returns the last position's logits (B, V) f32 and a dense cache of
+    ``max_seq`` positions (default S) holding the prompts' K/V (and, for
+    the SSM families, each Mamba2 layer's conv rings and final state,
     cast to the cache's f32), ``lens = S``.  Runs where the parameters
     live."""
     dev = params["final_norm"]["gamma"].device
-    tokens = batch["tokens"]
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.as_tensor(np.asarray(tokens, np.int64))
-    tokens = tokens.to(dev)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    hidden, parts = forward_layers(params, cfg, embed_inputs(params, cfg,
-                                                             tokens),
+    batch = dict(batch)
+    if "embeds" in batch:
+        batch["embeds"] = torch.as_tensor(batch["embeds"]).to(dev)
+        b, s = batch["embeds"].shape[:2]
+    else:
+        tokens = batch["tokens"]
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.as_tensor(np.asarray(tokens, np.int64))
+        batch["tokens"] = tokens.to(dev)
+        b, s = tokens.shape
+    positions = _default_positions(cfg, b, s, batch, dev)
+    hidden, parts = forward_layers(params, cfg,
+                                   embed_inputs(params, cfg, batch),
                                    positions)
     cache = init_cache(cfg, b, max_seq or s, device=dev)
     cache["lens"].fill_(s)
@@ -902,11 +943,11 @@ def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
         (b, c) + tuple(tuple(t.shape) for t in cache["attn"].values()))
     q_pos = a.offs[:, None] + torch.arange(c, dtype=torch.int32,
                                            device=a.offs.device)[None]
-    cos, sin = _rope_cos_sin(cfg, q_pos)                 # (B, c, hd)
+    cos, sin = _rope_cos_sin(cfg, _streams(cfg, q_pos))  # (B, c, hd)
     chunk_valid = (torch.arange(c, device=a.offs.device)[None]
                    < a.lens[:, None])
     acfg = L.AttnConfig(cfg.n_heads, kvh, hd, q_chunk=cfg.q_chunk)
-    x = embed_inputs(params, cfg, a.toks)
+    x = embed_inputs(params, cfg, {"tokens": a.toks})
 
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)

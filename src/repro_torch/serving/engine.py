@@ -117,6 +117,22 @@ from repro_torch.serving.spec_decode import build_proposer
 NOT_PORTED = "not yet ported"
 
 
+def check_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the engine cannot serve:
+    the audio family.  Its prefill encodes frames before the prompt, and
+    the engine prefills tokens alone, as the reference's does (its
+    ``Engine._run_chunks`` calls ``model.prefill`` with tokens only, which
+    the encoder-decoder's prefill cannot take).  Serve it at the model
+    level: ``Model.prefill`` with ``frames`` and ``tokens``, then
+    ``Model.decode_step``."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the audio family is served at the model level "
+            "only (Model.prefill with frames and tokens, then "
+            "Model.decode_step): the engine prefills tokens alone, as the "
+            "reference's engine does, and the encoder needs frames")
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -304,6 +320,7 @@ class Engine:
                              f"{cache_kind!r}")
         if mesh is not None:
             raise NotImplementedError(f"Engine(mesh) is {NOT_PORTED}")
+        check_servable(model.cfg)
         self.device = resolve_device(device)
         self.spec_tokens = spec_tokens
         if spec_tokens > 0 and (draft_proposer is None

@@ -24,8 +24,9 @@ def _env():
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
-    assert {"repro_torch.core.prng",
-            "repro_torch.launch.serve"} <= set(MODULES)
+    assert {"repro_torch.core.prng", "repro_torch.launch.serve",
+            "repro_torch.models.encdec", "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.whisper_small"} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -81,6 +82,14 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run(requests=1)
+    for arch in ("qwen2-vl-7b", "whisper-small"):
+        other = build_model(reduced(get_config(arch)))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            other.init(0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            other.init_quantized(0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            other.init_cache(1, 16)
     eng = Engine(m, params, max_slots=2, max_seq=16, page_size=8,
                  device="cpu")
     assert eng.step_async() == (None, None)          # idle
@@ -99,6 +108,33 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     done = eng.run()
     assert [r.error for r in done] == [None, None]
     assert [len(r.outputs) for r in done] == [1, 2]
+
+
+def test_check_family_takes_vlm_and_audio_and_refuses_the_interleave():
+    """Every config of the JAX package builds in the port but llama4's
+    interleave (``moe_every`` 2), refused by name; the refusal names
+    neither the vlm nor the audio family."""
+    from repro_torch.configs import ModelConfig, get_config, reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import check_family
+    for arch in ("qwen2-vl-7b", "whisper-small"):
+        for cfg in (get_config(arch), reduced(get_config(arch))):
+            check_family(cfg)
+            assert build_model(cfg).cfg.family in ("vlm", "audio")
+    llama4 = ModelConfig(arch_id="llama4-like", family="moe", n_layers=4,
+                         d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                         vocab_size=512, n_experts=8, top_k=1, moe_every=2)
+    with pytest.raises(NotImplementedError, match="interleave") as err:
+        check_family(llama4)
+    assert "vlm" not in str(err.value) and "audio" not in str(err.value)
+    # a family's blocks are its own: no LayerNorm decoder-only model, no
+    # SwiGLU encoder-decoder
+    for cfg in (reduced(get_config("llama2-110m")).with_(
+                    norm_type="layernorm"),
+                reduced(get_config("whisper-small")).with_(
+                    mlp_type="swiglu")):
+        with pytest.raises(NotImplementedError, match="ported"):
+            check_family(cfg)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
