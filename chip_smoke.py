@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--only phase2,main_path,bf16_paths,ssm_paths,
-                                  vlm_audio_paths]
+                                  vlm_audio_paths,interleave_paths]
 
 With no argument every group of phases runs, in that order; ``--only``
 runs a selection, each group with the phase-2 checks of its own shapes.
@@ -96,9 +96,17 @@ stub frames, then 32 greedy ``decode_step``s on a bf16 and an int8 cache,
 held to the fixed bound at every prefill position and decode step
 (``whisper_plain_delta``) with its own planted faults
 (``_whisper_controls``); phase 2 holds the kernels at both configs'
-shapes (``check_qwen2_vl``, ``check_whisper``).  On every llama3.2-3b,
+shapes (``check_qwen2_vl``, ``check_whisper``).  Phase 26 serves
+llama4-maverick-400b-a17b (the llama4 interleave: a dense layer and an MoE
+layer in turn, d_model 5120, 40 query heads over 8 KV heads of 128, 128
+experts of d_ff 8192, top 1, vocab 202048; its 48 layers, ~424 GB of
+Q8_0, cut to 4, two patterns) on the dense fallback, as the reference's
+engine serves it, on a bf16 and an int8 KV cache, its memory peaks
+printed; phase 2 holds the seven kernels of that path at its shapes
+(``check_llama4``: HQ 5, ``rmsnorm_quant`` at K 5120 on its 40-float4
+plan).  On every llama3.2-3b,
 phi4, glm4,
-command-r, qwen3-moe, mamba2 and zamba2 path the kernels' logits are held
+command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits are held
 against the plain versions' on the same inputs to a fixed bound derived
 from bf16 and Q8_0 rounding (``plain_delta_bound``), with each kernel's
 share: the difference with
@@ -2021,6 +2029,77 @@ def check_whisper(report, dev):
         "untimed")
 
 
+# llama4-maverick-400b-a17b (phase 2's interleave part, phase 26): 48
+# layers in 24 patterns of a dense layer and an MoE layer, d_model 5120, 40
+# query heads over 8 KV heads of 128 (HQ 5, the third odd grouping after
+# HQ 3 and 7; HQ*D 640, one head group), d_ff 8192 (the dense MLP and each
+# of 128 experts, top 1), vocab 202048 (head 202240 rows), rope theta 5e5.
+# A decode step's GEMVs: wqkv (7168 = (40 + 2 x 8) x 128) and wo_f in every
+# layer, w13 (16384) and w2 (K 8192) in the 24 dense ones; the experts are
+# the reference's f32 einsums on dequantized banks, plain PyTorch.  A
+# one-shot prefill's products: the dense layers' w13 and w2 at the
+# prompt's M.  (N, K, calls a step.)
+L4 = "llama4-maverick-400b-a17b"
+L4_LAYERS, L4_D, L4_KVH, L4_HQ, L4_HD, L4_FF = 48, 5120, 8, 5, 128, 8192
+L4_GEMV = [(7168, 5120, 48), (5120, 5120, 48), (16384, 5120, 24),
+           (5120, 8192, 24)]
+L4_HEAD = (202240, 5120)
+L4_GEMM = [(16384, 5120, 24), (5120, 8192, 24)]
+# phase 26's prompt lengths: one of 512 (groups of 512 in the grouped
+# dispatch), one prime of 101 (groups of one token); the others with a
+# large divisor under 512
+L4_PROMPT_LENS = (512, 101, 160, 384, 256, 200, 96, 320)
+# rmsnorm_quant's rows: decode steps (1, 8), one-shot prefills (101, 512)
+# and the check's 8 x 256; 16 is the first M of the 40-float4 plan
+L4_NORM_M = (1, 8, 16, 101, 512, 2048)
+
+
+def check_llama4(report, dev):
+    """The kernels at llama4-maverick-400b-a17b's shapes, each against its
+    plain version and timed beside it and its library call.  Both decode
+    attentions at KVH 8, HQ 5, D 128 (one head group;
+    ``_decode_attention_rows``: the dense cache's kernel is this path's,
+    the paged one runs beside it); flash_prefill on one bf16 prompt of 17,
+    101, 512, 600 and 1024 tokens at 40 / 8 heads of 128; q8_matvec at a
+    decode step's 144 layer GEMVs (``L4_GEMV``) and the 202240-row head, M
+    = 1 and 8; q8_matmul at one 512-token prefill's 48 dense-MLP products,
+    bitwise; rmsnorm_quant on bf16 and f32 rows at K 5120, M 1 to 2048
+    (``L4_NORM_M``; from M 16 on PyTorch's mean takes 32 threads a row, 40
+    float4s each): 0 codes apart and every scale equal; quantize on bf16
+    rows at K 5120 and 8192, bitwise; rope on 48 heads of 128 at theta
+    5e5.  Each adds a row ``<kernel>@llama4-maverick-400b-a17b``."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(32)
+    src = "src/repro_torch/kernels/csrc/"
+    _decode_attention_rows(report, gen, dev, L4, L4_KVH, L4_HQ, L4_HD, 1)
+    _bf16_flash_row(report, gen, dev, L4, L4_KVH * L4_HQ, L4_KVH, L4_HD,
+                    prompts=(17, 101, 512, 600, 1024))
+    operands = _q8_operands(gen, dev)
+    _q8_matvec_row(report, dev, L4, operands, L4_GEMV, L4_HEAD, L4_LAYERS)
+    chunk = q8_matmul_chunk(dev, 512, operands, shapes=L4_GEMM)
+    report.add(f"q8_matmul@{L4}", route="cuda", source=src + "q8_matmul.cu",
+               replaces="src/repro/kernels/q8_matmul.py:92",
+               max_abs_err=chunk["err"], ms=chunk["ms"],
+               plain_ms=chunk["plain"], bound_ms=chunk["bound"],
+               bound_by=chunk["by"], library_ms=chunk["lib"],
+               per="one 512-token one-shot prefill: 24 dense layers x (w13 "
+                   "16384 x 5120, w2 5120 x 8192); bitwise")
+    _bf16_norm_row(report, gen, dev, L4, L4_D, 0, ms=L4_NORM_M,
+                   scale_rel=0.0)
+    for m in L4_NORM_M:
+        _norm_held(ops, ref, _norm_input(gen, dev, m, L4_D, 64),
+                   torch.randn((L4_D,), generator=gen, device=dev), 1e-5, 64,
+                   0, 0.0)
+    log(f"  {L4} rmsnorm_quant f32 rows K={L4_D} M={L4_NORM_M}: 0 codes "
+        f"apart, every scale equal (plans "
+        + ", ".join(f"M {m}: {ops.rmsnorm_quant_plan(m, L4_D, w)}"
+                    for m in (1, 8, 16)
+                    for w in [ops._torch_row_mean_order(m, L4_D)[0]])
+        + ")")
+    _bf16_quantize_row(report, gen, dev, L4, L4_D, L4_FF)
+    _bf16_rope_row(report, gen, dev, L4, L4_KVH * L4_HQ, L4_KVH, L4_HD, 5e5)
+
+
 def norm_bits(dev, path):
     """rmsnorm_quant's and quantize's outputs on seeded inputs at every
     shape served before command-r-35b (K 768 f32, K 3072 and 4096 bf16 and
@@ -3320,11 +3399,14 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     rope and one attention call per layer, and one rmsnorm_quant per
     norm-then-product pair (norm1 -> wqkv, norm2 -> w13 per layer, the
     final norm -> head: 2 per layer + 1), and one quantize in front of each
-    product no norm feeds (wo_f and w2: 2 per layer).  An MoE layer
-    (``cfg.family == "moe"``) has no MLP product on a kernel: its experts
-    are the reference's f32 einsums, plain PyTorch, after the plain norm2;
-    so 2 GEMVs, 1 rmsnorm_quant and 1 quantize a layer in a decode step,
-    and none in a chunk, verify or prefill step but the head's.  Paged,
+    product no norm feeds (wo_f and w2: 2 per layer).  An MoE layer has no
+    MLP product on a kernel: its experts are the reference's f32 einsums,
+    plain PyTorch, after the plain norm2; so 2 GEMVs, 1 rmsnorm_quant and 1
+    quantize a layer in a decode step, and none in a chunk, verify or
+    prefill step but the head's.  Every layer of the MoE family is MoE but
+    in the llama4 interleave, whose ``n_layers // moe_every`` patterns run
+    ``moe_every - 1`` dense layers and one MoE layer each (``_layer_kinds``;
+    a layer past the last pattern does not run).  Paged,
     each chunk step: the MLP's two products per layer, the head's GEMV, one
     prefix-attention call per layer, rmsnorm_quant for norm2 -> w13 and
     the final norm (1 per layer + 1) and quantize for w2 (1 per layer).
@@ -3349,49 +3431,47 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     from repro_torch.kernels import build
     if cfg.family in ("ssm", "hybrid"):
         return _ssm_launches(eng, launches, cfg, counted, bits)
-    nl = cfg.n_layers
+    # nl attention layers, nm of them with a dense MLP (w13, w2: one fed
+    # by norm2's rmsnorm_quant, one by a quantize); the others MoE
+    nl, nm = _layer_kinds(cfg)
     d = eng.metrics["decode_steps"]
     gemv = "q8_matvec" if bits == 8 else "q4_matvec"
     gemm = "q8_matmul" if bits == 8 else "q4_matvec"
-    # a dense MLP's products a layer (w13, w2: one fed by norm2's
-    # rmsnorm_quant, one by a quantize); an MoE layer has none
-    moe = cfg.family == "moe"
-    mlp = 0 if moe else 2
     want = dict.fromkeys(build.LAUNCHES, 0)
-    want[gemv] += ((2 + mlp) * nl + 1) * d
+    want[gemv] += (2 * nl + 2 * nm + 1) * d
     want["rope"] += nl * d
-    want["rmsnorm_quant"] += ((1 + mlp // 2) * nl + 1) * d
-    want["quantize"] += (1 + mlp // 2) * nl * d
+    want["rmsnorm_quant"] += (nl + nm + 1) * d
+    want["quantize"] += (nl + nm) * d
     if eng.paged:
         attn = ("paged_decode_attention", "paged_prefill_attention")
         c = eng.metrics["chunk_batch_calls"]
         rows = eng.max_slots * eng.prefill_chunk_tokens
-        want[gemm if rows > 32 else gemv] += mlp * nl * c
+        want[gemm if rows > 32 else gemv] += 2 * nm * c
         want[gemv] += c
-        want["rmsnorm_quant"] += (mlp // 2 * nl + 1) * c
-        want["quantize"] += mlp // 2 * nl * c
+        want["rmsnorm_quant"] += (nm + 1) * c
+        want["quantize"] += nm * c
         want[attn[0]] += nl * d
         want[attn[1]] += nl * c
         v = eng.metrics.get("verify_steps", 0)   # a parent tree may lack it
         rows = eng.max_slots * (getattr(eng, "spec_tokens", 0) + 1)
-        want[gemm if rows > 32 else gemv] += (mlp * nl + 1) * v
-        want["rmsnorm_quant"] += (mlp // 2 * nl + 1) * v
-        want["quantize"] += mlp // 2 * nl * v
+        want[gemm if rows > 32 else gemv] += (2 * nm + 1) * v
+        want["rmsnorm_quant"] += (nm + 1) * v
+        want["quantize"] += nm * v
         want[attn[1]] += nl * v
     else:
         attn = ("decode_attention", "flash_prefill")
         pre = [e - s for plan in eng.plan_log for _, s, e in plan["prefills"]]
         for n in pre:
-            want[gemm if n > 32 else gemv] += mlp * nl
+            want[gemm if n > 32 else gemv] += 2 * nm
             want[gemv] += 1
-            want["rmsnorm_quant"] += mlp // 2 * nl + 1
-            want["quantize"] += mlp // 2 * nl
+            want["rmsnorm_quant"] += nm + 1
+            want["quantize"] += nm
         want[attn[0]] += nl * d
         want[attn[1]] += nl * len(pre)
-    # every kernel of the path must launch: an MoE path makes no M > 32
-    # product but its verify step's head
+    # every kernel of the path must launch: a path of MoE layers alone
+    # makes no M > 32 product but its verify step's head
     path = {gemv, "rope", "rmsnorm_quant", "quantize", *attn}
-    if not moe or want[gemm]:
+    if nm or want[gemm]:
         path.add(gemm)
     if float_weights:
         for k in (gemv, gemm, "rmsnorm_quant", "quantize"):
@@ -3404,13 +3484,26 @@ def check_launches(eng, launches, cfg, counted, bits=8, extra=None,
     for k, v in launches.items():
         counted[k] = counted.get(k, 0) + v
     step = (f"{nl} rope and {nl} {attn[0]}" if float_weights else
-            f"{(2 + mlp) * nl + 1} {gemv}, {(1 + mlp // 2) * nl + 1} "
-            f"rmsnorm_quant, {(1 + mlp // 2) * nl} quantize, {nl} rope and "
-            f"{nl} {attn[0]}")
+            f"{2 * nl + 2 * nm + 1} {gemv}, {nl + nm + 1} rmsnorm_quant, "
+            f"{nl + nm} quantize, {nl} rope and {nl} {attn[0]}"
+            + (f" ({nm} dense layers: 4 GEMVs, 2 rmsnorm_quant, 2 quantize "
+               f"each; {nl - nm} MoE layers: 2, 1, 1)"
+               if 0 < nm < nl else ""))
     verifies = eng.metrics.get("verify_steps", 0)
     log(f"  launches {dict((k, v) for k, v in launches.items() if v)}: "
         f"{step} per decode step over {d} steps"
         + (f", {verifies} verify calls" if verifies else ""))
+
+
+def _layer_kinds(cfg):
+    """(attention layers that run, those of them with a dense MLP): every
+    layer dense, every layer MoE (``moe_every`` 1), or the interleave's
+    ``n_layers // moe_every`` patterns of ``moe_every - 1`` dense layers
+    and one MoE layer."""
+    if cfg.family != "moe":
+        return cfg.n_layers, cfg.n_layers
+    n_pat = cfg.n_layers // cfg.moe_every
+    return n_pat * cfg.moe_every, n_pat * (cfg.moe_every - 1)
 
 
 def _ssm_launches(eng, launches, cfg, counted, bits=8):
@@ -4735,6 +4828,14 @@ def route_flip_bound(scale: float, layer: int) -> float:
             * scale)
 
 
+def router_layers(cfg) -> list:
+    """The layer (counted from 0) of each routing call of one forward pass:
+    every layer, or the interleave's MoE layer of each pattern (layer 1, 3,
+    ... at ``moe_every`` 2)."""
+    me = cfg.moe_every
+    return [j * me + me - 1 for j in range(cfg.n_layers // me)]
+
+
 def route_flips(cfg, want, got, valid, what="free routes"):
     """Flipped routing decisions of one run (``got``) against the plain
     run's (``want``), both recorded by ``moe_routes`` over one chunk step
@@ -4747,10 +4848,11 @@ def route_flips(cfg, want, got, valid, what="free routes"):
     of the plain run's decisions whose gap sits below their layer's bound
     (the share a rounding could flip: the check's blind share) and
     ``rejected``, true where a first flip is out of bound."""
-    nl = cfg.n_layers
+    layers = router_layers(cfg)
+    nl = len(layers)
     scale = max(float(c["scale"]) for c in want)
     tol = torch.tensor([route_flip_bound(scale, layer) for layer in
-                        range(nl)], device=valid.device)[:, None, None]
+                        layers], device=valid.device)[:, None, None]
     rec = {"decisions": 0, "flips": 0, "first": 0, "router_scale": scale,
            "bound_layer0": float(tol[0]), "bound_last": float(tol[-1]),
            "under_bound": 0, "under_bound_layer0": 0, "first_max_gap": 0.0,
@@ -4794,10 +4896,11 @@ def route_flips(cfg, want, got, valid, what="free routes"):
         f"{rec['first_max_gap']:.4g}, {rec['first_max_ratio']:.3g} x its "
         f"layer's fixed bound {PLAIN_DELTA_LAMBDA:g} * sqrt(2 l + 1) * "
         f"{PLAIN_DELTA_UNIT:.5f} * {scale:.4g} ({rec['bound_layer0']:.4g} "
-        f"at layer 0 .. {rec['bound_last']:.4g} at layer {nl - 1}; "
-        f"{100 * rec['under_bound_share']:.1f}% of the plain decisions "
-        f"under it, {100 * rec['under_bound_layer0_share']:.1f}% of layer "
-        f"0's); {rec['flips'] - rec['first']} flips fed by earlier "
+        f"at layer {layers[0]} .. {rec['bound_last']:.4g} at layer "
+        f"{layers[-1]}; {100 * rec['under_bound_share']:.1f}% of the plain "
+        f"decisions under it, {100 * rec['under_bound_layer0_share']:.1f}% "
+        f"of layer {layers[0]}'s); {rec['flips'] - rec['first']} flips fed "
+        "by earlier "
         f"ones, largest gap {rec['later_max_gap']:.4g} (counted, not "
         "bounded)")
     return rec
@@ -5381,41 +5484,37 @@ def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
 
 
 def f32_init_bytes(cfg) -> int:
-    """Bytes of ``init_params``'s f32 tree at ``cfg``: what a draw in full
-    before quantizing would hold (the tree built on the meta device)."""
-    from repro_torch.models.transformer import _param_tree
-    meta = torch.device("meta")
-
-    def leaf(path, shape, scale, dtype=None, by_layer=False):
-        return torch.empty(shape, device=meta)
-
-    def total(t):
-        if isinstance(t, dict):
-            return sum(map(total, t.values()))
-        return t.numel() * 4
-
-    return total(_param_tree(cfg, leaf, meta))
+    """Bytes of ``init_params``'s tree at ``cfg`` in f32: what a draw in
+    full before quantizing would hold (counted on the meta device)."""
+    from repro_torch.models.transformer import init_bytes
+    return init_bytes(cfg.with_(param_dtype="float32"))
 
 
-def moe_init_bitwise(dev, cfg, n_layers=2):
+def moe_init_bitwise(dev, cfg, n_layers=2, **cut):
     """``Model.init_quantized`` against ``Model.quantize(Model.init(0))``
-    at ``cfg``'s full width cut to ``n_layers`` (qwen3-moe-30b-a3b: ~6 GB
-    of f32 at 2 layers, its banks drawn a layer at a time in both): every
-    code and scale equal, the router f32 in both.  Raises otherwise."""
+    at ``cfg``'s full width cut to ``n_layers`` and ``cut``'s other fields
+    (qwen3-moe-30b-a3b: ~6 GB of f32 at 2 layers, its banks drawn a layer
+    at a time in both; llama4-maverick-400b-a17b's one pattern would hold
+    a 21.5 GB bank and quantize it whole, so it is also cut to 8 experts):
+    every code and scale equal, the router f32 in both.  Raises
+    otherwise."""
     from repro_torch.core.quantization import tree_differs
     from repro_torch.models.model import build_model
-    model = build_model(cfg.with_(n_layers=n_layers))
+    model = build_model(cfg.with_(n_layers=n_layers, **cut))
     want = model.quantize(model.init(seed=0, device=dev))
     got = model.init_quantized(seed=0, device=dev)
     differ = tree_differs(got, want)
-    router = got["blocks"]["moe"]["router"]
+    router = got["blocks_moe" if "blocks_moe" in got else "blocks"]["moe"][
+        "router"]
     del got, want
     torch.cuda.empty_cache()
+    what = ", ".join([f"{n_layers} layers"]
+                     + [f"{k} {v}" for k, v in cut.items()])
     if differ or router.dtype != torch.float32:
-        raise AssertionError(f"{cfg.arch_id} at {n_layers} layers: "
-                             f"init_quantized differs from quantize(init) "
-                             f"at {differ}, router {router.dtype}")
-    log(f"  {cfg.arch_id} at {n_layers} layers of full width: "
+        raise AssertionError(f"{cfg.arch_id} at {what}: init_quantized "
+                             f"differs from quantize(init) at {differ}, "
+                             f"router {router.dtype}")
+    log(f"  {cfg.arch_id} at {what} of full width: "
         "Model.init_quantized(0) bitwise equal to "
         "Model.quantize(Model.init(0)), every leaf, the router f32")
 
@@ -6058,6 +6157,168 @@ def whisper_path(dev, counted, n=25):
 # phase 2.  Phase 24 (qwen2-vl-7b, ~1.6 s a layer with its controls; 45 s
 # at all 28 layers) runs cut to 4 layers for phases 24-25; at all 28:
 # ``full_width_path(dev, {}, Q2, 24)`` alone
+# the kernels of the interleave's dense path (phase 26), for the shares of
+# kernel_plain_delta, and the planted faults its bound must reject (the
+# K group and the rotated KV heads; the newest key dropped is measured)
+L4_KERNELS = ("q8_matvec", "q8_matmul", "rmsnorm_quant", "quantize", "rope",
+              "decode_attention", "flash_prefill")
+L4_CONTROLS = ("q8_matvec: last K group dropped",
+               "q8_matmul: last K group dropped",
+               "decode_attention: KV heads rotated",
+               "decode_attention: newest key dropped")
+# two patterns of the 24: its Q8_0 tree is ~424 GB at 48 layers, ~36 GB
+# at 4, the f32 copy of one expert bank (21.5 GB) held beside it while a
+# layer's experts run
+L4_PHASE_LAYERS = 4
+
+
+def _l4_prompts(vocab, seed, shared_len=64, shared_at=(0, 5)):
+    """Phase 26's 8 seeded prompts of ``L4_PROMPT_LENS`` tokens; those at
+    ``shared_at`` start with one common ``shared_len``-token prefix."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(4, vocab, size=shared_len)
+    out = []
+    for i, n in enumerate(L4_PROMPT_LENS):
+        p = rng.integers(4, vocab, size=n)
+        if i in shared_at:
+            p[:shared_len] = shared
+        out.append(p.astype(np.int32))
+    return out
+
+
+def _group_rule(cfg, s):
+    """(group size, groups, capacity) of ``layers.moe_mlp``'s grouped
+    dispatch for one prompt of ``s`` tokens: ``moe_group`` lowered until
+    it divides s; capacity ``capacity_factor * group * top_k / n_experts``,
+    at least 1, rounded up to a multiple of 4."""
+    g_sz = min(cfg.moe_group, s)
+    while s % g_sz:
+        g_sz -= 1
+    cap = max(int(cfg.capacity_factor * g_sz * cfg.top_k / cfg.n_experts), 1)
+    return g_sz, s // g_sz, (cap + 3) & ~3
+
+
+def _first_unit_group(cfg):
+    """The shortest prompt whose group rule leaves groups of one token."""
+    s = cfg.moe_group + 1
+    while _group_rule(cfg, s)[0] != 1:
+        s += 1
+    return s
+
+
+def interleave_path(dev, counted, n=26):
+    """Phase ``n``: llama4-maverick-400b-a17b at full width (d_model 5120,
+    40 / 8 heads of 128, 128 experts of d_ff 8192, top 1, vocab 202048),
+    cut to ``L4_PHASE_LAYERS`` layers (two patterns of a dense and an MoE
+    layer), from the port's own seeded init quantized as it draws
+    (``Model.init_quantized``; first held bitwise against
+    ``quantize(init)`` at one pattern of 8 experts, ``moe_init_bitwise``).
+    ``Engine(model, params)`` with the default ``cache_kind`` falls back to
+    the dense per-slot cache (8 slots x 1024), as the reference's does for
+    the interleave: one-shot prefill on flash_prefill, the MoE's grouped
+    dispatch; decode on decode_attention, its dense dispatch.  8 prompts
+    (``L4_PROMPT_LENS``: 512 tokens, groups of 512; a prime 101, groups of
+    one token; two sharing a 64-token prefix), 32 greedy tokens, on a bf16
+    and then an int8 KV cache.  Before them: the peak memory of one
+    one-shot prefill at 101 and at 512 tokens, and ``kernel_plain_delta``
+    (8 x 256 prefill, then a decode step) with the routes pinned, every
+    kernel's share and ``L4_CONTROLS`` on the bf16 cache, the bound alone
+    on the int8 cache; each with its free-route flips counted.  Asserts the
+    exact launch counts by layer kind (``check_launches``), no prefix hit
+    and no token past the head's rows; a short run (two requests, 8
+    tokens) under the profiler.  Launches are counted under
+    ``<kernel>@<arch>``; the record carries the init's seconds and peak,
+    the Q8_0 GB, the peaks of the prefills and of each run, and digests of
+    the streams.  The parameters are freed before it returns."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
+    cfg = get_config(L4).with_(n_layers=L4_PHASE_LAYERS)
+    moe_init_bitwise(dev, cfg, 2, n_experts=8)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_quantized(seed=0, device=dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    held = torch.cuda.memory_allocated() / 1e9
+    q8_gb = param_bytes(params) / 1e9
+    prompts = _l4_prompts(cfg.vocab_size, seed=n)
+    phase(f"phase {n}: {L4} full width, {cfg.n_layers} layers (cut: "
+          f"{cfg.n_layers // cfg.moe_every} patterns of a dense and an MoE "
+          f"layer) (d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.hd()}, {cfg.n_experts} experts "
+          f"of d_ff {cfg.d_ff}, top {cfg.top_k}, vocab {cfg.vocab_size} "
+          f"(head {cfg.padded_vocab()} rows), rope theta "
+          f"{cfg.rope_theta:g}, {cfg.compute_dtype}), Q8_0 parameters "
+          f"{q8_gb:.2f} GB ({held:.2f} GB allocated) quantized as drawn on "
+          f"the card in {made:.1f} s (peak {peak:.2f} GB allocated); 8 "
+          f"requests of {', '.join(map(str, L4_PROMPT_LENS))} tokens, 32 "
+          "greedy tokens, the default cache_kind")
+    rules = {str(len(p)): _group_rule(cfg, len(p)) for p in prompts}
+    log("  the grouped dispatch's rule (group size, groups, capacity) by "
+        "prompt length: " + ", ".join(f"{k}: {v}" for k, v in rules.items())
+        + f"; groups of one token first at {_first_unit_group(cfg)} tokens "
+        "(a prime past moe_group)")
+    prefill_peak = {}
+    for p in prompts[:2]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": p[None]}, max_seq=1024)
+        torch.cuda.synchronize()
+        prefill_peak[str(len(p))] = {
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "s": time.perf_counter() - t0}
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{L4}: non-finite prefill logits")
+        del logits
+    log("  one-shot prefill peaks: " + "; ".join(
+        f"{k} tokens {v['peak_gb']:.2f} GB allocated ({v['s']:.2f} s)"
+        for k, v in prefill_peak.items()))
+    torch.cuda.empty_cache()
+    mine, recs = {}, {}
+    for kv in ("bfloat16", "int8"):
+        m = build_model(cfg.with_(kv_cache_dtype=kv))
+        delta = kernel_plain_delta(
+            m, params, prompts, dev, dense=True,
+            **(dict(shares=L4_KERNELS, controls=L4_CONTROLS)
+               if kv == "bfloat16" else {}))
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        eng, streams, wall = serve(m, params, prompts, dev, 32, **SSM_KW)
+        if eng.paged or set(eng.cache) != {"lens", "attn_dense",
+                                           "attn_moe"}:
+            raise AssertionError(f"{L4}: the engine did not fall back to "
+                                 "the dense cache's two attention banks")
+        check_launches(eng, dict(build.LAUNCHES), m.cfg, mine)
+        if eng.metrics["prefix_hits"]:
+            raise AssertionError(f"{L4}: a prefix hit on the dense cache")
+        if any(t >= cfg.padded_vocab() for s in streams for t in s):
+            raise AssertionError(f"{L4}: a token past the head's rows")
+        rec = engine_line(f"{L4}, dense fallback, {kv} KV, kernel "
+                          "strategy", eng, streams, wall)
+        rec.update(kernel_plain_delta=delta,
+                   run_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   streams_sha1=hashlib.sha1(
+                       json.dumps(streams).encode()).hexdigest()[:12])
+        log(f"  peak {rec['run_peak_gb']:.2f} GB allocated over the {kv} "
+            "run")
+        recs[kv] = rec
+    _, busy = profiled(lambda: serve(model, params, prompts[6:], dev, 8,
+                                     **SSM_KW))
+    out = dict(recs, device_busy_share=busy, launches=mine, group_rule=rules,
+               n_layers=cfg.n_layers, init_s=made, q8_gb=q8_gb,
+               allocated_gb=held, init_peak_gb=peak,
+               prefill_peak=prefill_peak,
+               prompt_lens=list(L4_PROMPT_LENS))
+    _suffixed(counted, mine, L4)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 P4_PHASE_LAYERS = 12
 G4_PHASE_LAYERS = 4
 CR_PHASE_LAYERS = 4
@@ -6122,6 +6383,19 @@ def vlm_audio_paths(dev, counted):
     ws = whisper_path(dev, counted, 25)
     phase(f"phase 25: {WS} {json.dumps(ws)}")
     return q2, ws
+
+
+def interleave_paths(dev, counted):
+    """Phase 26, the llama4 interleave on the dense fallback:
+    llama4-maverick-400b-a17b at full width, ``L4_PHASE_LAYERS`` layers
+    (``interleave_path``).  Alone on the card: ``build.build()``,
+    ``qlinear.set_default_strategy("kernel")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
+    does, then ``interleave_paths(torch.device("cuda"), {})``; or
+    ``python3 chip_smoke.py --only interleave_paths``."""
+    l4 = interleave_path(dev, counted, 26)
+    phase(f"phase 26: {L4} {json.dumps(l4)}")
+    return l4
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -6195,7 +6469,7 @@ def sampler_cost(dev):
 # The groups of phases ``--only`` selects (all by default, in this order):
 # each with the phase-2 checks of the shapes its paths serve
 GROUPS = ("phase2", "main_path", "bf16_paths", "ssm_paths",
-          "vlm_audio_paths")
+          "vlm_audio_paths", "interleave_paths")
 PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                         "check_attention", "check_q4",
                         "check_dense_attention", "check_flash_prefill",
@@ -6205,7 +6479,8 @@ PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                          "check_phi4_head", "check_glm4", "check_command_r",
                          "check_qwen3_moe"),
           "ssm_paths": ("check_mamba2", "check_zamba2"),
-          "vlm_audio_paths": ("check_qwen2_vl", "check_whisper")}
+          "vlm_audio_paths": ("check_qwen2_vl", "check_whisper"),
+          "interleave_paths": ("check_llama4",)}
 
 
 def parse_groups(argv):
@@ -6292,6 +6567,8 @@ def main(argv=None) -> int:
         ssm_paths(dev, counted)
     if "vlm_audio_paths" in groups:
         vlm_audio_paths(dev, counted)
+    if "interleave_paths" in groups:
+        interleave_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

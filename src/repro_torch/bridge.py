@@ -3,7 +3,7 @@
 ``params_from_jax`` turns a JAX parameter tree whose leaves are numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``) into the port's parameter
 tree, copying every byte verbatim: int8 codes stay int8, f32 scales and
-float weights stay f32.  A quantized leaf is recognised by its fields -- an
+float weights keep their dtype (bfloat16 ones too).  A quantized leaf is recognised by its fields -- an
 object or mapping with ``q``, ``scale``, ``group_size``, ``bits`` and
 ``orig_dim`` -- so this module imports nothing of the JAX package.
 """
@@ -32,7 +32,11 @@ def _is_quantized(leaf) -> bool:
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: its bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def params_from_jax(tree: Any, device: Device = None) -> Any:

@@ -14,7 +14,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.quantization import DEFAULT_GROUP_SIZE, quantize
+from repro_torch.core.quantization import (DEFAULT_GROUP_SIZE,
+                                           QuantizedTensor, quantize)
 
 # Path fragments that must never be quantized.
 _FLOAT_PATTERNS = (
@@ -68,3 +69,27 @@ def quantize_params(params: Any, policy: QuantPolicy = PAPER_POLICY,
         return quantize(params, group_size=policy.group_size,
                         bits=policy.bits)
     return params
+
+
+def count_bytes(params: Any) -> dict:
+    """Bytes of a parameter tree by storage class: ``quantized`` (each
+    quantized leaf's codes and f32 scales), ``float`` (every other tensor)
+    and their ``total``, as the reference counts them."""
+    tally = {"quantized": 0, "float": 0}
+
+    def visit(leaf):
+        if isinstance(leaf, dict):
+            for v in leaf.values():
+                visit(v)
+        elif isinstance(leaf, (list, tuple)):
+            for v in leaf:
+                visit(v)
+        elif isinstance(leaf, QuantizedTensor):
+            tally["quantized"] += (leaf.q.numel() * leaf.q.element_size()
+                                   + leaf.scale.numel() * 4)
+        elif isinstance(leaf, torch.Tensor):
+            tally["float"] += leaf.numel() * leaf.element_size()
+
+    visit(params)
+    tally["total"] = tally["quantized"] + tally["float"]
+    return tally

@@ -152,11 +152,60 @@ def quantize_rows(vec: torch.Tensor):
 
 
 def dequantize(t: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """codes * scale in f32, then cast to ``dtype``.  The product is taken
+    in place on the f32 copy of the codes: the same f32 multiply of the
+    same values as ``q.float() * scale``, with one f32 copy of the tensor
+    held instead of two (an expert bank of llama4-maverick-400b-a17b is
+    21.5 GB of f32)."""
     q = _unpack_nibbles(t.q) if t.bits == 4 else t.q
     *lead, k = q.shape
     g = k // t.group_size
-    out = q.reshape(*lead, g, t.group_size).float() * t.scale[..., None]
+    out = q.reshape(*lead, g, t.group_size).float()
+    out.mul_(t.scale[..., None])
     return out.reshape(*lead, k).to(dtype)
+
+
+def quantize_q8_0(x: torch.Tensor,
+                  group_size: int = DEFAULT_GROUP_SIZE) -> QuantizedTensor:
+    return quantize(x, group_size=group_size, bits=8)
+
+
+def quantize_q4_0(x: torch.Tensor,
+                  group_size: int = DEFAULT_GROUP_SIZE) -> QuantizedTensor:
+    return quantize(x, group_size=group_size, bits=4)
+
+
+def qmatmul_ref(x: QuantizedTensor, w: QuantizedTensor) -> torch.Tensor:
+    """``dequant(x) @ dequant(w)`` the integer way, as the reference's
+    oracle: x (*batch, K) and w (N, K), both grouped along K; int8 x int8
+    products summed in int32 within a group, each group's sum times
+    ``xs[g] * ws[n, g]`` in f32, then summed in f32 across groups.
+    Returns f32 (*batch, N)."""
+    if x.group_size != w.group_size:
+        raise ValueError(f"group size mismatch {x.group_size} vs "
+                         f"{w.group_size}")
+    gs = x.group_size
+    xq = _unpack_nibbles(x.q) if x.bits == 4 else x.q
+    wq = _unpack_nibbles(w.q) if w.bits == 4 else w.q
+    *bx, k = xq.shape
+    n, kw = wq.shape
+    if k != kw:
+        raise ValueError(f"contraction mismatch {k} vs {kw}")
+    g = k // gs
+    xg = xq.reshape(*bx, g, gs).double()
+    wg = wq.reshape(n, g, gs).double()
+    # the int32 partial of each (batch, n, group), exact in f64 (integers
+    # below 2^53; PyTorch has no integer matmul on the card)
+    part = torch.einsum("...gk,ngk->...ng", xg, wg).float()
+    scaled = part * x.scale[..., None, :] * w.scale
+    return scaled.sum(-1)
+
+
+def quantization_error(x: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
+                       bits: int = 8) -> torch.Tensor:
+    """Max-abs round-trip error of ``quantize`` then ``dequantize``."""
+    t = quantize(x, group_size=group_size, bits=bits)
+    return (t.dequantize() - x).abs().max()
 
 
 # ---------------------------------------------------------------------------

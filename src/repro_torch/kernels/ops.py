@@ -459,8 +459,12 @@ def _torch_row_split(m: int, k: int) -> int:
     return height
 
 
-# float4s a thread that rmsnorm_quant.cu instantiates (kVecs)
-Q8_ROWS_VECS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+# float4s a thread that rmsnorm_quant.cu instantiates (kVecs): 40 for
+# PyTorch's 32 threads a row of K 5120 (llama4's d_model) from M = 16 on
+Q8_ROWS_VECS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 40)
+# the float4s a thread of ``quantize`` holds at most: its width is free, so
+# it takes more threads a row before the 40-float4 plan
+QUANTIZE_VECS = 32
 # the most threads a block of several rows holds
 Q8_ROWS_BLOCK = 256
 # an H100's SMs: rows share blocks only once there is a block for each
@@ -469,11 +473,11 @@ H100_SMS = 132
 
 def quantize_width(k: int) -> int:
     """Threads a row of ``quantize``: 32, or the fewest (a power of two)
-    that hold a row of K in ``Q8_ROWS_VECS[-1]`` float4s a thread (64 for
+    that hold a row of K in ``QUANTIZE_VECS`` float4s a thread (64 for
     w2's K = 8192).  Without a norm there is no order to copy: any width
     gives the same bits."""
     width = 32
-    while width < 512 and width * 4 * Q8_ROWS_VECS[-1] < k:
+    while width < 512 and width * 4 * QUANTIZE_VECS < k:
         width *= 2
     return width
 

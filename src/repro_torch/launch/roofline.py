@@ -14,11 +14,7 @@ Core GPU data sheet.
 
 from __future__ import annotations
 
-import math
-
-import torch
-
-from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.core.policy import count_bytes
 
 HBM_BW = 3.35e12          # B/s: HBM3 bandwidth (data sheet)
 PEAK_INT8_OPS = 1979e12   # op/s: INT8 tensor core, dense (data sheet)
@@ -39,25 +35,7 @@ def step_joules(bytes_moved: float, flops: float,
     return t * power_w
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def tree_bytes(tree) -> int:
     """Bytes a parameter tree holds: a quantized leaf counts its codes and
-    its f32 scales."""
-    total = 0
-    for leaf in _leaves(tree):
-        if isinstance(leaf, QuantizedTensor):
-            total += math.prod(leaf.q.shape) * leaf.q.element_size()
-            total += math.prod(leaf.scale.shape) * 4
-        elif isinstance(leaf, torch.Tensor):
-            total += math.prod(leaf.shape) * leaf.element_size()
-    return total
+    its f32 scales (``policy.count_bytes``'s total)."""
+    return count_bytes(tree)["total"]

@@ -74,6 +74,16 @@ PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch qwen2-vl-7b --requests 16 --slots 8 --max-seq 1024
 
+  # llama4-maverick-400b-a17b (the llama4 interleave: 48 layers, dense
+  # and MoE in turn, d_model 5120, 40 query heads over 8 KV heads of 128,
+  # 128 experts of d_ff 8192, top 1, vocab 202048) on the dense per-slot
+  # cache, as the reference's engine falls back for it.  Its reduced
+  # config on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-maverick-400b-a17b --requests 6 --device cpu
+  # --full is refused before anything is drawn: its ~424 GB of Q8_0 do
+  # not fit one card (chip_smoke.py serves it cut to 4 layers)
+
   # the reduced config on the CPU, open loop at 50 req/s, streaming tokens
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 6 \\
       --device cpu --open-loop --rate 50 --stream
@@ -95,6 +105,11 @@ joule: a model on the H100's data-sheet constants, not a measurement; with
 ``--spec-tokens`` it prints the speculation line (acceptance, steps per
 token, rollbacks).  ``--draft draft_model`` drafts with the served model
 and weights themselves (the reference's CLI cannot build that proposer).
+
+A tree larger than the memory of the device it would be drawn on (the
+card's; on the CPU, an 80 GB H100's, the card the port serves on) is
+refused with ``NotImplementedError`` before anything is drawn: at
+``--full``, llama4-maverick-400b-a17b's ~424 GB of Q8_0.
 
 whisper-small (the audio family) is refused with ``NotImplementedError``:
 the engine prefills tokens alone, as the reference's does, and its encoder
@@ -125,6 +140,9 @@ from repro_torch.serving.engine import Engine, check_servable
 from repro_torch.serving.spec_decode import DraftModelProposer
 
 NOT_PORTED = "is not yet ported (ROADMAP, queue A: {})"
+# the memory of the card the port serves on (an H100's 80 GB): what a tree
+# drawn on the CPU is held to
+CARD_BYTES = 80e9
 
 
 def _make_prompts(rng, cfg, n: int):
@@ -144,6 +162,24 @@ def _refuse_unported(ckpt_dir, mesh_size) -> None:
                            (mesh_size > 0, "--mesh", "mesh sharding")):
         if on:
             raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
+
+
+def _refuse_past_memory(cfg, policy, dev) -> None:
+    """Raise ``NotImplementedError`` before any draw where the tree would
+    not fit the device: its bytes (``transformer.init_bytes``) against the
+    card's memory, or ``CARD_BYTES`` on the CPU."""
+    from repro_torch.models.transformer import init_bytes
+    need = init_bytes(cfg, policy)
+    cap = (torch.cuda.get_device_properties(dev).total_memory
+           if dev.type == "cuda" else CARD_BYTES)
+    if need > cap:
+        kind = "float" if policy is None else f"Q{policy.bits}_0"
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {cfg.n_layers} layers hold {need / 1e9:.1f} GB "
+            f"of {kind} parameters, past the {cap / 1e9:.1f} GB of one "
+            "card; a model this size is served cut in depth "
+            "(cfg.with_(n_layers=...), as chip_smoke.py does) or sharded "
+            "(not yet ported)")
 
 
 def run(arch: str = "llama2-110m", use_reduced: bool = True,
@@ -168,6 +204,8 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     check_servable(cfg)
     dev = resolve_device(device)
     model = build_model(cfg)
+    policy = None if no_quant else QuantPolicy(bits=bits, min_size=512)
+    _refuse_past_memory(cfg, policy, dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {dev} ({name})")
@@ -177,8 +215,7 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         # post-training quantization as each weight is drawn: the same bits
         # as quantize(init(seed)), without the float tree
         t0 = time.perf_counter()
-        params = model.init_quantized(
-            seed, QuantPolicy(bits=bits, min_size=512), device=dev)
+        params = model.init_quantized(seed, policy, device=dev)
         print(f"[serve] Q{bits}_0 post-training quantization, drawn and "
               f"quantized in {time.perf_counter()-t0:.2f}s")
 

@@ -1,9 +1,9 @@
 """Model facade: the entry points the serving engine calls.
 
 PyTorch counterpart of ``repro/models/model.py`` for the dense and vlm
-families, the MoE family without an interleave, the SSM and hybrid
-families (``models/transformer.py``) and the audio family
-(``models/encdec.py``).
+families, the MoE family (every layer MoE, or the llama4 interleave of
+dense and MoE layers), the SSM and hybrid families
+(``models/transformer.py``) and the audio family (``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -56,9 +56,10 @@ class Model:
     @property
     def supports_paged_cache(self) -> bool:
         """Whether the family has the paged pool: the families whose cache
-        is one stacked attention bank.  The SSM, hybrid and audio families
-        keep the dense per-slot cache (the reference's
-        ``init_paged_cache`` is None for them; here it raises)."""
+        is one stacked attention bank.  The llama4 interleave (two banks)
+        and the SSM, hybrid and audio families keep the dense per-slot
+        cache (the reference's ``init_paged_cache`` is None for them; here
+        it raises)."""
         return transformer.supports_paged_cache(self.cfg)
 
     def init_cache(self, batch: int, max_seq: int, device: Device = None):

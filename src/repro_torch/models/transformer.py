@@ -3,12 +3,14 @@ the dense per-slot cache, chunked and one-shot prefill.
 
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
 family, the vlm family (the dense decoder with M-RoPE, on precomputed
-patch embeddings or text tokens), the MoE family without an interleave
-(every layer MoE), the SSM family (Mamba2 layers, ``models/ssm.py``) and
-the hybrid (Mamba2 layers with one shared attention block after every
+patch embeddings or text tokens), the MoE family (every layer MoE, or the
+llama4 interleave: ``moe_every - 1`` dense layers, then an MoE one, in
+turn), the SSM family (Mamba2 layers, ``models/ssm.py``) and the hybrid
+(Mamba2 layers with one shared attention block after every
 ``attn_every``-th).  The audio family is ``models/encdec.py``.
 Parameters are nested dicts of tensors (or ``QuantizedTensor`` leaves after
 ``Model.quantize``) stacked per layer in the reference's layout (the
+interleave's ``blocks_dense`` on two leading axes and ``blocks_moe``; the
 hybrid's ``blocks_main`` on two leading axes, ``blocks_tail``, and the
 unstacked ``shared_attn``); the layer loop is a Python loop over the
 stacked leading axes (``_layers``).
@@ -17,8 +19,9 @@ Serving runs on the paged KV pool (``init_paged_cache``, filled by
 ``prefill_chunk_batch``; ``verify_chunk_batch`` is its twin with logits at
 every chunk position, for speculative decoding) or on the dense per-slot
 reservation (``init_cache``, filled by the one-shot ``prefill``); the SSM
-and hybrid families have only the dense cache, their conv rings and SSM
-states beside the hybrid's K/V.  Unlike the reference, which donates the
+and hybrid families and the interleave have only the dense cache (the
+interleave's two attention banks, the SSM families' conv rings and SSM
+states beside the hybrid's K/V).  Unlike the reference, which donates the
 cache to a jitted step, the port writes it in place: ``decode_step`` and
 the chunk steps return the same cache tensors they were given, updated.
 """
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.policy import QuantPolicy, count_bytes, quantize_params
 from repro_torch.core.qlinear import norm_qdot, qdot, qeinsum
 from repro_torch.core.quantization import (QuantizedTensor,
                                            choose_group_size, qt_concat,
@@ -71,15 +74,10 @@ def _q_scale(cfg: ModelConfig) -> float:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port does not serve:
-    the llama4-style MoE interleave, a family the JAX package does not
-    have, and a norm or MLP its family does not use (the audio family's
-    encoder-decoder, ``models/encdec.py``, has LayerNorm and a GELU MLP;
-    every other family RMSNorm and SwiGLU)."""
-    if cfg.family == "moe" and cfg.moe_every > 1:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the llama4-style interleave (an MoE layer "
-            f"every {cfg.moe_every} layers, dense ones between) is not "
-            "ported")
+    a family the JAX package does not have, and a norm or MLP its family
+    does not use (the audio family's encoder-decoder, ``models/encdec.py``,
+    has LayerNorm and a GELU MLP; every other family RMSNorm and
+    SwiGLU)."""
     blocks = (("layernorm", "gelu") if cfg.family == "audio"
               else ("rmsnorm", "swiglu"))
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio") \
@@ -121,12 +119,15 @@ def _ones(dev: torch.device, *shape) -> torch.Tensor:
 
 
 def _dense_block(cfg: ModelConfig, leaf, dev: torch.device,
-                 lead: Tuple[int, ...], prefix: str) -> Params:
-    """One attention + MLP block stacked on ``lead`` (``(n_layers,)``, or
-    ``()`` for the hybrid's unstacked shared block): wq, wk, wv, wo, then
-    w1, w3, w2 (the dense MLP), or the MoE's f32 router and its expert
-    banks w1, w3, w2, each bank a layer at a time (qwen3-moe-30b-a3b's bank
-    is 38.7 GB of f32 at once, 0.8 GB a layer); norm gammas of ones."""
+                 lead: Tuple[int, ...], prefix: str,
+                 moe: bool = False) -> Params:
+    """One attention + MLP block stacked on ``lead`` (``(n_layers,)``, the
+    interleave's ``(n_pat, moe_every - 1)`` or ``(n_pat,)``, or ``()`` for
+    the hybrid's unstacked shared block): wq, wk, wv, wo, then w1, w3, w2
+    (the dense MLP), or with ``moe`` the MoE's f32 router and its expert
+    banks w1, w3, w2, each bank drawn one index of ``lead[0]`` at a time
+    (qwen3-moe-30b-a3b's bank is 38.7 GB of f32 at once, 0.8 GB a layer;
+    llama4-maverick-400b-a17b's 21.5 GB a layer); norm gammas of ones."""
     d, hd = cfg.d_model, cfg.hd()
     h, kvh, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     sc, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
@@ -139,7 +140,7 @@ def _dense_block(cfg: ModelConfig, leaf, dev: torch.device,
                  "wo": leaf(f"{prefix}/attn/wo", (*lead, d, h, hd), so)},
         "norm2": {"gamma": _ones(dev, *lead, d)},
     }
-    if cfg.family == "moe":
+    if moe:
         e = cfg.n_experts
         blk["moe"] = {
             "router": leaf(f"{prefix}/moe/router", (*lead, e, d), sc,
@@ -179,13 +180,27 @@ def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int]:
     return n_super, cfg.n_layers - n_super * cfg.attn_every
 
 
+def interleaved(cfg: ModelConfig) -> bool:
+    """The llama4 interleave: an MoE family with ``moe_every`` > 1."""
+    return cfg.family == "moe" and cfg.moe_every > 1
+
+
+def _interleave_split(cfg: ModelConfig) -> Tuple[int, int]:
+    """The interleave's (patterns, dense layers a pattern): ``n_layers //
+    moe_every`` patterns of ``moe_every - 1`` dense layers and an MoE one;
+    the layers left over are dropped, as the reference drops them."""
+    return cfg.n_layers // cfg.moe_every, cfg.moe_every - 1
+
+
 def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
     """The parameter tree on ``dev`` in the reference's layout, each weight
     made by ``leaf(path, shape, scale, dtype=None, by_layer=False)`` (a
     normal draw times ``scale`` in ``dtype``, the param dtype by default,
     path as ``quantize_params`` names it; ``by_layer``: drawn one layer at
     a time into the stack): the embedding, then the blocks.  Dense and MoE:
-    ``blocks`` (``_dense_block``).  SSM: ``blocks`` of Mamba2 layers.
+    ``blocks`` (``_dense_block``).  The interleave: ``blocks_dense``
+    (n_pat, moe_every - 1, ...) and ``blocks_moe`` (n_pat, ...).  SSM:
+    ``blocks`` of Mamba2 layers.
     Hybrid: ``blocks_main`` (n_super, attn_every, ...), ``blocks_tail``
     (the layers left over) and the unstacked ``shared_attn``; each stack is
     its own draw, so the quantization policy judges it at its own shape,
@@ -203,8 +218,16 @@ def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
                                            "blocks_tail")
         params["shared_attn"] = _dense_block(cfg, leaf, dev, (),
                                              "shared_attn")
+    elif interleaved(cfg):
+        n_pat, n_dense = _interleave_split(cfg)
+        params["blocks_dense"] = _dense_block(cfg, leaf, dev,
+                                              (n_pat, n_dense),
+                                              "blocks_dense")
+        params["blocks_moe"] = _dense_block(cfg, leaf, dev, (n_pat,),
+                                            "blocks_moe", moe=True)
     else:
-        params["blocks"] = _dense_block(cfg, leaf, dev, (nl,), "blocks")
+        params["blocks"] = _dense_block(cfg, leaf, dev, (nl,), "blocks",
+                                        moe=cfg.family == "moe")
     return params
 
 
@@ -282,6 +305,21 @@ def init_quantized(cfg: ModelConfig, seed: int = 0,
     return fuse_decode_weights(draw_params(cfg, _param_tree, seed,
                                            policy or QuantPolicy(), device),
                                cfg)
+
+
+def init_bytes(cfg: ModelConfig, policy: Optional[QuantPolicy] = None) -> int:
+    """Bytes of the tree ``init_params`` (no ``policy``) or
+    ``init_quantized(cfg, seed, policy)`` (the fused operands included)
+    would hold, counted on the meta device: nothing is drawn."""
+    meta = torch.device("meta")
+
+    def leaf(path, shape, scale, dtype=None, by_layer=False):
+        return torch.empty(shape, dtype=dtype or _pdt(cfg), device=meta)
+
+    tree = _param_tree(cfg, leaf, meta)
+    if policy is not None:
+        tree = fuse_decode_weights(quantize_params(tree, policy), cfg)
+    return count_bytes(tree)["total"]
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +400,18 @@ def _layer(tree, i):
 def _layers(params: Params, cfg: ModelConfig):
     """The layers in the reference's order: (kind, the layer's parameters,
     its cache's key, its index there), kind ``"attn"`` for an attention
-    block (dense, MoE, or the hybrid's shared block, whose j-th
-    application reads ``cache["attn"]`` layer j) or ``"ssm"`` for a Mamba2
-    layer."""
+    block (dense, MoE, the interleave's pattern j of dense layers (j, i) in
+    ``attn_dense`` and then its MoE layer j in ``attn_moe``, or the
+    hybrid's shared block, whose j-th application reads ``cache["attn"]``
+    layer j) or ``"ssm"`` for a Mamba2 layer."""
+    if interleaved(cfg):
+        n_pat, n_dense = _interleave_split(cfg)
+        for j in range(n_pat):
+            for i in range(n_dense):
+                yield ("attn", _layer(params["blocks_dense"], (j, i)),
+                       "attn_dense", (j, i))
+            yield "attn", _layer(params["blocks_moe"], j), "attn_moe", j
+        return
     if cfg.family == "hybrid":
         n_super, n_tail = _hybrid_split(cfg)
         for j in range(n_super):
@@ -419,11 +466,12 @@ def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
 
 def _mlp(p, x, cfg: ModelConfig, decode: bool = False):
     """The block's MLP on the pre-norm hidden x, (B, S, D) or, at a decode
-    step, (B, D).  Dense: ``swiglu_mlp`` (norm2 fused into the w13 GEMV).
-    MoE: the plain norm, then ``moe_mlp`` as the reference runs it, the
-    dense dispatch at a decode step (x as (B, 1, D)) and the grouped one at
-    the chunk, verify and one-shot prefill steps."""
-    if cfg.family != "moe":
+    step, (B, D), chosen by the block's tree as the reference's
+    ``_mlp_or_moe`` chooses it.  ``mlp``: ``swiglu_mlp`` (norm2 fused into
+    the w13 GEMV).  ``moe``: the plain norm, then ``moe_mlp`` as the
+    reference runs it, the dense dispatch at a decode step (x as (B, 1, D))
+    and the grouped one at the chunk, verify and one-shot prefill steps."""
+    if "moe" not in p:
         return L.swiglu_mlp(p["mlp"], x,
                             L.norm_gamma(p["norm2"], cfg.norm_type), cfg.eps)
     h = L.apply_norm(x, p["norm2"], cfg.norm_type, cfg.eps)
@@ -448,6 +496,10 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# the dense cache's attention banks: one, or the interleave's two
+ATTN_BANKS = ("attn", "attn_dense", "attn_moe")
+
+
 def _kv_int8(cfg: ModelConfig) -> bool:
     return cfg.kv_cache_dtype == "int8"
 
@@ -459,15 +511,15 @@ def supports_paged_cache(cfg: ModelConfig) -> bool:
 
 def _attn_bank(cfg: ModelConfig, lead: Tuple[int, ...],
                dev: torch.device, scratch: bool = False,
-               n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Stacked K/V buffers (n_layers, *lead, KVH, hd) (``n_layers``: the
-    config's by default), plus one f32 scale per row and head for an int8
-    cache.  With ``scratch`` each buffer is a
+               stack: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Stacked K/V buffers (*stack, *lead, KVH, hd) (``stack``: the layer
+    axes, ``(n_layers,)`` by default), plus one f32 scale per row and head
+    for an int8 cache.  With ``scratch`` each buffer is a
     view of one with an extra block behind the last (``lead[0] + 1``
     blocks): the paged decode step sends the rows that must write nothing
     there (:func:`_scratch_view`), and nothing reads it."""
     kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
-    shape = (n_layers or cfg.n_layers, *lead, cfg.n_kv_heads, cfg.hd())
+    shape = (*(stack or (cfg.n_layers,)), *lead, cfg.n_kv_heads, cfg.hd())
     dtypes = {"k": kvd, "v": kvd}
     if _kv_int8(cfg):
         dtypes.update(ks=torch.float32, vs=torch.float32)
@@ -508,8 +560,10 @@ def _ssm_cache(cfg: ModelConfig, lead: Tuple[int, ...], batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: Device = None) -> Cache:
     """Dense per-slot cache: ``attn``, K/V (n_layers, batch, max_seq, KVH,
-    hd); for the SSM family ``ssm`` (``_ssm_cache``) instead; for the
-    hybrid ``ssm_main`` (n_super, attn_every, batch, ...), ``ssm_tail`` and
+    hd); for the interleave ``attn_dense`` (n_pat, moe_every - 1, batch,
+    ...) and ``attn_moe`` (n_pat, batch, ...), as the reference's; for the
+    SSM family ``ssm`` (``_ssm_cache``) instead; for the hybrid
+    ``ssm_main`` (n_super, attn_every, batch, ...), ``ssm_tail`` and
     ``attn`` with one layer per application of the shared block."""
     dev = resolve_device(device)
     cache: Cache = {"lens": torch.zeros((batch,), dtype=torch.int32,
@@ -522,7 +576,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                        dev)
         cache["ssm_tail"] = _ssm_cache(cfg, (n_tail,), batch, dev)
         cache["attn"] = _attn_bank(cfg, (batch, max_seq), dev,
-                                   n_layers=n_super)
+                                   stack=(n_super,))
+    elif interleaved(cfg):
+        n_pat, n_dense = _interleave_split(cfg)
+        cache["attn_dense"] = _attn_bank(cfg, (batch, max_seq), dev,
+                                         stack=(n_pat, n_dense))
+        cache["attn_moe"] = _attn_bank(cfg, (batch, max_seq), dev,
+                                       stack=(n_pat,))
     else:
         cache["attn"] = _attn_bank(cfg, (batch, max_seq), dev)
     return cache
@@ -666,8 +726,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         nb = cache["attn"]["k"].shape[1]
         dst = (torch.where(blk_id >= 0, blk_id, nb).long(),
                (pos % bs).long())
-    elif "attn" in cache:
-        s = cache["attn"]["k"].shape[2]
+    elif any(key in cache for key in ATTN_BANKS):
+        s = next(cache[key] for key in ATTN_BANKS
+                 if key in cache)["k"].shape[-3]
         dst = (torch.arange(pos.shape[0], device=pos.device),
                torch.clamp(pos, 0, s - 1).long())
 
@@ -777,7 +838,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     cache["lens"].fill_(s)
     for key, idx, part in parts:
         lc = _layer(cache[key], idx)
-        if key == "attn":
+        if key in ATTN_BANKS:
             _write_rows(lc, *part, slice(None), slice(0, s))
             continue
         conv, state = part
@@ -797,6 +858,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 # separate sets, as the reference keeps two jit entries.
 _CHUNK_KEYS: Dict[ModelConfig, set] = {}
 _VERIFY_KEYS: Dict[ModelConfig, set] = {}
+
+
+def prefill_fused_mode(device: Device = None) -> str:
+    """Which prefix-attention path the chunk step takes on ``device`` (the
+    card by default): ``"kernel"``, the CUDA ``paged_prefill_attention``
+    reading the prefix through the page table, on CUDA; ``"oracle"``, its
+    plain version (a gather and ``attention_chunk_merge``'s merge), on the
+    CPU.  The tensor's device decides, as ``kernels/ops.py`` dispatches:
+    nothing switches the kernel off on the card (the reference's
+    ``REPRO_FUSED_PREFILL`` has no counterpart)."""
+    return "kernel" if resolve_device(device).type == "cuda" else "oracle"
 
 
 def prefill_chunk_compiles(cfg: ModelConfig) -> int:

@@ -46,8 +46,13 @@ attention reads the pool through the page table (the
 ``paged_decode_attention`` CUDA kernel on the card) -- shared blocks need no
 kernel changes, the page table indirection already handles many-to-one maps.
 
-This is the port's copy of ``repro/serving/paged_cache.py`` without the JAX
-pool helpers: the allocator is host Python and numpy only.
+This is the port's copy of ``repro/serving/paged_cache.py``: the allocator
+is host Python and numpy; the pool helpers (``init_pool``, ``append_token``,
+``gather_view`` and the ``PagedKVCache`` facade) are plain PyTorch, on the
+card unless ``device="cpu"``.  The engine keeps its pool in
+``models/transformer.py`` (``init_paged_cache``); these are the reference's
+standalone helpers, with its numerics: quantized pools write through
+``quantize_rows``, the dense cache's quantizer.
 """
 
 from __future__ import annotations
@@ -57,6 +62,10 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.device import Device, resolve_device
+from repro_torch.core.quantization import quantize_rows
 
 
 
@@ -554,3 +563,119 @@ class BlockAllocator:
         rep = self.audit(repair=False)
         assert rep.clean, ("allocator invariants violated: "
                            + "; ".join(rep.violations))
+
+
+def init_pool(cfg: PagedConfig, device: Device = None) -> Dict[str, torch.Tensor]:
+    """Zeroed K/V pools (n_layers, n_blocks, block_size, KVH, hd) in
+    ``cfg.dtype``, or int8 codes with f32 scale pools ``ks`` / ``vs``
+    (n_layers, n_blocks, block_size, KVH) for a quantized pool."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, cfg.n_blocks, cfg.block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    dt = torch.int8 if cfg.quantized else getattr(torch, cfg.dtype)
+    pool = {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if cfg.quantized:
+        pool["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        pool["vs"] = torch.zeros_like(pool["ks"])
+    return pool
+
+
+def append_token(pool, page_table: torch.Tensor, lens: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor):
+    """Write one token's K/V for every layer at each slot's current (block,
+    offset): k_new / v_new (L, B, KVH, hd), ``page_table`` (B, MB), ``lens``
+    (B,) the lengths before the append.  Slots are written in order, and a
+    -1 block id indexes from the end, as the reference's scatter does.
+    Quantized pools quantize the new rows (``quantize_rows``).  The pool is
+    written in place, as the port's caches are (the reference returns a
+    new one); returns it and ``lens + 1``."""
+    bs = pool["k"].shape[2]
+    lens = lens.long()
+    blk_id = torch.gather(page_table.long(), 1, (lens // bs)[:, None])[:, 0]
+    blk_off = lens % bs
+    if "ks" in pool:
+        kq, ks = quantize_rows(k_new)
+        vq, vs = quantize_rows(v_new)
+        upd = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    else:
+        upd = {"k": k_new, "v": v_new}
+    for name, new in upd.items():
+        buf = pool[name]
+        for b in range(new.shape[1]):
+            buf[:, int(blk_id[b]), int(blk_off[b])] = new[:, b].to(buf.dtype)
+    return pool, (lens + 1).to(torch.int32)
+
+
+def gather_view(pool, page_table: torch.Tensor, lens: torch.Tensor):
+    """Each slot's contiguous (L, B, MB * block_size, KVH, hd) view through
+    the page table (-1 entries read block 0; ``lens`` masks them for the
+    reader), with the gathered (L, B, MB * block_size, KVH) scales of a
+    quantized pool: (k, v) or (k, v, ks, vs)."""
+    l, _, bs, kvh, hd = pool["k"].shape
+    b, mb = page_table.shape
+    safe = torch.clamp(page_table.long(), min=0)
+    k = pool["k"][:, safe].reshape(l, b, mb * bs, kvh, hd)
+    v = pool["v"][:, safe].reshape(l, b, mb * bs, kvh, hd)
+    if "ks" in pool:
+        ks = pool["ks"][:, safe].reshape(l, b, mb * bs, kvh)
+        vs = pool["vs"][:, safe].reshape(l, b, mb * bs, kvh)
+        return k, v, ks, vs
+    return k, v
+
+
+class PagedKVCache:
+    """The allocator and a pool glued together, as the reference's facade:
+    ``admit`` a prefill's K/V into a slot, ``append`` a token for the
+    active slots, ``release`` a slot, and ``view`` every slot's contiguous
+    K/V."""
+
+    def __init__(self, cfg: PagedConfig, device: Device = None):
+        self.cfg = cfg
+        self.alloc = BlockAllocator(cfg)
+        self.pool = init_pool(cfg, device)
+        self.device = self.pool["k"].device
+        self.lens = np.zeros(cfg.max_slots, np.int32)
+
+    def admit(self, slot: int, k_prompt: torch.Tensor,
+              v_prompt: torch.Tensor) -> None:
+        """k / v_prompt (L, S_p, KVH, hd) of a prefill, written into the
+        blocks ``slot`` leases for its S_p rows (quantized on the way in
+        for a quantized pool)."""
+        s_p = k_prompt.shape[1]
+        blocks = self.alloc.ensure(slot, s_p)
+        bs = self.cfg.block_size
+        if "ks" in self.pool:
+            kq, ks = quantize_rows(k_prompt)
+            vq, vs = quantize_rows(v_prompt)
+            src = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        else:
+            src = {"k": k_prompt, "v": v_prompt}
+        for i, blk in enumerate(blocks):
+            lo, hi = i * bs, min((i + 1) * bs, s_p)
+            if lo >= s_p:
+                break
+            for name, full in src.items():
+                buf = self.pool[name]
+                buf[:, blk, :hi - lo] = full[:, lo:hi].to(buf.dtype)
+        self.lens[slot] = s_p
+
+    def release(self, slot: int) -> None:
+        self.alloc.release(slot)
+        self.lens[slot] = 0
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               active: np.ndarray) -> None:
+        """k / v_new (L, B, KVH, hd): one token for every ACTIVE slot; the
+        lengths of the others stay."""
+        for s in np.nonzero(active)[0]:
+            self.alloc.ensure(int(s), int(self.lens[s]) + 1)
+        pt = torch.as_tensor(self.alloc.page_table(), device=self.device)
+        lens = torch.as_tensor(self.lens, device=self.device)
+        _, new_lens = append_token(self.pool, pt, lens, k_new, v_new)
+        self.lens = np.where(active, new_lens.cpu().numpy(), self.lens)
+
+    def view(self):
+        pt = torch.as_tensor(self.alloc.page_table(), device=self.device)
+        return gather_view(self.pool, pt,
+                           torch.as_tensor(self.lens, device=self.device))

@@ -26,7 +26,9 @@ def _env():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.core.prng", "repro_torch.launch.serve",
             "repro_torch.models.encdec", "repro_torch.configs.qwen2_vl_7b",
-            "repro_torch.configs.whisper_small"} <= set(MODULES)
+            "repro_torch.configs.whisper_small",
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.serving.paged_cache"} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -82,7 +84,16 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run(requests=1)
-    for arch in ("qwen2-vl-7b", "whisper-small"):
+    from repro_torch.models.transformer import prefill_fused_mode
+    from repro_torch.serving.paged_cache import (PagedConfig, PagedKVCache,
+                                                 init_pool)
+    pcfg = PagedConfig(n_layers=1, n_kv_heads=1, head_dim=4)
+    for make in (lambda: init_pool(pcfg), lambda: PagedKVCache(pcfg),
+                 prefill_fused_mode):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    for arch in ("qwen2-vl-7b", "whisper-small",
+                 "llama4-maverick-400b-a17b"):
         other = build_model(reduced(get_config(arch)))
         with pytest.raises(RuntimeError, match="CUDA"):
             other.init(0)
@@ -110,23 +121,28 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     assert [len(r.outputs) for r in done] == [1, 2]
 
 
-def test_check_family_takes_vlm_and_audio_and_refuses_the_interleave():
-    """Every config of the JAX package builds in the port but llama4's
-    interleave (``moe_every`` 2), refused by name; the refusal names
-    neither the vlm nor the audio family."""
+def test_check_family_takes_vlm_audio_and_the_interleave():
+    """Every config of the JAX package builds in the port, the vlm and
+    audio families and llama4's interleave (``moe_every`` 2) among them;
+    the port's config registry holds every one of the JAX package's."""
     from repro_torch.configs import ModelConfig, get_config, reduced
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import check_family
-    for arch in ("qwen2-vl-7b", "whisper-small"):
+    for arch in ("qwen2-vl-7b", "whisper-small",
+                 "llama4-maverick-400b-a17b"):
         for cfg in (get_config(arch), reduced(get_config(arch))):
             check_family(cfg)
-            assert build_model(cfg).cfg.family in ("vlm", "audio")
+            assert build_model(cfg).cfg.family in ("vlm", "audio", "moe")
     llama4 = ModelConfig(arch_id="llama4-like", family="moe", n_layers=4,
                          d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
                          vocab_size=512, n_experts=8, top_k=1, moe_every=2)
-    with pytest.raises(NotImplementedError, match="interleave") as err:
-        check_family(llama4)
-    assert "vlm" not in str(err.value) and "audio" not in str(err.value)
+    check_family(llama4)
+    assert not build_model(llama4).supports_paged_cache
+    jax_configs = {p.stem for p in (ROOT / "src" / "repro" / "configs")
+                   .glob("*.py") if p.stem not in ("__init__", "base")}
+    port_configs = {p.stem for p in (PORT / "configs").glob("*.py")
+                    if p.stem not in ("__init__", "base")}
+    assert jax_configs == port_configs
     # a family's blocks are its own: no LayerNorm decoder-only model, no
     # SwiGLU encoder-decoder
     for cfg in (reduced(get_config("llama2-110m")).with_(

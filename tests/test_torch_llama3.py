@@ -386,6 +386,6 @@ def test_launch_plans_state_the_real_limits():
     assert ops.rmsnorm_quant_plan(8, 3072, width)[2] <= ops.Q8_ROWS_VECS[-1]
     assert ops.rmsnorm_quant_plan(2048, 8192, ops.quantize_width(8192)) \
         == (64, 4, 32)
-    with pytest.raises(ValueError, match="holds at most 32"):
+    with pytest.raises(ValueError, match="holds at most 40"):
         ops.rmsnorm_quant_plan(2048, 8192, 32)
     assert 24 // 8 * 128 <= ops.DECODE_MAX_HQ_D < 16 * 128

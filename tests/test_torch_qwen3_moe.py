@@ -15,7 +15,8 @@ bf16 and int8 pools and the dense bf16 cache, and on an f32 paged pool
 with f32 compute; the n-gram speculative engine (f32) against the JAX
 engine; the port's decode logits against its own
 one-shot prefill; the init that quantizes as it draws; the llama4
-interleave's refusal; ``serve.py --arch qwen3-moe-30b-a3b`` on the CPU.
+interleave built beside it; ``serve.py --arch qwen3-moe-30b-a3b`` on the
+CPU.
 Both packages run the ``dequant`` strategy; the JAX chunk step reads its
 prefix through its plain reference, as its own tests run it.
 
@@ -351,18 +352,22 @@ def test_init_quantized_is_quantize_of_init_bitwise(policy, monkeypatch):
         == torch.bfloat16
 
 
-def test_llama4_interleave_is_refused():
+def test_llama4_interleave_is_taken():
     """The llama4 interleave (``moe_every`` 2: dense layers between MoE
-    ones) is not ported: building, initialising and drawing it raise,
-    naming the interleave."""
+    ones) builds, initialises and draws as the MoE family does: the
+    reference's ``blocks_dense`` (n_pat, moe_every - 1, ...) with a dense
+    MLP and ``blocks_moe`` (n_pat, ...) with the router and expert banks,
+    no ``blocks``; ``tests/test_torch_llama4.py`` holds it against JAX."""
     cfg = ModelConfig(**asdict(reduced(get_config(
         "llama4-maverick-400b-a17b"))))
     assert cfg.family == "moe" and cfg.moe_every == 2
-    with pytest.raises(NotImplementedError, match="interleave"):
-        build_model(cfg)
+    assert build_model(cfg).cfg == cfg
     for init in (transformer.init_params, transformer.init_quantized):
-        with pytest.raises(NotImplementedError, match="interleave"):
-            init(cfg, 0, device="cpu")
+        tree = init(cfg, 0, device="cpu")
+        assert set(tree) == {"embed", "final_norm", "blocks_dense",
+                             "blocks_moe"}
+        assert "mlp" in tree["blocks_dense"] and "moe" in tree["blocks_moe"]
+        assert tree["blocks_moe"]["moe"]["router"].shape == (1, 8, 128)
 
 
 def test_serve_cli_serves_qwen3_moe_on_the_cpu(capsys):
