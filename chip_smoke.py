@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--only phase2,main_path,bf16_paths,ssm_paths,
-                                  vlm_audio_paths,interleave_paths]
+                                  vlm_audio_paths,interleave_paths,
+                                  train_paths]
 
 With no argument every group of phases runs, in that order; ``--only``
 runs a selection, each group with the phase-2 checks of its own shapes.
@@ -104,7 +105,21 @@ Q8_0, cut to 4, two patterns) on the dense fallback, as the reference's
 engine serves it, on a bf16 and an int8 KV cache, its memory peaks
 printed; phase 2 holds the seven kernels of that path at its shapes
 (``check_llama4``: HQ 5, ``rmsnorm_quant`` at K 5120 on its 40-float4
-plan).  On every llama3.2-3b,
+plan).  Phase 27 (``train_paths``) trains: ``launch/train.py``'s ``run``
+takes llama2-110m at full width and depth 30 steps of 8 x 256 (loss,
+AdamW, the synthetic TinyStories stream, async checkpoints; every loss
+finite and falling), one step on the card against the same step on the
+CPU, a resume that runs only the remaining steps on an uninterrupted
+run's batches, then ``serve.py --ckpt-dir`` serves the trained Q8_0
+weights on the kernels (held to ``plain_delta_bound``) and
+``ggml_export`` writes them, the same bytes on the card as on the CPU;
+last, llama3.2-3b at full width and depth takes 4 steps, its peak memory
+printed against the reckoning.  Training launches no kernel: the
+reference's training reaches no Pallas kernel (its loss runs jnp alone)
+and no kernel of ``src/repro/`` has a backward (no ``custom_vjp``), so the
+port's loss is plain PyTorch under autograd; the kernels phase 27
+exercises are those the served, trained weights reach.  On every
+llama3.2-3b,
 phi4, glm4,
 command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits are held
 against the plain versions' on the same inputs to a fixed bound derived
@@ -6398,6 +6413,396 @@ def interleave_paths(dev, counted):
     return l4
 
 
+# ---------------------------------------------------------------------------
+# phase 27: training (launch/train.py), then serve.py --ckpt-dir
+# ---------------------------------------------------------------------------
+
+# llama2-110m at full width and depth, as launch/train.py --full runs it
+TRAIN_KW = dict(arch="llama2-110m", use_reduced=False, batch=8, seq=256,
+                log_every=10)
+TRAIN_STEPS, RESUME_STEPS, TRAIN_CKPT_EVERY = 30, 45, 15
+# The card-vs-CPU step (2 x 64 tokens, f32, 12 layers: the two differ by
+# summation order alone), fixed before the first run: the loss within
+# CPU_LOSS_RTOL of the CPU's, the gradient norm within CPU_GNORM_RTOL, each
+# gradient leaf and each first moment within CPU_GRAD_RTOL of that leaf's
+# largest CPU magnitude, and each updated parameter within two learning
+# rates (AdamW's first step moves an element by lr * (g / (|g| + eps) +
+# wd * p): +-lr wherever |g| >> eps, so the two can part by up to 2 lr only
+# where g is within rounding of 0; the share of elements more than 1e-6
+# apart is printed).
+CPU_LOSS_RTOL = 2e-5
+CPU_GNORM_RTOL = 1e-4
+CPU_GRAD_RTOL = 1e-3
+# a run resumed from step 30 against the uninterrupted run of the same
+# schedule: steps 30-44's losses (f32; fixed before the first run, when the
+# embedding's backward was thought to sum by atomics in an order the card
+# does not fix: two card calls were then bitwise equal)
+RESUME_LOSS_ATOL = 1e-3
+L3_TRAIN_STEPS = 4
+
+
+def _train(dev, **kw):
+    """``launch/train.py``'s ``run`` at ``TRAIN_KW`` (``kw`` over them) on
+    ``dev``: (losses, each step's record, without its batch but the
+    batch's digest)."""
+    import hashlib
+    from repro_torch.launch import train
+    recs = []
+
+    def on_step(r):
+        b = r.pop("batch")
+        r["batch_sha1"] = hashlib.sha1(b["tokens"].tobytes()
+                                       + b["labels"].tobytes()).hexdigest()
+        recs.append(r)
+    losses = train.run(**{**TRAIN_KW, **kw}, device=dev, on_step=on_step)
+    return losses, recs
+
+
+def _train_stats(recs):
+    """Medians over the steps after the first (which pays the first call's
+    set-up) of the data draw's ms, the step's device ms (synchronized) and
+    tokens per second over both."""
+    rest = recs[1:] or recs
+    return {k: float(np.median([r[k] for r in rest]))
+            for k in ("data_ms", "device_ms", "tok_s")}
+
+
+def train_card_vs_cpu(dev):
+    """One train step of llama2-110m at full width from the same seeded
+    parameters and batch (2 x 64 tokens) on the card and on the CPU (what
+    the CPU tests hold against JAX): the loss, the gradient norm, every
+    gradient leaf, the first moments and the updated parameters within the
+    tolerances above; every leaf's gradient on the card finite and not all
+    zeros (a CUDA kernel on the autograd path would leave its weights'
+    gradients zero); and a second card call bitwise equal to the first, or
+    not (the run's determinism)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import items, keystr
+    from repro_torch.data.pipeline import DataConfig, SyntheticTinyStories
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model, params_to
+    from repro_torch.optim import adamw
+    cfg = get_config("llama2-110m")
+    model = build_model(cfg)
+    ocfg = adamw.AdamWConfig(warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                             decay_steps=TRAIN_STEPS)
+    batch = next(SyntheticTinyStories(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, batch_size=2,
+        seed=1)).batches())
+    p_cpu = model.init(0, device="cpu")
+    p_dev = params_to(p_cpu, dev)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = steps.value_and_grad(model, p_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    l_dev, g_dev = steps.value_and_grad(model, p_dev, batch)
+    l_again, g_again = steps.value_and_grad(model, p_dev, batch)
+    deterministic = bool(torch.equal(l_dev, l_again)) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(items(g_dev),
+                                                    items(g_again)))
+    del g_again
+    dead = [keystr(p) for p, g in items(g_dev)
+            if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    if dead:
+        raise AssertionError(f"gradients not finite or all zero on the "
+                             f"card: {dead}")
+
+    def worst(got, want):
+        return max((a.cpu() - b).abs().max().item()
+                   / max(b.abs().max().item(), 1e-30)
+                   for (_, a), (_, b) in zip(items(got), items(want)))
+    grad_err = worst(g_dev, g_cpu)
+    _, o_cpu, m_cpu, _ = adamw.apply_updates(p_cpu, adamw.init_state(p_cpu),
+                                             g_cpu, ocfg)
+    _, o_dev, m_dev, _ = adamw.apply_updates(p_dev, adamw.init_state(p_dev),
+                                             g_dev, ocfg)
+    moment_err = worst(o_dev["m"], o_cpu["m"])
+    lr = float(m_cpu["lr"])
+    d = torch.cat([(a.cpu() - b).abs().reshape(-1)
+                   for (_, a), (_, b) in zip(items(p_dev), items(p_cpu))])
+    rec = {"loss_card": float(l_dev), "loss_cpu": float(l_cpu),
+           "loss_rel": abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu)),
+           "grad_norm_rel": abs(float(m_dev["grad_norm"])
+                                - float(m_cpu["grad_norm"]))
+           / float(m_cpu["grad_norm"]),
+           "grad_err": grad_err, "moment_err": moment_err,
+           "param_max_diff": d.max().item(), "lr": lr,
+           "param_share_past_1e-6": (d > 1e-6).float().mean().item(),
+           "deterministic": deterministic, "cpu_step_s": cpu_s}
+    log(f"  card vs CPU, one step of 2 x 64 tokens: loss "
+        f"{rec['loss_card']:.7f} vs {rec['loss_cpu']:.7f} (rel "
+        f"{rec['loss_rel']:.3g}, bound {CPU_LOSS_RTOL:g}); grad norm rel "
+        f"{rec['grad_norm_rel']:.3g} (bound {CPU_GNORM_RTOL:g}); worst leaf "
+        f"gradient {grad_err:.3g} and first moment {moment_err:.3g} of its "
+        f"largest CPU magnitude (bound {CPU_GRAD_RTOL:g}); updated "
+        f"parameters max |diff| {rec['param_max_diff']:.3g} (bound 2 lr = "
+        f"{2 * lr:.3g}), {100 * rec['param_share_past_1e-6']:.4f}% of them "
+        f"more than 1e-6 apart; every leaf's card gradient finite and "
+        f"nonzero; two card calls "
+        f"{'bitwise equal' if deterministic else 'differ'}; the CPU loss "
+        f"and gradients took {cpu_s:.1f} s")
+    if not (rec["loss_rel"] <= CPU_LOSS_RTOL
+            and rec["grad_norm_rel"] <= CPU_GNORM_RTOL
+            and grad_err <= CPU_GRAD_RTOL and moment_err <= CPU_GRAD_RTOL
+            and rec["param_max_diff"] <= 2 * lr + 1e-6):
+        raise AssertionError(f"train step: card vs CPU past its bounds: "
+                             f"{rec}")
+    return rec
+
+
+def train_profile(dev, steps_n=2):
+    """Two train steps of llama2-110m at 8 x 256 from one pre-drawn batch
+    under the profiler: the card's busy share of the step itself (the data
+    draw excluded) and its heaviest device operations."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTinyStories
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config("llama2-110m")
+    model = build_model(cfg)
+    batch = next(SyntheticTinyStories(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_KW["seq"],
+        batch_size=TRAIN_KW["batch"])).batches())
+    params = model.init(0, device=dev)
+    state = {"params": params, "opt": adamw.init_state(params)}
+    fn = steps.make_train_step(model, adamw.AdamWConfig())
+    state, _ = fn(state, batch)             # warm
+    torch.cuda.synchronize()
+
+    def run():
+        st = state
+        for _ in range(steps_n):
+            st, m = fn(st, batch)
+        return float(m["loss"])
+    _, busy = profiled(run)
+    return busy
+
+
+def _ggml_lifecycle(dev, model, params, path):
+    """``ggml_export.export`` of the trained Q8_0 tree (the unfused
+    weights: the fused decode operands are the same codes again) on the
+    card, and of the same tree moved to the CPU: the bytes equal; and
+    ``read_back`` within the reference test's bound, each value within
+    half a GGML 32-block step plus the f16 scale's rounding."""
+    from repro_torch.checkpoint import ggml_export
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.quantization import QuantizedTensor
+    from repro_torch.core.tree import items, keystr
+    from repro_torch.models.model import params_to
+    q = model.quantize(params, QuantPolicy(bits=8, min_size=512),
+                       fuse_decode=False)
+    t0 = time.perf_counter()
+    ggml_export.export(f"{path}.card", q)
+    secs = time.perf_counter() - t0
+    ggml_export.export(f"{path}.cpu", params_to(q, "cpu"))
+    same = (Path(f"{path}.card").read_bytes()
+            == Path(f"{path}.cpu").read_bytes())
+    back = ggml_export.read_back(f"{path}.card")
+    worst = 0.0
+    for p, leaf in items(q):
+        if not isinstance(leaf, QuantizedTensor):
+            continue
+        src = leaf.dequantize().cpu().numpy().reshape(-1, 32)
+        step = np.abs(src).max(-1, keepdims=True) / 127.0
+        err = np.abs(back[keystr(p)][1].reshape(-1, 32) - src)
+        worst = max(worst, float((err / (step * 0.51 + 1e-3)).max()))
+    rec = {"bytes": Path(f"{path}.card").stat().st_size,
+           "bytes_equal": same, "read_back_worst_share_of_bound": worst,
+           "export_s": secs}
+    log(f"  ggml_export: {rec['bytes'] / 1e6:.1f} MB in {secs:.1f} s from "
+        f"the card; {'the same bytes as' if same else 'DIFFERENT bytes from'}"
+        f" the export of the same tree on the CPU; read_back within "
+        f"{worst:.3f} of the bound err <= step * 0.51 + 1e-3")
+    if not same or not worst <= 1:
+        raise AssertionError(f"ggml export on the card: {rec}")
+    return rec
+
+
+def train_path(dev, counted, n=27):
+    """Phase ``n``: training at full width, then the trained weights served
+    on the kernels.  (1) ``launch/train.py``'s ``run`` trains llama2-110m
+    (12 layers, d_model 768, f32) 30 steps of 8 x 256 from the
+    synthetic TinyStories stream, checkpointing every 15 steps: every loss
+    finite, the last below the first, no kernel launched.  (2)
+    ``train_card_vs_cpu``.  (3) ``run(steps=45)`` on the same directory
+    resumes at step 30 and runs 30-44 on the batches of an uninterrupted
+    45-step run, bitwise; the reference's trainer sets the schedule from
+    ``steps``, so those first 30 steps ran another schedule and the losses
+    are printed beside the uninterrupted run's, not held; the uninterrupted
+    run, resumed from its own step-30 checkpoint, is held to its own
+    losses (``RESUME_LOSS_ATOL``).  (4) ``serve.py --arch llama2-110m
+    --full --ckpt-dir`` as a subprocess and through ``run()`` (launches
+    exact, counted), the kernels against the plain versions on the trained
+    Q8_0 weights (``kernel_plain_delta``, ``PAGED_CONTROLS``), the GGML
+    export (``_ggml_lifecycle``).  (5) llama3.2-3b at full width and depth
+    (28 layers, bf16 compute, f32 parameters) ``L3_TRAIN_STEPS`` steps of
+    8 x 256, its peak memory against the reckoning of parameters,
+    gradients, both moments and one chunk's f32 logits and their
+    gradient.  Training launches no CUDA kernel of ``kernels/``: the
+    reference's training runs no Pallas kernel (``lm_loss`` reaches jnp
+    only: ``qeinsum`` on float weights, ``attention_scores_blockwise``, the
+    f32 ``lm_head``) and ``src/repro/`` holds no backward of a kernel
+    (no ``custom_vjp``)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.model import build_model, count_params
+    rec = {}
+    cfg = get_config("llama2-110m")
+    with tempfile.TemporaryDirectory(prefix="phase27_") as root:
+        a, c = os.path.join(root, "a"), os.path.join(root, "c")
+        phase(f"phase {n}: launch/train.py run(), llama2-110m full width "
+              f"and depth, {TRAIN_STEPS} steps of {TRAIN_KW['batch']} x "
+              f"{TRAIN_KW['seq']}, a checkpoint every {TRAIN_CKPT_EVERY}")
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses, recs = _train(dev, steps=TRAIN_STEPS, ckpt_dir=a,
+                              ckpt_every=TRAIN_CKPT_EVERY)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if any(build.LAUNCHES.values()):
+            raise AssertionError(f"training launched kernels: "
+                                 f"{dict(build.LAUNCHES)}")
+        if not (len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"llama2-110m training: losses {losses}")
+        rec["llama2_110m"] = {**_train_stats(recs), "peak_gb": peak,
+                              "first_loss": losses[0],
+                              "last_loss": losses[-1],
+                              "params": count_params(
+                                  build_model(cfg).init_meta())}
+        log(f"  {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, all finite; no kernel launched; median "
+            f"step: data {rec['llama2_110m']['data_ms']:.1f} ms, card "
+            f"{rec['llama2_110m']['device_ms']:.1f} ms (synchronized), "
+            f"{rec['llama2_110m']['tok_s']:.0f} tok/s over both; peak "
+            f"{peak:.2f} GB allocated")
+        rec["llama2_110m"]["busy_share_of_step"] = train_profile(dev)
+
+        phase(f"phase {n}: one train step on the card against the CPU")
+        rec["card_vs_cpu"] = train_card_vs_cpu(dev)
+
+        phase(f"phase {n}: resume: run(steps={RESUME_STEPS}) on the same "
+              "directory, against an uninterrupted run")
+        rest, rest_recs = _train(dev, steps=RESUME_STEPS, ckpt_dir=a,
+                                 ckpt_every=TRAIN_CKPT_EVERY)
+        # uninterrupted, checkpointing at step 30 only; then resumed there
+        whole, whole_recs = _train(dev, steps=RESUME_STEPS, ckpt_dir=c,
+                                   ckpt_every=TRAIN_STEPS)
+        again, again_recs = _train(dev, steps=RESUME_STEPS, ckpt_dir=c,
+                                   ckpt_every=TRAIN_STEPS)
+        shutil.rmtree(c)
+        ran = [r["step"] for r in rest_recs]
+        want = list(range(TRAIN_STEPS, RESUME_STEPS))
+        same_batches = [r["batch_sha1"] for r in rest_recs] == [
+            r["batch_sha1"] for r in whole_recs[TRAIN_STEPS:]] == [
+            r["batch_sha1"] for r in again_recs]
+        resumed = float(np.max(np.abs(np.subtract(again,
+                                                  whole[TRAIN_STEPS:]))))
+        other = float(np.max(np.abs(np.subtract(rest,
+                                                whole[TRAIN_STEPS:]))))
+        rec["resume"] = {"steps_run": [ran[0], ran[-1]] if ran else [],
+                         "batches_bitwise": same_batches,
+                         "resumed_max_loss_diff": resumed,
+                         "other_schedule_max_loss_diff": other}
+        log(f"  run(steps={RESUME_STEPS}) resumed at step {ran[0]} and ran "
+            f"{len(ran)} steps ({ran[0]}..{ran[-1]}); its batches are "
+            f"{'bitwise' if same_batches else 'NOT'} those of an "
+            f"uninterrupted {RESUME_STEPS}-step run, and so are those of "
+            f"that run resumed from its own step-{TRAIN_STEPS} checkpoint, "
+            f"whose losses of steps {TRAIN_STEPS}-{RESUME_STEPS - 1} are "
+            f"within {resumed:.3g} of the uninterrupted run's (bound "
+            f"{RESUME_LOSS_ATOL:g}); the {TRAIN_STEPS}-step run's resume (its "
+            f"first {TRAIN_STEPS} steps on the {TRAIN_STEPS}-step schedule) "
+            f"within {other:.3g} (printed, not held)")
+        if not (ran == want and same_batches and resumed <= RESUME_LOSS_ATOL
+                and np.all(np.isfinite(rest))):
+            raise AssertionError(f"resume: {rec['resume']}")
+
+        phase(f"phase {n}: python -m repro_torch.launch.serve --arch "
+              "llama2-110m --full --ckpt-dir <the trained run> as a "
+              "subprocess")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "llama2-110m", "--full", "--ckpt-dir", a, "--requests", "16",
+               "--slots", "8", "--max-seq", "1024"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=str(SRC)))
+        secs = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            log(f"    {line}")
+        if (res.returncode != 0 or "[serve] 16/16 requests" not in res.stdout
+                or f"restored checkpoint step {RESUME_STEPS}"
+                not in res.stdout):
+            raise AssertionError(f"serve --ckpt-dir exited "
+                                 f"{res.returncode}: {res.stderr[-2000:]}")
+        rec["serve_module_s"] = secs
+        phase(f"phase {n}: serve.run(ckpt_dir=...), the trained Q8_0 "
+              "weights on the kernels")
+        build.reset_launches()
+        eng, done = cli.run(arch="llama2-110m", use_reduced=False,
+                            requests=16, slots=8, max_seq=1024, max_new=48,
+                            ckpt_dir=a, device=dev)
+        check_launches(eng, dict(build.LAUNCHES), cfg, counted)
+        if len(done) != 16 or any(r.error is not None for r in done):
+            raise AssertionError("serve.run --ckpt-dir: failed requests")
+        model = build_model(cfg)
+        params = cli._load_params(model, a, 0, dev)
+        prompts = _requests(8, 16, 600, cfg.vocab_size, seed=n,
+                            shared_len=128, shared_at=(0, 5))
+        rec["kernel_plain_delta"] = kernel_plain_delta(
+            model, model.quantize(params, QuantPolicy(bits=8, min_size=512)),
+            prompts, dev, controls=PAGED_CONTROLS)
+        rec["ggml"] = _ggml_lifecycle(dev, model, params,
+                                      os.path.join(root, "llama2.rpq8"))
+        del params
+    torch.cuda.empty_cache()
+
+    l3 = get_config(L3)
+    phase(f"phase {n}: launch/train.py run(), {L3} full width and depth "
+          f"({l3.n_layers} layers, d_model {l3.d_model}, {l3.compute_dtype} "
+          f"compute, {l3.param_dtype} parameters), {L3_TRAIN_STEPS} steps "
+          f"of {TRAIN_KW['batch']} x {TRAIN_KW['seq']}")
+    n_params = count_params(build_model(l3).init_meta())
+    b, s = TRAIN_KW["batch"], TRAIN_KW["seq"]
+    # parameters, gradients, m and v in f32, and one CE chunk's f32 logits
+    # and their gradient (the chunk is the whole 256-token sequence)
+    reckon = (16 * n_params + 2 * 4 * b * s * l3.padded_vocab()) / 1e9
+    before = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    losses, recs = _train(dev, arch=L3, steps=L3_TRAIN_STEPS, log_every=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.all(np.isfinite(losses))
+            and all(np.isfinite(r["grad_norm"]) for r in recs)):
+        raise AssertionError(f"{L3} training: {recs}")
+    rec["llama3_2_3b"] = {**_train_stats(recs), "peak_gb": peak,
+                          "reckoned_gb": reckon, "params": n_params,
+                          "allocated_before_gb": before,
+                          "losses": losses, "n_layers": l3.n_layers,
+                          "grad_norms": [r["grad_norm"] for r in recs]}
+    log(f"  {L3}: {n_params / 1e9:.3f} B parameters, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, all finite; median step: "
+        f"data {rec['llama3_2_3b']['data_ms']:.1f} ms, card "
+        f"{rec['llama3_2_3b']['device_ms']:.1f} ms (synchronized); peak "
+        f"{peak:.2f} GB allocated against {reckon:.2f} GB reckoned "
+        f"({before:.2f} GB allocated before the run)")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_paths(dev, counted):
+    """Phase 27, training (``train_path``).  Alone on the card:
+    ``build.build()``, ``qlinear.set_default_strategy("kernel")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
+    does, then ``train_paths(torch.device("cuda"), {})``; or ``python3
+    chip_smoke.py --only train_paths``."""
+    rec = train_path(dev, counted, 27)
+    phase(f"phase 27: training {json.dumps(rec)}")
+    return rec
+
+
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
     kernel strategy) served ``runs`` times on the tree this script is run
@@ -6469,7 +6874,7 @@ def sampler_cost(dev):
 # The groups of phases ``--only`` selects (all by default, in this order):
 # each with the phase-2 checks of the shapes its paths serve
 GROUPS = ("phase2", "main_path", "bf16_paths", "ssm_paths",
-          "vlm_audio_paths", "interleave_paths")
+          "vlm_audio_paths", "interleave_paths", "train_paths")
 PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                         "check_attention", "check_q4",
                         "check_dense_attention", "check_flash_prefill",
@@ -6480,7 +6885,10 @@ PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                          "check_qwen3_moe"),
           "ssm_paths": ("check_mamba2", "check_zamba2"),
           "vlm_audio_paths": ("check_qwen2_vl", "check_whisper"),
-          "interleave_paths": ("check_llama4",)}
+          "interleave_paths": ("check_llama4",),
+          "train_paths": ("check_q8_matvec", "check_q8_matmul",
+                          "check_attention", "check_rope",
+                          "check_rmsnorm_quant")}
 
 
 def parse_groups(argv):
@@ -6532,10 +6940,13 @@ def main(argv=None) -> int:
     qlinear.set_default_strategy("kernel")
     report = Report()
     phase("phase 2: kernels against their plain versions")
+    ran = set()
     for group, checks in PHASE2.items():
         if "phase2" in groups or group in groups:
             for check in checks:
-                globals()[check](report, dev)
+                if check not in ran:       # a check two groups share: once
+                    ran.add(check)
+                    globals()[check](report, dev)
 
     counted = {}
     if "main_path" in groups:
@@ -6569,6 +6980,8 @@ def main(argv=None) -> int:
         vlm_audio_paths(dev, counted)
     if "interleave_paths" in groups:
         interleave_paths(dev, counted)
+    if "train_paths" in groups:
+        train_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -1,7 +1,7 @@
-"""Serving entry point: quantize a fresh model per the paper's PTQ flow and
-serve it with the continuous-batching engine: a closed batch by default, or
-an open-loop stream of seeded Poisson arrivals with per-step token
-streaming (``--open-loop``).
+"""Serving entry point: quantize a fresh or trained model per the paper's
+PTQ flow and serve it with the continuous-batching engine: a closed batch
+by default, or an open-loop stream of seeded Poisson arrivals with
+per-step token streaming (``--open-loop``).
 
 PyTorch counterpart of ``repro/launch/serve.py``, on the card unless
 ``--device cpu`` is given:
@@ -116,8 +116,15 @@ the engine prefills tokens alone, as the reference's does, and its encoder
 needs frames; it is served at the model level (``Model.prefill`` with
 ``frames`` and ``tokens``, then ``Model.decode_step``).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP, queue A):
-``--mesh`` (sharded serving) and ``--ckpt-dir`` (checkpoint restore).
+``--ckpt-dir`` serves trained weights: the newest checkpoint of
+``launch/train.py`` (or of the reference's trainer: the two share one
+layout) is restored and quantized as above:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --ckpt-dir /path/to/ckpt
+
+Not ported yet, raising ``NotImplementedError`` (ROADMAP, queue A):
+``--mesh`` (sharded serving).
 """
 
 from __future__ import annotations
@@ -128,6 +135,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import qlinear
 from repro_torch.core.device import resolve_device
@@ -157,11 +165,30 @@ def _print_throughput(eng, toks: int, wall: float) -> None:
           f"(tokens_out/t_decode)")
 
 
-def _refuse_unported(ckpt_dir, mesh_size) -> None:
-    for on, flag, item in ((ckpt_dir, "--ckpt-dir", "checkpoint restore"),
-                           (mesh_size > 0, "--mesh", "mesh sharding")):
-        if on:
-            raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
+def _refuse_unported(mesh_size) -> None:
+    if mesh_size > 0:
+        raise NotImplementedError(
+            f"--mesh {NOT_PORTED.format('mesh sharding')}")
+
+
+def _load_params(model, ckpt_dir: str, seed: int, dev):
+    """The float parameters: the seeded init, or with ``ckpt_dir`` the
+    newest checkpoint there (``checkpoint/store.py``: the trainer's, or the
+    reference's, restored into the init's tree).  The step restored must be
+    the latest on disk: a stale or missing step directory fails here
+    rather than serving old weights."""
+    if not ckpt_dir:
+        return model.init(seed, device=dev)
+    restored, step, _ = store.restore(ckpt_dir,
+                                      {"params": model.init_meta()},
+                                      device=dev)
+    latest = store.latest_step(ckpt_dir)
+    if step != latest:
+        raise RuntimeError(f"restored step {step} from {ckpt_dir} but "
+                           f"latest on disk is {latest}")
+    print(f"[serve] restored checkpoint step {step} from {ckpt_dir} "
+          f"(latest on disk)")
+    return restored["params"]
 
 
 def _refuse_past_memory(cfg, policy, dev) -> None:
@@ -195,7 +222,7 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     run is under the ``kernel`` strategy; the process default is restored
     after it.  ``spec_tokens > 0`` speculates with the ``draft`` proposer:
     ``"ngram"``, or ``"draft_model"`` with the served model and weights."""
-    _refuse_unported(ckpt_dir, mesh_size)
+    _refuse_unported(mesh_size)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
@@ -205,12 +232,18 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     dev = resolve_device(device)
     model = build_model(cfg)
     policy = None if no_quant else QuantPolicy(bits=bits, min_size=512)
-    _refuse_past_memory(cfg, policy, dev)
+    # a checkpoint's float tree is held before it is quantized
+    _refuse_past_memory(cfg, None if ckpt_dir else policy, dev)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {dev} ({name})")
-    if no_quant:
-        params = model.init(seed, device=dev)
+    if no_quant or ckpt_dir:
+        params = _load_params(model, ckpt_dir, seed, dev)
+        if not no_quant:
+            t0 = time.perf_counter()
+            params = model.quantize(params, policy)
+            print(f"[serve] Q{bits}_0 post-training quantization "
+                  f"in {time.perf_counter()-t0:.2f}s")
     else:
         # post-training quantization as each weight is drawn: the same bits
         # as quantize(init(seed)), without the float tree

@@ -24,6 +24,10 @@ per (position, head).  As in the port's decoder-only models, the decode
 step writes the cache in place and returns the same tensors.  No engine
 serves this family: the reference's engine prefills tokens alone, and the
 encoder needs frames.
+
+The training loss (``lm_loss``) runs every attention on the reference's
+jnp ``attention_scores_blockwise`` (``transformer.train_attention``) and
+every layer under ``transformer.remat``.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ from repro_torch.core.qlinear import qdot, qeinsum
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_attn_bank, _cdt, _layer,
-                                            _q_scale, _write_rows,
-                                            check_family, draw_params,
-                                            prefill_attention)
+                                            _q_scale, _write_rows, batch_to,
+                                            check_family, chunked_ce,
+                                            draw_params, prefill_attention,
+                                            remat, train_attention,
+                                            unbind_stacks)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -139,26 +145,28 @@ def _out(p, a, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _enc_attn(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder's self-attention on the pre-norm x (B, S, D):
-    bidirectional, every frame attending every frame."""
+def _enc_block(p, x, cfg: ModelConfig, attend) -> torch.Tensor:
+    """One encoder layer over x (B, S, D): bidirectional self-attention,
+    every frame attending every frame, then the MLP."""
     h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
     q, k, v = _qkv(p["attn"], h)
-    out = prefill_attention(q, k, v, cfg, causal=False)
-    return _out(p["attn"], out, x.dtype)
+    x = x + _out(p["attn"], attend(q, k, v, cfg, causal=False), x.dtype)
+    return x + L.gelu_mlp(p["mlp"], L.apply_norm(x, p["norm2"],
+                                                 cfg.norm_type, cfg.eps))
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
     """frames (B, S_enc, D) stub embeddings -> the encoder's hidden states
-    (B, S_enc, D), after its final norm."""
+    (B, S_enc, D), after its final norm.  Served, attention runs on
+    ``prefill_attention`` (``ops.flash_prefill``); with ``train`` on
+    ``transformer.train_attention``, each layer under ``remat``."""
     s = frames.shape[1]
     x = frames.to(_cdt(cfg)) + params["enc_pos"][:s].to(_cdt(cfg))
     for i in range(cfg.n_enc_layers):
         lp = _layer(params["enc_blocks"], i)
-        x = x + _enc_attn(lp, x, cfg)
-        x = x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["norm2"],
-                                                   cfg.norm_type, cfg.eps))
+        x = (remat(cfg, _enc_block, lp, x, cfg, train_attention) if train
+             else _enc_block(lp, x, cfg, prefill_attention))
     return L.apply_norm(x, params["enc_final_norm"], cfg.norm_type, cfg.eps)
 
 
@@ -174,19 +182,20 @@ def _cross_kv(p, enc_hidden, cfg: ModelConfig):
             qeinsum("bsd,hkd->bshk", enc_hidden, p["cross"]["wv"]))
 
 
-def _dec_block_seq(p, x, enc_hidden, cfg: ModelConfig):
+def _dec_block_seq(p, x, enc_hidden, cfg: ModelConfig,
+                   attend=prefill_attention):
     """One decoder layer over x (B, S, D): causal self-attention,
     cross-attention to the encoder's states (S queries against every
-    encoder key), the MLP.  Returns x and the layer's (k, v, kx, vx) for
-    the caches."""
+    encoder key), the MLP, each attention through ``attend``.  Returns x
+    and the layer's (k, v, kx, vx) for the caches."""
     h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
     q, k, v = _qkv(p["attn"], h)
-    x = x + _out(p["attn"], prefill_attention(q, k, v, cfg), x.dtype)
+    x = x + _out(p["attn"], attend(q, k, v, cfg), x.dtype)
 
     hx = L.apply_norm(x, p["norm_x"], cfg.norm_type, cfg.eps)
     qx = qeinsum("bsd,hkd->bshk", hx, p["cross"]["wq"])
     kx, vx = _cross_kv(p, enc_hidden, cfg)
-    cx = prefill_attention(qx, kx, vx, cfg, causal=False)
+    cx = attend(qx, kx, vx, cfg, causal=False)
     x = x + _out(p["cross"], cx, x.dtype)
 
     x = x + L.gelu_mlp(p["mlp"], L.apply_norm(x, p["norm2"], cfg.norm_type,
@@ -194,20 +203,50 @@ def _dec_block_seq(p, x, enc_hidden, cfg: ModelConfig):
     return x, (k, v, kx, vx)
 
 
+def _embed_tokens(params: Params, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder's input: token embeddings plus learned positions
+    0..S-1, in the compute dtype."""
+    s = tokens.shape[1]
+    x = L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
+    return x + params["dec_pos"][:s].to(_cdt(cfg))
+
+
 def decoder_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    enc_hidden: torch.Tensor):
     """tokens (B, S) at positions 0..S-1 against the encoder's states ->
     (hidden (B, S, D) after the final norm, each layer's (k, v, kx,
     vx))."""
-    s = tokens.shape[1]
-    x = L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
-    x = x + params["dec_pos"][:s].to(_cdt(cfg))
+    x = _embed_tokens(params, cfg, tokens)
     kvs = []
     for i in range(cfg.n_layers):
         x, kv = _dec_block_seq(_layer(params["dec_blocks"], i), x,
                                enc_hidden, cfg)
         kvs.append(kv)
     return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps), kvs
+
+
+def _dec_block_train(p, x, enc_hidden, cfg: ModelConfig) -> torch.Tensor:
+    return _dec_block_seq(p, x, enc_hidden, cfg, train_attention)[0]
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            chunk: int = 512) -> torch.Tensor:
+    """The training loss of ``batch``: frames (B, S_enc, D), tokens and
+    labels (B, S), as the reference's ``lm_loss``.  The encoder and the
+    decoder run every attention on ``transformer.train_attention`` and
+    every layer under ``remat``; the cross-entropy is the decoder-only
+    family's (``chunked_ce``)."""
+    dev = params["final_norm"]["gamma"].device
+    batch = batch_to(batch, dev)
+    params = unbind_stacks(params)
+    enc = encode(params, cfg, batch["frames"], train=True)
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    for i in range(cfg.n_layers):
+        x = remat(cfg, _dec_block_train, _layer(params["dec_blocks"], i), x,
+                  enc, cfg)
+    hidden = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
+    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], chunk)
 
 
 def _lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Model facade: the entry points the serving engine calls.
+"""Model facade: the entry points the serving engine and the trainer call.
 
 PyTorch counterpart of ``repro/models/model.py`` for the dense and vlm
 families, the MoE family (every layer MoE, or the llama4 interleave of
@@ -31,6 +31,18 @@ class Model:
 
     def init(self, seed: int = 0, device: Device = None):
         return self._family.init_params(self.cfg, seed, device=device)
+
+    def loss(self, params, batch):
+        """The mean next-token cross-entropy of ``batch`` (``labels`` with
+        ``tokens``, a vlm frontend's ``embeds`` or the audio family's
+        ``frames`` and ``tokens``): the reference's ``lm_loss``, a 0-d f32
+        tensor differentiable in every float leaf of ``params``."""
+        return self._family.lm_loss(params, self.cfg, batch)
+
+    def init_meta(self):
+        """The tree ``init`` draws, on the meta device (shapes and dtypes
+        only): the template a checkpoint restores into."""
+        return transformer.meta_params(self.cfg, self._family._param_tree)
 
     def init_quantized(self, seed: int = 0,
                        policy: Optional[QuantPolicy] = None,

@@ -1,5 +1,6 @@
 """Decoder-only LM: init, decode-weight fusion, decode on the paged pool or
-the dense per-slot cache, chunked and one-shot prefill.
+the dense per-slot cache, chunked and one-shot prefill, and the training
+loss (``lm_loss``).
 
 PyTorch counterpart of ``repro/models/transformer.py`` for the dense
 family, the vlm family (the dense decoder with M-RoPE, on precomputed
@@ -24,6 +25,13 @@ interleave's two attention banks, the SSM families' conv rings and SSM
 states beside the hybrid's K/V).  Unlike the reference, which donates the
 cache to a jitted step, the port writes it in place: ``decode_step`` and
 the chunk steps return the same cache tensors they were given, updated.
+
+Training (``forward_hidden``, ``lm_loss``) follows the reference's jnp
+path: float weights through ``qeinsum`` / ``qdot``, attention on
+``layers.attention_scores_blockwise`` (``train_attention``; never a CUDA
+kernel, none of which has a backward), the MoE's grouped dispatch, and the
+cross-entropy in chunks of f32 logits; each block and each chunk under
+``torch.utils.checkpoint`` (``remat``, the reference's ``"block"``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
@@ -307,16 +316,23 @@ def init_quantized(cfg: ModelConfig, seed: int = 0,
                                cfg)
 
 
-def init_bytes(cfg: ModelConfig, policy: Optional[QuantPolicy] = None) -> int:
-    """Bytes of the tree ``init_params`` (no ``policy``) or
-    ``init_quantized(cfg, seed, policy)`` (the fused operands included)
-    would hold, counted on the meta device: nothing is drawn."""
+def meta_params(cfg: ModelConfig, tree=_param_tree) -> Params:
+    """The tree ``init_params`` would draw (``tree``: ``_param_tree``, or
+    ``encdec``'s), its leaves on the meta device: shapes and dtypes,
+    nothing drawn or held."""
     meta = torch.device("meta")
 
     def leaf(path, shape, scale, dtype=None, by_layer=False):
         return torch.empty(shape, dtype=dtype or _pdt(cfg), device=meta)
 
-    tree = _param_tree(cfg, leaf, meta)
+    return tree(cfg, leaf, meta)
+
+
+def init_bytes(cfg: ModelConfig, policy: Optional[QuantPolicy] = None) -> int:
+    """Bytes of the tree ``init_params`` (no ``policy``) or
+    ``init_quantized(cfg, seed, policy)`` (the fused operands included)
+    would hold, counted on the meta device: nothing is drawn."""
+    tree = meta_params(cfg)
     if policy is not None:
         tree = fuse_decode_weights(quantize_params(tree, policy), cfg)
     return count_bytes(tree)["total"]
@@ -846,6 +862,158 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             buf.copy_(c)
         lc["state"].copy_(state)
     return _head(params, cfg, hidden[:, -1]), cache
+
+
+# ---------------------------------------------------------------------------
+# training: the full-sequence forward and the chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "block"`` (every config's
+    default) while autograd records, its intermediates are recomputed in
+    the backward pass instead of held (the reference's ``_maybe_remat``,
+    ``jax.checkpoint``): the values are the same either way."""
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(f"remat {cfg.remat!r}")
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        # the forward draws no random numbers: no RNG state to replay
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+class _Unbound:
+    """A layer-stacked tensor unbound once along its leading axis: indexing
+    it gives a layer's view (``_layer``), and autograd stacks the layers'
+    gradients once, where a ``select`` per layer would build a zero-filled
+    gradient of the whole stack for each layer."""
+
+    def __init__(self, t: torch.Tensor):
+        self.parts = t.unbind(0)
+
+    def __getitem__(self, i):
+        if isinstance(i, tuple):
+            return self.parts[i[0]][i[1:]]
+        return self.parts[i]
+
+
+# the parameter groups stacked per layer on their leading axis
+STACKED = ("blocks", "blocks_dense", "blocks_moe", "blocks_main",
+           "blocks_tail", "enc_blocks", "dec_blocks")
+
+
+def unbind_stacks(params: Params) -> Params:
+    """``params`` with every tensor of a layer-stacked group an
+    ``_Unbound``, for a training forward that reads each layer once."""
+    def unbind(t):
+        if isinstance(t, dict):
+            return {k: unbind(v) for k, v in t.items()}
+        return _Unbound(t)
+    return {k: unbind(v) if k in STACKED else v for k, v in params.items()}
+
+
+def train_attention(q, k, v, cfg: ModelConfig,
+                    causal: bool = True) -> torch.Tensor:
+    """The training forward's attention: q (B, Sq, H, hd) unscaled, k/v
+    (B, Sk, KVH, hd) -> (B, Sq, H, hd) on the reference's own jnp function,
+    ``layers.attention_scores_blockwise`` in ``cfg.q_chunk`` query rows, q
+    scaled by hd^-1/2 in the compute dtype first (``_q_scale``).  Never
+    ``ops.flash_prefill``: the reference's training runs no kernel, and the
+    CUDA kernel has no backward, so autograd would not reach wq / wk / wv
+    through it."""
+    acfg = L.AttnConfig(cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+                        q_chunk=cfg.q_chunk, causal=causal)
+    return L.attention_scores_blockwise(q * _q_scale(cfg), k, v, acfg)
+
+
+def _attn_block_train(p, x, cfg: ModelConfig, rope):
+    """One attention block over x (B, S, D), as the reference's
+    ``_dense_block_seq``: attention (rope where the config has it), then
+    the MLP or the MoE's grouped dispatch (``_mlp``)."""
+    h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
+    q = qeinsum("bsd,hkd->bshk", h, p["attn"]["wq"])
+    k = qeinsum("bsd,hkd->bshk", h, p["attn"]["wk"])
+    v = qeinsum("bsd,hkd->bshk", h, p["attn"]["wv"])
+    if rope is not None:
+        cos, sin = rope
+        q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
+        k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
+    a = qeinsum("bshk,dhk->bsd", train_attention(q, k, v, cfg),
+                p["attn"]["wo"])
+    x = x + a.to(x.dtype)
+    return x + _mlp(p, x, cfg)
+
+
+def _ssm_block_train(p, x, cfg: ModelConfig, rope):
+    h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
+    y, _ = S.mamba2_forward(p["ssm"], h, _ssm_dims(cfg), cfg.ssm_chunk)
+    return x + y
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) input embeddings at ``positions`` ((B, S), or (3, B, S)
+    for mrope) -> the hidden states (B, S, D) after the final norm: the
+    reference's ``forward_hidden`` for training, every layer in its order
+    (``_layers``, on ``unbind_stacks``' views), each under ``remat``."""
+    rope = _rope_cos_sin(cfg, positions)
+    for kind, lp, _, _ in _layers(unbind_stacks(params), cfg):
+        block = _ssm_block_train if kind == "ssm" else _attn_block_train
+        x = remat(cfg, block, lp, x, cfg, rope)
+    return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
+
+
+def batch_to(batch: Dict[str, Any], dev: torch.device) -> Dict[str, Any]:
+    """A batch of numpy arrays or tensors as tensors on ``dev``: token ids
+    and labels as int64, every other entry in its own dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        out[k] = t.to(dev, torch.long if k in ("tokens", "labels") else None)
+    return out
+
+
+def _ce_sum(w, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: the head's f32 logits
+    (``layers.lm_head``: the product in h's dtype, then f32), logsumexp
+    less the label's logit."""
+    logits = qdot(h, w).float()
+    tgt = torch.gather(logits, -1, y[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - tgt)
+
+
+def chunked_ce(cfg: ModelConfig, w, hidden: torch.Tensor,
+               labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of hidden (B, S, D) against labels (B, S) with
+    the head ``w`` (V, D), ``chunk`` positions at a time (lowered until it
+    divides S) so the logits never stand at (B, S, V): the f32 chunk sums
+    added in order, each under ``remat``, divided by B * S."""
+    b, s = labels.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        total = total + remat(cfg, _ce_sum, w, hidden[:, i:i + c],
+                              labels[:, i:i + c])
+    return total / (b * s)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            chunk: int = 512) -> torch.Tensor:
+    """The training loss: ``batch["labels"]`` (B, S) against the model on
+    its ``tokens`` (B, S) or the ``embeds`` (B, S, D) of a modality
+    frontend, at ``batch["positions"]`` (default 0..S-1 in every stream).
+    Runs where the parameters live; differentiable in every float leaf."""
+    dev = params["final_norm"]["gamma"].device
+    batch = batch_to(batch, dev)
+    b, s = batch["labels"].shape
+    positions = _default_positions(cfg, b, s, batch, dev)
+    hidden = forward_hidden(params, cfg, embed_inputs(params, cfg, batch),
+                            positions)
+    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], chunk)
 
 
 # ---------------------------------------------------------------------------

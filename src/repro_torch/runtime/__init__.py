@@ -1,1 +1,1 @@
-"""Runtime health: the serving engine's straggler detector."""
+"""Fault-tolerance runtime: heartbeats, stragglers, elastic replanning."""

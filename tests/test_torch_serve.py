@@ -62,7 +62,15 @@ def test_argparse_defaults_match_the_reference(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2"], ["--ckpt-dir", "x"]],
                          ids=lambda f: f[0])
-def test_unported_flags_raise(flags):
+def test_unported_flags_raise(flags, tmp_path):
+    """``--mesh`` is refused; ``--ckpt-dir`` is ported and, pointed at a
+    directory holding no checkpoint, raises rather than serving fresh
+    weights."""
+    if flags[0] == "--ckpt-dir":
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            serve.main(["--ckpt-dir", str(tmp_path / flags[1]), "--device",
+                        "cpu", "--requests", "1"])
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve.main(flags + ["--device", "cpu", "--requests", "1"])
 
