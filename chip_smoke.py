@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--only phase2,main_path,bf16_paths,ssm_paths,
                                   vlm_audio_paths,interleave_paths,
-                                  train_paths]
+                                  train_paths,mesh_paths]
 
 With no argument every group of phases runs, in that order; ``--only``
 runs a selection, each group with the phase-2 checks of its own shapes.
@@ -62,22 +62,22 @@ and 32000-row heads, ``q8_matmul`` at one 577-token prefill,
 ``decode_attention`` at 32 KV heads x HQ 1 x D 64, bf16 and int8,
 ``flash_prefill`` at 32 / 32 heads of 64, rope on 64 heads); phase 5
 also runs the reduced llama3.2-3b on both caches; phase 16 serves
-llama3.2-3b at full width and depth (28 layers, bf16 compute) on a bf16
-and an int8 pool, held against the same engine on the plain versions;
-phase 17 serves it on the dense cache (bf16, int8) and with Q4_0 weights
-(paged and dense); phase 18 serves phi4-mini-3.8b at full width (vocab
-200064; its 32 layers cut to 12 for time) on a bf16 pool, phase 19
-glm4-9b (d_model 4096, 32 query heads over 2 KV heads of 128, d_ff 13696,
-vocab 151552; its 40 layers cut to 4 for time) the same way, phase 20
-command-r-35b (d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
-22528, vocab 256000; its 40 layers cut to 4) and phase 21
-qwen3-moe-30b-a3b (d_model 2048, 32 query heads over 4 KV heads of 64,
-128 experts of d_ff 768, top 8, vocab 151936: the MoE router and both
-dispatches in plain PyTorch, as the reference's jnp; its 48 layers cut to
-4), its f32 tree never held: phases 18-21 draw through
+llama3.2-3b at full width (bf16 compute; its 28 layers cut to 14 for
+time) on a bf16 and an int8 pool, held against the same engine on the
+plain versions; phase 17 serves it on the dense cache (bf16, int8) and
+with Q4_0 weights (paged and dense); phase 18 serves phi4-mini-3.8b at
+full width (vocab 200064; its 32 layers cut to 12 for time) on a bf16
+pool, phase 19 glm4-9b (d_model 4096, 32 query heads over 2 KV heads of
+128, d_ff 13696, vocab 151552; its 40 layers cut to 4 for time) the same
+way, phase 20 command-r-35b (d_model 8192, 64 query heads over 8 KV
+heads of 128, d_ff 22528, vocab 256000; its 40 layers cut to 4) and
+phase 21 qwen3-moe-30b-a3b (d_model 2048, 32 query heads over 4 KV heads
+of 64, 128 experts of d_ff 768, top 8, vocab 151936: the MoE router and
+both dispatches in plain PyTorch, as the reference's jnp; its 48 layers
+cut to 4), its f32 tree never held: phases 18-21 draw through
 ``Model.init_quantized``, which phase 16 holds bitwise against
-``Model.quantize(Model.init(0))``, and phase 21 again for the MoE tree at
-2 layers.  Phases 22 and 23 serve the SSM families at full width and
+``Model.quantize(Model.init(0))``, and phase 21 again for the MoE tree
+at 2 layers.  Phases 22 and 23 serve the SSM families at full width and
 depth, mamba2-370m (48 Mamba2 layers) and zamba2-1.2b (38 Mamba2 layers
 and one shared attention block applied after every 6th), through
 ``Engine(model, params)`` with the default ``cache_kind``, which falls
@@ -93,14 +93,14 @@ distinct M-RoPE position streams (``vlm_prefill``); phase 25 runs
 whisper-small (the audio family's encoder-decoder) at full width and
 depth at the model level, as the reference serves it (its engine cannot
 prefill frames, so the port's refuses the family): ``Model.prefill`` on
-stub frames, then 32 greedy ``decode_step``s on a bf16 and an int8 cache,
-held to the fixed bound at every prefill position and decode step
+stub frames, then 32 greedy ``decode_step``s on a bf16 and an int8
+cache, held to the fixed bound at every prefill position and decode step
 (``whisper_plain_delta``) with its own planted faults
 (``_whisper_controls``); phase 2 holds the kernels at both configs'
 shapes (``check_qwen2_vl``, ``check_whisper``).  Phase 26 serves
-llama4-maverick-400b-a17b (the llama4 interleave: a dense layer and an MoE
-layer in turn, d_model 5120, 40 query heads over 8 KV heads of 128, 128
-experts of d_ff 8192, top 1, vocab 202048; its 48 layers, ~424 GB of
+llama4-maverick-400b-a17b (the llama4 interleave: a dense layer and an
+MoE layer in turn, d_model 5120, 40 query heads over 8 KV heads of 128,
+128 experts of d_ff 8192, top 1, vocab 202048; its 48 layers, ~424 GB of
 Q8_0, cut to 4, two patterns) on the dense fallback, as the reference's
 engine serves it, on a bf16 and an int8 KV cache, its memory peaks
 printed; phase 2 holds the seven kernels of that path at its shapes
@@ -116,26 +116,36 @@ weights on the kernels (held to ``plain_delta_bound``) and
 last, llama3.2-3b at full width and depth takes 4 steps, its peak memory
 printed against the reckoning.  Training launches no kernel: the
 reference's training reaches no Pallas kernel (its loss runs jnp alone)
-and no kernel of ``src/repro/`` has a backward (no ``custom_vjp``), so the
-port's loss is plain PyTorch under autograd; the kernels phase 27
-exercises are those the served, trained weights reach.  On every
-llama3.2-3b,
-phi4, glm4,
-command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits are held
-against the plain versions' on the same inputs to a fixed bound derived
-from bf16 and Q8_0 rounding (``plain_delta_bound``), with each kernel's
-share: the difference with
-only that kernel on its plain version, and with only it launched
-(``kernel_plain_delta``); planted wiring faults, the controls of that
-bound (a GEMV's K loop one group short, GQA groups on the wrong KV head,
-the one-shot prefill's causal diagonal one key short), must each move the
-logits past it, and a decode length one short is measured beside them.
-On the MoE path the routes are pinned to the plain run's for that check
-(``moe_routes``), then one run with free routes counts the flipped
-routing decisions, each first flip held to its layer's fixed gap bound
-(``route_flips``), and the same planted faults with free routes must
-each flip a decision past it.
-Every served path resets the launch counters before it runs and asserts
+and no kernel of ``src/repro/`` has a backward (no ``custom_vjp``), so
+the port's loss is plain PyTorch under autograd; the kernels phase 27
+exercises are those the served, trained weights reach.  Phase 28
+(``mesh_paths``) serves on the port's tensor-parallel mesh: phase 2
+first holds the six kernels phase 28 launches against their plain
+versions at llama2-110m's shapes (as ``train_paths`` does), then
+launches both paged attentions on every KV-head slice a rank of a mesh
+of 2 and of 4 holds, at llama2-110m's heads (f32 and int8 pools) and
+llama3.2-3b's (bf16 and int8), each slice bitwise equal to the same
+heads of one launch over every head (``check_head_slices``); then
+``Engine(mesh=make_serve_mesh(1))``, a world of one over NCCL, serves
+llama2-110m at full width and depth (Q8_0, f32 and int8 pools, phase 3's
+16 requests, greedy) against the unsharded engine on the same weights:
+the streams bitwise, the launches equal; then ``serve.py --mesh 1``
+against ``serve.py``.  Mesh sizes above one need more than one card; the
+CPU tests run them over gloo.  On every llama3.2-3b, phi4, glm4,
+command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits
+are held against the plain versions' on the same inputs to a fixed bound
+derived from bf16 and Q8_0 rounding (``plain_delta_bound``), with each
+kernel's share: the difference with only that kernel on its plain
+version, and with only it launched (``kernel_plain_delta``); planted
+wiring faults, the controls of that bound (a GEMV's K loop one group
+short, GQA groups on the wrong KV head, the one-shot prefill's causal
+diagonal one key short), must each move the logits past it, and a decode
+length one short is measured beside them. On the MoE path the routes are
+pinned to the plain run's for that check (``moe_routes``), then one run
+with free routes counts the flipped routing decisions, each first flip
+held to its layer's fixed gap bound (``route_flips``), and the same
+planted faults with free routes must each flip a decision past it. Every
+served path resets the launch counters before it runs and asserts
 exactly the launches its shape implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the lines before it give the card's name and power limit and
@@ -3144,6 +3154,93 @@ def paged_prefill_turn(dev):
     return out
 
 
+# the meshes whose head slices phase 2 holds: a rank of a mesh of n holds
+# KVH / n KV heads and their query heads (``transformer._ServeMesh``)
+SLICE_MESHES = (2, 4)
+# (arch, KV heads, query heads a KV head, head dim, pools)
+SLICE_SHAPES = (("llama2-110m", 12, 1, 64, ("f32", "int8")),
+                ("llama3.2-3b", 8, 3, 128, ("bf16", "int8")))
+
+
+def _slices(kvh):
+    """(mesh size, rank, KV-head slice) of every rank of ``SLICE_MESHES``."""
+    for n in SLICE_MESHES:
+        per = kvh // n
+        for r in range(n):
+            yield n, r, slice(r * per, (r + 1) * per)
+
+
+def _head_slice(t, sl, dim):
+    """A rank's own copy of heads ``sl`` along ``dim``, as its pool and
+    its q are held: contiguous, nothing of the other heads."""
+    return None if t is None else t.narrow(dim, sl.start,
+                                           sl.stop - sl.start).contiguous()
+
+
+def check_head_slices(report, dev):
+    """Both paged attentions on every KV-head slice a rank of a mesh of 2
+    and of 4 holds (``SLICE_SHAPES``: llama2-110m's 12 KV heads of 64 on
+    f32 and int8 pools, llama3.2-3b's 8 x 3 query heads of 128 on bf16 and
+    int8 pools), each slice's own pool and q, against the same heads of one
+    launch over every head on the same pool: bitwise, out, m and l.  A
+    head's result must not depend on how many heads its launch holds (the
+    decode kernel splits each (row, KV head) over blocks and groups query
+    heads by HQ * D, the prefix kernel orders its blocks heaviest first),
+    or a mesh's streams would part from one card's."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(28)
+    n_slices = 0
+    for arch, kvh, hq, d, kinds in SLICE_SHAPES:
+        for kind in kinds:
+            bs, mb = 64, 16
+            b = len(DECODE_LENS)
+            k, v, ks, vs = _pools(gen, dev, b * mb, bs, kvh, d,
+                                  kind == "int8", kind == "bf16")
+            lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+            pt = _page_table(gen, dev, b, mb, b * mb,
+                             [-(-n // bs) for n in DECODE_LENS])
+            q = torch.randn((b, kvh, hq, d), generator=gen, device=dev)
+            full = ops.paged_decode_attention_kernel(q, k, v, pt, lens, ks,
+                                                     vs)
+            pfx = torch.tensor(PREFILL_PFX, dtype=torch.int32, device=dev)
+            qlens = torch.tensor(PREFILL_QLENS, dtype=torch.int32,
+                                 device=dev)
+            ptp = _page_table(gen, dev, b, mb, b * mb,
+                              [-(-p // bs) for p in PREFILL_PFX])
+            qp = torch.randn((b, 256, kvh, hq, d), generator=gen,
+                             device=dev) / math.sqrt(d)
+            fullp = ops.paged_prefill_attention_kernel(qp, k, v, ptp, pfx,
+                                                       qlens, ks, vs)
+            for n, r, sl in _slices(kvh):
+                got = ops.paged_decode_attention_kernel(
+                    _head_slice(q, sl, 1), _head_slice(k, sl, 2),
+                    _head_slice(v, sl, 2), pt, lens, _head_slice(ks, sl, 2),
+                    _head_slice(vs, sl, 2))
+                gotp = ops.paged_prefill_attention_kernel(
+                    _head_slice(qp, sl, 2), _head_slice(k, sl, 2),
+                    _head_slice(v, sl, 2), ptp, pfx, qlens,
+                    _head_slice(ks, sl, 2), _head_slice(vs, sl, 2))
+                torch.cuda.synchronize()
+                what = f"{arch} {kind} pool, mesh {n} rank {r}"
+                if not torch.equal(got, full[:, sl]):
+                    raise AssertionError(
+                        f"paged_decode_attention on KV heads {sl.start}.."
+                        f"{sl.stop - 1} ({what}) differs from the full "
+                        "launch's")
+                for name, a, w in zip(("out", "m", "l"), gotp, fullp):
+                    if not torch.equal(a, w[:, :, sl]):
+                        raise AssertionError(
+                            f"paged_prefill_attention's {name} on KV heads "
+                            f"{sl.start}..{sl.stop - 1} ({what}) differs "
+                            "from the full launch's")
+                n_slices += 1
+            log(f"  head slices: {arch} ({kvh} KV heads x {hq} x D {d}) "
+                f"{kind} pool: both paged attentions on each of the "
+                f"{sum(SLICE_MESHES)} slices of meshes {SLICE_MESHES} "
+                "bitwise equal to one launch over every head")
+    phase(f"phase 2: head slices, {n_slices} slices x 2 kernels bitwise")
+
+
 def decode_step_ops(dev):
     """Device operations of one dense decode step of llama2-110m at 8 slots
     (``decode_step_launches``) on seeded random weights.  Runs on any
@@ -5305,16 +5402,25 @@ DENSE_CONTROLS = ("decode_attention: newest key dropped",
 Q4_POLICY = dict(bits=4, min_size=512)        # launch/serve.py --bits 4
 
 
+# phases 16-17's depth: llama3.2-3b's 28 layers cut to 14, the script's
+# largest host-bound phases (~6 s a layer with both pools' plain-version
+# engine runs and phase 17's four runs), to keep the whole script well
+# inside its time limit; its kernels at its shapes stay in phase 2, and
+# phase 27 trains it at all 28 layers
+L3_PHASE_LAYERS = 14
+
+
 def llama3_params(dev):
-    """llama3.2-3b's parameters from the port's own seeded ``init_params``
-    on the card, drawn once: Q8_0 (phases 16-17) and Q4_0 (``serve.py
-    --bits 4``'s policy, phase 17) from the same f32 draw, which is then
-    freed.  Returns (config, Q8_0, Q4_0, prompts, seconds)."""
+    """llama3.2-3b's parameters, cut to ``L3_PHASE_LAYERS`` layers, from
+    the port's own seeded ``init_params`` on the card, drawn once: Q8_0
+    (phases 16-17) and Q4_0 (``serve.py --bits 4``'s policy, phase 17)
+    from the same f32 draw, which is then freed.  Returns (config, Q8_0,
+    Q4_0, prompts, seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.quantization import tree_differs
     from repro_torch.models.model import build_model
-    cfg = get_config(L3)
+    cfg = get_config(L3).with_(n_layers=L3_PHASE_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     init = model.init(seed=0, device=dev)
@@ -5346,9 +5452,10 @@ def _suffixed(counted, mine, arch):
 
 
 def llama3_path(dev, cfg, params, prompts, made, counted):
-    """Phase 16: llama3.2-3b at full width and depth (28 layers, d_model
-    3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab 128256,
-    bf16 compute), Q8_0 with the fused decode weights (``llama3_params``);
+    """Phase 16: llama3.2-3b at full width (``L3_PHASE_LAYERS`` layers,
+    d_model 3072, 24 query heads over 8 KV heads of 128, d_ff 8192, vocab
+    128256, bf16 compute), Q8_0 with the fused decode weights
+    (``llama3_params``);
     the paged Engine (page 64, chunk 256, 8 slots, max_seq 1024) on a bf16
     pool, then an int8 pool; 8 requests of 16..600 tokens, two sharing a
     128-token prefix, 32 greedy tokens.  Per pool: the kernels' logits
@@ -5364,7 +5471,7 @@ def llama3_path(dev, cfg, params, prompts, made, counted):
     streams)."""
     from repro_torch.kernels import build
     from repro_torch.models.model import build_model
-    phase(f"phase 16: {L3} full width and depth ({cfg.n_layers} layers, "
+    phase(f"phase 16: {L3} full width, {cfg.n_layers} layers (cut) ("
           f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
           f"{cfg.hd()}, vocab {cfg.vocab_size}, {cfg.compute_dtype}), "
           f"Q8_0 parameters {param_bytes(params) / 1e9:.2f} GB made on the "
@@ -5421,9 +5528,10 @@ def llama3_path(dev, cfg, params, prompts, made, counted):
 
 def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
                     plain_requests=4):
-    """Phase 17: llama3.2-3b at full width and depth on the dense cache (8
-    slots x 1024: one-shot prefill on ``flash_prefill``, decode on
-    ``decode_attention``) and with Q4_0 weights (``q4_matvec`` the only
+    """Phase 17: llama3.2-3b at full width (``L3_PHASE_LAYERS`` layers) on
+    the dense cache (8 slots x 1024: one-shot prefill on
+    ``flash_prefill``, decode on ``decode_attention``) and with Q4_0
+    weights (``q4_matvec`` the only
     product kernel), from phase 16's draw (``llama3_params``): dense with
     Q8_0 on a bf16 and then an int8 cache, then Q4_0 on the paged bf16
     pool and on the dense bf16 cache; phase 16's 8 requests, 32 greedy
@@ -5443,7 +5551,8 @@ def llama3_dense_q4(dev, cfg, params, p4, prompts, paged, counted,
             ("dense int8", "int8", 8, DENSE_KW, False),
             ("Q4_0 paged bf16", "bfloat16", 4, PAGED_KW, True),
             ("Q4_0 dense bf16", "bfloat16", 4, DENSE_KW, False))
-    phase(f"phase 17: {L3} full width and depth, dense cache 8 x 1024 and "
+    phase(f"phase 17: {L3} full width, {cfg.n_layers} layers (cut), dense "
+          "cache 8 x 1024 and "
           f"Q4_0 weights ({param_bytes(p4) / 1e9:.2f} GB against "
           f"{param_bytes(params) / 1e9:.2f} GB for Q8_0), 8 greedy requests "
           "a run")
@@ -6803,6 +6912,101 @@ def train_paths(dev, counted):
     return rec
 
 
+def mesh_path(dev, counted, n=28):
+    """Phase 28: llama2-110m at full width and depth (Q8_0, phase 3's 16
+    requests, 32 greedy tokens each) on ``Engine(mesh=make_serve_mesh(1))``
+    -- a world of one, NCCL on the card: the mesh's all-gathers and plan
+    broadcast have one rank, the pool is whole, the weights replicated, as
+    the reference places them at model size 1 -- against the unsharded
+    engine on the same draw, on an f32 and an int8 pool: the streams
+    bitwise, the launches equal (and exact, ``check_launches``), the
+    metrics that read no clock equal.  Then ``serve.py --mesh 1`` against
+    ``serve.py`` (in process, ``run``), the same requests: the streams
+    bitwise.  A failed NCCL start, launch or comparison raises."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("llama2-110m")
+    model = build_model(cfg)
+    params = model.quantize(model.init(seed=0, device=dev))
+    prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0, shared_len=128,
+                        shared_at=(0, 9, 12, 15))
+    mesh = make_serve_mesh(1, device=dev)
+    backend = dist.get_backend()
+    if backend != ("nccl" if dev.type == "cuda" else "gloo") \
+            or mesh.device.type != dev.type:
+        raise AssertionError(f"the mesh runs {backend} on {mesh.device}")
+    rec = {"backend": backend, "world": dist.get_world_size(),
+           "mesh": dict(mesh.shape)}
+    keys = ("tokens_out", "decode_steps", "chunk_batch_calls",
+            "prefix_hits", "prefix_cached_tokens", "preemptions",
+            "energy_joules", "prefix_attn_bytes")
+    for kv in ("float32", "int8"):
+        phase(f"phase {n}: llama2-110m full width, {kv} pool, 16 greedy "
+              "requests on Engine(mesh=make_serve_mesh(1)) against the "
+              "unsharded engine")
+        m = build_model(cfg.with_(kv_cache_dtype=kv))
+        build.reset_launches()
+        eng, want, wall = serve(m, params, prompts, dev, 32, **PAGED_KW)
+        plain = dict(build.LAUNCHES)
+        build.reset_launches()
+        eng_m, got, wall_m = serve(m, params, prompts, dev, 32, mesh=mesh,
+                                   **PAGED_KW)
+        launches = dict(build.LAUNCHES)
+        check_launches(eng_m, launches, cfg, counted)
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"mesh streams differ from the unsharded "
+                                 f"engine's at requests {bad}")
+        if launches != plain:
+            raise AssertionError(f"mesh launches {launches} != unsharded "
+                                 f"{plain}")
+        diff = {k: (eng_m.metrics[k], eng.metrics[k]) for k in keys
+                if eng_m.metrics[k] != eng.metrics[k]}
+        if diff:
+            raise AssertionError(f"mesh metrics differ: {diff}")
+        rec[kv] = {"streams_equal": True, "launches_equal": True,
+                   "tokens": sum(len(s) for s in got),
+                   "unsharded": engine_line(f"unsharded {kv} pool", eng,
+                                            want, wall),
+                   "mesh_1": engine_line(f"mesh 1 {kv} pool", eng_m, got,
+                                         wall_m)}
+    phase(f"phase {n}: serve.py --mesh 1 against serve.py, 16 requests at "
+          "its own sampling defaults")
+    cli = {}
+    for size in (0, 1):
+        tc = time.perf_counter()
+        _, done = serve_cli.run(use_reduced=False, requests=16, slots=8,
+                                max_seq=1024, mesh_size=size, device=dev)
+        cli[size] = ([[list(o) for o in r.outputs]
+                      for r in sorted(done, key=lambda r: r.uid)],
+                     time.perf_counter() - tc)
+    if cli[0][0] != cli[1][0]:
+        raise AssertionError("serve.py --mesh 1 streams differ from "
+                             "serve.py's")
+    rec["cli"] = {"streams_equal": True,
+                  "tokens": sum(len(o[0]) for o in cli[1][0]),
+                  "seconds": {"mesh_0": cli[0][1], "mesh_1": cli[1][1]}}
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def mesh_paths(dev, counted):
+    """Phase 28, the tensor-parallel mesh (``mesh_path``).  Alone on the
+    card: ``python3 chip_smoke.py --only mesh_paths``, or ``build.build()``
+    and ``qlinear.set_default_strategy("kernel")`` first, as ``main`` does,
+    then the checks of ``PHASE2["mesh_paths"]`` and ``mesh_paths(dev,
+    {})``."""
+    rec = mesh_path(dev, counted, 28)
+    phase(f"phase 28: mesh {json.dumps(rec)}; {rec['seconds']:.1f} s")
+    return rec
+
+
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
     kernel strategy) served ``runs`` times on the tree this script is run
@@ -6874,7 +7078,8 @@ def sampler_cost(dev):
 # The groups of phases ``--only`` selects (all by default, in this order):
 # each with the phase-2 checks of the shapes its paths serve
 GROUPS = ("phase2", "main_path", "bf16_paths", "ssm_paths",
-          "vlm_audio_paths", "interleave_paths", "train_paths")
+          "vlm_audio_paths", "interleave_paths", "train_paths",
+          "mesh_paths")
 PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                         "check_attention", "check_q4",
                         "check_dense_attention", "check_flash_prefill",
@@ -6888,7 +7093,10 @@ PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
           "interleave_paths": ("check_llama4",),
           "train_paths": ("check_q8_matvec", "check_q8_matmul",
                           "check_attention", "check_rope",
-                          "check_rmsnorm_quant")}
+                          "check_rmsnorm_quant"),
+          "mesh_paths": ("check_q8_matvec", "check_q8_matmul",
+                         "check_attention", "check_rope",
+                         "check_rmsnorm_quant", "check_head_slices")}
 
 
 def parse_groups(argv):
@@ -6982,6 +7190,8 @@ def main(argv=None) -> int:
         interleave_paths(dev, counted)
     if "train_paths" in groups:
         train_paths(dev, counted)
+    if "mesh_paths" in groups:
+        mesh_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -82,6 +82,23 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+LM_SHAPES = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -99,6 +116,26 @@ def get_config(name: str) -> ModelConfig:
         mod = name.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[name]()
+
+
+def list_configs() -> list[str]:
+    """Every registered architecture: each module of
+    ``repro_torch.configs`` is imported, which registers its config."""
+    import importlib
+    import pkgutil
+    import repro_torch.configs as pkg
+    for mod in pkgutil.iter_modules(pkg.__path__):
+        if mod.name not in ("base", "__init__"):
+            importlib.import_module(f"repro_torch.configs.{mod.name}")
+    return sorted(_REGISTRY)
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeCell]:
+    """The assigned shape cells that apply to this architecture:
+    ``long_500k`` only where sequence mixing is sub-quadratic (the SSM and
+    hybrid families)."""
+    return [c for c in LM_SHAPES
+            if c.name != "long_500k" or cfg.subquadratic]
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -98,8 +98,15 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32-bit draws of ``shape`` per key: (*key.shape[:-1], *shape) int64."""
     shape = tuple(shape)
     j = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
-    b1, b2 = _hash(key[..., None, :], j >> 32, j & M32)
-    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+    return bits_at(key, j).reshape(*key.shape[:-1], *shape)
+
+
+def bits_at(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The 32-bit draws at flat positions ``index`` (int64) of any draw
+    ``random_bits(key, shape)`` covering them: each draw is a function of
+    its own position alone, so a slice of a draw costs only the slice."""
+    b1, b2 = _hash(key[..., None, :], index >> 32, index & M32)
+    return b1 ^ b2
 
 
 def _f32(v: float) -> float:
@@ -119,7 +126,18 @@ def _fma(a, b, c) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """Float32 draws in ``[minval, maxval)``, as ``jax.random.uniform``."""
-    bits = random_bits(key, shape)
+    return _uniform_of(random_bits(key, shape), minval, maxval)
+
+
+def uniform_at(key: torch.Tensor, index: torch.Tensor, minval: float = 0.0,
+               maxval: float = 1.0) -> torch.Tensor:
+    """The draws of ``uniform`` at flat positions ``index`` of its shape
+    (``bits_at``)."""
+    return _uniform_of(bits_at(key, index), minval, maxval)
+
+
+def _uniform_of(bits: torch.Tensor, minval: float,
+                maxval: float) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
     lo = _f32(minval)

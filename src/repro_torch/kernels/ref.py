@@ -121,7 +121,11 @@ def ref_decode_attention(q, k, v, lens, k_scale=None, v_scale=None):
     if k_scale is not None:
         kf = kf * k_scale[..., None]
         vf = vf * v_scale[..., None]
-    scores = torch.einsum("bhqd,bshd->bhqs", q.float(), kf)
+    # K as (B, KVH, D, S) in one contiguous layout: the product then takes
+    # one path whatever the head count, so a head's scores are the same
+    # bits in a call over one KV head as over all of them (a mesh rank's
+    # slice; the einsum took a transposed path for a lone head)
+    scores = torch.matmul(q.float(), kf.permute(0, 2, 3, 1).contiguous())
     pos = torch.arange(s, device=q.device)[None, None, None, :]
     mask = pos < lens[:, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))

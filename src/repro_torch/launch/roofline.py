@@ -1,7 +1,7 @@
 """Roofline energy model of one device call on an NVIDIA H100.
 
-PyTorch counterpart of ``step_joules`` and ``tree_bytes`` of
-``repro/launch/roofline.py``: a call takes the larger of its memory time
+PyTorch counterpart of ``step_joules``, ``tree_bytes`` and
+``per_device_bytes`` of ``repro/launch/roofline.py``: a call takes the larger of its memory time
 and its compute time, and the card burns its power limit for that long.
 The engine feeds it each step's bytes (weights, live KV rows) and
 operations and accumulates ``metrics["energy_joules"]``; tokens over that
@@ -14,7 +14,10 @@ Core GPU data sheet.
 
 from __future__ import annotations
 
+import math
+
 from repro_torch.core.policy import count_bytes
+from repro_torch.core.quantization import QuantizedTensor
 
 HBM_BW = 3.35e12          # B/s: HBM3 bandwidth (data sheet)
 PEAK_INT8_OPS = 1979e12   # op/s: INT8 tensor core, dense (data sheet)
@@ -39,3 +42,25 @@ def tree_bytes(tree) -> int:
     """Bytes a parameter tree holds: a quantized leaf counts its codes and
     its f32 scales (``policy.count_bytes``'s total)."""
     return count_bytes(tree)["total"]
+
+
+def per_device_bytes(struct, specs, mesh) -> float:
+    """Bytes one device holds of a tree (tensors, meta tensors included)
+    given its specs (``distribution/sharding.py``): each leaf's bytes over
+    the product of the sizes of the axes that split it; a quantized leaf's
+    codes and scales each under their own spec."""
+    if isinstance(struct, dict):
+        return sum(per_device_bytes(v, specs[k], mesh)
+                   for k, v in struct.items())
+    if isinstance(struct, (tuple, list)):
+        return sum(per_device_bytes(v, s, mesh)
+                   for v, s in zip(struct, specs))
+    if isinstance(struct, QuantizedTensor):
+        return (per_device_bytes(struct.q, specs.q, mesh)
+                + per_device_bytes(struct.scale, specs.scale, mesh))
+    shards = 1
+    for axis in specs:
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            if a is not None:
+                shards *= mesh.shape[a]
+    return math.prod(struct.shape) * struct.element_size() / shards

@@ -123,13 +123,27 @@ layout) is restored and quantized as above:
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --ckpt-dir /path/to/ckpt
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP, queue A):
-``--mesh`` (sharded serving).
+``--mesh N`` serves tensor-parallel over a mesh of N devices
+(``launch/mesh.make_serve_mesh``; ``serving/engine.py``: the pool sharded
+on its KV heads, the weights held sharded and gathered whole at use, the
+streams those of one device, bit for bit).  ``--mesh 1`` runs in this
+process (a world of one: NCCL on the card, gloo on the CPU); N > 1 runs
+one process a device under ``torchrun``, rank 0 printing and the others
+serving in silence:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 2 \
+      --full --requests 16 --slots 8 --max-seq 1024
+
+On a mesh of more than one, ``--open-loop`` is refused
+(``NotImplementedError``): its arrivals are released by each rank's own
+clock (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
@@ -140,7 +154,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import qlinear
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, params_to
 from repro_torch.serving.async_serving import (first_token_latencies,
                                                poisson_arrivals,
                                                run_open_loop)
@@ -165,23 +179,18 @@ def _print_throughput(eng, toks: int, wall: float) -> None:
           f"(tokens_out/t_decode)")
 
 
-def _refuse_unported(mesh_size) -> None:
-    if mesh_size > 0:
-        raise NotImplementedError(
-            f"--mesh {NOT_PORTED.format('mesh sharding')}")
-
-
-def _load_params(model, ckpt_dir: str, seed: int, dev):
-    """The float parameters: the seeded init, or with ``ckpt_dir`` the
-    newest checkpoint there (``checkpoint/store.py``: the trainer's, or the
-    reference's, restored into the init's tree).  The step restored must be
-    the latest on disk: a stale or missing step directory fails here
-    rather than serving old weights."""
+def _load_params(model, ckpt_dir: str, seed: int, dev, hold=None):
+    """The float parameters: the seeded init (drawn on ``dev``), or with
+    ``ckpt_dir`` the newest checkpoint there (``checkpoint/store.py``: the
+    trainer's, or the reference's, restored into the init's tree); held on
+    ``hold`` (``dev`` by default).  The step restored must be the latest
+    on disk: a stale or missing step directory fails here rather than
+    serving old weights."""
     if not ckpt_dir:
-        return model.init(seed, device=dev)
+        return model.init(seed, device=dev, hold=hold)
     restored, step, _ = store.restore(ckpt_dir,
                                       {"params": model.init_meta()},
-                                      device=dev)
+                                      device=hold or dev)
     latest = store.latest_step(ckpt_dir)
     if step != latest:
         raise RuntimeError(f"restored step {step} from {ckpt_dir} but "
@@ -191,22 +200,39 @@ def _load_params(model, ckpt_dir: str, seed: int, dev):
     return restored["params"]
 
 
-def _refuse_past_memory(cfg, policy, dev) -> None:
-    """Raise ``NotImplementedError`` before any draw where the tree would
-    not fit the device: its bytes (``transformer.init_bytes``) against the
-    card's memory, or ``CARD_BYTES`` on the CPU."""
+def _held_bytes(model, policy, mesh=None) -> float:
+    """Bytes of parameters the device holds: the tree ``init_params`` (no
+    ``policy``) or ``init_quantized`` would hold (``transformer.
+    init_bytes``), or on a mesh of more than one this rank's serve-mode
+    shards of it (``roofline.per_device_bytes``), counted on the meta
+    device: nothing is drawn."""
     from repro_torch.models.transformer import init_bytes
-    need = init_bytes(cfg, policy)
+    if mesh is None or mesh.shape["model"] == 1:
+        return init_bytes(model.cfg, policy)
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch.roofline import per_device_bytes
+    from repro_torch.launch.steps import params_struct
+    struct = params_struct(model, policy is not None, policy)
+    return per_device_bytes(
+        struct, sh.param_specs(model.cfg, struct, mesh, mode="serve"), mesh)
+
+
+def _refuse_past_memory(model, policy, dev, mesh=None) -> None:
+    """Raise ``NotImplementedError`` before any draw where the parameters
+    would not fit the device (:func:`_held_bytes`) against the card's
+    memory, or ``CARD_BYTES`` on the CPU."""
+    cfg = model.cfg
+    need = _held_bytes(model, policy, mesh)
     cap = (torch.cuda.get_device_properties(dev).total_memory
            if dev.type == "cuda" else CARD_BYTES)
     if need > cap:
         kind = "float" if policy is None else f"Q{policy.bits}_0"
         raise NotImplementedError(
             f"{cfg.arch_id}: {cfg.n_layers} layers hold {need / 1e9:.1f} GB "
-            f"of {kind} parameters, past the {cap / 1e9:.1f} GB of one "
-            "card; a model this size is served cut in depth "
-            "(cfg.with_(n_layers=...), as chip_smoke.py does) or sharded "
-            "(not yet ported)")
+            f"of {kind} parameters on a device, past the {cap / 1e9:.1f} GB of "
+            "one card; a model this size is served cut in depth "
+            "(cfg.with_(n_layers=...), as chip_smoke.py does) or on a "
+            "larger mesh (--mesh)")
 
 
 def run(arch: str = "llama2-110m", use_reduced: bool = True,
@@ -221,8 +247,33 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     (:func:`_run_open_loop`); returns the engine and the requests.  The
     run is under the ``kernel`` strategy; the process default is restored
     after it.  ``spec_tokens > 0`` speculates with the ``draft`` proposer:
-    ``"ngram"``, or ``"draft_model"`` with the served model and weights."""
-    _refuse_unported(mesh_size)
+    ``"ngram"``, or ``"draft_model"`` with the served model and weights.
+    ``mesh_size`` > 0 serves on a mesh of that many ranks (the module
+    docstring); a rank other than 0 prints nothing."""
+    mesh = None
+    if mesh_size > 0:
+        if open_loop and mesh_size > 1:
+            raise NotImplementedError(
+                f"--open-loop on a mesh of {mesh_size} "
+                f"{NOT_PORTED.format('an open loop on a mesh')}: its "
+                "arrivals are released by each rank's own clock, so the "
+                "ranks' plans would part")
+        from repro_torch.launch.mesh import make_serve_mesh
+        mesh = make_serve_mesh(mesh_size, device=device)
+        device = mesh.device
+    quiet = (contextlib.redirect_stdout(io.StringIO())
+             if mesh is not None and mesh.rank != 0
+             else contextlib.nullcontext())
+    with quiet:
+        return _run(arch, use_reduced, requests, bits, kv_int8, max_seq,
+                    max_new, slots, ckpt_dir, seed, no_quant, spec_tokens,
+                    draft, open_loop, rate, load_factor, stream,
+                    stream_interval, mesh, device)
+
+
+def _run(arch, use_reduced, requests, bits, kv_int8, max_seq, max_new,
+         slots, ckpt_dir, seed, no_quant, spec_tokens, draft, open_loop,
+         rate, load_factor, stream, stream_interval, mesh, device):
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
@@ -232,13 +283,24 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     dev = resolve_device(device)
     model = build_model(cfg)
     policy = None if no_quant else QuantPolicy(bits=bits, min_size=512)
-    # a checkpoint's float tree is held before it is quantized
-    _refuse_past_memory(cfg, None if ckpt_dir else policy, dev)
+    # on a mesh of more than one the tree is drawn (or restored) to the
+    # host and cut there: the card holds this rank's shards alone
+    host = (torch.device("cpu")
+            if mesh is not None and mesh.shape["model"] > 1 else None)
+    # a checkpoint's float tree is held before it is quantized: on the
+    # device, unless the host holds it
+    _refuse_past_memory(model, None if ckpt_dir and host is None else policy,
+                        dev, mesh)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {dev} ({name})")
+    if mesh is not None:
+        n = mesh.shape["model"]
+        print(f"[serve] tensor-parallel mesh: model={n} ({mesh.size} "
+              "devices; KV pool sharded on KV heads, streams bit-identical "
+              "to unsharded)")
     if no_quant or ckpt_dir:
-        params = _load_params(model, ckpt_dir, seed, dev)
+        params = _load_params(model, ckpt_dir, seed, dev, host)
         if not no_quant:
             t0 = time.perf_counter()
             params = model.quantize(params, policy)
@@ -248,17 +310,19 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
         # post-training quantization as each weight is drawn: the same bits
         # as quantize(init(seed)), without the float tree
         t0 = time.perf_counter()
-        params = model.init_quantized(seed, policy, device=dev)
+        params = model.init_quantized(seed, policy, device=dev, hold=host)
         print(f"[serve] Q{bits}_0 post-training quantization, drawn and "
               f"quantized in {time.perf_counter()-t0:.2f}s")
 
-    proposer = (DraftModelProposer(model, params, max_seq=max_seq)
+    # the draft model is the served one, whole, on the device
+    proposer = (DraftModelProposer(model, params_to(params, dev),
+                                   max_seq=max_seq)
                 if spec_tokens > 0 and draft == "draft_model" else draft)
 
     def make_engine():
         return Engine(model, params, max_slots=slots, max_seq=max_seq,
                       seed=seed, spec_tokens=spec_tokens,
-                      draft_proposer=proposer, device=dev)
+                      draft_proposer=proposer, mesh=mesh, device=dev)
 
     prompts = _make_prompts(np.random.default_rng(seed), cfg, requests)
     old = qlinear.default_strategy()
@@ -268,6 +332,9 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
             return _run_open_loop(make_engine, prompts, max_new, seed, rate,
                                   load_factor, stream, stream_interval)
         eng = make_engine()
+        # the engine holds what it serves (on a mesh, this rank's shards):
+        # the tree it was made from goes before the run
+        del params
         for prompt in prompts:
             eng.submit(prompt, max_new_tokens=max_new)
         t0 = time.perf_counter()
@@ -395,8 +462,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-interval", type=int, default=1,
                     help="flush streamed tokens every N engine steps")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="tensor-parallel mesh size (0 = single device; "
-                         "not yet ported)")
+                    help="tensor-parallel mesh size over the model axis "
+                         "(0 = single device; N > 1 under torchrun "
+                         "--nproc-per-node N)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     ap.set_defaults(reduced=True)
@@ -404,8 +472,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Parse ``argv`` and serve; returns ``run``'s (engine, requests)."""
     args = build_parser().parse_args(argv)
-    run(args.arch, args.reduced, args.requests, args.bits, args.kv_int8,
+    return run(args.arch, args.reduced, args.requests, args.bits, args.kv_int8,
         args.max_seq, args.max_new, args.slots, args.ckpt_dir,
         no_quant=args.no_quant, spec_tokens=args.spec_tokens,
         draft=args.draft, open_loop=args.open_loop, rate=args.rate,

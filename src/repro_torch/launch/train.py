@@ -27,8 +27,10 @@ decay to ``steps``), and ``--grad-compress`` changes nothing in the step
 Each logged step prints the loss, the learning rate, the gradient norm and
 tokens per second over the whole step, then the step's data time (drawing
 the batch on the host) and its device time (the step itself, synchronized)
-apart.  The reference's GSPMD wrapper (``jit_train_step``) and its mesh
-wait for the port's mesh (ROADMAP, queue A).
+apart.  The reference's GSPMD wrapper (``jit_train_step``) trains on a
+mesh, where its products are really partitioned (Megatron TP); training on
+a mesh of more than one device waits (ROADMAP, queue A): the port's mesh
+serves only (``serving/engine.py``).
 """
 
 from __future__ import annotations

@@ -110,25 +110,25 @@ def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Device = None) -> Params:
+                device: Device = None, hold: Device = None) -> Params:
     """Random parameters from ``seed``: the reference's shapes and scales
     (projections times 1/sqrt(fan-in), the embedding and positions times
     0.02), drawn from a ``torch.Generator``, so the values differ from the
     reference's."""
     check_family(cfg)
-    return draw_params(cfg, _param_tree, seed, device=device)
+    return draw_params(cfg, _param_tree, seed, device=device, hold=hold)
 
 
 def init_quantized(cfg: ModelConfig, seed: int = 0,
                    policy: Optional[QuantPolicy] = None,
-                   device: Device = None) -> Params:
+                   device: Device = None, hold: Device = None) -> Params:
     """``init_params`` quantized as it draws: bitwise
     ``quantize_params(init_params(cfg, seed), policy)`` (no fused decode
     operands: the reference fuses none for this family) without the float
     tree."""
     check_family(cfg)
     return draw_params(cfg, _param_tree, seed, policy or QuantPolicy(),
-                       device)
+                       device, hold)
 
 
 def _qkv(p, h):

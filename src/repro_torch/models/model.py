@@ -29,8 +29,12 @@ class Model:
         ``transformer`` for every other."""
         return encdec if self.cfg.family == "audio" else transformer
 
-    def init(self, seed: int = 0, device: Device = None):
-        return self._family.init_params(self.cfg, seed, device=device)
+    def init(self, seed: int = 0, device: Device = None,
+             hold: Device = None):
+        """The seeded tree, drawn on ``device`` and held on ``hold`` (the
+        same device by default; ``transformer.draw_params``)."""
+        return self._family.init_params(self.cfg, seed, device=device,
+                                        hold=hold)
 
     def loss(self, params, batch):
         """The mean next-token cross-entropy of ``batch`` (``labels`` with
@@ -46,13 +50,14 @@ class Model:
 
     def init_quantized(self, seed: int = 0,
                        policy: Optional[QuantPolicy] = None,
-                       device: Device = None):
+                       device: Device = None, hold: Device = None):
         """``quantize(init(seed), policy)``, fused decode operands
         included (none for the audio family), bit for bit, without ever
         holding the float tree: each weight is quantized as it is drawn
-        (``transformer.draw_params``)."""
+        (``transformer.draw_params``), on ``device``, and held on
+        ``hold``."""
         return self._family.init_quantized(self.cfg, seed, policy,
-                                           device=device)
+                                           device=device, hold=hold)
 
     def quantize(self, params, policy: Optional[QuantPolicy] = None,
                  fuse_decode: bool = True):
@@ -83,36 +88,43 @@ class Model:
 
     def init_paged_cache(self, batch: int, *, block_size: int = 64,
                          n_blocks: int, max_blocks_per_seq: int,
-                         device: Device = None):
+                         device: Device = None, mesh=None):
         return transformer.init_paged_cache(
             self.cfg, batch, block_size=block_size, n_blocks=n_blocks,
-            max_blocks_per_seq=max_blocks_per_seq, device=device)
+            max_blocks_per_seq=max_blocks_per_seq, device=device, mesh=mesh)
 
-    def decode_step(self, params, cache, tokens, positions=None):
-        return self._family.decode_step(params, self.cfg, cache, tokens,
-                                        positions)
+    def decode_step(self, params, cache, tokens, positions=None, mesh=None):
+        """``mesh`` (paged pool only) serves on one rank of a mesh
+        (``transformer.decode_step``); the audio family takes none."""
+        if mesh is None:
+            return self._family.decode_step(params, self.cfg, cache, tokens,
+                                            positions)
+        return transformer.decode_step(params, self.cfg, cache, tokens,
+                                       positions, mesh=mesh)
 
     def prefill_chunk(self, params, tokens, cache, slot, offset):
         return transformer.prefill_chunk(params, self.cfg, tokens, cache,
                                          slot, offset)
 
     def prefill_chunk_batch(self, params, tokens, cache, slots, offs,
-                            page_table=None, chunk_lens=None):
+                            page_table=None, chunk_lens=None, mesh=None):
         return transformer.prefill_chunk_batch(
             params, self.cfg, tokens, cache, slots, offs,
-            page_table=page_table, chunk_lens=chunk_lens)
+            page_table=page_table, chunk_lens=chunk_lens, mesh=mesh)
 
-    def prefill_compile_count(self) -> int:
-        return transformer.prefill_chunk_compiles(self.cfg)
+    def prefill_compile_count(self, mesh=None) -> int:
+        """Distinct chunk-step shapes so far on meshes of ``mesh``'s shape
+        (none: off a mesh): one per (pool key, mesh shape)."""
+        return transformer.prefill_chunk_compiles(self.cfg, mesh=mesh)
 
     def verify_chunk_batch(self, params, tokens, cache, slots, offs,
-                           page_table=None, chunk_lens=None):
+                           page_table=None, chunk_lens=None, mesh=None):
         return transformer.verify_chunk_batch(
             params, self.cfg, tokens, cache, slots, offs,
-            page_table=page_table, chunk_lens=chunk_lens)
+            page_table=page_table, chunk_lens=chunk_lens, mesh=mesh)
 
-    def verify_compile_count(self) -> int:
-        return transformer.verify_chunk_compiles(self.cfg)
+    def verify_compile_count(self, mesh=None) -> int:
+        return transformer.verify_chunk_compiles(self.cfg, mesh=mesh)
 
 
 def build_model(cfg: ModelConfig) -> Model:

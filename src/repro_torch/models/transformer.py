@@ -36,6 +36,7 @@ cross-entropy in chunks of f32 logits; each block and each chunk under
 
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -53,6 +54,8 @@ from repro_torch.core.quantization import (QuantizedTensor,
                                            qt_fold_lead_into_groups,
                                            qt_reshape_lead, quantize,
                                            quantize_rows)
+from repro_torch.core.tree import map_tree
+from repro_torch.distribution import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -242,15 +245,19 @@ def _param_tree(cfg: ModelConfig, leaf, dev: torch.device) -> Params:
 
 def draw_params(cfg: ModelConfig, tree, seed: int = 0,
                 policy: Optional[QuantPolicy] = None,
-                device: Device = None) -> Params:
+                device: Device = None, hold: Device = None) -> Params:
     """``tree(cfg, leaf, dev)`` (``_param_tree``, or ``encdec``'s) with
     every weight drawn from one ``torch.Generator`` seeded ``seed``: a
     normal draw times its scale, in its dtype.  With ``policy`` each weight
     the policy quantizes is quantized as it is drawn, by slices
     (``_quantize_slices``), and its float values freed before the next
-    draw."""
+    draw.  ``hold`` keeps the tree on another device than the draws'
+    (each leaf moved there as it is made, the same bits): a mesh rank
+    draws on its card and holds the tree on the host, where it is cut
+    into the shards the card keeps."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    to = dev if hold is None else torch.device(hold)
 
     def leaf(path, shape, scale, dtype=None, by_layer=False):
         quantized = policy is not None and policy.wants(path, shape)
@@ -259,19 +266,19 @@ def draw_params(cfg: ModelConfig, tree, seed: int = 0,
             x = torch.randn(shp, generator=gen, device=dev).mul_(scale).to(
                 dtype or _pdt(cfg))
             return _quantize_slices(x, policy) if quantized else x
-        return _draw_leaf(shape, by_layer, draw)
+        return _draw_leaf(shape, by_layer, draw).to(to)
 
-    return tree(cfg, leaf, dev)
+    return map_tree(lambda t: t.to(to), tree(cfg, leaf, dev))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Device = None) -> Params:
+                device: Device = None, hold: Device = None) -> Params:
     """Random parameters from ``seed``: the reference's shapes and scales
     (normal draws times 1/sqrt(fan-in); embedding times 0.02; the MoE
     router in f32), drawn from a ``torch.Generator``, so the values differ
     from the reference's."""
     check_family(cfg)
-    return draw_params(cfg, _param_tree, seed, device=device)
+    return draw_params(cfg, _param_tree, seed, device=device, hold=hold)
 
 
 # values a quantized slice of ``init_quantized`` holds at most (1 GB of f32)
@@ -300,7 +307,7 @@ def _quantize_slices(x: torch.Tensor, policy: QuantPolicy) -> QuantizedTensor:
 
 def init_quantized(cfg: ModelConfig, seed: int = 0,
                    policy: Optional[QuantPolicy] = None,
-                   device: Device = None) -> Params:
+                   device: Device = None, hold: Device = None) -> Params:
     """``init_params`` quantized as it draws: bitwise
     ``fuse_decode_weights(quantize_params(init_params(cfg, seed), policy))``
     without the float tree.  Each weight is the same generator call at the
@@ -312,7 +319,8 @@ def init_quantized(cfg: ModelConfig, seed: int = 0,
     of 119 GB."""
     check_family(cfg)
     return fuse_decode_weights(draw_params(cfg, _param_tree, seed,
-                                           policy or QuantPolicy(), device),
+                                           policy or QuantPolicy(), device,
+                                           hold),
                                cfg)
 
 
@@ -527,15 +535,18 @@ def supports_paged_cache(cfg: ModelConfig) -> bool:
 
 def _attn_bank(cfg: ModelConfig, lead: Tuple[int, ...],
                dev: torch.device, scratch: bool = False,
-               stack: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+               stack: Tuple[int, ...] = (),
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Stacked K/V buffers (*stack, *lead, KVH, hd) (``stack``: the layer
-    axes, ``(n_layers,)`` by default), plus one f32 scale per row and head
+    axes, ``(n_layers,)`` by default; ``kv_heads``: KVH, the config's by
+    default), plus one f32 scale per row and head
     for an int8 cache.  With ``scratch`` each buffer is a
     view of one with an extra block behind the last (``lead[0] + 1``
     blocks): the paged decode step sends the rows that must write nothing
     there (:func:`_scratch_view`), and nothing reads it."""
     kvd = torch.int8 if _kv_int8(cfg) else _cdt(cfg)
-    shape = (*(stack or (cfg.n_layers,)), *lead, cfg.n_kv_heads, cfg.hd())
+    shape = (*(stack or (cfg.n_layers,)), *lead,
+             kv_heads or cfg.n_kv_heads, cfg.hd())
     dtypes = {"k": kvd, "v": kvd}
     if _kv_int8(cfg):
         dtypes.update(ks=torch.float32, vs=torch.float32)
@@ -606,16 +617,82 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
                      n_blocks: int, max_blocks_per_seq: int,
-                     device: Device = None) -> Cache:
-    """Block-pool KV cache + page table (rows of -1 where unassigned)."""
+                     device: Device = None, mesh=None) -> Cache:
+    """Block-pool KV cache + page table (rows of -1 where unassigned).
+    With ``mesh`` the pool holds this rank's KV heads alone
+    (``sharding.paged_cache_specs``: KVH split over ``model`` where it
+    divides, else every head)."""
     if not supports_paged_cache(cfg):
         raise ValueError(f"paged cache unsupported for family {cfg.family}")
     dev = resolve_device(device)
+    kvh = None if mesh is None else _ServeMesh.kv_range(cfg, mesh)[1]
     return {"lens": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "page_table": torch.full((batch, max_blocks_per_seq), -1,
                                      dtype=torch.int32, device=dev),
             "attn": _attn_bank(cfg, (n_blocks, block_size), dev,
-                               scratch=True)}
+                               scratch=True, kv_heads=kvh)}
+
+
+class _ServeMesh:
+    """The storage-sharded, compute-replicated serving scheme on one rank
+    of a mesh: the counterpart of the reference's ``_serve_mesh_helpers``.
+
+    The paged pool holds the rank's own KV heads (``kv_range``); weights
+    are held sharded (``sharding.Sharded``: the tree of this rank's shards
+    and its specs) and all-gathered whole at use, one layer at a time
+    (``layer``), the embedding and the final norm at each call (``top``);
+    q, k and v are computed whole from the whole weights, every rank the
+    same; both paged attentions run on the rank's KV heads and their query
+    heads (``q`` / ``kv``), and the attention output is all-gathered along
+    heads (``heads``) before the wo contraction mixes them.  Every
+    collective is an all-gather: no float reduction is split across ranks,
+    so each rank computes the unsharded bits.  Replicated params (a plain
+    tree, as the engine places them at model size 1) are read as they
+    are; a pool the model axis does not split is read whole, and nothing
+    is gathered around attention."""
+
+    def __init__(self, cfg: ModelConfig, params, mesh):
+        self.mesh = mesh
+        if isinstance(params, sh.Sharded):
+            self.tree, self.specs = params.tree, params.specs
+        else:
+            self.tree, self.specs = params, None
+        start, n = self.kv_range(cfg, mesh)
+        g = cfg.n_heads // cfg.n_kv_heads
+        self.split = n < cfg.n_kv_heads
+        self.kv = slice(start, start + n)
+        self.q = slice(start * g, (start + n) * g)
+        self.kv_heads, self.q_heads = n, n * g
+        self.top = dict(self.tree)
+        if self.specs is not None:
+            for k in ("embed", "final_norm"):
+                self.top[k] = sh.gather_tree(self.tree[k], self.specs[k],
+                                             mesh)
+        self.block_specs = (None if self.specs is None
+                            else sh.drop_lead(self.specs["blocks"]))
+
+    @staticmethod
+    def kv_range(cfg: ModelConfig, mesh) -> Tuple[int, int]:
+        """(first, count) of the KV heads this rank's pool holds."""
+        ax = sh.pool_model_axis(cfg, mesh)
+        if ax is None:
+            return 0, cfg.n_kv_heads
+        return sh.shard_range(cfg.n_kv_heads, ax, mesh)
+
+    def layer(self, lp):
+        """One layer's weights whole: a view of the replicated tree, or its
+        shards, each all-gathered at its first use (:class:`_OnUse`)."""
+        if self.block_specs is None:
+            return lp
+        return _OnUse(lp, self.block_specs, self.mesh)
+
+    def heads(self, out: torch.Tensor, dim: int) -> torch.Tensor:
+        """The attention output of the rank's heads -> every head, along
+        ``dim``."""
+        if not self.split:
+            return out
+        return sh.all_gather_dim(out, dim, self.mesh.groups["model"],
+                                 self.mesh.shape["model"])
 
 
 def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
@@ -669,19 +746,52 @@ def _decode_out_proj(p_attn, out, x_dtype):
     return qeinsum("bhk,dhk->bd", out, p_attn["wo"]).to(x_dtype)
 
 
+class _OnUse(collections.abc.Mapping):
+    """A tree of shards read as the whole tree: each leaf is all-gathered
+    (``sharding.gather``) when it is first read, and kept for the rest of
+    the call.  A step reads only the weights its path uses (the decode
+    step the fused operands, the chunk step the head-structured ones), and
+    every rank runs the same code, so the ranks gather the same leaves in
+    the same order."""
+
+    def __init__(self, shards, specs, mesh):
+        self._shards, self._specs, self._mesh = shards, specs, mesh
+        self._whole: Dict[str, Any] = {}
+
+    def __getitem__(self, k):
+        if k not in self._whole:
+            v, spec = self._shards[k], self._specs[k]
+            self._whole[k] = (_OnUse(v, spec, self._mesh)
+                              if isinstance(v, dict)
+                              else sh.gather(v, spec, self._mesh))
+        return self._whole[k]
+
+    def __iter__(self):
+        return iter(self._shards)
+
+    def __len__(self):
+        return len(self._shards)
+
+
 def _attn_decode_layer(lp, x, cfg: ModelConfig, lc, rope, dst, lens_now,
-                       qscale: float, pt=None):
+                       qscale: float, pt=None, sm=None):
     """One attention block at a decode step: q, k, v of the pre-norm x
     (B, D), the new K/V rows written at ``dst`` ((block, offset) of the
     paged pool when ``pt`` is its page table, else (slot, position) of
     the dense cache ``lc``), attention over each row's ``lens_now``
-    positions (q scaled by ``qscale``), then the MLP."""
+    positions (q scaled by ``qscale``), then the MLP.  On a mesh
+    (``sm``, a :class:`_ServeMesh`) the rank writes and attends its own
+    KV heads, and the heads are gathered before the out projection."""
     q, k, v = _decode_qkv(lp, x, cfg, *rope)
     qs = q * qscale
     if pt is not None:
+        if sm is not None:
+            qs, k, v = qs[:, sm.q], k[:, sm.kv], v[:, sm.kv]
         _write_rows({n: _scratch_view(b) for n, b in lc.items()}, k, v, *dst)
         out = ops.paged_decode_attention(qs, lc["k"], lc["v"], pt, lens_now,
                                          lc.get("ks"), lc.get("vs"))
+        if sm is not None:
+            out = sm.heads(out, 1)
     else:
         _write_rows(lc, k, v, *dst)
         out = ops.decode_attention(qs, lc["k"], lc["v"], lens_now,
@@ -706,7 +816,7 @@ def _ssm_decode_layer(lp, x, cfg: ModelConfig, lc) -> torch.Tensor:
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None, mesh=None
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,) -> (logits (B, V) f32, cache), on the paged pool when
     the cache carries a ``page_table``, else on the dense cache.
@@ -723,8 +833,19 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     ``decode_attention`` (the CUDA kernels on the card, which read only each
     row's live positions; their plain versions on the CPU).  A Mamba2 layer
     advances every row's conv rings and SSM state by its token
-    (``_ssm_decode_layer``)."""
+    (``_ssm_decode_layer``).
+
+    ``mesh`` (``launch/mesh.Mesh``, paged pool only) serves on one rank of
+    a mesh: ``params`` are the rank's ``sharding.Sharded`` shards (or the
+    whole tree, replicated), the pool its own KV heads; the logits come
+    back whole on every rank (:class:`_ServeMesh`)."""
     paged = "page_table" in cache
+    sm = None
+    if mesh is not None:
+        if not paged:
+            raise ValueError("mesh serving requires the paged cache")
+        sm = _ServeMesh(cfg, params, mesh)
+        params = sm.top
     pos = cache["lens"] if positions is None else positions
     x = embed_inputs(params, cfg, {"tokens": tokens})
     rope = _rope_cos_sin(cfg, _streams(cfg, pos))
@@ -753,8 +874,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         if kind == "ssm":
             x = _ssm_decode_layer(lp, x, cfg, lc)
         else:
+            if sm is not None:
+                lp = sm.layer(lp)
             x = _attn_decode_layer(lp, x, cfg, lc, rope, dst, lens_now,
-                                   qscale, pt)
+                                   qscale, pt, sm)
 
     logits = _head(params, cfg, x)
     new_cache = dict(cache)
@@ -1039,17 +1162,27 @@ def prefill_fused_mode(device: Device = None) -> str:
     return "kernel" if resolve_device(device).type == "cuda" else "oracle"
 
 
-def prefill_chunk_compiles(cfg: ModelConfig) -> int:
+def _mesh_key(mesh):
+    """The mesh shape a compile key carries: None off a mesh."""
+    return None if mesh is None else tuple(
+        (a, mesh.shape[a]) for a in mesh.axis_names)
+
+
+def prefill_chunk_compiles(cfg: ModelConfig, mesh=None) -> int:
     """How many distinct padded shapes the chunk step has run with for
-    ``cfg`` in this process -- the shape-stability probe."""
-    return len(_CHUNK_KEYS.get(cfg, ()))
+    ``cfg`` on meshes of ``mesh``'s shape (none: off a mesh) in this
+    process -- the shape-stability probe.  One per (pool key, mesh
+    shape), as the reference's jit entries are kept per mesh."""
+    want = _mesh_key(mesh)
+    return sum(k[0] == want for k in _CHUNK_KEYS.get(cfg, ()))
 
 
-def verify_chunk_compiles(cfg: ModelConfig) -> int:
+def verify_chunk_compiles(cfg: ModelConfig, mesh=None) -> int:
     """The same probe for the verify entry (:func:`verify_chunk_batch`):
     the engine pads every verify call to one ``(max_slots, spec_tokens +
-    1)`` extent, so this too stays at one per pool key."""
-    return len(_VERIFY_KEYS.get(cfg, ()))
+    1)`` extent, so this too stays at one per (pool key, mesh shape)."""
+    want = _mesh_key(mesh)
+    return sum(k[0] == want for k in _VERIFY_KEYS.get(cfg, ()))
 
 
 @dataclasses.dataclass
@@ -1132,7 +1265,8 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens_chunk, cache: Cache,
 
 def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
                         cache: Cache, slots, pos_offsets, page_table=None,
-                        chunk_lens=None) -> Tuple[torch.Tensor, Cache]:
+                        chunk_lens=None, mesh=None
+                        ) -> Tuple[torch.Tensor, Cache]:
     """Prefill one prompt chunk for up to B sequences in one call.
 
     ``tokens_chunks`` (B, c); ``slots`` lists B slot ids, negative for a
@@ -1149,14 +1283,20 @@ def prefill_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
     The Q/K/V/O projections go through the dequant ``qeinsum`` whatever the
     strategy, as in the reference; the MLP and head go through
     ``norm_qdot`` (norm2 and the final norm fused with their quantization
-    under the kernel strategy) and ``qdot``."""
+    under the kernel strategy) and ``qdot``.
+
+    ``mesh`` serves on one rank of a mesh, as :func:`decode_step` does:
+    the prefix read and the chunk's attention run on the rank's KV heads,
+    whatever their count (the CUDA kernel takes any), and the heads are
+    gathered before wo."""
     return _chunk_step(params, cfg, tokens_chunks, cache, slots, pos_offsets,
-                       page_table, chunk_lens, all_logits=False)
+                       page_table, chunk_lens, all_logits=False, mesh=mesh)
 
 
 def verify_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
                        cache: Cache, slots, pos_offsets, page_table=None,
-                       chunk_lens=None) -> Tuple[torch.Tensor, Cache]:
+                       chunk_lens=None, mesh=None
+                       ) -> Tuple[torch.Tensor, Cache]:
     """The speculative verify step: exactly :func:`prefill_chunk_batch` --
     the same addressing, prefix read and K/V writes -- but returning the
     logits of all ``c`` chunk positions, (B, c, V), instead of each row's
@@ -1166,31 +1306,40 @@ def verify_chunk_batch(params: Params, cfg: ModelConfig, tokens_chunks,
     read.  The head runs over all ``B * c`` rows at once.  Its shapes go
     into their own key set (:func:`verify_chunk_compiles`)."""
     return _chunk_step(params, cfg, tokens_chunks, cache, slots, pos_offsets,
-                       page_table, chunk_lens, all_logits=True)
+                       page_table, chunk_lens, all_logits=True, mesh=mesh)
 
 
 def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
                 cache: Cache, slots, pos_offsets, page_table, chunk_lens,
-                all_logits: bool) -> Tuple[torch.Tensor, Cache]:
+                all_logits: bool, mesh=None) -> Tuple[torch.Tensor, Cache]:
     """The body :func:`prefill_chunk_batch` and :func:`verify_chunk_batch`
     share; ``all_logits`` picks the head's rows and the key set."""
     a = _chunk_call_args(tokens_chunks, cache, slots, pos_offsets,
                          page_table, chunk_lens)
+    sm = None
+    if mesh is not None:
+        sm = _ServeMesh(cfg, params, mesh)
+        params = sm.top
     hd, kvh, qscale = cfg.hd(), cfg.n_kv_heads, _q_scale(cfg)
     b, c = a.toks.shape
     keys = _VERIFY_KEYS if all_logits else _CHUNK_KEYS
     keys.setdefault(cfg, set()).add(
-        (b, c) + tuple(tuple(t.shape) for t in cache["attn"].values()))
+        (_mesh_key(mesh), b, c)
+        + tuple(tuple(t.shape) for t in cache["attn"].values()))
     q_pos = a.offs[:, None] + torch.arange(c, dtype=torch.int32,
                                            device=a.offs.device)[None]
     cos, sin = _rope_cos_sin(cfg, _streams(cfg, q_pos))  # (B, c, hd)
     chunk_valid = (torch.arange(c, device=a.offs.device)[None]
                    < a.lens[:, None])
     acfg = L.AttnConfig(cfg.n_heads, kvh, hd, q_chunk=cfg.q_chunk)
+    if sm is not None:
+        acfg = acfg._replace(n_heads=sm.q_heads, n_kv_heads=sm.kv_heads)
     x = embed_inputs(params, cfg, {"tokens": a.toks})
 
     for i in range(cfg.n_layers):
         lp = _layer(params["blocks"], i)
+        if sm is not None:
+            lp = sm.layer(lp)
         lc = {k: v[i] for k, v in cache["attn"].items()}
         hn = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
         q = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wq"])
@@ -1199,11 +1348,15 @@ def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
         q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
         k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
         qs = q * qscale
+        if sm is not None:
+            qs, k, v = qs[:, :, sm.q], k[:, :, sm.kv], v[:, :, sm.kv]
         pfx_state = ops.paged_prefill_attention(
             qs, lc["k"], lc["v"], a.pt_rows, a.offs, a.lens, lc.get("ks"),
             lc.get("vs"))
         out = L.attention_chunk_merge(qs, None, None, k, v, acfg, q_pos,
                                       None, chunk_valid, pfx_state=pfx_state)
+        if sm is not None:
+            out = sm.heads(out, 2)
         out = qeinsum("bshk,dhk->bsd", out, lp["attn"]["wo"])
         x = x + out.to(x.dtype)
         x = x + _mlp(lp, x, cfg)

@@ -85,7 +85,25 @@ weights it streams, the KV rows it touches and its operations
 (``launch/roofline.step_joules``, H100 constants):
 ``metrics["energy_joules"]`` is a model, not a measurement.
 
-Not ported yet (ROADMAP): mesh sharding raises at construction.
+**Tensor-parallel serving (``mesh=``, paged pool).**  A mesh of n
+(``launch/mesh.make_serve_mesh``) is n processes, one a device, each
+running this whole engine: the allocator, the scheduler and the sampler
+are host code that never sees the mesh, so every rank keeps the same
+leases, page tables and streams.  Each rank holds only its shard of the
+weights (``sharding.param_specs`` in serve mode; replicated at model size
+1, as the reference places them) and of the pool (its KV heads,
+``sharding.cache_specs``) and computes replicated: the weights are
+all-gathered whole at use, a layer at a time, both paged attentions run on
+the rank's KV heads, their output is all-gathered along heads before wo,
+and the logits are whole on every rank (``transformer._ServeMesh``).  The
+only collectives are those all-gathers and the plan's broadcast: no float
+is reduced across ranks, so the streams are the unsharded engine's, bit
+for bit.  Deadlines read the clock, and two ranks' clocks differ: rank 0's
+plan and its deadline verdicts reach the others by a broadcast each step,
+the others check their own plan against it and take its verdicts
+(``_agree``), so the ranks cannot part and then wait on each other in a
+collective.  Every metric is each rank's own; they agree but for the
+clock's (the times and ``slow_steps``).
 """
 
 from __future__ import annotations
@@ -97,9 +115,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.distribution import sharding as sh
 from repro_torch.launch.roofline import step_joules, tree_bytes
 from repro_torch.models.model import Model, count_params, params_to
 from repro_torch.runtime.health import StragglerDetector
@@ -113,9 +133,6 @@ from repro_torch.serving.scheduler import (PrefillChunk, Scheduler,
                                            SpecVerify, StepPlan,
                                            validate_request)
 from repro_torch.serving.spec_decode import build_proposer
-
-NOT_PORTED = "not yet ported"
-
 
 def check_servable(cfg) -> None:
     """Raise ``NotImplementedError`` for a family the engine cannot serve:
@@ -299,8 +316,11 @@ class Engine:
     preempting steps in a row.  ``spec_tokens`` turns speculation on, with
     ``draft_proposer`` an object with ``propose(prompt, output, k)`` or a
     name for :func:`~repro_torch.serving.spec_decode.build_proposer`
-    (None: ``"ngram"``).  The arguments the port shares with the reference
-    come in its order."""
+    (None: ``"ngram"``).  ``mesh`` (a ``launch/mesh.Mesh``) serves on this
+    rank of a tensor-parallel mesh (module docstring); it needs the paged
+    pool, and ``ValueError`` says so for the dense cache or a model
+    without a pool.  ``device`` defaults to the mesh's.  The arguments the
+    port shares with the reference come in its order."""
 
     def __init__(self, model: Model, params: Any, max_slots: int = 8,
                  max_seq: int = 1024, eos_id: int = 2, seed: int = 0,
@@ -318,9 +338,17 @@ class Engine:
         if cache_kind not in ("paged", "dense"):
             raise ValueError(f"cache_kind must be 'paged' or 'dense', got "
                              f"{cache_kind!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"Engine(mesh) is {NOT_PORTED}")
+        if mesh is not None and (cache_kind != "paged"
+                                 or not model.supports_paged_cache):
+            raise ValueError("mesh serving requires the paged cache")
         check_servable(model.cfg)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) not in (
+                    mesh.device, torch.device(mesh.device.type)):
+                raise ValueError(f"the engine's device {device} is not the "
+                                 f"mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.spec_tokens = spec_tokens
         if spec_tokens > 0 and (draft_proposer is None
@@ -345,7 +373,17 @@ class Engine:
         self.straggler = StragglerDetector(n_hosts=1)
         self.key = prng.prng_key(seed)
         self.model = model
-        self.params = params_to(params, self.device)
+        if mesh is not None and mesh.shape["model"] > 1:
+            # held sharded by the serve-mode specs, cut where the tree lies
+            # (the host's, from serve.py) before the shards alone move to
+            # the device; at model size 1 a sharded placement is
+            # replication, as the reference places it
+            pspecs = sh.param_specs(model.cfg, params, mesh, mode="serve")
+            self.params = sh.Sharded(
+                params_to(sh.shard(params, pspecs, mesh), self.device),
+                pspecs)
+        else:
+            self.params = params_to(params, self.device)
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -365,7 +403,7 @@ class Engine:
                 enable_prefix_cache=prefix_caching)
             self.cache = model.init_paged_cache(
                 max_slots, block_size=page_size, n_blocks=self.n_pages,
-                max_blocks_per_seq=mb, device=self.device)
+                max_blocks_per_seq=mb, device=self.device, mesh=mesh)
         else:
             self.cache = model.init_cache(max_slots, max_seq,
                                           device=self.device)
@@ -565,7 +603,8 @@ class Engine:
             req.t_done = now
             self.metrics["requests_rejected"] += 1
             done.append(req)
-        expired = self._enforce_deadlines(plan)
+        expired = self._enforce_deadlines(plan, self._agree(
+            plan, self._deadline_verdicts()))
         done.extend(expired)
         if not plan.made_progress() and not expired:
             done.extend(self._handle_stall(stalled))
@@ -663,14 +702,14 @@ class Engine:
 
     def prefill_compile_count(self) -> int:
         """Distinct padded shapes the chunk step has run with for this
-        model config (the counterpart of the reference's compile count:
-        one per pool key)."""
-        return self.model.prefill_compile_count()
+        model config on this engine's mesh shape (the counterpart of the
+        reference's compile count: one per (pool key, mesh shape))."""
+        return self.model.prefill_compile_count(mesh=self.mesh)
 
     def verify_compile_count(self) -> int:
         """The same count for the speculative verify step, a separate entry
         with its own one-per-pool-key bar."""
-        return self.model.verify_compile_count()
+        return self.model.verify_compile_count(mesh=self.mesh)
 
     # -- the fault domain: deadlines, shedding, stalls, audits -----------------
     def _fail_request(self, req: Request, msg: str, kind: str,
@@ -733,29 +772,60 @@ class Engine:
                 attempts = 0
         return items, failed
 
-    def _enforce_deadlines(self, plan: StepPlan) -> List[Request]:
-        """The per-step watchdog: fail every request in flight past its
-        TTFT or total deadline, charged from its arrival (work it had
-        planned this step retracts; the others' streams are unaffected,
-        their sampling being keyed per row)."""
-        failed: List[Request] = []
-        now = self._now()
+    def _in_flight(self) -> Dict[int, Request]:
         reqs: Dict[int, Request] = {}
         for seq in (list(self.scheduler.running.values())
                     + list(self.scheduler.waiting)):
             reqs.setdefault(seq.req.uid, seq.req)
-        for req in reqs.values():
+        return reqs
+
+    def _deadline_verdicts(self) -> List[tuple]:
+        """(uid, "ttft" or "total", budget ms, age ms) of every request in
+        flight past its TTFT or total deadline, charged from its arrival
+        by this rank's clock."""
+        out = []
+        now = self._now()
+        for req in self._in_flight().values():
             if req.error is not None:
                 continue
             age_ms = (now - req.t_enqueue) * 1e3
             if (req.ttft_deadline_ms is not None
                     and req.t_first_token == 0.0
                     and age_ms > req.ttft_deadline_ms):
-                which, budget = "ttft", req.ttft_deadline_ms
+                out.append((req.uid, "ttft", req.ttft_deadline_ms, age_ms))
             elif req.deadline_ms is not None and age_ms > req.deadline_ms:
-                which, budget = "total", req.deadline_ms
-            else:
-                continue
+                out.append((req.uid, "total", req.deadline_ms, age_ms))
+        return out
+
+    def _agree(self, plan: StepPlan, verdicts: List[tuple]) -> List[tuple]:
+        """On a mesh of more than one rank: broadcast rank 0's step plan
+        and deadline verdicts, check this rank's plan against rank 0's
+        (``RuntimeError`` where they part: the ranks would otherwise wait
+        on each other in a collective) and return rank 0's verdicts.  Off
+        a mesh, or on a mesh of one: ``verdicts`` as they are."""
+        if self.mesh is None or self.mesh.size == 1:
+            return verdicts
+        mine = (self._step, plan.summary())
+        box = [(mine, verdicts) if self.mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.group,
+                                   device=self.device)
+        theirs, verdicts = box[0]
+        if theirs != mine:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} planned step {mine[0]} as {mine[1]}; "
+                f"rank 0 planned step {theirs[0]} as {theirs[1]}")
+        return verdicts
+
+    def _enforce_deadlines(self, plan: StepPlan,
+                           verdicts: List[tuple]) -> List[Request]:
+        """The per-step watchdog: fail every request the ``verdicts``
+        (:meth:`_deadline_verdicts`) name, past its TTFT or total
+        deadline (work it had planned this step retracts; the others'
+        streams are unaffected, their sampling being keyed per row)."""
+        failed: List[Request] = []
+        reqs = self._in_flight()
+        for uid, which, budget, age_ms in verdicts:
+            req = reqs[uid]
             self.metrics["deadline_misses"] += 1
             self.fault_log.append({"step": self._step, "kind": "deadline",
                                    "uid": req.uid, "budget": which})
@@ -934,7 +1004,8 @@ class Engine:
         the call's energy: the prefix rows are its KV reads, and each row
         attends causally within its own chunk."""
         k = self.cache["attn"]["k"]
-        _, _, bs, kvh, hd = k.shape
+        _, _, bs, _, hd = k.shape
+        kvh = self.model.cfg.n_kv_heads     # every head, a rank's or not
         mb = self.pager.cfg.max_blocks_per_seq
         n_layers = self.model.cfg.n_layers
         per_pos = 2 * kvh * hd * k.element_size()
@@ -980,7 +1051,7 @@ class Engine:
         t0 = self._now()
         logits, self.cache = self.model.prefill_chunk_batch(
             self.params, toks, self.cache, slots, offs,
-            page_table=self._host_pt, chunk_lens=lens)
+            page_table=self._host_pt, chunk_lens=lens, mesh=self.mesh)
         self.metrics["chunk_batch_calls"] += 1
         self._account_prefix_bytes(offs, lens)
         if self.faults is not None:
@@ -1185,7 +1256,7 @@ class Engine:
             self.faults.latency(self._step)    # a simulated slow step
         held = None if self.paged else self._held_ssm_rows(slots)
         logits, self.cache = self.model.decode_step(
-            self.params, self.cache, self._put(tokens))
+            self.params, self.cache, self._put(tokens), mesh=self.mesh)
         self._restore_rows(held)
         if self.faults is not None:
             logits = self.faults.corrupt_logits(SITE_DECODE, self._step,
@@ -1301,7 +1372,7 @@ class Engine:
             self.faults.latency(self._step)
         logits, self.cache = self.model.verify_chunk_batch(
             self.params, toks, self.cache, slots, offs,
-            page_table=self._host_pt, chunk_lens=lens)
+            page_table=self._host_pt, chunk_lens=lens, mesh=self.mesh)
         if self.faults is not None:
             logits = self.faults.corrupt_logits(SITE_DECODE, self._step,
                                                 logits, row_uids)

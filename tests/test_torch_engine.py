@@ -179,8 +179,8 @@ def test_nan_guard_fails_only_the_request_with_non_finite_logits(
                  device="cpu")
     step = Model.decode_step
 
-    def poisoned(self, params, cache, tokens, positions=None):
-        logits, cache = step(self, params, cache, tokens, positions)
+    def poisoned(self, params, cache, tokens, positions=None, mesh=None):
+        logits, cache = step(self, params, cache, tokens, positions, mesh)
         logits = logits.clone()
         logits[0] = float("nan")
         return logits, cache

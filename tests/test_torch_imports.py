@@ -28,7 +28,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.models.encdec", "repro_torch.configs.qwen2_vl_7b",
             "repro_torch.configs.whisper_small",
             "repro_torch.configs.llama4_maverick_400b_a17b",
-            "repro_torch.serving.paged_cache"} <= set(MODULES)
+            "repro_torch.serving.paged_cache",
+            "repro_torch.distribution", "repro_torch.distribution.sharding",
+            "repro_torch.launch.mesh",
+            "repro_torch.serving.sampling_distributed"} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -78,9 +81,10 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     params = m.quantize(m.init(0, device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(m, params, max_slots=1, max_seq=16, page_size=8)
-    with pytest.raises(NotImplementedError):
+    # a mesh needs the paged pool, as in the reference
+    with pytest.raises(ValueError, match="paged cache"):
         Engine(m, params, max_slots=1, max_seq=16, page_size=8,
-               mesh=object(), device="cpu")
+               cache_kind="dense", mesh=object(), device="cpu")
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run(requests=1)
