@@ -106,15 +106,22 @@ engine serves it, on a bf16 and an int8 KV cache, its memory peaks
 printed; phase 2 holds the seven kernels of that path at its shapes
 (``check_llama4``: HQ 5, ``rmsnorm_quant`` at K 5120 on its 40-float4
 plan).  Phase 27 (``train_paths``) trains: ``launch/train.py``'s ``run``
-takes llama2-110m at full width and depth 30 steps of 8 x 256 (loss,
-AdamW, the synthetic TinyStories stream, async checkpoints; every loss
-finite and falling), one step on the card against the same step on the
+(through ``launch/steps.py``'s ``jit_train_step`` on ``make_host_mesh()``,
+a world of one over NCCL) takes llama2-110m at full width and depth 30
+steps of 8 x 256 (loss, AdamW, the synthetic TinyStories stream, async
+checkpoints; every loss finite and falling), one step on the card against the same step on the
 CPU, a resume that runs only the remaining steps on an uninterrupted
 run's batches, then ``serve.py --ckpt-dir`` serves the trained Q8_0
 weights on the kernels (held to ``plain_delta_bound``) and
 ``ggml_export`` writes them, the same bytes on the card as on the CPU;
 last, llama3.2-3b at full width and depth takes 4 steps, its peak memory
-printed against the reckoning.  Training launches no kernel: the
+printed against the reckoning.  Phase 29 (``train_paths``, after phase
+27) trains llama2-110m at full width and depth 10 steps of 8 x 256 through
+``jit_train_step`` on ``make_host_mesh()`` and through the plain
+``make_train_step`` in turns from the same seed: every metric and the
+state after the last step bitwise equal, both steps timed, the peak
+memory printed, and the mesh run's checkpoint restored in the plain
+trainer bitwise.  Training launches no kernel: the
 reference's training reaches no Pallas kernel (its loss runs jnp alone)
 and no kernel of ``src/repro/`` has a backward (no ``custom_vjp``), so
 the port's loss is plain PyTorch under autograd; the kernels phase 27
@@ -6729,7 +6736,8 @@ def _ggml_lifecycle(dev, model, params, path):
 
 def train_path(dev, counted, n=27):
     """Phase ``n``: training at full width, then the trained weights served
-    on the kernels.  (1) ``launch/train.py``'s ``run`` trains llama2-110m
+    on the kernels.  (1) ``launch/train.py``'s ``run`` (``jit_train_step``
+    on ``make_host_mesh()``, a world of one) trains llama2-110m
     (12 layers, d_model 768, f32) 30 steps of 8 x 256 from the
     synthetic TinyStories stream, checkpointing every 15 steps: every loss
     finite, the last below the first, no kernel launched.  (2)
@@ -6901,14 +6909,190 @@ def train_path(dev, counted, n=27):
     return rec
 
 
+# phase 29: llama2-110m at full width and depth, 8 x 256 (train.py's
+# shape), through jit_train_step on make_host_mesh() against
+# make_train_step, step for step
+MESH_TRAIN_STEPS = 10
+
+
+def _same_state(a, b) -> list:
+    """Paths of the leaves of two states that are not bitwise equal."""
+    from repro_torch.core.tree import items, keystr
+    return [keystr(p) for (p, x), (_, y) in zip(items(a), items(b))
+            if not torch.equal(x, y)]
+
+
+def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
+                    batch=8, seq=256, steps_n=MESH_TRAIN_STEPS):
+    """Phase ``n``: training through the mesh executor at a world of one.
+    ``launch/steps.py``'s ``jit_train_step`` on ``make_host_mesh()`` (one
+    rank: NCCL on the card, gloo on the CPU) and the plain
+    ``make_train_step`` each train ``arch`` (llama2-110m at full width and
+    depth) ``steps_n`` steps of ``batch`` x ``seq`` from the same seeded
+    parameters over the same batches, with the microbatch count the
+    executor picks (``pick_microbatches``), the two steps in turns (which
+    goes first alternates): every loss, learning rate and gradient norm,
+    and the parameters, both moments and the step counter after the last
+    step bitwise equal; each step's ms (synchronized) and the peak GB
+    allocated.  Then the mesh run's checkpoint (``store.save(mesh=)``)
+    restores in the plain trainer bitwise, and one more plain step from
+    it equals one from the plain run's own state, bitwise."""
+    import gc
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticTinyStories
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    ocfg = adamw.AdamWConfig(warmup_steps=min(20, steps_n // 5 + 1),
+                             decay_steps=steps_n)
+    it = SyntheticTinyStories(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+        seed=n)).batches()
+    batches = [next(it) for _ in range(steps_n + 1)]
+    phase(f"phase {n}: jit_train_step on make_host_mesh() against "
+          f"make_train_step, {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}), {steps_n} steps of {batch} x {seq}")
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        backend = dist.get_backend()
+        if backend != ("nccl" if dev.type == "cuda" else "gloo") \
+                or mesh.size != 1:
+            raise AssertionError(f"the mesh runs {backend} over "
+                                 f"{mesh.size} ranks")
+        cell = ShapeCell(f"phase{n}", seq, batch, "train")
+        mesh_step, sstruct, _, (sspecs, bspecs) = steps.jit_train_step(
+            model, mesh, ocfg, cell)
+        k = steps.pick_microbatches(cell, mesh, cfg=cfg)
+        plain_step = steps.make_train_step(model, ocfg, microbatches=k)
+
+        def fresh():
+            p = model.init(0, device=dev)
+            return {"params": p, "opt": adamw.init_state(p)}
+        # earlier phases' training states linger in reference cycles
+        # until a collection: free them, so the peak is this phase's
+        held = (torch.cuda.memory_allocated() / 1e9
+                if dev.type == "cuda" else 0.0)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = (torch.cuda.memory_allocated() / 1e9
+                  if dev.type == "cuda" else 0.0)
+        plain, on_mesh = fresh(), sh.shard(fresh(), sspecs, mesh)
+        ms = {"plain": [], "mesh": []}
+        metrics = {"plain": [], "mesh": []}
+
+        def timed(kind, st, bt):
+            t0 = time.perf_counter()
+            if kind == "mesh":
+                st, m = mesh_step(st, steps.shard_batch(bt, bspecs, mesh))
+            else:
+                st, m = plain_step(st, bt)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            metrics[kind].append({k_: v.clone() for k_, v in m.items()})
+            return st
+        for i, bt in enumerate(batches[:steps_n]):
+            order = ("plain", "mesh") if i % 2 == 0 else ("mesh", "plain")
+            for kind in order:
+                if kind == "mesh":
+                    on_mesh = timed(kind, on_mesh, bt)
+                else:
+                    plain = timed(kind, plain, bt)
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else 0.0)
+        diff = [(i, k_) for i, (a, b) in enumerate(zip(metrics["plain"],
+                                                      metrics["mesh"]))
+                for k_ in a if not torch.equal(a[k_], b[k_])]
+        if diff:
+            raise AssertionError(f"mesh step metrics differ from "
+                                 f"make_train_step's at {diff}")
+        bad = _same_state(plain, on_mesh)
+        if bad:
+            raise AssertionError(f"after {steps_n} steps the mesh state "
+                                 f"differs from make_train_step's: {bad}")
+        losses = [float(m["loss"]) for m in metrics["mesh"]]
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"phase {n} losses {losses}")
+        rec = {"backend": backend, "microbatches": k,
+               "losses": losses, "peak_gb": peak,
+               "allocated_before_gb": before,
+               "allocated_before_gc_gb": held,
+               "step_ms": {kind: float(np.median(v[1:]))
+                           for kind, v in ms.items()},
+               "step_ms_all": ms}
+        log(f"  {steps_n} steps, {k} microbatches a step: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; every loss, lr and grad "
+            f"norm, and the parameters, m, v and step after step {steps_n} "
+            f"bitwise equal to make_train_step's; median step (after the "
+            f"first, synchronized, in turns): mesh "
+            f"{rec['step_ms']['mesh']:.2f} ms, plain "
+            f"{rec['step_ms']['plain']:.2f} ms; peak {peak:.2f} GB allocated "
+            f"for both states ({before:.2f} GB before, {held:.2f} GB before "
+            f"a gc.collect())")
+
+        root = tempfile.mkdtemp(prefix=f"phase{n}_")
+        try:
+            store.save(root, steps_n, on_mesh, mesh=mesh, specs=sspecs)
+            like = {"params": model.init_meta()}
+            like["opt"] = adamw.init_state(like["params"])
+            back, at, _ = store.restore(root, like, device=dev)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        bad = _same_state(back, plain)
+        if at != steps_n or bad:
+            raise AssertionError(f"the mesh checkpoint restored at step {at} "
+                                 f"differs from the plain state: {bad}")
+        extra = batches[steps_n]
+        back, m_back = plain_step(back, extra)
+        plain, m_plain = plain_step(plain, extra)
+        bad = _same_state(back, plain)
+        if bad or not torch.equal(m_back["loss"], m_plain["loss"]):
+            raise AssertionError(f"a plain step from the restored checkpoint "
+                                 f"differs: {bad}")
+        rec["checkpoint"] = {"restored_bitwise": True,
+                             "next_step_bitwise": True,
+                             "next_loss": float(m_back["loss"])}
+        log(f"  the mesh run's step-{steps_n} checkpoint restores in the "
+            f"plain trainer bitwise; one more plain step from it equals one "
+            f"from the plain run's state, bitwise (loss "
+            f"{rec['checkpoint']['next_loss']:.4f})")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    del plain, on_mesh, back
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
 def train_paths(dev, counted):
-    """Phase 27, training (``train_path``).  Alone on the card:
-    ``build.build()``, ``qlinear.set_default_strategy("kernel")`` and
+    """Phases 27 and 29, training (``train_path``, ``train_mesh_path``).
+    Alone on the card: ``build.build()``,
+    ``qlinear.set_default_strategy("kernel")`` and
     ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
     does, then ``train_paths(torch.device("cuda"), {})``; or ``python3
     chip_smoke.py --only train_paths``."""
     rec = train_path(dev, counted, 27)
     phase(f"phase 27: training {json.dumps(rec)}")
+    mesh_rec = train_mesh_path(dev)
+    phase(f"phase 29: training through jit_train_step "
+          f"{json.dumps({k: v for k, v in mesh_rec.items() if k != 'step_ms_all'})}; "
+          f"{mesh_rec['seconds']:.1f} s")
+    rec["mesh"] = mesh_rec
     return rec
 
 

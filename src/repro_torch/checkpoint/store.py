@@ -14,6 +14,13 @@ corrupts the latest checkpoint.
 The device-to-host copy of every leaf happens in ``save`` itself; with
 ``async_`` a background thread does the serialization, so the train loop
 blocks only for the copy and may update its tensors in place meanwhile.
+
+On a mesh of more than one rank (``launch/steps.py``'s ``jit_train_step``)
+``save`` gathers every leaf whole from the ranks' shards, rank 0 writes
+the same files as an unsharded run would (synchronously) and the others
+wait for it at a barrier; ``restore`` reads the whole arrays and each rank
+keeps its shard.  A checkpoint so crosses between meshes and a world of
+one, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.core.tree import items, keystr, unflatten
+from repro_torch.distribution import sharding as sh
 
 _SEP = "|"
 
@@ -58,8 +67,18 @@ def _flatten(tree: Any) -> dict:
 
 def save(ckpt_dir: str | os.PathLike, step: int, state: Any,
          extra: Optional[dict] = None, host_id: int = 0,
-         async_: bool = False) -> threading.Thread | None:
-    """Write ``state`` for ``step``.  Returns the writer thread if async."""
+         async_: bool = False, mesh=None,
+         specs: Any = None) -> threading.Thread | None:
+    """Write ``state`` for ``step``.  Returns the writer thread if async.
+    On a ``mesh`` of more than one rank ``state`` holds the rank's shards
+    under ``specs``: every rank gathers the leaves whole, rank 0 writes
+    them (``async_`` does not apply) and the others wait for it."""
+    if mesh is not None and mesh.size > 1:
+        state = sh.gather_tree(state, specs, mesh)
+        if mesh.rank == 0:
+            save(ckpt_dir, step, state, extra, host_id)
+        dist.barrier(group=mesh.group)
+        return None
     root = Path(ckpt_dir)
     final = root / f"step_{step:08d}"
     tmp = root / f".tmp_step_{step:08d}_{host_id}"
@@ -111,11 +130,19 @@ def latest_step(ckpt_dir: str | os.PathLike) -> Optional[int]:
 
 def restore(ckpt_dir: str | os.PathLike, state_like: Any,
             step: Optional[int] = None, host_id: int = 0,
-            device: Device = None):
+            device: Device = None, mesh=None, specs: Any = None):
     """Restore the leaves at the keys of ``state_like`` (a tree whose leaves
     are only read for their kind: tensor or ``QuantizedTensor``) as tensors
-    on ``device`` (the card by default), each in its stored dtype.  Returns
-    (state, step, extra)."""
+    on ``device`` (the card by default), each in its stored dtype.  On a
+    ``mesh`` each leaf is cut on the host to the rank's shard under
+    ``specs`` before it moves.  Returns (state, step, extra)."""
+    if mesh is not None:
+        state, step, extra = restore(ckpt_dir, state_like, step, host_id,
+                                     "cpu")
+        state = sh.shard(state, specs, mesh)
+        dev = resolve_device(device)
+        return (unflatten(state, [t.to(dev) for _, t in items(state)]),
+                step, extra)
     dev = resolve_device(device)
     root = Path(ckpt_dir)
     if step is None:

@@ -47,6 +47,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantization import QuantizedTensor
+from repro_torch.distribution import collectives as C
 
 Spec = Tuple[Any, ...]
 
@@ -396,8 +397,9 @@ def cache_specs(cfg: ModelConfig, cache: Any, mesh) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def _live_axes(entry, mesh) -> tuple:
-    """The axes of one spec entry with more than one rank."""
+def live_axes(entry, mesh) -> tuple:
+    """The axes of one spec entry with more than one rank: the ones that
+    really split a dim."""
     if entry is None:
         return ()
     return tuple(a for a in _axes(entry) if mesh.shape[a] > 1)
@@ -418,7 +420,7 @@ def shard_range(dim: int, entry, mesh) -> Tuple[int, int]:
 def _shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     out = t
     for d, entry in enumerate(spec):
-        if _live_axes(entry, mesh):
+        if live_axes(entry, mesh):
             start, n = shard_range(t.shape[d], entry, mesh)
             out = out.narrow(d, start, n)
     # a copy of the slice alone: the rank holds its shard, not the tree
@@ -462,7 +464,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, group, n: int
 def _gather_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
         # the innermost axis first: its ranks hold neighbouring parts
-        for a in reversed(_live_axes(entry, mesh)):
+        for a in reversed(live_axes(entry, mesh)):
             t = all_gather_dim(t, d, mesh.groups[a], mesh.shape[a])
     return t
 
@@ -481,6 +483,23 @@ def gather(t: Any, spec: Any, mesh) -> Any:
 def gather_tree(tree: Any, specs: Any, mesh) -> Any:
     """:func:`gather` of every leaf of ``tree``."""
     return _map2(lambda leaf, spec: gather(leaf, spec, mesh), tree, specs)
+
+
+def gather_for_grad(tree: Any, specs: Any, mesh, summed: tuple = ()) -> Any:
+    """Every float leaf of ``tree`` all-gathered whole under ``specs``, as
+    :func:`gather`, with a gradient: the gradient of the whole leaf comes
+    back as the rank's own slice, first summed over the axes of ``summed``
+    (the axes whose ranks hold other rows of the batch; a reduce-scatter)
+    and taken as it is along the others (whose ranks compute the same
+    whole gradient).  A leaf no live axis splits is returned as it is."""
+    def visit(t, spec):
+        for d, entry in enumerate(spec):
+            for a in reversed(live_axes(entry, mesh)):
+                group, n, index = C.axis(mesh, a)
+                t = (C.gather_sum(t, d, group, n) if a in summed
+                     else C.gather_from(t, d, group, n, index))
+        return t
+    return _map2(visit, tree, specs)
 
 
 def drop_lead(specs: Any, n: int = 1) -> Any:

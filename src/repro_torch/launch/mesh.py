@@ -209,6 +209,22 @@ def make_host_mesh(device: Device = None) -> Mesh:
     return _build((1, world_size()), ("data", "model"), device)
 
 
+def make_train_mesh(data: int, model: int, device: Device = None) -> Mesh:
+    """(data, model) over the first ``data * model`` ranks of the world,
+    row-major: the meshes of 2 x 1, 1 x 2, 2 x 2 and 1 x 4 the gloo tests
+    train on.  ``ValueError`` when the world is smaller (before any
+    process group is started) or when this rank lies outside."""
+    n = data * model
+    if not 1 <= n <= world_size():
+        raise ValueError(f"a {data} x {model} mesh needs {n} ranks; the "
+                         f"world has {world_size()}")
+    mesh = _build((data, model), ("data", "model"), device)
+    if mesh is None:
+        raise ValueError(f"rank {dist.get_rank()} is outside a {data} x "
+                         f"{model} mesh")
+    return mesh
+
+
 def make_serve_mesh(model_size: Optional[int] = None,
                     device: Device = None) -> Mesh:
     """Serving mesh: (data=1, model=n) over the first n ranks of the world

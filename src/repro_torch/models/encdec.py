@@ -49,7 +49,7 @@ from repro_torch.models.transformer import (_attn_bank, _cdt, _layer,
                                             check_family, chunked_ce,
                                             draw_params, prefill_attention,
                                             remat, train_attention,
-                                            unbind_stacks)
+                                            train_view, unbind_stacks)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -231,14 +231,18 @@ def _dec_block_train(p, x, enc_hidden, cfg: ModelConfig) -> torch.Tensor:
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            chunk: int = 512) -> torch.Tensor:
+            chunk: int = 512, mesh=None, specs=None) -> torch.Tensor:
     """The training loss of ``batch``: frames (B, S_enc, D), tokens and
     labels (B, S), as the reference's ``lm_loss``.  The encoder and the
     decoder run every attention on ``transformer.train_attention`` and
     every layer under ``remat``; the cross-entropy is the decoder-only
-    family's (``chunked_ce``)."""
+    family's (``chunked_ce``).  On a train ``mesh`` the rank's shards and
+    rows, as ``transformer.lm_loss`` (``train_view``; whisper-small trains
+    data-parallel over every axis, its leaves whole)."""
     dev = params["final_norm"]["gamma"].device
     batch = batch_to(batch, dev)
+    b, s = batch["labels"].shape
+    params, tp, dp = train_view(params, cfg, mesh, specs)
     params = unbind_stacks(params)
     enc = encode(params, cfg, batch["frames"], train=True)
     x = _embed_tokens(params, cfg, batch["tokens"])
@@ -246,7 +250,8 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         x = remat(cfg, _dec_block_train, _layer(params["dec_blocks"], i), x,
                   enc, cfg)
     hidden = L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
-    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], chunk)
+    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], tp,
+                      chunk, tokens=b * s * dp)
 
 
 def _lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:

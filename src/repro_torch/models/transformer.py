@@ -31,7 +31,10 @@ path: float weights through ``qeinsum`` / ``qdot``, attention on
 ``layers.attention_scores_blockwise`` (``train_attention``; never a CUDA
 kernel, none of which has a backward), the MoE's grouped dispatch, and the
 cross-entropy in chunks of f32 logits; each block and each chunk under
-``torch.utils.checkpoint`` (``remat``, the reference's ``"block"``).
+``torch.utils.checkpoint`` (``remat``, the reference's ``"block"``).  On
+a train mesh (``lm_loss(mesh=)``, ``train_view``) the dense family runs
+those products in Megatron tensor parallelism (``_TrainTP``) and the other
+families on leaves gathered whole.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from repro_torch.core.quantization import (QuantizedTensor,
                                            qt_reshape_lead, quantize,
                                            quantize_rows)
 from repro_torch.core.tree import map_tree
+from repro_torch.distribution import collectives as C
 from repro_torch.distribution import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -451,14 +455,15 @@ def _layers(params: Params, cfg: ModelConfig):
         yield kind, _layer(params["blocks"], i), key, i
 
 
-def embed_inputs(params: Params, cfg: ModelConfig,
-                 batch: Dict[str, Any]) -> torch.Tensor:
+def embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                 lookup=L.embed_lookup) -> torch.Tensor:
     """The batch's input embeddings in the compute dtype: its ``embeds``
     (B, S, D), precomputed by a modality frontend (a stub, as in the
-    reference), or the embedding rows of its ``tokens``."""
+    reference), or the embedding rows of its ``tokens`` by ``lookup``
+    (training passes ``_TrainTP.embed``)."""
     if "embeds" in batch:
         return batch["embeds"].to(_cdt(cfg))
-    return L.embed_lookup(params["embed"], batch["tokens"]).to(_cdt(cfg))
+    return lookup(params["embed"], batch["tokens"]).to(_cdt(cfg))
 
 
 def _default_positions(cfg: ModelConfig, b: int, s: int, batch,
@@ -1041,49 +1046,43 @@ def train_attention(q, k, v, cfg: ModelConfig,
     """The training forward's attention: q (B, Sq, H, hd) unscaled, k/v
     (B, Sk, KVH, hd) -> (B, Sq, H, hd) on the reference's own jnp function,
     ``layers.attention_scores_blockwise`` in ``cfg.q_chunk`` query rows, q
-    scaled by hd^-1/2 in the compute dtype first (``_q_scale``).  Never
-    ``ops.flash_prefill``: the reference's training runs no kernel, and the
-    CUDA kernel has no backward, so autograd would not reach wq / wk / wv
-    through it."""
-    acfg = L.AttnConfig(cfg.n_heads, cfg.n_kv_heads, cfg.hd(),
+    scaled by hd^-1/2 in the compute dtype first (``_q_scale``).  The head
+    counts are the tensors' (a rank of a train mesh passes its own heads).
+    Never ``ops.flash_prefill``: the reference's training runs no kernel,
+    and the CUDA kernel has no backward, so autograd would not reach wq /
+    wk / wv through it."""
+    acfg = L.AttnConfig(q.shape[2], k.shape[2], cfg.hd(),
                         q_chunk=cfg.q_chunk, causal=causal)
     return L.attention_scores_blockwise(q * _q_scale(cfg), k, v, acfg)
 
 
-def _attn_block_train(p, x, cfg: ModelConfig, rope):
+def _attn_block_train(p, x, cfg: ModelConfig, rope, tp: "_TrainTP"):
     """One attention block over x (B, S, D), as the reference's
     ``_dense_block_seq``: attention (rope where the config has it), then
-    the MLP or the MoE's grouped dispatch (``_mlp``)."""
+    the MLP or the MoE's grouped dispatch (``_mlp``), both as ``tp``
+    computes them (on the rank's shards on a train mesh)."""
     h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
-    q = qeinsum("bsd,hkd->bshk", h, p["attn"]["wq"])
-    k = qeinsum("bsd,hkd->bshk", h, p["attn"]["wk"])
-    v = qeinsum("bsd,hkd->bshk", h, p["attn"]["wv"])
-    if rope is not None:
-        cos, sin = rope
-        q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
-        k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
-    a = qeinsum("bshk,dhk->bsd", train_attention(q, k, v, cfg),
-                p["attn"]["wo"])
-    x = x + a.to(x.dtype)
-    return x + _mlp(p, x, cfg)
+    x = x + tp.attention(p["attn"], h, cfg, rope).to(x.dtype)
+    return x + tp.mlp(p, x, cfg)
 
 
-def _ssm_block_train(p, x, cfg: ModelConfig, rope):
+def _ssm_block_train(p, x, cfg: ModelConfig, rope, tp: "_TrainTP"):
     h = L.apply_norm(x, p["norm1"], cfg.norm_type, cfg.eps)
     y, _ = S.mamba2_forward(p["ssm"], h, _ssm_dims(cfg), cfg.ssm_chunk)
     return x + y
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, tp: "_TrainTP") -> torch.Tensor:
     """x (B, S, D) input embeddings at ``positions`` ((B, S), or (3, B, S)
     for mrope) -> the hidden states (B, S, D) after the final norm: the
     reference's ``forward_hidden`` for training, every layer in its order
-    (``_layers``, on ``unbind_stacks``' views), each under ``remat``."""
+    (``_layers``, on ``unbind_stacks``' views), each under ``remat``, each
+    attention block as ``tp`` computes it."""
     rope = _rope_cos_sin(cfg, positions)
     for kind, lp, _, _ in _layers(unbind_stacks(params), cfg):
         block = _ssm_block_train if kind == "ssm" else _attn_block_train
-        x = remat(cfg, block, lp, x, cfg, rope)
+        x = remat(cfg, block, lp, x, cfg, rope, tp)
     return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps)
 
 
@@ -1108,35 +1107,196 @@ def _ce_sum(w, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def chunked_ce(cfg: ModelConfig, w, hidden: torch.Tensor,
-               labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """Mean cross-entropy of hidden (B, S, D) against labels (B, S) with
-    the head ``w`` (V, D), ``chunk`` positions at a time (lowered until it
+               labels: torch.Tensor, tp: "_TrainTP", chunk: int = 512,
+               tokens: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy of hidden (B, S, D) against labels (B, S) with the
+    head ``w`` (V, D), ``chunk`` positions at a time (lowered until it
     divides S) so the logits never stand at (B, S, V): the f32 chunk sums
-    added in order, each under ``remat``, divided by B * S."""
+    (``tp.ce_sum``) added in order, each under ``remat``, divided by
+    ``tokens`` (the global batch's token count on a mesh; B * S by
+    default)."""
     b, s = labels.shape
     c = min(chunk, s)
     while s % c:
         c -= 1
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, c):
-        total = total + remat(cfg, _ce_sum, w, hidden[:, i:i + c],
+        total = total + remat(cfg, tp.ce_sum, w, hidden[:, i:i + c],
                               labels[:, i:i + c])
-    return total / (b * s)
+    return total / (tokens or b * s)
+
+
+class _TrainTP:
+    """Megatron tensor parallelism of the dense family over the ``model``
+    axis of a train mesh, on one rank: what GSPMD makes of the reference's
+    train-mode specs (``sharding.param_specs(mode="train")``).  The rank
+    holds its shards of those specs and computes with them; the residual
+    stream and the norms stay replicated, and each region whose ranks
+    compute parts opens with *f* (``collectives.copy_to``) and closes with
+    *g* (``collectives.reduce_from``):
+
+    * attention by query heads when ``n_heads`` divides the axis: the KV
+      heads with them when ``n_kv_heads`` divides it too, else held whole,
+      each rank projecting only the KV heads its query heads read (one a
+      query head; *f* on the weight sums its gradient over the axis);
+      ``wo`` row-parallel.  When neither divides and ``head_dim`` does
+      (the reference's fallback), q, k and v are projected on the rank's
+      head-dim slice and gathered, attention is computed whole, and ``wo``
+      is row-parallel over the rank's head-dim slice.
+    * MLP: ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel.
+    * the tied embedding by vocab rows: a masked lookup of the rank's rows
+      summed over the axis; each loss chunk's logsumexp from the ranks'
+      row maxima and sums of exponentials, the label's logit from the rank
+      that holds it (``target_logit``).
+
+    A part the specs leave whole (a dim the axis does not divide) is
+    computed whole, as the unsharded forward computes it.  The partial
+    sums are reduced in f32.  With no ``mesh`` it splits nothing: every
+    method is then the unsharded forward's ops and nothing more, the
+    training forward of every family without a mesh and of the families
+    that compute replicated on one (``train_view``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None, specs=None):
+        self.attn, self.kv_whole = None, False
+        self.mlp_split = self.vocab_split = False
+        if mesh is None:
+            self.group, self.n, self.r = None, 1, 0
+            return
+        self.group, self.n, self.r = C.axis(mesh, "model")
+        attn, blk = specs["blocks"]["attn"], specs["blocks"]
+
+        def split(spec, dim):
+            return bool(sh.live_axes(spec[dim], mesh))
+        # wq / wk / wv (L, H, hd, D), w1 (L, F, D), embed (V, D)
+        self.attn = ("heads" if split(attn["wq"], -3)
+                     else "hd" if split(attn["wq"], -2) else None)
+        self.kv_whole = self.attn == "heads" and not split(attn["wk"], -3)
+        self.mlp_split = split(blk["mlp"]["w1"], -2)
+        self.vocab_split = split(specs["embed"], 0)
+        if self.kv_whole:
+            nq, g = cfg.n_heads // self.n, cfg.n_heads // cfg.n_kv_heads
+            kv = [(self.r * nq + i) // g for i in range(nq)]
+            self.kv_rows = slice(kv[0], kv[-1] + 1)
+            self.kv_pick = [h - kv[0] for h in kv]
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return C.copy_to(x, self.group, self.n)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return C.reduce_from(x, self.group, self.n)
+
+    def attention(self, p, h, cfg: ModelConfig, rope) -> torch.Tensor:
+        """The block's attention output (B, S, D) from the normed h."""
+        hf = h if self.attn is None else self.copy(h)
+        q = qeinsum("bsd,hkd->bshk", hf, p["wq"])
+        if self.kv_whole:
+            pick = torch.tensor(self.kv_pick, device=h.device)
+            k, v = (qeinsum("bsd,hkd->bshk", hf,
+                            self.copy(p[w])[self.kv_rows]).index_select(
+                                2, pick) for w in ("wk", "wv"))
+        else:
+            k = qeinsum("bsd,hkd->bshk", hf, p["wk"])
+            v = qeinsum("bsd,hkd->bshk", hf, p["wv"])
+        if self.attn == "hd":
+            q, k, v = (C.gather_from(t, 3, self.group, self.n, self.r)
+                       for t in (q, k, v))
+        if rope is not None:
+            cos, sin = rope
+            q = L.apply_rope(q, cos[:, :, None], sin[:, :, None])
+            k = L.apply_rope(k, cos[:, :, None], sin[:, :, None])
+        out = train_attention(q, k, v, cfg)
+        if self.attn == "hd":
+            out = C.split_to(out, 3, self.group, self.n, self.r)
+        y = qeinsum("bshk,dhk->bsd", out, p["wo"])
+        return y if self.attn is None else self.reduce(y.float())
+
+    def mlp(self, p, x, cfg: ModelConfig) -> torch.Tensor:
+        """The block's SwiGLU MLP on the pre-norm x."""
+        if not self.mlp_split:
+            return _mlp(p, x, cfg)
+        w = p["mlp"]
+        hf = self.copy(L.rms_norm(x, L.norm_gamma(p["norm2"], cfg.norm_type),
+                                  cfg.eps))
+        h = torch.nn.functional.silu(qdot(hf, w["w1"])) * qdot(hf, w["w3"])
+        return self.reduce(qdot(h.to(x.dtype), w["w2"]).float()).to(x.dtype)
+
+    def _rows(self, t: torch.Tensor) -> int:
+        """The first vocab row of the rank's shard ``t`` (V / n rows)."""
+        return self.r * t.shape[0]
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        """Embedding rows of ``tokens`` from the rank's vocab rows."""
+        if not self.vocab_split:
+            return L.embed_lookup(table, tokens)
+        n = table.shape[0]
+        local = tokens.long() - self._rows(table)
+        hit = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)]
+        return self.reduce(torch.where(hit[..., None], rows,
+                                       torch.zeros_like(rows)))
+
+    def target_logit(self, logits: torch.Tensor, y: torch.Tensor,
+                     start: int) -> torch.Tensor:
+        """The label's logit where the rank holds its vocab row, else 0."""
+        n = logits.shape[-1]
+        local = y - start
+        hit = (local >= 0) & (local < n)
+        t = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(hit, t, torch.zeros_like(t))
+
+    def ce_sum(self, w, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``_ce_sum`` of one chunk on the rank's vocab rows of ``w``."""
+        if not self.vocab_split:
+            return _ce_sum(w, h, y)
+        logits = qdot(self.copy(h), w).float()
+        mx = C.all_reduce_max(logits.amax(-1), self.group, self.n)
+        se = self.reduce(torch.sum(torch.exp(logits - mx[..., None]), -1))
+        tgt = self.reduce(self.target_logit(logits, y, self._rows(w)))
+        return torch.sum(mx + torch.log(se) - tgt)
+
+
+def train_view(params: Params, cfg: ModelConfig, mesh=None, specs=None):
+    """What a rank computes its training loss with: (parameters, its
+    :class:`_TrainTP`, the ranks its batch rows are one part of).  On a
+    train ``mesh`` ``params`` hold the rank's shards of ``specs`` (the
+    train-mode parameter specs, ``jit_train_step``'s).  The dense family
+    with a ``model`` axis of more than one computes on its shards under a
+    splitting ``_TrainTP``; every other family gathers each leaf whole
+    (``sharding.gather_for_grad``: its gradient is the rank's own slice,
+    summed first over the batch axes that split it, as ``ep_data``'s
+    experts) and computes replicated.  No mesh: (params, a ``_TrainTP``
+    that splits nothing, 1)."""
+    if mesh is None:
+        return params, _TrainTP(cfg), 1
+    baxes = sh.batch_axes_for(cfg, mesh, "train")
+    dp = math.prod(mesh.shape[a] for a in baxes)
+    if cfg.family == "dense" and cfg.train_shard == "tp" \
+            and mesh.shape["model"] > 1:
+        return params, _TrainTP(cfg, mesh, specs), dp
+    return (sh.gather_for_grad(params, specs, mesh, summed=baxes),
+            _TrainTP(cfg), dp)
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            chunk: int = 512) -> torch.Tensor:
+            chunk: int = 512, mesh=None, specs=None) -> torch.Tensor:
     """The training loss: ``batch["labels"]`` (B, S) against the model on
     its ``tokens`` (B, S) or the ``embeds`` (B, S, D) of a modality
     frontend, at ``batch["positions"]`` (default 0..S-1 in every stream).
-    Runs where the parameters live; differentiable in every float leaf."""
+    Runs where the parameters live; differentiable in every float leaf.
+    On a train ``mesh`` (``launch/steps.py``'s ``jit_train_step``)
+    ``params`` are the rank's shards of ``specs`` and ``batch`` its rows
+    (``train_view``): the rows' summed cross-entropy over the global
+    batch's token count, whose sum over the batch axes is the loss."""
     dev = params["final_norm"]["gamma"].device
     batch = batch_to(batch, dev)
     b, s = batch["labels"].shape
+    params, tp, dp = train_view(params, cfg, mesh, specs)
     positions = _default_positions(cfg, b, s, batch, dev)
-    hidden = forward_hidden(params, cfg, embed_inputs(params, cfg, batch),
-                            positions)
-    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], chunk)
+    hidden = forward_hidden(params, cfg,
+                            embed_inputs(params, cfg, batch, tp.embed),
+                            positions, tp)
+    return chunked_ce(cfg, params["embed"], hidden, batch["labels"], tp,
+                      chunk, tokens=b * s * dp)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,13 @@ gradients and moments) and returns the same tensors.
 all-reduce; as there, ``apply_updates`` applies it only when it is given
 ``compress_err`` and ``grad_compress_bits`` is 8, and the train step gives
 none.
+
+On a train mesh (``launch/steps.py``'s ``jit_train_step``) each rank holds
+its shards of the state specs (``train_state_specs``): the gradient norm
+sums each element once over the ranks, and under ZeRO-1 a rank updates
+only its slice of ``m`` / ``v`` and of the parameter along the dim the
+data axes split, then the parameter is all-gathered whole over them.  On a
+mesh of one both are the unsharded code, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.tree import leaves, map_tree
+from repro_torch.distribution import collectives as C
+from repro_torch.distribution import sharding as sh
 
 # values of one leaf updated at a time (64 MB of f32)
 _PIECE = 1 << 24
@@ -68,11 +77,27 @@ def init_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over the leaves (in the reference's order) of each
-    leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    leaf's f32 sum of squares.  On a ``mesh`` ``tree`` holds the rank's
+    shards under ``specs``: each leaf's sum of squares is summed over the
+    axes that split it (the leaves split alike in one all-reduce), so each
+    element counts once and every rank gets the whole tree's norm."""
+    parts = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if mesh is not None:
+        by_axes = {}
+        for i, spec in enumerate(leaves(specs)):
+            axes = tuple(a for e in spec for a in sh.live_axes(e, mesh))
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            summed = torch.stack([parts[i] for i in idx])
+            for a in axes:
+                group, n, _ = C.axis(mesh, a)
+                C.all_reduce(summed, group, n)
+            for j, i in enumerate(idx):
+                parts[i] = summed[j]
+    return torch.sqrt(sum(parts))
 
 
 def compress_decompress(g: torch.Tensor, err: torch.Tensor,
@@ -100,20 +125,45 @@ def _pieces(*ts: torch.Tensor):
         yield tuple(f[i:i + _PIECE] for f in flat)
 
 
+def zero_dim(pspec, ospec, mesh):
+    """(dim, spec entry) of the dim ZeRO-1 splits in a moment's spec
+    ``ospec`` over live data axes where the parameter's ``pspec`` leaves
+    it whole, or None."""
+    for d, (pe, oe) in enumerate(zip(pspec, ospec)):
+        if pe is None and sh.live_axes(oe, mesh):
+            return d, oe
+    return None
+
+
+def gather_zero(p: torch.Tensor, part: torch.Tensor, dim: int, entry,
+                mesh) -> None:
+    """Write the updated slices ``part`` of every data rank into ``p``
+    whole: an all-gather along ``dim`` over the axes of ``entry``."""
+    p.copy_(sh.gather(part, (None,) * dim + (entry,), mesh))
+
+
 @torch.no_grad()
 def apply_updates(params: Any, opt_state: dict, grads: Any,
-                  cfg: AdamWConfig, compress_err: Optional[Any] = None):
+                  cfg: AdamWConfig, compress_err: Optional[Any] = None,
+                  mesh=None, specs: Optional[dict] = None):
     """One AdamW step.  Returns (params, opt_state, metrics, new_err):
     ``params`` and the moments updated in place, a new step counter,
     metrics ``lr``, ``grad_norm`` (before clipping) and ``step`` as 0-d
     tensors, and the compression error, ``compress_err`` updated in place
     (as given when compression is off).  Each leaf is clipped, compressed
     and updated ``_PIECE`` values at a time: compression's groups of 256
-    never cross a piece, so the pieces compute what whole leaves would."""
+    never cross a piece, so the pieces compute what whole leaves would.
+
+    On a ``mesh`` every tree holds the rank's shards of ``specs`` (the
+    state specs of ``launch/steps.py``'s ``train_state_specs``) and
+    ``grads`` the layout of the moments: a leaf ZeRO-1 splits over the
+    data axes (``zero_dim``) is updated on the rank's slice alone, then
+    gathered whole (``gather_zero``)."""
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    ospecs = None if mesh is None else specs["opt"]["m"]
+    gnorm = global_norm(grads, ospecs, mesh)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     compress = cfg.grad_compress_bits == 8 and compress_err is not None
 
@@ -124,7 +174,14 @@ def apply_updates(params: Any, opt_state: dict, grads: Any,
     trees = [params, grads, opt_state["m"], opt_state["v"]]
     if compress:
         trees.append(compress_err)
-    for leaf_p, leaf_g, *rest in zip(*map(leaves, trees)):
+    zeros = ([None] * len(leaves(params)) if mesh is None else
+             [zero_dim(ps, os_, mesh) for ps, os_ in
+              zip(leaves(specs["params"]), leaves(ospecs))])
+    for z, (leaf_p, leaf_g, *rest) in zip(zeros, zip(*map(leaves, trees))):
+        whole = leaf_p
+        if z is not None:
+            start, n = sh.shard_range(leaf_p.shape[z[0]], z[1], mesh)
+            leaf_p = leaf_p.narrow(z[0], start, n).contiguous()
         for p, g, m, v, *err in _pieces(leaf_p, leaf_g.contiguous(), *rest):
             g = g * scale
             if compress:
@@ -140,6 +197,8 @@ def apply_updates(params: Any, opt_state: dict, grads: Any,
             p.copy_((p.float() - lr * delta).to(p.dtype))
             m.copy_(m2)
             v.copy_(v2)
+        if z is not None:
+            gather_zero(whole, leaf_p, z[0], z[1], mesh)
     metrics = {"lr": lr, "grad_norm": gnorm, "step": step}
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, metrics, compress_err

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import gc
+import importlib
 import io
 import multiprocessing as mp
 import os
@@ -59,7 +60,7 @@ def _entry(rank, world, init_file, out_dir, job, args_file):
             world_size=world,
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         counts = _watch_reductions()
-        out["result"] = JOBS[job](world, **args)
+        out["result"] = _job(job)(world, **args)
         out["reductions"] = counts
     except BaseException:                           # noqa: BLE001
         out["error"] = traceback.format_exc()
@@ -68,6 +69,13 @@ def _entry(rank, world, init_file, out_dir, job, args_file):
             dist.destroy_process_group()
     with open(os.path.join(out_dir, f"{job}_{world}_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _job(job: str):
+    """A job of this module by name, or ``module:name``, a job of another
+    worker module's ``JOBS``."""
+    mod, _, name = job.rpartition(":")
+    return (importlib.import_module(mod).JOBS if mod else JOBS)[name]
 
 
 class Lane:
@@ -322,7 +330,7 @@ def _split_leaves(struct, specs, mesh) -> list:
         elif hasattr(t, "scale"):
             visit(t.q, spec.q)
             visit(t.scale, spec.scale)
-        elif any(sh._live_axes(e, mesh) for e in spec):
+        elif any(sh.live_axes(e, mesh) for e in spec):
             out.append((tuple(t.shape), t.dtype))
     visit(struct, specs)
     return out
