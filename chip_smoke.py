@@ -137,7 +137,18 @@ heads of one launch over every head (``check_head_slices``); then
 llama2-110m at full width and depth (Q8_0, f32 and int8 pools, phase 3's
 16 requests, greedy) against the unsharded engine on the same weights:
 the streams bitwise, the launches equal; then ``serve.py --mesh 1``
-against ``serve.py``.  Mesh sizes above one need more than one card; the
+against ``serve.py``.  Phase 30 (``mesh_paths``, after phase 28, in a
+world of one over NCCL of its own) runs the serve-side executors of
+``launch/steps.py`` on ``make_host_mesh()`` at llama2-110m's full width
+and depth (Q8_0, f32 and int8 dense caches): ``jit_prefill_step`` on a
+prefill cell of 8 x 512, then ``jit_serve_step`` for 32 greedy steps and
+``jit_serve_sample_step`` for 32 steps from fixed threefry keys on a
+decode cell of 8 x 1024 (its cache the one-shot prefill of phase 3's
+first 8 prompts), each against ``make_prefill_step`` /
+``make_serve_step`` / ``make_serve_sample_step`` on the same weights:
+logits, caches and tokens bitwise at every step, the launches equal and
+exact (``check_launches``); phase 2 holds ``decode_attention`` on every
+KV-head slice as well.  Mesh sizes above one need more than one card; the
 CPU tests run them over gloo.  On every llama3.2-3b, phi4, glm4,
 command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits
 are held against the plain versions' on the same inputs to a fixed bound
@@ -3162,9 +3173,10 @@ def paged_prefill_turn(dev):
 
 
 # the meshes whose head slices phase 2 holds: a rank of a mesh of n holds
-# KVH / n KV heads and their query heads (``transformer._ServeMesh``)
+# KVH / n KV heads and their query heads of the paged pool and of the
+# dense cache (``transformer._ServeMesh``, ``_dense_attention``)
 SLICE_MESHES = (2, 4)
-# (arch, KV heads, query heads a KV head, head dim, pools)
+# (arch, KV heads, query heads a KV head, head dim, pool and cache kinds)
 SLICE_SHAPES = (("llama2-110m", 12, 1, 64, ("f32", "int8")),
                 ("llama3.2-3b", 8, 3, 128, ("bf16", "int8")))
 
@@ -3185,15 +3197,20 @@ def _head_slice(t, sl, dim):
 
 
 def check_head_slices(report, dev):
-    """Both paged attentions on every KV-head slice a rank of a mesh of 2
-    and of 4 holds (``SLICE_SHAPES``: llama2-110m's 12 KV heads of 64 on
-    f32 and int8 pools, llama3.2-3b's 8 x 3 query heads of 128 on bf16 and
-    int8 pools), each slice's own pool and q, against the same heads of one
-    launch over every head on the same pool: bitwise, out, m and l.  A
-    head's result must not depend on how many heads its launch holds (the
-    decode kernel splits each (row, KV head) over blocks and groups query
-    heads by HQ * D, the prefix kernel orders its blocks heaviest first),
-    or a mesh's streams would part from one card's."""
+    """Both paged attentions and the dense ``decode_attention`` on every
+    KV-head slice a rank of a mesh of 2 and of 4 holds (``SLICE_SHAPES``:
+    llama2-110m's 12 KV heads of 64 on f32 and int8 pools and caches,
+    llama3.2-3b's 8 x 3 query heads of 128 on bf16 and int8 ones), each
+    slice's own pool (or dense cache of 8 rows x 1024 positions) and q,
+    against the same heads of one launch over every head on the same
+    pool: bitwise, the paged prefix kernel's out, m and l, the decode
+    kernels' out (their split partials' m and l are merged inside the
+    kernel and not returned).  A head's result must not depend on how many
+    heads its launch holds (the decode kernels split each (row, KV head)
+    over blocks and group query heads by HQ * D, the prefix kernel orders
+    its blocks heaviest first), or a mesh's streams would part from one
+    card's: ``jit_serve_step`` on a mesh whose model axis splits the dense
+    cache's KV heads launches ``decode_attention`` on each rank's own."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(28)
     n_slices = 0
@@ -3203,6 +3220,8 @@ def check_head_slices(report, dev):
             b = len(DECODE_LENS)
             k, v, ks, vs = _pools(gen, dev, b * mb, bs, kvh, d,
                                   kind == "int8", kind == "bf16")
+            dk, dv, dks, dvs = _pools(gen, dev, b, bs * mb, kvh, d,
+                                      kind == "int8", kind == "bf16")
             lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
             pt = _page_table(gen, dev, b, mb, b * mb,
                              [-(-n // bs) for n in DECODE_LENS])
@@ -3218,6 +3237,7 @@ def check_head_slices(report, dev):
                              device=dev) / math.sqrt(d)
             fullp = ops.paged_prefill_attention_kernel(qp, k, v, ptp, pfx,
                                                        qlens, ks, vs)
+            fulld = ops.decode_attention_kernel(q, dk, dv, lens, dks, dvs)
             for n, r, sl in _slices(kvh):
                 got = ops.paged_decode_attention_kernel(
                     _head_slice(q, sl, 1), _head_slice(k, sl, 2),
@@ -3227,13 +3247,18 @@ def check_head_slices(report, dev):
                     _head_slice(qp, sl, 2), _head_slice(k, sl, 2),
                     _head_slice(v, sl, 2), ptp, pfx, qlens,
                     _head_slice(ks, sl, 2), _head_slice(vs, sl, 2))
+                gotd = ops.decode_attention_kernel(
+                    _head_slice(q, sl, 1), _head_slice(dk, sl, 2),
+                    _head_slice(dv, sl, 2), lens, _head_slice(dks, sl, 2),
+                    _head_slice(dvs, sl, 2))
                 torch.cuda.synchronize()
                 what = f"{arch} {kind} pool, mesh {n} rank {r}"
-                if not torch.equal(got, full[:, sl]):
-                    raise AssertionError(
-                        f"paged_decode_attention on KV heads {sl.start}.."
-                        f"{sl.stop - 1} ({what}) differs from the full "
-                        "launch's")
+                for name, a, w in (("paged_decode_attention", got, full),
+                                   ("decode_attention", gotd, fulld)):
+                    if not torch.equal(a, w[:, sl]):
+                        raise AssertionError(
+                            f"{name} on KV heads {sl.start}..{sl.stop - 1} "
+                            f"({what}) differs from the full launch's")
                 for name, a, w in zip(("out", "m", "l"), gotp, fullp):
                     if not torch.equal(a, w[:, :, sl]):
                         raise AssertionError(
@@ -3242,10 +3267,11 @@ def check_head_slices(report, dev):
                             "from the full launch's")
                 n_slices += 1
             log(f"  head slices: {arch} ({kvh} KV heads x {hq} x D {d}) "
-                f"{kind} pool: both paged attentions on each of the "
-                f"{sum(SLICE_MESHES)} slices of meshes {SLICE_MESHES} "
-                "bitwise equal to one launch over every head")
-    phase(f"phase 2: head slices, {n_slices} slices x 2 kernels bitwise")
+                f"{kind} pool and dense cache: both paged attentions and "
+                f"decode_attention on each of the {sum(SLICE_MESHES)} "
+                f"slices of meshes {SLICE_MESHES} bitwise equal to one "
+                "launch over every head")
+    phase(f"phase 2: head slices, {n_slices} slices x 3 kernels bitwise")
 
 
 def decode_step_ops(dev):
@@ -5988,9 +6014,9 @@ def _whisper_controls(cfg):
         return f
 
     def wrong_layer(fn):
-        def f(params, c, frames):
+        def f(params, c, frames, **kw):
             return fn(params, c.with_(n_enc_layers=c.n_enc_layers - 1),
-                      frames)
+                      frames, **kw)
         return f
 
     def short_cross(fn):
@@ -6980,8 +7006,8 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
         def fresh():
             p = model.init(0, device=dev)
             return {"params": p, "opt": adamw.init_state(p)}
-        # earlier phases' training states linger in reference cycles
-        # until a collection: free them, so the peak is this phase's
+        # a collection first, so the peak is this phase's (``train.run``
+        # frees its state on return: the collect should free ~0 GB)
         held = (torch.cuda.memory_allocated() / 1e9
                 if dev.type == "cuda" else 0.0)
         gc.collect()
@@ -7030,6 +7056,7 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
                "losses": losses, "peak_gb": peak,
                "allocated_before_gb": before,
                "allocated_before_gc_gb": held,
+               "freed_by_gc_gb": held - before,
                "step_ms": {kind: float(np.median(v[1:]))
                            for kind, v in ms.items()},
                "step_ms_all": ms}
@@ -7041,7 +7068,7 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
             f"{rec['step_ms']['mesh']:.2f} ms, plain "
             f"{rec['step_ms']['plain']:.2f} ms; peak {peak:.2f} GB allocated "
             f"for both states ({before:.2f} GB before, {held:.2f} GB before "
-            f"a gc.collect())")
+            f"a gc.collect(): the collect freed {held - before:.2f} GB)")
 
         root = tempfile.mkdtemp(prefix=f"phase{n}_")
         try:
@@ -7180,15 +7207,188 @@ def mesh_path(dev, counted, n=28):
     return rec
 
 
+# phase 30: the serve-side executors on a world of one
+SERVE_MESH_STEPS = 32
+SERVE_MESH_PREFILL = (8, 512)          # the prefill cell: B x S
+SERVE_MESH_DECODE = (8, 1024)          # the decode cell: B x max_seq
+
+
+def _model_run(prefills=(), decode_steps=0):
+    """What ``check_launches`` reads of an engine, for a run of model-level
+    steps on the dense cache: one whole-prompt prefill call of S tokens a
+    row each for every S of ``prefills``, and ``decode_steps`` decode
+    steps."""
+    import types
+    return types.SimpleNamespace(
+        paged=False, plan_log=[{"prefills": [(0, 0, s) for s in prefills]}],
+        metrics={"decode_steps": decode_steps, "chunk_batch_calls": 0})
+
+
+def _timed_launches(fn):
+    """(``fn()``, its launches by kernel, its seconds, synchronized)."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(build.LAUNCHES), time.perf_counter() - t0
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_mesh_path(dev, counted, n=30):
+    """Phase ``n``: the serve-side executors of ``launch/steps.py`` on
+    ``make_host_mesh()``, a world of one over NCCL started here and ended
+    before returning (phase 28 ends its own), at llama2-110m's full width
+    and depth with Q8_0 weights, on an f32 and an int8 dense cache.
+    ``jit_prefill_step`` on a prefill cell of 8 x 512 (phase 3's first 8
+    prompts, each repeated to 512 tokens) against ``make_prefill_step``:
+    the logits and the cache bitwise.  ``jit_serve_step``, 32 greedy steps
+    on a decode cell of 8 x 1024 from ``Model.prefill(max_seq=1024)`` of
+    the same 8 prompts zero-padded to one length, against
+    ``make_serve_step`` on the same cache: the logits and the cache
+    bitwise at every step.  ``jit_serve_sample_step``, 32 steps from the
+    same cache with fixed threefry keys, each step's tokens fed back,
+    against ``make_serve_sample_step``: the tokens and the cache bitwise
+    at every step.  Each executor's launches equal the plain step's and
+    are exact (``check_launches``; counted for the kernels line once, the
+    executors' runs).  A failed NCCL start, launch or comparison raises."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.core import prng
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("llama2-110m")
+    params = build_model(cfg).quantize(build_model(cfg).init(seed=0,
+                                                             device=dev))
+    prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0, shared_len=128,
+                        shared_at=(0, 9, 12, 15))[:SERVE_MESH_DECODE[0]]
+    b, s = SERVE_MESH_PREFILL
+    pre_batch = {"tokens": torch.from_numpy(
+        np.stack([np.resize(p, s) for p in prompts]))}
+    width = max(len(p) for p in prompts)
+    dec_batch = {"tokens": torch.from_numpy(np.stack(
+        [np.pad(p, (0, width - len(p))) for p in prompts]))}
+    pcell = ShapeCell("prefill", s, b, "prefill")
+    dcell = ShapeCell("decode", SERVE_MESH_DECODE[1], SERVE_MESH_DECODE[0],
+                      "decode")
+    mesh = make_host_mesh(device=dev)
+    backend = dist.get_backend()
+    if backend != ("nccl" if dev.type == "cuda" else "gloo"):
+        raise AssertionError(f"the mesh runs {backend} on {mesh.device}")
+    rec = {"backend": backend, "world": dist.get_world_size(),
+           "mesh": dict(mesh.shape), "prefill_cell": [b, s],
+           "decode_cell": list(SERVE_MESH_DECODE),
+           "steps": SERVE_MESH_STEPS}
+    for kv in ("float32", "int8"):
+        phase(f"phase {n}: llama2-110m full width, Q8_0, {kv} dense cache: "
+              f"jit_prefill_step ({b} x {s}), jit_serve_step and "
+              f"jit_serve_sample_step ({SERVE_MESH_STEPS} steps at "
+              f"{dcell.global_batch} x {dcell.seq_len}) on make_host_mesh()"
+              " against the plain steps")
+        model = build_model(cfg.with_(kv_cache_dtype=kv))
+        pre = steps.jit_prefill_step(model, mesh, pcell)[0]
+        serve = steps.jit_serve_step(model, mesh, dcell)[0]
+        sample = steps.jit_serve_sample_step(model, mesh, dcell)[0]
+        sp_p = steps.serve_specs(model, mesh, pcell)
+        sp_d = steps.serve_specs(model, mesh, dcell)
+        sp_s = steps.serve_specs(model, mesh, dcell, sample=True)
+        shards = sh.shard(params, sp_p.params, mesh)
+        part = {}
+
+        (lg_m, c_m), l_m, t_m = _timed_launches(lambda: pre(
+            shards, steps.shard_batch(pre_batch, sp_p.batch, mesh)))
+        (lg_p, c_p), l_p, t_p = _timed_launches(
+            lambda: steps.make_prefill_step(model, s)(params, pre_batch))
+        if not (torch.equal(sh.gather(lg_m, sp_p.logits, mesh), lg_p)
+                and not _same_state(sh.gather_tree(c_m, sp_p.cache, mesh),
+                                    c_p)):
+            raise AssertionError(f"jit_prefill_step ({kv}) differs from "
+                                 "make_prefill_step")
+        if l_m != l_p:
+            raise AssertionError(f"jit_prefill_step launches {l_m} != "
+                                 f"make_prefill_step's {l_p}")
+        launched = dict(l_m)
+        part["prefill"] = {"seconds": t_m, "plain_seconds": t_p}
+        del lg_m, c_m, lg_p, c_p
+
+        first, start = model.prefill(params, dec_batch,
+                                     max_seq=dcell.seq_len)
+        for name, step, plain, sp in (
+                ("serve", serve, steps.make_serve_step(model), sp_d),
+                ("sample", sample, steps.make_serve_sample_step(model),
+                 sp_s)):
+            c_m = sh.shard(_clone_tree(start), sp_d.cache, mesh)
+            c_p = _clone_tree(start)
+            tok = torch.argmax(first, -1).int()
+            lm, lp, tm, tp = {}, {}, 0.0, 0.0
+            for i in range(SERVE_MESH_STEPS):
+                extra = () if name == "serve" else (prng.prng_key(1000 + i),)
+                (o_m, c_m), got, dt = _timed_launches(lambda: step(
+                    shards, c_m, sh.shard(tok, sp.tokens, mesh), *extra))
+                _add(lm, got)
+                tm += dt
+                (o_p, c_p), got, dt = _timed_launches(
+                    lambda: plain(params, c_p, tok, *extra))
+                _add(lp, got)
+                tp += dt
+                spec = sp_d.logits if name == "serve" else sp.tokens
+                if not (torch.equal(sh.gather(o_m, spec, mesh), o_p)
+                        and not _same_state(
+                            sh.gather_tree(c_m, sp_d.cache, mesh), c_p)):
+                    raise AssertionError(
+                        f"jit_{name}_step ({kv}) differs from the plain "
+                        f"step at step {i}")
+                tok = (torch.argmax(o_p, -1) if name == "serve"
+                       else o_p).int()
+            if lm != lp:
+                raise AssertionError(f"jit_{name}_step launches {lm} != the "
+                                     f"plain step's {lp}")
+            _add(launched, lm)
+            part[name] = {"seconds": tm, "plain_seconds": tp,
+                          "ms_per_step": tm / SERVE_MESH_STEPS * 1e3,
+                          "plain_ms_per_step": tp / SERVE_MESH_STEPS * 1e3}
+            del c_m, c_p
+        del start, first
+        # the three executors' launches: one prefill call, then both
+        # decode loops' steps
+        check_launches(_model_run(prefills=[s],
+                                  decode_steps=2 * SERVE_MESH_STEPS),
+                       launched, cfg, counted)
+        rec[kv] = {"bitwise": True, "launches_equal": True,
+                   "launches": {k: v for k, v in launched.items() if v},
+                   **part}
+        log(f"  {kv} cache: logits, caches and tokens bitwise at every "
+            f"step; launches equal; prefill {part['prefill']['seconds']:.3f}"
+            f" s (plain {part['prefill']['plain_seconds']:.3f}); decode "
+            f"{part['serve']['ms_per_step']:.2f} ms/step (plain "
+            f"{part['serve']['plain_ms_per_step']:.2f}); sampled "
+            f"{part['sample']['ms_per_step']:.2f} ms/step (plain "
+            f"{part['sample']['plain_ms_per_step']:.2f})")
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def mesh_paths(dev, counted):
-    """Phase 28, the tensor-parallel mesh (``mesh_path``).  Alone on the
-    card: ``python3 chip_smoke.py --only mesh_paths``, or ``build.build()``
-    and ``qlinear.set_default_strategy("kernel")`` first, as ``main`` does,
-    then the checks of ``PHASE2["mesh_paths"]`` and ``mesh_paths(dev,
-    {})``."""
+    """Phases 28 and 30, the mesh (``mesh_path``, ``serve_mesh_path``).
+    Alone on the card: ``python3 chip_smoke.py --only mesh_paths``, or
+    ``build.build()`` and ``qlinear.set_default_strategy("kernel")`` first,
+    as ``main`` does, then the checks of ``PHASE2["mesh_paths"]`` and
+    ``mesh_paths(dev, {})``."""
     rec = mesh_path(dev, counted, 28)
     phase(f"phase 28: mesh {json.dumps(rec)}; {rec['seconds']:.1f} s")
-    return rec
+    rec30 = serve_mesh_path(dev, counted, 30)
+    phase(f"phase 30: serve-side executors {json.dumps(rec30)}; "
+          f"{rec30['seconds']:.1f} s")
+    return rec, rec30
 
 
 def closed_batch_turn(dev, runs: int = 4):
@@ -7279,7 +7479,8 @@ PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                           "check_attention", "check_rope",
                           "check_rmsnorm_quant"),
           "mesh_paths": ("check_q8_matvec", "check_q8_matmul",
-                         "check_attention", "check_rope",
+                         "check_attention", "check_dense_attention",
+                         "check_flash_prefill", "check_rope",
                          "check_rmsnorm_quant", "check_head_slices")}
 
 

@@ -44,10 +44,13 @@ def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
 def unflatten(like: Any, values: list) -> Any:
     """A tree of ``like``'s structure holding ``values`` in ``items``'
     order."""
-    it = iter(values)
+    return _fill(like, iter(values))
 
-    def fill(t):
-        if isinstance(t, dict):
-            return {k: fill(t[k]) for k in sorted(t)}
-        return next(it)
-    return fill(like)
+
+def _fill(t: Any, it) -> Any:
+    # a module-level recursion: a recursive closure would hold itself and
+    # ``values`` in a reference cycle until the next collection (a train
+    # step's gradients, 12.9 GB at llama3.2-3b)
+    if isinstance(t, dict):
+        return {k: _fill(t[k], it) for k in sorted(t)}
+    return next(it)

@@ -417,14 +417,51 @@ def shard_range(dim: int, entry, mesh) -> Tuple[int, int]:
     return index * n, n
 
 
-def _shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def local_view(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's part of a whole tensor under ``spec``: a view (no
+    copy), ``t`` itself where no live axis splits it."""
     out = t
     for d, entry in enumerate(spec):
         if live_axes(entry, mesh):
             start, n = shard_range(t.shape[d], entry, mesh)
             out = out.narrow(d, start, n)
+    return out
+
+
+def _shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    out = local_view(t, spec, mesh)
     # a copy of the slice alone: the rank holds its shard, not the tree
     return out.clone() if out is not t else t
+
+
+def restrict(spec: Spec, axes: tuple) -> Spec:
+    """``spec`` with every mesh axis outside ``axes`` dropped (an entry
+    left with none is None): e.g. a cache spec less its batch axes, the
+    split a rank's rows keep along ``model``."""
+    out = []
+    for entry in spec:
+        kept = tuple(a for a in (_axes(entry) if entry is not None else ())
+                     if a in axes)
+        out.append(None if not kept else kept if len(kept) > 1
+                   else kept[0])
+    return tuple(out)
+
+
+def restrict_tree(tree: Any, specs: Any, axes: tuple, drop: int = 0) -> Any:
+    """:func:`restrict` of every spec of ``specs`` (the spec tree of
+    ``tree``, which tells a spec from a tuple of specs), each less its
+    ``drop`` leading entries first (``tree`` one layer of a stacked tree
+    ``specs`` describes)."""
+    return _map2(lambda leaf, spec: restrict(spec[drop:], axes), tree,
+                 specs)
+
+
+def parts(entry, mesh) -> int:
+    """How many parts one spec entry cuts its dim into on ``mesh``."""
+    n = 1
+    for a in live_axes(entry, mesh):
+        n *= mesh.shape[a]
+    return n
 
 
 @dataclasses.dataclass

@@ -17,14 +17,25 @@ computes its loss and gradients on them (``Model.loss(mesh=, specs=)``:
 tensor parallelism over ``model`` for the dense family, the other
 families' leaves gathered whole on use), sums the gradients over the data
 axes (``reduce_grads``: a reduce-scatter where ZeRO-1 splits the moments)
-and updates its shards (``adamw.apply_updates(mesh=)``).  The serve-side
-wrappers (``jit_prefill_step``, ``jit_serve_step``,
-``jit_serve_sample_step``) have no counterpart yet (ROADMAP); served on a
-mesh, the engine runs the bodies itself (``serving/engine.py``).
+and updates its shards (``adamw.apply_updates(mesh=)``).
+
+The serve-side wrappers (``jit_prefill_step``, ``jit_serve_step``,
+``jit_serve_sample_step``) keep the reference's names, arguments and
+returns; their specs are ``serve_specs``'s, which callers shard their
+inputs with (``sharding.shard``).  Each step takes the rank's weight
+shards, its part of the dense cache and its rows, and runs the model
+storage-sharded and compute-replicated over ``model``
+(``transformer._ServeMesh``): the weights gathered on use, the rank's rows
+computed whole, its part of the cache written; rows over the data axes
+are plain data parallelism, with no collective.  It returns the rank's
+``(B@data, V@model)`` slice of the logits (or its rows' tokens) and its
+part of the cache, each bit for bit the unsharded step's.  The engine
+serves its paged pool on a mesh itself (``serving/engine.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -338,3 +349,165 @@ def jit_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig,
                          f"{dsz} data ranks")
     step = _train_step(model, ocfg, microbatches, mesh, sspecs)
     return step, state_struct, batch_struct, (sspecs, bspecs)
+
+
+# ---------------------------------------------------------------------------
+# the serve-side executors
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpecs:
+    """The specs of one serve cell on a mesh, the reference's shardings of
+    its serve-side ``jit_*`` wrappers: ``params`` (``param_specs(mode=
+    "serve")`` of ``pstruct``), ``cache`` (``cache_specs`` of the cell's
+    dense cache ``cstruct``), ``batch`` (``data_specs(mode="serve")`` of
+    ``batch_struct``), ``tokens`` (a decode cell's tokens, (B,)) and
+    ``logits`` ((B, V): rows over the data axes where B divides them, the
+    vocab over ``model`` where the padded vocab divides it)."""
+
+    params: Any
+    cache: Any
+    batch: Dict[str, Any]
+    tokens: tuple
+    logits: tuple
+    pstruct: Any
+    cstruct: Any
+    batch_struct: Dict[str, Any]
+
+    @property
+    def rows(self):
+        """The spec entry of the cache's batch dim: the rows a rank
+        computes."""
+        return self.cache["lens"][0]
+
+
+def serve_specs(model: Model, mesh, cell: ShapeCell, quantized: bool = True,
+                policy: Optional[QuantPolicy] = None,
+                sample: bool = False) -> ServeSpecs:
+    """The specs ``jit_prefill_step`` / ``jit_serve_step`` (``sample``:
+    ``jit_serve_sample_step``, whose tokens take ``_best_batch_spec``) put
+    on one cell, with the structs they are read from (meta tensors)."""
+    cfg = model.cfg
+    pstruct = params_struct(model, quantized=quantized, policy=policy)
+    batch_struct = input_specs(cfg, cell)
+    cstruct = cache_struct(model, cell)
+    bdim = cell.global_batch
+    bspec = sh.dp_axes(mesh) if bdim % sh._dp_size(mesh) == 0 else None
+    vspec = "model" if cfg.padded_vocab() % mesh.shape["model"] == 0 \
+        else None
+    tspec = sh._best_batch_spec(cfg, mesh, bdim, "serve") if sample \
+        else bspec
+    return ServeSpecs(
+        params=sh.param_specs(cfg, pstruct, mesh, mode="serve"),
+        cache=sh.cache_specs(cfg, cstruct, mesh),
+        batch=sh.data_specs(cfg, batch_struct, mesh, mode="serve"),
+        tokens=(tspec,), logits=(bspec, vspec), pstruct=pstruct,
+        cstruct=cstruct, batch_struct=batch_struct)
+
+
+def _to_rows(t: torch.Tensor, spec: tuple, dim: int, want, mesh
+             ) -> torch.Tensor:
+    """``t`` held under ``spec``, whose dim ``dim`` carries the batch rows,
+    as held with ``want`` in that entry: itself where the two agree, else
+    gathered whole and cut again (a multi-pod mesh, where a batch that
+    divides ``data`` but not ``pod x data`` splits its tokens over
+    ``data`` and its cache not at all)."""
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    if spec[dim] == want:
+        return t
+    to = spec[:dim] + (want,) + spec[dim + 1:]
+    return sh.shard(sh.gather(t, spec, mesh), to, mesh)
+
+
+def _batch_rows(batch: Dict[str, Any], sp: ServeSpecs, mesh
+                ) -> Dict[str, Any]:
+    """A prefill batch held under ``sp.batch`` -> the cache's rows."""
+    return {k: _to_rows(torch.as_tensor(v), sp.batch[k], 0, sp.rows, mesh)
+            for k, v in batch.items()}
+
+
+def _vocab_part(logits: torch.Tensor, sp: ServeSpecs, mesh) -> torch.Tensor:
+    """The rank's rows' whole logits -> their slice under ``sp.logits``
+    (the rows are already the rank's: the logits' rows follow the
+    cache's)."""
+    return sh.shard(logits, (None, sp.logits[1]), mesh)
+
+
+def jit_prefill_step(model: Model, mesh, cell: ShapeCell,
+                     quantized: bool = True,
+                     policy: Optional[QuantPolicy] = None):
+    """The one-shot prefill on one rank of ``mesh``: the reference's
+    ``jit_prefill_step``, whose name, arguments and returns it keeps;
+    nothing is compiled.  Returns (step, pstruct, batch_struct).
+    ``step(params, batch) -> (logits, cache)`` takes the rank's shards of
+    ``serve_specs(...).params`` and its rows of the batch (``.batch``) and
+    returns its ``(B@data, V@model)`` slice of the last position's logits
+    and its part of a cache of ``cell.seq_len`` positions under
+    ``.cache``.  The prompts run on the rank's rows, every rank of the
+    model axis alike, on the weights gathered on use."""
+    sp = serve_specs(model, mesh, cell, quantized, policy)
+
+    def prefill_step(params, batch):
+        logits, cache = model.prefill(
+            sh.Sharded(params, sp.params), _batch_rows(batch, sp, mesh),
+            max_seq=cell.seq_len, mesh=mesh, cache_specs=sp.cache)
+        return _vocab_part(logits, sp, mesh), cache
+
+    return prefill_step, sp.pstruct, sp.batch_struct
+
+
+def jit_serve_step(model: Model, mesh, cell: ShapeCell,
+                   quantized: bool = True,
+                   policy: Optional[QuantPolicy] = None):
+    """One decode step on one rank of ``mesh``: the reference's
+    ``jit_serve_step``.  Returns (step, pstruct, cstruct, batch_struct).
+    ``step(params, cache, tokens) -> (logits, cache)`` takes the rank's
+    weight shards, its part of the cell's cache (``serve_specs(...).cache``,
+    written in place and returned) and its tokens (``.tokens``: the rows
+    over the data axes, or every row where B does not divide them, as
+    ``long_500k``'s batch of 1), and returns its ``(B@data, V@model)``
+    slice of the logits."""
+    sp = serve_specs(model, mesh, cell, quantized, policy)
+
+    def serve_step(params, cache, tokens):
+        tokens = _to_rows(tokens, sp.tokens, 0, sp.rows, mesh)
+        logits, cache = model.decode_step(sh.Sharded(params, sp.params),
+                                          cache, tokens, mesh=mesh,
+                                          cache_specs=sp.cache)
+        return _vocab_part(logits, sp, mesh), cache
+
+    return serve_step, sp.pstruct, sp.cstruct, sp.batch_struct
+
+
+def jit_serve_sample_step(model: Model, mesh, cell: ShapeCell,
+                          quantized: bool = True,
+                          policy: Optional[QuantPolicy] = None):
+    """Decode and sample on one rank of ``mesh``: the reference's
+    ``jit_serve_sample_step``.  Returns (step, pstruct, cstruct,
+    batch_struct).  ``step(params, cache, tokens, key) -> (tokens, cache)``
+    is :func:`jit_serve_step`'s step followed by
+    ``make_serve_sample_step``'s draw, the vocab-sharded Gumbel-max of
+    ``serving/sampling_distributed.gumbel_argmax`` at temperature 1: the
+    rank perturbs its vocab slice of its rows' logits with the noise of the
+    global (row, vocab) indices and the model axis exchanges winners, so
+    the tokens are the unsharded ones bit for bit.  Tokens in and out are
+    held under ``serve_specs(..., sample=True).tokens``
+    (``_best_batch_spec``); every rank holds its rows' tokens."""
+    from repro_torch.serving.sampling_distributed import gumbel_argmax
+    sp = serve_specs(model, mesh, cell, quantized, policy, sample=True)
+    rows = sp.rows
+    row_start = (sh.shard_range(cell.global_batch, rows, mesh)[0]
+                 if sh.live_axes(rows, mesh) else 0)
+
+    def serve_sample_step(params, cache, tokens, key):
+        tokens = _to_rows(tokens, sp.tokens, 0, rows, mesh)
+        logits, cache = model.decode_step(sh.Sharded(params, sp.params),
+                                          cache, tokens, mesh=mesh,
+                                          cache_specs=sp.cache)
+        nxt = gumbel_argmax(key, _vocab_part(logits, sp, mesh),
+                            mesh=mesh if sp.logits[1] else None,
+                            vocab_size=logits.shape[-1], row_start=row_start)
+        return _to_rows(nxt, (rows,), 0, sp.tokens[0], mesh), cache
+
+    return serve_sample_step, sp.pstruct, sp.cstruct, sp.batch_struct

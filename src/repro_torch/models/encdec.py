@@ -44,12 +44,16 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlinear import qdot, qeinsum
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (_attn_bank, _cdt, _layer,
-                                            _q_scale, _write_rows, batch_to,
+from repro_torch.distribution import sharding as sh
+from repro_torch.models.transformer import (_attn_bank, _block, _cdt,
+                                            _dense_attention, _layer,
+                                            _q_scale, _ServeMesh,
+                                            _write_rows, batch_to,
                                             check_family, chunked_ce,
-                                            draw_params, prefill_attention,
-                                            remat, train_attention,
-                                            train_view, unbind_stacks)
+                                            draw_params, keep_part,
+                                            prefill_attention, remat,
+                                            train_attention, train_view,
+                                            unbind_stacks)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -156,15 +160,16 @@ def _enc_block(p, x, cfg: ModelConfig, attend) -> torch.Tensor:
 
 
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-           train: bool = False) -> torch.Tensor:
+           train: bool = False, sm=None) -> torch.Tensor:
     """frames (B, S_enc, D) stub embeddings -> the encoder's hidden states
     (B, S_enc, D), after its final norm.  Served, attention runs on
     ``prefill_attention`` (``ops.flash_prefill``); with ``train`` on
-    ``transformer.train_attention``, each layer under ``remat``."""
+    ``transformer.train_attention``, each layer under ``remat``.  On a
+    serve mesh (``sm``) each layer's weights are gathered on use."""
     s = frames.shape[1]
     x = frames.to(_cdt(cfg)) + params["enc_pos"][:s].to(_cdt(cfg))
     for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_blocks"], i)
+        lp = _block(params, "enc_blocks", i, sm)
         x = (remat(cfg, _enc_block, lp, x, cfg, train_attention) if train
              else _enc_block(lp, x, cfg, prefill_attention))
     return L.apply_norm(x, params["enc_final_norm"], cfg.norm_type, cfg.eps)
@@ -213,14 +218,15 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
 
 
 def decoder_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   enc_hidden: torch.Tensor):
+                   enc_hidden: torch.Tensor, sm=None):
     """tokens (B, S) at positions 0..S-1 against the encoder's states ->
     (hidden (B, S, D) after the final norm, each layer's (k, v, kx,
-    vx))."""
+    vx)).  On a serve mesh (``sm``) each layer's weights are gathered on
+    use."""
     x = _embed_tokens(params, cfg, tokens)
     kvs = []
     for i in range(cfg.n_layers):
-        x, kv = _dec_block_seq(_layer(params["dec_blocks"], i), x,
+        x, kv = _dec_block_seq(_block(params, "dec_blocks", i, sm), x,
                                enc_hidden, cfg)
         kvs.append(kv)
     return L.apply_norm(x, params["final_norm"], cfg.norm_type, cfg.eps), kvs
@@ -276,13 +282,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            max_seq: Optional[int] = None, mesh=None,
+            cache_specs=None) -> Tuple[torch.Tensor, Cache]:
     """Encode ``batch["frames"]`` (B, S_enc, D), teacher-force the prompts
     ``batch["tokens"]`` (B, S) and fill both caches: returns the last
     position's logits (B, V) f32 and the cache (``self`` of ``max_seq``
     positions, default S, holding the prompts' K/V; ``cross`` the encoder's
     K/V at every one of its enc_seq positions; ``lens = S``).  Runs where
-    the parameters live."""
+    the parameters live.  ``mesh`` / ``cache_specs``: one rank of a mesh,
+    as ``transformer.prefill`` runs there."""
+    sm = None
+    if mesh is not None:
+        sm = _ServeMesh(cfg, params, mesh)
+        params = sm.top
     dev = params["final_norm"]["gamma"].device
     tokens = batch["tokens"]
     if not isinstance(tokens, torch.Tensor):
@@ -290,8 +302,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     tokens = tokens.to(dev)
     frames = torch.as_tensor(batch["frames"]).to(dev)
     b, s = tokens.shape
-    enc_hidden = encode(params, cfg, frames)
-    hidden, kvs = decoder_hidden(params, cfg, tokens, enc_hidden)
+    enc_hidden = encode(params, cfg, frames, sm=sm)
+    hidden, kvs = decoder_hidden(params, cfg, tokens, enc_hidden, sm)
     cache = init_cache(cfg, b, max_seq or s, device=dev)
     cache["lens"].fill_(s)
     se = enc_hidden.shape[1]
@@ -300,26 +312,40 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
                     slice(0, s))
         _write_rows(_layer(cache["cross"], i), kx, vx, slice(None),
                     slice(0, se))
-    return _lm_head(params, hidden[:, -1]), cache
+    return _lm_head(params, hidden[:, -1]), keep_part(cache, cache_specs,
+                                                      mesh)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                positions: Optional[torch.Tensor] = None, mesh=None,
+                cache_specs=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,) -> (logits (B, V) f32, cache).  Each row's new self K/V
     row lands at its position (clamped to the last one, as the reference's
     ``dynamic_update_slice`` clamps it); self-attention reads each row's
     ``pos + 1`` positions, cross-attention every one of the cross cache's
-    positions; ``lens`` comes back as ``pos + 1``."""
+    positions; ``lens`` comes back as ``pos + 1``.  ``mesh`` /
+    ``cache_specs``: one rank of a mesh, as ``transformer.decode_step``
+    serves the dense cache there (both caches by the same ``/k``, ``/v``
+    rules)."""
+    sm = None
+    if mesh is not None:
+        sm = _ServeMesh(cfg, params, mesh, cache_specs)
+        params = sm.top
     pos = cache["lens"] if positions is None else positions
     b = tokens.shape[0]
     x = L.embed_lookup(params["embed"], tokens).to(_cdt(cfg))
     x = x + params["dec_pos"][pos.long()].to(_cdt(cfg))
     qscale = _q_scale(cfg)
     lens_now = (pos + 1).int()
-    s = cache["self"]["k"].shape[2]
-    enc_len = torch.full((b,), cache["cross"]["k"].shape[2],
+
+    def whole(part, n):
+        """The global length of dim -3 of ``cache[part]["k"]`` (n local)."""
+        if sm is None or cache_specs is None:
+            return n
+        return n * sh.parts(cache_specs[part]["k"][-3], mesh)
+    s = whole("self", cache["self"]["k"].shape[2])
+    enc_len = torch.full((b,), whole("cross", cache["cross"]["k"].shape[2]),
                          dtype=torch.int32, device=x.device)
     dst = (torch.arange(b, device=x.device), torch.clamp(pos, 0, s - 1).long())
 
@@ -327,19 +353,21 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         return qeinsum("bd,hkd->bhk", h, p[w])
 
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec_blocks"], i)
+        lp = _block(params, "dec_blocks", i, sm)
         sc, xc = _layer(cache["self"], i), _layer(cache["cross"], i)
+        s_spec = x_spec = None
+        if sm is not None:
+            s_spec = sm.cache_layer_specs("self", i, sc)
+            x_spec = sm.cache_layer_specs("cross", i, xc)
         hh = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
         q, k, v = (proj(hh, lp["attn"], w) for w in ("wq", "wk", "wv"))
-        _write_rows(sc, k, v, *dst)
-        a = ops.decode_attention(q * qscale, sc["k"], sc["v"], lens_now,
-                                 sc.get("ks"), sc.get("vs"))
+        a = _dense_attention(q * qscale, k, v, sc, dst, lens_now, sm, s_spec)
         x = x + qeinsum("bhk,dhk->bd", a, lp["attn"]["wo"]).to(x.dtype)
 
         hx = L.apply_norm(x, lp["norm_x"], cfg.norm_type, cfg.eps)
         qx = proj(hx, lp["cross"], "wq")
-        cx = ops.decode_attention(qx * qscale, xc["k"], xc["v"], enc_len,
-                                  xc.get("ks"), xc.get("vs"))
+        cx = _dense_attention(qx * qscale, None, None, xc, None, enc_len, sm,
+                              x_spec)
         x = x + qeinsum("bhk,dhk->bd", cx, lp["cross"]["wo"]).to(x.dtype)
         x = x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["norm2"],
                                                    cfg.norm_type, cfg.eps))

@@ -88,8 +88,12 @@ class Model:
         return self._family.init_cache(self.cfg, batch, max_seq,
                                        device=device)
 
-    def prefill(self, params, batch, max_seq: Optional[int] = None):
-        return self._family.prefill(params, self.cfg, batch, max_seq=max_seq)
+    def prefill(self, params, batch, max_seq: Optional[int] = None,
+                mesh=None, cache_specs=None):
+        """``mesh`` / ``cache_specs``: one rank of a mesh, its rows and its
+        part of the dense cache (``transformer.prefill``)."""
+        return self._family.prefill(params, self.cfg, batch, max_seq=max_seq,
+                                    mesh=mesh, cache_specs=cache_specs)
 
     def init_paged_cache(self, batch: int, *, block_size: int = 64,
                          n_blocks: int, max_blocks_per_seq: int,
@@ -98,14 +102,14 @@ class Model:
             self.cfg, batch, block_size=block_size, n_blocks=n_blocks,
             max_blocks_per_seq=max_blocks_per_seq, device=device, mesh=mesh)
 
-    def decode_step(self, params, cache, tokens, positions=None, mesh=None):
-        """``mesh`` (paged pool only) serves on one rank of a mesh
-        (``transformer.decode_step``); the audio family takes none."""
-        if mesh is None:
-            return self._family.decode_step(params, self.cfg, cache, tokens,
-                                            positions)
-        return transformer.decode_step(params, self.cfg, cache, tokens,
-                                       positions, mesh=mesh)
+    def decode_step(self, params, cache, tokens, positions=None, mesh=None,
+                    cache_specs=None):
+        """``mesh`` serves on one rank of a mesh: the paged pool's KV
+        heads, or the dense cache's part under ``cache_specs``
+        (``transformer.decode_step``)."""
+        return self._family.decode_step(params, self.cfg, cache, tokens,
+                                        positions, mesh=mesh,
+                                        cache_specs=cache_specs)
 
     def prefill_chunk(self, params, tokens, cache, slot, offset):
         return transformer.prefill_chunk(params, self.cfg, tokens, cache,

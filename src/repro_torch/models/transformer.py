@@ -19,7 +19,8 @@ stacked leading axes (``_layers``).
 Serving runs on the paged KV pool (``init_paged_cache``, filled by
 ``prefill_chunk_batch``; ``verify_chunk_batch`` is its twin with logits at
 every chunk position, for speculative decoding) or on the dense per-slot
-reservation (``init_cache``, filled by the one-shot ``prefill``); the SSM
+reservation (``init_cache``, filled by the one-shot ``prefill``), each
+also on one rank of a mesh (``mesh=``: :class:`_ServeMesh`); the SSM
 and hybrid families and the interleave have only the dense cache (the
 interleave's two attention banks, the SSM families' conv rings and SSM
 states beside the hybrid's K/V).  Unlike the reference, which donates the
@@ -41,7 +42,10 @@ from __future__ import annotations
 
 import collections.abc
 import dataclasses
+import importlib
 import math
+import sys
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -425,34 +429,44 @@ def _layer(tree, i):
     return tree[i]
 
 
-def _layers(params: Params, cfg: ModelConfig):
+def _block(params: Params, group: str, idx, sm=None):
+    """Layer ``idx`` of the stacked parameter group ``group``; on a mesh
+    (``sm``, a :class:`_ServeMesh`) its shards, gathered whole on use."""
+    lp = _layer(params[group], idx)
+    return lp if sm is None else sm.layer(lp, group, idx)
+
+
+def _layers(params: Params, cfg: ModelConfig, sm=None):
     """The layers in the reference's order: (kind, the layer's parameters,
     its cache's key, its index there), kind ``"attn"`` for an attention
     block (dense, MoE, the interleave's pattern j of dense layers (j, i) in
     ``attn_dense`` and then its MoE layer j in ``attn_moe``, or the
     hybrid's shared block, whose j-th application reads ``cache["attn"]``
-    layer j) or ``"ssm"`` for a Mamba2 layer."""
+    layer j) or ``"ssm"`` for a Mamba2 layer.  On a mesh (``sm``) each
+    layer's weights are gathered on use (:func:`_block`)."""
     if interleaved(cfg):
         n_pat, n_dense = _interleave_split(cfg)
         for j in range(n_pat):
             for i in range(n_dense):
-                yield ("attn", _layer(params["blocks_dense"], (j, i)),
+                yield ("attn", _block(params, "blocks_dense", (j, i), sm),
                        "attn_dense", (j, i))
-            yield "attn", _layer(params["blocks_moe"], j), "attn_moe", j
+            yield ("attn", _block(params, "blocks_moe", j, sm), "attn_moe",
+                   j)
         return
     if cfg.family == "hybrid":
         n_super, n_tail = _hybrid_split(cfg)
         for j in range(n_super):
             for i in range(cfg.attn_every):
-                yield ("ssm", _layer(params["blocks_main"], (j, i)),
+                yield ("ssm", _block(params, "blocks_main", (j, i), sm),
                        "ssm_main", (j, i))
             yield "attn", params["shared_attn"], "attn", j
         for i in range(n_tail):
-            yield "ssm", _layer(params["blocks_tail"], i), "ssm_tail", i
+            yield ("ssm", _block(params, "blocks_tail", i, sm), "ssm_tail",
+                   i)
         return
     kind, key = ("ssm", "ssm") if cfg.family == "ssm" else ("attn", "attn")
     for i in range(cfg.n_layers):
-        yield kind, _layer(params["blocks"], i), key, i
+        yield kind, _block(params, "blocks", i, sm), key, i
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -493,22 +507,30 @@ def _rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor):
     return L.rope_angles(positions, cfg.hd(), cfg.rope_theta)
 
 
-def _mlp(p, x, cfg: ModelConfig, decode: bool = False):
+def _mlp(p, x, cfg: ModelConfig, decode: bool = False, sm=None):
     """The block's MLP on the pre-norm hidden x, (B, S, D) or, at a decode
     step, (B, D), chosen by the block's tree as the reference's
     ``_mlp_or_moe`` chooses it.  ``mlp``: ``swiglu_mlp`` (norm2 fused into
     the w13 GEMV).  ``moe``: the plain norm, then ``moe_mlp`` as the
     reference runs it, the dense dispatch at a decode step (x as (B, 1, D))
-    and the grouped one at the chunk, verify and one-shot prefill steps."""
+    and the grouped one at the chunk, verify and one-shot prefill steps.
+    On a mesh whose data axes split the rows (``sm.rows``) the grouped
+    dispatch runs on every row, gathered, and the rank keeps its own: its
+    expert products' shapes follow the row count, and so may their bits."""
     if "moe" not in p:
         return L.swiglu_mlp(p["mlp"], x,
                             L.norm_gamma(p["norm2"], cfg.norm_type), cfg.eps)
     h = L.apply_norm(x, p["norm2"], cfg.norm_type, cfg.eps)
+    rows = None if sm is None or decode else sm.rows
+    if rows is not None:
+        h = sh.gather(h, (rows,), sm.mesh)
     y = L.moe_mlp(p["moe"], h[:, None] if decode else h,
                   n_experts=cfg.n_experts, top_k=cfg.top_k,
                   group_size=cfg.moe_group,
                   capacity_factor=cfg.capacity_factor,
                   dense_dispatch=decode)
+    if rows is not None:
+        y = sh.local_view(y, (rows,), sm.mesh)
     return (y[:, 0] if decode else y).to(x.dtype)
 
 
@@ -640,41 +662,57 @@ def init_paged_cache(cfg: ModelConfig, batch: int, *, block_size: int = 64,
 
 class _ServeMesh:
     """The storage-sharded, compute-replicated serving scheme on one rank
-    of a mesh: the counterpart of the reference's ``_serve_mesh_helpers``.
+    of a mesh: the counterpart of the reference's ``_serve_mesh_helpers``,
+    and of the GSPMD placement its ``jit_*`` serve wrappers give the dense
+    cache.
 
-    The paged pool holds the rank's own KV heads (``kv_range``); weights
-    are held sharded (``sharding.Sharded``: the tree of this rank's shards
-    and its specs) and all-gathered whole at use, one layer at a time
-    (``layer``), the embedding and the final norm at each call (``top``);
-    q, k and v are computed whole from the whole weights, every rank the
-    same; both paged attentions run on the rank's KV heads and their query
-    heads (``q`` / ``kv``), and the attention output is all-gathered along
-    heads (``heads``) before the wo contraction mixes them.  Every
-    collective is an all-gather: no float reduction is split across ranks,
-    so each rank computes the unsharded bits.  Replicated params (a plain
-    tree, as the engine places them at model size 1) are read as they
-    are; a pool the model axis does not split is read whole, and nothing
-    is gathered around attention."""
+    Weights are held sharded (``sharding.Sharded``: the tree of this rank's
+    shards and its specs) and all-gathered whole at use, one layer at a
+    time (``layer``), the unstacked leaves (the embedding, the final norm,
+    the hybrid's shared block, the audio family's positions) at each call
+    (``top``); every rank computes q, k, v, the MLP and the head of its
+    rows whole from the whole weights.  The paged pool holds the rank's own
+    KV heads (``kv_range``): both paged attentions run on them and their
+    query heads (``q`` / ``kv``), and the output is all-gathered along
+    heads (``heads``) before the wo contraction mixes them.  The dense
+    cache holds the rank's part under ``cache_specs``
+    (``sharding.cache_specs``: rows over the data axes, and KV heads, or
+    else positions, SSM heads and the x conv ring's channels over
+    ``model``): :func:`_dense_attention` and :func:`_ssm_decode_layer` say
+    what a rank does with each.  A rank computes only its rows, but for
+    the MoE's grouped dispatch at the prefill, which sees every row
+    (:func:`_mlp`).  Every collective is an all-gather: no float reduction
+    is split across ranks, so each rank computes the unsharded bits of its
+    rows.  Replicated params (a plain tree, as the
+    engine places them at model size 1) are read as they are; a cache
+    without specs is held whole, and nothing is gathered around
+    attention."""
 
-    def __init__(self, cfg: ModelConfig, params, mesh):
+    def __init__(self, cfg: ModelConfig, params, mesh, cache_specs=None):
         self.mesh = mesh
+        self.cache_specs = cache_specs
         if isinstance(params, sh.Sharded):
             self.tree, self.specs = params.tree, params.specs
         else:
             self.tree, self.specs = params, None
         start, n = self.kv_range(cfg, mesh)
-        g = cfg.n_heads // cfg.n_kv_heads
+        g = cfg.n_heads // cfg.n_kv_heads if cfg.n_kv_heads else 0
         self.split = n < cfg.n_kv_heads
         self.kv = slice(start, start + n)
         self.q = slice(start * g, (start + n) * g)
         self.kv_heads, self.q_heads = n, n * g
+        # the rows' spec entry where the data axes split the dense cache's
+        # batch (its lens' spec), else None
+        self.rows = None
+        if cache_specs is not None and sh.live_axes(cache_specs["lens"][0],
+                                                    mesh):
+            self.rows = cache_specs["lens"][0]
         self.top = dict(self.tree)
+        self._lead: Dict[str, Any] = {}
         if self.specs is not None:
-            for k in ("embed", "final_norm"):
-                self.top[k] = sh.gather_tree(self.tree[k], self.specs[k],
-                                             mesh)
-        self.block_specs = (None if self.specs is None
-                            else sh.drop_lead(self.specs["blocks"]))
+            for k, v in self.tree.items():
+                if k not in STACKED:
+                    self.top[k] = sh.gather_tree(v, self.specs[k], mesh)
 
     @staticmethod
     def kv_range(cfg: ModelConfig, mesh) -> Tuple[int, int]:
@@ -684,12 +722,16 @@ class _ServeMesh:
             return 0, cfg.n_kv_heads
         return sh.shard_range(cfg.n_kv_heads, ax, mesh)
 
-    def layer(self, lp):
-        """One layer's weights whole: a view of the replicated tree, or its
-        shards, each all-gathered at its first use (:class:`_OnUse`)."""
-        if self.block_specs is None:
+    def layer(self, lp, group: str = "blocks", idx=0):
+        """Layer ``idx`` of the stacked group ``group`` whole: a view of
+        the replicated tree, or its shards, each all-gathered at its first
+        use (:class:`_OnUse`)."""
+        if self.specs is None:
             return lp
-        return _OnUse(lp, self.block_specs, self.mesh)
+        if group not in self._lead:
+            n = len(idx) if isinstance(idx, tuple) else 1
+            self._lead[group] = sh.drop_lead(self.specs[group], n)
+        return _OnUse(lp, self._lead[group], self.mesh)
 
     def heads(self, out: torch.Tensor, dim: int) -> torch.Tensor:
         """The attention output of the rank's heads -> every head, along
@@ -699,22 +741,51 @@ class _ServeMesh:
         return sh.all_gather_dim(out, dim, self.mesh.groups["model"],
                                  self.mesh.shape["model"])
 
+    def cache_layer_specs(self, key: str, idx, lc):
+        """The specs of layer ``idx`` of the dense cache's ``key`` (the
+        layer's tree ``lc``) along ``model`` alone: the rank's rows are its
+        own, and nothing is gathered over the data axes.  None for a cache
+        held whole."""
+        if self.cache_specs is None:
+            return None
+        n = len(idx) if isinstance(idx, tuple) else 1
+        return sh.restrict_tree(lc, self.cache_specs[key], ("model",),
+                                drop=n)
 
-def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off) -> None:
+    def kv_slice(self, kvh: int, entry) -> Tuple[int, int]:
+        """(first, count) of the dense cache's KV heads this rank holds of
+        ``kvh``, split by the spec entry ``entry``."""
+        return sh.shard_range(kvh, entry, self.mesh)
+
+    def seq_slot(self, dst, start: int, n: int):
+        """The new row's (slot, position) ``dst`` on the rank holding the
+        positions ``start .. start + n - 1``: (rows, the local position,
+        clamped into them), and which rows' positions it owns."""
+        rows, pos = dst
+        local = pos - start
+        own = (local >= 0) & (local < n)
+        return (rows, torch.clamp(local, 0, n - 1)), own
+
+
+def _write_rows(lc: Dict[str, torch.Tensor], k, v, blk, off,
+                own: Optional[torch.Tensor] = None) -> None:
     """Write K/V rows (..., KVH, hd) into one layer's cache at (blk, off)
     -- (block, offset) of the pool, or (slot, position) of the dense
     cache -- quantizing them for an int8 cache (one f32 scale per row and
-    head)."""
+    head).  ``own`` (B,) bool: a row whose flag is False writes back what
+    the cache holds there (a rank of a sequence split writes only the rows
+    whose position it holds)."""
     if "ks" in lc:
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
-        lc["k"][blk, off] = kq
-        lc["v"][blk, off] = vq
-        lc["ks"][blk, off] = ks
-        lc["vs"][blk, off] = vs
+        new = {"k": kq, "v": vq, "ks": ks, "vs": vs}
     else:
-        lc["k"][blk, off] = k.to(lc["k"].dtype)
-        lc["v"][blk, off] = v.to(lc["v"].dtype)
+        new = {"k": k.to(lc["k"].dtype), "v": v.to(lc["v"].dtype)}
+    for name, t in new.items():
+        if own is not None:
+            keep = own.reshape(own.shape + (1,) * (t.dim() - 1))
+            t = torch.where(keep, t, lc[name][blk, off])
+        lc[name][blk, off] = t
 
 
 # ---------------------------------------------------------------------------
@@ -778,15 +849,62 @@ class _OnUse(collections.abc.Mapping):
         return len(self._shards)
 
 
+def _dense_attention(qs, k, v, lc, dst, lens_now, sm=None, spec=None):
+    """Decode attention on one layer of the dense cache ``lc``: the new
+    K/V rows (B, KVH, hd) written at (slot, position) ``dst`` (none when
+    ``k`` is None: the audio family's cross cache), then ``decode_attention``
+    of the pre-scaled q (B, H, hd) over each row's ``lens_now`` positions.
+
+    On a mesh (``sm``, ``spec`` the layer's specs along ``model``,
+    :meth:`_ServeMesh.cache_layer_specs`) the rank holds a part of the
+    layer.  KV heads on ``model``: it writes and attends its own KV heads
+    and their query heads, and the heads' outputs are all-gathered.
+    Positions on ``model`` (the KV heads do not divide the axis): the rank
+    writes the new row only where it holds the row's position, the
+    layer's parts are gathered whole, and attention runs over the whole,
+    so the result is one card's bit for bit (a flash-decode split merged
+    by its log-sum-exp would sum in another order).  Neither: as one
+    card."""
+    kv_e = s_e = None
+    if spec is not None:
+        s_e, kv_e = spec["k"][1], spec["k"][2]          # (B, S, KVH, hd)
+    mesh = None if sm is None else sm.mesh
+    kv_split = kv_e is not None and bool(sh.live_axes(kv_e, mesh))
+    seq_split = s_e is not None and bool(sh.live_axes(s_e, mesh))
+    if kv_split:
+        kvh = lc["k"].shape[2] * sh.parts(kv_e, mesh)
+        start, n = sm.kv_slice(kvh, kv_e)
+        g = qs.shape[1] // kvh
+        qs = qs[:, start * g:(start + n) * g]
+        if k is not None:
+            k, v = k[:, start:start + n], v[:, start:start + n]
+    own = None
+    if seq_split and k is not None:
+        s_loc = lc["k"].shape[1]
+        start, n = sh.shard_range(s_loc * sh.parts(s_e, mesh), s_e, mesh)
+        dst, own = sm.seq_slot(dst, start, n)
+    if k is not None:
+        _write_rows(lc, k, v, *dst, own=own)
+    if seq_split:
+        lc = {name: sh.gather(t, spec[name], mesh) for name, t in lc.items()}
+    out = ops.decode_attention(qs, lc["k"], lc["v"], lens_now, lc.get("ks"),
+                               lc.get("vs"))
+    if kv_split:
+        out = sh.gather(out, (None, kv_e, None), mesh)
+    return out
+
+
 def _attn_decode_layer(lp, x, cfg: ModelConfig, lc, rope, dst, lens_now,
-                       qscale: float, pt=None, sm=None):
+                       qscale: float, pt=None, sm=None, spec=None):
     """One attention block at a decode step: q, k, v of the pre-norm x
     (B, D), the new K/V rows written at ``dst`` ((block, offset) of the
     paged pool when ``pt`` is its page table, else (slot, position) of
     the dense cache ``lc``), attention over each row's ``lens_now``
     positions (q scaled by ``qscale``), then the MLP.  On a mesh
     (``sm``, a :class:`_ServeMesh`) the rank writes and attends its own
-    KV heads, and the heads are gathered before the out projection."""
+    KV heads of the pool, and the heads are gathered before the out
+    projection; on the dense cache it reads its part of the layer as
+    ``spec`` says (:func:`_dense_attention`)."""
     q, k, v = _decode_qkv(lp, x, cfg, *rope)
     qs = q * qscale
     if pt is not None:
@@ -798,31 +916,40 @@ def _attn_decode_layer(lp, x, cfg: ModelConfig, lc, rope, dst, lens_now,
         if sm is not None:
             out = sm.heads(out, 1)
     else:
-        _write_rows(lc, k, v, *dst)
-        out = ops.decode_attention(qs, lc["k"], lc["v"], lens_now,
-                                   lc.get("ks"), lc.get("vs"))
+        out = _dense_attention(qs, k, v, lc, dst, lens_now, sm, spec)
     x = x + _decode_out_proj(lp["attn"], out, x.dtype)
     return x + _mlp(lp, x, cfg, decode=True)
 
 
-def _ssm_decode_layer(lp, x, cfg: ModelConfig, lc) -> torch.Tensor:
+def _ssm_decode_layer(lp, x, cfg: ModelConfig, lc, sm=None,
+                      spec=None) -> torch.Tensor:
     """One Mamba2 layer at a decode step on the pre-norm x (B, D): norm1,
     ``ssm.mamba2_decode_step``, the residual; the layer's conv rings and
     state (``lc``, views of the cache) are overwritten in place by the new
-    ones, which are fresh tensors, so no read follows a write."""
+    ones, which are fresh tensors, so no read follows a write.  On a mesh
+    (``sm``, ``spec`` the layer's specs along ``model``) the rank's state
+    heads and x-ring channels are gathered whole on use, the step runs on
+    the whole, and the rank keeps its slice of the update."""
     h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
+    conv, state = lc["conv"], lc["state"]
+    specs = (None,) * (len(conv) + 1)
+    if spec is not None:
+        specs = (*spec["conv"], spec["state"])
+        conv = tuple(sh.gather(c, s, sm.mesh)
+                     for c, s in zip(conv, spec["conv"]))
+        state = sh.gather(state, spec["state"], sm.mesh)
     y, (conv, state) = S.mamba2_decode_step(lp["ssm"], h, _ssm_dims(cfg),
-                                            lc["conv"], lc["state"])
-    for buf, new in zip(lc["conv"], conv):
-        buf.copy_(new)
-    lc["state"].copy_(state)
+                                            conv, state)
+    for buf, new, s in zip((*lc["conv"], lc["state"]), (*conv, state),
+                           specs):
+        buf.copy_(new if s is None else sh.local_view(new, s, sm.mesh))
     return x + y
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None, mesh=None
-                ) -> Tuple[torch.Tensor, Cache]:
+                positions: Optional[torch.Tensor] = None, mesh=None,
+                cache_specs=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,) -> (logits (B, V) f32, cache), on the paged pool when
     the cache carries a ``page_table``, else on the dense cache.
 
@@ -840,16 +967,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     advances every row's conv rings and SSM state by its token
     (``_ssm_decode_layer``).
 
-    ``mesh`` (``launch/mesh.Mesh``, paged pool only) serves on one rank of
-    a mesh: ``params`` are the rank's ``sharding.Sharded`` shards (or the
-    whole tree, replicated), the pool its own KV heads; the logits come
-    back whole on every rank (:class:`_ServeMesh`)."""
+    ``mesh`` (``launch/mesh.Mesh``) serves on one rank of a mesh:
+    ``params`` are the rank's ``sharding.Sharded`` shards (or the whole
+    tree, replicated).  The paged pool holds the rank's own KV heads.  The
+    dense cache holds the rank's part under ``cache_specs``
+    (``sharding.cache_specs`` of the whole cache; None: held whole), and
+    ``tokens`` its rows: the rows the cache's batch axis gives it.  The
+    logits of the rank's rows come back whole on every rank of the model
+    axis (:class:`_ServeMesh`)."""
     paged = "page_table" in cache
     sm = None
     if mesh is not None:
-        if not paged:
-            raise ValueError("mesh serving requires the paged cache")
-        sm = _ServeMesh(cfg, params, mesh)
+        sm = _ServeMesh(cfg, params, mesh, None if paged else cache_specs)
         params = sm.top
     pos = cache["lens"] if positions is None else positions
     x = embed_inputs(params, cfg, {"tokens": tokens})
@@ -869,20 +998,22 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         dst = (torch.where(blk_id >= 0, blk_id, nb).long(),
                (pos % bs).long())
     elif any(key in cache for key in ATTN_BANKS):
-        s = next(cache[key] for key in ATTN_BANKS
-                 if key in cache)["k"].shape[-3]
+        bank = next(key for key in ATTN_BANKS if key in cache)
+        s = cache[bank]["k"].shape[-3]
+        if sm is not None and cache_specs is not None:
+            s *= sh.parts(cache_specs[bank]["k"][-3], mesh)
         dst = (torch.arange(pos.shape[0], device=pos.device),
                torch.clamp(pos, 0, s - 1).long())
 
-    for kind, lp, key, idx in _layers(params, cfg):
+    for kind, lp, key, idx in _layers(params, cfg, sm):
         lc = _layer(cache[key], idx)
+        spec = (None if sm is None or paged
+                else sm.cache_layer_specs(key, idx, lc))
         if kind == "ssm":
-            x = _ssm_decode_layer(lp, x, cfg, lc)
+            x = _ssm_decode_layer(lp, x, cfg, lc, sm, spec)
         else:
-            if sm is not None:
-                lp = sm.layer(lp)
             x = _attn_decode_layer(lp, x, cfg, lc, rope, dst, lens_now,
-                                   qscale, pt, sm)
+                                   qscale, pt, sm, spec)
 
     logits = _head(params, cfg, x)
     new_cache = dict(cache)
@@ -930,16 +1061,17 @@ def prefill_attention(q, k, v, cfg: ModelConfig,
 
 
 def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, sm=None):
     """x (B, S, D) input embeddings at ``positions`` ((B, S), or (3, B, S)
     for mrope) -> (hidden (B, S, D) before the final norm, each layer's
     (cache key, index, state)): an attention block's (k, v) (B, S, KVH,
     hd), a Mamba2 layer's (conv rings, SSM state)
     (``ssm.mamba2_forward``).  The head's ``_head`` normalizes only the
-    rows it reads."""
+    rows it reads.  On a mesh (``sm``) each layer's weights are gathered
+    on use."""
     rope = _rope_cos_sin(cfg, positions)
     parts = []
-    for kind, lp, key, idx in _layers(params, cfg):
+    for kind, lp, key, idx in _layers(params, cfg, sm):
         if kind == "ssm":
             h = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
             y, part = S.mamba2_forward(lp["ssm"], h, _ssm_dims(cfg),
@@ -948,13 +1080,14 @@ def forward_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
         else:
             a, part = _attn_seq(lp, x, cfg, *rope)
             x = x + a
-            x = x + _mlp(lp, x, cfg)
+            x = x + _mlp(lp, x, cfg, sm=sm)
         parts.append((key, idx, part))
     return x, parts
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            max_seq: Optional[int] = None, mesh=None,
+            cache_specs=None) -> Tuple[torch.Tensor, Cache]:
     """Whole prompts in one pass: ``batch["tokens"]`` (B, S), or the
     ``embeds`` (B, S, D) of a modality frontend, at ``batch["positions"]``
     ((B, S), or (3, B, S) for mrope; default 0..S-1 in every stream).
@@ -962,7 +1095,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     ``max_seq`` positions (default S) holding the prompts' K/V (and, for
     the SSM families, each Mamba2 layer's conv rings and final state,
     cast to the cache's f32), ``lens = S``.  Runs where the parameters
-    live."""
+    live.
+
+    ``mesh``: one rank of a mesh, as :func:`decode_step` serves on it.
+    ``params`` are the rank's ``sharding.Sharded`` shards, ``batch`` its
+    rows; the rank computes its rows replicated over ``model`` and keeps
+    its part of the cache under ``cache_specs`` (the whole cache's specs;
+    None: the cache whole)."""
+    sm = None
+    if mesh is not None:
+        sm = _ServeMesh(cfg, params, mesh, cache_specs)
+        params = sm.top
     dev = params["final_norm"]["gamma"].device
     batch = dict(batch)
     if "embeds" in batch:
@@ -977,7 +1120,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     positions = _default_positions(cfg, b, s, batch, dev)
     hidden, parts = forward_layers(params, cfg,
                                    embed_inputs(params, cfg, batch),
-                                   positions)
+                                   positions, sm)
     cache = init_cache(cfg, b, max_seq or s, device=dev)
     cache["lens"].fill_(s)
     for key, idx, part in parts:
@@ -989,7 +1132,18 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         for buf, c in zip(lc["conv"], conv):
             buf.copy_(c)
         lc["state"].copy_(state)
-    return _head(params, cfg, hidden[:, -1]), cache
+    return _head(params, cfg, hidden[:, -1]), keep_part(cache, cache_specs,
+                                                        mesh)
+
+
+def keep_part(cache: Cache, cache_specs, mesh) -> Cache:
+    """A dense cache computed whole over ``model`` for a rank's rows ->
+    the rank's part of it under ``cache_specs`` (a copy of each part
+    alone; ``cache`` itself with no mesh or no specs)."""
+    if mesh is None or cache_specs is None:
+        return cache
+    return sh.shard(cache, sh.restrict_tree(cache, cache_specs, ("model",)),
+                    mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,10 +1159,35 @@ def remat(cfg: ModelConfig, fn, *args):
     if cfg.remat not in ("none", "block"):
         raise NotImplementedError(f"remat {cfg.remat!r}")
     if cfg.remat == "block" and torch.is_grad_enabled():
+        _import_checkpoint_deps()
         # the forward draws no random numbers: no RNG state to replay
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
+
+
+def _import_checkpoint_deps() -> None:
+    """Import ``torch._dynamo``, which ``torch.utils.checkpoint`` imports
+    at its first call, on a thread of its own.  Imported inside the
+    caller's stack, it leaves that stack's frames, and the parameters and
+    optimizer state their locals hold, in a reference cycle until the next
+    collection (``torch.fx``'s ``wrap`` keeps its own frame, whose
+    ``f_back`` chain reaches the caller's).  A thread's stack holds none of
+    the caller's frames."""
+    if "torch._dynamo" in sys.modules:
+        return
+    failed = []
+
+    def load():
+        try:
+            importlib.import_module("torch._dynamo")
+        except Exception as e:                         # noqa: BLE001
+            failed.append(e)
+    t = threading.Thread(target=load, name="import-torch-dynamo")
+    t.start()
+    t.join()
+    if failed:
+        raise failed[0]
 
 
 class _Unbound:
@@ -1497,9 +1676,7 @@ def _chunk_step(params: Params, cfg: ModelConfig, tokens_chunks,
     x = embed_inputs(params, cfg, {"tokens": a.toks})
 
     for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if sm is not None:
-            lp = sm.layer(lp)
+        lp = _block(params, "blocks", i, sm)
         lc = {k: v[i] for k, v in cache["attn"].items()}
         hn = L.apply_norm(x, lp["norm1"], cfg.norm_type, cfg.eps)
         q = qeinsum("bsd,hkd->bshk", hn, lp["attn"]["wq"])

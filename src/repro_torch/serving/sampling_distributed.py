@@ -59,10 +59,13 @@ def _gumbel_at(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 def gumbel_argmax(key: torch.Tensor, logits: torch.Tensor,
                   temperature: float = 1.0, mesh=None,
-                  vocab_size: Optional[int] = None) -> torch.Tensor:
+                  vocab_size: Optional[int] = None,
+                  row_start: int = 0) -> torch.Tensor:
     """(B, V) -> (B,) int32 sample ~ softmax(logits / T); ``temperature <=
     0`` takes the argmax.  With ``mesh``, ``logits`` is this rank's
-    (B, length) slice of ``vocab_range(vocab_size, mesh)``."""
+    (B, length) slice of ``vocab_range(vocab_size, mesh)``.  ``row_start``:
+    the global index of the first row, where the batch is split over data
+    ranks (the noise is keyed on global rows too)."""
     b, vl = logits.shape
     v = vl if mesh is None else vocab_size
     start = 0 if mesh is None else vocab_range(v, mesh)[0]
@@ -71,7 +74,8 @@ def gumbel_argmax(key: torch.Tensor, logits: torch.Tensor,
     else:
         cols = torch.arange(start, start + vl, dtype=torch.int64,
                             device=logits.device)
-        rows = torch.arange(b, dtype=torch.int64, device=logits.device)
+        rows = torch.arange(row_start, row_start + b, dtype=torch.int64,
+                            device=logits.device)
         g = _gumbel_at(key, rows[:, None] * v + cols[None])
         vals = logits / temperature + g
     best, at = torch.max(vals, dim=-1)
