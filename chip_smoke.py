@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--only phase2,main_path,bf16_paths,ssm_paths,
                                   vlm_audio_paths,interleave_paths,
-                                  train_paths,mesh_paths]
+                                  train_paths,mesh_paths,analysis_paths]
 
 With no argument every group of phases runs, in that order; ``--only``
 runs a selection, each group with the phase-2 checks of its own shapes.
@@ -149,22 +149,31 @@ first 8 prompts), each against ``make_prefill_step`` /
 logits, caches and tokens bitwise at every step, the launches equal and
 exact (``check_launches``); phase 2 holds ``decode_attention`` on every
 KV-head slice as well.  Mesh sizes above one need more than one card; the
-CPU tests run them over gloo.  On every llama3.2-3b, phi4, glm4,
-command-r, qwen3-moe, mamba2, zamba2 and llama4 path the kernels' logits
-are held against the plain versions' on the same inputs to a fixed bound
-derived from bf16 and Q8_0 rounding (``plain_delta_bound``), with each
-kernel's share: the difference with only that kernel on its plain
-version, and with only it launched (``kernel_plain_delta``); planted
-wiring faults, the controls of that bound (a GEMV's K loop one group
-short, GQA groups on the wrong KV head, the one-shot prefill's causal
-diagonal one key short), must each move the logits past it, and a decode
-length one short is measured beside them. On the MoE path the routes are
-pinned to the plain run's for that check (``moe_routes``), then one run
-with free routes counts the flipped routing decisions, each first flip
-held to its layer's fixed gap bound (``route_flips``), and the same
-planted faults with free routes must each flip a decision past it. Every
-served path resets the launch counters before it runs and asserts
-exactly the launches its shape implies after.  Any failed phase exits
+CPU tests run them over gloo.  Phase 31 (``analysis_paths``) holds the
+analysis tools on the card: phase 30's two cells run on the kernels under
+the operation counter (``launch/flops.py``), each count equal to the
+same step's meta dry run (``launch/dryrun.py`` in a fake world of one)
+exactly, the collective tally empty, the real shards' bytes the dry
+run's ``argument_bytes``; the measured step printed beside the dry run's
+estimates; and ``python -m repro_torch.launch.dryrun`` at full size in
+two subprocesses (llama3.2-3b decode_32k on 16 x 16, qwen3-moe-30b-a3b
+prefill_32k on 2 x 16 x 16), each writing the reference's record.  On
+every llama3.2-3b, phi4, glm4, command-r, qwen3-moe, mamba2, zamba2 and
+llama4 path the kernels' logits are held against the plain versions' on
+the same inputs to a fixed bound derived from bf16 and Q8_0 rounding
+(``plain_delta_bound``), with each kernel's share: the difference with
+only that kernel on its plain version, and with only it launched
+(``kernel_plain_delta``); planted wiring faults, the controls of that
+bound (a GEMV's K loop one group short, GQA groups on the wrong KV head,
+the one-shot prefill's causal diagonal one key short), must each move
+the logits past it, and a decode length one short is measured beside
+them. On the MoE path the routes are pinned to the plain run's for that
+check (``moe_routes``), then one run with free routes counts the flipped
+routing decisions, each first flip held to its layer's fixed gap bound
+(``route_flips``), and the same planted faults with free routes must
+each flip a decision past it. Every served path resets the launch
+counters before it runs and asserts exactly the launches its shape
+implies after.  Any failed phase exits
 non-zero.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the lines before it give the card's name and power limit and
 list every kernel with its launches on the main paths, its error and its
@@ -7391,6 +7400,218 @@ def mesh_paths(dev, counted):
     return rec, rec30
 
 
+# phase 31: the analysis tools -- the real steps against their dry run,
+# and the dry-run CLI
+ANALYSIS_ITERS = 10
+ANALYSIS_CLI = (("--arch", "llama3.2-3b", "--shape", "decode_32k"),
+                ("--arch", "qwen3-moe-30b-a3b", "--shape", "prefill_32k",
+                 "--multi-pod", "multi"))
+
+
+def _event_ms(fn, iters: int = ANALYSIS_ITERS) -> float:
+    """Median of ``iters`` timings of ``fn()`` by CUDA events, after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _analysis_cells():
+    from repro_torch.configs import ShapeCell
+    b, s = SERVE_MESH_PREFILL
+    return (ShapeCell("prefill", s, b, "prefill"),
+            ShapeCell("decode", SERVE_MESH_DECODE[1], SERVE_MESH_DECODE[0],
+                      "decode"))
+
+
+def _dry_records(model, cells):
+    """Each cell's dry-run record on ``make_host_mesh()`` of a fake world
+    of one (meta tensors, started and ended here)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, mesh as meshlib
+    meshlib.dryrun_world(1)
+    try:
+        mesh = meshlib.make_host_mesh()
+        if mesh.device.type != "meta":
+            raise AssertionError(f"a fake world's mesh on {mesh.device}")
+        out = {}
+        for cell in cells:
+            lowered, flops_fn, pstruct, cstruct = dryrun.lower(model, mesh,
+                                                               cell)
+            out[cell.kind] = dryrun.analyse(lowered, flops_fn, model.cfg,
+                                            cell, pstruct, cstruct, 1, 1,
+                                            mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def analysis_path(dev, n=31):
+    """Phase ``n``: the analysis tools on the card.  (a) llama2-110m at
+    full width and depth, Q8_0 and an f32 dense cache, phase 30's two
+    cells (a prefill of 8 x 512 and a decode step at 8 x 1024) on
+    ``make_host_mesh()``, a world of one over NCCL: each real step runs
+    on the kernels under ``flops.Counter``, whose count must equal the
+    meta dry run's count of the same step (``dryrun.analyse`` in a fake
+    world of one) exactly -- every kernel wrapper's report on the card
+    against its meta branch's; the collective tally must be empty and the
+    real shards' bytes the dry run's ``argument_bytes``.  The measured
+    step (CUDA events, median of 10) is printed beside the record's
+    estimates at the card's data-sheet constants, and the growth of
+    ``max_memory_allocated`` over the step beside ``temp_bytes``.  (b) the
+    dry-run CLI in two subprocesses at full size (``ANALYSIS_CLI``): each
+    must exit 0 and write a record with the reference's keys."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distribution import collectives as C
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, flops, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    phase(f"phase {n}: analysis tools: llama2-110m full width, Q8_0, f32 "
+          "dense cache, prefill and decode on make_host_mesh() against "
+          "their meta dry run; the dry-run CLI at full size")
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    clis = [(args, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(out_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for args in ANALYSIS_CLI]
+    cfg = get_config("llama2-110m").with_(kv_cache_dtype="float32")
+    model = build_model(cfg)
+    cells = _analysis_cells()
+    dry = _dry_records(model, cells)
+    params = model.quantize(model.init(seed=0, device=dev))
+    mesh = make_host_mesh(device=dev)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    prompts = _requests(16, 16, 600, cfg.vocab_size, seed=0)
+    try:
+        for cell in cells:
+            sp = steps.serve_specs(model, mesh, cell)
+            shards = sh.shard(params, sp.params, mesh)
+            b, s = cell.global_batch, cell.seq_len
+            if cell.kind == "prefill":
+                batch = {"tokens": torch.from_numpy(np.stack(
+                    [np.resize(p, s) for p in prompts[:b]]))}
+                step = steps.jit_prefill_step(model, mesh, cell)[0]
+                args = (shards, steps.shard_batch(batch, sp.batch, mesh))
+            else:
+                start = {"tokens": torch.from_numpy(np.stack(
+                    [np.resize(p, 64) for p in prompts[:b]]))}
+                _, cache = model.prefill(params, start, max_seq=s)
+                step = steps.jit_serve_step(model, mesh, cell)[0]
+                tok = torch.arange(b, dtype=torch.int32) + 5
+                args = (shards, sh.shard(cache, sp.cache, mesh),
+                        sh.shard(tok, sp.tokens, mesh))
+            d = dry[cell.kind]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            with flops.Counter() as counter, C.tally() as calls:
+                out = step(*args)
+            torch.cuda.synchronize()
+            growth = torch.cuda.max_memory_allocated() - base
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            del out
+            if counter.flops != d["flops_dev_executed"]:
+                raise AssertionError(
+                    f"{cell.kind}: the card's count {counter.flops} != the "
+                    f"meta dry run's {d['flops_dev_executed']}")
+            if calls:
+                raise AssertionError(f"{cell.kind}: a world of one called "
+                                     f"collectives {calls}")
+            arg_bytes = dryrun.tensor_bytes(args)
+            if arg_bytes != d["memory_analysis"]["argument_bytes"]:
+                raise AssertionError(
+                    f"{cell.kind}: real shards hold {arg_bytes} bytes, the "
+                    f"dry run {d['memory_analysis']['argument_bytes']}")
+            if not launched:
+                raise AssertionError(f"{cell.kind}: no kernel launched")
+            ms = _event_ms(lambda: step(*args))
+            rec[cell.kind] = {
+                "cell": [b, s], "flops": counter.flops,
+                "flops_equal": True, "tally_empty": True,
+                "argument_bytes": arg_bytes, "launches": launched,
+                "step_ms": ms, "est_step_time_s": d["est_step_time_s"],
+                "t_memory_s": d["t_memory_s"],
+                "t_compute_s": d["t_compute_s"], "dominant": d["dominant"],
+                "max_memory_growth_bytes": growth,
+                "temp_bytes": d["memory_analysis"]["temp_bytes"]}
+            log(f"  {cell.kind} {b} x {s}: count {counter.flops:.6g} equals "
+                f"the dry run's; tally empty; argument bytes {arg_bytes} "
+                f"exact; measured {ms:.3f} ms (median of "
+                f"{ANALYSIS_ITERS}) against est_step_time_s "
+                f"{d['est_step_time_s'] * 1e3:.3f} ms (t_memory "
+                f"{d['t_memory_s'] * 1e3:.3f} ms, t_compute "
+                f"{d['t_compute_s'] * 1e3:.3f} ms, estimates at the data "
+                f"sheet's constants); max_memory_allocated grew "
+                f"{growth} bytes against temp_bytes "
+                f"{d['memory_analysis']['temp_bytes']}")
+            del args, shards
+    finally:
+        dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    want = {"arch", "shape", "devices", "bw_fraction", "algo_flops_global",
+            "model_flops_global", "useful_flop_ratio", "t_compute_s",
+            "t_memory_s", "t_collective_s", "dominant", "est_step_time_s",
+            "roofline_fraction", "mem_breakdown", "collective_bytes_dev",
+            "raw_cost_analysis", "collective_breakdown",
+            "param_bytes_global", "cache_bytes_global", "microbatches",
+            "memory_analysis", "compile_s", "multi_pod",
+            "flops_dev_executed", "t_compute_executed_s"}
+    rec["cli"] = {}
+    for args, proc in clis:
+        stdout, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {' '.join(args)} exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        pod = "2pod" if "multi" in args else "1pod"
+        r = json.loads((out_dir / f"{args[1]}__{args[3]}__{pod}.json")
+                       .read_text())
+        missing = want - set(r)
+        if missing:
+            raise AssertionError(f"dryrun {' '.join(args)}: record lacks "
+                                 f"{sorted(missing)}")
+        ratio = r["flops_dev_executed"] / (r["algo_flops_global"]
+                                           / r["devices"])
+        rec["cli"][f"{args[1]} {args[3]} {pod}"] = {
+            "dominant": r["dominant"],
+            "roofline_fraction": r["roofline_fraction"],
+            "executed_over_global_per_dev": ratio,
+            "trace_s": r["compile_s"]}
+        log(f"  dryrun {' '.join(args)}: dominant {r['dominant']}, "
+            f"roofline_fraction {r['roofline_fraction']:.4g}, "
+            f"flops_dev_executed / (algo_flops_global / n_dev) "
+            f"{ratio:.4g} (estimates at the data sheet's constants)")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def analysis_paths(dev, counted):
+    """Phase 31, the analysis tools (``analysis_path``).  Alone on the
+    card: ``python3 chip_smoke.py --only analysis_paths``, or
+    ``build.build()`` and ``qlinear.set_default_strategy("kernel")``
+    first, then ``analysis_paths(dev, {})``.  Its launches run under the
+    counter and are its own: ``counted`` is left as it is."""
+    rec = analysis_path(dev, 31)
+    phase(f"phase 31: analysis tools {json.dumps(rec)}; "
+          f"{rec['seconds']:.1f} s")
+    return rec
+
+
 def closed_batch_turn(dev, runs: int = 4):
     """Phase 3's closed batch (16 greedy requests, paged f32 pool, Q8_0,
     kernel strategy) served ``runs`` times on the tree this script is run
@@ -7463,7 +7684,7 @@ def sampler_cost(dev):
 # each with the phase-2 checks of the shapes its paths serve
 GROUPS = ("phase2", "main_path", "bf16_paths", "ssm_paths",
           "vlm_audio_paths", "interleave_paths", "train_paths",
-          "mesh_paths")
+          "mesh_paths", "analysis_paths")
 PHASE2 = {"main_path": ("check_q8_matvec", "check_q8_matmul",
                         "check_attention", "check_q4",
                         "check_dense_attention", "check_flash_prefill",
@@ -7577,6 +7798,8 @@ def main(argv=None) -> int:
         train_paths(dev, counted)
     if "mesh_paths" in groups:
         mesh_paths(dev, counted)
+    if "analysis_paths" in groups:
+        analysis_paths(dev, counted)
     kernels = []
     for name, row in report.rows.items():
         kernels.append({"name": name, **row,

@@ -40,6 +40,7 @@ import torch.distributed as dist
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.core.tree import items, keystr, unflatten
+from repro_torch.distribution import collectives as C
 from repro_torch.distribution import sharding as sh
 
 _SEP = "|"
@@ -77,6 +78,7 @@ def save(ckpt_dir: str | os.PathLike, step: int, state: Any,
         state = sh.gather_tree(state, specs, mesh)
         if mesh.rank == 0:
             save(ckpt_dir, step, state, extra, host_id)
+        C.record("barrier", 0, mesh.size)
         dist.barrier(group=mesh.group)
         return None
     root = Path(ckpt_dir)

@@ -27,14 +27,54 @@ writes them for tensor parallelism:
 Every operator takes the axis's process group and size.  On a group of
 one (``group`` None, or ``n`` 1) each returns its input as it is and calls
 nothing, so a mesh of one adds no arithmetic and changes no bit.
+
+The collective tally: inside :func:`tally`, every collective the port
+calls (these operators, ``sharding.all_gather_dim``, the sampler's winner
+exchange, the engine's plan broadcast, the checkpoint's barrier and the
+mesh's handshake) adds one (kind, output bytes, group size) entry
+(:func:`record`); ``launch/collective_cost.py`` prices the entries per
+device.  A collective that is skipped (a group of one) adds nothing.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+from typing import Any, List, Tuple
 
 import torch
 import torch.distributed as dist
+
+# the tallies now open, innermost last; each entry (kind, output bytes,
+# group size), the kinds named as the reference's HLO names them
+# (``all-reduce``, ``all-gather``, ``reduce-scatter``), with ``broadcast``
+# and ``barrier`` besides
+_TALLIES: List[List[Tuple[str, int, int]]] = []
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the collectives called inside: yields the list of their
+    (kind, output bytes, group size) entries, in call order."""
+    calls: List[Tuple[str, int, int]] = []
+    _TALLIES.append(calls)
+    try:
+        yield calls
+    finally:
+        _TALLIES.remove(calls)
+
+
+def tallying() -> bool:
+    return bool(_TALLIES)
+
+
+def record(kind: str, out_bytes: int, group_size: int) -> None:
+    """Add one collective to every open tally."""
+    for calls in _TALLIES:
+        calls.append((kind, int(out_bytes), int(group_size)))
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _one(group, n: int) -> bool:
@@ -44,6 +84,7 @@ def _one(group, n: int) -> bool:
 def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
+    record("all-gather", n * nbytes(x), n)
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -56,6 +97,7 @@ def _slice(x: torch.Tensor, dim: int, n: int, index: int) -> torch.Tensor:
 def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
+    record("reduce-scatter", nbytes(out), n)
     dist.reduce_scatter(out, parts, group=group)
     return out
 
@@ -69,6 +111,7 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
+        record("all-reduce", nbytes(g), ctx.n)
         dist.all_reduce(g, group=ctx.group)
         return g, None, None
 
@@ -77,6 +120,7 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         y = x.contiguous().clone()
+        record("all-reduce", nbytes(y), n)
         dist.all_reduce(y, group=group)
         return y
 
@@ -153,6 +197,7 @@ def split_to(x: torch.Tensor, dim: int, group, n: int,
 def all_reduce(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """``x`` summed over the group, in place (no gradient)."""
     if not _one(group, n):
+        record("all-reduce", nbytes(x), n)
         dist.all_reduce(x, group=group)
     return x
 
@@ -164,6 +209,7 @@ def all_reduce_max(x: torch.Tensor, group, n: int) -> torch.Tensor:
     if _one(group, n):
         return x.detach()
     y = x.detach().contiguous().clone()
+    record("all-reduce", nbytes(y), n)
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 

@@ -494,6 +494,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, group, n: int
     in rank order."""
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
+    C.record("all-gather", n * C.nbytes(t), n)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 

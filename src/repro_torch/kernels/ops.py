@@ -5,7 +5,19 @@ it runs the kernel's plain version (:mod:`repro_torch.kernels.ref`); for CUDA
 tensors it checks device, dtype, shape, contiguity and alignment, allocates
 the output, launches the kernel on the current stream and counts the launch
 in ``build.LAUNCHES`` -- or raises.  There is no fallback from a CUDA tensor
-to the plain version.
+to the plain version.  ``meta`` tensors (a dry run, ``launch/dryrun.py``)
+take the CUDA path's checks and allocation, and the wrapper returns its
+outputs, empty meta tensors of the kernel's shapes and dtypes, where it
+would launch: nothing is launched, counted in ``LAUNCHES`` or computed.
+
+On every device each wrapper reports its operations to the active
+operation counter (``launch/flops.py``): the number the reference's
+``flops_of_jaxpr`` counts for the jnp twin of its computation, 2·M·N·K
+for a Q8_0 / Q4_0 product, QK and PV over every key the twin's einsums
+span (the masked ones too), 0 for ``rope``, ``rmsnorm_quant`` and
+``quantize``, which contract nothing.  On the CPU the plain version then
+runs with the count paused.  On the card the only addition is the test of
+whether a counter is active.
 
 The public functions below them mirror ``repro/kernels/ops.py``: activation
 quantization (``quantize_kernel``) and the Q4 / GEMV / GEMM dispatch
@@ -25,6 +37,7 @@ import torch
 from repro_torch.core.quantization import QuantizedTensor, quantize
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import LAUNCHES, launch
+from repro_torch.launch import flops
 
 # decode-vs-prefill dispatch threshold: at most this many rows go to the
 # GEMV kernel (activations reused by every weight row), more to the GEMM.
@@ -40,11 +53,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _check(name: str, device: torch.device, **tensors) -> None:
-    """Every operand on ``device`` (a CUDA device), contiguous; raise
-    otherwise."""
-    if device.type != "cuda":
+    """Every operand on ``device`` (a CUDA device, or ``meta`` for a dry
+    run), contiguous; raise otherwise."""
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: operands on {device}; the kernel takes "
-                         "CUDA tensors and the plain version CPU tensors")
+                         "CUDA tensors (meta ones in a dry run) and the "
+                         "plain version CPU tensors")
     for arg, t in tensors.items():
         if t is None:
             continue
@@ -81,8 +95,11 @@ def _check_q8(name: str, xq, xs, wq, ws, group_size: int, align: int):
 def q8_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     """Decode GEMV (M <= 32): out (M, N) f32 =
     sum_g f32(int32 dot of group g) * xs[m, g] * ws[n, g]."""
+    if flops.counting():
+        flops.report(2.0 * xq.shape[0] * wq.shape[0] * xq.shape[1])
     if xq.device.type == "cpu":
-        return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
+        with flops.paused():
+            return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
     m, n, k = _check_q8("q8_matvec", xq, xs, wq, ws, group_size, 16)
     lanes = group_size // 16
     if not (1 <= m <= MATVEC_MAX_ROWS and group_size % 16 == 0
@@ -91,6 +108,8 @@ def q8_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
                          f"group in 16..512 (power-of-two multiple of 16); "
                          f"got M={m}, group={group_size}")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if xq.device.type == "meta":
+        return out
     launch("q8_matvec", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
            ws.data_ptr(), out.data_ptr(), m, n, k, group_size, _stream(xq))
     return out
@@ -102,12 +121,17 @@ def q8_matmul_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     to it).  Groups that are a multiple of 16 with 16-byte aligned codes run
     on the int8 tensor cores, the rest on a dp4a kernel, whose launches are
     also counted as ``q8_matmul_dp4a``."""
+    if flops.counting():
+        flops.report(2.0 * xq.shape[0] * wq.shape[0] * xq.shape[1])
     if xq.device.type == "cpu":
-        return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
+        with flops.paused():
+            return ref.ref_q8_matmul(xq, xs, wq, ws, group_size)
     m, n, k = _check_q8("q8_matmul", xq, xs, wq, ws, group_size, 4)
     if group_size % 4:
         raise ValueError(f"q8_matmul: group {group_size} not a multiple of 4")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if xq.device.type == "meta":
+        return out
     dp4a = ctypes.c_int(0)
     launch("q8_matmul", xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
            ws.data_ptr(), out.data_ptr(), m, n, k, group_size,
@@ -178,9 +202,13 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
     row is exactly 0.  A -1 entry inside a row's length reads pool block
     0, as the reference does: only lens masks.  The kernel cuts a KV
     head's HQ query heads into :func:`decode_head_groups` groups."""
+    if flops.counting():
+        flops.report(4.0 * q.numel() * page_table.shape[1] * k_pool.shape[1])
     if q.device.type == "cpu":
-        return ref.ref_paged_decode_attention(q, k_pool, v_pool, page_table,
-                                              lens, ks_pool, vs_pool)
+        with flops.paused():
+            return ref.ref_paged_decode_attention(q, k_pool, v_pool,
+                                                  page_table, lens, ks_pool,
+                                                  vs_pool)
     b, kvh, hq, d = q.shape
     name = "paged_decode_attention"
     kind = _check_pool(name, q, k_pool, v_pool, page_table, ks_pool,
@@ -195,6 +223,8 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, page_table, lens,
     groups = decode_head_groups(hq, d)
     bs = k_pool.shape[1]
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return out
     launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
            lens.data_ptr(), out.data_ptr(), b, kvh, hq, d, bs,
@@ -217,10 +247,13 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
     with ``cp.async``, so q, the pools and the scale pools must be 16-byte
     aligned: a view that is not raises ``ValueError``."""
     b, c, kvh, hq, d = q.shape
+    if flops.counting():
+        flops.report(4.0 * q.numel() * page_table.shape[1] * k_pool.shape[1])
     if q.device.type == "cpu":
-        out, m, l = ref.ref_paged_prefill_attention(
-            q.reshape(b, c, kvh * hq, d), k_pool, v_pool, page_table,
-            pfx_lens, ks_pool, vs_pool)
+        with flops.paused():
+            out, m, l = ref.ref_paged_prefill_attention(
+                q.reshape(b, c, kvh * hq, d), k_pool, v_pool, page_table,
+                pfx_lens, ks_pool, vs_pool)
         m = m[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
         l = l[..., 0].transpose(1, 2).reshape(b, c, kvh, hq)
         return out.reshape(b, c, kvh, hq, d), m, l
@@ -244,6 +277,8 @@ def paged_prefill_attention_kernel(q, k_pool, v_pool, page_table, pfx_lens,
     out = torch.empty_like(q)
     m = torch.empty((b, c, kvh, hq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    if q.device.type == "meta":
+        return out, m, l
     launch(name, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
            _ptr(ks_pool), _ptr(vs_pool), page_table.data_ptr(),
            pfx_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
@@ -262,8 +297,11 @@ def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
     8-byte aligned.  The GEMM runs on the int8 tensor cores under the same
     two conditions, on a dp4a kernel otherwise, whose launches are also
     counted as ``q4_matvec_dp4a``."""
+    if flops.counting():
+        flops.report(2.0 * xq.shape[0] * wq.shape[0] * xq.shape[1])
     if xq.device.type == "cpu":
-        return ref.ref_q4_matvec(xq, xs, wq, ws, group_size)
+        with flops.paused():
+            return ref.ref_q4_matvec(xq, xs, wq, ws, group_size)
     name = "q4_matvec"
     m, k = xq.shape
     n = wq.shape[0]
@@ -288,6 +326,8 @@ def q4_matvec_kernel(xq, xs, wq, ws, group_size: int) -> torch.Tensor:
                          "activation loads) and wq 8-byte aligned (8-byte "
                          "weight copies at the least)")
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if xq.device.type == "meta":
+        return out
     dp4a = ctypes.c_int(0)
     launch(name, xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
            out.data_ptr(), m, n, k, group_size, ctypes.byref(dp4a),
@@ -305,9 +345,12 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
     The kernel cuts a KV head's HQ query heads into
     :func:`decode_head_groups` groups."""
     b, kvh, hq, d = q.shape
+    if flops.counting():
+        flops.report(4.0 * q.numel() * k.shape[1])
     if q.device.type == "cpu":
-        return ref.ref_decode_attention(q, k, v, lens.reshape(b, 1),
-                                        k_scale, v_scale)
+        with flops.paused():
+            return ref.ref_decode_attention(q, k, v, lens.reshape(b, 1),
+                                            k_scale, v_scale)
     name = "decode_attention"
     int8 = k_scale is not None
     if (k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:])
@@ -331,6 +374,8 @@ def decode_attention_kernel(q, k, v, lens, k_scale=None,
         _dtype(name, k_scale, torch.float32)
         _dtype(name, v_scale, torch.float32)
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return out
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
            _ptr(v_scale), lens.data_ptr(), out.data_ptr(), b, k.shape[1],
            kvh, hq, d, POOL_KINDS[k.dtype], groups, _stream(q))
@@ -353,9 +398,12 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
     ``ValueError``."""
     b, sq, h, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
+    if flops.counting():
+        flops.report(4.0 * q.numel() * k.shape[1])
     if q.device.type == "cpu":
-        return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
-                                     k_lens, scale)
+        with flops.paused():
+            return ref.ref_flash_prefill(q, k, v, causal, q_offset, q_lens,
+                                         k_lens, scale)
     name = "flash_prefill"
     sk, kvh = k.shape[1], k.shape[2]
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
@@ -378,6 +426,8 @@ def flash_prefill_kernel(q, k, v, q_offset=None, q_lens=None, k_lens=None,
             if t.shape != (b,):
                 raise ValueError(f"{name}: per-row extents must be (B,)")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return out
     launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_offset),
            _ptr(q_lens), _ptr(k_lens), out.data_ptr(), b, sq, sk, h, kvh, d,
            int(causal), scale, POOL_KINDS[q.dtype], _stream(q))
@@ -390,7 +440,8 @@ def rope_kernel(x, cos, sin) -> torch.Tensor:
     D) f32.  Returns (B, H, D) of x's dtype, contiguous, ``x*cos + [-x2,
     x1]*sin`` computed in f32."""
     if x.device.type == "cpu":
-        return ref.ref_rope(x, cos, sin)
+        with flops.paused():
+            return ref.ref_rope(x, cos, sin)
     name = "rope"
     b, h, d = x.shape
     if (cos.shape != (b, d) or sin.shape != (b, d) or d % 2
@@ -403,6 +454,8 @@ def rope_kernel(x, cos, sin) -> torch.Tensor:
     for t in (cos, sin):
         _dtype(name, t, torch.float32)
     out = torch.empty((b, h, d), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        return out
     launch(name, x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
            out.data_ptr(), b, h, d, x.stride(0),
            int(x.dtype == torch.bfloat16), _stream(x))
@@ -541,7 +594,8 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
     dtype, as the plain norm returns it) then Q8_0 per group, in one
     pass."""
     if x.device.type == "cpu":
-        return ref.ref_rmsnorm_quant(x, gamma, eps, group_size)
+        with flops.paused():
+            return ref.ref_rmsnorm_quant(x, gamma, eps, group_size)
     name = "rmsnorm_quant"
     m, k = x.shape
     if gamma.shape != (k,):
@@ -553,9 +607,11 @@ def rmsnorm_quant_kernel(x, gamma, eps: float,
         raise ValueError(f"{name}: gamma must be 16-byte aligned")
     q, s = _q8_outputs(x, group_size)
     width, factor = _torch_row_mean_order(m, k)
+    plan = rmsnorm_quant_plan(m, k, width, _torch_row_split(m, k))
+    if x.device.type == "meta":
+        return q, s
     launch(name, x.data_ptr(), gamma.data_ptr(), q.data_ptr(), s.data_ptr(),
-           m, k, group_size, eps, factor,
-           *rmsnorm_quant_plan(m, k, width, _torch_row_split(m, k)), width,
+           m, k, group_size, eps, factor, *plan, width,
            int(x.dtype == torch.bfloat16), _stream(x))
     return q, s
 
@@ -570,13 +626,16 @@ def quantize_kernel(x, group_size: int) -> tuple:
         raise ValueError(f"quantize: K={k} does not split into groups of "
                          f"{group_size}")
     if x.device.type == "cpu":
-        t = quantize(x, group_size=group_size, bits=8)
+        with flops.paused():
+            t = quantize(x, group_size=group_size, bits=8)
         return t.q, t.scale
     _check_q8_rows("quantize", x, group_size, group_size)
     q, s = _q8_outputs(x, group_size)
+    plan = rmsnorm_quant_plan(m, k, quantize_width(k))
+    if x.device.type == "meta":
+        return q, s
     launch("quantize", x.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-           group_size, *rmsnorm_quant_plan(m, k, quantize_width(k)),
-           int(x.dtype == torch.bfloat16), _stream(x))
+           group_size, *plan, int(x.dtype == torch.bfloat16), _stream(x))
     return q, s
 
 

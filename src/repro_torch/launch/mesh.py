@@ -17,6 +17,12 @@ world of one by itself, over a ``FileStore`` in a temporary directory.
 With a card present a failed NCCL start is an error, never a switch to
 gloo.
 
+A dry run (``launch/dryrun.py``) starts a fake world instead
+(:func:`dryrun_world`): torch's ``FakeProcessGroup``, n ranks seen from
+rank 0, whose collectives move nothing.  Meshes built in it compute on
+``meta``: the counterpart of the reference's 512 placeholder host
+devices, with the data abstracted in place of the devices.
+
 Defined as functions, not module constants: importing this module starts
 nothing.
 """
@@ -35,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.distribution import collectives as C
 
 # seconds a collective may wait for its peers before it fails: a rank that
 # diverged or died ends the others' wait with an error, not a hang
@@ -71,7 +78,36 @@ class Mesh:
 
 
 def backend_for(dev: torch.device) -> str:
+    if dev.type == "meta":
+        return "fake"
     return "nccl" if dev.type == "cuda" else "gloo"
+
+
+def is_fake() -> bool:
+    """Whether the running world is a dry run's fake one."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
+def _fake_pg(common_opts, backend_opts):
+    from torch._C._distributed_c10d import FakeProcessGroup
+    make = getattr(FakeProcessGroup, "_create_internal", FakeProcessGroup)
+    return make(common_opts.group_rank, common_opts.group_size, backend_opts)
+
+
+def dryrun_world(n: int) -> None:
+    """Start a fake world of ``n`` ranks as rank 0 (torch's
+    ``FakeProcessGroup`` under ``dist.Backend.FAKE``, over a
+    ``HashStore``): its collectives move nothing and return at once, so a
+    step traced on meta tensors runs as rank 0 of an n-rank mesh would.
+    The backend is registered here, on first use, never at import."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running; a dry run "
+                           "needs a process of its own")
+    dist.Backend.register_backend(getattr(dist.Backend, "FAKE", "fake"),
+                                  _fake_pg, extended_api=True,
+                                  devices=["cpu", "cuda", "meta"])
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=n)
 
 
 def _timeout() -> datetime.timedelta:
@@ -82,10 +118,13 @@ def ensure_world(dev: torch.device) -> None:
     """The default process group, started here if none is: from
     ``torchrun``'s environment when it names a world of more than one,
     else a world of one over a ``FileStore`` in a temporary directory.  Its
-    backend must be the device's: NCCL for the card, gloo for the CPU."""
+    backend must be the device's: NCCL for the card, gloo for the CPU,
+    a dry run's fake world (:func:`dryrun_world`) for ``meta``."""
     if not dist.is_initialized():
         backend = backend_for(dev)
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if backend == "fake":
+            dryrun_world(1)
+        elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
             dist.init_process_group(backend, init_method="env://",
                                     timeout=_timeout())
         else:
@@ -113,6 +152,8 @@ def world_size() -> int:
 
 
 def _device(device: Device) -> torch.device:
+    if device is None and is_fake():
+        return torch.device("meta")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         # one card per rank: torchrun's local rank picks it
@@ -156,7 +197,9 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...],
         return None
     mesh = Mesh(axis_names=axes, shape=dict(zip(axes, shape)),
                 coords=coords, groups=groups, group=whole, device=dev)
-    _handshake(mesh)
+    if dev.type != "meta":
+        # a fake world has nothing to exchange
+        _handshake(mesh)
     return mesh
 
 
@@ -184,6 +227,7 @@ def _handshake(mesh: Mesh) -> None:
         parts = [me.clone()]
     else:
         parts = [torch.empty_like(me) for _ in range(mesh.size)]
+        C.record("all-gather", mesh.size * C.nbytes(me), mesh.size)
         dist.all_gather(parts, me, group=mesh.group)
     got = [int(p) for p in parts]
     if got != list(range(mesh.size)):

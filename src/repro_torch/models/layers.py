@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.qlinear import as_float, norm_qdot, qdot
 from repro_torch.core.quantization import QuantizedTensor, _unpack_nibbles
 from repro_torch.kernels.ref import ref_decode_attention, rms_norm
+from repro_torch.launch.flops import product
 
 NEG_INF = -1e30
 
@@ -102,7 +103,8 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                                     device=dev) / half)
     stream = torch.repeat_interleave(
         torch.arange(len(sections), device=dev),
-        torch.as_tensor(tuple(sections), device=dev))          # (half,)
+        torch.as_tensor(tuple(sections), device=dev),
+        output_size=half)                                       # (half,)
     pos = positions.float()[stream]                             # (half, ...)
     ang = torch.movedim(pos, 0, -1) * freqs
     ang = torch.cat([ang, ang], dim=-1)
@@ -313,15 +315,22 @@ def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
     expert takes at most ``cap`` tokens a group, in token order and then
     choice order; a dropped (token, choice) pair gets gate 0, the others
     are not renormalized.  Dispatch and combine are one-hot einsums, as in
-    the reference (no float scatter-add, so the card repeats bitwise)."""
+    the reference (no float scatter-add, so the card repeats bitwise).
+    Where one contracts only the top-1 choice dim, which torch computes
+    as a multiply, it is counted as the reference's dot
+    (``flops.product``)."""
     b, s, d = x.shape
     e = n_experts
     gates, idx = moe_route(x, p["router"], top_k)
 
+    def k1(out, *operands):
+        return product(out, *operands) if top_k == 1 else out
+
     if dense_dispatch:
         xf = x.float()
         onehot = torch.nn.functional.one_hot(idx, e).float()     # (B,S,K,E)
-        combine = torch.einsum("bske,bsk->bse", onehot, gates)
+        combine = k1(torch.einsum("bske,bsk->bse", onehot, gates), onehot,
+                     gates)
         h1 = torch.einsum("bsd,efd->bsef", xf, as_float(p["w1"]))
         h3 = torch.einsum("bsd,efd->bsef", xf, as_float(p["w3"]))
         hh = torch.nn.functional.silu(h1) * h3
@@ -349,8 +358,11 @@ def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
     # a dropped pair's one-hot slot is the extra class cap, cut off
     oh_c = torch.nn.functional.one_hot(
         torch.where(keep, pos, cap), cap + 1)[..., :cap].float()
-    disp = torch.einsum("gske,gskc->gsec", oh_e, oh_c)
-    combine = torch.einsum("gske,gskc,gsk->gsec", oh_e, oh_c, gates_kept)
+    disp = k1(torch.einsum("gske,gskc->gsec", oh_e, oh_c), oh_e, oh_c)
+    # "gske,gskc,gsk->gsec" in the reference's pairs: the gates onto the
+    # slots first (a product that contracts nothing)
+    gated = product(oh_c * gates_kept[..., None], oh_c, gates_kept)
+    combine = k1(torch.einsum("gske,gskc->gsec", oh_e, gated), oh_e, gated)
 
     xin = torch.einsum("gsec,gsd->egcd", disp.to(x.dtype), xg)  # (E,G,C,D)
     h1 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w1"]))

@@ -27,6 +27,7 @@ import torch
 from torch.nn.functional import silu
 
 from repro_torch.core.qlinear import norm_qdot, qdot, qdot_many
+from repro_torch.launch.flops import product
 
 ConvState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -202,8 +203,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128):
                         torch.full_like(ldiff, -math.inf))
     L = torch.exp(ldiff)
     cb = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)             # (b,c,i,j,g)
-    # "bcijg,bcijgh,bcjghp->bcighp", pairwise
-    y_intra = torch.einsum("bcijgh,bcjghp->bcighp", cb[..., None] * L, xc)
+    # "bcijg,bcijgh,bcjghp->bcighp", pairwise (the first pair, which
+    # contracts nothing, counted as the reference's dot)
+    y_intra = torch.einsum("bcijgh,bcjghp->bcighp",
+                           product(cb[..., None] * L, cb, L), xc)
 
     # --- inter-chunk state passing
     decay_end = torch.exp(seg_last[:, :, None] - seg)           # (b,c,q,g,hp)

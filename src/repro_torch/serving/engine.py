@@ -110,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pickle
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -119,6 +120,7 @@ import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.distribution import collectives as C
 from repro_torch.distribution import sharding as sh
 from repro_torch.launch.roofline import step_joules, tree_bytes
 from repro_torch.models.model import Model, count_params, params_to
@@ -809,6 +811,8 @@ class Engine:
         box = [(mine, verdicts) if self.mesh.rank == 0 else None]
         dist.broadcast_object_list(box, src=0, group=self.mesh.group,
                                    device=self.device)
+        if C.tallying():
+            C.record("broadcast", len(pickle.dumps(box[0])), self.mesh.size)
         theirs, verdicts = box[0]
         if theirs != mine:
             raise RuntimeError(

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import prng
+from repro_torch.distribution import collectives as C
 
 
 def vocab_range(vocab_size: int, mesh) -> Tuple[int, int]:
@@ -48,6 +49,7 @@ def _exchange(t: torch.Tensor, mesh) -> torch.Tensor:
     if n == 1:
         return t[None]
     parts = [torch.empty_like(t) for _ in range(n)]
+    C.record("all-gather", n * C.nbytes(t), n)
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
 

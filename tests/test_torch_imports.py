@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX, nor Triton, nor anything
-of the JAX package, and its entry points never drift to the CPU."""
+of the JAX package, nor ``torch.testing._internal``, and its entry points
+never drift to the CPU."""
 
 import ast
 import os
@@ -31,7 +32,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.serving.paged_cache",
             "repro_torch.distribution", "repro_torch.distribution.sharding",
             "repro_torch.launch.mesh",
-            "repro_torch.serving.sampling_distributed"} <= set(MODULES)
+            "repro_torch.serving.sampling_distributed",
+            "repro_torch.launch.flops", "repro_torch.launch.collective_cost",
+            "repro_torch.launch.dryrun"} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -63,6 +66,8 @@ def test_sources_import_no_jax_triton_or_repro(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "triton", "repro"), \
+                f"{path.name}:{node.lineno} imports {name}"
+            assert not name.startswith("torch.testing._internal"), \
                 f"{path.name}:{node.lineno} imports {name}"
 
 

@@ -184,16 +184,26 @@ def test_quantize_kernel_rejects_bad_operands(bad):
     elif bad == "dtype":
         x = _meta((8, 768), torch.float16)
     elif bad == "wide":
-        x = _meta((8, 8192))             # 64 float4s a thread
+        x = _meta((8, 131072))           # 64 float4s a thread
     else:
         x = _meta((8,))
     with pytest.raises(ValueError):
         ops.quantize_kernel(x, gs)
 
 
-def test_quantize_kernel_never_takes_the_plain_version():
-    with pytest.raises((RuntimeError, ValueError)):
-        ops.quantize_kernel(_meta((8, 768)), 64)
+def test_quantize_kernel_never_takes_the_plain_version(monkeypatch):
+    """On meta tensors (a dry run) the entry checks its operands as for
+    the card and answers with empty meta outputs: no plain version, no
+    launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("took the plain version or launched")
+    monkeypatch.setattr(ops, "quantize", refuse)
+    monkeypatch.setattr(ops, "launch", refuse)
+    q, s = ops.quantize_kernel(_meta((8, 768)), 64)
+    assert (q.device.type, q.shape, q.dtype) == ("meta", (8, 768),
+                                                 torch.int8)
+    assert (s.device.type, s.shape, s.dtype) == ("meta", (8, 12),
+                                                 torch.float32)
 
 
 @pytest.mark.parametrize("bad", ["odd_d", "cos", "dtype", "heads"])
