@@ -121,7 +121,15 @@ printed against the reckoning.  Phase 29 (``train_paths``, after phase
 ``make_train_step`` in turns from the same seed: every metric and the
 state after the last step bitwise equal, both steps timed, the peak
 memory printed, and the mesh run's checkpoint restored in the plain
-trainer bitwise.  Training launches no kernel: the
+trainer bitwise.  Phase 32 (``train_paths``, after phase 29) trains the
+MoE family the same way: qwen3-moe-30b-a3b at full width, cut to
+``MOE_TRAIN_LAYERS`` of its 48 layers, ``MOE_TRAIN_STEPS`` steps of
+8 x 256 through the executor (whose MoE hands its expert products to
+the expert-parallel ``_TrainTP.experts`` through ``moe_mlp(experts=)``,
+each collective skipped on a world of one) and the plain step (the
+default expert products) in turns,
+bitwise, the step times and the peak memory beside the card's name and
+power limit.  Training launches no kernel: the
 reference's training reaches no Pallas kernel (its loss runs jnp alone)
 and no kernel of ``src/repro/`` has a backward (no ``custom_vjp``), so
 the port's loss is plain PyTorch under autograd; the kernels phase 27
@@ -6948,6 +6956,10 @@ def train_path(dev, counted, n=27):
 # shape), through jit_train_step on make_host_mesh() against
 # make_train_step, step for step
 MESH_TRAIN_STEPS = 10
+# phase 32: qwen3-moe-30b-a3b at full width, cut to 2 of its 48 layers
+# (~1.5 B parameters), 3 steps through the mesh executor
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
 
 
 def _same_state(a, b) -> list:
@@ -6958,26 +6970,27 @@ def _same_state(a, b) -> list:
 
 
 def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
-                    batch=8, seq=256, steps_n=MESH_TRAIN_STEPS):
+                    batch=8, seq=256, steps_n=MESH_TRAIN_STEPS,
+                    layers=None, checkpoint=True):
     """Phase ``n``: training through the mesh executor at a world of one.
     ``launch/steps.py``'s ``jit_train_step`` on ``make_host_mesh()`` (one
     rank: NCCL on the card, gloo on the CPU) and the plain
     ``make_train_step`` each train ``arch`` (llama2-110m at full width and
-    depth) ``steps_n`` steps of ``batch`` x ``seq`` from the same seeded
-    parameters over the same batches, with the microbatch count the
-    executor picks (``pick_microbatches``), the two steps in turns (which
-    goes first alternates): every loss, learning rate and gradient norm,
-    and the parameters, both moments and the step counter after the last
-    step bitwise equal; each step's ms (synchronized) and the peak GB
-    allocated.  Then the mesh run's checkpoint (``store.save(mesh=)``)
-    restores in the plain trainer bitwise, and one more plain step from
-    it equals one from the plain run's own state, bitwise."""
+    depth; ``layers`` cuts the depth) ``steps_n`` steps of ``batch`` x
+    ``seq`` from the same seeded parameters over the same batches, with
+    the microbatch count the executor picks (``pick_microbatches``), the
+    two steps in turns (which goes first alternates): every loss, learning
+    rate and gradient norm, and the parameters, both moments and the step
+    counter after the last step bitwise equal; each step's ms
+    (synchronized) and the peak GB allocated; the last loss below the
+    first.  Then, with ``checkpoint``, the mesh run's
+    checkpoint (``store.save(mesh=)``) restores in the plain trainer
+    bitwise, and one more plain step from it equals one from the plain
+    run's own state, bitwise."""
     import gc
-    import shutil
-    import tempfile
     import torch.distributed as dist
-    from repro_torch.checkpoint import store
     from repro_torch.configs import ShapeCell, get_config, reduced
+    from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticTinyStories
     from repro_torch.distribution import sharding as sh
     from repro_torch.launch import steps
@@ -6988,13 +7001,15 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
     model = build_model(cfg)
     ocfg = adamw.AdamWConfig(warmup_steps=min(20, steps_n // 5 + 1),
                              decay_steps=steps_n)
     it = SyntheticTinyStories(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
         seed=n)).batches()
-    batches = [next(it) for _ in range(steps_n + 1)]
+    batches = [next(it) for _ in range(steps_n + int(checkpoint))]
     phase(f"phase {n}: jit_train_step on make_host_mesh() against "
           f"make_train_step, {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}), {steps_n} steps of {batch} x {seq}")
@@ -7059,9 +7074,12 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
             raise AssertionError(f"after {steps_n} steps the mesh state "
                                  f"differs from make_train_step's: {bad}")
         losses = [float(m["loss"]) for m in metrics["mesh"]]
-        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        if not (np.all(np.isfinite(losses))
+                and losses[-1] < losses[0]):
             raise AssertionError(f"phase {n} losses {losses}")
-        rec = {"backend": backend, "microbatches": k,
+        rec = {"backend": backend, "microbatches": k, "layers": cfg.n_layers,
+               "params_b": sum(t.numel() for t in leaves(plain["params"]))
+               / 1e9,
                "losses": losses, "peak_gb": peak,
                "allocated_before_gb": before,
                "allocated_before_gc_gb": held,
@@ -7078,45 +7096,58 @@ def train_mesh_path(dev, n=29, arch="llama2-110m", use_reduced=False,
             f"{rec['step_ms']['plain']:.2f} ms; peak {peak:.2f} GB allocated "
             f"for both states ({before:.2f} GB before, {held:.2f} GB before "
             f"a gc.collect(): the collect freed {held - before:.2f} GB)")
-
-        root = tempfile.mkdtemp(prefix=f"phase{n}_")
-        try:
-            store.save(root, steps_n, on_mesh, mesh=mesh, specs=sspecs)
-            like = {"params": model.init_meta()}
-            like["opt"] = adamw.init_state(like["params"])
-            back, at, _ = store.restore(root, like, device=dev)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-        bad = _same_state(back, plain)
-        if at != steps_n or bad:
-            raise AssertionError(f"the mesh checkpoint restored at step {at} "
-                                 f"differs from the plain state: {bad}")
-        extra = batches[steps_n]
-        back, m_back = plain_step(back, extra)
-        plain, m_plain = plain_step(plain, extra)
-        bad = _same_state(back, plain)
-        if bad or not torch.equal(m_back["loss"], m_plain["loss"]):
-            raise AssertionError(f"a plain step from the restored checkpoint "
-                                 f"differs: {bad}")
-        rec["checkpoint"] = {"restored_bitwise": True,
-                             "next_step_bitwise": True,
-                             "next_loss": float(m_back["loss"])}
-        log(f"  the mesh run's step-{steps_n} checkpoint restores in the "
-            f"plain trainer bitwise; one more plain step from it equals one "
-            f"from the plain run's state, bitwise (loss "
-            f"{rec['checkpoint']['next_loss']:.4f})")
+        if checkpoint:
+            _checkpoint_turn(dev, n, model, mesh, sspecs, on_mesh, plain,
+                             plain_step, batches[steps_n], steps_n, rec)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
-    del plain, on_mesh, back
+    del plain, on_mesh
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_start
     return rec
 
 
+def _checkpoint_turn(dev, n, model, mesh, sspecs, on_mesh, plain,
+                     plain_step, extra, steps_n, rec):
+    """Phase ``n``'s checkpoint: the mesh state's step-``steps_n``
+    checkpoint restored in the plain trainer bitwise, and one more plain
+    step from it (on ``extra``) bitwise one from the plain state."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import store
+    from repro_torch.optim import adamw
+    root = tempfile.mkdtemp(prefix=f"phase{n}_")
+    try:
+        store.save(root, steps_n, on_mesh, mesh=mesh, specs=sspecs)
+        like = {"params": model.init_meta()}
+        like["opt"] = adamw.init_state(like["params"])
+        back, at, _ = store.restore(root, like, device=dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = _same_state(back, plain)
+    if at != steps_n or bad:
+        raise AssertionError(f"the mesh checkpoint restored at step {at} "
+                             f"differs from the plain state: {bad}")
+    back, m_back = plain_step(back, extra)
+    plain, m_plain = plain_step(plain, extra)
+    bad = _same_state(back, plain)
+    if bad or not torch.equal(m_back["loss"], m_plain["loss"]):
+        raise AssertionError(f"a plain step from the restored checkpoint "
+                             f"differs: {bad}")
+    rec["checkpoint"] = {"restored_bitwise": True,
+                         "next_step_bitwise": True,
+                         "next_loss": float(m_back["loss"])}
+    log(f"  the mesh run's step-{steps_n} checkpoint restores in the "
+        f"plain trainer bitwise; one more plain step from it equals one "
+        f"from the plain run's state, bitwise (loss "
+        f"{rec['checkpoint']['next_loss']:.4f})")
+
+
 def train_paths(dev, counted):
-    """Phases 27 and 29, training (``train_path``, ``train_mesh_path``).
+    """Phases 27, 29 and 32, training (``train_path``,
+    ``train_mesh_path``).
     Alone on the card: ``build.build()``,
     ``qlinear.set_default_strategy("kernel")`` and
     ``torch.backends.cuda.matmul.allow_tf32 = False`` first, as ``main``
@@ -7129,6 +7160,14 @@ def train_paths(dev, counted):
           f"{json.dumps({k: v for k, v in mesh_rec.items() if k != 'step_ms_all'})}; "
           f"{mesh_rec['seconds']:.1f} s")
     rec["mesh"] = mesh_rec
+    moe_rec = train_mesh_path(dev, n=32, arch="qwen3-moe-30b-a3b",
+                              steps_n=MOE_TRAIN_STEPS,
+                              layers=MOE_TRAIN_LAYERS, checkpoint=False)
+    moe_rec["card"] = card_line()
+    phase(f"phase 32: MoE training through jit_train_step "
+          f"{json.dumps({k: v for k, v in moe_rec.items() if k != 'step_ms_all'})}; "
+          f"{moe_rec['seconds']:.1f} s")
+    rec["moe_mesh"] = moe_rec
     return rec
 
 

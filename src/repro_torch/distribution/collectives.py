@@ -15,11 +15,12 @@ writes them for tensor parallelism:
   partial sum.
 * :func:`gather_from`: all-gather forward, the rank's own slice backward;
   for a leaf stored sharded but computed replicated, where every rank
-  computes the same whole gradient.  :func:`gather_sum` is the same
-  gather whose backward sums the ranks' gradients before taking the
-  slice (a reduce-scatter): along an axis whose ranks hold other rows of
-  the batch.
+  computes the same whole gradient.
 * :func:`split_to`: the rank's own slice forward, all-gather backward.
+* :func:`to_owners` and :func:`from_owners`: the two all-to-alls of
+  expert parallelism (GShard's dispatch and return), each the other's
+  backward: a rank's capacity slots of every expert go to the rank that
+  holds the expert, and its results come back.
 * :func:`all_reduce` and :func:`reduce_scatter_dim`: the gradients' sum
   over the data axes (no autograd); :func:`all_reduce_max`, a row
   maximum that no gradient goes through.
@@ -39,6 +40,7 @@ device.  A collective that is skipped (a group of one) adds nothing.
 from __future__ import annotations
 
 import contextlib
+import pickle
 from typing import Any, List, Tuple
 
 import torch
@@ -46,8 +48,8 @@ import torch.distributed as dist
 
 # the tallies now open, innermost last; each entry (kind, output bytes,
 # group size), the kinds named as the reference's HLO names them
-# (``all-reduce``, ``all-gather``, ``reduce-scatter``), with ``broadcast``
-# and ``barrier`` besides
+# (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``),
+# with ``broadcast`` and ``barrier`` besides
 _TALLIES: List[List[Tuple[str, int, int]]] = []
 
 
@@ -131,18 +133,13 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, n, index, summed):
-        ctx.dim, ctx.group, ctx.n = dim, group, n
-        ctx.index, ctx.summed = index, summed
+    def forward(ctx, x, dim, group, n, index):
+        ctx.dim, ctx.group, ctx.n, ctx.index = dim, group, n, index
         return _all_gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.summed:
-            out = _reduce_scatter(g, ctx.dim, ctx.group, ctx.n)
-        else:
-            out = _slice(g, ctx.dim, ctx.n, ctx.index)
-        return out, None, None, None, None, None
+        return _slice(g, ctx.dim, ctx.n, ctx.index), None, None, None, None
 
 
 class _Split(torch.autograd.Function):
@@ -154,6 +151,70 @@ class _Split(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None, None
+
+
+def _exchange(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """x (n, ...): part k goes to rank k of the group; the result's part k
+    is what rank k sent this rank (an all-to-all)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    record("all-to-all", nbytes(out), n)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _send_slots(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """xin (E, G, C, ...) -> (E/n, n*G, C, ...): the slots of experts
+    [k*E/n, (k+1)*E/n) go to rank k, and the rank's own experts take the
+    n ranks' groups, in rank order."""
+    e, g = x.shape[:2]
+    got = _exchange(x.reshape(n, e // n, *x.shape[1:]), group, n)
+    return got.transpose(0, 1).reshape(e // n, n * g, *x.shape[2:])
+
+
+def _return_slots(y: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(E/n, n*G, C, ...) -> (E, G, C, ...): :func:`_send_slots` undone,
+    each rank's groups back to it with every expert's results."""
+    el, ng = y.shape[:2]
+    parts = y.reshape(el, n, ng // n, *y.shape[2:]).transpose(0, 1)
+    return _exchange(parts, group, n).reshape(n * el, ng // n, *y.shape[2:])
+
+
+class _ToOwners(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _send_slots(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _return_slots(g, ctx.group, ctx.n), None, None
+
+
+class _FromOwners(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, n):
+        ctx.group, ctx.n = group, n
+        return _return_slots(y, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _send_slots(g, ctx.group, ctx.n), None, None
+
+
+def to_owners(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Expert parallelism's dispatch over an axis of ``n`` ranks that hold
+    other rows and ``E/n`` experts each: this rank's capacity buffer
+    (E, G, C, D) -> its experts' slots from every rank (E/n, n*G, C, D),
+    the groups in rank order.  The backward is :func:`from_owners`."""
+    return x if _one(group, n) else _ToOwners.apply(x, group, n)
+
+
+def from_owners(y: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The return of :func:`to_owners`: the rank's experts' results on
+    every rank's slots (E/n, n*G, C, D) -> this rank's slots of every
+    expert (E, G, C, D).  The backward is :func:`to_owners`."""
+    return y if _one(group, n) else _FromOwners.apply(y, group, n)
 
 
 def copy_to(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -173,15 +234,7 @@ def gather_from(x: torch.Tensor, dim: int, group, n: int,
     the slice of rank ``index`` (this rank's place along the axis)."""
     if _one(group, n):
         return x
-    return _Gather.apply(x, dim, group, n, index, False)
-
-
-def gather_sum(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """As :func:`gather_from`, the gradient summed over the ranks first
-    (a reduce-scatter)."""
-    if _one(group, n):
-        return x
-    return _Gather.apply(x, dim, group, n, 0, True)
+    return _Gather.apply(x, dim, group, n, index)
 
 
 def split_to(x: torch.Tensor, dim: int, group, n: int,
@@ -220,6 +273,25 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
     """``x`` summed over the group, and this rank's ``1/n`` of it along
     ``dim`` (the ranks' parts in rank order)."""
     return x if _one(group, n) else _reduce_scatter(x, dim, group, n)
+
+
+def from_rank0(obj: Any, mesh: Any) -> Any:
+    """Rank 0's picklable ``obj`` on every rank of ``mesh`` (one broadcast
+    on the host, over the mesh's ``host_group`` where it has one, else its
+    gloo ``group``; tallied as ``broadcast``), so that it never waits for
+    work queued on the card; ``obj`` itself on a mesh of one.  A rank
+    other than 0 may pass anything: its ``obj`` is not sent."""
+    if mesh is None or mesh.size == 1:
+        return obj
+    box = [obj if mesh.rank == 0 else None]
+    if mesh.host_group is None:
+        group, dev = mesh.group, mesh.device
+    else:
+        group, dev = mesh.host_group, torch.device("cpu")
+    dist.broadcast_object_list(box, src=0, group=group, device=dev)
+    if tallying():
+        record("broadcast", len(pickle.dumps(box[0])), mesh.size)
+    return box[0]
 
 
 def axis(mesh: Any, name: str):

@@ -269,6 +269,19 @@ def _best_batch_spec(cfg: ModelConfig, mesh, bdim: int, mode: str):
     return None
 
 
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, in order (() for None)."""
+    return () if entry is None else _axes(entry)
+
+
+def train_batch_axes(cfg: ModelConfig, mesh, bdim: int) -> tuple:
+    """The axes a train batch of ``bdim`` rows really splits over: those of
+    :func:`_best_batch_spec`, the batch spec ``data_specs`` gives.  A rank
+    on a batch axis left out (``pod``, where the batch does not divide the
+    whole product) computes the same rows as its peers there."""
+    return spec_axes(_best_batch_spec(cfg, mesh, bdim, "train"))
+
+
 def data_specs(cfg: ModelConfig, batch: Any, mesh, mode: str = "train"
                ) -> Any:
     """Input batch: batch dim over the batch axes; m-rope positions are
@@ -523,19 +536,19 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
     return _map2(lambda leaf, spec: gather(leaf, spec, mesh), tree, specs)
 
 
-def gather_for_grad(tree: Any, specs: Any, mesh, summed: tuple = ()) -> Any:
+def gather_for_grad(tree: Any, specs: Any, mesh) -> Any:
     """Every float leaf of ``tree`` all-gathered whole under ``specs``, as
     :func:`gather`, with a gradient: the gradient of the whole leaf comes
-    back as the rank's own slice, first summed over the axes of ``summed``
-    (the axes whose ranks hold other rows of the batch; a reduce-scatter)
-    and taken as it is along the others (whose ranks compute the same
-    whole gradient).  A leaf no live axis splits is returned as it is."""
+    back as the rank's own slice, which the ranks along a splitting axis
+    compute alike (no train-mode spec splits the leaves of these families
+    over an axis of the batch).  A leaf no live axis splits is returned as
+    it is.  The training forward of the families that compute replicated
+    on a mesh (``transformer.train_view``)."""
     def visit(t, spec):
         for d, entry in enumerate(spec):
             for a in reversed(live_axes(entry, mesh)):
                 group, n, index = C.axis(mesh, a)
-                t = (C.gather_sum(t, d, group, n) if a in summed
-                     else C.gather_from(t, d, group, n, index))
+                t = C.gather_from(t, d, group, n, index)
         return t
     return _map2(visit, tree, specs)
 

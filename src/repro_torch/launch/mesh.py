@@ -55,7 +55,10 @@ class Mesh:
     the process group along it, None where the axis has size 1},
     ``group`` the process group of the whole mesh (the world's when the
     mesh spans it, a world of one included), ``device`` where this rank
-    computes."""
+    computes, ``host_group`` a gloo group of the whole mesh for what only
+    the hosts exchange (``collectives.from_rank0``) where ``group`` runs
+    NCCL on a mesh of more than one, else None: ``group`` itself is on the
+    host, or nothing is exchanged."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -63,6 +66,7 @@ class Mesh:
     groups: Dict[str, Any]
     group: Any
     device: torch.device
+    host_group: Any = None
 
     @property
     def size(self) -> int:
@@ -193,10 +197,16 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...],
             if coords is not None and me in line:
                 groups[a] = g
     whole = group_of(list(range(n)))
+    # the hosts' decisions must not queue behind the card's work on
+    # NCCL's stream: they go over gloo
+    host = (dist.new_group(list(range(n)), timeout=_timeout(),
+                           backend="gloo")
+            if n > 1 and dist.get_backend() == "nccl" else None)
     if coords is None:
         return None
     mesh = Mesh(axis_names=axes, shape=dict(zip(axes, shape)),
-                coords=coords, groups=groups, group=whole, device=dev)
+                coords=coords, groups=groups, group=whole, device=dev,
+                host_group=host)
     if dev.type != "meta":
         # a fake world has nothing to exchange
         _handshake(mesh)
@@ -253,19 +263,23 @@ def make_host_mesh(device: Device = None) -> Mesh:
     return _build((1, world_size()), ("data", "model"), device)
 
 
-def make_train_mesh(data: int, model: int, device: Device = None) -> Mesh:
+def make_train_mesh(data: int, model: int, device: Device = None,
+                    pod: int = 1) -> Mesh:
     """(data, model) over the first ``data * model`` ranks of the world,
     row-major: the meshes of 2 x 1, 1 x 2, 2 x 2 and 1 x 4 the gloo tests
-    train on.  ``ValueError`` when the world is smaller (before any
-    process group is started) or when this rank lies outside."""
-    n = data * model
+    train on; with ``pod`` > 1, (pod, data, model), the multi-pod mesh's
+    axes.  ``ValueError`` when the world is smaller (before any process
+    group is started) or when this rank lies outside."""
+    shape, axes = (data, model), ("data", "model")
+    if pod > 1:
+        shape, axes = (pod, *shape), ("pod", *axes)
+    n, name = math.prod(shape), " x ".join(map(str, shape))
     if not 1 <= n <= world_size():
-        raise ValueError(f"a {data} x {model} mesh needs {n} ranks; the "
+        raise ValueError(f"a {name} mesh needs {n} ranks; the "
                          f"world has {world_size()}")
-    mesh = _build((data, model), ("data", "model"), device)
+    mesh = _build(shape, axes, device)
     if mesh is None:
-        raise ValueError(f"rank {dist.get_rank()} is outside a {data} x "
-                         f"{model} mesh")
+        raise ValueError(f"rank {dist.get_rank()} is outside a {name} mesh")
     return mesh
 
 

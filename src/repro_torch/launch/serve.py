@@ -134,9 +134,9 @@ serving in silence:
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 2 \
       --full --requests 16 --slots 8 --max-seq 1024
 
-On a mesh of more than one, ``--open-loop`` is refused
-(``NotImplementedError``): its arrivals are released by each rank's own
-clock (ROADMAP).
+With ``--open-loop`` on a mesh of more than one, rank 0's clock releases
+the arrivals on every rank (``serving/async_serving.py``), and the rate a
+calibration pass measures is rank 0's.
 """
 
 from __future__ import annotations
@@ -154,6 +154,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import qlinear
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.distribution import collectives as C
 from repro_torch.models.model import build_model, params_to
 from repro_torch.serving.async_serving import (first_token_latencies,
                                                poisson_arrivals,
@@ -161,7 +162,6 @@ from repro_torch.serving.async_serving import (first_token_latencies,
 from repro_torch.serving.engine import Engine, check_servable
 from repro_torch.serving.spec_decode import DraftModelProposer
 
-NOT_PORTED = "is not yet ported (ROADMAP, queue A: {})"
 # the memory of the card the port serves on (an H100's 80 GB): what a tree
 # drawn on the CPU is held to
 CARD_BYTES = 80e9
@@ -252,12 +252,6 @@ def run(arch: str = "llama2-110m", use_reduced: bool = True,
     docstring); a rank other than 0 prints nothing."""
     mesh = None
     if mesh_size > 0:
-        if open_loop and mesh_size > 1:
-            raise NotImplementedError(
-                f"--open-loop on a mesh of {mesh_size} "
-                f"{NOT_PORTED.format('an open loop on a mesh')}: its "
-                "arrivals are released by each rank's own clock, so the "
-                "ranks' plans would part")
         from repro_torch.launch.mesh import make_serve_mesh
         mesh = make_serve_mesh(mesh_size, device=device)
         device = mesh.device
@@ -330,7 +324,7 @@ def _run(arch, use_reduced, requests, bits, kv_int8, max_seq, max_new,
     try:
         if open_loop:
             return _run_open_loop(make_engine, prompts, max_new, seed, rate,
-                                  load_factor, stream, stream_interval)
+                                  load_factor, stream, stream_interval, mesh)
         eng = make_engine()
         # the engine holds what it serves (on a mesh, this rank's shards):
         # the tree it was made from goes before the run
@@ -377,12 +371,13 @@ def _sync(dev) -> None:
 
 def _run_open_loop(make_engine, prompts, max_new: int, seed: int,
                    rate: float, load_factor: float, stream: bool,
-                   stream_interval: int):
+                   stream_interval: int, mesh=None):
     """Continuous arrivals: requests arrive mid-flight on a seeded Poisson
     process and tokens stream back per step.  Without ``rate`` a short
     closed calibration pass measures the service capacity and the arrival
     rate is set to ``load_factor`` of it: loaded enough for queueing delay
-    to show, light enough for the queue to drain."""
+    to show, light enough for the queue to drain.  On a ``mesh`` the rate
+    is rank 0's, so every rank draws the same schedule."""
     if rate <= 0:
         n_cal = min(4, len(prompts))
         cal = make_engine()
@@ -392,7 +387,7 @@ def _run_open_loop(make_engine, prompts, max_new: int, seed: int,
         cal.run()
         _sync(cal.device)
         cal_wall = max(time.perf_counter() - t0, 1e-6)
-        rate = load_factor * n_cal / cal_wall
+        rate = C.from_rank0(load_factor * n_cal / cal_wall, mesh)
         print(f"[serve] calibrated: {n_cal} requests in {cal_wall:.2f}s "
               f"-> open-loop arrival rate {rate:.2f} req/s "
               f"({load_factor:.0%} of measured capacity)")

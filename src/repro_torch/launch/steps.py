@@ -14,10 +14,12 @@ step body with in and out shardings.  Here nothing is compiled and a mesh
 is one process a rank (``launch/mesh.py``): ``jit_train_step`` returns a
 step that takes the rank's shards of the state and its rows of the batch,
 computes its loss and gradients on them (``Model.loss(mesh=, specs=)``:
-tensor parallelism over ``model`` for the dense family, the other
-families' leaves gathered whole on use), sums the gradients over the data
-axes (``reduce_grads``: a reduce-scatter where ZeRO-1 splits the moments)
-and updates its shards (``adamw.apply_updates(mesh=)``).
+tensor parallelism over ``model`` for the dense, vlm and MoE families,
+the MoE's experts in expert parallelism, the other families' leaves
+gathered whole on use), sums the gradients over the axes the batch
+really splits (those of ``data_specs``' batch spec; ``reduce_grads``: a
+reduce-scatter where ZeRO-1 splits the moments) and updates its shards
+(``adamw.apply_updates(mesh=)``).
 
 The serve-side wrappers (``jit_prefill_step``, ``jit_serve_step``,
 ``jit_serve_sample_step``) keep the reference's names, arguments and
@@ -104,14 +106,16 @@ def params_struct(model: Model, quantized: bool = False,
 
 
 def value_and_grad(model: Model, params: Any, batch: Dict[str, Any],
-                   mesh=None, specs=None) -> Tuple[torch.Tensor, Any]:
+                   mesh=None, specs=None, batch_axes=None
+                   ) -> Tuple[torch.Tensor, Any]:
     """(loss, gradients): ``model.loss`` of ``batch`` (detached) and its
     gradient with respect to every leaf of ``params``, a tree shaped as
     ``params`` in each leaf's dtype, zeros for a leaf the loss does not
     read (as ``jax.value_and_grad`` gives).  The leaves are marked to
     require gradients only for the call.  On a train ``mesh`` the rank's
-    part of both on its shards of the parameter specs ``specs``
-    (``Model.loss(mesh=, specs=)``), before ``reduce_grads``."""
+    part of both on its shards of the parameter specs ``specs`` and its
+    rows, split over ``batch_axes`` (``Model.loss(mesh=, specs=,
+    batch_axes=)``), before ``reduce_grads``."""
     ws = leaves(params)
     if any(isinstance(w, QuantizedTensor) for w in ws):
         raise TypeError("training needs float parameters: a quantized "
@@ -119,7 +123,8 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, Any],
     for w in ws:
         w.requires_grad_(True)
     try:
-        loss = model.loss(params, batch, mesh=mesh, specs=specs)
+        loss = model.loss(params, batch, mesh=mesh, specs=specs,
+                          batch_axes=batch_axes)
         gs = torch.autograd.grad(loss, ws, allow_unused=True)
     finally:
         for w in ws:
@@ -128,18 +133,19 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, Any],
     return loss.detach(), unflatten(params, gs)
 
 
-def reduce_grads(cfg: ModelConfig, grads: Any, specs: dict, mesh) -> Any:
+def reduce_grads(cfg: ModelConfig, grads: Any, specs: dict, mesh,
+                 batch_axes: tuple) -> Any:
     """The rank's gradients summed over the batch axes (the ranks that
-    hold other rows of the batch), each leaf in the layout of its moments
-    (``specs["opt"]["m"]``): reduce-scattered along the dim ZeRO-1 splits
-    over the data axes, all-reduced over the others.  An axis that
-    already splits the parameter itself (``ep_data``'s experts) was summed
-    by the gather's backward (``sharding.gather_for_grad``)."""
-    baxes = sh.batch_axes_for(cfg, mesh, "train")
-
+    hold other rows of the batch: ``batch_axes``, the axes the batch
+    spec splits), each leaf in the
+    layout of its moments (``specs["opt"]["m"]``): reduce-scattered along
+    the dim ZeRO-1 splits over the data axes, all-reduced over the others.
+    An axis that already splits the parameter itself is not summed: an
+    ``ep_data`` expert's gradient is whole on the rank that holds the
+    expert (its forward took every row's slots there)."""
     def one(g, pspec, ospec):
         own = {a for e in pspec for a in sh.live_axes(e, mesh)}
-        todo = [a for a in baxes if mesh.shape[a] > 1 and a not in own]
+        todo = [a for a in batch_axes if mesh.shape[a] > 1 and a not in own]
         z = adamw.zero_dim(pspec, ospec, mesh)
         if z is not None:
             for a in sh.live_axes(z[1], mesh):
@@ -157,23 +163,28 @@ def reduce_grads(cfg: ModelConfig, grads: Any, specs: dict, mesh) -> Any:
 
 def train_grads(model: Model, params: Any, batch: Dict[str, Any],
                 microbatches: int = 1, mesh=None,
-                specs: Optional[dict] = None) -> Tuple[torch.Tensor, Any]:
+                specs: Optional[dict] = None,
+                batch_axes=None) -> Tuple[torch.Tensor, Any]:
     """(loss, gradients) of one train step: with ``microbatches`` k > 1 the
     batch is cut into k sequential slices along its first axis, the
     gradients summed in f32 and divided by k, the loss the mean: one
     microbatch's activations at a time, the same effective batch.  On a
     train ``mesh`` ``params`` are the rank's shards of ``specs["params"]``
-    and ``batch`` its rows: the loss is summed over the batch axes and the
-    gradients reduced (``reduce_grads``) into the layout of the moments."""
+    and ``batch`` its rows: the loss is summed over the batch axes
+    (``batch_axes``, the axes the batch spec splits, which a mesh needs;
+    ``jit_train_step`` passes them) and the gradients reduced
+    (``reduce_grads``) into the layout of the moments."""
     pspecs = None if specs is None else specs["params"]
     if microbatches == 1:
-        loss, grads = value_and_grad(model, params, batch, mesh, pspecs)
+        loss, grads = value_and_grad(model, params, batch, mesh, pspecs,
+                                     batch_axes)
     else:
         n = next(iter(batch.values())).shape[0] // microbatches
         grads, loss = None, None
         for i in range(microbatches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            lo, g = value_and_grad(model, params, mb, mesh, pspecs)
+            lo, g = value_and_grad(model, params, mb, mesh, pspecs,
+                                   batch_axes)
             g = map_tree(lambda x: x.float(), g)
             grads = g if grads is None else map_tree(torch.add, grads, g)
             loss = lo if loss is None else loss + lo
@@ -181,19 +192,19 @@ def train_grads(model: Model, params: Any, batch: Dict[str, Any],
         grads = map_tree(lambda g: g / k, grads)
         loss = loss / k
     if mesh is not None:
-        grads = reduce_grads(model.cfg, grads, specs, mesh)
-        for a in sh.batch_axes_for(model.cfg, mesh, "train"):
+        grads = reduce_grads(model.cfg, grads, specs, mesh, batch_axes)
+        for a in batch_axes:
             group, n, _ = C.axis(mesh, a)
             C.all_reduce(loss, group, n)
     return loss, grads
 
 
 def _train_step(model: Model, ocfg: adamw.AdamWConfig, microbatches: int,
-                mesh=None, specs: Optional[dict] = None):
+                mesh=None, specs: Optional[dict] = None, batch_axes=None):
     def train_step(state, batch):
         params = state["params"]
         loss, grads = train_grads(model, params, batch, microbatches, mesh,
-                                  specs)
+                                  specs, batch_axes)
         params, opt, metrics, _ = adamw.apply_updates(
             params, state["opt"], grads, ocfg, mesh=mesh, specs=specs)
         metrics["loss"] = loss
@@ -244,15 +255,20 @@ def make_serve_sample_step(model: Model, temperature: float = 1.0):
 
 
 def train_state_specs(cfg: ModelConfig, pspecs, mesh, pstruct,
-                      zero: bool = True):
+                      zero: bool = True, batch_axes=None):
     """Optimizer m/v inherit param specs; with ``zero`` the *data* axes
     additionally shard the first unsharded, divisible dim of every large
     state tensor (ZeRO-1: Adam moments are never replicated across data
-    parallel replicas)."""
-    if not zero:
+    parallel replicas).  The data axes are ``batch_axes``, the axes the
+    batch spec splits (``jit_train_step`` passes them; a moment split over
+    an axis whose ranks compute the same rows would sum their gradients
+    twice), ``sharding.batch_axes_for``'s by default, as the reference
+    takes them."""
+    dp_all = (sh.batch_axes_for(cfg, mesh, "train") if batch_axes is None
+              else tuple(batch_axes))
+    if not zero or not dp_all:
         return {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,
                                           "step": ()}}
-    dp_all = sh.batch_axes_for(cfg, mesh, "train")
     dp = dp_all if len(dp_all) > 1 else dp_all[0]
     dsz = math.prod(mesh.shape[a] for a in dp_all)
     dp_set = set(dp_all)
@@ -324,7 +340,9 @@ def jit_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig,
     rank's shards of the state under ``state_specs``
     (``train_state_specs``: the train-mode parameter specs, and with
     ``zero`` the moments also split over the data axes) and its rows of
-    the batch under ``batch_specs`` (``data_specs``; ``shard_batch``) and
+    the batch under ``batch_specs`` (``data_specs``; ``shard_batch``;
+    the axes of its batch spec, the reference's ``_best_batch_spec``, are
+    the ranks whose gradients and losses are summed, and ZeRO-1's) and
     updates the state in place; the structs are meta tensors of the whole
     state and batch.  ``metrics`` (``loss``, ``lr``, ``grad_norm``,
     ``step``) are the global batch's on every rank: the loss the summed
@@ -338,16 +356,19 @@ def jit_train_step(model: Model, mesh, ocfg: adamw.AdamWConfig,
     pstruct = params_struct(model)
     state_struct = {"params": pstruct, "opt": adamw.init_state(pstruct)}
     batch_struct = input_specs(cfg, cell)
-    pspecs = sh.param_specs(cfg, pstruct, mesh, mode="train")
-    sspecs = train_state_specs(cfg, pspecs, mesh, pstruct, zero=zero)
     bspecs = sh.data_specs(cfg, batch_struct, mesh, mode="train")
-    dsz = math.prod(mesh.shape[a]
-                    for a in sh.batch_axes_for(cfg, mesh, "train"))
+    # the axes the batch really splits over: the ranks that hold other
+    # rows, whose gradients and losses are summed
+    baxes = sh.train_batch_axes(cfg, mesh, cell.global_batch)
+    pspecs = sh.param_specs(cfg, pstruct, mesh, mode="train")
+    sspecs = train_state_specs(cfg, pspecs, mesh, pstruct, zero=zero,
+                               batch_axes=baxes)
+    dsz = math.prod(mesh.shape[a] for a in baxes)
     if cell.global_batch % (dsz * microbatches):
         raise ValueError(f"a global batch of {cell.global_batch} does not "
                          f"split into {microbatches} microbatches over "
                          f"{dsz} data ranks")
-    step = _train_step(model, ocfg, microbatches, mesh, sspecs)
+    step = _train_step(model, ocfg, microbatches, mesh, sspecs, baxes)
     return step, state_struct, batch_struct, (sspecs, bspecs)
 
 

@@ -237,7 +237,8 @@ def _dec_block_train(p, x, enc_hidden, cfg: ModelConfig) -> torch.Tensor:
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            chunk: int = 512, mesh=None, specs=None) -> torch.Tensor:
+            chunk: int = 512, mesh=None, specs=None,
+            batch_axes=None) -> torch.Tensor:
     """The training loss of ``batch``: frames (B, S_enc, D), tokens and
     labels (B, S), as the reference's ``lm_loss``.  The encoder and the
     decoder run every attention on ``transformer.train_attention`` and
@@ -248,7 +249,7 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     dev = params["final_norm"]["gamma"].device
     batch = batch_to(batch, dev)
     b, s = batch["labels"].shape
-    params, tp, dp = train_view(params, cfg, mesh, specs)
+    params, tp, dp = train_view(params, cfg, mesh, specs, batch_axes)
     params = unbind_stacks(params)
     enc = encode(params, cfg, batch["frames"], train=True)
     x = _embed_tokens(params, cfg, batch["tokens"])

@@ -299,9 +299,19 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     return gates, idx
 
 
+def expert_ffn(p, xin: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their capacity slots: xin (E, G, C, D) ->
+    (E, G, C, D) f32, expert e of w1 / w3 (E, F, D) and w2 (E, D, F) on
+    its slots alone, each bank dequantized to f32 (``as_float``)."""
+    h1 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w1"]))
+    h3 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w3"]))
+    hh = torch.nn.functional.silu(h1) * h3
+    return torch.einsum("egcf,edf->egcd", hh, as_float(p["w2"]))
+
+
 def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
             capacity_factor: float = 1.25,
-            dense_dispatch: bool = False) -> torch.Tensor:
+            dense_dispatch: bool = False, experts=None) -> torch.Tensor:
     """Token-choice MoE: the counterpart of the reference's ``moe_mlp``.
 
     p: router (E, D) f32; w1 / w3 (E, F, D), w2 (E, D, F), float or
@@ -318,7 +328,11 @@ def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
     the reference (no float scatter-add, so the card repeats bitwise).
     Where one contracts only the top-1 choice dim, which torch computes
     as a multiply, it is counted as the reference's dot
-    (``flops.product``)."""
+    (``flops.product``).  ``experts(p, xin, combine)``, where given, takes
+    the grouped dispatch's expert products and combine in their place:
+    xin (E, G, C, D) and combine (G, Sg, E, C) -> (G, Sg, D) f32 (a rank
+    of a train mesh holds a shard of the banks, ``transformer._TrainTP``);
+    by default ``expert_ffn`` and the combine einsum."""
     b, s, d = x.shape
     e = n_experts
     gates, idx = moe_route(x, p["router"], top_k)
@@ -365,11 +379,10 @@ def moe_mlp(p, x, *, n_experts: int, top_k: int, group_size: int = 512,
     combine = k1(torch.einsum("gske,gskc->gsec", oh_e, gated), oh_e, gated)
 
     xin = torch.einsum("gsec,gsd->egcd", disp.to(x.dtype), xg)  # (E,G,C,D)
-    h1 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w1"]))
-    h3 = torch.einsum("egcd,efd->egcf", xin.float(), as_float(p["w3"]))
-    hh = torch.nn.functional.silu(h1) * h3
-    yo = torch.einsum("egcf,edf->egcd", hh, as_float(p["w2"]))
-    y = torch.einsum("gsec,egcd->gsd", combine, yo)
+    if experts is None:
+        y = torch.einsum("gsec,egcd->gsd", combine, expert_ffn(p, xin))
+    else:
+        y = experts(p, xin, combine)
     return y.reshape(b, s, d).to(x.dtype)
 
 

@@ -36,17 +36,17 @@ class Model:
         return self._family.init_params(self.cfg, seed, device=device,
                                         hold=hold)
 
-    def loss(self, params, batch, mesh=None, specs=None):
+    def loss(self, params, batch, mesh=None, specs=None, batch_axes=None):
         """The mean next-token cross-entropy of ``batch`` (``labels`` with
         ``tokens``, a vlm frontend's ``embeds`` or the audio family's
         ``frames`` and ``tokens``): the reference's ``lm_loss``, a 0-d f32
         tensor differentiable in every float leaf of ``params``.  On a
         train ``mesh`` (``launch/steps.py``'s ``jit_train_step``) the
         rank's shards of ``specs`` (the train-mode parameter specs) and its
-        rows give its part of the global batch's mean
-        (``transformer.train_view``)."""
+        rows, split over ``batch_axes``, give its part of the global
+        batch's mean (``transformer.train_view``)."""
         return self._family.lm_loss(params, self.cfg, batch, mesh=mesh,
-                                    specs=specs)
+                                    specs=specs, batch_axes=batch_axes)
 
     def init_meta(self):
         """The tree ``init`` draws, on the meta device (shapes and dtypes

@@ -33,9 +33,10 @@ path: float weights through ``qeinsum`` / ``qdot``, attention on
 kernel, none of which has a backward), the MoE's grouped dispatch, and the
 cross-entropy in chunks of f32 logits; each block and each chunk under
 ``torch.utils.checkpoint`` (``remat``, the reference's ``"block"``).  On
-a train mesh (``lm_loss(mesh=)``, ``train_view``) the dense family runs
-those products in Megatron tensor parallelism (``_TrainTP``) and the other
-families on leaves gathered whole.
+a train mesh (``lm_loss(mesh=)``, ``train_view``) the dense, vlm and MoE
+families run those products in Megatron tensor parallelism, the MoE's
+experts in expert parallelism (``_TrainTP``), and the other families on
+leaves gathered whole.
 """
 
 from __future__ import annotations
@@ -1306,13 +1307,14 @@ def chunked_ce(cfg: ModelConfig, w, hidden: torch.Tensor,
 
 
 class _TrainTP:
-    """Megatron tensor parallelism of the dense family over the ``model``
-    axis of a train mesh, on one rank: what GSPMD makes of the reference's
-    train-mode specs (``sharding.param_specs(mode="train")``).  The rank
-    holds its shards of those specs and computes with them; the residual
-    stream and the norms stay replicated, and each region whose ranks
-    compute parts opens with *f* (``collectives.copy_to``) and closes with
-    *g* (``collectives.reduce_from``):
+    """Megatron tensor parallelism of the dense, vlm and MoE families over
+    the ``model`` axis of a train mesh, and the MoE's expert parallelism,
+    on one rank: what GSPMD makes of the reference's train-mode specs
+    (``sharding.param_specs(mode="train")``).  The rank holds its shards of
+    those specs and computes with them; the residual stream and the norms
+    stay replicated, and each region whose ranks compute parts opens with
+    *f* (``collectives.copy_to``) and closes with *g*
+    (``collectives.reduce_from``):
 
     * attention by query heads when ``n_heads`` divides the axis: the KV
       heads with them when ``n_kv_heads`` divides it too, else held whole,
@@ -1323,6 +1325,20 @@ class _TrainTP:
       head-dim slice and gathered, attention is computed whole, and ``wo``
       is row-parallel over the rank's head-dim slice.
     * MLP: ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel.
+    * MoE (``experts``): the router and the grouped dispatch run on the
+      rank's own rows (a group never spans rows, so capacity and drops
+      are the unsharded ones).  Where the experts' axis also splits the
+      rows (``ep_data``'s ``data``), the capacity buffer goes to the
+      experts' owners by an all-to-all (``collectives.to_owners``), the
+      owner computes its experts on every rank's slots and the results
+      come back (``from_owners``) to be combined locally; where the rows
+      are the same along it (``moe_shard="model"``), each rank computes
+      its experts on the shared slots (*f* on the slots and the combine
+      weights) and *g* sums the combine.  d_ff split over ``model``
+      (``ep_data``) makes ``w1`` / ``w3`` column-parallel and ``w2``
+      row-parallel inside the experts.  No bank is gathered: an expert's
+      gradient is whole on its owner, summed over no axis that splits it
+      (``launch/steps.reduce_grads``).
     * the tied embedding by vocab rows: a masked lookup of the rank's rows
       summed over the axis; each loss chunk's logsumexp from the ranks'
       row maxima and sums of exponentials, the label's logit from the rank
@@ -1330,19 +1346,30 @@ class _TrainTP:
 
     A part the specs leave whole (a dim the axis does not divide) is
     computed whole, as the unsharded forward computes it.  The partial
-    sums are reduced in f32.  With no ``mesh`` it splits nothing: every
-    method is then the unsharded forward's ops and nothing more, the
-    training forward of every family without a mesh and of the families
-    that compute replicated on one (``train_view``)."""
+    sums are reduced in f32.  With no ``mesh``, or where the specs split
+    nothing, it splits nothing: every method is then the unsharded
+    forward's ops and nothing more, the training forward of every family
+    without a mesh and of the families that compute replicated on one
+    (``train_view``)."""
 
-    def __init__(self, cfg: ModelConfig, mesh=None, specs=None):
+    def __init__(self, cfg: ModelConfig, mesh=None, specs=None,
+                 batch_axes: tuple = ()):
         self.attn, self.kv_whole = None, False
         self.mlp_split = self.vocab_split = False
+        self.expert_axis, self.expert_f_split = None, False
+        self.e_exchange = False
+        self.on_mesh = mesh is not None
         if mesh is None:
             self.group, self.n, self.r = None, 1, 0
             return
         self.group, self.n, self.r = C.axis(mesh, "model")
-        attn, blk = specs["blocks"]["attn"], specs["blocks"]
+        # the stacked block groups: ``blocks``, or the interleave's
+        # ``blocks_dense`` and ``blocks_moe``
+        blks = [specs[k] for k in ("blocks", "blocks_dense", "blocks_moe")
+                if k in specs]
+        attn = blks[0]["attn"]
+        mlp = next((b["mlp"] for b in blks if "mlp" in b), None)
+        moe = next((b["moe"] for b in blks if "moe" in b), None)
 
         def split(spec, dim):
             return bool(sh.live_axes(spec[dim], mesh))
@@ -1350,8 +1377,21 @@ class _TrainTP:
         self.attn = ("heads" if split(attn["wq"], -3)
                      else "hd" if split(attn["wq"], -2) else None)
         self.kv_whole = self.attn == "heads" and not split(attn["wk"], -3)
-        self.mlp_split = split(blk["mlp"]["w1"], -2)
+        self.mlp_split = mlp is not None and split(mlp["w1"], -2)
         self.vocab_split = split(specs["embed"], 0)
+        if moe is not None:
+            # experts' w1 (L, E, F, D): the axis that splits E, and whether
+            # it splits the rows too; F over ``model``
+            e_axes = sh.live_axes(moe["w1"][-3], mesh)
+            if len(e_axes) > 1:
+                raise NotImplementedError(
+                    f"experts split as {moe['w1']} on a mesh of "
+                    f"{mesh.shape}")
+            if e_axes:
+                self.expert_axis = e_axes[0]
+                self.e_group, self.e_n, self.e_r = C.axis(mesh, e_axes[0])
+                self.e_exchange = e_axes[0] in batch_axes
+            self.expert_f_split = split(moe["w1"], -2)
         if self.kv_whole:
             nq, g = cfg.n_heads // self.n, cfg.n_heads // cfg.n_kv_heads
             kv = [(self.r * nq + i) // g for i in range(nq)]
@@ -1390,7 +1430,9 @@ class _TrainTP:
         return y if self.attn is None else self.reduce(y.float())
 
     def mlp(self, p, x, cfg: ModelConfig) -> torch.Tensor:
-        """The block's SwiGLU MLP on the pre-norm x."""
+        """The block's SwiGLU MLP, or its MoE, on the pre-norm x."""
+        if "moe" in p:
+            return self.moe(p, x, cfg)
         if not self.mlp_split:
             return _mlp(p, x, cfg)
         w = p["mlp"]
@@ -1398,6 +1440,44 @@ class _TrainTP:
                                   cfg.eps))
         h = torch.nn.functional.silu(qdot(hf, w["w1"])) * qdot(hf, w["w3"])
         return self.reduce(qdot(h.to(x.dtype), w["w2"]).float()).to(x.dtype)
+
+    def moe(self, p, x, cfg: ModelConfig) -> torch.Tensor:
+        """The block's MoE on the pre-norm x: the reference's grouped
+        dispatch on the rank's rows, its expert products on the rank's
+        shards of the banks (``experts``); with no mesh, ``_mlp``'s."""
+        if not self.on_mesh:
+            return _mlp(p, x, cfg)
+        h = L.apply_norm(x, p["norm2"], cfg.norm_type, cfg.eps)
+        return L.moe_mlp(p["moe"], h, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, group_size=cfg.moe_group,
+                         capacity_factor=cfg.capacity_factor,
+                         experts=self.experts).to(x.dtype)
+
+    def experts(self, p, xin: torch.Tensor, combine: torch.Tensor
+                ) -> torch.Tensor:
+        """The combined expert outputs (G, Sg, D) f32 of the rank's
+        capacity buffer xin (E, G, C, D) under ``combine`` (G, Sg, E, C),
+        with the rank's shards of the banks (class docstring)."""
+        shared = self.expert_axis is not None and not self.e_exchange
+        if self.e_exchange:
+            xin = C.to_owners(xin, self.e_group, self.e_n)
+        if shared:
+            # the ranks' gradients of the shared slots and combine weights
+            # are each their own experts' part: *f* sums them
+            xin, combine = (C.copy_to(t, self.e_group, self.e_n)
+                            for t in (xin, combine))
+            mine = slice(self.e_r * xin.shape[0] // self.e_n,
+                         (self.e_r + 1) * xin.shape[0] // self.e_n)
+            xin, combine = xin[mine], combine[:, :, mine]
+        if self.expert_f_split:
+            xin = self.copy(xin)
+        yo = L.expert_ffn(p, xin)
+        if self.expert_f_split:
+            yo = self.reduce(yo)
+        if self.e_exchange:
+            yo = C.from_owners(yo, self.e_group, self.e_n)
+        y = torch.einsum("gsec,egcd->gsd", combine, yo)
+        return C.reduce_from(y, self.e_group, self.e_n) if shared else y
 
     def _rows(self, t: torch.Tensor) -> int:
         """The first vocab row of the rank's shard ``t`` (V / n rows)."""
@@ -1434,42 +1514,52 @@ class _TrainTP:
         return torch.sum(mx + torch.log(se) - tgt)
 
 
-def train_view(params: Params, cfg: ModelConfig, mesh=None, specs=None):
+# the families whose blocks are attention + SwiGLU or MoE, which train on
+# their shards under ``_TrainTP``
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
+def train_view(params: Params, cfg: ModelConfig, mesh=None, specs=None,
+               batch_axes=None):
     """What a rank computes its training loss with: (parameters, its
     :class:`_TrainTP`, the ranks its batch rows are one part of).  On a
     train ``mesh`` ``params`` hold the rank's shards of ``specs`` (the
-    train-mode parameter specs, ``jit_train_step``'s).  The dense family
-    with a ``model`` axis of more than one computes on its shards under a
-    splitting ``_TrainTP``; every other family gathers each leaf whole
-    (``sharding.gather_for_grad``: its gradient is the rank's own slice,
-    summed first over the batch axes that split it, as ``ep_data``'s
-    experts) and computes replicated.  No mesh: (params, a ``_TrainTP``
-    that splits nothing, 1)."""
+    train-mode parameter specs, ``jit_train_step``'s) and the batch is
+    split over ``batch_axes`` (the batch spec's axes, which a mesh
+    needs).  The dense, vlm and MoE families
+    (``TP_FAMILIES``) compute on their shards under a ``_TrainTP`` of the
+    specs; every other family gathers each leaf whole
+    (``sharding.gather_for_grad``: its gradient is the rank's own slice)
+    and computes replicated.  No mesh: (params, a ``_TrainTP`` that splits nothing,
+    1)."""
     if mesh is None:
         return params, _TrainTP(cfg), 1
-    baxes = sh.batch_axes_for(cfg, mesh, "train")
+    if batch_axes is None:
+        raise ValueError("a train mesh needs the batch spec's axes "
+                         "(sharding.train_batch_axes)")
+    baxes = tuple(batch_axes)
     dp = math.prod(mesh.shape[a] for a in baxes)
-    if cfg.family == "dense" and cfg.train_shard == "tp" \
-            and mesh.shape["model"] > 1:
-        return params, _TrainTP(cfg, mesh, specs), dp
-    return (sh.gather_for_grad(params, specs, mesh, summed=baxes),
-            _TrainTP(cfg), dp)
+    if cfg.family in TP_FAMILIES and cfg.train_shard == "tp":
+        return params, _TrainTP(cfg, mesh, specs, baxes), dp
+    return sh.gather_for_grad(params, specs, mesh), _TrainTP(cfg), dp
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
-            chunk: int = 512, mesh=None, specs=None) -> torch.Tensor:
+            chunk: int = 512, mesh=None, specs=None,
+            batch_axes=None) -> torch.Tensor:
     """The training loss: ``batch["labels"]`` (B, S) against the model on
     its ``tokens`` (B, S) or the ``embeds`` (B, S, D) of a modality
     frontend, at ``batch["positions"]`` (default 0..S-1 in every stream).
     Runs where the parameters live; differentiable in every float leaf.
     On a train ``mesh`` (``launch/steps.py``'s ``jit_train_step``)
     ``params`` are the rank's shards of ``specs`` and ``batch`` its rows
-    (``train_view``): the rows' summed cross-entropy over the global
-    batch's token count, whose sum over the batch axes is the loss."""
+    (``train_view``, the batch split over ``batch_axes``): the rows'
+    summed cross-entropy over the global batch's token count, whose sum
+    over the batch axes is the loss."""
     dev = params["final_norm"]["gamma"].device
     batch = batch_to(batch, dev)
     b, s = batch["labels"].shape
-    params, tp, dp = train_view(params, cfg, mesh, specs)
+    params, tp, dp = train_view(params, cfg, mesh, specs, batch_axes)
     positions = _default_positions(cfg, b, s, batch, dev)
     hidden = forward_hidden(params, cfg,
                             embed_inputs(params, cfg, batch, tp.embed),

@@ -28,7 +28,17 @@ callbacks or generators every N engine steps, and always at completion.
 
 The open-loop runner (:func:`run_open_loop`) serves a seeded arrival
 schedule (:func:`poisson_arrivals`) and reports goodput and TTFT / TPOT
-percentiles from true arrival.  The latency helpers exclude requests that
+percentiles from true arrival.
+
+On a mesh of more than one rank (``Engine(mesh=)``) every rank runs its
+own server over its own engine, and their clocks differ.  Rank 0's clock
+decides each turn's release: at every turn of ``drain`` / ``stream`` /
+``step`` one broadcast (``collectives.from_rank0``) carries the arrivals
+rank 0 found due, and every rank submits those arrivals in that order,
+stamped with rank 0's instants.  An idle turn waits on each rank's own
+clock first, and the ranks meet in the broadcast.  The engine's per-step plan
+check (``Engine._agree``) then finds the ranks' plans equal.  A mesh of
+one skips the broadcast.  The latency helpers exclude requests that
 never produced a first token (``t_first_token == 0.0`` on errored or
 rejected requests), whose ``t_first_token - t_enqueue`` would be a large
 negative sample.
@@ -44,6 +54,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.distribution import collectives as C
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.faults import ERR_SHED
 
@@ -230,14 +241,53 @@ class AsyncServer:
                                     eng.scheduler.queue_depth())
 
     def poll_arrivals(self) -> int:
-        """Release every scheduled arrival whose instant has passed."""
-        n = 0
-        now = self.engine._now()
-        while self._arrivals and self._arrivals[0][0] <= now:
-            _, _, handle = heapq.heappop(self._arrivals)
+        """Release every scheduled arrival whose instant has passed (on a
+        mesh, by rank 0's clock)."""
+        return self._turn(wait=False)
+
+    def _turn(self, wait: bool) -> int:
+        """One turn of the loop: with ``wait``, idle until the next
+        arrival is due; then release the due arrivals (:meth:`_released`)
+        at rank 0's instants.  Returns how many were released."""
+        if wait:
+            self._wait_for_next_arrival()
+        due = self._released()
+        for t_arrival, _, handle in due:
+            handle.t_arrival = t_arrival
             self._submit_handle(handle)
-            n += 1
-        return n
+        return len(due)
+
+    def _pop_due(self) -> List[Tuple[float, int, "StreamHandle"]]:
+        """Pop every scheduled arrival due by this rank's clock, in
+        release order."""
+        now = self.engine._now()
+        out = []
+        while self._arrivals and self._arrivals[0][0] <= now:
+            out.append(heapq.heappop(self._arrivals))
+        return out
+
+    def _released(self) -> List[Tuple[float, int, "StreamHandle"]]:
+        """The arrivals this turn releases: those due by this rank's clock
+        on a mesh of one, or none; on a larger mesh rank 0's, whose
+        (sequence, instant) pairs one broadcast sends (the release
+        broadcast), and every other rank pops the same."""
+        mesh = self.engine.mesh
+        if mesh is None or mesh.size == 1:
+            return self._pop_due()
+        due = self._pop_due() if mesh.rank == 0 else None
+        sent = C.from_rank0(
+            None if due is None else [(seq, t) for t, seq, _ in due], mesh)
+        if due is not None:
+            return due
+        out = []
+        for seq, t_arrival in sent:
+            _, got, handle = heapq.heappop(self._arrivals)
+            if got != seq:
+                raise RuntimeError(
+                    f"arrival {got} is this rank's next, rank 0 released "
+                    f"{seq}: the ranks' schedules differ")
+            out.append((t_arrival, got, handle))
+        return out
 
     def next_arrival(self) -> Optional[float]:
         return self._arrivals[0][0] if self._arrivals else None
@@ -283,8 +333,7 @@ class AsyncServer:
             eng = self.engine
             if (not eng.scheduler.has_work() and not eng._rejected
                     and eng._pending is None and self._arrivals):
-                self._wait_for_next_arrival()
-                self.poll_arrivals()
+                self._turn(wait=True)
                 continue
             done.extend(self.step())
         return done
@@ -303,8 +352,7 @@ class AsyncServer:
             eng = self.engine
             if (not eng.scheduler.has_work() and not eng._rejected
                     and eng._pending is None and self._arrivals):
-                self._wait_for_next_arrival()
-                self.poll_arrivals()
+                self._turn(wait=True)
                 continue
             self.step()
 

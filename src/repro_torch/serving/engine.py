@@ -110,13 +110,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import pickle
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.core.device import Device, resolve_device
@@ -808,12 +806,7 @@ class Engine:
         if self.mesh is None or self.mesh.size == 1:
             return verdicts
         mine = (self._step, plan.summary())
-        box = [(mine, verdicts) if self.mesh.rank == 0 else None]
-        dist.broadcast_object_list(box, src=0, group=self.mesh.group,
-                                   device=self.device)
-        if C.tallying():
-            C.record("broadcast", len(pickle.dumps(box[0])), self.mesh.size)
-        theirs, verdicts = box[0]
+        theirs, verdicts = C.from_rank0((mine, verdicts), self.mesh)
         if theirs != mine:
             raise RuntimeError(
                 f"rank {self.mesh.rank} planned step {mine[0]} as {mine[1]}; "

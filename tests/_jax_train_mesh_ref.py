@@ -7,10 +7,10 @@ starts, and the test process has started it with one):
 
   python tests/_jax_train_mesh_ref.py CASES.pkl OUT.pkl
 
-``CASES.pkl`` holds a list of ``(name, arch, overrides, (data, model),
-params, batches, zero)``: the reduced config of ``arch`` in f32 with
-``overrides``, the whole parameters (numpy, ``model.init``'s tree) and
-the batches.  ``OUT.pkl`` gets {name: {"losses", "params"}}: each step's
+``CASES.pkl`` holds a list of ``(name, arch, overrides, shape, params,
+batches, zero)``: the reduced config of ``arch`` in f32 with
+``overrides``, the mesh's shape ((data, model), or (pod, data, model)),
+the whole parameters (numpy, ``model.init``'s tree) and the batches.  ``OUT.pkl`` gets {name: {"losses", "params"}}: each step's
 loss and the final parameters gathered whole, as numpy.
 """
 
@@ -36,8 +36,8 @@ def run_case(arch, over, shape, params, batches, zero):
     cfg = reduced(get_config(arch)).with_(
         compute_dtype="float32", param_dtype="float32", **over)
     model = build_model(cfg)
-    devs = np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(shape)
-    mesh = Mesh(devs, ("data", "model"))
+    devs = np.asarray(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    mesh = Mesh(devs, ("pod", "data", "model")[-len(shape):])
     b, s = batches[0]["labels"].shape
     ocfg = adamw.AdamWConfig(warmup_steps=2, decay_steps=STEPS)
     with mesh:

@@ -5,7 +5,8 @@ rank (``_torch_mesh_worker.Lane`` runs them as
 
 Imports ``torch`` and ``repro_torch`` only; the parent computes the JAX
 references and hands the workers numpy arrays.  The planted faults
-(``FAULTS``) patch one collective of the step each.
+(``FAULTS``, and the MoE family's ``EXPERT_FAULTS``) patch one collective
+of the step each.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ def _data_reduce_skipped():
     from repro_torch.launch import steps
     from repro_torch.optim import adamw
 
-    def reduce_grads(cfg, grads, specs, mesh):
+    def reduce_grads(cfg, grads, specs, mesh, batch_axes=None):
         out = []
         for g, ps, os_ in zip(leaves(grads), leaves(specs["params"]),
                               leaves(specs["opt"]["m"])):
@@ -137,16 +138,73 @@ def _target_from_own_shard():
     return transformer._TrainTP, "target_logit", target_logit
 
 
-def _expert_sum_skipped():
-    """``ep_data``'s experts, split over ``data``, gathered with a
-    backward that takes the rank's own slice of the gradient unsummed
-    (``gather_sum``'s reduce-scatter skipped): each expert slice learns
-    from its own data rank's rows alone."""
-    from repro_torch.distribution import collectives as C
+def _own_rows_grad(y, n, r):
+    """``y`` (E/n, n*G, ...) as it is, its gradient kept on the slots of
+    block ``r`` of the n alone."""
+    keep = torch.zeros(y.shape[1], dtype=y.dtype)
+    g = y.shape[1] // n
+    keep[r * g:(r + 1) * g] = 1
+    keep = keep.view(1, -1, *([1] * (y.dim() - 2)))
+    return y * keep + (y * (1 - keep)).detach()
 
-    def gather_sum(x, dim, group, n):
-        return C.gather_from(x, dim, group, n, dist.get_rank(group))
-    return C, "gather_sum", gather_sum
+
+def _expert_sum_skipped():
+    """``ep_data``'s experts, split over ``data``: the gradient of an
+    expert's results on the other data ranks' slots dropped on the way
+    back to its owner (the return all-to-all's backward), so each expert
+    slice learns from its own data rank's rows alone."""
+    from repro_torch.distribution import collectives as C
+    real = C.from_owners
+
+    def from_owners(y, group, n):
+        return real(_own_rows_grad(y, n, dist.get_rank(group)), group, n)
+    return C, "from_owners", from_owners
+
+
+def _return_rotated():
+    """The return all-to-all sends each rank's slots to the next rank
+    along ``data``: every rank combines another rank's rows' results."""
+    from repro_torch.distribution import collectives as C
+    real = C.from_owners
+
+    def from_owners(y, group, n):
+        el, ng = y.shape[:2]
+        rolled = y.reshape(el, n, ng // n, *y.shape[2:]).roll(1, dims=1)
+        return real(rolled.reshape(y.shape), group, n)
+    return C, "from_owners", from_owners
+
+
+def _expert_w2_sum_skipped():
+    """The experts' row-parallel ``w2`` partial sums over ``model`` left
+    unsummed (their *g* dropped)."""
+    import copy
+    from repro_torch.models import transformer
+    real = transformer._TrainTP.experts
+
+    def experts(self, p, xin, combine):
+        alone = copy.copy(self)
+        alone.reduce = lambda y: y
+        return real(alone, p, xin, combine)
+    return transformer._TrainTP, "experts", experts
+
+
+def _expert_grad_summed_over_data():
+    """Each expert leaf's gradient, whole on its owner, all-reduced over
+    ``data`` too, as a replicated leaf's is: every rank's shard takes the
+    sum of the data ranks' different experts."""
+    from repro_torch.core.tree import items, unflatten
+    from repro_torch.distribution import collectives as C
+    from repro_torch.launch import steps
+    real = steps.reduce_grads
+
+    def reduce_grads(cfg, grads, specs, mesh, batch_axes=None):
+        out = real(cfg, grads, specs, mesh, batch_axes)
+        group, n, _ = C.axis(mesh, "data")
+        return unflatten(out, [
+            C.all_reduce(g.contiguous(), group, n)
+            if "moe" in k and k[-1] != "router" else g
+            for k, g in items(out)])
+    return steps, "reduce_grads", reduce_grads
 
 
 # the dense family's faults; the MoE family's apart
@@ -154,7 +212,11 @@ FAULTS = {"w2_reduce_dropped": _w2_reduce_dropped,
           "data_reduce_skipped": _data_reduce_skipped,
           "zero_gather_skipped": _zero_gather_skipped,
           "target_from_own_shard": _target_from_own_shard}
-EXPERT_FAULTS = {"expert_sum_skipped": _expert_sum_skipped}
+EXPERT_FAULTS = {"expert_sum_skipped": _expert_sum_skipped,
+                 "return_rotated": _return_rotated,
+                 "expert_w2_sum_skipped": _expert_w2_sum_skipped,
+                 "expert_grad_summed_over_data":
+                     _expert_grad_summed_over_data}
 
 
 @contextlib.contextmanager
@@ -176,14 +238,35 @@ def planted(name):
 # ---------------------------------------------------------------------------
 
 
+def _expert_shapes(tree, specs, whole, mesh):
+    """{path: (held shape, the shard's shape)} of every expert bank of
+    ``tree`` (the rank's shards of ``whole``'s leaves under ``specs``)."""
+    from repro_torch.core.tree import items, keystr, leaves
+    from repro_torch.distribution import sharding as sh
+    out = {}
+    for (k, t), spec, w in zip(items(tree), leaves(specs), leaves(whole)):
+        if "moe" in k and k[-1] != "router":
+            want = tuple(sh.shard_range(d, e, mesh)[1] if e else d
+                         for d, e in zip(w.shape, spec))
+            out[keystr(k)] = (tuple(t.shape), want)
+    return out
+
+
 def _train(cfg, mesh, params_np, batches, zero=True, fault=None):
     """``jit_train_step`` on ``mesh`` from the whole ``params_np`` over
     ``batches``: (losses, grad norms, step-1 gradients gathered whole, the
     final parameters gathered whole, held bytes against
-    ``per_device_bytes``, collectives a step by kind)."""
+    ``per_device_bytes``, collectives a step by kind, the collective tally
+    of the step-1 gradients (``train_grads``: the forward, the backward
+    and their reduction), the leaves the specs split, and for the MoE family
+    each expert bank's held shape against its shard's, before the steps,
+    of its step-1 gradient and after the steps)."""
     from repro_torch.configs import ShapeCell
+    from repro_torch.core.tree import leaves
+    from repro_torch.distribution import collectives as C
     from repro_torch.distribution import sharding as sh
     from repro_torch.launch import steps
+    from repro_torch.models import transformer
     from repro_torch.launch.roofline import per_device_bytes
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -194,13 +277,22 @@ def _train(cfg, mesh, params_np, batches, zero=True, fault=None):
     params = tensors(params_np)
     state = sh.shard({"params": params, "opt": adamw.init_state(params)},
                      sspecs, mesh)
+    baxes = sh.train_batch_axes(cfg, mesh, b)
     out = {"bytes": (held_bytes(state),
-                     per_device_bytes(sstruct, sspecs, mesh))}
+                     per_device_bytes(sstruct, sspecs, mesh)),
+           "batch_axes": baxes,
+           "split_leaves": sum(any(sh.live_axes(e, mesh) for e in spec)
+                               for spec in leaves(sspecs["params"]))}
+    experts = {"start": _expert_shapes(state["params"], sspecs["params"],
+                                       params, mesh)}
     with planted(fault):
-        _, g1 = steps.train_grads(
-            model, state["params"], steps.shard_batch(batches[0], bspecs,
-                                                      mesh),
-            1, mesh, sspecs)
+        with C.tally() as calls:
+            _, g1 = steps.train_grads(
+                model, state["params"], steps.shard_batch(batches[0], bspecs,
+                                                          mesh),
+                1, mesh, sspecs, baxes)
+        out["grad_tally"] = list(calls)
+        experts["grad"] = _expert_shapes(g1, sspecs["params"], params, mesh)
         out["grads"] = numpy(sh.gather_tree(g1, sspecs["opt"]["m"], mesh))
         losses, norms = [], []
         with counting() as counts:
@@ -208,11 +300,14 @@ def _train(cfg, mesh, params_np, batches, zero=True, fault=None):
                 state, m = step(state, steps.shard_batch(bt, bspecs, mesh))
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
-    if cfg.family == "dense" and mesh.shape["model"] > 1:
-        from repro_torch.models import transformer
+    experts["end"] = _expert_shapes(state["params"], sspecs["params"],
+                                    params, mesh)
+    out["experts"] = experts
+    if cfg.family in transformer.TP_FAMILIES and cfg.train_shard == "tp":
         tp = transformer.train_view(state["params"], cfg, mesh,
-                                    sspecs["params"])[1]
+                                    sspecs["params"], baxes)[1]
         out["layout"] = (tp.attn, tp.kv_whole, tp.mlp_split, tp.vocab_split)
+        out["expert_axis"] = tp.expert_axis
     out.update(losses=losses, grad_norms=norms,
                collectives={k: v / len(batches) for k, v in counts.items()},
                params=numpy(sh.gather_tree(state["params"],
@@ -230,7 +325,9 @@ def _zipped(sspecs):
 
 def batches_for(cfg, b=4, s=32, n=STEPS, seed=0):
     """``n`` seeded batches of ``b`` x ``s``: tokens and labels, and a
-    frontend's stub frames for the audio family."""
+    frontend's stub frames for the audio family; the vlm family's stub
+    patch embeddings in place of the tokens (the train cell's inputs,
+    ``steps.input_specs``)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -238,6 +335,10 @@ def batches_for(cfg, b=4, s=32, n=STEPS, seed=0):
                   np.int32),
               "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(
                   np.int32)}
+        if cfg.family == "vlm":
+            bt["embeds"] = rng.standard_normal(
+                (b, s, cfg.d_model)).astype(np.float32)
+            del bt["tokens"]
         if cfg.family == "audio":
             bt["frames"] = rng.standard_normal(
                 (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
@@ -253,23 +354,25 @@ def init_numpy(arch, **over):
 
 
 def train_job(world, cases):
-    """Each case ``(name, arch, overrides, (data, model), zero, fault)``
-    on its mesh over the first ranks of the world, from ``init_numpy``'s
-    weights over ``batches_for``'s batches; a rank outside a smaller mesh
-    goes on to the next case.  Rank 0's results by name; the other ranks'
-    losses and bytes alone."""
+    """Each case ``(name, arch, overrides, shape, zero, fault[, batch])``
+    on its mesh over the first ranks of the world (``shape`` (data,
+    model), or (pod, data, model)), from ``init_numpy``'s weights over
+    ``batches_for``'s batches of ``batch`` rows (4 by default); a rank
+    outside a smaller mesh goes on to the next case.  Rank 0's results by
+    name; the other ranks' losses, bytes and expert shapes alone."""
     from repro_torch.launch.mesh import make_train_mesh
     out = {}
-    for name, arch, over, shape, zero, fault in cases:
+    for name, arch, over, shape, zero, fault, *rest in cases:
+        pod = shape[0] if len(shape) == 3 else 1
         try:
-            mesh = make_train_mesh(*shape, device="cpu")
+            mesh = make_train_mesh(*shape[-2:], device="cpu", pod=pod)
         except ValueError:
             continue                    # outside: it helped make the groups
         cfg = config(arch, **over)
-        res = _train(cfg, mesh, init_numpy(arch, **over), batches_for(cfg),
-                     zero, fault)
+        res = _train(cfg, mesh, init_numpy(arch, **over),
+                     batches_for(cfg, *rest), zero, fault)
         out[name] = res if dist.get_rank() == 0 else {
-            "losses": res["losses"], "bytes": res["bytes"]}
+            k: res[k] for k in ("losses", "bytes", "experts")}
     return out
 
 

@@ -9,6 +9,9 @@ JAX package's.
   16 x 16 production mesh of a fake world of 256 ranks, writes a record
   with every key of the reference's; a cell that fails is listed and the
   CLI exits 1;
+* whisper-small train_4k on the 2 x 16 x 16 mesh of 512 ranks: its batch
+  of 256 splits over (data, model) as the reference's ``data_specs``
+  splits it, replicated over ``pod``, where the step once refused it;
 * ``argument_bytes`` equals ``per_device_bytes`` of the executor's specs,
   and qwen2-vl-7b's prefill traces on meta (``_torch_dryrun_worker.py``);
 * importing the module starts no process group and registers no backend.
@@ -112,6 +115,24 @@ def test_cli_writes_the_reference_s_record(tmp_path):
         rec["collective_bytes_dev"] > 0
     assert 0 < rec["memory_analysis"]["argument_bytes"] < 80e9
     assert rec["dominant"] in ("compute", "memory", "collective")
+
+
+def test_whisper_train_cell_on_two_pods_splits_its_batch(tmp_path):
+    """The multi-pod cell the train executor once refused: a global batch
+    of 256 over (data, model), one row a rank, the same rows on both
+    pods."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-small", "--shape", "train_4k", "--multi-pod", "multi",
+         "--out", str(tmp_path)],
+        env=_env(), capture_output=True, text=True, timeout=180, cwd=ROOT)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    rec = json.loads((tmp_path / "whisper-small__train_4k__2pod.json")
+                     .read_text())
+    assert rec["devices"] == 512 and rec["multi_pod"] is True
+    assert rec["microbatches"] == 1
+    assert 0 < rec["memory_analysis"]["argument_bytes"] < 80e9
+    assert rec["collective_breakdown"]["total"] > 0
 
 
 def test_cli_lists_a_failed_cell_and_exits_1(tmp_path):

@@ -26,7 +26,6 @@ from repro.configs import reduced as jax_reduced
 from repro.models import build_model as jax_build_model
 from repro.serving.engine import Engine as JaxEngine
 from repro_torch.bridge import params_from_jax
-from repro_torch.launch import serve
 from repro_torch.launch.mesh import Mesh, make_serve_mesh
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import Engine
@@ -253,9 +252,6 @@ def test_serve_mesh_validates_size():
         with pytest.raises(ValueError, match="needs 1..1 devices"):
             make_serve_mesh(n, device="cpu")
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="open loop"):
-        serve.run(requests=1, mesh_size=2, open_loop=True, device="cpu")
-    assert not dist.is_initialized()
 
 
 def _rank_one_engine(monkeypatch, theirs):
@@ -268,7 +264,8 @@ def _rank_one_engine(monkeypatch, theirs):
     def broadcast(box, src, group, device):
         assert src == 0 and box == [None]
         box[0] = theirs()
-    monkeypatch.setattr(engine_mod.dist, "broadcast_object_list", broadcast)
+    monkeypatch.setattr(torch.distributed, "broadcast_object_list",
+                        broadcast)
     return eng
 
 

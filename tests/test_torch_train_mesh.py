@@ -76,14 +76,17 @@ LANE_DEADLINE_S = 240
 
 def jax_reference(cases, tmp):
     """Start ``_jax_train_mesh_ref.py`` on ``cases`` (each ``(name, arch,
-    overrides, shape)``, the weights and batches ``_torch_train_worker``'s)
-    in a subprocess of 4 host devices; returns a function that waits for
-    it and gives its results."""
+    overrides, shape[, batch, zero])``: ``shape`` (data, model) or (pod,
+    data, model), batches of ``batch`` rows (4 by default), ZeRO-1 on by
+    default; the weights and batches ``_torch_train_worker``'s) in a
+    subprocess of 4 host devices; returns a function that waits for it and
+    gives its results."""
     full = []
-    for name, arch, over, shape in cases:
+    for name, arch, over, shape, *rest in cases:
+        batch, zero = (*rest, *(4, True)[len(rest):])
         cfg = worker.config(arch, **over)
         full.append((name, arch, over, shape, worker.init_numpy(arch, **over),
-                     worker.batches_for(cfg), True))
+                     worker.batches_for(cfg, batch), zero))
     src, dst = tmp / "jax_cases.pkl", tmp / "jax_out.pkl"
     with open(src, "wb") as f:
         pickle.dump(full, f)
@@ -242,6 +245,23 @@ def test_pick_microbatches_sets_the_step(world_of_one):
     with pytest.raises(ValueError, match="does not split"):
         steps.jit_train_step(model, world_of_one, worker.ocfg(),
                              ShapeCell("t", 32, 6, "train"), microbatches=4)
+
+
+def test_a_loss_on_a_mesh_needs_the_batch_axes(world_of_one):
+    """The axes a batch splits over come from its spec
+    (``sharding.train_batch_axes``): a loss on a mesh called without them
+    is refused, never summed over every batch axis."""
+    model = build_model(worker.config("llama2-110m"))
+    _, _, _, (sspecs, bspecs) = steps.jit_train_step(
+        model, world_of_one, worker.ocfg(), ShapeCell("t", 32, 4, "train"))
+    params = sh.shard(model.init(0, device="cpu"), sspecs["params"],
+                      world_of_one)
+    batch = steps.shard_batch(worker.batches_for(model.cfg)[0], bspecs,
+                              world_of_one)
+    with pytest.raises(ValueError, match="batch spec's axes"):
+        model.loss(params, batch, mesh=world_of_one, specs=sspecs["params"])
+    with pytest.raises(ValueError, match="batch spec's axes"):
+        steps.train_grads(model, params, batch, 1, world_of_one, sspecs)
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,15 @@ gloo on the CPU, each config reduced and in f32:
 * whisper-small (``train_shard="dp"``) at 1 x 2: its leaves whole, the
   batch split over both axes;
 * qwen3-moe-30b-a3b (``moe_shard="ep_data"``) at 1 x 2 and at 2 x 2: its
-  leaves stored by the train-mode specs and gathered whole on use; at
-  2 x 2 the experts are split over ``data`` too, so their gather's
-  backward sums the data ranks' gradients (``collectives.gather_sum``).
+  attention and embedding split over ``model``, its experts' d_ff over
+  ``model`` and, at 2 x 2, the experts over ``data``, their capacity slots
+  sent to their owners by all-to-alls (``test_torch_train_mesh_ep.py``
+  holds the other expert layouts).
 
 Each within ``LOSS_BOUND`` / ``PARAM_BOUND`` of JAX, every rank's losses
 equal, and each rank holding ``per_device_bytes`` of its specs.  The
-experts' planted fault (``_torch_train_worker.EXPERT_FAULTS``: that sum
-skipped) parts from JAX's 2 x 2 run by at least ``FAULT_FACTOR`` times the
-bound.
+experts' planted faults (``_torch_train_worker.EXPERT_FAULTS``) part from
+JAX's 2 x 2 run by at least ``FAULT_FACTOR`` times the bound.
 """
 
 import pytest
